@@ -1,0 +1,33 @@
+"""Hand-written CUDA kernels of the port (Hopper, ``sm_90a``).
+
+Each kernel ships as a module with three parts: a plain PyTorch version of
+the function (the CPU path and the kernel's oracle), a wrapper that sends a
+CPU tensor to the plain version and a CUDA tensor to the kernel (counting
+its launches), and the CUDA source under ``csrc/`` built by ``_build.py``.
+
+- ``rmsnorm``                    fused RMSNorm (replaces ``rmsnorm_rows``)
+- ``flash_attention.prefill``    prefill attention with per-row valid
+                                 lengths (replaces ``flash_attention_fwd``)
+- ``flash_attention.paged``      paged decode attention over bf16 / f32 /
+                                 int8 / fp8 pools (replaces
+                                 ``paged_flash_decode``)
+"""
+from . import flash_attention, rmsnorm
+
+__all__ = ["flash_attention", "rmsnorm", "launch_counts", "reset_launch_counts"]
+
+
+def _wrappers():
+    return {"rmsnorm": rmsnorm.rmsnorm,
+            "flash_prefill": flash_attention.flash_prefill,
+            "paged_decode": flash_attention.paged_flash_decode}
+
+
+def launch_counts():
+    """Kernel launches since the last reset, by kernel name."""
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0

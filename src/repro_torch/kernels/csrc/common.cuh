@@ -1,0 +1,67 @@
+// Shared helpers of the port's CUDA kernels: dtype codes (kept in step with
+// _build.py:DTYPE_CODES), element conversions to and from float, 16-byte
+// vector loads and stores, and a warp sum.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp8.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+enum DtypeCode { kF32 = 0, kBF16 = 1, kI8 = 2, kFP8 = 3 };
+
+constexpr float kNegInf = -1e30f;
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_float(int8_t x) {
+  return static_cast<float>(x);
+}
+__device__ __forceinline__ float to_float(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Round a float through T and back (the JAX reference rounds the softmax
+// weights to the activation dtype before the PV product).
+template <typename T>
+__device__ __forceinline__ float round_through(float x) {
+  return to_float(from_float<T>(x));
+}
+
+// 16-byte vector load of VEC = 16 / sizeof(T) elements, converted to float.
+template <typename T>
+__device__ __forceinline__ void load16(const T* src, float* dst) {
+  constexpr int VEC = 16 / sizeof(T);
+  uint4 raw = *reinterpret_cast<const uint4*>(src);
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) dst[i] = to_float(e[i]);
+}
+
+// 16-byte vector store of VEC = 16 / sizeof(T) floats converted to T.
+template <typename T>
+__device__ __forceinline__ void store16(T* dst, const float* src) {
+  constexpr int VEC = 16 / sizeof(T);
+  uint4 raw;
+  T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) e[i] = from_float<T>(src[i]);
+  *reinterpret_cast<uint4*>(dst) = raw;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}

@@ -1,0 +1,17 @@
+"""Model registry of the port: config -> model instance (dense family)."""
+from __future__ import annotations
+
+from ..configs.base import ModelConfig
+from .transformer import DecoderLM
+
+
+def build_model(cfg: ModelConfig, block_k: int = 1024, device="cuda"):
+    """Instantiate the model implementation for a config on ``device``."""
+    if cfg.family == "dense":
+        return DecoderLM(cfg, block_k=block_k, device=device)
+    raise NotImplementedError(
+        f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP.md "
+        f"queue 1)")
+
+
+__all__ = ["build_model", "DecoderLM"]

@@ -1,0 +1,311 @@
+"""Shared model-building blocks of the port (PyTorch, functional).
+
+The dense subset of the JAX package's ``models/common.py``: the same public
+names and the same tensor layouts at every function, so the tests can hold
+each against its counterpart.  Parameters are nested dicts of tensors whose
+matrix and embedding weights already hold the compute dtype (cast once at
+load; the JAX package casts at every use, which gives the same numbers) and
+whose norm scales stay float32.
+
+Where the JAX package returns an updated copy of a cache (``.at[].set``),
+the port writes the cache tensors in place and returns them; rows the
+reference drops as out of range (``mode="drop"``) are filtered or clamped
+here, since PyTorch has no drop mode and an out-of-range index on the card
+is a device-side assert.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..kernels.flash_attention import flash_prefill, paged_flash_decode
+from ..kernels.rmsnorm import rmsnorm
+
+Params = Dict[str, object]
+
+NEG_INF = -1e30
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def apply_norm(p: Params, x: torch.Tensor, kind: str,
+               eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm goes through the fused kernel (its plain version on the
+    CPU); LayerNorm, which has no TPU kernel, stays plain."""
+    if kind == "rms":
+        return rmsnorm(x, p["scale"], eps)
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    y = y * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (half-split, not interleaved)
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+    inv = rope_freqs(x.shape[-1], theta, x.device)            # (D/2,)
+    ang = positions.float()[..., None] * inv                  # (..., S, D/2)
+    cos = torch.cos(ang)[..., None, :]                        # (..., S, 1, D/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                      q_offset: int = 0, softcap: float = 0.0,
+                      block_k: int = 1024,
+                      kv_valid_len: Optional[torch.Tensor] = None):
+    """q: (B, Sq, H, D); k, v: (B, Sk, KV, D); ``kv_valid_len`` (B,) masks
+    key positions >= each row's valid length.  Runs the prefill attention
+    kernel on the card, its plain version (key blocks of ``block_k``) on the
+    CPU.  Returns (B, Sq, H, D)."""
+    return flash_prefill(q, k, v, kv_valid_len, causal=causal, window=window,
+                         softcap=softcap, q_offset=q_offset, block_k=block_k)
+
+
+def decode_attention(q, k_cache, v_cache, *, pos, window: int = 0,
+                     softcap: float = 0.0):
+    """Single-token attention against a dense cache.
+
+    q: (B, 1, H, D); caches: (B, Smax, KV, D); pos: (B,) the new token's
+    position (cache entries > pos are invalid).
+    """
+    B, _, H, D = q.shape
+    Smax, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    qr = q.reshape(B, KV, G, D) * (D ** -0.5)
+    s = torch.einsum("bkgd,bskd->bkgs", qr.float(), k_cache.float())
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    k_pos = torch.arange(Smax, device=q.device)[None, :]
+    valid = k_pos <= pos[:, None]
+    if window > 0:
+        valid &= k_pos > (pos[:, None] - window)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+def project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, d) @ w: (d, H, D) -> (B, S, H, D)."""
+    d, H, D = w.shape
+    return (x @ w.reshape(d, H * D)).view(x.shape[0], x.shape[1], H, D)
+
+
+def attention_block(p: Params, x: torch.Tensor, *, cfg_theta: float,
+                    positional: str, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, q_offset: int = 0,
+                    block_k: int = 1024, kv_x: Optional[torch.Tensor] = None,
+                    return_kv: bool = False,
+                    kv_valid_len: Optional[torch.Tensor] = None):
+    """Self-attention block over x (B, S, d): projections, RoPE, prefill
+    attention, output projection.  ``kv_valid_len`` (B,) masks key
+    positions >= the per-row valid length (batched bucketed prefill)."""
+    if kv_x is not None:
+        raise NotImplementedError("cross-attention (kv_x) belongs to the "
+                                  "encoder-decoder slice (ROADMAP queue 1)")
+    q = project_heads(x, p["wq"])
+    k = project_heads(x, p["wk"])
+    v = project_heads(x, p["wv"])
+    if positional == "rope":
+        positions = q_offset + torch.arange(x.shape[1], device=x.device)
+        q = apply_rope(q, positions, cfg_theta)
+        k = apply_rope(k, positions, cfg_theta)
+    o = chunked_attention(q, k, v, causal=causal, window=window,
+                          q_offset=q_offset, softcap=softcap,
+                          block_k=block_k, kv_valid_len=kv_valid_len)
+    H, D, d = p["wo"].shape
+    out = o.reshape(x.shape[0], x.shape[1], H * D) @ p["wo"].reshape(H * D, d)
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def apply_mlp(p: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
+    if activation == "swiglu":
+        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    else:
+        u = x @ p["w_up"]
+        if activation == "gelu":
+            h = F.gelu(u, approximate="tanh")
+        elif activation == "relu2":
+            h = torch.square(F.relu(u))
+        else:
+            raise ValueError(activation)
+    return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# KV cache slot updates (continuous batching)
+# ---------------------------------------------------------------------------
+
+def write_cache_slot(pool: Params, sub: Params, slot: int,
+                     axes: Params) -> Params:
+    """Write a single-sequence cache ``sub`` (batch dim of size 1) into row
+    ``slot`` of the pooled cache, in place."""
+    for key, ax in axes.items():
+        pool[key].narrow(ax, int(slot), 1).copy_(sub[key])
+    return pool
+
+
+def write_cache_slots(pool: Params, sub: Params, slots,
+                      axes: Params) -> Params:
+    """Batched :func:`write_cache_slot`: rows ``slots`` (N,) of the pool get
+    the N rows of ``sub``, in place.  ``slots`` lives on the host; rows with
+    an out-of-range slot (the padded admission rows carry ``slot ==
+    n_slots``) are skipped, as the reference drops them."""
+    slots = np.asarray(slots)
+    for key, ax in axes.items():
+        p = pool[key]
+        rows = np.nonzero(slots < p.shape[ax])[0]
+        if rows.size:
+            dst = torch.tensor(slots[rows], dtype=torch.long,
+                               device=p.device)
+            src = sub[key].index_select(
+                ax, torch.tensor(rows, device=p.device))
+            p.index_copy_(ax, dst, src.to(p.dtype))
+    return pool
+
+
+# ---------------------------------------------------------------------------
+# Paged KV cache (block-table indirection; serve/kv_pages.py owns the pool)
+# ---------------------------------------------------------------------------
+
+def _page_slots(block_tables, pos, page: int):
+    """(page id, offset) of each slot's write at ``pos``.  The table column
+    clamps to its last entry, as the reference's gather does, for a frozen
+    slot parked one past the table."""
+    col = torch.clamp(pos // page, max=block_tables.shape[1] - 1)
+    arange = torch.arange(pos.shape[0], device=pos.device)
+    pids = block_tables[arange, col].long()
+    return pids, (pos % page).long()
+
+
+def paged_cache_write(pages: torch.Tensor, new: torch.Tensor,
+                      block_tables: torch.Tensor,
+                      pos: torch.Tensor) -> torch.Tensor:
+    """Write one token's K (or V) per slot into the page pool, in place.
+
+    pages: (P, page, KV, D); new: (B, KV, D); block_tables: (B, nb);
+    pos: (B,).  Distinct live slots own distinct pages; frozen slots may
+    collide only on the parking page 0, which no live slot reads.
+    """
+    pids, off = _page_slots(block_tables, pos, pages.shape[1])
+    pages[pids, off] = new.to(pages.dtype)
+    return pages
+
+
+def kv_qmax(dtype) -> float:
+    """Clip point of a quantized KV storage dtype (127 for int8, the max
+    finite for float8 variants)."""
+    if dtype.is_floating_point:
+        return float(torch.finfo(dtype).max)
+    return float(torch.iinfo(dtype).max)
+
+
+def paged_cache_write_quant(pages: torch.Tensor, scales: torch.Tensor,
+                            new: torch.Tensor, block_tables: torch.Tensor,
+                            pos: torch.Tensor):
+    """Quantizing variant of :func:`paged_cache_write`, in place.
+
+    pages: (P, page, KV, D) int8 / fp8; scales: (P, KV) float32 absmax
+    scales per (page, KV head); new: (B, KV, D).  Returns (pages, scales).
+
+    Scale discipline: the first write into a page (``pos % page == 0``)
+    resets its scale to the token's absmax (and zeroes the page's stale
+    remainder); later writes only widen it, re-quantizing the page's
+    existing entries onto the wider scale.
+    """
+    qmax = kv_qmax(pages.dtype)
+    is_int = not pages.dtype.is_floating_point
+    pids, off = _page_slots(block_tables, pos, pages.shape[1])
+    arange = torch.arange(new.shape[0], device=new.device)
+    newf = new.float()
+    tok_scale = torch.clamp(newf.abs().amax(dim=-1) / qmax, min=1e-8)
+    eff_old = torch.where((off == 0)[:, None], 0.0, scales[pids])
+    new_scale = torch.maximum(eff_old, tok_scale)              # (B, KV)
+    ratio = (eff_old / new_scale)[:, None, :, None]
+    block = pages[pids].float() * ratio                        # (B, page, KV, D)
+    if is_int:
+        block = torch.round(block)
+    q_tok = newf / new_scale[:, :, None]
+    if is_int:
+        q_tok = torch.round(q_tok)
+    block[arange, off] = q_tok
+    pages[pids] = torch.clamp(block, -qmax, qmax).to(pages.dtype)
+    scales[pids] = new_scale
+    return pages, scales
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_tables, *, pos,
+                           window: int = 0, softcap: float = 0.0,
+                           k_scales=None, v_scales=None):
+    """Single-token attention against a paged cache: the paged decode
+    kernel on the card, its gather-based plain version on the CPU.
+
+    q: (B, 1, H, D); pools (P, page, KV, D); block_tables (B, nb); pos (B,).
+    With ``k_scales``/``v_scales`` (P, KV) the pools hold quantized values.
+    """
+    return paged_flash_decode(q, k_pages, v_pages, block_tables, pos,
+                              window=window, softcap=softcap,
+                              k_scales=k_scales, v_scales=v_scales)
+
+
+def gather_last_positions(x: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, d); lens: (B,) valid lengths.  Returns (B, 1, d) at the
+    last valid position per row (right-padded batched prefill)."""
+    idx = torch.clamp(lens.long() - 1, 0, x.shape[1] - 1)
+    return x[torch.arange(x.shape[0], device=x.device), idx][:, None]
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+def embed_tokens(p: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    return p["wte"][tokens].to(dtype)
+
+
+_VOCAB_PAD = 512
+
+
+def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Project to vocab logits, padded to a multiple of 512 as the
+    reference pads them (for its vocab sharding); pad columns hold -1e30.
+    The padding is appended to the logits, never to the weight."""
+    if "head" in p:
+        logits = x @ p["head"]                       # head: (d, V)
+    else:
+        logits = x @ p["wte"].t()                    # wte: (V, d)
+    V = logits.shape[-1]
+    Vp = -(-V // _VOCAB_PAD) * _VOCAB_PAD
+    if Vp != V:
+        logits = F.pad(logits, (0, Vp - V), value=-1e30)
+    return logits

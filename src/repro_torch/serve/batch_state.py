@@ -1,0 +1,51 @@
+"""Device-side state of the continuous-batching slot pool (dense caches).
+
+``BatchState`` owns the pooled KV cache (one batch row per slot; the
+model's ``cache_slot_axes()`` names where the batch dim sits in each leaf)
+plus three (n_slots,) int32 device vectors that ride the decode loop:
+
+* ``tokens``    — last sampled token per slot,
+* ``pos``       — its absolute position,
+* ``remaining`` — generation budget left; ``remaining > 0`` is the
+  on-device "live" mask that lets the decode chunk terminate per slot
+  (EOS / max-len) without a host round-trip.
+
+Which slot holds which request is the
+:class:`~repro_torch.serve.scheduler.Scheduler`'s single source of truth.
+A retired slot keeps ``remaining == 0`` and its rows freeze in place until
+the next admission overwrites them.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def cache_bytes(cache, keys=None) -> int:
+    """Bytes of the cache leaves named by ``keys`` (all when None)."""
+    return sum(a.numel() * a.element_size() for k, a in cache.items()
+               if keys is None or k in keys)
+
+
+class BatchState:
+    """Per-slot device state for a fixed pool of ``n_slots`` sequences."""
+
+    def __init__(self, model, n_slots: int, max_seq: int):
+        self.n_slots = n_slots
+        self.max_seq = max_seq
+        self.cache = model.init_cache(n_slots, max_seq)
+        # the unbounded (max_seq-proportional) attention-KV leaves — the
+        # ones a paged layout would pool
+        self._kv_keys = set(model.paged_cache_keys())
+        dev = model.device
+        self.tokens = torch.zeros(n_slots, dtype=torch.int32, device=dev)
+        self.pos = torch.zeros(n_slots, dtype=torch.int32, device=dev)
+        self.remaining = torch.zeros(n_slots, dtype=torch.int32, device=dev)
+
+    def kv_hbm_bytes(self) -> int:
+        """Bytes of the unbounded attention-KV leaves only — comparable
+        across dense and paged layouts."""
+        return cache_bytes(self.cache, self._kv_keys)
+
+    def cache_hbm_bytes(self) -> int:
+        """Bytes of every cache leaf."""
+        return cache_bytes(self.cache)
