@@ -10,8 +10,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. kernels     — every kernel against its plain PyTorch version on the card,
                  in bf16, at the serving path's shapes; times the kernel, the
                  plain version and one PyTorch library call as a yardstick,
-                 and computes the kernel's bound (bytes over 3.35 TB/s or
-                 operations over the peak rate of their type).
+                 each cycling over input copies larger than L2, and computes
+                 the kernel's bound from the bytes and operations this run's
+                 inputs need (bytes over 3.35 TB/s or operations over the
+                 peak rate of their type).
 4. serve       — llama3.2-1b at full width (random weights from a seeded
                  generator) serves 16 requests through ``ServeEngine.generate``
                  with bf16 pages and with int8 pages, each twice in turns;
@@ -26,7 +28,9 @@ is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -47,6 +51,10 @@ SERVE_REQUESTS, SERVE_NEW_TOKENS = 16, 64
 ATTN_TOL = 2e-2        # bf16 attention, as tests/test_kernels.py uses
 RMS_RTOL = 1e-2        # RMSNorm, relative (one bf16 ulp is 2**-8)
 CONSISTENCY_TOL = 5e-2  # prefill vs decode logits, relative to max |logit|
+# a timing loop cycles over copies of its inputs that together hold this many
+# bytes, 5x the H100's 50 MB L2, so each call reads device memory as the
+# bytes bound assumes
+COLD_BYTES = 256 << 20
 
 
 def log(msg: str) -> None:
@@ -66,6 +74,17 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cycled(fn, cases):
+    """A call of ``fn`` on the next argument tuple of ``cases`` each time."""
+    it = itertools.cycle(cases)
+    return lambda: fn(*next(it))
+
+
+def n_copies(nbytes: int) -> int:
+    """Copies of ``nbytes`` of inputs that fill ``COLD_BYTES``."""
+    return max(2, math.ceil(COLD_BYTES / nbytes))
 
 
 def bound(nbytes: float, ops: float, rate: str):
@@ -111,21 +130,18 @@ def phase_build() -> None:
 
 def _library_sdpa(q, k, v, mask):
     """One PyTorch call over (B, H|KV, S, D) views (the yardstick)."""
-    try:
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                              enable_gqa=True)
-    except TypeError:       # releases before enable_gqa: repeat KV heads
-        G = q.shape[1] // k.shape[1]
-        return F.scaled_dot_product_attention(
-            q, k.repeat_interleave(G, 1), v.repeat_interleave(G, 1),
-            attn_mask=mask)
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                          enable_gqa=True)
 
 
 def check_rmsnorm(gen):
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
     rows, d = SERVE_SLOTS * 512, 2048                 # slots x bucket
-    x = torch.randn(rows, d, generator=gen, device="cuda").to(torch.bfloat16)
+    n = n_copies(rows * d * 2)
+    xs = [torch.randn(rows, d, generator=gen, device="cuda").bfloat16()
+          for _ in range(n)]
     w = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+    x = xs[0]
     got, ref = rmsnorm(x, w), rmsnorm_ref(x, w)
     err = (got.float() - ref.float()).abs()
     ok = bool((err <= RMS_RTOL * ref.float().abs() + 1e-6).all())
@@ -134,11 +150,15 @@ def check_rmsnorm(gen):
            "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
            "replaces": "src/repro/kernels/rmsnorm/kernel.py:30",
            "shape": f"x ({rows}, {d}) bf16",
+           "timing": f"cold L2: cycles over {n} input copies",
            "max_abs_err": float(err.max()), "tol": f"rtol {RMS_RTOL}",
-           "ms": time_ms(lambda: rmsnorm(x, w), iters=50),
-           "plain_ms": time_ms(lambda: rmsnorm_ref(x, w), iters=50),
-           "library_ms": time_ms(lambda: F.rms_norm(x, (d,), wb, 1e-5),
-                                 iters=50)}
+           "ms": time_ms(cycled(lambda x: rmsnorm(x, w),
+                                [(x,) for x in xs]), iters=4 * n),
+           "plain_ms": time_ms(cycled(lambda x: rmsnorm_ref(x, w),
+                                      [(x,) for x in xs]), iters=n),
+           "library_ms": time_ms(cycled(
+               lambda x: F.rms_norm(x, (d,), wb, 1e-5),
+               [(x,) for x in xs]), iters=4 * n)}
     row["bound_ms"], row["bound_by"] = bound(
         2 * rows * d * 2 + d * 4, 4 * rows * d, "f32")
     log(f"[kernels] rmsnorm {row['shape']}: max_abs_err "
@@ -157,9 +177,11 @@ def check_prefill(gen):
         vl = torch.tensor(np.linspace(1, S, B).astype(np.int32),
                           device="cuda")
         vl[B // 2] = S // 3
-        q = torch.randn(B, S, H, D, generator=gen, device="cuda").bfloat16()
-        k = torch.randn(B, S, KV, D, generator=gen, device="cuda").bfloat16()
-        v = torch.randn(B, S, KV, D, generator=gen, device="cuda").bfloat16()
+        n = n_copies(2 * B * S * (H + 2 * KV) * D)
+        cases = [tuple(torch.randn(B, S, heads, D, generator=gen,
+                                   device="cuda").bfloat16()
+                       for heads in (H, KV, KV)) for _ in range(n)]
+        q, k, v = cases[0]
         got = flash_prefill(q, k, v, vl)
         ref = flash_prefill_ref(q, k, v, vl)
         err = (got.float() - ref.float()).abs()
@@ -173,22 +195,31 @@ def check_prefill(gen):
         kpos = torch.arange(S, device="cuda")
         mask = (kpos[None, :] <= kpos[:, None])[None] \
             & (kpos[None, None, :] < vl[:, None, None])      # (B, S, S)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         row = {"name": "flash_prefill", "route": "cuda",
                "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
                "replaces": "src/repro/kernels/flash_attention/kernel.py:125",
                "shape": f"q ({B}, {S}, {H}, {D}) kv {KV} heads bf16",
+               "timing": f"cold L2: cycles over {n} input copies",
                "max_abs_err": float(err.max()), "tol": ATTN_TOL,
-               "ms": time_ms(lambda: flash_prefill(q, k, v, vl)),
-               "plain_ms": time_ms(lambda: flash_prefill_ref(q, k, v, vl),
-                                   iters=5),
-               "library_ms": time_ms(lambda: _library_sdpa(
-                   qt, kt, vt, mask[:, None]))}
+               "ms": time_ms(cycled(lambda q, k, v: flash_prefill(q, k, v, vl),
+                                    cases), iters=max(20, n)),
+               "plain_ms": time_ms(cycled(
+                   lambda q, k, v: flash_prefill_ref(q, k, v, vl), cases),
+                   iters=5),
+               "library_ms": time_ms(cycled(
+                   lambda q, k, v: _library_sdpa(
+                       q.transpose(1, 2), k.transpose(1, 2),
+                       v.transpose(1, 2), mask[:, None]), cases),
+                   iters=max(20, n))}
+        # bytes: q read and out written whole; row b reads K and V only at
+        # its min(S, valid_len) valid keys.  Operations: 4 D per (query,
+        # key) pair left by the causal and valid-length masks.
+        keys = int(torch.clamp(vl, max=S).sum())
         i = torch.arange(S, device="cuda")
         pairs = int(torch.minimum(i[None, :] + 1, vl[:, None]).sum()) * H
         row["bound_ms"], row["bound_by"] = bound(
-            2 * (2 * B * S * H * D + 2 * B * S * KV * D), 4 * D * pairs,
-            "bf16")
+            2 * (2 * B * S * H * D + 2 * keys * KV * D) + B * 4,
+            4 * D * pairs, "bf16")
         log(f"[kernels] flash_prefill S={S}: kernel {row['ms']:.4f} ms, "
             f"plain {row['plain_ms']:.4f} ms, library "
             f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms")
@@ -212,6 +243,8 @@ def _paged_case(gen, pool_dtype):
     q = torch.randn(B, 1, H, D, generator=gen, device="cuda").bfloat16()
     k32 = torch.randn(L, P, page, KV, D, generator=gen, device="cuda")
     v32 = torch.randn(L, P, page, KV, D, generator=gen, device="cuda")
+    if pool_dtype == torch.float32:
+        return q, k32, v32, tables, pos, None, None
     if pool_dtype == torch.bfloat16:
         return q, k32.bfloat16(), v32.bfloat16(), tables, pos, None, None
     qmax = 127.0 if pool_dtype == torch.int8 else 448.0
@@ -250,20 +283,19 @@ def check_paged(gen, pool_dtype, label):
     if not ok:
         raise AssertionError(f"paged_decode kernel ({label} pool) disagrees "
                              f"with its plain version")
-    it = iter(range(10 ** 9))
-
     def run(fn):
-        def call():
-            kl, vl_, ksl, vsl = layer(next(it) % L)
-            return fn(q, kl, vl_, tables, pos, k_scales=ksl, v_scales=vsl)
-        return call
+        return cycled(lambda *a: fn(q, a[0], a[1], tables, pos, k_scales=a[2],
+                                    v_scales=a[3]),
+                      [layer(i) for i in range(L)])
 
     B, _, H, D = q.shape
     page, KV = kp.shape[2], kp.shape[3]
     S = tables.shape[1] * page
-    # the library yardstick reads a bf16 cache already gathered per slot
-    gk = gather_pages(k0, tables, ks0).bfloat16().transpose(1, 2)
-    gv = gather_pages(v0, tables, vs0).bfloat16().transpose(1, 2)
+    # the library yardstick reads a bf16 cache already gathered per slot,
+    # one per layer, so that it too reads device memory
+    gathered = [tuple(gather_pages(kv, tables, s).bfloat16().transpose(1, 2)
+                      for kv, s in ((kl, ksl), (vl_, vsl)))
+                for kl, vl_, ksl, vsl in map(layer, range(L))]
     mask = (torch.arange(S, device="cuda")[None, :] <= pos[:, None])
     qt = q.transpose(1, 2)
     row = {"name": f"paged_decode[{label}]", "route": "cuda",
@@ -271,18 +303,23 @@ def check_paged(gen, pool_dtype, label):
            "replaces": "src/repro/kernels/flash_attention/paged.py:155",
            "shape": f"q ({B}, 1, {H}, {D}) pool {label} page {page} "
                     f"pos {int(pos.min())}..{int(pos.max())}",
+           "timing": f"cold L2: cycles over {L} layers' pools",
            "max_abs_err": float(err.max()), "tol": ATTN_TOL,
            "ms": time_ms(run(paged_flash_decode), iters=32),
            "plain_ms": time_ms(run(paged_attention_ref), iters=8),
-           "library_ms": time_ms(lambda: _library_sdpa(
-               qt, gk, gv, mask[:, None, None, :]), iters=32)}
-    n_pages = (pos // page + 1).to(torch.int64)
+           "library_ms": time_ms(cycled(
+               lambda gk, gv: _library_sdpa(qt, gk, gv,
+                                            mask[:, None, None, :]),
+               gathered), iters=32)}
+    # bytes: q read and out written; slot b's pos + 1 keys and values; for
+    # the ceil((pos + 1) / page) pages it walks, their table entries and
+    # (quantized pools) their K and V scales of every KV head; pos
     keys = int((pos + 1).sum())
-    kv_bytes = int(n_pages.sum()) * page * KV * D * kp.element_size() * 2
-    scale_bytes = 0 if ks is None else int(n_pages.sum()) * KV * 4 * 2
+    pages = int((pos // page + 1).sum())
+    scale_bytes = 0 if ks is None else pages * KV * 4 * 2
     row["bound_ms"], row["bound_by"] = bound(
-        2 * B * H * D * 2 + kv_bytes + scale_bytes + tables.numel() * 4
-        + B * 4, 4 * D * H * keys, "bf16")
+        2 * B * H * D * 2 + keys * KV * D * kp.element_size() * 2
+        + scale_bytes + pages * 4 + B * 4, 4 * D * H * keys, "bf16")
     return row
 
 
@@ -292,10 +329,12 @@ def phase_kernels():
     rows = [check_rmsnorm(gen), check_prefill(gen),
             check_paged(gen, torch.bfloat16, "bf16"),
             check_paged(gen, torch.int8, "int8")]
-    fp8 = check_paged(gen, torch.float8_e4m3fn, "fp8")
-    log(f"[kernels] paged_decode[fp8] (not on the serving path): "
-        f"{fp8['ms']:.4f} ms, plain {fp8['plain_ms']:.4f} ms, bound "
-        f"{fp8['bound_ms']:.4f} ms")
+    # pools the serving path does not use: checked, logged, not in the JSON
+    for dtype, label in ((torch.float8_e4m3fn, "fp8"), (torch.float32, "f32")):
+        r = check_paged(gen, dtype, label)
+        log(f"[kernels] {r['name']} (not on the serving path): "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
     for r in rows:
         log(f"[kernels] {r['name']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
@@ -520,13 +559,13 @@ def main() -> int:
     counts = phase_serve(cfg, model, params)
     phase_profile(cfg, model, params)
     phase_consistency(model, params)
+    # launches of one serve run: paged decode's of its page type, the
+    # others' of a bf16-page run (an int8-page run launches them as often)
     for row in rows:
-        if row["name"] == "paged_decode[bf16]":
-            row["launches"] = counts["bf16"]["paged_decode"]
-        elif row["name"] == "paged_decode[int8]":
-            row["launches"] = counts["int8"]["paged_decode"]
-        else:
-            row["launches"] = sum(c[row["name"]] for c in counts.values())
+        name, _, pages = row["name"].partition("[")
+        pages = pages.rstrip("]") or "bf16"
+        row["launches"] = counts[pages][name]
+        row["launches_of"] = f"one serve run, {pages} pages"
         row["kernel_ms"] = row["ms"]
         if row["launches"] < 1:
             raise AssertionError(f"{row['name']} never ran on the main path")

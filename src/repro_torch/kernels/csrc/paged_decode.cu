@@ -192,51 +192,39 @@ static int launch_paged(const void* q, const void* kp, const void* vp,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename QT>
-static int dispatch_kv(int kv_dtype, const void* q, const void* kp,
-                       const void* vp, const int* tables, const int* pos,
-                       const float* ks, const float* vs, void* out, int B,
-                       int H, int KV, int D, int page, int nb, int window,
-                       float softcap, cudaStream_t s) {
-  switch (kv_dtype) {
-    case kF32:
-      return launch_paged<QT, float>(q, kp, vp, tables, pos, ks, vs, out, B,
-                                     H, KV, D, page, nb, window, softcap, s);
-    case kBF16:
-      return launch_paged<QT, __nv_bfloat16>(q, kp, vp, tables, pos, ks, vs,
-                                             out, B, H, KV, D, page, nb,
-                                             window, softcap, s);
-    case kI8:
-      return launch_paged<QT, int8_t>(q, kp, vp, tables, pos, ks, vs, out, B,
-                                      H, KV, D, page, nb, window, softcap, s);
-    case kFP8:
-      return launch_paged<QT, __nv_fp8_e4m3>(q, kp, vp, tables, pos, ks, vs,
-                                             out, B, H, KV, D, page, nb,
-                                             window, softcap, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
+// Built for bf16 queries (the serving path's compute type) over bf16, f32,
+// int8 and fp8-e4m3 pools; chip_smoke.py checks every one of them.
 extern "C" int paged_decode_launch(const void* q, const void* k_pages,
                                    const void* v_pages, const void* tables,
                                    const void* pos, const void* k_scales,
                                    const void* v_scales, void* out, int B,
-                                   int H, int KV, int D, int P, int page,
-                                   int nb, int window, float softcap,
-                                   int q_dtype, int kv_dtype, void* stream) {
-  (void)P;  // page ids are trusted: the pool's tables only hold ids < P
+                                   int H, int KV, int D, int page, int nb,
+                                   int window, float softcap, int q_dtype,
+                                   int kv_dtype, void* stream) {
+  if (q_dtype != kBF16) return static_cast<int>(cudaErrorInvalidValue);
+  using QT = __nv_bfloat16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* t = static_cast<const int*>(tables);
   const int* p = static_cast<const int*>(pos);
   const float* ks = static_cast<const float*>(k_scales);
   const float* vs = static_cast<const float*>(v_scales);
-  if (q_dtype == kBF16)
-    return dispatch_kv<__nv_bfloat16>(kv_dtype, q, k_pages, v_pages, t, p, ks,
-                                      vs, out, B, H, KV, D, page, nb, window,
-                                      softcap, s);
-  if (q_dtype == kF32)
-    return dispatch_kv<float>(kv_dtype, q, k_pages, v_pages, t, p, ks, vs,
-                              out, B, H, KV, D, page, nb, window, softcap, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (kv_dtype) {
+    case kF32:
+      return launch_paged<QT, float>(q, k_pages, v_pages, t, p, ks, vs, out, B,
+                                     H, KV, D, page, nb, window, softcap, s);
+    case kBF16:
+      return launch_paged<QT, __nv_bfloat16>(q, k_pages, v_pages, t, p, ks, vs,
+                                             out, B, H, KV, D, page, nb,
+                                             window, softcap, s);
+    case kI8:
+      return launch_paged<QT, int8_t>(q, k_pages, v_pages, t, p, ks, vs, out,
+                                      B, H, KV, D, page, nb, window, softcap,
+                                      s);
+    case kFP8:
+      return launch_paged<QT, __nv_fp8_e4m3>(q, k_pages, v_pages, t, p, ks, vs,
+                                             out, B, H, KV, D, page, nb,
+                                             window, softcap, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

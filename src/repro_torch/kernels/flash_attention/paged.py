@@ -77,9 +77,9 @@ def paged_flash_decode(q, k_pages, v_pages, block_tables, pos, *,
         raise ValueError(f"paged_flash_decode: bad shapes q {tuple(q.shape)}"
                          f" pages {tuple(k_pages.shape)} tables "
                          f"{tuple(block_tables.shape)} pos {tuple(pos.shape)}")
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"paged_flash_decode kernel takes bf16/f32 q, got "
-                        f"{q.dtype}")
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"paged_flash_decode kernel is built for bf16 q, "
+                        f"got {q.dtype}")
     if k_pages.dtype not in _POOL_DTYPES or v_pages.dtype != k_pages.dtype:
         raise TypeError(f"paged_flash_decode kernel: pool dtype "
                         f"{k_pages.dtype}/{v_pages.dtype} not supported")
@@ -111,7 +111,7 @@ def paged_flash_decode(q, k_pages, v_pages, block_tables, pos, *,
         tables.data_ptr(), pos.data_ptr(),
         k_scales.data_ptr() if quantized else None,
         v_scales.data_ptr() if quantized else None,
-        out.data_ptr(), B, H, KV, D, P, page, nb, int(window),
+        out.data_ptr(), B, H, KV, D, page, nb, int(window),
         float(softcap), _build.dtype_code(q), _build.dtype_code(k_pages),
         _build.stream_handle(q)), "paged_flash_decode")
     paged_flash_decode.launches += 1

@@ -76,7 +76,8 @@ def flash_prefill(q, k, v, kv_valid_len: Optional[torch.Tensor] = None, *,
     """Prefill attention, (B, Sq, H, D).  A CPU tensor takes the plain
     version (``block_k`` sets its key block); a CUDA tensor launches the
     kernel (``flash_prefill.launches`` counts them), which reads q/k/v
-    through their strides and supports ``q_offset == 0`` only."""
+    through their strides and supports bf16, head_dim 64 and
+    ``q_offset == 0`` only."""
     if q.device.type == "cpu":
         return flash_prefill_ref(q, k, v, kv_valid_len, causal=causal,
                                  window=window, softcap=softcap,
@@ -90,13 +91,12 @@ def flash_prefill(q, k, v, kv_valid_len: Optional[torch.Tensor] = None, *,
             or H % KV:
         raise ValueError(f"flash_prefill: bad shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
-    if q.dtype not in (torch.bfloat16, torch.float32) \
-            or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_prefill kernel takes bf16/f32 q, k, v of "
-                        f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if D not in (16, 32, 64, 128):
-        raise ValueError(f"flash_prefill kernel: head_dim {D} not in "
-                         f"(16, 32, 64, 128)")
+    if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
+        raise TypeError(f"flash_prefill kernel is built for bf16 q, k, v, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if D != 64:
+        raise ValueError(f"flash_prefill kernel is built for head_dim 64, "
+                         f"got {D}")
     vec = 16 // q.element_size()
     tensors = []
     for t in (q, k, v):

@@ -29,8 +29,8 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor,
     if x.device.type == "cpu":
         return rmsnorm_ref(x, w, eps)
     d = x.shape[-1]
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"rmsnorm kernel takes bf16/f32, got {x.dtype}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"rmsnorm kernel is built for bf16, got {x.dtype}")
     if w.dtype != torch.float32 or w.shape != (d,):
         raise ValueError(f"rmsnorm scale must be float32 ({d},), got "
                          f"{w.dtype} {tuple(w.shape)}")

@@ -192,10 +192,44 @@ def test_cpu_tensors_take_the_plain_versions():
 def test_non_cpu_tensors_never_take_the_plain_versions():
     """A tensor off the CPU launches the kernel or raises; with no card
     here, a tensor on the meta device must raise."""
-    x = torch.empty(4, 64, device="meta")
+    x = torch.empty(4, 64, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="CUDA device"):
         rmsnorm(x, torch.empty(64, device="meta"))
-    q = torch.empty(1, 8, 2, 16, device="meta")
+    q = torch.empty(1, 8, 2, 64, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="CUDA device"):
         flash_prefill(q, q, q)
     assert kernels.launch_counts()["rmsnorm"] == 0
+
+
+def _meta(*shape, dtype=torch.bfloat16):
+    return torch.empty(*shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("case", ["rmsnorm_f32", "prefill_f32",
+                                  "prefill_d16", "paged_q_f32"])
+def test_kernels_refuse_what_they_are_not_built_for(case):
+    """Off the CPU, a dtype or head_dim with no kernel instantiation raises
+    before any launch (the kernels are built for the serving path's bf16,
+    head_dim 64)."""
+    kernels.reset_launch_counts()
+    if case == "rmsnorm_f32":
+        with pytest.raises(TypeError, match="bf16"):
+            rmsnorm(_meta(4, 64, dtype=torch.float32),
+                    _meta(64, dtype=torch.float32))
+    elif case == "prefill_f32":
+        q = _meta(1, 8, 2, 64, dtype=torch.float32)
+        with pytest.raises(TypeError, match="bf16"):
+            flash_prefill(q, q, q)
+    elif case == "prefill_d16":
+        q = _meta(1, 8, 2, 16)
+        with pytest.raises(ValueError, match="head_dim 64"):
+            flash_prefill(q, q, q)
+    else:
+        pages = _meta(3, 4, 2, 64)
+        with pytest.raises(TypeError, match="bf16 q"):
+            paged_flash_decode(_meta(1, 1, 2, 64, dtype=torch.float32),
+                               pages, pages,
+                               _meta(1, 2, dtype=torch.int32),
+                               _meta(1, dtype=torch.int32))
+    assert kernels.launch_counts() == {"rmsnorm": 0, "flash_prefill": 0,
+                                       "paged_decode": 0}
