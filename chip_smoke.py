@@ -14,6 +14,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                  the kernel's bound from the bytes and operations this run's
                  inputs need (bytes over 3.35 TB/s or operations over the
                  peak rate of their type).
+   flash_bwd   — the training path's kernels at its attention shape (B 4,
+                 S 1024, H 32, KV 8, D 64, causal): the forward with its
+                 log-sum-exp and the flash backward against their plain
+                 versions, timed beside SDPA's forward and backward.
 4. serve       — llama3.2-1b at full width (random weights from a seeded
                  generator) serves 16 requests through ``ServeEngine.generate``
                  with bf16 pages and with int8 pages, each twice in turns;
@@ -22,18 +26,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    profile     — a short bf16-page run under torch.profiler: device busy
                  time by kernel against the wall clock.
 5. consistency — prefill + paged decode steps against a longer prefill.
+6. train       — llama3.2-1b at full width and depth trains 4 steps through
+                 ``make_train_step`` (f32 masters, bf16 compute, AdamW,
+                 remat, seq 1024, global batch 8 as 2 micro-batches of 4)
+                 on the port's ``DataPipeline``; asserts finite losses,
+                 a finite non-zero gradient for every parameter leaf after
+                 the first backward, and exact launch counts per step.
+7. trainer     — ``Trainer.run()`` at a small width (bf16, head_dim 64)
+                 with an injected failure: it must restart from its
+                 checkpoint and finish.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last line
 is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -48,6 +63,11 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
 SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_PAGE = 8, 1024, 16
 SERVE_REQUESTS, SERVE_NEW_TOKENS = 16, 64
+# training: seq 1024, global batch 8 as accum 2 micro-batches of 4, 4 steps
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS = 1024, 8, 2, 4
+TRAIN_H, TRAIN_KV, TRAIN_D = 32, 8, 64
+LSE_TOL = 1e-3         # forward log-sum-exp, absolute
+BWD_TOL = 2e-2         # dq, dk, dv, relative to each one's largest |value|
 ATTN_TOL = 2e-2        # bf16 attention, as tests/test_kernels.py uses
 RMS_RTOL = 1e-2        # RMSNorm, relative (one bf16 ulp is 2**-8)
 CONSISTENCY_TOL = 5e-2  # prefill vs decode logits, relative to max |logit|
@@ -224,7 +244,154 @@ def check_prefill(gen):
             f"plain {row['plain_ms']:.4f} ms, library "
             f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms")
         rows.append(row)
+    check_prefill_padded_window(gen)
     return rows[-1]              # the longest bucket goes in the JSON
+
+
+def check_prefill_padded_window(gen):
+    """A local window over right-padded rows: row 1's padded queries at
+    positions >= 40 + 16 - 1 see no valid key and take the kernel's branch
+    for that case (the mean of the values their window admits, as the
+    reference gives).  Every row is compared, the log-sum-exp too."""
+    from repro_torch.kernels.flash_attention import (flash_prefill,
+                                                     flash_prefill_ref)
+    B, S, H, KV, D, window = 2, 128, 32, 8, 64, 16
+    vl = torch.tensor([S, 40], dtype=torch.int32, device="cuda")
+    q, k, v = (torch.randn(B, S, heads, D, generator=gen,
+                           device="cuda").bfloat16()
+               for heads in (H, KV, KV))
+    got, lse = flash_prefill(q, k, v, vl, window=window, return_lse=True)
+    ref, lse_ref = flash_prefill_ref(q, k, v, vl, window=window,
+                                     return_lse=True)
+    err = (got.float() - ref.float()).abs()
+    lse_err = float((lse - lse_ref).abs().max())
+    ok = bool((err <= ATTN_TOL + ATTN_TOL * ref.float().abs()).all()) \
+        and lse_err <= LSE_TOL
+    log(f"[kernels] flash_prefill window {window}, valid_len "
+        f"{vl.tolist()} (rows without a valid key): max_abs_err "
+        f"{float(err.max()):.3e} (tol {ATTN_TOL}), lse max_abs_err "
+        f"{lse_err:.3e} (tol {LSE_TOL}) ok={ok}")
+    if not ok:
+        raise AssertionError("flash_prefill kernel disagrees with its plain "
+                             "version on padded rows under a window")
+
+
+def _attention_pairs(B, H, S):
+    """(query, key) pairs a causal mask admits over B x H heads of S."""
+    return B * H * S * (S + 1) // 2
+
+
+def check_flash_bwd(gen):
+    """The training path's attention kernels at its shape: the forward with
+    its log-sum-exp and the flash backward, each against its plain version
+    on the same inputs, and timed (cold L2) beside SDPA's forward and its
+    backward through ``torch.autograd.grad`` on a saved forward.  Returns
+    the forward's and the backward's JSON rows."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_bwd_ref,
+                                                     flash_prefill,
+                                                     flash_prefill_ref)
+    B, S, H, KV, D = TRAIN_BATCH // TRAIN_ACCUM, TRAIN_SEQ, TRAIN_H, \
+        TRAIN_KV, TRAIN_D
+    shape = f"B {B} S {S} H {H} KV {KV} D {D} causal bf16"
+    io_bytes = 2 * B * S * (H + 2 * KV) * D          # q, k, v
+    n = n_copies(io_bytes * 2 + 2 * 2 * B * S * H * D)
+
+    def case():
+        q, k, v = (torch.randn(B, S, heads, D, generator=gen,
+                               device="cuda").bfloat16()
+                   for heads in (H, KV, KV))
+        do = torch.randn(B, S, H, D, generator=gen, device="cuda").bfloat16()
+        o, lse = flash_prefill(q, k, v, return_lse=True)
+        return q, k, v, o, do, lse
+    cases = [case() for _ in range(n)]
+    q, k, v, o, do, lse = cases[0]
+
+    o_ref, lse_ref = flash_prefill_ref(q, k, v, return_lse=True)
+    err = (o.float() - o_ref.float()).abs()
+    lse_err = float((lse - lse_ref).abs().max())
+    ok = bool((err <= ATTN_TOL + ATTN_TOL * o_ref.float().abs()).all()) \
+        and lse_err <= LSE_TOL
+    log(f"[kernels] flash_prefill with lse, {shape}: max_abs_err "
+        f"{float(err.max()):.3e} (tol {ATTN_TOL}), lse max_abs_err "
+        f"{lse_err:.3e} (tol {LSE_TOL}) ok={ok}")
+    if not ok:
+        raise AssertionError("flash_prefill kernel with lse disagrees with "
+                             "its plain version")
+    del o_ref, lse_ref
+
+    got = flash_attention_bwd(q, k, v, o, do, lse)
+    ref = flash_attention_bwd_ref(q, k, v, o, do, lse)
+    errs = {}
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        scale = float(r.float().abs().max())
+        errs[name] = (float((g.float() - r.float()).abs().max()), scale)
+    ok = all(e <= BWD_TOL * sc for e, sc in errs.values())
+    log(f"[kernels] flash_bwd {shape}: " + ", ".join(
+        f"{k_} max_abs_err {e:.3e} of max |{k_}| {sc:.3e}"
+        for k_, (e, sc) in errs.items()) + f" (tol {BWD_TOL} relative) "
+        f"ok={ok}")
+    if not ok:
+        raise AssertionError("flash_bwd kernel disagrees with its plain "
+                             "version")
+    del got, ref
+
+    def sdpa_saved(q, k, v, o, do, lse):
+        qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+        return out, (qt, kt, vt), do.transpose(1, 2)
+    saved = [sdpa_saved(*c) for c in cases]
+    timing = f"cold L2: cycles over {n} input copies"
+    pairs = _attention_pairs(B, H, S)
+    fwd = {"name": "flash_prefill_lse", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
+           "replaces": "src/repro/kernels/flash_attention/kernel.py:125",
+           "shape": f"q ({B}, {S}, {H}, {D}) kv {KV} heads bf16, causal, "
+                    f"with lse", "timing": timing,
+           "max_abs_err": max(float(err.max()), lse_err), "tol": ATTN_TOL,
+           "ms": time_ms(cycled(lambda q, k, v, *_: flash_prefill(
+               q, k, v, return_lse=True), cases), iters=4 * n),
+           "plain_ms": time_ms(cycled(lambda q, k, v, *_: flash_prefill_ref(
+               q, k, v, return_lse=True), cases), iters=3, warmup=1),
+           "library_ms": time_ms(cycled(
+               lambda q, k, v, *_: F.scaled_dot_product_attention(
+                   q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                   is_causal=True, enable_gqa=True), cases), iters=4 * n)}
+    # bytes: q, k, v read, o written, lse written (f32); 2 products of 2 D
+    # flops per admitted pair
+    fwd["bound_ms"], fwd["bound_by"] = bound(
+        io_bytes + 2 * B * S * H * D + 4 * B * H * S, 4 * D * pairs, "bf16")
+    bwd = {"name": "flash_bwd", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_backward.cu",
+           "replaces": "src/repro/kernels/flash_attention/backward.py:125",
+           "also_replaces": "src/repro/kernels/flash_attention/"
+                            "backward.py:144",
+           "shape": f"q ({B}, {S}, {H}, {D}) kv {KV} heads bf16, causal",
+           "timing": timing,
+           "max_abs_err": max(e for e, _ in errs.values()),
+           "tol": f"{BWD_TOL} of each output's largest |value|",
+           "ms": time_ms(cycled(lambda *c: flash_attention_bwd(*c), cases),
+                         iters=2 * n),
+           "plain_ms": time_ms(cycled(lambda *c: flash_attention_bwd_ref(
+               *c), cases), iters=3, warmup=1),
+           "library_ms": time_ms(cycled(
+               lambda out, inputs, g: torch.autograd.grad(
+                   out, inputs, g, retain_graph=True), saved), iters=2 * n)}
+    # bytes: q, k, v, o, dO read, lse read (f32), dq, dk, dv written;
+    # the function needs 5 products of 2 D flops per admitted pair (QK^T,
+    # dO V^T, dS K, P^T dO, dS^T Q; the kernels' recompute of QK^T and
+    # dO V^T in the second kernel is the design's, not the function's)
+    bwd["bound_ms"], bwd["bound_by"] = bound(
+        2 * io_bytes + 2 * 2 * B * S * H * D + 4 * B * H * S,
+        5 * 2 * D * pairs, "bf16")
+    for row in (fwd, bwd):
+        log(f"[kernels] {row['name']} {shape}: kernel {row['ms']:.4f} ms, "
+            f"plain {row['plain_ms']:.4f} ms, library "
+            f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']})")
+    return fwd, bwd
 
 
 def _paged_case(gen, pool_dtype):
@@ -328,7 +495,7 @@ def phase_kernels():
     gen.manual_seed(1)
     rows = [check_rmsnorm(gen), check_prefill(gen),
             check_paged(gen, torch.bfloat16, "bf16"),
-            check_paged(gen, torch.int8, "int8")]
+            check_paged(gen, torch.int8, "int8"), *check_flash_bwd(gen)]
     # pools the serving path does not use: checked, logged, not in the JSON
     for dtype, label in ((torch.float8_e4m3fn, "fp8"), (torch.float32, "f32")):
         r = check_paged(gen, dtype, label)
@@ -425,7 +592,7 @@ def phase_serve(cfg, model, params):
         got = kernels.launch_counts()
         steps, calls = eng.n_decode_steps, eng.n_prefill_calls
         want = {"rmsnorm": 33 * (steps + calls),
-                "flash_prefill": 16 * calls,
+                "flash_prefill": 16 * calls, "flash_bwd": 0,
                 "paged_decode": 16 * steps}
         tokens = sum(len(r.generated) for r in reqs)
         log(f"[serve] {label} pages: {tokens} tokens in {wall:.3f} s = "
@@ -444,12 +611,30 @@ def phase_serve(cfg, model, params):
     return counts
 
 
-def phase_profile(cfg, model, params, top: int = 10):
-    """Where the time goes in a short bf16-page serve run: its wall time
-    unprofiled, then its device kernels under ``torch.profiler`` (kernel
-    rows only: an operator's row would count its kernels twice)."""
+def profiled_kernels(fn):
+    """Run ``fn`` under ``torch.profiler``; (device us, count, name) of
+    every device kernel it launched (kernel rows only: an operator's row
+    would count its kernels twice)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+    return [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+
+
+def log_top(tag, rows, busy_ms, top=10):
+    for us, count, key in sorted(rows, reverse=True)[:top]:
+        log(f"[{tag}]   {us / 1e3:9.3f} ms  {100 * us / 1e3 / busy_ms:5.1f}%"
+            f"  x{count:<6d} {key[:90]}")
+
+
+def phase_profile(cfg, model, params, top: int = 10):
+    """Where the time goes in a short bf16-page serve run: its wall time
+    unprofiled, then its device kernels under ``torch.profiler``."""
     from repro_torch.serve import Request, ServeEngine
     rng = np.random.default_rng(1)
     eng = ServeEngine(model, params, batch_slots=SERVE_SLOTS,
@@ -468,13 +653,7 @@ def phase_profile(cfg, model, params, top: int = 10):
 
     run()                                                   # warm-up
     wall_ms = run()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-    rows = [(e.self_device_time_total, e.count, e.key)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    rows = profiled_kernels(run)
     if not rows:
         log("[profile] device time: not measured (the profiler recorded no "
             "device kernels)")
@@ -488,9 +667,7 @@ def phase_profile(cfg, model, params, top: int = 10):
         f"device kernels {busy_ms:.1f} ms ({busy_ms / steps:.2f} ms per "
         f"step, {launches} launches = {launches / steps:.0f} per step), "
         f"device idle share {1 - busy_ms / wall_ms:.3f}")
-    for us, count, key in sorted(rows, reverse=True)[:top]:
-        log(f"[profile]   {us / 1e3:9.3f} ms  {100 * us / 1e3 / busy_ms:5.1f}%"
-            f"  x{count:<6d} {key[:90]}")
+    log_top("profile", rows, busy_ms, top)
 
 
 # ---------------------------------------------------------------------------
@@ -550,22 +727,185 @@ def phase_consistency(model, params, steps: int = 4):
     return worst
 
 
+# ---------------------------------------------------------------------------
+# 6. train at full width, 7. Trainer restart at a small width
+# ---------------------------------------------------------------------------
+
+def phase_train():
+    """Train llama3.2-1b at full width and depth for ``TRAIN_STEPS`` steps
+    through ``make_train_step``.  Returns the launch counts of those
+    steps."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline
+    from repro_torch.models import build_model
+    from repro_torch.train import (OptimizerConfig, init_train_state,
+                                   loss_and_grads, make_train_step)
+    from repro_torch.tree import flatten
+    cfg = get_config("llama3.2-1b")
+    model = build_model(cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(model, seed=0)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for _, t in flatten(state.params))
+    log(f"[train] {cfg.name}: L={cfg.n_layers} d={cfg.d_model} "
+        f"H={cfg.n_heads}/{cfg.n_kv_heads} D={cfg.resolved_head_dim} "
+        f"V={cfg.vocab_size}; {n / 1e9:.3f}B params in {cfg.param_dtype}, "
+        f"compute {cfg.compute_dtype}; state drawn in "
+        f"{time.perf_counter() - t0:.1f} s; seq {TRAIN_SEQ}, global batch "
+        f"{TRAIN_BATCH} = {TRAIN_ACCUM} x {TRAIN_BATCH // TRAIN_ACCUM}, "
+        f"AdamW, remat")
+    pipeline = DataPipeline(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    batches = [pipeline.next_batch() for _ in range(TRAIN_STEPS)]
+
+    # every leaf gets a finite, non-zero gradient from the first backward
+    micro = {k: v[:TRAIN_BATCH // TRAIN_ACCUM] for k, v in batches[0].items()}
+    _, _, grads = loss_and_grads(model, state.params, micro, remat=True)
+    named = flatten(grads)
+    norms = torch.stack([g.float().norm() for _, g in named]).tolist()
+    bad = [(p, nrm) for (p, _), nrm in zip(named, norms)
+           if not (math.isfinite(nrm) and nrm > 0)]
+    log(f"[train] first backward: {len(named)} parameter leaves, gradient "
+        f"norms {min(norms):.3e}..{max(norms):.3e}; leaves without a finite "
+        f"non-zero gradient: {bad}")
+    if bad:
+        raise AssertionError(f"parameters without a gradient: {bad}")
+    del grads, named
+
+    step_fn = make_train_step(model, OptimizerConfig(lr=3e-4, warmup_steps=2),
+                              accum_steps=TRAIN_ACCUM, remat=True)
+    # per step: 2 micro-batches x (33 norms forward + 32 recomputed under
+    # remat; the final norm sits outside the checkpoint), x (16 attention
+    # forwards + 16 recomputed), x 16 attention backwards
+    per_step = {"rmsnorm": TRAIN_ACCUM * (33 + 32),
+                "flash_prefill": TRAIN_ACCUM * (16 + 16),
+                "flash_bwd": TRAIN_ACCUM * 16, "paged_decode": 0}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    before = kernels.launch_counts()
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        now = kernels.launch_counts()
+        step_counts = {k: now[k] - before[k] for k in now}
+        before = now
+        log(f"[train] step {i}: loss {loss:.4f}, grad_norm "
+            f"{float(metrics['grad_norm']):.3f}, {dt * 1e3:.1f} ms, "
+            f"{tokens / dt:.1f} tokens/s; launches {step_counts}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"step {i}: loss {loss} is not finite")
+        if step_counts != per_step:
+            raise AssertionError(f"step {i}: launch counts {step_counts} != "
+                                 f"{per_step}")
+    counts = kernels.launch_counts()
+    log(f"[train] {TRAIN_STEPS} steps: launches {counts}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # where the time of one more step goes, against the last timed step
+    def one_step():
+        nonlocal state
+        state, metrics = step_fn(state, batches[-1])
+        float(metrics["loss"])
+    rows = profiled_kernels(one_step)
+    if not rows:
+        log("[train] device time: not measured (the profiler recorded no "
+            "device kernels)")
+    else:
+        busy_ms = sum(r[0] for r in rows) / 1e3
+        ours = {"flash_bwd": "flash_bwd_", "flash_prefill":
+                "flash_prefill_kernel", "rmsnorm": "rmsnorm_kernel"}
+        share = {k: sum(r[0] for r in rows if tag in r[2]) / 1e3
+                 for k, tag in ours.items()}
+        log(f"[train] profiled step: device kernels {busy_ms:.1f} ms "
+            f"({sum(r[1] for r in rows)} launches) against {dt * 1e3:.1f} ms "
+            f"of wall time unprofiled (the last timed step): device idle "
+            f"share {1 - busy_ms / (dt * 1e3):.3f}; the port's kernels "
+            + ", ".join(f"{k} {v:.1f} ms ({100 * v / busy_ms:.1f}%)"
+                        for k, v in share.items()))
+        log_top("train", rows, busy_ms)
+    del state, model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_trainer():
+    """``Trainer.run()`` at a small width on the card with an injected
+    failure at step 3: it restarts from the step-2 checkpoint and
+    finishes."""
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline
+    from repro_torch.models import build_model
+    from repro_torch.runtime import FailureInjector
+    from repro_torch.train import OptimizerConfig, make_train_step
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    # llama3.2-1b's family at a small width that keeps what the kernels are
+    # built for: bf16 compute and head_dim 64
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), name="llama-small",
+                              n_layers=2, d_model=256, n_heads=4,
+                              n_kv_heads=2, head_dim=64, d_ff=1024,
+                              vocab_size=257)
+    model = build_model(cfg, device="cuda")
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as ckpt_dir:
+        trainer = Trainer(
+            model, make_train_step(model, OptimizerConfig(
+                lr=1e-2, warmup_steps=2, decay_steps=100), accum_steps=2,
+                remat=True),
+            DataPipeline(cfg.vocab_size, 4, 128),
+            CheckpointManager(ckpt_dir, keep=2),
+            TrainerConfig(total_steps=6, ckpt_every=2, max_restarts=2),
+            failure_injector=FailureInjector((3,)))
+        out = trainer.run()
+    losses = [(h["step"], round(h["loss"], 4)) for h in trainer.history]
+    log(f"[trainer] {cfg.name} on {model.device}: {out}; (step, loss) "
+        f"{losses}")
+    if out["restarts"] != 1 or out["final_step"] != 6 \
+            or [h["step"] for h in trainer.history] != [0, 1, 2, 2, 3, 4, 5] \
+            or not all(math.isfinite(h["loss"]) for h in trainer.history):
+        raise AssertionError(f"Trainer did not restart and finish: {out}")
+    return out
+
+
 def main() -> int:
     smi = phase_device()
     t0 = time.perf_counter()
     phase_build()
     rows = phase_kernels()
     cfg, model, params = build_full_model()
-    counts = phase_serve(cfg, model, params)
+    serve = phase_serve(cfg, model, params)
     phase_profile(cfg, model, params)
     phase_consistency(model, params)
-    # launches of one serve run: paged decode's of its page type, the
-    # others' of a bf16-page run (an int8-page run launches them as often)
+    del model, params
+    torch.cuda.empty_cache()
+    train = phase_train()
+    phase_trainer()
+    # each kernel's launches on the path it serves: paged decode's in one
+    # serve run of its page type, the serving prefill's in a bf16-page run,
+    # the others' in the training run (the forward with its log-sum-exp
+    # counts as flash_prefill)
     for row in rows:
-        name, _, pages = row["name"].partition("[")
-        pages = pages.rstrip("]") or "bf16"
-        row["launches"] = counts[pages][name]
-        row["launches_of"] = f"one serve run, {pages} pages"
+        name, _, tag = row["name"].partition("[")
+        tag = tag.rstrip("]")
+        if name == "paged_decode":
+            row["launches"] = serve[tag][name]
+            row["launches_of"] = f"one serve run, {tag} pages"
+        elif name == "flash_prefill":
+            row["launches"] = serve["bf16"][name]
+            row["launches_of"] = "one serve run, bf16 pages"
+        else:
+            name = name.removesuffix("_lse")
+            row["launches"] = train[name]
+            row["launches_of"] = (f"one training run, {TRAIN_STEPS} steps "
+                                  f"(one serve run: {serve['bf16'][name]})"
+                                  if name == "rmsnorm" else
+                                  f"one training run, {TRAIN_STEPS} steps")
         row["kernel_ms"] = row["ms"]
         if row["launches"] < 1:
             raise AssertionError(f"{row['name']} never ran on the main path")

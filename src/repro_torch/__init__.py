@@ -1,4 +1,4 @@
-"""PyTorch / CUDA port of the serving stack (NVIDIA H100).
+"""PyTorch / CUDA port of the serving and training stacks (NVIDIA H100).
 
 The JAX package ``repro`` stays the reference; this package imports
 neither it nor JAX.  ``repro_torch.X.Y`` is the counterpart of

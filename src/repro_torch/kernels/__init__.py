@@ -5,9 +5,15 @@ the function (the CPU path and the kernel's oracle), a wrapper that sends a
 CPU tensor to the plain version and a CUDA tensor to the kernel (counting
 its launches), and the CUDA source under ``csrc/`` built by ``_build.py``.
 
-- ``rmsnorm``                    fused RMSNorm (replaces ``rmsnorm_rows``)
+- ``rmsnorm``                    fused RMSNorm (replaces ``rmsnorm_rows``),
+                                 differentiable (plain f32 backward)
 - ``flash_attention.prefill``    prefill attention with per-row valid
-                                 lengths (replaces ``flash_attention_fwd``)
+                                 lengths and an optional log-sum-exp
+                                 output (replaces ``flash_attention_fwd``)
+- ``flash_attention.backward``   flash-attention backward (replaces
+                                 ``flash_attention_bwd``)
+- ``flash_attention.ops``        ``flash_attention_train``, the autograd
+                                 ``Function`` over the two above
 - ``flash_attention.paged``      paged decode attention over bf16 / f32 /
                                  int8 / fp8 pools (replaces
                                  ``paged_flash_decode``)
@@ -20,6 +26,7 @@ __all__ = ["flash_attention", "rmsnorm", "launch_counts", "reset_launch_counts"]
 def _wrappers():
     return {"rmsnorm": rmsnorm.rmsnorm,
             "flash_prefill": flash_attention.flash_prefill,
+            "flash_bwd": flash_attention.flash_attention_bwd,
             "paged_decode": flash_attention.paged_flash_decode}
 
 

@@ -45,12 +45,15 @@ SIGNATURES: Dict[str, list] = {
     # B, H, KV, D, page, nb, window, softcap, q_dtype, kv_dtype, stream
     "paged_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
-    # q, k, v, kv_valid_len, out, B, Sq, Sk, H, KV, D,
+    # q, k, v, kv_valid_len, out, lse (or null), B, Sq, Sk, H, KV, D,
     # q/k/v/o strides (batch, seq, head) in elements,
     # causal, window, softcap, dtype, stream
-    "flash_prefill_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    "flash_prefill_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                              _I, _I, _F, _I, _P],
+    # q, k, v, o, dout, lse, delta scratch, dq, dk, dv,
+    # B, Sq, Sk, H, KV, D, causal, window, dtype, stream
+    "flash_bwd_launch": [_P] * 10 + [_I] * 9 + [_P],
     "kernels_error_string": [_I],
 }
 
@@ -198,6 +201,17 @@ def require_cuda(name: str, *tensors) -> None:
                              f"current CUDA device")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: tensor data not 16-byte aligned")
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when an input requires grad under grad mode.  A kernel writes
+    its output through raw pointers, which autograd cannot follow, so a
+    wrapper that is not a ``torch.autograd.Function`` would hand back a
+    result without a gradient; it raises instead, on the CPU too, so that a
+    CPU test shows it."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(f"{name} is not differentiable")
 
 
 def stream_handle(t) -> int:

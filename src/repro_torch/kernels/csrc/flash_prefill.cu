@@ -7,7 +7,19 @@
 // row b's keys at positions >= kv_valid_len[b] are masked.  Causal, local
 // window and tanh softcap masks as in the TPU kernel; GQA reads KV head
 // h / G with no repeat; f32 online softmax; the softmax weights are rounded
-// to the input dtype before the PV product, as the reference does.
+// to the input dtype before the PV product, as the reference does.  With a
+// non-null lse pointer it also writes the log-sum-exp (B, H, Sq) in f32,
+// m + log(max(l, 1e-20)) with m := 0 for a row that saw no key, as the TPU
+// kernel does with return_lse (kernel.py:77-82); the training forward saves
+// it for the backward (flash_backward.cu).
+//
+// A padded query row (position >= kv_valid_len) whose causal/window range
+// holds no valid key gets what the reference's chunked_attention gives it:
+// the reference masks invalid keys by setting their score to -1e30 and
+// zeroes the softmax weights by the causal/window mask only, so such a row
+// averages the values of the keys that mask admits.  The key loop below
+// stops at the valid length and never reads those keys, so the kernel
+// takes that average in an explicit branch after the loop.
 //
 // Bound on the H100: operations at long prompts (2 * D flops per score for
 // QK and again for PV against 2 * D bytes per key read once per 64-row query
@@ -30,11 +42,12 @@ __global__ void __launch_bounds__(kPreThreads)
 flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v,
                      const int* __restrict__ kv_valid_len, T* __restrict__ out,
-                     int Sq, int Sk, int G, long long q_sb, long long q_ss,
-                     long long q_sh, long long k_sb, long long k_ss,
-                     long long k_sh, long long v_sb, long long v_ss,
-                     long long v_sh, long long o_sb, long long o_ss,
-                     long long o_sh, int causal, int window, float softcap) {
+                     float* __restrict__ lse, int Sq, int Sk, int G,
+                     long long q_sb, long long q_ss, long long q_sh,
+                     long long k_sb, long long k_ss, long long k_sh,
+                     long long v_sb, long long v_ss, long long v_sh,
+                     long long o_sb, long long o_ss, long long o_sh,
+                     int causal, int window, float softcap) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int DP = D + 1;  // padded row
   constexpr int DPT = D / 4; // output columns per thread
@@ -148,18 +161,38 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (qpos < Sq) {
-    const float inv = 1.f / fmaxf(l_run, 1e-20f);
+    const int lower = window > 0 ? max(0, qpos - window + 1) : 0;
+    if (lower >= min(Sk, vl)) {
+      // no valid key: the plain mean of the values the causal/window mask
+      // admits (every admitted weight is exp(0) = 1 in the reference)
+      const int upper = causal ? min(qpos, Sk - 1) : Sk - 1;
+#pragma unroll
+      for (int j = 0; j < DPT; ++j) acc[j] = 0.f;
+      for (int kk = lower; kk <= upper; ++kk) {
+        const T* vrow = vb + kk * v_ss;
+#pragma unroll
+        for (int j = 0; j < DPT; ++j) acc[j] += to_float(vrow[c4 + 4 * j]);
+      }
+      l_run = static_cast<float>(max(upper - lower + 1, 0));
+      m_run = kNegInf;
+    }
+    const float l = fmaxf(l_run, 1e-20f);
+    const float inv = 1.f / l;
     T* orow = out + b * o_sb + qpos * o_ss + h * o_sh;
 #pragma unroll
     for (int j = 0; j < DPT; ++j) orow[c4 + 4 * j] = from_float<T>(acc[j] * inv);
+    if (lse != nullptr && c4 == 0)
+      lse[(static_cast<long long>(b) * gridDim.y + h) * Sq + qpos] =
+          (m_run <= kNegInf ? 0.f : m_run) + logf(l);
   }
 }
 
 template <typename T, int D>
 static int launch_prefill(const void* q, const void* k, const void* v,
-                          const int* vl, void* out, int B, int Sq, int Sk,
-                          int H, int KV, const long long* st, int causal,
-                          int window, float softcap, cudaStream_t stream) {
+                          const int* vl, void* out, float* lse, int B,
+                          int Sq, int Sk, int H, int KV, const long long* st,
+                          int causal, int window, float softcap,
+                          cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (static_cast<size_t>(kBQ + 2 * kBK) * (D + 1) +
                        kBQ * (kBK + 1));
@@ -171,26 +204,27 @@ static int launch_prefill(const void* q, const void* k, const void* v,
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kPreThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), vl, static_cast<T*>(out), Sq, Sk, H / KV,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
-      st[10], st[11], causal, window, softcap);
+      static_cast<const T*>(v), vl, static_cast<T*>(out), lse, Sq, Sk,
+      H / KV, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      st[9], st[10], st[11], causal, window, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Built for bf16 with head_dim 64 only, the one case the serving path
-// launches (llama3.2-1b); other cases are refused until a configuration
-// needs them and chip_smoke.py checks them.
+// Built for bf16 with head_dim 64 only, the one case the serving and
+// training paths launch (llama3.2-1b); other cases are refused until a
+// configuration needs them and chip_smoke.py checks them.  lse may be null.
 extern "C" int flash_prefill_launch(
     const void* q, const void* k, const void* v, const void* kv_valid_len,
-    void* out, int B, int Sq, int Sk, int H, int KV, int D, long long q_sb,
-    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
-    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-    long long o_sb, long long o_ss, long long o_sh, int causal, int window,
-    float softcap, int dtype, void* stream) {
+    void* out, void* lse, int B, int Sq, int Sk, int H, int KV, int D,
+    long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+    long long v_sh, long long o_sb, long long o_ss, long long o_sh,
+    int causal, int window, float softcap, int dtype, void* stream) {
   if (dtype != kBF16 || D != 64) return static_cast<int>(cudaErrorInvalidValue);
   const long long st[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                             v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
   return launch_prefill<__nv_bfloat16, 64>(
-      q, k, v, static_cast<const int*>(kv_valid_len), out, B, Sq, Sk, H, KV,
-      st, causal, window, softcap, static_cast<cudaStream_t>(stream));
+      q, k, v, static_cast<const int*>(kv_valid_len), out,
+      static_cast<float*>(lse), B, Sq, Sk, H, KV, st, causal, window, softcap,
+      static_cast<cudaStream_t>(stream));
 }

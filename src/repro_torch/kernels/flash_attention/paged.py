@@ -64,7 +64,11 @@ def paged_flash_decode(q, k_pages, v_pages, block_tables, pos, *,
     """q: (B, 1, H, D); pools (P, page, KV, D); block_tables (B, nb) int32
     page ids; pos (B,) int32.  A CPU tensor takes the plain version; a CUDA
     tensor launches the kernel (``paged_flash_decode.launches`` counts
-    them).  Returns (B, 1, H, D) in q's dtype."""
+    them).  Returns (B, 1, H, D) in q's dtype.  Serving only, not
+    differentiable: an input that requires grad under grad mode raises,
+    on either device."""
+    _build.refuse_grad("paged_flash_decode", q, k_pages, v_pages, k_scales,
+                       v_scales)
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, block_tables, pos,
                                    window=window, softcap=softcap,

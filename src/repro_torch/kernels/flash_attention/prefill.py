@@ -8,6 +8,9 @@ are right-padded to one bucket and row ``b`` masks its keys at positions
 ``>= kv_valid_len[b]``.  With every row at full length it is the TPU
 kernel's function.  Layout is the model's: q ``(B, Sq, H, D)``, k/v
 ``(B, Sk, KV, D)`` with ``H % KV == 0`` (GQA reads KV head ``h // G``).
+With ``return_lse`` it also returns the f32 log-sum-exp ``(B, H, Sq)``
+that the TPU kernel writes with ``return_lse=True`` and the training
+backward reads (``ops.flash_attention_train``).
 """
 from __future__ import annotations
 
@@ -23,11 +26,13 @@ NEG_INF = -1e30
 def flash_prefill_ref(q, k, v, kv_valid_len: Optional[torch.Tensor] = None,
                       *, causal: bool = True, window: int = 0,
                       softcap: float = 0.0, q_offset: int = 0,
-                      block_k: int = 1024) -> torch.Tensor:
-    """Plain version: online softmax over ``block_k`` key blocks, the f32
-    statistics and the activation-dtype softmax weights of the reference's
-    ``chunked_attention``.  Keys masked by the causal, window or
-    valid-length rule get weight 0."""
+                      block_k: int = 1024, return_lse: bool = False):
+    """Plain version: the reference's ``chunked_attention`` step for step
+    (online softmax over ``block_k`` key blocks, f32 statistics, softmax
+    weights rounded to the activation dtype before PV).  As there, a key
+    past a row's valid length gets the score -1e30 while the weights are
+    zeroed by the causal/window mask only, so a padded row with no valid
+    key averages the values that mask admits."""
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -53,35 +58,62 @@ def flash_prefill_ref(q, k, v, kv_valid_len: Optional[torch.Tensor] = None,
             valid &= diff >= 0
         if window > 0:
             valid &= diff < window
-        valid = valid[None]                                  # (1, Sq, bk)
         if vl is not None:
-            valid = valid & (k_pos[None, :] < vl[:, None])[:, None, :]
-        valid = valid[:, None, None]                         # (B|1,1,1,Sq,bk)
+            in_len = k_pos[None, :] < vl[:, None]                # (B, bk)
+            s = torch.where(in_len[:, None, None, None, :], s, NEG_INF)
         s = torch.where(valid, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
-        m_safe = torch.where(m_new <= NEG_INF, 0.0, m_new)
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
         p = torch.where(valid, torch.exp(s - m_safe[..., None]), 0.0)
-        corr = torch.where(m <= NEG_INF, 0.0, torch.exp(m - m_safe))
+        corr = torch.exp(torch.where(torch.isfinite(m), m - m_safe, NEG_INF))
         l = l * corr + p.sum(dim=-1)
         pv = torch.einsum("bkgqs,bskd->bqkgd", p.to(q.dtype).float(), vblk)
         acc = acc * corr.permute(0, 3, 1, 2)[..., None] + pv
         m = m_new
-    l = torch.clamp(l, min=1e-20).permute(0, 3, 1, 2)[..., None]
-    return (acc / l).reshape(B, Sq, H, D).to(q.dtype)
+    l = torch.clamp(l, min=1e-20)
+    out = (acc / l.permute(0, 3, 1, 2)[..., None]).reshape(B, Sq, H, D) \
+        .to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(m <= NEG_INF, 0.0, m) + torch.log(l)
+    return out, lse.reshape(B, H, Sq)
 
 
 def flash_prefill(q, k, v, kv_valid_len: Optional[torch.Tensor] = None, *,
                   causal: bool = True, window: int = 0, softcap: float = 0.0,
-                  q_offset: int = 0, block_k: int = 1024) -> torch.Tensor:
-    """Prefill attention, (B, Sq, H, D).  A CPU tensor takes the plain
-    version (``block_k`` sets its key block); a CUDA tensor launches the
-    kernel (``flash_prefill.launches`` counts them), which reads q/k/v
-    through their strides and supports bf16, head_dim 64 and
-    ``q_offset == 0`` only."""
+                  q_offset: int = 0, block_k: int = 1024,
+                  return_lse: bool = False):
+    """Prefill attention, (B, Sq, H, D), and with ``return_lse`` the f32
+    log-sum-exp (B, H, Sq) too.  A CPU tensor takes the plain version
+    (``block_k`` sets its key block); a CUDA tensor launches the kernel
+    (``flash_prefill.launches`` counts them), which reads q/k/v through
+    their strides and supports bf16, head_dim 64 and ``q_offset == 0``
+    only.  When grad mode is on and an input requires grad, the call goes
+    through ``ops.flash_attention_train`` (the forward with its log-sum-exp,
+    then the flash backward), which covers what the reference's training
+    kernels cover: no softcap, no ``q_offset``, no ``kv_valid_len``; any
+    other differentiable call raises."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if softcap or q_offset or kv_valid_len is not None or return_lse:
+            raise RuntimeError(
+                "flash_prefill is not differentiable with softcap, q_offset, "
+                "kv_valid_len or return_lse (the flash backward covers none "
+                "of them)")
+        from .ops import flash_attention_train      # ops imports this module
+        return flash_attention_train(q, k, v, causal, window, block_k)
+    return _forward(q, k, v, kv_valid_len, causal=causal, window=window,
+                    softcap=softcap, q_offset=q_offset, block_k=block_k,
+                    return_lse=return_lse)
+
+
+def _forward(q, k, v, kv_valid_len, *, causal, window, softcap=0.0,
+             q_offset=0, block_k=1024, return_lse=False):
+    """The plain version on a CPU tensor, else one launch of the kernel."""
     if q.device.type == "cpu":
         return flash_prefill_ref(q, k, v, kv_valid_len, causal=causal,
                                  window=window, softcap=softcap,
-                                 q_offset=q_offset, block_k=block_k)
+                                 q_offset=q_offset, block_k=block_k,
+                                 return_lse=return_lse)
     if q_offset:
         raise NotImplementedError("flash_prefill kernel: q_offset != 0 is "
                                   "not on the serving path")
@@ -109,16 +141,18 @@ def flash_prefill(q, k, v, kv_valid_len: Optional[torch.Tensor] = None, *,
                                   device=q.device)
     kv_valid_len = kv_valid_len.to(torch.int32).contiguous()
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     _build.require_cuda("flash_prefill", q, k, v, kv_valid_len, out)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     lib = _build.library()
     _build.check(lib.flash_prefill_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_valid_len.data_ptr(),
-        out.data_ptr(), B, Sq, Sk, H, KV, D, *strides, int(causal),
-        int(window), float(softcap), _build.dtype_code(q),
-        _build.stream_handle(q)), "flash_prefill")
+        out.data_ptr(), None if lse is None else lse.data_ptr(), B, Sq, Sk,
+        H, KV, D, *strides, int(causal), int(window), float(softcap),
+        _build.dtype_code(q), _build.stream_handle(q)), "flash_prefill")
     flash_prefill.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_prefill.launches = 0

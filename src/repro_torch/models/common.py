@@ -2,10 +2,12 @@
 
 The dense subset of the JAX package's ``models/common.py``: the same public
 names and the same tensor layouts at every function, so the tests can hold
-each against its counterpart.  Parameters are nested dicts of tensors whose
-matrix and embedding weights already hold the compute dtype (cast once at
-load; the JAX package casts at every use, which gives the same numbers) and
-whose norm scales stay float32.
+each against its counterpart.  Parameters are nested dicts of tensors; norm
+scales stay float32 and every matrix and embedding is cast to the
+activations' dtype at each use (:func:`cast`), as the JAX package casts
+them.  Serving keeps its weights in the compute dtype, where the cast
+returns the same tensor and launches nothing; training keeps float32
+masters, and the cast is where their gradients come back to float32.
 
 Where the JAX package returns an updated copy of a cache (``.at[].set``),
 the port writes the cache tensors in place and returns them; rows the
@@ -27,6 +29,13 @@ from ..kernels.rmsnorm import rmsnorm
 Params = Dict[str, object]
 
 NEG_INF = -1e30
+
+
+def cast(x: torch.Tensor, dtype) -> torch.Tensor:
+    """``x`` in ``dtype``; the same tensor when it already is (the serving
+    path is host-bound, and a no-op ``Tensor.to`` still costs a call)."""
+    return x if x.dtype == dtype else x.to(dtype)
+
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -112,7 +121,8 @@ def decode_attention(q, k_cache, v_cache, *, pos, window: int = 0,
 def project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (B, S, d) @ w: (d, H, D) -> (B, S, H, D)."""
     d, H, D = w.shape
-    return (x @ w.reshape(d, H * D)).view(x.shape[0], x.shape[1], H, D)
+    return (x @ cast(w, x.dtype).reshape(d, H * D)).view(x.shape[0],
+                                                          x.shape[1], H, D)
 
 
 def attention_block(p: Params, x: torch.Tensor, *, cfg_theta: float,
@@ -121,9 +131,12 @@ def attention_block(p: Params, x: torch.Tensor, *, cfg_theta: float,
                     block_k: int = 1024, kv_x: Optional[torch.Tensor] = None,
                     return_kv: bool = False,
                     kv_valid_len: Optional[torch.Tensor] = None):
-    """Self-attention block over x (B, S, d): projections, RoPE, prefill
-    attention, output projection.  ``kv_valid_len`` (B,) masks key
-    positions >= the per-row valid length (batched bucketed prefill)."""
+    """Self-attention block over x (B, S, d): projections, RoPE, attention,
+    output projection.  ``kv_valid_len`` (B,) masks key positions >= the
+    per-row valid length (batched bucketed prefill).  Attention is
+    differentiable under the JAX package's own condition for its Pallas
+    training kernels (no softcap, no ``q_offset``, no ``kv_valid_len``;
+    see ``flash_prefill``)."""
     if kv_x is not None:
         raise NotImplementedError("cross-attention (kv_x) belongs to the "
                                   "encoder-decoder slice (ROADMAP queue 1)")
@@ -138,7 +151,8 @@ def attention_block(p: Params, x: torch.Tensor, *, cfg_theta: float,
                           q_offset=q_offset, softcap=softcap,
                           block_k=block_k, kv_valid_len=kv_valid_len)
     H, D, d = p["wo"].shape
-    out = o.reshape(x.shape[0], x.shape[1], H * D) @ p["wo"].reshape(H * D, d)
+    out = o.reshape(x.shape[0], x.shape[1], H * D) \
+        @ cast(p["wo"], x.dtype).reshape(H * D, d)
     if return_kv:
         return out, (k, v)
     return out
@@ -149,17 +163,19 @@ def attention_block(p: Params, x: torch.Tensor, *, cfg_theta: float,
 # ---------------------------------------------------------------------------
 
 def apply_mlp(p: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
+    def w(name):
+        return cast(p[name], x.dtype)
     if activation == "swiglu":
-        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+        h = F.silu(x @ w("w_gate")) * (x @ w("w_up"))
     else:
-        u = x @ p["w_up"]
+        u = x @ w("w_up")
         if activation == "gelu":
             h = F.gelu(u, approximate="tanh")
         elif activation == "relu2":
             h = torch.square(F.relu(u))
         else:
             raise ValueError(activation)
-    return h @ p["w_down"]
+    return h @ w("w_down")
 
 
 # ---------------------------------------------------------------------------
@@ -290,7 +306,7 @@ def gather_last_positions(x: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def embed_tokens(p: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return p["wte"][tokens].to(dtype)
+    return cast(p["wte"][tokens], dtype)
 
 
 _VOCAB_PAD = 512
@@ -299,13 +315,37 @@ _VOCAB_PAD = 512
 def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
     """Project to vocab logits, padded to a multiple of 512 as the
     reference pads them (for its vocab sharding); pad columns hold -1e30.
-    The padding is appended to the logits, never to the weight."""
+    The padding is appended to the logits, never to the weight, by a
+    concatenation that gradients pass through."""
     if "head" in p:
-        logits = x @ p["head"]                       # head: (d, V)
+        logits = x @ cast(p["head"], x.dtype)        # head: (d, V)
     else:
-        logits = x @ p["wte"].t()                    # wte: (V, d)
+        logits = x @ cast(p["wte"], x.dtype).t()     # wte: (V, d)
     V = logits.shape[-1]
     Vp = -(-V // _VOCAB_PAD) * _VOCAB_PAD
     if Vp != V:
-        logits = F.pad(logits, (0, Vp - V), value=-1e30)
+        pad = logits.new_full(logits.shape[:-1] + (Vp - V,), -1e30)
+        logits = torch.cat([logits, pad], dim=-1)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def softmax_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None,
+                          z_loss: float = 0.0) -> torch.Tensor:
+    """Token-level cross entropy in f32 with optional z-loss; logits
+    (B, S, V), targets (B, S); the mean over tokens (over ``mask``ed
+    tokens when given)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = lse - gold
+    if z_loss:
+        nll = nll + z_loss * lse.square()
+    if mask is None:
+        return nll.sum() / nll.numel()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -3,8 +3,10 @@
 :func:`params_from_jax` takes the reference's parameter tree as nested
 dicts of numpy arrays (``jax.tree.map(np.asarray, params)``, done by the
 caller, so this module never imports JAX) and returns the port's tree with
-the same paths, on the model's device: matrices and embeddings cast once to
-the compute dtype, norm scales and biases kept float32.
+the same paths, on the model's device: matrices and embeddings in the
+compute dtype (serving) or in a given dtype (``dtype=torch.float32`` for
+training masters, so both packages train from the same weights), norm
+scales and biases kept float32.
 """
 from __future__ import annotations
 
@@ -16,9 +18,10 @@ import torch
 from .common import Params
 
 
-def params_from_jax(model, tree: Mapping) -> Params:
+def params_from_jax(model, tree: Mapping, dtype=None) -> Params:
     """Port ``tree`` (nested dicts of numpy arrays) onto ``model``'s device
-    and dtypes; every leaf must have the shape the model declares."""
+    and dtypes (matrices in ``dtype``, see ``model.leaf_dtype``); every
+    leaf must have the shape the model declares."""
     shapes = model.param_shapes()
 
     def convert(node, spec, path):
@@ -36,7 +39,7 @@ def params_from_jax(model, tree: Mapping) -> Params:
                 raise ValueError(f"{where}: shape {arr.shape} != "
                                  f"{tuple(spec[name])}")
             out[name] = torch.tensor(arr, device=model.device).to(
-                model.leaf_dtype(name))
+                model.leaf_dtype(name, dtype))
         return out
 
     return convert(tree, shapes, "")

@@ -4,15 +4,20 @@ package's ``models/transformer.py:DecoderLM``.
 Parameters keep the reference's stacked layout: every layer leaf has a
 leading ``n_layers`` dim, and the layer loop runs over views of it.  The
 serving entry points (``prefill``, ``decode_step``) match the reference's
-signatures and cache layouts; the caches are written in place.  MoE layers,
-local/global ring caches and the VLM prefix raise ``NotImplementedError``
-until their slices land (ROADMAP.md, queue 1).
+signatures and cache layouts; the caches are written in place.  Training
+(``forward_hidden``, ``loss``) runs each layer under
+``torch.utils.checkpoint`` when ``remat`` is on, as the reference wraps
+each layer group in ``jax.checkpoint``.  Serving holds its matrices in the
+compute dtype, training in ``cfg.param_dtype`` (``init(dtype=)``).  MoE
+layers, local/global ring caches and the VLM prefix raise
+``NotImplementedError`` until their slices land (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from . import common as cm
@@ -37,11 +42,15 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def layer_view(tree, idx: int):
-    """Layer ``idx`` of a stacked parameter tree, as views."""
+def unstack_layers(tree, n: int):
+    """The ``n`` layers of a stacked parameter tree, as views from one
+    ``unbind`` per leaf (one call per leaf, not one per layer and leaf;
+    and in training the gradients of all layers come back to a leaf in one
+    stack, not as ``n`` full-size zero-padded copies)."""
     if isinstance(tree, dict):
-        return {k: layer_view(v, idx) for k, v in tree.items()}
-    return tree[idx]
+        per = {k: unstack_layers(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 class DecoderLM:
@@ -69,6 +78,7 @@ class DecoderLM:
         self.group = 1
         self.n_groups = cfg.n_layers
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
+        self.param_dtype = getattr(torch, cfg.param_dtype)
 
     # -- params ----------------------------------------------------------
     def param_shapes(self) -> Params:
@@ -98,17 +108,20 @@ class DecoderLM:
                                     "wv": (L, d, KV, D), "wo": (L, H, D, d)},
                            "norm_mlp": norm(), "mlp": mlp}}
 
-    def leaf_dtype(self, name: str) -> torch.dtype:
+    def leaf_dtype(self, name: str, dtype=None) -> torch.dtype:
         """Norm scales and biases stay float32 (read in f32 by the norm);
-        every matrix and embedding holds the compute dtype."""
+        every matrix and embedding holds ``dtype``, by default the compute
+        dtype (serving; training passes ``self.param_dtype``)."""
         return torch.float32 if name in ("scale", "bias") \
-            else self.compute_dtype
+            else (dtype or self.compute_dtype)
 
-    def init(self, generator: Optional[torch.Generator] = None) -> Params:
+    def init(self, generator: Optional[torch.Generator] = None,
+             dtype=None) -> Params:
         """Random weights on the model's device, drawn from ``generator``
         (seed 0 when None): fan-in-scaled normals for the matrices (fan-in
         = the per-layer leaf's first dim, as the reference draws them),
-        0.02 for embeddings, ones / zeros for norm scales / biases."""
+        0.02 for embeddings, ones / zeros for norm scales / biases.
+        Matrices hold ``dtype`` (see :meth:`leaf_dtype`)."""
         if generator is None:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(0)
@@ -119,7 +132,7 @@ class DecoderLM:
                 if isinstance(val, dict):
                     out[name] = build(val, stacked or name == "layers")
                     continue
-                shape, dt = val, self.leaf_dtype(name)
+                shape, dt = val, self.leaf_dtype(name, dtype)
                 if name == "scale":
                     out[name] = torch.ones(shape, dtype=dt,
                                            device=self.device)
@@ -145,6 +158,58 @@ class DecoderLM:
     def _mlp_block(self, lp: Params, x: torch.Tensor) -> torch.Tensor:
         h = cm.apply_norm(lp["norm_mlp"], x, self.cfg.norm)
         return x + cm.apply_mlp(lp["mlp"], h, self.cfg.activation)
+
+    def _layer_fwd(self, lp: Params, x: torch.Tensor,
+                   q_offset: int) -> torch.Tensor:
+        cfg = self.cfg
+        h = cm.apply_norm(lp["norm_attn"], x, cfg.norm)
+        h = cm.attention_block(
+            lp["attn"], h, cfg_theta=cfg.rope_theta,
+            positional=cfg.positional, causal=True,
+            softcap=cfg.attn_logit_softcap, q_offset=q_offset,
+            block_k=self.block_k)
+        return self._mlp_block(lp, x + h)
+
+    def forward_hidden(self, params: Params, x: torch.Tensor,
+                       q_offset: int = 0, remat: bool = True
+                       ) -> Tuple[torch.Tensor, Dict]:
+        """Run the layer stack on embedded input x (B, S, d).  With
+        ``remat`` each layer runs under ``torch.utils.checkpoint``: only
+        its input is kept, and the backward recomputes the rest.  Returns
+        (x, aux) with aux empty (a dense model has no MoE losses)."""
+        for lp in unstack_layers(params["layers"], self.cfg.n_layers):
+            if remat:
+                x = checkpoint(self._layer_fwd, lp, x, q_offset,
+                               use_reentrant=False)
+            else:
+                x = self._layer_fwd(lp, x, q_offset)
+        return x, {}
+
+    def _embed_input(self, params: Params, tokens: torch.Tensor,
+                     patch_embeds=None) -> torch.Tensor:
+        if patch_embeds is not None:
+            raise NotImplementedError("the VLM patch prefix is not ported "
+                                      "yet (ROADMAP.md queue 1)")
+        tokens = torch.as_tensor(tokens, device=self.device)
+        return cm.embed_tokens(params["embed"], tokens, self.compute_dtype)
+
+    # -- training --------------------------------------------------------
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor],
+             rng=None, remat: bool = True):
+        """Mean next-token cross entropy with z-loss 1e-4 over ``batch``
+        ("tokens", "targets", optional "mask"), as the reference's
+        ``DecoderLM.loss``.  ``rng`` is accepted for its signature (a dense
+        model draws nothing).  Returns (loss, metrics)."""
+        x = self._embed_input(params, batch["tokens"],
+                              batch.get("patch_embeds"))
+        x, _ = self.forward_hidden(params, x, remat=remat)
+        logits = self.logits(params, x)
+        targets = torch.as_tensor(batch["targets"], device=self.device)
+        mask = batch.get("mask")
+        if mask is not None:
+            mask = torch.as_tensor(mask, device=self.device)
+        loss = cm.softmax_cross_entropy(logits, targets, mask, z_loss=1e-4)
+        return loss, {"ce_loss": loss, "loss": loss}
 
     # -- serving ---------------------------------------------------------
     def _cache_struct(self, B: int, max_seq: int) -> Dict[str, LeafSpec]:
@@ -180,8 +245,8 @@ class DecoderLM:
         cache = self.init_cache(B, max_seq)
         valid_len = None if prompt_lens is None else \
             torch.as_tensor(prompt_lens, device=self.device).to(torch.int32)
-        for layer in range(cfg.n_layers):
-            lp = layer_view(params["layers"], layer)
+        layers = unstack_layers(params["layers"], cfg.n_layers)
+        for layer, lp in enumerate(layers):
             h = cm.apply_norm(lp["norm_attn"], x, cfg.norm)
             h, (k, v) = cm.attention_block(
                 lp["attn"], h, cfg_theta=cfg.rope_theta,
@@ -223,8 +288,8 @@ class DecoderLM:
                             self.compute_dtype)
         paged = block_tables is not None
         arange = torch.arange(B, device=tokens.device)
-        for layer in range(cfg.n_layers):
-            lp = layer_view(params["layers"], layer)
+        layers = unstack_layers(params["layers"], cfg.n_layers)
+        for layer, lp in enumerate(layers):
             kc, vc = cache["k"][layer], cache["v"][layer]
             ks = cache["k_scale"][layer] if "k_scale" in cache else None
             vs = cache["v_scale"][layer] if "v_scale" in cache else None
@@ -257,6 +322,7 @@ class DecoderLM:
                 vc[arange, slot] = torch.where(keep, v[:, 0], vc[arange, slot])
                 o = cm.decode_attention(q, kc, vc, pos=pos)
             H, D, d = lp["attn"]["wo"].shape
-            x = x + o.reshape(B, 1, H * D) @ lp["attn"]["wo"].reshape(H * D, d)
+            x = x + o.reshape(B, 1, H * D) \
+                @ cm.cast(lp["attn"]["wo"], x.dtype).reshape(H * D, d)
             x = self._mlp_block(lp, x)
         return self.logits(params, x)[:, 0], cache

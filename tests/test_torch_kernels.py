@@ -15,7 +15,8 @@ from repro.kernels.flash_attention import paged_attention_ref as jax_paged
 from repro.kernels.rmsnorm import rmsnorm_ref as jax_rmsnorm
 from repro.models import common as jcm
 from repro_torch import kernels
-from repro_torch.kernels.flash_attention import (flash_prefill,
+from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                 flash_prefill,
                                                  paged_flash_decode)
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.models import common as tcm
@@ -77,10 +78,9 @@ def test_prefill_attention_matches_chunked_attention(G, D, dtype):
 
 @pytest.mark.parametrize("window,softcap", [(7, 0.0), (0, 2.5), (9, 1.5)])
 def test_prefill_attention_window_softcap(window, softcap):
-    """Window and softcap masks.  Only query rows inside each row's valid
-    length are compared: a padded query row whose window holds no valid
-    key is fully masked, where the reference averages the masked values
-    and the port returns 0; both are garbage no valid row reads."""
+    """Window and softcap masks, every query row compared: a padded query
+    row whose window holds no valid key averages the values its window
+    admits, as the reference does."""
     rng = np.random.default_rng(7)
     B, S, H, KV, D = 2, 33, 4, 2, 16
     q = rng.normal(size=(B, S, H, D)).astype(np.float32)
@@ -94,8 +94,7 @@ def test_prefill_attention_window_softcap(window, softcap):
     got = np32(flash_prefill(torch.tensor(q), torch.tensor(k),
                              torch.tensor(v), torch.tensor(vl),
                              window=window, softcap=softcap, block_k=16))
-    for b in range(B):
-        np.testing.assert_allclose(got[b, :vl[b]], ref[b, :vl[b]], **F32_TOL)
+    np.testing.assert_allclose(got, ref, **F32_TOL)
 
 
 def test_prefill_attention_without_valid_len_is_plain_causal():
@@ -183,10 +182,11 @@ def test_cpu_tensors_take_the_plain_versions():
     q, kq, vq, tables, _, _ = _paged_operands("f32")
     paged_flash_decode(torch.tensor(q), torch.tensor(kq), torch.tensor(vq),
                        torch.tensor(tables), torch.tensor([1, 2, 3]))
-    flash_prefill(torch.randn(1, 8, 2, 16), torch.randn(1, 8, 2, 16),
-                  torch.randn(1, 8, 2, 16))
+    q = torch.randn(1, 8, 2, 16)
+    o, lse = flash_prefill(q, q, q, return_lse=True)
+    flash_attention_bwd(q, q, q, o, o, lse)
     assert kernels.launch_counts() == {"rmsnorm": 0, "flash_prefill": 0,
-                                       "paged_decode": 0}
+                                       "flash_bwd": 0, "paged_decode": 0}
 
 
 def test_non_cpu_tensors_never_take_the_plain_versions():
@@ -232,4 +232,4 @@ def test_kernels_refuse_what_they_are_not_built_for(case):
                                _meta(1, 2, dtype=torch.int32),
                                _meta(1, dtype=torch.int32))
     assert kernels.launch_counts() == {"rmsnorm": 0, "flash_prefill": 0,
-                                       "paged_decode": 0}
+                                       "flash_bwd": 0, "paged_decode": 0}
