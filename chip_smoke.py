@@ -18,6 +18,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                  S 1024, H 32, KV 8, D 64, causal): the forward with its
                  log-sum-exp and the flash backward against their plain
                  versions, timed beside SDPA's forward and backward.
+   ssd_scan    — the Mamba2 SSD scan at the serving shape (B 8, S 512, H 32,
+                 P 64, G 1, N 128, chunk 256), with G 2 over a ragged last
+                 chunk and an initial state, and with chunk 16, against its
+                 plain version; no single PyTorch call computes it, so its
+                 row has no library time.
 4. serve       — llama3.2-1b at full width (random weights from a seeded
                  generator) serves 16 requests through ``ServeEngine.generate``
                  with bf16 pages and with int8 pages, each twice in turns;
@@ -26,6 +31,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    profile     — a short bf16-page run under torch.profiler: device busy
                  time by kernel against the wall clock.
 5. consistency — prefill + paged decode steps against a longer prefill.
+   serve_ssm   — mamba2-370m at full width and depth (random weights from a
+                 seeded generator) serves the same 16 requests with a dense
+                 and with a paged ``BatchState``: identical greedy tokens,
+                 exact launch counts (SSD scan per layer and prefill call,
+                 RMSNorm twice per layer and once more per forward, no
+                 attention kernel), no NaN logit; then one prefill call timed
+                 and a short profiled run.
+   consistency_ssm — prefill of 300 positions (two chunks, the last ragged)
+                 + decode steps against one longer prefill.
 6. train       — llama3.2-1b at full width and depth trains 4 steps through
                  ``make_train_step`` (f32 masters, bf16 compute, AdamW,
                  remat, seq 1024, global batch 8 as 2 micro-batches of 4)
@@ -71,6 +85,11 @@ BWD_TOL = 2e-2         # dq, dk, dv, relative to each one's largest |value|
 ATTN_TOL = 2e-2        # bf16 attention, as tests/test_kernels.py uses
 RMS_RTOL = 1e-2        # RMSNorm, relative (one bf16 ulp is 2**-8)
 CONSISTENCY_TOL = 5e-2  # prefill vs decode logits, relative to max |logit|
+# SSD scan: y relative to its largest |value| (a bf16 output, one ulp 2**-8);
+# the final state relative to its largest |value| (f32 on both sides, only
+# the order of the sums differs)
+SSD_Y_TOL, SSD_H_TOL = 2e-2, 1e-3
+SSD_CHUNK = 256
 # a timing loop cycles over copies of its inputs that together hold this many
 # bytes, 5x the H100's 50 MB L2, so each call reads device memory as the
 # bytes bound assumes
@@ -183,7 +202,16 @@ def check_rmsnorm(gen):
         2 * rows * d * 2 + d * 4, 4 * rows * d, "f32")
     log(f"[kernels] rmsnorm {row['shape']}: max_abs_err "
         f"{row['max_abs_err']:.3e} (rtol {RMS_RTOL}) ok={ok}")
-    if not ok:
+    # mamba2-370m's block and final norms run at d_model 1024, where half of
+    # the kernel's threads load nothing: checked, logged, not in the JSON
+    x = torch.randn(rows, 1024, generator=gen, device="cuda").bfloat16()
+    w1 = 1.0 + 0.1 * torch.randn(1024, generator=gen, device="cuda")
+    ref1 = rmsnorm_ref(x, w1).float()
+    err1 = (rmsnorm(x, w1).float() - ref1).abs()
+    ok1 = bool((err1 <= RMS_RTOL * ref1.abs() + 1e-6).all())
+    log(f"[kernels] rmsnorm x ({rows}, 1024) bf16: max_abs_err "
+        f"{float(err1.max()):.3e} (rtol {RMS_RTOL}) ok={ok1}")
+    if not (ok and ok1):
         raise AssertionError("rmsnorm kernel disagrees with its plain version")
     return row
 
@@ -490,23 +518,121 @@ def check_paged(gen, pool_dtype, label):
     return row
 
 
+def _ssd_case(gen, B, S, H, G, h0=False, N=128, P=64):
+    """SSD scan operands: bf16 x, B, C; f32 log decay in (-0.03, 0], the
+    served model's scale (dt * A with dt = softplus(N(0, 1) - 4.6), A = -1),
+    so the state carried across a 256-position chunk keeps a visible share
+    of y; optionally an f32 state."""
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    return (rnd(B, S, H, P).bfloat16(),
+            -0.03 * torch.rand(B, S, H, generator=gen, device="cuda"),
+            rnd(B, S, G, N).bfloat16(), rnd(B, S, G, N).bfloat16(),
+            rnd(B, H, N, P) if h0 else None)
+
+
+def _ssd_work(x, Bm, chunk, h0):
+    """(bytes, operations) the SSD scan needs on these operands: x, a, B, C
+    (and h0) read once, y and the final state written once; per chunk of n
+    positions, C Bᵀ once per group over the n (n + 1) / 2 causal pairs, the
+    dual form's product with x over those pairs per head, the chunk's state
+    update per head and, where a state enters the chunk (not the first one
+    when there is no h0), its term in y."""
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Q = min(chunk, S)
+    nbytes = 2 * B * S * H * P * 2 + 4 * B * S * H + 2 * 2 * B * S * G * N \
+        + 4 * B * H * N * P * (1 if h0 is None else 2)
+    ops = 0
+    for c, t0 in enumerate(range(0, S, Q)):
+        n = min(Q, S - t0)
+        pairs = n * (n + 1) // 2
+        carried = 1 if (c or h0 is not None) else 0
+        ops += 2 * B * (G * pairs * N + H * pairs * P
+                        + (1 + carried) * H * n * N * P)
+    return nbytes, ops
+
+
+def check_ssd(gen):
+    """The SSD scan kernel against its plain version: at the serving shape,
+    with 2 groups over a ragged last chunk and an initial state, and with
+    chunk 16.  Times the serving shape (cold L2).  Returns its JSON row."""
+    from repro_torch.kernels.ssd_scan import ssd_ref, ssd_scan
+    cases = [("serve", dict(B=SERVE_SLOTS, S=512, H=32, G=1), SSD_CHUNK),
+             ("groups", dict(B=2, S=300, H=32, G=2, h0=True), SSD_CHUNK),
+             ("chunk16", dict(B=2, S=200, H=32, G=1), 16)]
+    row = None
+    for label, shape, chunk in cases:
+        x, a, Bm, Cm, h0 = _ssd_case(gen, **shape)
+        y, hf = ssd_scan(x, a, Bm, Cm, chunk, h0=h0)
+        yr, hr = ssd_ref(x, a, Bm, Cm, chunk, h0=h0)
+        torch.cuda.synchronize()
+        ey = float((y.float() - yr.float()).abs().max())
+        sy = float(yr.float().abs().max())
+        eh = float((hf - hr).abs().max())
+        sh = float(hr.abs().max())
+        ok = ey <= SSD_Y_TOL * sy and eh <= SSD_H_TOL * sh \
+            and bool(torch.isfinite(y).all()) and bool(torch.isfinite(hf).all())
+        log(f"[kernels] ssd_scan {label} {shape} chunk {chunk}: y max_abs_err "
+            f"{ey:.3e} of max |y| {sy:.3e} (tol {SSD_Y_TOL} relative), state "
+            f"max_abs_err {eh:.3e} of max |h| {sh:.3e} (tol {SSD_H_TOL} "
+            f"relative) ok={ok}")
+        if not ok:
+            raise AssertionError(f"ssd_scan kernel disagrees with its plain "
+                                 f"version ({label})")
+        if label != "serve":
+            continue
+        nbytes, ops = _ssd_work(x, Bm, chunk, h0)
+        n = n_copies(nbytes)
+        copies = [(x, a, Bm, Cm)] + [_ssd_case(gen, **shape)[:4]
+                                     for _ in range(n - 1)]
+        row = {"name": "ssd_scan", "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+               "replaces": "src/repro/kernels/ssd_scan/kernel.py:82",
+               "shape": f"x ({shape['B']}, {shape['S']}, {shape['H']}, 64) "
+                        f"bf16, B/C G {shape['G']} N 128, chunk {chunk}",
+               "timing": f"cold L2: cycles over {n} input copies",
+               "max_abs_err": max(ey, eh),
+               "tol": f"y {SSD_Y_TOL} of max |y|, state {SSD_H_TOL} of "
+                      f"max |h|",
+               "ms": time_ms(cycled(lambda *c: ssd_scan(*c, chunk), copies),
+                             iters=2 * n),
+               "plain_ms": time_ms(cycled(lambda *c: ssd_ref(*c, chunk),
+                                          copies), iters=3, warmup=1),
+               "library_ms": None,
+               "library_note": "no single PyTorch call computes the SSD scan"}
+        row["bound_ms"], row["bound_by"] = bound(nbytes, ops, "bf16")
+        log(f"[kernels] ssd_scan serve: kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, library none, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}; {nbytes / 1e6:.1f} "
+            f"MB, {ops / 1e9:.2f} GFLOP)")
+        del copies
+    return row
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     rows = [check_rmsnorm(gen), check_prefill(gen),
             check_paged(gen, torch.bfloat16, "bf16"),
-            check_paged(gen, torch.int8, "int8"), *check_flash_bwd(gen)]
+            check_paged(gen, torch.int8, "int8"), *check_flash_bwd(gen),
+            check_ssd(gen)]
     # pools the serving path does not use: checked, logged, not in the JSON
     for dtype, label in ((torch.float8_e4m3fn, "fp8"), (torch.float32, "f32")):
         r = check_paged(gen, dtype, label)
         log(f"[kernels] {r['name']} (not on the serving path): "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
+            f"{_ms(r['library_ms'])}, bound {r['bound_ms']:.4f} ms")
     for r in rows:
         log(f"[kernels] {r['name']}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"{r['plain_ms']:.4f} ms, library {_ms(r['library_ms'])}, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return rows
+
+
+def _ms(t) -> str:
+    """A time for a log line; None where no library call exists."""
+    return "none" if t is None else f"{t:.4f} ms"
 
 
 # ---------------------------------------------------------------------------
@@ -593,7 +719,7 @@ def phase_serve(cfg, model, params):
         steps, calls = eng.n_decode_steps, eng.n_prefill_calls
         want = {"rmsnorm": 33 * (steps + calls),
                 "flash_prefill": 16 * calls, "flash_bwd": 0,
-                "paged_decode": 16 * steps}
+                "paged_decode": 16 * steps, "ssd_scan": 0}
         tokens = sum(len(r.generated) for r in reqs)
         log(f"[serve] {label} pages: {tokens} tokens in {wall:.3f} s = "
             f"{tokens / wall:.1f} tokens/s; {calls} prefill calls, {steps} "
@@ -632,13 +758,15 @@ def log_top(tag, rows, busy_ms, top=10):
             f"  x{count:<6d} {key[:90]}")
 
 
-def phase_profile(cfg, model, params, top: int = 10):
-    """Where the time goes in a short bf16-page serve run: its wall time
-    unprofiled, then its device kernels under ``torch.profiler``."""
+def phase_profile(cfg, model, params, top: int = 10, tag: str = "profile",
+                  paged: bool = True):
+    """Where the time goes in a short serve run (bf16 pages, or the dense
+    cache with ``paged=False``): its wall time unprofiled, then its device
+    kernels under ``torch.profiler``."""
     from repro_torch.serve import Request, ServeEngine
     rng = np.random.default_rng(1)
     eng = ServeEngine(model, params, batch_slots=SERVE_SLOTS,
-                      max_seq=SERVE_MAX_SEQ, paged=True, page_size=SERVE_PAGE)
+                      max_seq=SERVE_MAX_SEQ, paged=paged, page_size=SERVE_PAGE)
     prompts = [rng.integers(0, cfg.vocab_size, 128).astype(np.int32)
                for _ in range(SERVE_SLOTS)]
 
@@ -655,19 +783,20 @@ def phase_profile(cfg, model, params, top: int = 10):
     wall_ms = run()
     rows = profiled_kernels(run)
     if not rows:
-        log("[profile] device time: not measured (the profiler recorded no "
-            "device kernels)")
+        log(f"[{tag}] device time: not measured (the profiler recorded no "
+            f"device kernels)")
         return
     busy_ms = sum(r[0] for r in rows) / 1e3
     launches = sum(r[1] for r in rows)
     steps = eng.n_decode_steps
-    log(f"[profile] {SERVE_SLOTS} requests x 128 prompt x 32 new tokens, "
-        f"bf16 pages, 1 prefill call + {steps} decode steps: wall "
+    log(f"[{tag}] {cfg.name}: {SERVE_SLOTS} requests x 128 prompt x 32 new "
+        f"tokens, {'bf16 pages' if paged else 'dense cache'}, 1 prefill "
+        f"call + {steps} decode steps: wall "
         f"{wall_ms:.1f} ms unprofiled ({wall_ms / steps:.2f} ms per step), "
         f"device kernels {busy_ms:.1f} ms ({busy_ms / steps:.2f} ms per "
         f"step, {launches} launches = {launches / steps:.0f} per step), "
         f"device idle share {1 - busy_ms / wall_ms:.3f}")
-    log_top("profile", rows, busy_ms, top)
+    log_top(tag, rows, busy_ms, top)
 
 
 # ---------------------------------------------------------------------------
@@ -728,6 +857,153 @@ def phase_consistency(model, params, steps: int = 4):
 
 
 # ---------------------------------------------------------------------------
+# 5b. serve mamba2-370m at full width, and its prefill / decode consistency
+# ---------------------------------------------------------------------------
+
+def build_mamba_model():
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("mamba2-370m")
+    model = build_model(cfg, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    s = cfg.ssm
+    log(f"[serve_ssm] {cfg.name}: L={cfg.n_layers} d={cfg.d_model} "
+        f"d_inner={model.d_inner} heads={model.nh}x{s.head_dim} "
+        f"state={s.state_dim} groups={s.n_groups} conv={s.conv_width} "
+        f"chunk={s.chunk_size} V={cfg.vocab_size} {cfg.compute_dtype}; "
+        f"{n / 1e9:.3f}B params drawn in {time.perf_counter() - t0:.1f} s")
+    return cfg, model, params
+
+
+def phase_serve_ssm(cfg, model, params):
+    """The llama serve phase's 16 requests through mamba2-370m, with the
+    dense ``BatchState`` and with ``paged=True`` (an SSM pools nothing; the
+    block tables only account): the same greedy tokens, exact launch
+    counts, no NaN logit.  Then one bucket-512 prefill call of 8 rows,
+    timed, and a short profiled run.  Returns the dense run's launches."""
+    from repro_torch import kernels
+    from repro_torch.serve import Request, ServeEngine
+    rng = np.random.default_rng(0)
+    plens = rng.integers(16, 513, SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in plens]
+    log(f"[serve_ssm] {SERVE_REQUESTS} requests, prompt lengths "
+        f"{sorted(int(n) for n in plens)}, {SERVE_NEW_TOKENS} new tokens each")
+    L = cfg.n_layers
+    counts, streams = {}, {}
+    for label in ("dense", "paged"):
+        watch = NanWatch(model)
+        eng = ServeEngine(watch, params, batch_slots=SERVE_SLOTS,
+                          max_seq=SERVE_MAX_SEQ, paged=label == "paged",
+                          page_size=SERVE_PAGE)
+        eng.generate([Request(uid=-1, prompt=prompts[0][:16],
+                              max_new_tokens=4)])           # warm-up
+        eng.reset()
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=SERVE_NEW_TOKENS)
+                for i, p in enumerate(prompts)]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        eng.generate(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = kernels.launch_counts()
+        steps, calls = eng.n_decode_steps, eng.n_prefill_calls
+        # per forward: one RMSNorm before each block, one gate norm inside
+        # it, one final norm; one SSD scan per block and prefill call
+        want = {"rmsnorm": (2 * L + 1) * (steps + calls), "flash_prefill": 0,
+                "flash_bwd": 0, "paged_decode": 0, "ssd_scan": L * calls}
+        tokens = sum(len(r.generated) for r in reqs)
+        log(f"[serve_ssm] {label}: {tokens} tokens in {wall:.3f} s = "
+            f"{tokens / wall:.1f} tokens/s; {calls} prefill calls, {steps} "
+            f"decode steps ({1e3 * wall / steps:.2f} ms of wall per step, "
+            f"prefill included); launches {got} (expected {want})")
+        if got != want:
+            raise AssertionError(f"{label}: launch counts {got} != {want}")
+        if not all(r.done and len(r.generated) == SERVE_NEW_TOKENS
+                   for r in reqs):
+            raise AssertionError(f"{label}: not every request finished")
+        if bool(watch.nan):
+            raise AssertionError(f"{label}: NaN in the logits")
+        counts[label] = got
+        streams[label] = [r.generated for r in reqs]
+        del eng, watch
+        torch.cuda.empty_cache()
+    if streams["dense"] != streams["paged"]:
+        raise AssertionError("dense and paged runs gave different tokens")
+    log("[serve_ssm] dense and paged runs gave identical greedy tokens")
+
+    # one prefill call of the largest bucket: 8 rows of 512, ragged lengths
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (SERVE_SLOTS, 512)),
+                        dtype=torch.int32, device="cuda")
+    lens = torch.tensor(np.linspace(16, 512, SERVE_SLOTS).astype(np.int32),
+                        device="cuda")
+    model.prefill(params, toks, prompt_lens=lens)              # warm-up
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = model.prefill(params, toks, prompt_lens=lens)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f"[serve_ssm] prefill of {SERVE_SLOTS} rows x 512 (lengths "
+        f"{lens.tolist()}): {', '.join(f'{t:.2f}' for t in times)} ms; "
+        f"logits finite {bool(torch.isfinite(logits[:, :cfg.vocab_size]).all())}")
+    phase_profile(cfg, model, params, tag="profile_ssm", paged=False)
+    return counts["dense"]
+
+
+def phase_consistency_ssm(model, params, steps: int = 4):
+    """Prefill 300 positions (chunks of 256 and a ragged 44; rows of 300
+    and 137 valid positions), then ``steps`` decode steps fed the greedy
+    tokens, against the last-position logits of one prefill of the prompt
+    and those tokens: the kernel's final state and the conv tail carry the
+    decode."""
+    rng = np.random.default_rng(5)
+    plens = np.array([300, 137], np.int32)
+    B, S0 = len(plens), int(plens.max())
+    dev = model.device
+    prompts = np.zeros((B, S0 + steps), np.int32)
+    for b, n in enumerate(plens):
+        prompts[b, :n] = rng.integers(0, model.cfg.vocab_size, n)
+    logits, cache = model.prefill(params, torch.tensor(prompts[:, :S0],
+                                                       device=dev),
+                                  prompt_lens=torch.tensor(plens, device=dev))
+    tokens = torch.argmax(logits, -1).to(torch.int32)
+    pos = torch.tensor(plens, device=dev)
+    V = model.cfg.vocab_size
+    worst = 0.0
+    for i in range(steps):
+        for b in range(B):
+            prompts[b, plens[b] + i] = int(tokens[b])
+        logits, cache = model.decode_step(params, cache, tokens, pos)
+        ref, _ = model.prefill(params,
+                               torch.tensor(prompts[:, :S0 + i + 1],
+                                            device=dev),
+                               prompt_lens=torch.tensor(plens + i + 1,
+                                                        device=dev))
+        gap = float((logits[:, :V].float() - ref[:, :V].float()).abs().max())
+        scale = float(ref[:, :V].float().abs().max())
+        worst = max(worst, gap / scale)
+        log(f"[consistency_ssm] step {i}: max |decode - prefill| logits "
+            f"{gap:.4f} (max |logit| {scale:.3f}, relative {gap / scale:.4f});"
+            f" greedy equal {torch.equal(logits.argmax(-1), ref.argmax(-1))}")
+        tokens = torch.argmax(logits, -1).to(torch.int32)
+        pos = pos + 1
+    if not worst <= CONSISTENCY_TOL:
+        raise AssertionError(f"prefill/decode logits differ by {worst:.4f} of "
+                             f"max |logit| > {CONSISTENCY_TOL}")
+    log(f"[consistency_ssm] ok: worst relative gap {worst:.4f} <= "
+        f"{CONSISTENCY_TOL}")
+    return worst
+
+
+# ---------------------------------------------------------------------------
 # 6. train at full width, 7. Trainer restart at a small width
 # ---------------------------------------------------------------------------
 
@@ -780,7 +1056,8 @@ def phase_train():
     # forwards + 16 recomputed), x 16 attention backwards
     per_step = {"rmsnorm": TRAIN_ACCUM * (33 + 32),
                 "flash_prefill": TRAIN_ACCUM * (16 + 16),
-                "flash_bwd": TRAIN_ACCUM * 16, "paged_decode": 0}
+                "flash_bwd": TRAIN_ACCUM * 16, "paged_decode": 0,
+                "ssd_scan": 0}
     tokens = TRAIN_BATCH * TRAIN_SEQ
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -884,6 +1161,11 @@ def main() -> int:
     phase_consistency(model, params)
     del model, params
     torch.cuda.empty_cache()
+    cfg, model, params = build_mamba_model()
+    serve_ssm = phase_serve_ssm(cfg, model, params)
+    phase_consistency_ssm(model, params)
+    del model, params
+    torch.cuda.empty_cache()
     train = phase_train()
     phase_trainer()
     # each kernel's launches on the path it serves: paged decode's in one
@@ -896,6 +1178,9 @@ def main() -> int:
         if name == "paged_decode":
             row["launches"] = serve[tag][name]
             row["launches_of"] = f"one serve run, {tag} pages"
+        elif name == "ssd_scan":
+            row["launches"] = serve_ssm[name]
+            row["launches_of"] = "one mamba2-370m serve run, dense cache"
         elif name == "flash_prefill":
             row["launches"] = serve["bf16"][name]
             row["launches_of"] = "one serve run, bf16 pages"

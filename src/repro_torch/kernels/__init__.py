@@ -17,17 +17,22 @@ its launches), and the CUDA source under ``csrc/`` built by ``_build.py``.
 - ``flash_attention.paged``      paged decode attention over bf16 / f32 /
                                  int8 / fp8 pools (replaces
                                  ``paged_flash_decode``)
+- ``ssd_scan``                   Mamba2 SSD chunked scan with an optional
+                                 initial state (replaces ``ssd_scan``);
+                                 serving only
 """
-from . import flash_attention, rmsnorm
+from . import flash_attention, rmsnorm, ssd_scan
 
-__all__ = ["flash_attention", "rmsnorm", "launch_counts", "reset_launch_counts"]
+__all__ = ["flash_attention", "rmsnorm", "ssd_scan", "launch_counts",
+           "reset_launch_counts"]
 
 
 def _wrappers():
     return {"rmsnorm": rmsnorm.rmsnorm,
             "flash_prefill": flash_attention.flash_prefill,
             "flash_bwd": flash_attention.flash_attention_bwd,
-            "paged_decode": flash_attention.paged_flash_decode}
+            "paged_decode": flash_attention.paged_flash_decode,
+            "ssd_scan": ssd_scan.ssd_scan}
 
 
 def launch_counts():

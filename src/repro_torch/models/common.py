@@ -301,6 +301,23 @@ def gather_last_positions(x: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     return x[torch.arange(x.shape[0], device=x.device), idx][:, None]
 
 
+def gather_tail_window(x: torch.Tensor, lens: torch.Tensor,
+                       W: int) -> torch.Tensor:
+    """Last ``W`` valid positions per row, zero-filled left of position 0.
+
+    x: (B, S, ...); lens: (B,).  Returns (B, W, ...) holding positions
+    ``lens - W .. lens - 1``: the conv-window tail of a right-padded batched
+    prefill, where ``x[:, -W:]`` would capture padding instead.
+    """
+    pos = lens.long()[:, None] - W + torch.arange(W, device=x.device)[None]
+    idx = torch.clamp(pos, 0, x.shape[1] - 1)
+    rows = torch.arange(x.shape[0], device=x.device)[:, None]
+    gathered = x[rows, idx]                                   # (B, W, ...)
+    keep = (pos >= 0).reshape(pos.shape + (1,) * (x.dim() - 2))
+    return torch.where(keep, gathered, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
 # ---------------------------------------------------------------------------
 # Embedding / unembedding
 # ---------------------------------------------------------------------------

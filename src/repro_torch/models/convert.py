@@ -5,8 +5,9 @@ dicts of numpy arrays (``jax.tree.map(np.asarray, params)``, done by the
 caller, so this module never imports JAX) and returns the port's tree with
 the same paths, on the model's device: matrices and embeddings in the
 compute dtype (serving) or in a given dtype (``dtype=torch.float32`` for
-training masters, so both packages train from the same weights), norm
-scales and biases kept float32.
+training masters, so both packages train from the same weights), and the
+leaves the model's ``leaf_dtype`` keeps in float32 (norm scales and
+biases; for ``MambaLM`` also ``dt_bias``, ``A_log`` and ``D``) in float32.
 """
 from __future__ import annotations
 

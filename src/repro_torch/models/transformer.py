@@ -31,6 +31,45 @@ class LeafSpec(NamedTuple):
     dtype: torch.dtype
 
 
+def init_scale(name: str, per_layer_shape) -> float:
+    """Standard deviation of a random leaf: 0.02 for embeddings, else
+    1/sqrt(fan-in), the fan-in being the per-layer leaf's first dim (as the
+    reference draws them)."""
+    return 0.02 if name in ("wte", "head") else per_layer_shape[0] ** -0.5
+
+
+def init_params(shapes, leaf_dtype, device, generator=None, *,
+                zeros=(), ones=(), scale=init_scale) -> Params:
+    """Random weights for a tree of (stacked) leaf shapes, drawn in tree
+    order from ``generator`` (seed 0 when None): leaves named in ``zeros``
+    or ``ones`` are filled; every other leaf is a normal scaled by
+    ``scale(name, per_layer_shape)``, drawn in float32 and stored in
+    ``leaf_dtype(name)``.  Leaves under ``layers`` carry a leading
+    ``n_layers`` dim, which the fan-in skips."""
+    if generator is None:
+        generator = torch.Generator(device=device)
+        generator.manual_seed(0)
+
+    def build(tree, stacked: bool):
+        out = {}
+        for name, val in tree.items():
+            if isinstance(val, dict):
+                out[name] = build(val, stacked or name == "layers")
+                continue
+            shape, dt = val, leaf_dtype(name)
+            if name in zeros or name in ones:
+                fill = torch.zeros if name in zeros else torch.ones
+                out[name] = fill(shape, dtype=dt, device=device)
+                continue
+            w = torch.randn(shape, generator=generator, device=device,
+                            dtype=torch.float32)
+            out[name] = w.mul_(scale(name, shape[1:] if stacked else shape)
+                               ).to(dt)
+        return out
+
+    return build(shapes, False)
+
+
 def resolve_device(device) -> torch.device:
     """The entry points' device; a CUDA device must exist (no silent
     fallback to the CPU)."""
@@ -122,33 +161,10 @@ class DecoderLM:
         = the per-layer leaf's first dim, as the reference draws them),
         0.02 for embeddings, ones / zeros for norm scales / biases.
         Matrices hold ``dtype`` (see :meth:`leaf_dtype`)."""
-        if generator is None:
-            generator = torch.Generator(device=self.device)
-            generator.manual_seed(0)
-
-        def build(tree, stacked: bool):
-            out = {}
-            for name, val in tree.items():
-                if isinstance(val, dict):
-                    out[name] = build(val, stacked or name == "layers")
-                    continue
-                shape, dt = val, self.leaf_dtype(name, dtype)
-                if name == "scale":
-                    out[name] = torch.ones(shape, dtype=dt,
-                                           device=self.device)
-                elif name == "bias":
-                    out[name] = torch.zeros(shape, dtype=dt,
-                                            device=self.device)
-                else:
-                    per = shape[1:] if stacked else shape
-                    scale = 0.02 if name in ("wte", "head") \
-                        else per[0] ** -0.5
-                    w = torch.randn(shape, generator=generator,
-                                    device=self.device, dtype=torch.float32)
-                    out[name] = w.mul_(scale).to(dt)
-            return out
-
-        return build(self.param_shapes(), False)
+        return init_params(self.param_shapes(),
+                           lambda name: self.leaf_dtype(name, dtype),
+                           self.device, generator,
+                           zeros=("bias",), ones=("scale",))
 
     # -- forward ---------------------------------------------------------
     def logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Device-side state of the continuous-batching slot pool (dense caches).
 
-``BatchState`` owns the pooled KV cache (one batch row per slot; the
-model's ``cache_slot_axes()`` names where the batch dim sits in each leaf)
+``BatchState`` owns the pooled cache (one batch row per slot; the model's
+``cache_slot_axes()`` names where the batch dim sits in each leaf: attention
+KV for the dense decoder, SSM state and conv window for the SSM family)
 plus three (n_slots,) int32 device vectors that ride the decode loop:
 
 * ``tokens``    — last sampled token per slot,
@@ -34,7 +35,7 @@ class BatchState:
         self.max_seq = max_seq
         self.cache = model.init_cache(n_slots, max_seq)
         # the unbounded (max_seq-proportional) attention-KV leaves — the
-        # ones a paged layout would pool
+        # ones a paged layout would pool (none for a recurrent state)
         self._kv_keys = set(model.paged_cache_keys())
         dev = model.device
         self.tokens = torch.zeros(n_slots, dtype=torch.int32, device=dev)

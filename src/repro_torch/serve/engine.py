@@ -52,7 +52,8 @@ class Request:
     done: bool = False
     # engine decode-step counter at completion (latency-in-steps metric)
     finished_step: Optional[int] = None
-    # family-specific prefill inputs (not taken by the dense family)
+    # family-specific prefill inputs (vision patches, audio frames); the
+    # ported families (dense decoder, SSM) take none
     extras: Dict[str, Any] = field(default_factory=dict)
 
 

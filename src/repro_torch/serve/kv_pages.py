@@ -10,7 +10,10 @@ fixed-size pages plus a per-slot *block table* replaces the dense per-slot
 * :class:`PagedBatchState` — the engine-facing device state: the model's
   "k"/"v" leaves re-laid-out as ``(L, n_pages, page_size, KV, D)`` pools
   (int8 / fp8 with ``(L, n_pages, KV)`` float32 scale siblings when
-  quantized) and the device mirror of the block tables.
+  quantized) and the device mirror of the block tables.  Leaves the model
+  does not list in ``paged_cache_keys()`` stay dense slot rows: an SSM's
+  state and conv window pool nothing, and its block tables serve the page
+  accounting only, as in the reference.
 * :func:`write_prefill_pages` — scatter a freshly prefilled sub-cache into
   the pages of each admitted slot's table row, in place.
 

@@ -19,6 +19,7 @@ from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                  flash_prefill,
                                                  paged_flash_decode)
 from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models import common as tcm
 from torch_parity import BF16_TOL, F32_TOL, np32
 
@@ -185,8 +186,10 @@ def test_cpu_tensors_take_the_plain_versions():
     q = torch.randn(1, 8, 2, 16)
     o, lse = flash_prefill(q, q, q, return_lse=True)
     flash_attention_bwd(q, q, q, o, o, lse)
+    ssd_scan(q, torch.zeros(1, 8, 2), q[:, :, :1], q[:, :, :1], 4)
     assert kernels.launch_counts() == {"rmsnorm": 0, "flash_prefill": 0,
-                                       "flash_bwd": 0, "paged_decode": 0}
+                                       "flash_bwd": 0, "paged_decode": 0,
+                                       "ssd_scan": 0}
 
 
 def test_non_cpu_tensors_never_take_the_plain_versions():
@@ -232,4 +235,5 @@ def test_kernels_refuse_what_they_are_not_built_for(case):
                                _meta(1, 2, dtype=torch.int32),
                                _meta(1, dtype=torch.int32))
     assert kernels.launch_counts() == {"rmsnorm": 0, "flash_prefill": 0,
-                                       "flash_bwd": 0, "paged_decode": 0}
+                                       "flash_bwd": 0, "paged_decode": 0,
+                                       "ssd_scan": 0}

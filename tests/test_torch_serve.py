@@ -12,7 +12,7 @@ from repro_torch.obs import Tracer as TorchTracer
 from repro_torch.serve import Request as TorchRequest
 from repro_torch.serve import ServeEngine as TorchEngine
 from repro_torch.serve.kv_pages import PagePool as TorchPool
-from torch_parity import twin
+from torch_parity import RecordingExecutor, twin
 
 # ---------------------------------------------------------------------------
 # PagePool: identical state after every op of a random sequence
@@ -65,28 +65,6 @@ def test_page_pool_random_ops_identical(seed):
 # ---------------------------------------------------------------------------
 # engine runs: dense, paged, int8 paged; with and without EOS
 # ---------------------------------------------------------------------------
-
-class RecordingExecutor:
-    """The engine's five-method executor hook, recording every call."""
-
-    def __init__(self):
-        self.calls = []
-
-    def on_prefill(self):
-        self.calls.append(("on_prefill",))
-
-    def on_decode(self, n_active):
-        self.calls.append(("on_decode", int(n_active)))
-
-    def finish(self):
-        self.calls.append(("finish",))
-
-    def reset(self):
-        self.calls.append(("reset",))
-
-    def summary(self):
-        return {"n_calls": len(self.calls)}
-
 
 # token 174 ends two of the smoke requests early, one in mid-chunk
 CONFIGS = {

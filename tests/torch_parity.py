@@ -19,6 +19,7 @@ F32_TOL = dict(rtol=2e-5, atol=2e-5)    # kernel-level functions in f32
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)   # tests/test_kernels.py bf16
 LOGITS_TOL = dict(rtol=1e-4, atol=1e-4)  # whole-model logits in f32
 QUANT_TOL = 5e-2                        # int8 / fp8 pages (test_quantized_kv)
+SSD_TOL = dict(rtol=3e-4, atol=3e-4)    # SSD scan (tests/test_kernels.py)
 
 _TWINS = {}
 
@@ -38,3 +39,25 @@ def np32(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().float().cpu().numpy()
     return np.asarray(x, dtype=np.float32)
+
+
+class RecordingExecutor:
+    """The engine's five-method executor hook, recording every call."""
+
+    def __init__(self):
+        self.calls = []
+
+    def on_prefill(self):
+        self.calls.append(("on_prefill",))
+
+    def on_decode(self, n_active):
+        self.calls.append(("on_decode", int(n_active)))
+
+    def finish(self):
+        self.calls.append(("finish",))
+
+    def reset(self):
+        self.calls.append(("reset",))
+
+    def summary(self):
+        return {"n_calls": len(self.calls)}
