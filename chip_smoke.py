@@ -6,7 +6,10 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device      — needs CUDA; prints ``nvidia-smi``'s name and power limit.
-2. build       — builds the CUDA kernels from ``src/repro_torch/kernels/csrc``.
+2. build       — builds the CUDA kernels from ``src/repro_torch/kernels/csrc``,
+                 logs ``ptxas``'s registers and spills, and counts the
+                 HMMA/HGMMA instructions in the SASS (``cuobjdump``) of each
+                 attention kernel: none there fails the run.
 3. kernels     — every kernel against its plain PyTorch version on the card,
                  in bf16, at the serving path's shapes; times the kernel, the
                  plain version and one PyTorch library call as a yardstick,
@@ -14,10 +17,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                  the kernel's bound from the bytes and operations this run's
                  inputs need (bytes over 3.35 TB/s or operations over the
                  peak rate of their type).
+   prefill     — the serving buckets 8, 32 (shorter than one 64-row tile),
+                 128 and 512 with per-row valid lengths, and a local window
+                 over padded rows with no valid key.
    flash_bwd   — the training path's kernels at its attention shape (B 4,
                  S 1024, H 32, KV 8, D 64, causal): the forward with its
                  log-sum-exp and the flash backward against their plain
-                 versions, timed beside SDPA's forward and backward.
+                 versions, timed beside SDPA's forward and backward; two
+                 backward calls bitwise equal; both again at S 200 (not a
+                 multiple of the tile) and with G 1 (H == KV).
    ssd_scan    — the Mamba2 SSD scan at the serving shape (B 8, S 512, H 32,
                  P 64, G 1, N 128, chunk 256), with G 2 over a ragged last
                  chunk and an initial state, and with chunk 16, against its
@@ -154,6 +162,33 @@ def phase_device() -> str:
     return smi
 
 
+# kernels whose products run on the tensor cores: their SASS must hold
+# HMMA (mma.sync) or HGMMA (wgmma) instructions
+TENSOR_CORE_KERNELS = ("flash_prefill_kernel", "flash_bwd_dq_kernel",
+                       "flash_bwd_dkv_kernel")
+
+
+def sass_mma_counts(path: str) -> dict:
+    """HMMA/HGMMA instructions in the SASS of each function of the built
+    library, by ``cuobjdump -sass`` (the toolkit's, beside ``nvcc``)."""
+    from repro_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        raise RuntimeError(f"cuobjdump not found beside nvcc ({tool}): "
+                           f"cannot show that the products run on the "
+                           f"tensor cores")
+    sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[fn] += 1
+    return counts
+
+
 def phase_build() -> None:
     from repro_torch.kernels import _build
     info = _build.build_info()
@@ -161,6 +196,15 @@ def phase_build() -> None:
     for line in str(info["compiler_log"]).splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             log(f"[build]   {line.strip()}")
+    counts = sass_mma_counts(info["path"])
+    for name in TENSOR_CORE_KERNELS:
+        found = {fn: n for fn, n in counts.items() if name in fn}
+        n = sum(found.values())
+        log(f"[build] {name}: {n} HMMA/HGMMA instructions in its SASS "
+            f"({len(found)} instantiation(s))")
+        if not found or n == 0:
+            raise AssertionError(f"{name}: no tensor-core instruction in the "
+                                 f"SASS of {info['path']}")
 
 
 # ---------------------------------------------------------------------------
@@ -221,7 +265,8 @@ def check_prefill(gen):
                                                      flash_prefill_ref)
     B, H, KV, D = SERVE_SLOTS, 32, 8, 64
     rows = []
-    for S in (128, 512):
+    # 8 and 32: the smallest serving buckets, shorter than one 64-row tile
+    for S in (8, 32, 128, 512):
         vl = torch.tensor(np.linspace(1, S, B).astype(np.int32),
                           device="cuda")
         vl[B // 2] = S // 3
@@ -276,6 +321,24 @@ def check_prefill(gen):
     return rows[-1]              # the longest bucket goes in the JSON
 
 
+def _check_fwd_lse(label, got, lse, ref, lse_ref):
+    """The attention output within ``ATTN_TOL`` (absolute plus relative)
+    and the log-sum-exp within ``LSE_TOL`` of the plain version's; logs
+    and returns (max_abs_err, lse max_abs_err)."""
+    err = float((got.float() - ref.float()).abs().max())
+    lse_err = float((lse - lse_ref).abs().max())
+    ok = bool(((got.float() - ref.float()).abs()
+               <= ATTN_TOL + ATTN_TOL * ref.float().abs()).all()) \
+        and lse_err <= LSE_TOL
+    log(f"[kernels] flash_prefill {label}: max_abs_err {err:.3e} (tol "
+        f"{ATTN_TOL}), lse max_abs_err {lse_err:.3e} (tol {LSE_TOL}) "
+        f"ok={ok}")
+    if not ok:
+        raise AssertionError(f"flash_prefill kernel disagrees with its plain "
+                             f"version: {label}")
+    return err, lse_err
+
+
 def check_prefill_padded_window(gen):
     """A local window over right-padded rows: row 1's padded queries at
     positions >= 40 + 16 - 1 see no valid key and take the kernel's branch
@@ -288,25 +351,54 @@ def check_prefill_padded_window(gen):
     q, k, v = (torch.randn(B, S, heads, D, generator=gen,
                            device="cuda").bfloat16()
                for heads in (H, KV, KV))
-    got, lse = flash_prefill(q, k, v, vl, window=window, return_lse=True)
-    ref, lse_ref = flash_prefill_ref(q, k, v, vl, window=window,
-                                     return_lse=True)
-    err = (got.float() - ref.float()).abs()
-    lse_err = float((lse - lse_ref).abs().max())
-    ok = bool((err <= ATTN_TOL + ATTN_TOL * ref.float().abs()).all()) \
-        and lse_err <= LSE_TOL
-    log(f"[kernels] flash_prefill window {window}, valid_len "
-        f"{vl.tolist()} (rows without a valid key): max_abs_err "
-        f"{float(err.max()):.3e} (tol {ATTN_TOL}), lse max_abs_err "
-        f"{lse_err:.3e} (tol {LSE_TOL}) ok={ok}")
-    if not ok:
-        raise AssertionError("flash_prefill kernel disagrees with its plain "
-                             "version on padded rows under a window")
+    _check_fwd_lse(f"window {window}, valid_len {vl.tolist()} (rows "
+                   f"without a valid key)",
+                   *flash_prefill(q, k, v, vl, window=window,
+                                  return_lse=True),
+                   *flash_prefill_ref(q, k, v, vl, window=window,
+                                      return_lse=True))
 
 
 def _attention_pairs(B, H, S):
     """(query, key) pairs a causal mask admits over B x H heads of S."""
     return B * H * S * (S + 1) // 2
+
+
+def _check_bwd(shape, got, ref):
+    """Each of dq, dk, dv within ``BWD_TOL`` of its largest |value|; logs
+    and returns {name: (max_abs_err, max |value|)}."""
+    errs = {}
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        scale = float(r.float().abs().max())
+        errs[name] = (float((g.float() - r.float()).abs().max()), scale)
+    ok = all(e <= BWD_TOL * sc for e, sc in errs.values())
+    log(f"[kernels] flash_bwd {shape}: " + ", ".join(
+        f"{k_} max_abs_err {e:.3e} of max |{k_}| {sc:.3e}"
+        for k_, (e, sc) in errs.items()) + f" (tol {BWD_TOL} relative) "
+        f"ok={ok}")
+    if not ok:
+        raise AssertionError(f"flash_bwd kernel disagrees with its plain "
+                             f"version at {shape}")
+    return errs
+
+
+def _check_bwd_edge(gen, B, S, H, KV, D=TRAIN_D):
+    """The causal forward with its log-sum-exp and the backward at one more
+    shape, each against its plain version (logged, not in the JSON)."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_bwd_ref,
+                                                     flash_prefill,
+                                                     flash_prefill_ref)
+    shape = f"B {B} S {S} H {H} KV {KV} D {D} causal bf16"
+    q, k, v = (torch.randn(B, S, heads, D, generator=gen,
+                           device="cuda").bfloat16()
+               for heads in (H, KV, KV))
+    do = torch.randn(B, S, H, D, generator=gen, device="cuda").bfloat16()
+    o, lse = flash_prefill(q, k, v, return_lse=True)
+    _check_fwd_lse(f"with lse, {shape}", o, lse,
+                   *flash_prefill_ref(q, k, v, return_lse=True))
+    _check_bwd(shape, flash_attention_bwd(q, k, v, o, do, lse),
+               flash_attention_bwd_ref(q, k, v, o, do, lse))
 
 
 def check_flash_bwd(gen):
@@ -335,34 +427,25 @@ def check_flash_bwd(gen):
     cases = [case() for _ in range(n)]
     q, k, v, o, do, lse = cases[0]
 
-    o_ref, lse_ref = flash_prefill_ref(q, k, v, return_lse=True)
-    err = (o.float() - o_ref.float()).abs()
-    lse_err = float((lse - lse_ref).abs().max())
-    ok = bool((err <= ATTN_TOL + ATTN_TOL * o_ref.float().abs()).all()) \
-        and lse_err <= LSE_TOL
-    log(f"[kernels] flash_prefill with lse, {shape}: max_abs_err "
-        f"{float(err.max()):.3e} (tol {ATTN_TOL}), lse max_abs_err "
-        f"{lse_err:.3e} (tol {LSE_TOL}) ok={ok}")
-    if not ok:
-        raise AssertionError("flash_prefill kernel with lse disagrees with "
-                             "its plain version")
-    del o_ref, lse_ref
+    err, lse_err = _check_fwd_lse(
+        f"with lse, {shape}", o, lse,
+        *flash_prefill_ref(q, k, v, return_lse=True))
 
     got = flash_attention_bwd(q, k, v, o, do, lse)
-    ref = flash_attention_bwd_ref(q, k, v, o, do, lse)
-    errs = {}
-    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
-        scale = float(r.float().abs().max())
-        errs[name] = (float((g.float() - r.float()).abs().max()), scale)
-    ok = all(e <= BWD_TOL * sc for e, sc in errs.values())
-    log(f"[kernels] flash_bwd {shape}: " + ", ".join(
-        f"{k_} max_abs_err {e:.3e} of max |{k_}| {sc:.3e}"
-        for k_, (e, sc) in errs.items()) + f" (tol {BWD_TOL} relative) "
-        f"ok={ok}")
-    if not ok:
-        raise AssertionError("flash_bwd kernel disagrees with its plain "
-                             "version")
-    del got, ref
+    errs = _check_bwd(shape, got, flash_attention_bwd_ref(q, k, v, o, do,
+                                                          lse))
+    # no atomics and sums in a fixed order: a second call on the same
+    # inputs gives bitwise-equal gradients
+    again = flash_attention_bwd(q, k, v, o, do, lse)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    log(f"[kernels] flash_bwd {shape}: two calls bitwise equal (dq, dk, dv): "
+        f"{same}")
+    if not same:
+        raise AssertionError("flash_bwd kernel is not deterministic")
+    del got, again
+    # the tile edges: S not a multiple of the 64-row tile, and G 1
+    for cB, cS, cH, cKV in ((2, 200, 32, 8), (2, 256, 8, 8)):
+        _check_bwd_edge(gen, cB, cS, cH, cKV)
 
     def sdpa_saved(q, k, v, o, do, lse):
         qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
@@ -378,7 +461,7 @@ def check_flash_bwd(gen):
            "replaces": "src/repro/kernels/flash_attention/kernel.py:125",
            "shape": f"q ({B}, {S}, {H}, {D}) kv {KV} heads bf16, causal, "
                     f"with lse", "timing": timing,
-           "max_abs_err": max(float(err.max()), lse_err), "tol": ATTN_TOL,
+           "max_abs_err": max(err, lse_err), "tol": ATTN_TOL,
            "ms": time_ms(cycled(lambda q, k, v, *_: flash_prefill(
                q, k, v, return_lse=True), cases), iters=4 * n),
            "plain_ms": time_ms(cycled(lambda q, k, v, *_: flash_prefill_ref(
@@ -1094,8 +1177,12 @@ def phase_train():
             "device kernels)")
     else:
         busy_ms = sum(r[0] for r in rows) / 1e3
-        ours = {"flash_bwd": "flash_bwd_", "flash_prefill":
-                "flash_prefill_kernel", "rmsnorm": "rmsnorm_kernel"}
+        ours = {"flash_bwd": "flash_bwd_",
+                "flash_bwd dK/dV": "flash_bwd_dkv_kernel",
+                "flash_bwd dQ": "flash_bwd_dq_kernel",
+                "flash_bwd delta": "flash_bwd_delta_kernel",
+                "flash_prefill": "flash_prefill_kernel",
+                "rmsnorm": "rmsnorm_kernel"}
         share = {k: sum(r[0] for r in rows if tag in r[2]) / 1e3
                  for k, tag in ours.items()}
         log(f"[train] profiled step: device kernels {busy_ms:.1f} ms "

@@ -32,13 +32,6 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// Round a float through T and back (the JAX reference rounds the softmax
-// weights to the activation dtype before the PV product).
-template <typename T>
-__device__ __forceinline__ float round_through(float x) {
-  return to_float(from_float<T>(x));
-}
-
 // 16-byte vector load of VEC = 16 / sizeof(T) elements, converted to float.
 template <typename T>
 __device__ __forceinline__ void load16(const T* src, float* dst) {

@@ -11,46 +11,61 @@
 // window masks as in the forward; keys past Sk and queries past Sq count
 // nothing.
 //
-// The scale: the TPU backward scales q in f32 (backward.py:48, :83) and so
-// does this kernel, while the forward kernel (flash_prefill.cu) scales q in
-// the input dtype, as the reference's chunked_attention does.  At head_dim
-// 64 the scale is 2^-3, which is exact in bf16, so the two agree; at head
-// dim 128 (scale 2^-3.5) they would not, and the forward's rounding would
-// have to be repeated here.
+// Rounding: the products run on the tensor cores in bf16 with f32
+// accumulation, so q * scale, P and dS are rounded to bf16 before the
+// products that take them (P and dS are computed in f32 first).  q * scale
+// is rounded as the forward (flash_prefill.cu) rounds it, so both see the
+// same scores.  At head_dim 64 the scale is 2^-3: q * scale is exact in
+// bf16, and scaling an f32 product by it is exact too, which the dK/dV
+// kernel uses (it reads the raw q tile and scales its products); at head
+// dim 128 (2^-3.5) neither holds and these kernels would need the scaled
+// tile, so they are built for 64 only.
 //
 // Bound on the H100: operations.  Per admitted (query, key) pair the
 // gradient needs 5 products of 2 * D flops (QK^T, dO V^T, dS K, P^T dO,
-// dS^T Q) against 2 * D bytes per row read once; these two kernels do 7,
-// since each recomputes QK^T and dO V^T.  The wrapper launches them only
-// for causal attention with no window and Sq == Sk, what the training path
-// gives them; the masks below are written for the general case.  Design of
-// this first version (correct and simple):
+// dS^T Q) against 2 * D bytes per row read once; these kernels do 7, since
+// the dK/dV kernel recomputes QK^T and dO V^T.  The wrapper launches them
+// only for causal attention with no window and Sq == Sk, what the training
+// path gives them; the masks below are written for the general case.
+// Design (deterministic: no atomics, every sum in a fixed order, so two
+// calls on the same inputs give bitwise-equal gradients):
 //
 // - delta: a pre-pass computes rowsum(dO * O) once per query row into an f32
 //   scratch (B, H, Sq) that both kernels read, instead of recomputing it
 //   per tile as the TPU kernels do (that would read O once per key tile).
-// - dQ: one block of 256 threads per (64-row query tile, head, batch row),
-//   looping over 64-key tiles from the window's first key up to the causal
-//   bound; Q, dO and the key tile's K and V sit in shared memory as f32,
-//   four threads per query row each own 16 key columns and 16 output
-//   columns.  The heaviest query tiles (last under the causal mask) are
-//   launched first.
-// - dK/dV: one block per (64-key tile, KV head, batch row), looping over
-//   the G query heads of its group and, for each, over the query tiles from
-//   the causal start; four threads per key row each own 16 query columns
-//   and 16 output columns.  The group's sum stays in f32 registers: no KV
-//   repeat in memory and no atomics.
+// - dQ: one block of 4 warps per (64-row query tile, head, batch row); each
+//   warp owns 16 query rows, whose scaled Q and dO fragments stay in
+//   registers.  It loops over 64-key tiles (cp.async into a 2-stage ring of
+//   swizzled shared tiles) from the window's first key up to the causal
+//   bound: S = Q K^T and dP = dO V^T on the mma, P and dS in f32 registers,
+//   then dS packed to bf16 as the A operand of dQ += dS K (K through
+//   ldmatrix.trans).  The heaviest query tiles are launched first.
+// - dK/dV: one block of 4 warps per (64-key tile, KV head, batch row); each
+//   warp owns 16 key rows, whose K and V fragments stay in registers.  It
+//   loops over the G query heads of its group and, for each, over the query
+//   tiles from the causal start (2-stage ring of Q, dO, lse and delta
+//   tiles).  The scores come out transposed, S^T = K Q^T and
+//   dP^T = V dO^T, so P^T and dS^T lie in accumulator layout and feed
+//   dV += P^T dO and dK += dS^T Q directly as bf16 A operands.  The group's
+//   sum stays in f32 registers: no KV repeat in memory and no atomics.  Key
+//   tile 0 sees the most query tiles under the causal mask and is launched
+//   first.  Load balance: at S 1024 and G 4 the first key tile runs 64
+//   iterations and the last 4, against a mean of 34; the 512 blocks of the
+//   training shape fill the card's slots (two blocks an SM at this kernel's
+//   register count) about twice, and launching the heaviest first lets the
+//   light ones fill in behind them, so the group is not split over blocks
+//   (that would need a second pass to add the halves without atomics).
 //
-// Products run on the CUDA cores in f32, as in the forward; tensor cores
-// (mma / wgmma) are later work.  Layouts are the model's, contiguous:
-// q, o, dO, dQ (B, Sq, H, D); k, v, dK, dV (B, Sk, KV, D); lse, delta
-// (B, H, Sq) f32.
-#include "common.cuh"
+// Layouts are the model's, contiguous: q, o, dO, dQ (B, Sq, H, D);
+// k, v, dK, dV (B, Sk, KV, D); lse, delta (B, H, Sq) f32.
+#include "mma.cuh"
 
-constexpr int kBwdThreads = 256;
-constexpr int kBT = 64;            // query rows (dQ) or keys (dK/dV) per tile
-constexpr int kCols = kBT / 4;     // tile columns per thread
-constexpr int kDeltaLanes = 8;     // threads per row in the delta pre-pass
+constexpr int kBwdWarps = 4;
+constexpr int kBwdThreads = 32 * kBwdWarps;
+constexpr int kBT = 16 * kBwdWarps;  // query rows (dQ) or keys (dK/dV)
+constexpr int kTileElems = kBT * kRowElems;
+constexpr int kDeltaLanes = 8;       // threads per row in the delta pre-pass
+constexpr float kLog2e = 1.4426950408889634f;
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kBwdThreads)
@@ -92,221 +107,254 @@ __device__ __forceinline__ bool admitted(int qpos, int kpos, int Sq, int Sk,
   return ok;
 }
 
-// Rows [row0, row0 + kBT) of a (S, heads, D) slice into shared memory as
-// f32 times mul, zeros past S.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(const T* base, long long row_stride,
-                                          int row0, int S, float mul,
-                                          float* dst) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int DP = D + 1;
-  for (int idx = threadIdx.x * VEC; idx < kBT * D; idx += kBwdThreads * VEC) {
-    const int row = idx / D, d = idx % D;
-    float x[VEC];
-    if (row0 + row < S) {
-      load16(base + (row0 + row) * row_stride + d, x);
-    } else {
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) x[i] = 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) dst[row * DP + d + i] = x[i] * mul;
-  }
+// Every pair of a (64-query tile at q0, 64-key tile at k0) is admitted, so
+// the tile needs no mask.
+__device__ __forceinline__ bool tile_full(int q0, int k0, int Sq, int Sk,
+                                          int causal, int window) {
+  return q0 + kBT <= Sq && k0 + kBT <= Sk &&
+         (!causal || k0 + kBT - 1 <= q0) &&
+         (window <= 0 || q0 + kBT - 1 - k0 < window);
 }
 
-template <typename T, int D>
+__device__ __forceinline__ void zero(float (&acc)[8][4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+}
+
+template <int D>
 __global__ void __launch_bounds__(kBwdThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    const __nv_bfloat16* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    int Sq, int Sk, int H, int KV, int causal, int window,
-                    float scale) {
-  constexpr int DP = D + 1;
-  constexpr int DPT = D / 4;
-  constexpr int CP = kBT + 1;
+                    const float* __restrict__ delta,
+                    __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int H,
+                    int KV, int causal, int window, float scale) {
+  static_assert(D == kRowElems, "tiles hold 64-element rows");
   // the last query tiles see the most keys under the causal mask: launch
   // them first
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBT;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
-  const int tid = threadIdx.x, r = tid / 4, c4 = tid % 4;
-  const int qpos = q0 + r;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow = warp * 16;
 
-  extern __shared__ float smem[];
-  float* q_s = smem;             // kBT x DP, q * scale
-  float* do_s = q_s + kBT * DP;  // kBT x DP
-  float* k_s = do_s + kBT * DP;  // kBT x DP
-  float* v_s = k_s + kBT * DP;   // kBT x DP
-  float* ds_s = v_s + kBT * DP;  // kBT x CP
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* do_s = q_s + kTileElems;
+  __nv_bfloat16* k_s = do_s + kTileElems;     // 2 stages
+  __nv_bfloat16* v_s = k_s + 2 * kTileElems;  // 2 stages
 
   const long long q_row = static_cast<long long>(H) * D;
   const long long k_row = static_cast<long long>(KV) * D;
   const long long q_off = static_cast<long long>(b) * Sq * q_row + h * D;
   const long long k_off = static_cast<long long>(b) * Sk * k_row + kvh * D;
-  load_tile<T, D>(q + q_off, q_row, q0, Sq, scale, q_s);
-  load_tile<T, D>(dout + q_off, q_row, q0, Sq, 1.f, do_s);
-
-  const long long stat = (static_cast<long long>(b) * H + h) * Sq + qpos;
-  const float lse_r = qpos < Sq ? lse[stat] : 0.f;
-  const float delta_r = qpos < Sq ? delta[stat] : 0.f;
   int kv_end = Sk;
   if (causal) kv_end = min(kv_end, q0 + kBT);
   const int kv_begin =
       window > 0 ? (max(0, q0 - window + 1) / kBT) * kBT : 0;
+  const int n_tiles =
+      kv_end > kv_begin ? (kv_end - kv_begin + kBT - 1) / kBT : 0;
 
-  float acc[DPT];
+  auto load_kv = [&](int tile, int stage) {
+    const int k0 = kv_begin + tile * kBT;
+    load_tile_async<kBT, kBwdThreads>(k_s + stage * kTileElems, k + k_off,
+                                      k_row, k0, Sk);
+    load_tile_async<kBT, kBwdThreads>(v_s + stage * kTileElems, v + k_off,
+                                      k_row, k0, Sk);
+  };
+  load_tile_async<kBT, kBwdThreads>(q_s, q + q_off, q_row, q0, Sq);
+  load_tile_async<kBT, kBwdThreads>(do_s, dout + q_off, q_row, q0, Sq);
+  cp_async_commit();
+  if (n_tiles > 0) load_kv(0, 0);
+  cp_async_commit();
+
+  const int qpos[2] = {q0 + wrow + g, q0 + wrow + g + 8};
+  float lse2[2], delta_r[2];  // lse in log2 units
 #pragma unroll
-  for (int j = 0; j < DPT; ++j) acc[j] = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const long long stat = (static_cast<long long>(b) * H + h) * Sq + qpos[r];
+    lse2[r] = qpos[r] < Sq ? lse[stat] * kLog2e : 0.f;
+    delta_r[r] = qpos[r] < Sq ? delta[stat] : 0.f;
+  }
+  cp_async_wait<1>();  // Q and dO have arrived
+  __syncthreads();
+  unsigned qa[4][4], da[4][4];
+  load_a_frags(qa, q_s, wrow, lane);
+  load_a_frags(da, do_s, wrow, lane);
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f =
+          __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&qa[kc][i]));
+      qa[kc][i] = pack_bf16(f.x * scale, f.y * scale);
+    }
 
-  for (int k0 = kv_begin; k0 < kv_end; k0 += kBT) {
-    __syncthreads();  // previous tile consumed (and q_s, do_s written)
-    load_tile<T, D>(k + k_off, k_row, k0, Sk, 1.f, k_s);
-    load_tile<T, D>(v + k_off, k_row, k0, Sk, 1.f, v_s);
+  float acc[8][4];
+  zero(acc);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = kv_begin + j * kBT, stage = j & 1;
+    if (j + 1 < n_tiles) load_kv(j + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile j has arrived
     __syncthreads();
-    const float* qr = q_s + r * DP;
-    const float* dr = do_s + r * DP;
+    const __nv_bfloat16* kt = k_s + stage * kTileElems;
+    float s[8][4], dp[8][4];
+    mma_a_tnk(s, qa, kt, lane);
+    mma_a_tnk(dp, da, v_s + stage * kTileElems, lane);
+    const bool full = tile_full(q0, k0, Sq, Sk, causal, window);
 #pragma unroll
-    for (int i = 0; i < kCols; ++i) {
-      const int c = c4 + 4 * i;
-      const float* kr = k_s + c * DP;
-      const float* vr = v_s + c * DP;
-      float s = 0.f, dp = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) {
-        s += qr[d] * kr[d];
-        dp += dr[d] * vr[d];
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = i >> 1;
+        float p = exp2f(fmaf(s[nt][i], kLog2e, -lse2[r]));
+        if (!full && !admitted(qpos[r], k0 + nt * 8 + 2 * t + (i & 1), Sq,
+                               Sk, causal, window))
+          p = 0.f;
+        s[nt][i] = p * (dp[nt][i] - delta_r[r]);  // dS
       }
-      const float p = admitted(qpos, k0 + c, Sq, Sk, causal, window)
-                          ? expf(s - lse_r) : 0.f;
-      ds_s[r * CP + c] = p * (dp - delta_r);
-    }
-    // a row of ds is written and read by the same four lanes
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) {
-      const int d = c4 + 4 * j;
-      float a = acc[j];
-      for (int c = 0; c < kBT; ++c) a += ds_s[r * CP + c] * k_s[c * DP + d];
-      acc[j] = a;
-    }
+    unsigned dsa[4][4];
+    c_to_a(dsa, s);
+    mma_a_tkn(acc, dsa, kt, lane);
+    __syncthreads();  // the stage is free for the load issued next
   }
+  cp_async_wait<0>();
 
-  if (qpos < Sq) {
-    T* out = dq + q_off + qpos * q_row;
-#pragma unroll
-    for (int j = 0; j < DPT; ++j)
-      out[c4 + 4 * j] = from_float<T>(acc[j] * scale);
-  }
+  // the warp's own rows of q_s (no other warp reads them) stage dQ
+  stage_c(q_s, acc, wrow, scale, scale, lane);
+  __syncwarp();
+  store_rows16(dq + q_off, q_row, q_s, wrow, q0 + wrow, Sq, lane);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kBwdThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     const __nv_bfloat16* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int Sq, int Sk, int H, int KV,
-                     int causal, int window, float scale) {
-  constexpr int DP = D + 1;
-  constexpr int DPT = D / 4;
-  constexpr int CP = kBT + 1;
+                     const float* __restrict__ delta,
+                     __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, int Sq, int Sk, int H,
+                     int KV, int causal, int window, float scale) {
+  static_assert(D == 64, "scale 2^-3 is exact: see the note at the top");
   const int k0 = blockIdx.x * kBT, kvh = blockIdx.y, b = blockIdx.z;
   const int G = H / KV;
-  const int tid = threadIdx.x, r = tid / 4, c4 = tid % 4;
-  const int kpos = k0 + r;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow = warp * 16;
 
-  extern __shared__ float smem[];
-  float* k_s = smem;             // kBT x DP (the block's keys)
-  float* v_s = k_s + kBT * DP;   // kBT x DP
-  float* q_s = v_s + kBT * DP;   // kBT x DP, q * scale
-  float* do_s = q_s + kBT * DP;  // kBT x DP
-  float* p_s = do_s + kBT * DP;  // kBT (keys) x CP (queries)
-  float* ds_s = p_s + kBT * CP;  // kBT x CP
-  float* lse_s = ds_s + kBT * CP;    // kBT
-  float* delta_s = lse_s + kBT;      // kBT
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* v_s = k_s + kTileElems;
+  __nv_bfloat16* q_s = v_s + kTileElems;       // 2 stages
+  __nv_bfloat16* do_s = q_s + 2 * kTileElems;  // 2 stages
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * kTileElems);  // 2 x kBT
+  float* delta_s = lse_s + 2 * kBT;                                // 2 x kBT
 
   const long long q_row = static_cast<long long>(H) * D;
   const long long k_row = static_cast<long long>(KV) * D;
   const long long k_off = static_cast<long long>(b) * Sk * k_row + kvh * D;
-  load_tile<T, D>(k + k_off, k_row, k0, Sk, 1.f, k_s);
-  load_tile<T, D>(v + k_off, k_row, k0, Sk, 1.f, v_s);
-
   // query tiles that can see a key of this tile
   const int q_begin = causal ? (k0 / kBT) * kBT : 0;
   int q_end = Sq;
   if (window > 0) q_end = min(q_end, k0 + kBT - 1 + window);
+  const int nq = q_end > q_begin ? (q_end - q_begin + kBT - 1) / kBT : 0;
+  const int n_iter = G * nq;  // (query head of the group, query tile)
 
-  float dk_acc[DPT], dv_acc[DPT];
-#pragma unroll
-  for (int j = 0; j < DPT; ++j) dk_acc[j] = dv_acc[j] = 0.f;
-
-  for (int g = 0; g < G; ++g) {
-    const int h = kvh * G + g;
+  auto load_q = [&](int it, int stage) {
+    const int h = kvh * G + it / nq, q0 = q_begin + (it % nq) * kBT;
     const long long q_off = static_cast<long long>(b) * Sq * q_row + h * D;
-    const long long stat0 = (static_cast<long long>(b) * H + h) * Sq;
-    for (int q0 = q_begin; q0 < q_end; q0 += kBT) {
-      __syncthreads();  // previous tile consumed (and k_s, v_s written)
-      load_tile<T, D>(q + q_off, q_row, q0, Sq, scale, q_s);
-      load_tile<T, D>(dout + q_off, q_row, q0, Sq, 1.f, do_s);
-      if (tid < kBT) {
-        const bool in = q0 + tid < Sq;
-        lse_s[tid] = in ? lse[stat0 + q0 + tid] : 0.f;
-        delta_s[tid] = in ? delta[stat0 + q0 + tid] : 0.f;
-      }
-      __syncthreads();
-      const float* kr = k_s + r * DP;
-      const float* vr = v_s + r * DP;
-#pragma unroll
-      for (int i = 0; i < kCols; ++i) {
-        const int c = c4 + 4 * i;
-        const float* qr = q_s + c * DP;
-        const float* dr = do_s + c * DP;
-        float s = 0.f, dp = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < D; ++d) {
-          s += kr[d] * qr[d];
-          dp += vr[d] * dr[d];
-        }
-        const float p = admitted(q0 + c, kpos, Sq, Sk, causal, window)
-                            ? expf(s - lse_s[c]) : 0.f;
-        p_s[r * CP + c] = p;
-        ds_s[r * CP + c] = p * (dp - delta_s[c]);
-      }
-      // a key row of p and ds is written and read by the same four lanes
-      __syncwarp();
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) {
-        const int d = c4 + 4 * j;
-        float a = dv_acc[j], e = dk_acc[j];
-        for (int c = 0; c < kBT; ++c) {
-          a += p_s[r * CP + c] * do_s[c * DP + d];
-          e += ds_s[r * CP + c] * q_s[c * DP + d];
-        }
-        dv_acc[j] = a;
-        dk_acc[j] = e;
-      }
-    }
-  }
+    load_tile_async<kBT, kBwdThreads>(q_s + stage * kTileElems, q + q_off,
+                                      q_row, q0, Sq);
+    load_tile_async<kBT, kBwdThreads>(do_s + stage * kTileElems,
+                                      dout + q_off, q_row, q0, Sq);
+    const int i = threadIdx.x % kBT;
+    const bool in = q0 + i < Sq;
+    const long long stat = (static_cast<long long>(b) * H + h) * Sq + q0 + i;
+    if (threadIdx.x < kBT)
+      cp_async4(lse_s + stage * kBT + i, in ? lse + stat : lse, in);
+    else
+      cp_async4(delta_s + stage * kBT + i, in ? delta + stat : delta, in);
+  };
+  static_assert(kBwdThreads == 2 * kBT, "one thread per lse and delta");
+  load_tile_async<kBT, kBwdThreads>(k_s, k + k_off, k_row, k0, Sk);
+  load_tile_async<kBT, kBwdThreads>(v_s, v + k_off, k_row, k0, Sk);
+  cp_async_commit();
+  if (n_iter > 0) load_q(0, 0);
+  cp_async_commit();
+  cp_async_wait<1>();  // K and V have arrived
+  __syncthreads();
+  unsigned ka[4][4], va[4][4];
+  load_a_frags(ka, k_s, wrow, lane);
+  load_a_frags(va, v_s, wrow, lane);
 
-  if (kpos < Sk) {
-    // q was scaled on load, so dK = dS^T (q * scale) needs no further scale
-    T* dko = dk + k_off + kpos * k_row;
-    T* dvo = dv + k_off + kpos * k_row;
+  const int kpos[2] = {k0 + wrow + g, k0 + wrow + g + 8};
+  const float s2 = scale * kLog2e;  // the scores' scale, in log2 units
+  float dk_acc[8][4], dv_acc[8][4];
+  zero(dk_acc);
+  zero(dv_acc);
+  for (int it = 0; it < n_iter; ++it) {
+    const int q0 = q_begin + (it % nq) * kBT, stage = it & 1;
+    if (it + 1 < n_iter) load_q(it + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // iteration it's tiles have arrived
+    __syncthreads();
+    const __nv_bfloat16* qt = q_s + stage * kTileElems;
+    const __nv_bfloat16* dot = do_s + stage * kTileElems;
+    const float* lse_t = lse_s + stage * kBT;
+    const float* delta_t = delta_s + stage * kBT;
+    float s[8][4], dp[8][4];
+    mma_a_tnk(s, ka, qt, lane);    // S^T / scale: rows keys, columns queries
+    mma_a_tnk(dp, va, dot, lane);  // dP^T
+    const bool full = tile_full(q0, k0, Sq, Sk, causal, window);
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) {
-      dko[c4 + 4 * j] = from_float<T>(dk_acc[j]);
-      dvo[c4 + 4 * j] = from_float<T>(dv_acc[j]);
+    for (int nt = 0; nt < 8; ++nt) {
+      const int c = nt * 8 + 2 * t;  // this lane's query columns c, c + 1
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_t + c);
+      const float2 d2 = *reinterpret_cast<const float2*>(delta_t + c);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = i & 1;
+        float p = exp2f(fmaf(s[nt][i], s2, -(j ? l2.y : l2.x) * kLog2e));
+        if (!full && !admitted(q0 + c + j, kpos[i >> 1], Sq, Sk, causal,
+                               window))
+          p = 0.f;
+        s[nt][i] = p;                                   // P^T
+        dp[nt][i] = p * (dp[nt][i] - (j ? d2.y : d2.x));  // dS^T
+      }
     }
+    unsigned pa[4][4];
+    c_to_a(pa, s);
+    mma_a_tkn(dv_acc, pa, dot, lane);
+    c_to_a(pa, dp);
+    mma_a_tkn(dk_acc, pa, qt, lane);  // dS^T q; scaled once at the end
+    __syncthreads();  // the stage is free for the load issued next
   }
+  cp_async_wait<0>();
+
+  // the warp's own rows of k_s and v_s (no other warp reads them) stage
+  // dK and dV
+  stage_c(k_s, dk_acc, wrow, scale, scale, lane);
+  stage_c(v_s, dv_acc, wrow, 1.f, 1.f, lane);
+  __syncwarp();
+  store_rows16(dk + k_off, k_row, k_s, wrow, k0 + wrow, Sk, lane);
+  store_rows16(dv + k_off, k_row, v_s, wrow, k0 + wrow, Sk, lane);
 }
 
-template <typename T, int D>
+template <int D>
 static int launch_bwd(const void* q, const void* k, const void* v,
                       const void* o, const void* dout, const float* lse,
                       float* delta, void* dq, void* dk, void* dv, int B,
                       int Sq, int Sk, int H, int KV, int causal, int window,
                       cudaStream_t stream) {
+  using T = __nv_bfloat16;
   const float scale = 1.f / sqrtf(static_cast<float>(D));
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
@@ -322,10 +370,9 @@ static int launch_bwd(const void* q, const void* k, const void* v,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const size_t tile = sizeof(float) * kBT * (D + 1);
-  const size_t ptile = sizeof(float) * kBT * (kBT + 1);
-  const size_t dq_smem = 4 * tile + ptile;
-  auto dq_kernel = flash_bwd_dq_kernel<T, D>;
+  const size_t tile = sizeof(T) * kTileElems;
+  const size_t dq_smem = 6 * tile;  // Q, dO, 2 x (K, V)
+  auto dq_kernel = flash_bwd_dq_kernel<D>;
   err = cudaFuncSetAttribute(dq_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(dq_smem));
@@ -336,8 +383,9 @@ static int launch_bwd(const void* q, const void* k, const void* v,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const size_t dkv_smem = 4 * tile + 2 * ptile + 2 * sizeof(float) * kBT;
-  auto dkv_kernel = flash_bwd_dkv_kernel<T, D>;
+  // K, V, 2 x (Q, dO, lse, delta)
+  const size_t dkv_smem = 6 * tile + 4 * sizeof(float) * kBT;
+  auto dkv_kernel = flash_bwd_dkv_kernel<D>;
   err = cudaFuncSetAttribute(dkv_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(dkv_smem));
@@ -361,8 +409,8 @@ extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v,
                                 int dtype, void* stream) {
   if (dtype != kBF16 || D != 64 || KV <= 0 || H % KV)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_bwd<__nv_bfloat16, 64>(
-      q, k, v, o, dout, static_cast<const float*>(lse),
-      static_cast<float*>(delta), dq, dk, dv, B, Sq, Sk, H, KV, causal,
-      window, static_cast<cudaStream_t>(stream));
+  return launch_bwd<64>(q, k, v, o, dout, static_cast<const float*>(lse),
+                        static_cast<float*>(delta), dq, dk, dv, B, Sq, Sk, H,
+                        KV, causal, window,
+                        static_cast<cudaStream_t>(stream));
 }

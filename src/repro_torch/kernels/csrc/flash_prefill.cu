@@ -6,12 +6,13 @@
 // with kv_valid_len): rows of a batch are right-padded to one bucket, and
 // row b's keys at positions >= kv_valid_len[b] are masked.  Causal, local
 // window and tanh softcap masks as in the TPU kernel; GQA reads KV head
-// h / G with no repeat; f32 online softmax; the softmax weights are rounded
-// to the input dtype before the PV product, as the reference does.  With a
-// non-null lse pointer it also writes the log-sum-exp (B, H, Sq) in f32,
-// m + log(max(l, 1e-20)) with m := 0 for a row that saw no key, as the TPU
-// kernel does with return_lse (kernel.py:77-82); the training forward saves
-// it for the backward (flash_backward.cu).
+// h / G with no repeat; f32 online softmax; q * scale is rounded to the
+// input dtype before QK^T and the softmax weights before the PV product, as
+// the reference does.  With a non-null lse pointer it also writes the
+// log-sum-exp (B, H, Sq) in f32, m + log(max(l, 1e-20)) with m := 0 for a
+// row that saw no key, as the TPU kernel does with return_lse
+// (kernel.py:77-82); the training forward saves it for the backward
+// (flash_backward.cu).
 //
 // A padded query row (position >= kv_valid_len) whose causal/window range
 // holds no valid key gets what the reference's chunked_attention gives it:
@@ -23,196 +24,240 @@
 //
 // Bound on the H100: operations at long prompts (2 * D flops per score for
 // QK and again for PV against 2 * D bytes per key read once per 64-row query
-// tile), bytes at short ones.  Design of this first version: one block of
-// 256 threads per (64-row query tile, head, batch row), the tile's Q and a
-// 64-key K/V tile in shared memory as f32 (rows padded against bank
-// conflicts), four threads per query row each owning 16 key columns and
-// D / 4 output columns, and a loop over key tiles that stops at the causal
-// and valid-length bound (and starts at the window's first key).  Products
-// run on the CUDA cores in f32; tensor cores (mma / wgmma) are later work.
-#include "common.cuh"
+// tile), bytes at short ones.  Design: both products run on the tensor
+// cores (mma.sync m16n8k16, bf16 in, f32 accumulation; mma.cuh).  One block
+// of 4 warps per (64-row query tile, head, batch row); each warp owns 16
+// query rows, whose scaled Q fragments stay in registers for the whole key
+// loop.  64-key K/V tiles come in by cp.async into a 2-stage ring of
+// swizzled shared tiles (the next tile loads while this one computes) and
+// are read with ldmatrix (.trans for V).  S = Q K^T lands in accumulator
+// fragments; the online softmax runs on them in registers (row max and sum
+// over the 4 lanes of a quad); P is packed to bf16 in registers as the A
+// operand of P V.  The loop stops at the causal and valid-length bound and
+// starts at the window's first key; masks are evaluated only on tiles that
+// cut them.  The heaviest causal query tiles are launched first, and the
+// output leaves through shared memory in 16-byte stores.
+#include "mma.cuh"
 
-constexpr int kPreThreads = 256;
-constexpr int kBQ = 64;  // query rows per block
-constexpr int kBK = 64;  // keys per tile
-constexpr int kColsPerThread = kBK / 4;
+constexpr int kFwdWarps = 4;
+constexpr int kFwdThreads = 32 * kFwdWarps;
+// 4 blocks an SM: ptxas then fits the kernel in 128 registers without a
+// spill (about 160 uncapped, 3 blocks), and the fourth block's warps hide
+// more of the softmax's latency (PERF.md)
+constexpr int kFwdBlocksPerSM = 4;
+constexpr int kBQ = 16 * kFwdWarps;  // query rows per block
+constexpr int kBK = 64;              // keys per tile
+constexpr int kTileElems = 64 * kRowElems;
+constexpr float kLog2e = 1.4426950408889634f;
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kPreThreads)
-flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v,
-                     const int* __restrict__ kv_valid_len, T* __restrict__ out,
-                     float* __restrict__ lse, int Sq, int Sk, int G,
-                     long long q_sb, long long q_ss, long long q_sh,
-                     long long k_sb, long long k_ss, long long k_sh,
-                     long long v_sb, long long v_ss, long long v_sh,
-                     long long o_sb, long long o_ss, long long o_sh,
-                     int causal, int window, float softcap) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int DP = D + 1;  // padded row
-  constexpr int DPT = D / 4; // output columns per thread
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / G;
-  const int tid = threadIdx.x, r = tid / 4, c4 = tid % 4;
-
-  extern __shared__ float smem[];
-  float* q_s = smem;             // kBQ x DP
-  float* k_s = q_s + kBQ * DP;   // kBK x DP
-  float* v_s = k_s + kBK * DP;   // kBK x DP
-  float* p_s = v_s + kBK * DP;   // kBQ x (kBK + 1)
-
-  const T* qb = q + b * q_sb + h * q_sh;
-  const T* kb = k + b * k_sb + kvh * k_sh;
-  const T* vb = v + b * v_sb + kvh * v_sh;
-  const float scale = 1.f / sqrtf(static_cast<float>(D));
-
-  for (int idx = tid * VEC; idx < kBQ * D; idx += kPreThreads * VEC) {
-    const int row = idx / D, d = idx % D;
-    float x[VEC];
-    if (q0 + row < Sq) {
-      load16(qb + (q0 + row) * q_ss + d, x);
-    } else {
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) x[i] = 0.f;
-    }
-    // the reference scales q in its own dtype
-#pragma unroll
-    for (int i = 0; i < VEC; ++i)
-      q_s[row * DP + d + i] = round_through<T>(x[i] * scale);
-  }
-
-  const int vl = kv_valid_len[b];
-  int kv_end = min(Sk, vl);
-  if (causal) kv_end = min(kv_end, q0 + kBQ);
-  int kv_begin = 0;
-  if (window > 0) kv_begin = (max(0, q0 - window + 1) / kBK) * kBK;
-  const int qpos = q0 + r;
-
-  float acc[DPT];
-#pragma unroll
-  for (int j = 0; j < DPT; ++j) acc[j] = 0.f;
-  float m_run = kNegInf, l_run = 0.f;
-
-  for (int k0 = kv_begin; k0 < kv_end; k0 += kBK) {
-    __syncthreads();  // previous tile consumed (and q_s written)
-    for (int idx = tid * VEC; idx < kBK * D; idx += kPreThreads * VEC) {
-      const int row = idx / D, d = idx % D;
-      float kx[VEC], vx[VEC];
-      if (k0 + row < Sk) {
-        load16(kb + (k0 + row) * k_ss + d, kx);
-        load16(vb + (k0 + row) * v_ss + d, vx);
-      } else {
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) kx[i] = vx[i] = 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        k_s[row * DP + d + i] = kx[i];
-        v_s[row * DP + d + i] = vx[i];
-      }
-    }
-    __syncthreads();
-
-    float s[kColsPerThread];
-    bool ok[kColsPerThread];
-    float mx = kNegInf;
-#pragma unroll
-    for (int i = 0; i < kColsPerThread; ++i) {
-      const int c = c4 + 4 * i;
-      const float* qr = q_s + r * DP;
-      const float* kr = k_s + c * DP;
-      float a = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) a += qr[d] * kr[d];
-      if (softcap > 0.f) a = tanhf(a / softcap) * softcap;
-      const int kpos = k0 + c;
-      bool valid = kpos < Sk && kpos < vl;
-      if (causal) valid = valid && kpos <= qpos;
-      if (window > 0) valid = valid && qpos - kpos < window;
-      ok[i] = valid;
-      s[i] = valid ? a : kNegInf;
-      mx = fmaxf(mx, s[i]);
-    }
-    // the four threads of a query row are neighbouring lanes
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m_run, mx);
-    const float m_safe = m_new <= kNegInf ? 0.f : m_new;
-    const float corr = m_run <= kNegInf ? 0.f : expf(m_run - m_safe);
-    float psum = 0.f;
-#pragma unroll
-    for (int i = 0; i < kColsPerThread; ++i) {
-      const float p = ok[i] ? expf(s[i] - m_safe) : 0.f;
-      psum += p;
-      p_s[r * (kBK + 1) + c4 + 4 * i] = round_through<T>(p);
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    l_run = l_run * corr + psum;
-    m_run = m_new;
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) {
-      const int d = c4 + 4 * j;
-      float a = acc[j] * corr;
-      for (int c = 0; c < kBK; ++c) a += p_s[r * (kBK + 1) + c] * v_s[c * DP + d];
-      acc[j] = a;
-    }
-  }
-
-  if (qpos < Sq) {
-    const int lower = window > 0 ? max(0, qpos - window + 1) : 0;
-    if (lower >= min(Sk, vl)) {
-      // no valid key: the plain mean of the values the causal/window mask
-      // admits (every admitted weight is exp(0) = 1 in the reference)
-      const int upper = causal ? min(qpos, Sk - 1) : Sk - 1;
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) acc[j] = 0.f;
-      for (int kk = lower; kk <= upper; ++kk) {
-        const T* vrow = vb + kk * v_ss;
-#pragma unroll
-        for (int j = 0; j < DPT; ++j) acc[j] += to_float(vrow[c4 + 4 * j]);
-      }
-      l_run = static_cast<float>(max(upper - lower + 1, 0));
-      m_run = kNegInf;
-    }
-    const float l = fmaxf(l_run, 1e-20f);
-    const float inv = 1.f / l;
-    T* orow = out + b * o_sb + qpos * o_ss + h * o_sh;
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) orow[c4 + 4 * j] = from_float<T>(acc[j] * inv);
-    if (lse != nullptr && c4 == 0)
-      lse[(static_cast<long long>(b) * gridDim.y + h) * Sq + qpos] =
-          (m_run <= kNegInf ? 0.f : m_run) + logf(l);
-  }
+// lower end of the window of a query at qpos (0 without a window)
+__device__ __forceinline__ int window_lower(int qpos, int window) {
+  return window > 0 ? max(0, qpos - window + 1) : 0;
 }
 
-template <typename T, int D>
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, kFwdBlocksPerSM)
+flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     const int* __restrict__ kv_valid_len,
+                     __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                     int Sq, int Sk, int G, long long q_sb, long long q_ss,
+                     long long q_sh, long long k_sb, long long k_ss,
+                     long long k_sh, long long v_sb, long long v_ss,
+                     long long v_sh, long long o_sb, long long o_ss,
+                     long long o_sh, int causal, int window, float softcap) {
+  static_assert(D == kRowElems, "tiles hold 64-element rows");
+  // the last query tiles see the most keys under the causal mask: launch
+  // them first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / G;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow = warp * 16;  // the warp's first row in the tile
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* k_s = q_s + kTileElems;      // 2 stages
+  __nv_bfloat16* v_s = k_s + 2 * kTileElems;  // 2 stages
+
+  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
+  const __nv_bfloat16* kb = k + b * k_sb + kvh * k_sh;
+  const __nv_bfloat16* vb = v + b * v_sb + kvh * v_sh;
+  const int vl = kv_valid_len[b];
+  const int kv_valid = min(Sk, vl);
+  int kv_end = kv_valid;
+  if (causal) kv_end = min(kv_end, q0 + kBQ);
+  const int kv_begin = (window_lower(q0, window) / kBK) * kBK;
+  const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + kBK - 1) / kBK
+                                        : 0;
+
+  auto load_kv = [&](int tile, int stage) {
+    const int k0 = kv_begin + tile * kBK;
+    load_tile_async<kBK, kFwdThreads>(k_s + stage * kTileElems, kb, k_ss, k0,
+                                      Sk);
+    load_tile_async<kBK, kFwdThreads>(v_s + stage * kTileElems, vb, v_ss, k0,
+                                      Sk);
+  };
+  load_tile_async<kBQ, kFwdThreads>(q_s, qb, q_ss, q0, Sq);
+  cp_async_commit();
+  if (n_tiles > 0) load_kv(0, 0);
+  cp_async_commit();
+  cp_async_wait<1>();  // Q has arrived
+  __syncthreads();
+
+  // q * scale rounded to bf16, as the reference scales q in its own dtype
+  const float scale = 1.f / sqrtf(static_cast<float>(D));
+  unsigned qa[4][4];
+  load_a_frags(qa, q_s, wrow, lane);
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f =
+          __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&qa[kc][i]));
+      qa[kc][i] = pack_bf16(f.x * scale, f.y * scale);
+    }
+
+  const int qpos[2] = {q0 + wrow + g, q0 + wrow + g + 8};
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf};
+  float l_run[2] = {0.f, 0.f};  // this lane's share; summed over the quad
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = kv_begin + j * kBK, stage = j & 1;
+    if (j + 1 < n_tiles) load_kv(j + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile j has arrived
+    __syncthreads();
+
+    float s[8][4];
+    mma_a_tnk(s, qa, k_s + stage * kTileElems, lane);
+    // every (query, key) pair of the block's tile admitted: no mask needed
+    const bool full = k0 + kBK <= kv_valid &&
+                      (!causal || k0 + kBK - 1 <= q0) &&
+                      (window <= 0 || q0 + kBQ - 1 - k0 < window);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float x = s[nt][i];
+        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
+        if (!full) {
+          const int kpos = k0 + nt * 8 + 2 * t + (i & 1), qp = qpos[i >> 1];
+          bool ok = kpos < kv_valid;
+          if (causal) ok = ok && kpos <= qp;
+          if (window > 0) ok = ok && qp - kpos < window;
+          if (!ok) x = kNegInf;
+        }
+        s[nt][i] = x;
+        mx[i >> 1] = fmaxf(mx[i >> 1], x);
+      }
+    float corr[2], m_scaled[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // the four lanes of a quad hold one row
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r]);
+      const float m_safe = m_new <= kNegInf ? 0.f : m_new;
+      corr[r] = m_run[r] <= kNegInf ? 0.f : exp2f((m_run[r] - m_safe) * kLog2e);
+      m_scaled[r] = m_safe * kLog2e;
+      m_run[r] = m_new;
+      l_run[r] *= corr[r];
+    }
+    // a masked score is -1e30: its weight underflows to exactly 0
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = exp2f(fmaf(s[nt][i], kLog2e, -m_scaled[i >> 1]));
+        l_run[i >> 1] += p;
+        s[nt][i] = p;
+        acc[nt][i] *= corr[i >> 1];
+      }
+    unsigned pa[4][4];
+    c_to_a(pa, s);  // P rounded to bf16, as the reference rounds it
+    mma_a_tkn(acc, pa, v_s + stage * kTileElems, lane);
+    __syncthreads();  // the stage is free for the load issued next
+  }
+  cp_async_wait<0>();
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    const float l = fmaxf(l_run[r], 1e-20f);
+    inv[r] = 1.f / l;
+    const bool no_key = window_lower(qpos[r], window) >= kv_valid;
+    if (lse != nullptr && t == 0 && qpos[r] < Sq && !no_key)
+      lse[(static_cast<long long>(b) * gridDim.y + h) * Sq + qpos[r]] =
+          (m_run[r] <= kNegInf ? 0.f : m_run[r]) + logf(l);
+  }
+  // the warp's own rows of q_s (no other warp reads them) stage the output
+  stage_c(q_s, acc, wrow, inv[0], inv[1], lane);
+  __syncwarp();
+  for (int r = 0; r < 16; ++r) {
+    const int qp = q0 + wrow + r;
+    const int lower = window_lower(qp, window);
+    if (qp >= Sq || lower < kv_valid) continue;
+    // no valid key: the plain mean of the values the causal/window mask
+    // admits (every admitted weight is exp(0) = 1 in the reference)
+    const int upper = causal ? min(qp, Sk - 1) : Sk - 1;
+    float2 sum = make_float2(0.f, 0.f);
+    for (int kk = lower; kk <= upper; ++kk) {
+      const float2 x = __bfloat1622float2(*reinterpret_cast<
+          const __nv_bfloat162*>(vb + kk * v_ss + 2 * lane));
+      sum.x += x.x;
+      sum.y += x.y;
+    }
+    const float l = fmaxf(static_cast<float>(max(upper - lower + 1, 0)),
+                          1e-20f);
+    const float il = 1.f / l;
+    *reinterpret_cast<unsigned*>(q_s + swz(wrow + r, 2 * lane)) =
+        pack_bf16(sum.x * il, sum.y * il);
+    if (lse != nullptr && lane == 0)
+      lse[(static_cast<long long>(b) * gridDim.y + h) * Sq + qp] = logf(l);
+  }
+  __syncwarp();
+  store_rows16(out + b * o_sb + h * o_sh, o_ss, q_s, wrow, q0 + wrow, Sq,
+               lane);
+}
+
+template <int D>
 static int launch_prefill(const void* q, const void* k, const void* v,
                           const int* vl, void* out, float* lse, int B,
                           int Sq, int Sk, int H, int KV, const long long* st,
                           int causal, int window, float softcap,
                           cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(kBQ + 2 * kBK) * (D + 1) +
-                       kBQ * (kBK + 1));
-  auto kernel = flash_prefill_kernel<T, D>;
+  const size_t smem = sizeof(__nv_bfloat16) * 5 * kTileElems;  // Q, 2 x K/V
+  auto kernel = flash_prefill_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  kernel<<<grid, kPreThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), vl, static_cast<T*>(out), lse, Sq, Sk,
-      H / KV, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11], causal, window, softcap);
+  kernel<<<grid, kFwdThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), vl,
+      static_cast<__nv_bfloat16*>(out), lse, Sq, Sk, H / KV, st[0], st[1],
+      st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
+      causal, window, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Built for bf16 with head_dim 64 only, the one case the serving and
 // training paths launch (llama3.2-1b); other cases are refused until a
 // configuration needs them and chip_smoke.py checks them.  lse may be null.
+// Strides are in elements; the wrapper makes each a multiple of 8 (16-byte
+// rows for cp.async) with unit stride along D.
 extern "C" int flash_prefill_launch(
     const void* q, const void* k, const void* v, const void* kv_valid_len,
     void* out, void* lse, int B, int Sq, int Sk, int H, int KV, int D,
@@ -223,8 +268,8 @@ extern "C" int flash_prefill_launch(
   if (dtype != kBF16 || D != 64) return static_cast<int>(cudaErrorInvalidValue);
   const long long st[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                             v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
-  return launch_prefill<__nv_bfloat16, 64>(
-      q, k, v, static_cast<const int*>(kv_valid_len), out,
-      static_cast<float*>(lse), B, Sq, Sk, H, KV, st, causal, window, softcap,
-      static_cast<cudaStream_t>(stream));
+  return launch_prefill<64>(q, k, v, static_cast<const int*>(kv_valid_len),
+                            out, static_cast<float*>(lse), B, Sq, Sk, H, KV,
+                            st, causal, window, softcap,
+                            static_cast<cudaStream_t>(stream));
 }

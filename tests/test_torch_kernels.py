@@ -6,6 +6,11 @@ tests hold that plain version against the function the JAX package runs
 kernels themselves are held against the same plain versions on the card by
 ``chip_smoke.py``.
 """
+import ctypes
+import glob
+import os
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,6 +20,7 @@ from repro.kernels.flash_attention import paged_attention_ref as jax_paged
 from repro.kernels.rmsnorm import rmsnorm_ref as jax_rmsnorm
 from repro.models import common as jcm
 from repro_torch import kernels
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                  flash_prefill,
                                                  paged_flash_decode)
@@ -237,3 +243,65 @@ def test_kernels_refuse_what_they_are_not_built_for(case):
     assert kernels.launch_counts() == {"rmsnorm": 0, "flash_prefill": 0,
                                        "flash_bwd": 0, "paged_decode": 0,
                                        "ssd_scan": 0}
+
+
+# ---------------------------------------------------------------------------
+# the C interface of csrc/*.cu against _build.SIGNATURES
+# ---------------------------------------------------------------------------
+
+_CTYPE_KINDS = {ctypes.c_void_p: "pointer", ctypes.c_int: "int",
+                ctypes.c_longlong: "long long", ctypes.c_float: "float"}
+
+
+def _c_kind(decl: str) -> str:
+    """The kind of one C parameter declaration (its name dropped)."""
+    words = decl.replace("*", " * ").split()
+    if "*" in words:
+        return "pointer"
+    kind = " ".join(w for w in words[:-1] if w != "const")
+    assert kind in _CTYPE_KINDS.values(), f"unmapped C type in {decl!r}"
+    return kind
+
+
+def _c_entry_points():
+    """{name: (return type, [parameter kinds])} of every ``extern "C"``
+    function in the kernel sources, and the file each one is in."""
+    found, where = {}, {}
+    for path in sorted(glob.glob(os.path.join(_build.CSRC, "*.cu"))):
+        with open(path) as f:
+            text = f.read()
+        for m in re.finditer(r'extern\s+"C"\s+([\w\s\*]+?)\s*(\w+)\s*'
+                             r'\(([^)]*)\)\s*\{', text):
+            ret, name, params = m.groups()
+            assert name not in found, f"{name} defined twice"
+            found[name] = (" ".join(ret.replace("*", " *").split())
+                           .replace(" *", "*"),
+                           [_c_kind(p) for p in params.split(",")
+                            if p.strip()])
+            where[name] = os.path.basename(path)
+    return found, where
+
+
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+def test_c_entry_point_matches_signature(name):
+    """``ctypes`` passes each argument as ``SIGNATURES`` says: a mismatch
+    in count or kind corrupts arguments only on the card, so every entry
+    has a C definition with the same parameter kinds in the same order
+    (and the return type ``library()`` sets: int, a C string for the error
+    text)."""
+    found, where = _c_entry_points()
+    assert name in found, f"{name} is in SIGNATURES but in no csrc/*.cu"
+    ret, kinds = found[name]
+    want = [_CTYPE_KINDS[t] for t in _build.SIGNATURES[name]]
+    assert kinds == want, f"{name} ({where[name]}): C {kinds} != {want}"
+    assert ret == ("const char*" if name == "kernels_error_string"
+                   else "int"), (name, ret)
+
+
+def test_every_c_entry_point_has_a_signature():
+    """No ``extern "C"`` function of the sources goes without its ctypes
+    signature (``library()`` would leave its argument types to guesswork)."""
+    found, where = _c_entry_points()
+    missing = {n: where[n] for n in found if n not in _build.SIGNATURES}
+    assert not missing, missing
+    assert found, "no extern \"C\" function found in csrc/*.cu"
