@@ -13,10 +13,19 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. kernels     — every kernel against its plain PyTorch version on the card,
                  in bf16, at the serving path's shapes; times the kernel, the
                  plain version and one PyTorch library call as a yardstick,
-                 each cycling over input copies larger than L2, and computes
-                 the kernel's bound from the bytes and operations this run's
-                 inputs need (bytes over 3.35 TB/s or operations over the
-                 peak rate of their type).
+                 each cycling over input copies larger than L2 with the
+                 calls queued behind a sleep kernel (device time, not the
+                 host's), and computes the kernel's bound from the bytes and
+                 operations this run's inputs need (bytes over 3.35 TB/s or
+                 operations over the peak rate of their type).
+   rmsnorm     — (4096, 2048) and (4096, 1024) against the plain version;
+                 timed at both and at the decode shape (8, 2048) beside
+                 ``F.rms_norm``; a width it is not built for is refused.
+   paged       — each pool (bf16, int8, fp8, f32) at the serving positions,
+                 two calls bitwise equal; at split and page edges with a
+                 slot parked at pos == max_seq, a window of 256 beginning
+                 inside a split, softcap 50 and a single slot; bf16 and int8
+                 also timed at the profile run's short contexts beside SDPA.
    prefill     — the serving buckets 8, 32 (shorter than one 64-row tile),
                  128 and 512 with per-row valid lengths, and a local window
                  over padded rows with no valid key.
@@ -37,7 +46,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                  asserts every kernel's launch count and that no logit is
                  NaN.
    profile     — a short bf16-page run under torch.profiler: device busy
-                 time by kernel against the wall clock.
+                 time by kernel against the wall clock, and the port's
+                 kernels' share of it.
 5. consistency — prefill + paged decode steps against a longer prefill.
    serve_ssm   — mamba2-370m at full width and depth (random weights from a
                  seeded generator) serves the same 16 requests with a dense
@@ -54,9 +64,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                  on the port's ``DataPipeline``; asserts finite losses,
                  a finite non-zero gradient for every parameter leaf after
                  the first backward, and exact launch counts per step.
-7. trainer     — ``Trainer.run()`` at a small width (bf16, head_dim 64)
-                 with an injected failure: it must restart from its
-                 checkpoint and finish.
+7. trainer     — ``Trainer.run()`` at a small depth (2 layers, d_model
+                 1024, bf16, head_dim 64) with an injected failure: it must
+                 restart from its checkpoint and finish.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -102,25 +112,59 @@ SSD_CHUNK = 256
 # bytes, 5x the H100's 50 MB L2, so each call reads device memory as the
 # bytes bound assumes
 COLD_BYTES = 256 << 20
+# a timing loop of tiny calls holds at most this many input copies (the
+# decode shape's 8 rows stay in L2, as they do in a decode step) and queues
+# at most this many calls behind its sleep kernel, well inside the launch
+# queue, which would otherwise block the host until the device drains it
+MAX_COPIES, MAX_QUEUED = 256, 512
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# the sleep kernel that holds the stream while a timing loop is enqueued
+# counts cycles; 2e9 a second is above the H100's boost clock, so a sleep
+# asked for t seconds lasts at least t
+SLEEP_CYCLES_PER_S = 2e9
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of ``fn`` over ``iters`` calls (CUDA events)."""
+    return time_device_host(fn, iters, warmup)[0]
+
+
+def time_device_host(fn, iters: int = 20, warmup: int = 3):
+    """(device ms, host ms) per call of ``fn``.  The calls are enqueued
+    behind a sleep kernel that lasts longer than their enqueueing, so the
+    events time the device running them back to back, not the host's
+    Python and launch overhead (a call of a few microseconds of device work
+    costs tens of microseconds of host time); the host ms is that
+    enqueueing time.  If the sleep ran out first (the start event fired
+    before the last call was queued), it is doubled and the loop rerun."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    guess = 2.0 * iters * (time.perf_counter() - t0) + 1e-3
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    for _ in range(4):
+        torch.cuda._sleep(int(min(guess, 2.0) * SLEEP_CYCLES_PER_S))
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host = time.perf_counter() - t0
+        held = not start.query()
+        end.record()
+        end.synchronize()
+        if held:
+            break
+        guess *= 2
+    return start.elapsed_time(end) / iters, 1e3 * host / iters
 
 
 def cycled(fn, cases):
@@ -194,7 +238,9 @@ def phase_build() -> None:
     info = _build.build_info()
     log(f"[build] {info['path']} in {info['seconds']:.2f} s")
     for line in str(info["compiler_log"]).splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if "Compiling entry function" in line:
+            log(f"[build]   {line.split(chr(39))[1][:72]}")
+        elif "registers" in line or "spill" in line or line.startswith("=="):
             log(f"[build]   {line.strip()}")
     counts = sass_mma_counts(info["path"])
     for name in TENSOR_CORE_KERNELS:
@@ -217,37 +263,54 @@ def _library_sdpa(q, k, v, mask):
                                           enable_gqa=True)
 
 
-def check_rmsnorm(gen):
-    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
-    rows, d = SERVE_SLOTS * 512, 2048                 # slots x bucket
-    n = n_copies(rows * d * 2)
+def rmsnorm_timings(gen, rows: int, d: int):
+    """(kernel ms, ``F.rms_norm`` ms, kernel host ms per call, inputs) of
+    the RMSNorm wrapper at (rows, d) bf16 with an f32 scale, both cycling
+    over input copies larger than L2, at most ``MAX_COPIES`` of them (public
+    wrappers only, so that another tree's kernels can be timed the same
+    way)."""
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    n = min(n_copies(rows * d * 2), MAX_COPIES)
     xs = [torch.randn(rows, d, generator=gen, device="cuda").bfloat16()
           for _ in range(n)]
     w = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+    wb = w.to(torch.bfloat16)
+    iters = min(max(4 * n, 64), MAX_QUEUED)
+    ms, host = time_device_host(cycled(lambda x: rmsnorm(x, w),
+                                       [(x,) for x in xs]), iters=iters)
+    lib = time_ms(cycled(lambda x: F.rms_norm(x, (d,), wb, 1e-5),
+                         [(x,) for x in xs]), iters=iters)
+    return ms, lib, host, (xs, w, n)
+
+
+def check_rmsnorm(gen):
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
+    rows, d = SERVE_SLOTS * 512, 2048                 # slots x bucket
+    ms, lib, host, (xs, w, n) = rmsnorm_timings(gen, rows, d)
     x = xs[0]
     got, ref = rmsnorm(x, w), rmsnorm_ref(x, w)
     err = (got.float() - ref.float()).abs()
     ok = bool((err <= RMS_RTOL * ref.float().abs() + 1e-6).all())
-    wb = w.to(torch.bfloat16)
     row = {"name": "rmsnorm", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
            "replaces": "src/repro/kernels/rmsnorm/kernel.py:30",
            "shape": f"x ({rows}, {d}) bf16",
-           "timing": f"cold L2: cycles over {n} input copies",
+           "timing": f"cold L2: cycles over {n} input copies; device time "
+                     f"(calls queued behind a sleep kernel)",
            "max_abs_err": float(err.max()), "tol": f"rtol {RMS_RTOL}",
-           "ms": time_ms(cycled(lambda x: rmsnorm(x, w),
-                                [(x,) for x in xs]), iters=4 * n),
+           "ms": ms,
            "plain_ms": time_ms(cycled(lambda x: rmsnorm_ref(x, w),
                                       [(x,) for x in xs]), iters=n),
-           "library_ms": time_ms(cycled(
-               lambda x: F.rms_norm(x, (d,), wb, 1e-5),
-               [(x,) for x in xs]), iters=4 * n)}
+           "library_ms": lib}
     row["bound_ms"], row["bound_by"] = bound(
         2 * rows * d * 2 + d * 4, 4 * rows * d, "f32")
     log(f"[kernels] rmsnorm {row['shape']}: max_abs_err "
-        f"{row['max_abs_err']:.3e} (rtol {RMS_RTOL}) ok={ok}")
-    # mamba2-370m's block and final norms run at d_model 1024, where half of
-    # the kernel's threads load nothing: checked, logged, not in the JSON
+        f"{row['max_abs_err']:.3e} (rtol {RMS_RTOL}) ok={ok}; kernel "
+        f"{ms:.4f} ms ({host * 1e3:.1f} us of host time a call), "
+        f"F.rms_norm {lib:.4f} ms, bound {row['bound_ms']:.4f} ms")
+    del xs
+    # mamba2-370m's block and final norms run at d_model 1024: checked,
+    # logged, not in the JSON
     x = torch.randn(rows, 1024, generator=gen, device="cuda").bfloat16()
     w1 = 1.0 + 0.1 * torch.randn(1024, generator=gen, device="cuda")
     ref1 = rmsnorm_ref(x, w1).float()
@@ -257,6 +320,22 @@ def check_rmsnorm(gen):
         f"{float(err1.max()):.3e} (rtol {RMS_RTOL}) ok={ok1}")
     if not (ok and ok1):
         raise AssertionError("rmsnorm kernel disagrees with its plain version")
+    # mamba's width at the prefill shape, and llama's decode shape (33 norms
+    # of every decode step; launch-bound): logged beside F.rms_norm
+    for r, dd in ((rows, 1024), (SERVE_SLOTS, 2048)):
+        t, t_lib, t_host, (_, _, nc) = rmsnorm_timings(gen, r, dd)
+        b_ms, _ = bound(2 * r * dd * 2 + dd * 4, 4 * r * dd, "f32")
+        log(f"[kernels] rmsnorm x ({r}, {dd}) bf16 ({nc} input copies): "
+            f"kernel {t:.4f} ms ({t_host * 1e3:.1f} us of host time a "
+            f"call), F.rms_norm {t_lib:.4f} ms, bound {b_ms:.4f} ms")
+    # a width the kernel is not instantiated for is refused on the card
+    x = torch.randn(4, 512, device="cuda").bfloat16()
+    try:
+        rmsnorm(x, torch.ones(512, device="cuda"))
+    except ValueError as e:
+        log(f"[kernels] rmsnorm at d 512 refused: {e}")
+    else:
+        raise AssertionError("rmsnorm ran at d 512, which it is not built for")
     return row
 
 
@@ -505,18 +584,25 @@ def check_flash_bwd(gen):
     return fwd, bwd
 
 
-def _paged_case(gen, pool_dtype):
-    """Full-width decode operands: 8 slots, positions 16..1000, page 16,
-    16 layers of pools (so a timing loop over layers leaves L2 cold)."""
-    B, H, KV, D, page = SERVE_SLOTS, 32, 8, 64, SERVE_PAGE
+# decode positions of the timed paged-decode rows, and of the profile
+# run's short contexts (8 prompts of 128 tokens and up to 32 new ones)
+SERVE_POS = tuple(int(p) for p in np.linspace(16, 1000, SERVE_SLOTS))
+PROFILE_POS = tuple(int(p) for p in np.linspace(128, 160, SERVE_SLOTS))
+
+
+def _paged_case(gen, pool_dtype, positions=SERVE_POS, L=16):
+    """Full-width decode operands: one slot per position, page 16, a table
+    of 64 pages whose entries past each slot's last page stay parked at page
+    0 (a slot at pos == max_seq holds its whole table), and ``L`` layers of
+    pools (16: a timing loop over layers leaves L2 cold)."""
+    B, H, KV, D, page = len(positions), 32, 8, 64, SERVE_PAGE
     nb = SERVE_MAX_SEQ // page
-    P, L = B * nb + 1, 16
-    pos = torch.tensor(np.linspace(16, 1000, B).astype(np.int32),
-                       device="cuda")
+    P = B * nb + 1
+    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
     perm = torch.randperm(P - 1, generator=gen, device="cuda") + 1
     tables = torch.zeros(B, nb, dtype=torch.int32, device="cuda")
     for b in range(B):                               # the rest stays parked
-        n = int(pos[b]) // page + 1
+        n = min(nb, int(pos[b]) // page + 1)
         tables[b, :n] = perm[b * nb:b * nb + n]
     q = torch.randn(B, 1, H, D, generator=gen, device="cuda").bfloat16()
     k32 = torch.randn(L, P, page, KV, D, generator=gen, device="cuda")
@@ -537,67 +623,139 @@ def _paged_case(gen, pool_dtype):
     return q, quant(k32, ks), quant(v32, vs), tables, pos, ks, vs
 
 
-def check_paged(gen, pool_dtype, label):
-    from repro_torch.kernels.flash_attention import (paged_attention_ref,
-                                                     paged_flash_decode)
-    from repro_torch.kernels.flash_attention.paged import gather_pages
-    q, kp, vp, tables, pos, ks, vs = _paged_case(gen, pool_dtype)
-    L = kp.shape[0]
+def _layers(case):
+    """(k pool, v pool, k scales, v scales) of each layer of a case."""
+    _, kp, vp, _, _, ks, vs = case
+    return [(kp[i], vp[i], None if ks is None else ks[i],
+             None if vs is None else vs[i]) for i in range(kp.shape[0])]
 
-    def layer(i):
-        return (kp[i], vp[i], None if ks is None else ks[i],
-                None if vs is None else vs[i])
 
-    k0, v0, ks0, vs0 = layer(0)
-    got = paged_flash_decode(q, k0, v0, tables, pos, k_scales=ks0,
-                             v_scales=vs0)
-    ref = paged_attention_ref(q, k0, v0, tables, pos, k_scales=ks0,
-                              v_scales=vs0)
-    err = (got.float() - ref.float()).abs()
-    ok = bool((err <= ATTN_TOL + ATTN_TOL * ref.float().abs()).all())
-    log(f"[kernels] paged_decode {label} pool B={q.shape[0]} page "
-        f"{kp.shape[2]} pos={pos.tolist()}: max_abs_err "
-        f"{float(err.max()):.3e} (tol {ATTN_TOL}) ok={ok}")
-    if not ok:
-        raise AssertionError(f"paged_decode kernel ({label} pool) disagrees "
-                             f"with its plain version")
-    def run(fn):
-        return cycled(lambda *a: fn(q, a[0], a[1], tables, pos, k_scales=a[2],
-                                    v_scales=a[3]),
-                      [layer(i) for i in range(L)])
-
+def _paged_bound(case):
+    """(bound ms, by) of one decode call on a case.  Bytes: q read and out
+    written; slot b's pos + 1 keys and values (the whole table for a parked
+    slot); for the pages it walks, their table entries and (quantized
+    pools) their K and V scales of every KV head; pos."""
+    q, kp, _, tables, pos, ks, _ = case
     B, _, H, D = q.shape
     page, KV = kp.shape[2], kp.shape[3]
     S = tables.shape[1] * page
-    # the library yardstick reads a bf16 cache already gathered per slot,
-    # one per layer, so that it too reads device memory
-    gathered = [tuple(gather_pages(kv, tables, s).bfloat16().transpose(1, 2)
-                      for kv, s in ((kl, ksl), (vl_, vsl)))
-                for kl, vl_, ksl, vsl in map(layer, range(L))]
-    mask = (torch.arange(S, device="cuda")[None, :] <= pos[:, None])
+    last = torch.clamp(pos, max=S - 1)
+    keys = int((last + 1).sum())
+    pages = int((last // page + 1).sum())
+    scale_bytes = 0 if ks is None else pages * KV * 4 * 2
+    return bound(2 * B * H * D * 2 + keys * KV * D * kp.element_size() * 2
+                 + scale_bytes + pages * 4 + B * 4, 4 * D * H * keys, "bf16")
+
+
+def paged_timings(case, full_table: bool = True, plain: bool = False):
+    """(kernel ms, kernel host ms a call, SDPA ms, plain ms or None) of one
+    decode call on ``case``, each cycling over its layers' pools (public
+    wrappers only, so that another tree's kernel can be timed the same
+    way).  The SDPA yardstick reads bf16 caches already gathered per slot,
+    one per layer, so that it too reads device memory: over the whole table
+    (``full_table``), or cut to the pages that hold the largest position
+    (at short contexts the whole table would charge it keys the kernel
+    never reads)."""
+    from repro_torch.kernels.flash_attention import (paged_attention_ref,
+                                                     paged_flash_decode)
+    from repro_torch.kernels.flash_attention.paged import gather_pages
+    q, kp, _, tables, pos, _, _ = case
+    layers = _layers(case)
+
+    def run(fn):
+        return cycled(lambda *a: fn(q, a[0], a[1], tables, pos, k_scales=a[2],
+                                    v_scales=a[3]), layers)
+
+    page = kp.shape[2]
+    nb = tables.shape[1] if full_table else \
+        min(tables.shape[1], int(pos.max()) // page + 1)
+    gathered = [tuple(gather_pages(kv, tables[:, :nb], s).bfloat16()
+                      .transpose(1, 2) for kv, s in ((kl, ksl), (vl_, vsl)))
+                for kl, vl_, ksl, vsl in layers]
+    mask = (torch.arange(nb * page, device="cuda")[None, :] <= pos[:, None])
     qt = q.transpose(1, 2)
+    ms, host = time_device_host(run(paged_flash_decode), iters=32)
+    lib = time_ms(cycled(lambda gk, gv: _library_sdpa(
+        qt, gk, gv, mask[:, None, None, :]), gathered), iters=32)
+    plain_ms = time_ms(run(paged_attention_ref), iters=8) if plain else None
+    return ms, host, lib, plain_ms
+
+
+def _paged_compare(label, case, window=0, softcap=0.0):
+    """The kernel against its plain version on the first layer of a case
+    at ``ATTN_TOL``; logs and returns (output, max_abs_err)."""
+    from repro_torch.kernels.flash_attention import (paged_attention_ref,
+                                                     paged_flash_decode)
+    q, _, _, tables, pos, _, _ = case
+    k0, v0, ks0, vs0 = _layers(case)[0]
+    kw = dict(window=window, softcap=softcap, k_scales=ks0, v_scales=vs0)
+    got = paged_flash_decode(q, k0, v0, tables, pos, **kw)
+    ref = paged_attention_ref(q, k0, v0, tables, pos, **kw)
+    err = (got.float() - ref.float()).abs()
+    ok = bool((err <= ATTN_TOL + ATTN_TOL * ref.float().abs()).all()) \
+        and bool(torch.isfinite(got).all())
+    log(f"[kernels] paged_decode {label}: B={q.shape[0]} page "
+        f"{k0.shape[1]} pos={pos.tolist()} window {window} softcap "
+        f"{softcap}: max_abs_err {float(err.max()):.3e} (tol {ATTN_TOL}) "
+        f"ok={ok}")
+    if not ok:
+        raise AssertionError(f"paged_decode kernel ({label}) disagrees with "
+                             f"its plain version")
+    return got, float(err.max())
+
+
+def check_paged(gen, pool_dtype, label):
+    """The paged decode kernel on one pool type: at the serving positions,
+    twice (bitwise equal); at split and page edges, a parked slot
+    (pos == max_seq), a window of 256 that begins inside a split, softcap
+    50 and a single slot; then timed at the serving positions (its JSON
+    row) and, for the serving pools, at the profile run's short contexts
+    (logged)."""
+    from repro_torch.kernels.flash_attention import paged_flash_decode
+    from repro_torch.kernels.flash_attention.paged import split_plan
+    case = _paged_case(gen, pool_dtype)
+    q, kp, _, tables, pos, _, _ = case
+    got, err = _paged_compare(f"{label} pool", case)
+    k0, v0, ks0, vs0 = _layers(case)[0]
+    again = paged_flash_decode(q, k0, v0, tables, pos, k_scales=ks0,
+                               v_scales=vs0)
+    if not torch.equal(got, again):
+        raise AssertionError(f"paged_decode ({label}): two calls differ")
+    kps, n_split = split_plan(tables.shape[1], kp.shape[2])
+    edges = (0, 15, 16, kps - 1, kps, SERVE_MAX_SEQ - 1, SERVE_MAX_SEQ, 500)
+    for what, positions, window, softcap in (
+            ("edges", edges, 0, 0.0),
+            ("window", edges, 256, 0.0),
+            ("softcap", edges, 0, 50.0),
+            ("B 1", (1000,), 0, 0.0)):
+        _paged_compare(f"{label} pool, {what} ({kps} keys a split, "
+                       f"{n_split} splits)",
+                       _paged_case(gen, pool_dtype, positions, L=1),
+                       window, softcap)
+    B, _, H, D = q.shape
+    ms, host, lib, plain = paged_timings(case, plain=True)
     row = {"name": f"paged_decode[{label}]", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
            "replaces": "src/repro/kernels/flash_attention/paged.py:155",
-           "shape": f"q ({B}, 1, {H}, {D}) pool {label} page {page} "
+           "shape": f"q ({B}, 1, {H}, {D}) pool {label} page {kp.shape[2]} "
                     f"pos {int(pos.min())}..{int(pos.max())}",
-           "timing": f"cold L2: cycles over {L} layers' pools",
-           "max_abs_err": float(err.max()), "tol": ATTN_TOL,
-           "ms": time_ms(run(paged_flash_decode), iters=32),
-           "plain_ms": time_ms(run(paged_attention_ref), iters=8),
-           "library_ms": time_ms(cycled(
-               lambda gk, gv: _library_sdpa(qt, gk, gv,
-                                            mask[:, None, None, :]),
-               gathered), iters=32)}
-    # bytes: q read and out written; slot b's pos + 1 keys and values; for
-    # the ceil((pos + 1) / page) pages it walks, their table entries and
-    # (quantized pools) their K and V scales of every KV head; pos
-    keys = int((pos + 1).sum())
-    pages = int((pos // page + 1).sum())
-    scale_bytes = 0 if ks is None else pages * KV * 4 * 2
-    row["bound_ms"], row["bound_by"] = bound(
-        2 * B * H * D * 2 + keys * KV * D * kp.element_size() * 2
-        + scale_bytes + pages * 4 + B * 4, 4 * D * H * keys, "bf16")
+           "timing": f"cold L2: cycles over {kp.shape[0]} layers' pools; "
+                     f"device time (calls queued behind a sleep kernel)",
+           "max_abs_err": err, "tol": ATTN_TOL, "ms": ms,
+           "plain_ms": plain, "library_ms": lib}
+    row["bound_ms"], row["bound_by"] = _paged_bound(case)
+    log(f"[kernels] paged_decode {label} pool, serving positions: kernel "
+        f"{ms:.4f} ms ({host * 1e3:.1f} us of host time a call), SDPA "
+        f"{lib:.4f} ms ({ms / lib:.2f}x), bound {row['bound_ms']:.4f} ms")
+    del case
+    if pool_dtype in (torch.bfloat16, torch.int8):
+        short = _paged_case(gen, pool_dtype, PROFILE_POS)
+        s_ms, s_host, s_lib, _ = paged_timings(short, full_table=False)
+        log(f"[kernels] paged_decode {label} pool, short contexts pos "
+            f"{PROFILE_POS[0]}..{PROFILE_POS[-1]}: kernel {s_ms:.4f} ms "
+            f"({s_host * 1e3:.1f} us of host time a call), SDPA over the "
+            f"pages in use {s_lib:.4f} ms ({s_ms / s_lib:.2f}x), bound "
+            f"{_paged_bound(short)[0]:.4f} ms")
     return row
 
 
@@ -841,6 +999,13 @@ def log_top(tag, rows, busy_ms, top=10):
             f"  x{count:<6d} {key[:90]}")
 
 
+# the port's serving kernels as the profiler names them; paged decode is
+# its split kernel and the combine pass after it
+PROFILE_KERNELS = {"paged_decode": "paged_decode_",
+                   "flash_prefill": "flash_prefill_kernel",
+                   "rmsnorm": "rmsnorm_kernel", "ssd_scan": "ssd_scan_kernel"}
+
+
 def phase_profile(cfg, model, params, top: int = 10, tag: str = "profile",
                   paged: bool = True):
     """Where the time goes in a short serve run (bf16 pages, or the dense
@@ -879,6 +1044,12 @@ def phase_profile(cfg, model, params, top: int = 10, tag: str = "profile",
         f"device kernels {busy_ms:.1f} ms ({busy_ms / steps:.2f} ms per "
         f"step, {launches} launches = {launches / steps:.0f} per step), "
         f"device idle share {1 - busy_ms / wall_ms:.3f}")
+    share = {k: (sum(r[0] for r in rows if name in r[2]) / 1e3,
+                 sum(r[1] for r in rows if name in r[2]))
+             for k, name in PROFILE_KERNELS.items()}
+    log(f"[{tag}] the port's kernels: " + ", ".join(
+        f"{k} {ms:.3f} ms ({100 * ms / busy_ms:.1f}%, x{n})"
+        for k, (ms, n) in share.items()))
     log_top(tag, rows, busy_ms, top)
 
 
@@ -1087,7 +1258,7 @@ def phase_consistency_ssm(model, params, steps: int = 4):
 
 
 # ---------------------------------------------------------------------------
-# 6. train at full width, 7. Trainer restart at a small width
+# 6. train at full width, 7. Trainer restart at a small depth
 # ---------------------------------------------------------------------------
 
 def phase_train():
@@ -1198,7 +1369,7 @@ def phase_train():
 
 
 def phase_trainer():
-    """``Trainer.run()`` at a small width on the card with an injected
+    """``Trainer.run()`` at a small depth on the card with an injected
     failure at step 3: it restarts from the step-2 checkpoint and
     finishes."""
     from repro_torch.ckpt import CheckpointManager
@@ -1208,11 +1379,11 @@ def phase_trainer():
     from repro_torch.runtime import FailureInjector
     from repro_torch.train import OptimizerConfig, make_train_step
     from repro_torch.train.loop import Trainer, TrainerConfig
-    # llama3.2-1b's family at a small width that keeps what the kernels are
-    # built for: bf16 compute and head_dim 64
+    # llama3.2-1b's family at a small depth that keeps what the kernels are
+    # built for: bf16 compute, head_dim 64 and an RMSNorm width of 1024
     cfg = dataclasses.replace(get_config("llama3.2-1b"), name="llama-small",
-                              n_layers=2, d_model=256, n_heads=4,
-                              n_kv_heads=2, head_dim=64, d_ff=1024,
+                              n_layers=2, d_model=1024, n_heads=16,
+                              n_kv_heads=4, head_dim=64, d_ff=1024,
                               vocab_size=257)
     model = build_model(cfg, device="cuda")
     build = os.path.join(ROOT, "build")

@@ -41,10 +41,10 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 SIGNATURES: Dict[str, list] = {
     # x, w, out, rows, d, eps, dtype, stream
     "rmsnorm_launch": [_P, _P, _P, _I, _I, _F, _I, _P],
-    # q, k_pages, v_pages, tables, pos, k_scales, v_scales, out,
-    # B, H, KV, D, page, nb, window, softcap, q_dtype, kv_dtype, stream
-    "paged_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    # q, k_pages, v_pages, tables, pos, k_scales, v_scales, workspace, out,
+    # B, H, KV, D, page, nb, keys_per_split, n_split, window, softcap,
+    # q_dtype, kv_dtype, stream
+    "paged_decode_launch": [_P] * 9 + [_I] * 9 + [_F, _I, _I, _P],
     # q, k, v, kv_valid_len, out, lse (or null), B, Sq, Sk, H, KV, D,
     # q/k/v/o strides (batch, seq, head) in elements,
     # causal, window, softcap, dtype, stream

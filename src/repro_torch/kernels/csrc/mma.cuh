@@ -1,6 +1,7 @@
 // Tensor-core building blocks shared by the attention kernels
 // (flash_prefill.cu, flash_backward.cu): bf16 tiles of 64-element rows in
-// an XOR-swizzled shared layout, cp.async 16-byte copies into them, ldmatrix
+// an XOR-swizzled shared layout, cp.async 16-byte copies into them (the
+// copies themselves are in common.cuh), ldmatrix
 // loads of mma.sync fragments, and the m16n8k16 bf16 product with f32
 // accumulation.
 //
@@ -25,37 +26,6 @@ constexpr int kRowElems = 64;
 
 __device__ __forceinline__ int swz(int row, int col) {
   return row * kRowElems + ((((col >> 3) ^ row) & 7) << 3) + (col & 7);
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte asynchronous copy global -> shared; zero-fills when !pred (src is
-// then not read, but must be a valid address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-
-// 4-byte asynchronous copy (one f32), zero-filled when !pred.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool pred) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(pred ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Wait until at most N committed groups are still in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Rows [row0, row0 + ROWS) of a (rows, 64) bf16 slice with the given row

@@ -1,229 +1,431 @@
-// Paged single-token decode attention for Hopper.
+// Paged single-token decode attention for Hopper: split keys (flash-decoding).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/paged.py
 // (_paged_decode_kernel, launched by paged_flash_decode): one query token
 // per slot attends over the slot's KV pages, found through its row of the
 // block table; keys past the slot's position (and outside an optional
 // window) are masked, an optional tanh softcap bounds the logits, and the
-// softmax runs online in float32.  int8 / fp8-e4m3 pools are dequantized
-// in registers with one float32 scale per (page, KV head).
+// softmax runs online in float32.  int8 / fp8-e4m3 pools carry one float32
+// scale per (page, KV head).
 //
 // Bound on the H100: bytes.  Each key and value is read once and used by
-// the G = H / KV query rows of its KV head (4 flops per byte at G = 4), far
-// below the tensor cores' ~295 flops per byte.  Design: one block per
-// (slot, KV head) loads the G query rows once, then walks only the pages
-// that hold positions <= pos (and >= pos - window + 1), 64 keys per tile
-// (several pages when a page holds fewer), with 16-byte loads; the TPU grid
-// swept every table entry and masked the rest.  Pages past the position
-// would be fully masked, so skipping them computes the same function.
-// Scores, probabilities and the (G, D) accumulator stay in shared memory;
-// the quantized pools move 1 byte per value and are scaled after the load.
+// the G = H / KV query rows of its KV head: 4 flops a byte at G = 4 for a
+// bf16 pool, 8 for int8, far under the ~295 where the tensor cores would
+// limit, and under the CUDA cores' 67 TFLOP/s f32 too (13-27 TFLOP/s is
+// what 3.35 TB/s needs).  So the kernel uses no tensor cores: an
+// mma.m16n8k16 would hold G = 4 live rows of its 16.  What decides its
+// time is how many bytes are in flight across the card, so:
+//
+// - The key axis is split (flash-decoding): the grid is (KV, B, n_split),
+//   split s covering keys [s * kps, (s + 1) * kps), a whole number of
+//   pages.  n_split comes from the table width on the host, never from
+//   the positions, which live on the device (the grid stays fixed for a
+//   CUDA graph).  A split wholly past the slot's last page or before its
+//   window's first page writes an empty partial (max -1e30, sum 0) and
+//   returns without loading.  At the llama serving shape (KV 8, B 8, 1024
+//   keys, kps 128) that is 512 blocks on 132 SMs.
+// - Inside a block (4 warps), tiles of 64 keys arrive by 16-byte cp.async
+//   into a 2-stage ring in shared memory, in the pool's own type (1 byte a
+//   value for int8 / fp8), the next tile loading while this one computes.
+//   The split's table entries and scales are read once.
+// - Each warp takes 16 keys of a tile, 4 at a time: 8 lanes span one key's
+//   64 values (8 each), the dot products with the G query rows (in
+//   registers, pre-scaled by D^-0.5) reduce over those lanes by shuffles.
+//   A quantized pool's scales multiply once per key: s = (q . k_q) * k_scale
+//   and p * v_scale before P.V.  The (G, 8) accumulator of a lane stays in
+//   registers with its warp's running max and sum; the warps merge through
+//   shared memory once, at the end of the split.
+// - Partials (max, sum, acc[G][D]) go in f32 to a workspace the wrapper
+//   allocates; paged_decode_combine_kernel, launched next on the same
+//   stream, rescales and sums them and writes acc / max(sum, 1e-20) in q's
+//   type.  No atomics: two calls give bitwise-equal outputs.
 #include "common.cuh"
 
+constexpr int kDecD = 64;            // head_dim the kernels are built for
+constexpr int kDecG = 4;             // query rows per KV head
 constexpr int kDecThreads = 128;
-constexpr int kDecTileKeys = 64;
-constexpr int kDecMaxPagesPerTile = 64;
+constexpr int kDecWarps = kDecThreads / 32;
+constexpr int kDecTileKeys = 64;     // keys per ring stage
+constexpr int kDecWarpKeys = kDecTileKeys / kDecWarps;   // 16
+constexpr int kDecLaneElems = 8;     // values of one key a lane holds
+constexpr int kDecKeyLanes = kDecD / kDecLaneElems;      // 8 lanes a key
+constexpr int kDecStepKeys = 32 / kDecKeyLanes;          // 4 keys a step
+constexpr int kDecSteps = kDecWarpKeys / kDecStepKeys;   // 4 steps a tile
+constexpr int kDecMaxSplitPages = 2 * kDecThreads;
 
-template <typename QT, typename KT>
+// Programmatic dependent launch (sm_90): the split kernel lets the combine
+// pass launch while it runs; the combine pass waits for the split kernel's
+// memory before it reads the partials.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void wait_for_prerequisites() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// The 8 values of one key a lane holds, widened to float: 8, 16 or 32
+// bytes of shared memory.
+template <typename KT>
+__device__ __forceinline__ void load8(const KT* src, float* dst) {
+  if constexpr (sizeof(KT) == 1) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(src);
+    const KT* e = reinterpret_cast<const KT*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dst[i] = to_float(e[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; i += 16 / sizeof(KT)) load16(src + i, dst + i);
+  }
+}
+
+template <typename KT, int G>
 __global__ void __launch_bounds__(kDecThreads)
-paged_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ kp,
-                    const KT* __restrict__ vp, const int* __restrict__ tables,
+paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
+                    const KT* __restrict__ kp, const KT* __restrict__ vp,
+                    const int* __restrict__ tables,
                     const int* __restrict__ positions,
                     const float* __restrict__ k_scales,
-                    const float* __restrict__ v_scales, QT* __restrict__ out,
-                    int H, int KV, int D, int page, int nb, int pages_per_tile,
-                    int window, float softcap) {
-  constexpr int VEC = 16 / sizeof(KT);
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int G = H / KV;
-  const int TK = pages_per_tile * page;  // keys per tile
+                    const float* __restrict__ v_scales,
+                    float* __restrict__ part, int H, int KV, int page, int nb,
+                    int kps, int window, float softcap) {
+  constexpr int D = kDecD, E = kDecLaneElems, TK = kDecTileKeys;
+  constexpr int VEC = 16 / sizeof(KT);        // values a 16-byte copy moves
+  constexpr int CH = D / VEC;                 // 16-byte copies a key row
+  const int h = blockIdx.x, b = blockIdx.y, s = blockIdx.z;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int nwarps = kDecThreads / 32;
+  const int kk = lane / kDecKeyLanes, c = lane % kDecKeyLanes;
 
-  extern __shared__ float smem[];
-  float* q_sh = smem;                    // G * D
-  float* k_sh = q_sh + G * D;            // TK * (D + 1), padded rows
-  float* v_sh = k_sh + TK * (D + 1);     // TK * D
-  float* s_sh = v_sh + TK * D;           // G * (TK + 1), padded rows
-  float* acc_sh = s_sh + G * (TK + 1);   // G * D
-  float* m_sh = acc_sh + G * D;          // G
-  float* l_sh = m_sh + G;                // G
-  float* corr_sh = l_sh + G;             // G
-  __shared__ int tbl_sh[kDecMaxPagesPerTile];
-  __shared__ float ks_sh[kDecMaxPagesPerTile], vs_sh[kDecMaxPagesPerTile];
+  // partial of (b, h, s): max[G], sum[G], acc[G][D]
+  float* pm = part + ((static_cast<size_t>(b) * KV + h) * gridDim.z + s) *
+                         (G * (D + 2));
+  float* pl = pm + G;
+  float* pacc = pl + G;
 
-  const float scale = 1.f / sqrtf(static_cast<float>(D));
-  const QT* qb = q + (static_cast<size_t>(b) * H + h * G) * D;
-  for (int e = tid; e < G * D; e += kDecThreads) {
-    q_sh[e] = to_float(qb[e]) * scale;
-    acc_sh[e] = 0.f;
+  launch_dependents();
+  // the split's table entries load beside the position, not after it
+  const int pps = kps / page;
+  const int* tbl = tables + static_cast<size_t>(b) * nb + s * pps;
+  int pid_pre[kDecMaxSplitPages / kDecThreads];
+#pragma unroll
+  for (int i = 0; i < kDecMaxSplitPages / kDecThreads; ++i) {
+    const int jp = i * kDecThreads + tid;
+    pid_pre[i] = jp < pps && s * pps + jp < nb ? tbl[jp] : 0;
   }
-  for (int g = tid; g < G; g += kDecThreads) {
-    m_sh[g] = kNegInf;
-    l_sh[g] = 0.f;
-  }
-
   const int pos = positions[b];
   // pages holding positions <= pos; a frozen slot parked one past its last
   // reserved position may point past the table, which then bounds the walk
   const int n_pages = min(nb, pos / page + 1);
-  int first = 0;
-  if (window > 0) first = max(0, pos - window + 1) / page;
-  const bool quantized = k_scales != nullptr;
-  const int* tbl = tables + static_cast<size_t>(b) * nb;
+  const int first = window > 0 ? max(0, pos - window + 1) / page : 0;
+  const int ja = max(s * pps, first), jb = min((s + 1) * pps, n_pages);
+  if (ja >= jb) {                       // nothing of this split is visible
+    if (tid < G) {
+      pm[tid] = kNegInf;
+      pl[tid] = 0.f;
+    }
+    return;
+  }
 
-  for (int j0 = first; j0 < n_pages; j0 += pages_per_tile) {
-    __syncthreads();  // previous tile fully consumed
-    for (int jp = tid; jp < pages_per_tile; jp += kDecThreads) {
-      const int j = j0 + jp;
-      const int pid = j < n_pages ? tbl[j] : -1;
-      tbl_sh[jp] = pid;
-      if (pid >= 0 && quantized) {
-        ks_sh[jp] = k_scales[static_cast<size_t>(pid) * KV + h];
-        vs_sh[jp] = v_scales[static_cast<size_t>(pid) * KV + h];
-      } else {
-        ks_sh[jp] = 1.f;
-        vs_sh[jp] = 1.f;
+  // entries and scales of the pages walked, indexed by page - s * pps
+  __shared__ int tbl_sh[kDecMaxSplitPages];
+  __shared__ float ks_sh[kDecMaxSplitPages], vs_sh[kDecMaxSplitPages];
+#pragma unroll
+  for (int i = 0; i < kDecMaxSplitPages / kDecThreads; ++i) {
+    const int j = s * pps + i * kDecThreads + tid;
+    if (j >= ja && j < jb) tbl_sh[j - s * pps] = pid_pre[i];
+  }
+
+  extern __shared__ __align__(16) unsigned char ring[];
+  KT* k_sh = reinterpret_cast<KT*>(ring);     // [2][TK][D]
+  KT* v_sh = k_sh + 2 * TK * D;               // [2][TK][D]
+  const int ka = ja * page, kb = jb * page;   // keys this block walks
+  const int n_tiles = (kb - ka + TK - 1) / TK;
+  __syncthreads();                            // tbl_sh ready
+
+  // keys at or past kb are zero-filled: no stale (NaN) bits reach P.V
+  auto load_tile = [&](int i) {
+    KT* kd = k_sh + (i & 1) * TK * D;
+    KT* vd = v_sh + (i & 1) * TK * D;
+    const int t0 = ka + i * TK;
+#pragma unroll
+    for (int it = 0; it < TK * CH / kDecThreads; ++it) {
+      const int e = it * kDecThreads + tid;
+      const int t = e / CH, ch = e % CH;
+      const int key = t0 + t;
+      const bool in = key < kb;
+      size_t off = 0;
+      if (in) {
+        const int pid = tbl_sh[key / page - s * pps];
+        off = ((static_cast<size_t>(pid) * page + key % page) * KV + h) * D +
+              ch * VEC;
+      }
+      cp_async16(kd + t * D + ch * VEC, kp + off, in);
+      cp_async16(vd + t * D + ch * VEC, vp + off, in);
+    }
+  };
+
+  load_tile(0);
+  cp_async_commit();
+  if (n_tiles > 1) load_tile(1);
+  cp_async_commit();
+
+  // the scales and this lane's 8 values of each query row (times D^-0.5)
+  // load while the first tiles are in flight; the loop's first barrier
+  // publishes the scales
+  const bool quantized = k_scales != nullptr;
+#pragma unroll
+  for (int i = 0; i < kDecMaxSplitPages / kDecThreads; ++i) {
+    const int j = s * pps + i * kDecThreads + tid;
+    if (j >= ja && j < jb) {
+      const size_t at = static_cast<size_t>(pid_pre[i]) * KV + h;
+      ks_sh[j - s * pps] = quantized ? k_scales[at] : 1.f;
+      vs_sh[j - s * pps] = quantized ? v_scales[at] : 1.f;
+    }
+  }
+  const float scale = 1.f / sqrtf(static_cast<float>(D));
+  float qr[G][E];
+  const __nv_bfloat16* qb = q + (static_cast<size_t>(b) * H + h * G) * D +
+                            c * E;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    load16(qb + g * D, qr[g]);
+#pragma unroll
+    for (int e = 0; e < E; ++e) qr[g][e] *= scale;
+  }
+
+  float m[G], l[G], acc[G][E];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
+  }
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<1>();
+    __syncthreads();                          // tile i landed for all
+    const KT* kt = k_sh + (i & 1) * TK * D;
+    const KT* vt = v_sh + (i & 1) * TK * D;
+    const int t0 = ka + i * TK;
+    float sc[kDecSteps][G];
+    float vsc[kDecSteps];
+#pragma unroll
+    for (int st = 0; st < kDecSteps; ++st) {
+      const int t = warp * kDecWarpKeys + st * kDecStepKeys + kk;
+      const int key = t0 + t;
+      float kv[E];
+      load8(kt + t * D + c * E, kv);
+      bool valid = key < kb && key <= pos;
+      if (window > 0) valid = valid && key > pos - window;
+      // a masked key's score and weight are never read from shared memory
+      const int jp = valid ? key / page - s * pps : 0;
+      const float ksc = valid ? ks_sh[jp] : 0.f;
+      vsc[st] = valid ? vs_sh[jp] : 0.f;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float d = 0.f;
+#pragma unroll
+        for (int e = 0; e < E; ++e) d += qr[g][e] * kv[e];
+#pragma unroll
+        for (int o = 1; o < kDecKeyLanes; o <<= 1)
+          d += __shfl_xor_sync(0xffffffffu, d, o);
+        d *= ksc;
+        if (softcap > 0.f) d = tanhf(d / softcap) * softcap;
+        sc[st][g] = valid ? d : kNegInf;
       }
     }
-    __syncthreads();
-    for (int idx = tid * VEC; idx < TK * D; idx += kDecThreads * VEC) {
-      const int t = idx / D, d = idx % D;
-      const int jp = t / page, ti = t % page;
-      const int pid = tbl_sh[jp];
-      float kv[VEC], vv[VEC];
-      if (pid >= 0) {
-        const size_t off =
-            ((static_cast<size_t>(pid) * page + ti) * KV + h) * D + d;
-        load16(kp + off, kv);
-        load16(vp + off, vv);
-      } else {
+    // online softmax over the warp's 16 keys of this tile
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) kv[i] = vv[i] = 0.f;
-      }
+    for (int g = 0; g < G; ++g) {
+      float mx = sc[0][g];
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        k_sh[t * (D + 1) + d + i] = kv[i] * ks_sh[jp];
-        v_sh[t * D + d + i] = vv[i] * vs_sh[jp];
-      }
-    }
-    __syncthreads();
-    // scores: G x TK dot products over D
-    for (int e = tid; e < G * TK; e += kDecThreads) {
-      const int g = e / TK, t = e % TK;
-      const float* qr = q_sh + g * D;
-      const float* kr = k_sh + t * (D + 1);
-      float s = 0.f;
-      for (int d = 0; d < D; ++d) s += qr[d] * kr[d];
-      if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
-      const int j = j0 + t / page;
-      const int kpos = j * page + t % page;
-      bool valid = j < n_pages && kpos <= pos;
-      if (window > 0) valid = valid && kpos > pos - window;
-      s_sh[g * (TK + 1) + t] = valid ? s : kNegInf;
-    }
-    __syncthreads();
-    // online softmax statistics: one warp per query row
-    for (int g = warp; g < G; g += nwarps) {
-      float* srow = s_sh + g * (TK + 1);
-      float mx = kNegInf;
-      for (int t = lane; t < TK; t += 32) mx = fmaxf(mx, srow[t]);
+      for (int st = 1; st < kDecSteps; ++st) mx = fmaxf(mx, sc[st][g]);
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
+      for (int o = kDecKeyLanes; o < 32; o <<= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_prev = m_sh[g];
-      const float m_new = fmaxf(m_prev, mx);
+      const float m_new = fmaxf(m[g], mx);
+      // masked keys hold kNegInf, so their exp underflows to exactly 0
       const float m_safe = m_new <= kNegInf ? 0.f : m_new;
-      // invalid keys hold kNegInf, so exp underflows to exactly 0
-      float sum = 0.f;
-      for (int t = lane; t < TK; t += 32) {
-        const float p = expf(srow[t] - m_safe);
-        srow[t] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float corr = m_prev <= kNegInf ? 0.f : expf(m_prev - m_safe);
-        corr_sh[g] = corr;
-        l_sh[g] = l_sh[g] * corr + sum;
-        m_sh[g] = m_new;
+      const float corr = m[g] <= kNegInf ? 0.f : expf(m[g] - m_safe);
+      m[g] = m_new;
+      l[g] *= corr;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[g][e] *= corr;
+#pragma unroll
+      for (int st = 0; st < kDecSteps; ++st) {
+        const float p = expf(sc[st][g] - m_safe);
+        l[g] += p;
+        sc[st][g] = p * vsc[st];
       }
     }
-    __syncthreads();
-    for (int e = tid; e < G * D; e += kDecThreads) {
-      const int g = e / D, d = e % D;
-      const float* prow = s_sh + g * (TK + 1);
-      float a = acc_sh[e] * corr_sh[g];
-      for (int t = 0; t < TK; ++t) a += prow[t] * v_sh[t * D + d];
-      acc_sh[e] = a;
+#pragma unroll
+    for (int st = 0; st < kDecSteps; ++st) {
+      const int t = warp * kDecWarpKeys + st * kDecStepKeys + kk;
+      float vv[E];
+      load8(vt + t * D + c * E, vv);
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[g][e] += sc[st][g] * vv[e];
+    }
+    __syncthreads();                          // stage i & 1 consumed
+    if (i + 2 < n_tiles) load_tile(i + 2);
+    cp_async_commit();
+  }
+
+  // sum over the warp's 4 key lanes groups, then merge the 4 warps
+  __shared__ float red_m[kDecWarps][G], red_l[kDecWarps][G];
+  __shared__ __align__(16) float red_acc[kDecWarps][G * D];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int o = kDecKeyLanes; o < 32; o <<= 1) {
+      l[g] += __shfl_xor_sync(0xffffffffu, l[g], o);
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
+    }
+    if (kk == 0) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) red_acc[warp][g * D + c * E + e] = acc[g][e];
+    }
+    if (lane == 0) {
+      red_m[warp][g] = m[g];
+      red_l[warp][g] = l[g];
     }
   }
   __syncthreads();
-  QT* ob = out + (static_cast<size_t>(b) * H + h * G) * D;
-  for (int e = tid; e < G * D; e += kDecThreads) {
-    ob[e] = from_float<QT>(acc_sh[e] / fmaxf(l_sh[e / D], 1e-20f));
+  for (int o = tid; o < G * D; o += kDecThreads) {
+    const int g = o / D;
+    float M = red_m[0][g];
+#pragma unroll
+    for (int w = 1; w < kDecWarps; ++w) M = fmaxf(M, red_m[w][g]);
+    const float M_safe = M <= kNegInf ? 0.f : M;
+    float a = 0.f, L = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) {
+      const float f = expf(red_m[w][g] - M_safe);
+      a += red_acc[w][o] * f;
+      L += red_l[w][g] * f;
+    }
+    pacc[o] = a;
+    if (o % D == 0) {
+      pm[g] = M;
+      pl[g] = L;
+    }
   }
 }
 
-template <typename QT, typename KT>
+// Merges the n_split partials of one (slot, KV head): out = sum_s
+// acc_s e^(m_s - M) / sum_s l_s e^(m_s - M), M = max_s m_s.  An empty
+// split (max -1e30) wrote no accumulator and is skipped.
+template <typename QT, int G>
+__global__ void __launch_bounds__(kDecThreads)
+paged_decode_combine_kernel(const float* __restrict__ part,
+                            QT* __restrict__ out, int H, int KV,
+                            int n_split) {
+  constexpr int D = kDecD, stride = G * (D + 2);
+  const int h = blockIdx.x, b = blockIdx.y;
+  const float* base = part + (static_cast<size_t>(b) * KV + h) * n_split *
+                                 stride;
+  QT* ob = out + (static_cast<size_t>(b) * H + h * G) * D;
+  wait_for_prerequisites();
+  for (int o = threadIdx.x; o < G * D; o += kDecThreads) {
+    const int g = o / D;
+    float M = kNegInf;
+#pragma unroll 4
+    for (int s = 0; s < n_split; ++s) M = fmaxf(M, base[s * stride + g]);
+    float a = 0.f, L = 0.f;
+#pragma unroll 4
+    for (int s = 0; s < n_split; ++s) {
+      const float* ps = base + s * stride;
+      if (ps[g] <= kNegInf) continue;
+      const float f = expf(ps[g] - M);
+      L += ps[G + g] * f;
+      a += ps[2 * G + o] * f;
+    }
+    ob[o] = from_float<QT>(a / fmaxf(L, 1e-20f));
+  }
+}
+
+template <typename KT>
 static int launch_paged(const void* q, const void* kp, const void* vp,
                         const int* tables, const int* pos, const float* ks,
-                        const float* vs, void* out, int B, int H, int KV,
-                        int D, int page, int nb, int window, float softcap,
-                        cudaStream_t stream) {
-  const int G = H / KV;
-  const int ppt = page >= kDecTileKeys ? 1 : kDecTileKeys / page;
-  const int TK = ppt * page;
-  const size_t smem = sizeof(float) * (static_cast<size_t>(G) * D +
-                                       TK * (D + 1) + TK * D + G * (TK + 1) +
-                                       G * D + 3 * G);
-  auto kernel = paged_decode_kernel<QT, KT>;
+                        const float* vs, float* part, void* out, int B, int H,
+                        int KV, int D, int page, int nb, int kps, int n_split,
+                        int window, float softcap, cudaStream_t stream) {
+  using QT = __nv_bfloat16;
+  if (D != kDecD || KV <= 0 || H != kDecG * KV || page <= 0 || kps % page ||
+      kps / page > kDecMaxSplitPages ||
+      n_split != (nb * page + kps - 1) / kps)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = 2 * 2 * sizeof(KT) * kDecTileKeys * kDecD;
+  auto kernel = paged_decode_kernel<KT, kDecG>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  dim3 grid(KV, B);
-  kernel<<<grid, kDecThreads, smem, stream>>>(
+  kernel<<<dim3(KV, B, n_split), kDecThreads, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const KT*>(kp),
-      static_cast<const KT*>(vp), tables, pos, ks, vs, static_cast<QT*>(out),
-      H, KV, D, page, nb, ppt, window, softcap);
+      static_cast<const KT*>(vp), tables, pos, ks, vs, part, H, KV, page, nb,
+      kps, window, softcap);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(KV, B);
+  cfg.blockDim = dim3(kDecThreads);
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const float* cpart = part;
+  err = cudaLaunchKernelEx(&cfg, paged_decode_combine_kernel<QT, kDecG>,
+                           cpart, static_cast<QT*>(out), H, KV, n_split);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Built for bf16 queries (the serving path's compute type) over bf16, f32,
-// int8 and fp8-e4m3 pools; chip_smoke.py checks every one of them.
+// Built for bf16 queries (the serving path's compute type), head_dim 64 and
+// 4 query heads per KV head, over bf16, f32, int8 and fp8-e4m3 pools;
+// chip_smoke.py checks every one of them.  `workspace` holds
+// B * KV * n_split * 4 * (64 + 2) floats.
 extern "C" int paged_decode_launch(const void* q, const void* k_pages,
                                    const void* v_pages, const void* tables,
                                    const void* pos, const void* k_scales,
-                                   const void* v_scales, void* out, int B,
-                                   int H, int KV, int D, int page, int nb,
-                                   int window, float softcap, int q_dtype,
-                                   int kv_dtype, void* stream) {
+                                   const void* v_scales, void* workspace,
+                                   void* out, int B, int H, int KV, int D,
+                                   int page, int nb, int keys_per_split,
+                                   int n_split, int window, float softcap,
+                                   int q_dtype, int kv_dtype, void* stream) {
   if (q_dtype != kBF16) return static_cast<int>(cudaErrorInvalidValue);
-  using QT = __nv_bfloat16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* t = static_cast<const int*>(tables);
   const int* p = static_cast<const int*>(pos);
   const float* ks = static_cast<const float*>(k_scales);
   const float* vs = static_cast<const float*>(v_scales);
+  float* w = static_cast<float*>(workspace);
   switch (kv_dtype) {
     case kF32:
-      return launch_paged<QT, float>(q, k_pages, v_pages, t, p, ks, vs, out, B,
-                                     H, KV, D, page, nb, window, softcap, s);
+      return launch_paged<float>(q, k_pages, v_pages, t, p, ks, vs, w, out, B,
+                                 H, KV, D, page, nb, keys_per_split, n_split,
+                                 window, softcap, s);
     case kBF16:
-      return launch_paged<QT, __nv_bfloat16>(q, k_pages, v_pages, t, p, ks, vs,
-                                             out, B, H, KV, D, page, nb,
-                                             window, softcap, s);
+      return launch_paged<__nv_bfloat16>(q, k_pages, v_pages, t, p, ks, vs, w,
+                                         out, B, H, KV, D, page, nb,
+                                         keys_per_split, n_split, window,
+                                         softcap, s);
     case kI8:
-      return launch_paged<QT, int8_t>(q, k_pages, v_pages, t, p, ks, vs, out,
-                                      B, H, KV, D, page, nb, window, softcap,
-                                      s);
+      return launch_paged<int8_t>(q, k_pages, v_pages, t, p, ks, vs, w, out,
+                                  B, H, KV, D, page, nb, keys_per_split,
+                                  n_split, window, softcap, s);
     case kFP8:
-      return launch_paged<QT, __nv_fp8_e4m3>(q, k_pages, v_pages, t, p, ks, vs,
-                                             out, B, H, KV, D, page, nb,
-                                             window, softcap, s);
+      return launch_paged<__nv_fp8_e4m3>(q, k_pages, v_pages, t, p, ks, vs, w,
+                                         out, B, H, KV, D, page, nb,
+                                         keys_per_split, n_split, window,
+                                         softcap, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

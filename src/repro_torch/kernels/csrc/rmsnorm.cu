@@ -1,66 +1,140 @@
-// Fused RMSNorm for Hopper.
+// Fused RMSNorm for Hopper: a warp per row, the row in registers.
 //
 // Replaces the TPU kernel src/repro/kernels/rmsnorm/kernel.py
 // (_rmsnorm_kernel, launched by rmsnorm_rows): y = x * rsqrt(mean(x^2) + eps)
 // * w, with the mean of squares in float32 and w read in float32.
 //
 // Bound on the H100: bytes.  Each row of d values is read once and written
-// once (about 2 * d * sizeof(T) bytes against ~4 flops per value), far
-// below the ~295 flops per byte where the tensor cores would limit.  Design:
-// one block of 256 threads per row, every thread moving 16 bytes per load
-// and store, the sum of squares reduced by warp shuffles and one shared
-// array.  The second pass re-reads the row, which stays in L1, so device
-// memory sees one read and one write per value.
+// once (2 * d * 2 bytes against ~4 flops per value), far below the ~295
+// flops per byte where the tensor cores would limit: at (4096, 2048) the
+// bound is 10 us at 3.35 TB/s.  Design:
+// - One warp per row.  The row's d / 8 16-byte chunks spread over the 32
+//   lanes (chunk i * 32 + lane, so each load instruction of a warp covers
+//   512 contiguous bytes) and stay in registers between the sum of squares
+//   and the scaling: device memory sees one read and one write of the row.
+// - The sum of squares reduces by warp shuffles alone: no shared memory and
+//   no __syncthreads.
+// - The kernel is templated on chunks per lane and instantiated only for
+//   the widths the paths launch (d 2048, llama3.2-1b; d 1024, mamba2-370m).
+//   Each warp reads the f32 weight once, as 16-byte vectors, into
+//   registers, then strides over rows in a grid of as many blocks as the
+//   SMs hold at once (2-4 an SM, by its register count), loading its next
+//   row before it scales and stores this one.
 #include "common.cuh"
 
-constexpr int kRmsThreads = 256;
+constexpr int kRmsWarps = 4;          // warps (rows in flight) per block
 
-template <typename T>
-__global__ void __launch_bounds__(kRmsThreads)
-rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ w,
-               T* __restrict__ out, int d, float eps) {
-  constexpr int VEC = 16 / sizeof(T);
-  const T* xr = x + static_cast<size_t>(blockIdx.x) * d;
-  T* yr = out + static_cast<size_t>(blockIdx.x) * d;
-  float ss = 0.f;
-  for (int i = threadIdx.x * VEC; i < d; i += kRmsThreads * VEC) {
-    float v[VEC];
-    load16(xr + i, v);
+template <int CPL>                    // 16-byte chunks per lane: d = 256 CPL
+__global__ void __launch_bounds__(kRmsWarps * 32)
+rmsnorm_kernel(const __nv_bfloat16* __restrict__ x,
+               const float* __restrict__ w, __nv_bfloat16* __restrict__ out,
+               int rows, float eps) {
+  constexpr int D = 256 * CPL;
+  const int lane = threadIdx.x % 32;
+  const int n_warps = gridDim.x * kRmsWarps;
+  int r = blockIdx.x * kRmsWarps + threadIdx.x / 32;
+  if (r >= rows) return;
+
+  float wr[CPL][8];
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) ss += v[j] * v[j];
+  for (int i = 0; i < CPL; ++i) {
+    const float4* wp =
+        reinterpret_cast<const float4*>(w + (i * 32 + lane) * 8);
+    const float4 a = wp[0], b = wp[1];
+    wr[i][0] = a.x; wr[i][1] = a.y; wr[i][2] = a.z; wr[i][3] = a.w;
+    wr[i][4] = b.x; wr[i][5] = b.y; wr[i][6] = b.z; wr[i][7] = b.w;
   }
-  __shared__ float partial[kRmsThreads / 32];
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  ss = warp_sum(ss);
-  if (lane == 0) partial[warp] = ss;
-  __syncthreads();
-  if (warp == 0) {
-    float t = lane < kRmsThreads / 32 ? partial[lane] : 0.f;
-    t = warp_sum(t);
-    if (lane == 0) partial[0] = t;
-  }
-  __syncthreads();
-  const float inv = rsqrtf(partial[0] / static_cast<float>(d) + eps);
-  for (int i = threadIdx.x * VEC; i < d; i += kRmsThreads * VEC) {
-    float v[VEC];
-    load16(xr + i, v);
+
+  uint4 cur[CPL];
+  const uint4* xr = reinterpret_cast<const uint4*>(x);
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) v[j] = v[j] * inv * w[i + j];
-    store16(yr + i, v);
+  for (int i = 0; i < CPL; ++i)
+    cur[i] = xr[static_cast<size_t>(r) * (D / 8) + i * 32 + lane];
+  for (; r < rows; r += n_warps) {
+    const int rn = r + n_warps;
+    uint4 nxt[CPL];
+    if (rn < rows) {
+#pragma unroll
+      for (int i = 0; i < CPL; ++i)
+        nxt[i] = xr[static_cast<size_t>(rn) * (D / 8) + i * 32 + lane];
+    }
+    float ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      const auto* e = reinterpret_cast<const __nv_bfloat16*>(&cur[i]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float v = __bfloat162float(e[j]);
+        ss += v * v;
+      }
+    }
+    ss = warp_sum(ss);
+    const float inv = rsqrtf(ss / static_cast<float>(D) + eps);
+    uint4* yr =
+        reinterpret_cast<uint4*>(out) + static_cast<size_t>(r) * (D / 8);
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      const auto* e = reinterpret_cast<const __nv_bfloat16*>(&cur[i]);
+      uint4 o;
+      __nv_bfloat16* oe = reinterpret_cast<__nv_bfloat16*>(&o);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        oe[j] = __float2bfloat16(__bfloat162float(e[j]) * inv * wr[i][j]);
+      yr[i * 32 + lane] = o;
+    }
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) cur[i] = nxt[i];
   }
 }
 
-// Built for bf16 only, the one type the serving path launches; other types
-// are refused until a configuration needs them and chip_smoke.py checks them.
+// Blocks of the kernel resident on the whole card (SMs times blocks an SM
+// holds at its register count), found once per instantiation.
+template <int CPL>
+static int resident_blocks(int* blocks) {
+  static int cached = 0;
+  if (cached == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, rmsnorm_kernel<CPL>, kRmsWarps * 32, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cached = sms * max(1, per_sm);
+  }
+  *blocks = cached;
+  return 0;
+}
+
+template <int CPL>
+static int launch_rms(const void* x, const void* w, void* out, int rows,
+                      float eps, cudaStream_t stream) {
+  int resident = 0;
+  if (int err = resident_blocks<CPL>(&resident)) return err;
+  const int blocks = min((rows + kRmsWarps - 1) / kRmsWarps, resident);
+  rmsnorm_kernel<CPL><<<blocks, kRmsWarps * 32, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(w),
+      static_cast<__nv_bfloat16*>(out), rows, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Built for bf16 at d 1024 and 2048, what the serving and training paths
+// launch; other types and widths are refused until a configuration needs
+// them and chip_smoke.py checks them (kernels/rmsnorm.py names the widths).
 extern "C" int rmsnorm_launch(const void* x, const void* w, void* out,
                               int rows, int d, float eps, int dtype,
                               void* stream) {
   if (dtype != kBF16) return static_cast<int>(cudaErrorInvalidValue);
-  rmsnorm_kernel<__nv_bfloat16>
-      <<<rows, kRmsThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(w),
-          static_cast<__nv_bfloat16*>(out), d, eps);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 1024:
+      return launch_rms<4>(x, w, out, rows, eps, s);
+    case 2048:
+      return launch_rms<8>(x, w, out, rows, eps, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" const char* kernels_error_string(int err) {

@@ -17,6 +17,11 @@ import torch
 from .. import _build
 
 NEG_INF = -1e30
+#: keys of one slot that one block of the decode kernel covers (rounded
+#: down to whole pages, at least one page)
+KEYS_PER_SPLIT = 128
+#: what the kernel is built for: head_dim and query heads per KV head
+KERNEL_HEAD_DIM, KERNEL_GROUP = 64, 4
 
 _POOL_DTYPES = (torch.float32, torch.bfloat16, torch.int8,
                 torch.float8_e4m3fn)
@@ -31,6 +36,17 @@ def gather_pages(pages, block_tables, scales=None) -> torch.Tensor:
     if scales is not None:
         g = g * scales[tables][:, :, None, :, None]
     return g.reshape((B, nb * pages.shape[1]) + tuple(pages.shape[2:]))
+
+
+def split_plan(nb: int, page: int, keys_per_split: int = 0):
+    """(keys per split, number of splits) of the decode kernel's key axis
+    over a block table of ``nb`` pages of ``page`` keys.  A split covers a
+    whole number of pages; the count depends on the table's width alone,
+    never on the positions (they live on the device), so the kernel's grid
+    is the same at every decode step.  ``keys_per_split`` 0 takes
+    ``KEYS_PER_SPLIT``."""
+    kps = page * max(1, (keys_per_split or KEYS_PER_SPLIT) // page)
+    return kps, -(-nb * page // kps)
 
 
 def paged_attention_ref(q, k_pages, v_pages, block_tables, pos, *,
@@ -63,10 +79,10 @@ def paged_flash_decode(q, k_pages, v_pages, block_tables, pos, *,
                        k_scales=None, v_scales=None) -> torch.Tensor:
     """q: (B, 1, H, D); pools (P, page, KV, D); block_tables (B, nb) int32
     page ids; pos (B,) int32.  A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel (``paged_flash_decode.launches`` counts
-    them).  Returns (B, 1, H, D) in q's dtype.  Serving only, not
-    differentiable: an input that requires grad under grad mode raises,
-    on either device."""
+    tensor launches the kernel and its combine pass, counted as one launch
+    (``paged_flash_decode.launches``).  Returns (B, 1, H, D) in q's dtype.
+    Serving only, not differentiable: an input that requires grad under
+    grad mode raises, on either device."""
     _build.refuse_grad("paged_flash_decode", q, k_pages, v_pages, k_scales,
                        v_scales)
     if q.device.type == "cpu":
@@ -92,9 +108,10 @@ def paged_flash_decode(q, k_pages, v_pages, block_tables, pos, *,
             (k_scales is None) != (v_scales is None):
         raise ValueError("paged_flash_decode: int8/fp8 pools need k_scales "
                          "and v_scales, other pools take none")
-    if (D * k_pages.element_size()) % 16:
-        raise ValueError(f"paged_flash_decode kernel needs head_dim * "
-                         f"itemsize % 16 == 0 (D={D})")
+    if D != KERNEL_HEAD_DIM or H != KERNEL_GROUP * KV:
+        raise ValueError(f"paged_flash_decode kernel is built for head_dim "
+                         f"{KERNEL_HEAD_DIM} and {KERNEL_GROUP} query heads "
+                         f"per KV head, got D={D}, H={H}, KV={KV}")
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
         raise ValueError("paged_flash_decode: page pools must be contiguous")
     q = q.contiguous()
@@ -107,15 +124,20 @@ def paged_flash_decode(q, k_pages, v_pages, block_tables, pos, *,
         if k_scales.shape != (P, KV) or v_scales.shape != (P, KV):
             raise ValueError(f"paged_flash_decode: scales must be {(P, KV)}")
         tensors += [k_scales, v_scales]
+    kps, n_split = split_plan(nb, page)
     out = torch.empty_like(q)
-    _build.require_cuda("paged_flash_decode", out, *tensors)
+    # per (slot, KV head, split): running max and sum of each query row,
+    # then its (rows, D) accumulator, all f32
+    work = torch.empty(B * KV * n_split * KERNEL_GROUP * (D + 2),
+                       dtype=torch.float32, device=q.device)
+    _build.require_cuda("paged_flash_decode", out, work, *tensors)
     lib = _build.library()
     _build.check(lib.paged_decode_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         tables.data_ptr(), pos.data_ptr(),
         k_scales.data_ptr() if quantized else None,
-        v_scales.data_ptr() if quantized else None,
-        out.data_ptr(), B, H, KV, D, page, nb, int(window),
+        v_scales.data_ptr() if quantized else None, work.data_ptr(),
+        out.data_ptr(), B, H, KV, D, page, nb, kps, n_split, int(window),
         float(softcap), _build.dtype_code(q), _build.dtype_code(k_pages),
         _build.stream_handle(q)), "paged_flash_decode")
     paged_flash_decode.launches += 1

@@ -14,6 +14,10 @@ import torch
 
 from . import _build
 
+#: row widths the kernel is instantiated for: llama3.2-1b's d_model 2048
+#: and mamba2-370m's 1024
+KERNEL_WIDTHS = (1024, 2048)
+
 
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor,
                 eps: float = 1e-5) -> torch.Tensor:
@@ -31,9 +35,9 @@ def _launch(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     if w.dtype != torch.float32 or w.shape != (d,):
         raise ValueError(f"rmsnorm scale must be float32 ({d},), got "
                          f"{w.dtype} {tuple(w.shape)}")
-    if (d * x.element_size()) % 16:
-        raise ValueError(f"rmsnorm kernel needs d * itemsize % 16 == 0 "
-                         f"(d={d})")
+    if d not in KERNEL_WIDTHS:
+        raise ValueError(f"rmsnorm kernel is instantiated for d in "
+                         f"{KERNEL_WIDTHS}, got d={d}")
     x = x.contiguous()
     w = w.contiguous()
     _build.require_cuda("rmsnorm", x, w)

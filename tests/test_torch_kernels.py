@@ -201,9 +201,9 @@ def test_cpu_tensors_take_the_plain_versions():
 def test_non_cpu_tensors_never_take_the_plain_versions():
     """A tensor off the CPU launches the kernel or raises; with no card
     here, a tensor on the meta device must raise."""
-    x = torch.empty(4, 64, dtype=torch.bfloat16, device="meta")
+    x = torch.empty(4, 2048, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="CUDA device"):
-        rmsnorm(x, torch.empty(64, device="meta"))
+        rmsnorm(x, torch.empty(2048, device="meta"))
     q = torch.empty(1, 8, 2, 64, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="CUDA device"):
         flash_prefill(q, q, q)
@@ -214,17 +214,29 @@ def _meta(*shape, dtype=torch.bfloat16):
     return torch.empty(*shape, dtype=dtype, device="meta")
 
 
-@pytest.mark.parametrize("case", ["rmsnorm_f32", "prefill_f32",
-                                  "prefill_d16", "paged_q_f32"])
+@pytest.mark.parametrize("case", ["rmsnorm_f32", "rmsnorm_uninstantiated_d",
+                                  "prefill_f32", "prefill_d16",
+                                  "paged_q_f32", "paged_group_2"])
 def test_kernels_refuse_what_they_are_not_built_for(case):
-    """Off the CPU, a dtype or head_dim with no kernel instantiation raises
-    before any launch (the kernels are built for the serving path's bf16,
-    head_dim 64)."""
+    """Off the CPU, a dtype, width, head_dim or query group with no kernel
+    instantiation raises before any launch (the kernels are built for the
+    serving path's bf16, head_dim 64, 4 query heads per KV head, and
+    RMSNorm at d 1024 and 2048)."""
     kernels.reset_launch_counts()
     if case == "rmsnorm_f32":
         with pytest.raises(TypeError, match="bf16"):
             rmsnorm(_meta(4, 64, dtype=torch.float32),
                     _meta(64, dtype=torch.float32))
+    elif case == "rmsnorm_uninstantiated_d":
+        with pytest.raises(ValueError, match=r"d in \(1024, 2048\), got "
+                                             r"d=512"):
+            rmsnorm(_meta(4, 512), _meta(512, dtype=torch.float32))
+    elif case == "paged_group_2":
+        pages = _meta(3, 4, 2, 64)
+        with pytest.raises(ValueError, match="4 query heads per KV head"):
+            paged_flash_decode(_meta(1, 1, 4, 64), pages, pages,
+                               _meta(1, 2, dtype=torch.int32),
+                               _meta(1, dtype=torch.int32))
     elif case == "prefill_f32":
         q = _meta(1, 8, 2, 64, dtype=torch.float32)
         with pytest.raises(TypeError, match="bf16"):
