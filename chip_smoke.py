@@ -13,12 +13,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. kernels     — every kernel against its plain PyTorch version on the card,
                  in bf16, at the serving path's shapes; times the kernel, the
                  plain version and one PyTorch library call as a yardstick,
-                 each cycling over input copies larger than L2 with the
-                 calls queued behind a sleep kernel (device time, not the
-                 host's), and computes the kernel's bound from the bytes and
+                 each cycling over input copies larger than L2, with the
+                 host in the loop (CUDA events around the calls: ``ms``),
+                 and the kernel and the library call again as device time
+                 (the calls queued behind a sleep kernel: ``device_ms``),
+                 and computes the kernel's bound from the bytes and
                  operations this run's inputs need (bytes over 3.35 TB/s or
                  operations over the peak rate of their type).
-   rmsnorm     — (4096, 2048) and (4096, 1024) against the plain version;
+   rmsnorm     — (4096, 2048), (4096, 1024) and (4096, 256) against the
+                 plain version;
                  timed at both and at the decode shape (8, 2048) beside
                  ``F.rms_norm``; a width it is not built for is refused.
    paged       — each pool (bf16, int8, fp8, f32) at the serving positions,
@@ -64,8 +67,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                  on the port's ``DataPipeline``; asserts finite losses,
                  a finite non-zero gradient for every parameter leaf after
                  the first backward, and exact launch counts per step.
-7. trainer     — ``Trainer.run()`` at a small depth (2 layers, d_model
-                 1024, bf16, head_dim 64) with an injected failure: it must
+7. trainer     — ``Trainer.run()`` at a small width (2 layers, d_model
+                 256, bf16, head_dim 64) with an injected failure: it must
                  restart from its checkpoint and finish.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last line
@@ -123,25 +126,40 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean time of ``fn`` over ``iters`` calls, CUDA events around the
+    loop: the device's time where it is the longer, else the host's time
+    to issue the calls (Python, checks and launch), as a caller sees it."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 # the sleep kernel that holds the stream while a timing loop is enqueued
 # counts cycles; 2e9 a second is above the H100's boost clock, so a sleep
 # asked for t seconds lasts at least t
 SLEEP_CYCLES_PER_S = 2e9
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls (CUDA events)."""
-    return time_device_host(fn, iters, warmup)[0]
-
-
-def time_device_host(fn, iters: int = 20, warmup: int = 3):
-    """(device ms, host ms) per call of ``fn``.  The calls are enqueued
-    behind a sleep kernel that lasts longer than their enqueueing, so the
-    events time the device running them back to back, not the host's
-    Python and launch overhead (a call of a few microseconds of device work
-    costs tens of microseconds of host time); the host ms is that
+def time_device_ms(fn, iters: int = 20, warmup: int = 3):
+    """(device ms, host ms) per call of ``fn``, beside ``time_ms``.  At
+    most ``MAX_QUEUED`` calls are enqueued behind a sleep kernel that lasts
+    longer than their enqueueing, so the events time the device running
+    them back to back without the host's share; the host ms is that
     enqueueing time.  If the sleep ran out first (the start event fired
-    before the last call was queued), it is doubled and the loop rerun."""
+    before the last call was queued), the loop reruns with twice the sleep
+    and half the calls (a call of many kernels fills the launch queue,
+    which blocks the host until the sleep ends); after six tries it raises
+    (``fn`` synchronises)."""
+    iters = min(iters, MAX_QUEUED)
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -151,7 +169,7 @@ def time_device_host(fn, iters: int = 20, warmup: int = 3):
     guess = 2.0 * iters * (time.perf_counter() - t0) + 1e-3
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    for _ in range(4):
+    for _ in range(6):
         torch.cuda._sleep(int(min(guess, 2.0) * SLEEP_CYCLES_PER_S))
         start.record()
         t0 = time.perf_counter()
@@ -162,9 +180,11 @@ def time_device_host(fn, iters: int = 20, warmup: int = 3):
         end.record()
         end.synchronize()
         if held:
-            break
+            return start.elapsed_time(end) / iters, 1e3 * host / iters
         guess *= 2
-    return start.elapsed_time(end) / iters, 1e3 * host / iters
+        iters = max(1, iters // 2)
+    raise RuntimeError(f"time_device_ms: the sleep kernel never held the "
+                       f"stream, down to {iters} calls enqueued")
 
 
 def cycled(fn, cases):
@@ -263,30 +283,70 @@ def _library_sdpa(q, k, v, mask):
                                           enable_gqa=True)
 
 
+#: how the rows' times were taken (their "timing" key)
+TIMING = ("ms, plain_ms, library_ms with the host in the loop (CUDA events "
+          "around the calls); device_ms, library_device_ms with the calls "
+          "queued behind a sleep kernel")
+
+
+def versus(name, t, lib_name):
+    """A log fragment: a kernel's times beside a library call's, both with
+    the host in the loop (the rows' ms) and as device time."""
+    return (f"{name} {t['ms']:.4f} ms, {lib_name} {t['library_ms']:.4f} ms "
+            f"({t['ms'] / t['library_ms']:.2f}x) with the host in the loop; "
+            f"device time {t['device_ms']:.4f} ms against "
+            f"{t['library_device_ms']:.4f} ms "
+            f"({t['device_ms'] / t['library_device_ms']:.2f}x); "
+            f"{t['host_ms'] * 1e3:.1f} us of host time a call")
+
+
+def both_times(kernel, library, iters: int) -> dict:
+    """The times of a kernel's and a library call's loops: ``ms`` and
+    ``library_ms`` with the host in the loop (``time_ms``), ``device_ms``
+    and ``library_device_ms`` queued behind a sleep kernel, and the
+    kernel's ``host_ms`` a call."""
+    t = {"ms": time_ms(kernel, iters), "library_ms": time_ms(library, iters)}
+    t["device_ms"], t["host_ms"] = time_device_ms(kernel, iters)
+    t["library_device_ms"] = time_device_ms(library, iters)[0]
+    return t
+
+
 def rmsnorm_timings(gen, rows: int, d: int):
-    """(kernel ms, ``F.rms_norm`` ms, kernel host ms per call, inputs) of
-    the RMSNorm wrapper at (rows, d) bf16 with an f32 scale, both cycling
-    over input copies larger than L2, at most ``MAX_COPIES`` of them (public
-    wrappers only, so that another tree's kernels can be timed the same
-    way)."""
+    """``both_times`` of the RMSNorm wrapper against ``F.rms_norm`` at
+    (rows, d) bf16 with an f32 scale, each cycling over input copies larger
+    than L2, at most ``MAX_COPIES`` of them (public wrappers only, so that
+    another tree's kernels can be timed the same way); and the inputs."""
     from repro_torch.kernels.rmsnorm import rmsnorm
     n = min(n_copies(rows * d * 2), MAX_COPIES)
     xs = [torch.randn(rows, d, generator=gen, device="cuda").bfloat16()
           for _ in range(n)]
     w = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
     wb = w.to(torch.bfloat16)
-    iters = min(max(4 * n, 64), MAX_QUEUED)
-    ms, host = time_device_host(cycled(lambda x: rmsnorm(x, w),
-                                       [(x,) for x in xs]), iters=iters)
-    lib = time_ms(cycled(lambda x: F.rms_norm(x, (d,), wb, 1e-5),
-                         [(x,) for x in xs]), iters=iters)
-    return ms, lib, host, (xs, w, n)
+    t = both_times(cycled(lambda x: rmsnorm(x, w), [(x,) for x in xs]),
+                   cycled(lambda x: F.rms_norm(x, (d,), wb, 1e-5),
+                          [(x,) for x in xs]),
+                   min(max(4 * n, 64), MAX_QUEUED))
+    return t, (xs, w, n)
+
+
+def _rmsnorm_compare(gen, rows: int, d: int):
+    """The kernel against its plain version at (rows, d); logs and returns
+    (ok, max_abs_err)."""
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
+    x = torch.randn(rows, d, generator=gen, device="cuda").bfloat16()
+    w = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+    ref = rmsnorm_ref(x, w).float()
+    err = (rmsnorm(x, w).float() - ref).abs()
+    ok = bool((err <= RMS_RTOL * ref.abs() + 1e-6).all())
+    log(f"[kernels] rmsnorm x ({rows}, {d}) bf16: max_abs_err "
+        f"{float(err.max()):.3e} (rtol {RMS_RTOL}) ok={ok}")
+    return ok, float(err.max())
 
 
 def check_rmsnorm(gen):
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
     rows, d = SERVE_SLOTS * 512, 2048                 # slots x bucket
-    ms, lib, host, (xs, w, n) = rmsnorm_timings(gen, rows, d)
+    t, (xs, w, n) = rmsnorm_timings(gen, rows, d)
     x = xs[0]
     got, ref = rmsnorm(x, w), rmsnorm_ref(x, w)
     err = (got.float() - ref.float()).abs()
@@ -295,39 +355,32 @@ def check_rmsnorm(gen):
            "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
            "replaces": "src/repro/kernels/rmsnorm/kernel.py:30",
            "shape": f"x ({rows}, {d}) bf16",
-           "timing": f"cold L2: cycles over {n} input copies; device time "
-                     f"(calls queued behind a sleep kernel)",
+           "timing": f"cold L2: cycles over {n} input copies; {TIMING}",
            "max_abs_err": float(err.max()), "tol": f"rtol {RMS_RTOL}",
-           "ms": ms,
+           "ms": t["ms"], "device_ms": t["device_ms"],
            "plain_ms": time_ms(cycled(lambda x: rmsnorm_ref(x, w),
                                       [(x,) for x in xs]), iters=n),
-           "library_ms": lib}
+           "library_ms": t["library_ms"],
+           "library_device_ms": t["library_device_ms"]}
     row["bound_ms"], row["bound_by"] = bound(
         2 * rows * d * 2 + d * 4, 4 * rows * d, "f32")
     log(f"[kernels] rmsnorm {row['shape']}: max_abs_err "
-        f"{row['max_abs_err']:.3e} (rtol {RMS_RTOL}) ok={ok}; kernel "
-        f"{ms:.4f} ms ({host * 1e3:.1f} us of host time a call), "
-        f"F.rms_norm {lib:.4f} ms, bound {row['bound_ms']:.4f} ms")
+        f"{row['max_abs_err']:.3e} (rtol {RMS_RTOL}) ok={ok}; "
+        f"{versus('kernel', t, 'F.rms_norm')}; bound "
+        f"{row['bound_ms']:.4f} ms")
     del xs
-    # mamba2-370m's block and final norms run at d_model 1024: checked,
-    # logged, not in the JSON
-    x = torch.randn(rows, 1024, generator=gen, device="cuda").bfloat16()
-    w1 = 1.0 + 0.1 * torch.randn(1024, generator=gen, device="cuda")
-    ref1 = rmsnorm_ref(x, w1).float()
-    err1 = (rmsnorm(x, w1).float() - ref1).abs()
-    ok1 = bool((err1 <= RMS_RTOL * ref1.abs() + 1e-6).all())
-    log(f"[kernels] rmsnorm x ({rows}, 1024) bf16: max_abs_err "
-        f"{float(err1.max()):.3e} (rtol {RMS_RTOL}) ok={ok1}")
-    if not (ok and ok1):
+    # mamba2-370m's block and final norms run at d_model 1024, the small
+    # Trainer run at 256: checked, logged, not in the JSON
+    oks = [ok] + [_rmsnorm_compare(gen, rows, dd)[0] for dd in (1024, 256)]
+    if not all(oks):
         raise AssertionError("rmsnorm kernel disagrees with its plain version")
     # mamba's width at the prefill shape, and llama's decode shape (33 norms
     # of every decode step; launch-bound): logged beside F.rms_norm
     for r, dd in ((rows, 1024), (SERVE_SLOTS, 2048)):
-        t, t_lib, t_host, (_, _, nc) = rmsnorm_timings(gen, r, dd)
+        tt, (_, _, nc) = rmsnorm_timings(gen, r, dd)
         b_ms, _ = bound(2 * r * dd * 2 + dd * 4, 4 * r * dd, "f32")
         log(f"[kernels] rmsnorm x ({r}, {dd}) bf16 ({nc} input copies): "
-            f"kernel {t:.4f} ms ({t_host * 1e3:.1f} us of host time a "
-            f"call), F.rms_norm {t_lib:.4f} ms, bound {b_ms:.4f} ms")
+            f"{versus('kernel', tt, 'F.rms_norm')}; bound {b_ms:.4f} ms")
     # a width the kernel is not instantiated for is refused on the card
     x = torch.randn(4, 512, device="cuda").bfloat16()
     try:
@@ -367,22 +420,23 @@ def check_prefill(gen):
         kpos = torch.arange(S, device="cuda")
         mask = (kpos[None, :] <= kpos[:, None])[None] \
             & (kpos[None, None, :] < vl[:, None, None])      # (B, S, S)
+        t = both_times(
+            cycled(lambda q, k, v: flash_prefill(q, k, v, vl), cases),
+            cycled(lambda q, k, v: _library_sdpa(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                mask[:, None]), cases), max(20, n))
         row = {"name": "flash_prefill", "route": "cuda",
                "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
                "replaces": "src/repro/kernels/flash_attention/kernel.py:125",
                "shape": f"q ({B}, {S}, {H}, {D}) kv {KV} heads bf16",
-               "timing": f"cold L2: cycles over {n} input copies",
+               "timing": f"cold L2: cycles over {n} input copies; {TIMING}",
                "max_abs_err": float(err.max()), "tol": ATTN_TOL,
-               "ms": time_ms(cycled(lambda q, k, v: flash_prefill(q, k, v, vl),
-                                    cases), iters=max(20, n)),
+               "ms": t["ms"], "device_ms": t["device_ms"],
                "plain_ms": time_ms(cycled(
                    lambda q, k, v: flash_prefill_ref(q, k, v, vl), cases),
                    iters=5),
-               "library_ms": time_ms(cycled(
-                   lambda q, k, v: _library_sdpa(
-                       q.transpose(1, 2), k.transpose(1, 2),
-                       v.transpose(1, 2), mask[:, None]), cases),
-                   iters=max(20, n))}
+               "library_ms": t["library_ms"],
+               "library_device_ms": t["library_device_ms"]}
         # bytes: q read and out written whole; row b reads K and V only at
         # its min(S, valid_len) valid keys.  Operations: 4 D per (query,
         # key) pair left by the causal and valid-length masks.
@@ -392,9 +446,8 @@ def check_prefill(gen):
         row["bound_ms"], row["bound_by"] = bound(
             2 * (2 * B * S * H * D + 2 * keys * KV * D) + B * 4,
             4 * D * pairs, "bf16")
-        log(f"[kernels] flash_prefill S={S}: kernel {row['ms']:.4f} ms, "
-            f"plain {row['plain_ms']:.4f} ms, library "
-            f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms")
+        log(f"[kernels] flash_prefill S={S}: {versus('kernel', t, 'SDPA')}; "
+            f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms")
         rows.append(row)
     check_prefill_padded_window(gen)
     return rows[-1]              # the longest bucket goes in the JSON
@@ -533,22 +586,29 @@ def check_flash_bwd(gen):
                                              enable_gqa=True)
         return out, (qt, kt, vt), do.transpose(1, 2)
     saved = [sdpa_saved(*c) for c in cases]
-    timing = f"cold L2: cycles over {n} input copies"
+    timing = f"cold L2: cycles over {n} input copies; {TIMING}"
     pairs = _attention_pairs(B, H, S)
+    t_fwd = both_times(
+        cycled(lambda q, k, v, *_: flash_prefill(q, k, v, return_lse=True),
+               cases),
+        cycled(lambda q, k, v, *_: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True), cases), 4 * n)
+    t_bwd = both_times(
+        cycled(lambda *c: flash_attention_bwd(*c), cases),
+        cycled(lambda out, inputs, g: torch.autograd.grad(
+            out, inputs, g, retain_graph=True), saved), 2 * n)
     fwd = {"name": "flash_prefill_lse", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
            "replaces": "src/repro/kernels/flash_attention/kernel.py:125",
            "shape": f"q ({B}, {S}, {H}, {D}) kv {KV} heads bf16, causal, "
                     f"with lse", "timing": timing,
            "max_abs_err": max(err, lse_err), "tol": ATTN_TOL,
-           "ms": time_ms(cycled(lambda q, k, v, *_: flash_prefill(
-               q, k, v, return_lse=True), cases), iters=4 * n),
+           "ms": t_fwd["ms"], "device_ms": t_fwd["device_ms"],
            "plain_ms": time_ms(cycled(lambda q, k, v, *_: flash_prefill_ref(
                q, k, v, return_lse=True), cases), iters=3, warmup=1),
-           "library_ms": time_ms(cycled(
-               lambda q, k, v, *_: F.scaled_dot_product_attention(
-                   q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                   is_causal=True, enable_gqa=True), cases), iters=4 * n)}
+           "library_ms": t_fwd["library_ms"],
+           "library_device_ms": t_fwd["library_device_ms"]}
     # bytes: q, k, v read, o written, lse written (f32); 2 products of 2 D
     # flops per admitted pair
     fwd["bound_ms"], fwd["bound_by"] = bound(
@@ -562,13 +622,11 @@ def check_flash_bwd(gen):
            "timing": timing,
            "max_abs_err": max(e for e, _ in errs.values()),
            "tol": f"{BWD_TOL} of each output's largest |value|",
-           "ms": time_ms(cycled(lambda *c: flash_attention_bwd(*c), cases),
-                         iters=2 * n),
+           "ms": t_bwd["ms"], "device_ms": t_bwd["device_ms"],
            "plain_ms": time_ms(cycled(lambda *c: flash_attention_bwd_ref(
                *c), cases), iters=3, warmup=1),
-           "library_ms": time_ms(cycled(
-               lambda out, inputs, g: torch.autograd.grad(
-                   out, inputs, g, retain_graph=True), saved), iters=2 * n)}
+           "library_ms": t_bwd["library_ms"],
+           "library_device_ms": t_bwd["library_device_ms"]}
     # bytes: q, k, v, o, dO read, lse read (f32), dq, dk, dv written;
     # the function needs 5 products of 2 D flops per admitted pair (QK^T,
     # dO V^T, dS K, P^T dO, dS^T Q; the kernels' recompute of QK^T and
@@ -576,11 +634,10 @@ def check_flash_bwd(gen):
     bwd["bound_ms"], bwd["bound_by"] = bound(
         2 * io_bytes + 2 * 2 * B * S * H * D + 4 * B * H * S,
         5 * 2 * D * pairs, "bf16")
-    for row in (fwd, bwd):
-        log(f"[kernels] {row['name']} {shape}: kernel {row['ms']:.4f} ms, "
-            f"plain {row['plain_ms']:.4f} ms, library "
-            f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']})")
+    for row, t in ((fwd, t_fwd), (bwd, t_bwd)):
+        log(f"[kernels] {row['name']} {shape}: {versus('kernel', t, 'SDPA')}"
+            f"; plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} "
+            f"ms ({row['bound_by']})")
     return fwd, bwd
 
 
@@ -647,15 +704,17 @@ def _paged_bound(case):
                  + scale_bytes + pages * 4 + B * 4, 4 * D * H * keys, "bf16")
 
 
-def paged_timings(case, full_table: bool = True, plain: bool = False):
-    """(kernel ms, kernel host ms a call, SDPA ms, plain ms or None) of one
-    decode call on ``case``, each cycling over its layers' pools (public
-    wrappers only, so that another tree's kernel can be timed the same
-    way).  The SDPA yardstick reads bf16 caches already gathered per slot,
-    one per layer, so that it too reads device memory: over the whole table
-    (``full_table``), or cut to the pages that hold the largest position
-    (at short contexts the whole table would charge it keys the kernel
-    never reads)."""
+def paged_timings(case, full_table: bool = True, plain: bool = False,
+                  decode=None):
+    """``both_times`` of one decode call on ``case`` against SDPA, and
+    ``plain_ms`` (None unless ``plain``), each cycling over its layers'
+    pools.  ``decode`` (default: the public wrapper) takes the wrapper's
+    arguments, so that another tree's kernel or another split size can be
+    timed the same way.  The SDPA yardstick reads bf16 caches already
+    gathered per slot, one per layer, so that it too reads device memory:
+    over the whole table (``full_table``; it then reads every slot's 1024
+    keys where the kernel reads pos + 1, at 1 byte a value for an int8
+    pool), or cut to the pages that hold the largest position."""
     from repro_torch.kernels.flash_attention import (paged_attention_ref,
                                                      paged_flash_decode)
     from repro_torch.kernels.flash_attention.paged import gather_pages
@@ -674,11 +733,12 @@ def paged_timings(case, full_table: bool = True, plain: bool = False):
                 for kl, vl_, ksl, vsl in layers]
     mask = (torch.arange(nb * page, device="cuda")[None, :] <= pos[:, None])
     qt = q.transpose(1, 2)
-    ms, host = time_device_host(run(paged_flash_decode), iters=32)
-    lib = time_ms(cycled(lambda gk, gv: _library_sdpa(
-        qt, gk, gv, mask[:, None, None, :]), gathered), iters=32)
-    plain_ms = time_ms(run(paged_attention_ref), iters=8) if plain else None
-    return ms, host, lib, plain_ms
+    t = both_times(run(decode or paged_flash_decode),
+                   cycled(lambda gk, gv: _library_sdpa(
+                       qt, gk, gv, mask[:, None, None, :]), gathered), 32)
+    t["plain_ms"] = time_ms(run(paged_attention_ref), iters=8) if plain \
+        else None
+    return t
 
 
 def _paged_compare(label, case, window=0, softcap=0.0):
@@ -733,28 +793,28 @@ def check_paged(gen, pool_dtype, label):
                        _paged_case(gen, pool_dtype, positions, L=1),
                        window, softcap)
     B, _, H, D = q.shape
-    ms, host, lib, plain = paged_timings(case, plain=True)
+    t = paged_timings(case, plain=True)
     row = {"name": f"paged_decode[{label}]", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
            "replaces": "src/repro/kernels/flash_attention/paged.py:155",
            "shape": f"q ({B}, 1, {H}, {D}) pool {label} page {kp.shape[2]} "
                     f"pos {int(pos.min())}..{int(pos.max())}",
            "timing": f"cold L2: cycles over {kp.shape[0]} layers' pools; "
-                     f"device time (calls queued behind a sleep kernel)",
-           "max_abs_err": err, "tol": ATTN_TOL, "ms": ms,
-           "plain_ms": plain, "library_ms": lib}
+                     f"{TIMING}; SDPA reads each slot's whole table",
+           "max_abs_err": err, "tol": ATTN_TOL, "ms": t["ms"],
+           "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+           "library_ms": t["library_ms"],
+           "library_device_ms": t["library_device_ms"]}
     row["bound_ms"], row["bound_by"] = _paged_bound(case)
-    log(f"[kernels] paged_decode {label} pool, serving positions: kernel "
-        f"{ms:.4f} ms ({host * 1e3:.1f} us of host time a call), SDPA "
-        f"{lib:.4f} ms ({ms / lib:.2f}x), bound {row['bound_ms']:.4f} ms")
+    log(f"[kernels] paged_decode {label} pool, serving positions: "
+        f"{versus('kernel', t, 'SDPA')}; bound {row['bound_ms']:.4f} ms")
     del case
     if pool_dtype in (torch.bfloat16, torch.int8):
         short = _paged_case(gen, pool_dtype, PROFILE_POS)
-        s_ms, s_host, s_lib, _ = paged_timings(short, full_table=False)
+        st = paged_timings(short, full_table=False)
         log(f"[kernels] paged_decode {label} pool, short contexts pos "
-            f"{PROFILE_POS[0]}..{PROFILE_POS[-1]}: kernel {s_ms:.4f} ms "
-            f"({s_host * 1e3:.1f} us of host time a call), SDPA over the "
-            f"pages in use {s_lib:.4f} ms ({s_ms / s_lib:.2f}x), bound "
+            f"{PROFILE_POS[0]}..{PROFILE_POS[-1]}: "
+            f"{versus('kernel', st, 'SDPA over the pages in use')}; bound "
             f"{_paged_bound(short)[0]:.4f} ms")
     return row
 
@@ -832,18 +892,21 @@ def check_ssd(gen):
                "replaces": "src/repro/kernels/ssd_scan/kernel.py:82",
                "shape": f"x ({shape['B']}, {shape['S']}, {shape['H']}, 64) "
                         f"bf16, B/C G {shape['G']} N 128, chunk {chunk}",
-               "timing": f"cold L2: cycles over {n} input copies",
+               "timing": f"cold L2: cycles over {n} input copies; {TIMING}",
                "max_abs_err": max(ey, eh),
                "tol": f"y {SSD_Y_TOL} of max |y|, state {SSD_H_TOL} of "
                       f"max |h|",
                "ms": time_ms(cycled(lambda *c: ssd_scan(*c, chunk), copies),
                              iters=2 * n),
+               "device_ms": time_device_ms(cycled(
+                   lambda *c: ssd_scan(*c, chunk), copies), iters=2 * n)[0],
                "plain_ms": time_ms(cycled(lambda *c: ssd_ref(*c, chunk),
                                           copies), iters=3, warmup=1),
-               "library_ms": None,
+               "library_ms": None, "library_device_ms": None,
                "library_note": "no single PyTorch call computes the SSD scan"}
         row["bound_ms"], row["bound_by"] = bound(nbytes, ops, "bf16")
-        log(f"[kernels] ssd_scan serve: kernel {row['ms']:.4f} ms, plain "
+        log(f"[kernels] ssd_scan serve: kernel {row['ms']:.4f} ms "
+            f"(device time {row['device_ms']:.4f} ms), plain "
             f"{row['plain_ms']:.4f} ms, library none, bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}; {nbytes / 1e6:.1f} "
             f"MB, {ops / 1e9:.2f} GFLOP)")
@@ -1258,7 +1321,7 @@ def phase_consistency_ssm(model, params, steps: int = 4):
 
 
 # ---------------------------------------------------------------------------
-# 6. train at full width, 7. Trainer restart at a small depth
+# 6. train at full width, 7. Trainer restart at a small width
 # ---------------------------------------------------------------------------
 
 def phase_train():
@@ -1369,7 +1432,7 @@ def phase_train():
 
 
 def phase_trainer():
-    """``Trainer.run()`` at a small depth on the card with an injected
+    """``Trainer.run()`` at a small width on the card with an injected
     failure at step 3: it restarts from the step-2 checkpoint and
     finishes."""
     from repro_torch.ckpt import CheckpointManager
@@ -1379,11 +1442,11 @@ def phase_trainer():
     from repro_torch.runtime import FailureInjector
     from repro_torch.train import OptimizerConfig, make_train_step
     from repro_torch.train.loop import Trainer, TrainerConfig
-    # llama3.2-1b's family at a small depth that keeps what the kernels are
-    # built for: bf16 compute, head_dim 64 and an RMSNorm width of 1024
+    # llama3.2-1b's family at a small width that keeps what the kernels are
+    # built for: bf16 compute and head_dim 64 (RMSNorm is built for d 256)
     cfg = dataclasses.replace(get_config("llama3.2-1b"), name="llama-small",
-                              n_layers=2, d_model=1024, n_heads=16,
-                              n_kv_heads=4, head_dim=64, d_ff=1024,
+                              n_layers=2, d_model=256, n_heads=4,
+                              n_kv_heads=2, head_dim=64, d_ff=1024,
                               vocab_size=257)
     model = build_model(cfg, device="cuda")
     build = os.path.join(ROOT, "build")

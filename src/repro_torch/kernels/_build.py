@@ -42,9 +42,9 @@ SIGNATURES: Dict[str, list] = {
     # x, w, out, rows, d, eps, dtype, stream
     "rmsnorm_launch": [_P, _P, _P, _I, _I, _F, _I, _P],
     # q, k_pages, v_pages, tables, pos, k_scales, v_scales, workspace, out,
-    # B, H, KV, D, page, nb, keys_per_split, n_split, window, softcap,
-    # q_dtype, kv_dtype, stream
-    "paged_decode_launch": [_P] * 9 + [_I] * 9 + [_F, _I, _I, _P],
+    # B, H, KV, D, page, nb, keys_per_split, window, softcap, q_dtype,
+    # kv_dtype, stream
+    "paged_decode_launch": [_P] * 9 + [_I] * 8 + [_F, _I, _I, _P],
     # q, k, v, kv_valid_len, out, lse (or null), B, Sq, Sk, H, KV, D,
     # q/k/v/o strides (batch, seq, head) in elements,
     # causal, window, softcap, dtype, stream
@@ -61,6 +61,7 @@ SIGNATURES: Dict[str, list] = {
 
 #: dtype codes shared with the C sources (``csrc/common.cuh``)
 DTYPE_CODES = {"float32": 0, "bfloat16": 1, "int8": 2, "float8_e4m3fn": 3}
+_CODE_OF = {getattr(torch, name): code for name, code in DTYPE_CODES.items()}
 
 
 class _Library:
@@ -184,21 +185,26 @@ def check(err: int, name: str) -> None:
 
 def dtype_code(t) -> int:
     """The C sources' code for a tensor's dtype; raises on other dtypes."""
-    name = str(t.dtype).replace("torch.", "")
-    if name not in DTYPE_CODES:
+    code = _CODE_OF.get(t.dtype)
+    if code is None:
         raise TypeError(f"dtype {t.dtype} has no kernel instantiation")
-    return DTYPE_CODES[name]
+    return code
 
 
 def require_cuda(name: str, *tensors) -> None:
     """Raise unless every tensor lies on the current CUDA device with
-    16-byte-aligned data, as the kernels' vector loads need."""
+    16-byte-aligned data, as the kernels' vector loads need.  Every wrapper
+    call of a serving step runs it, so it reads only what a check needs
+    (a decode step is host-bound)."""
+    device = None
     for t in tensors:
-        if t.device.type != "cuda":
+        if not t.is_cuda:
             raise ValueError(f"{name}: tensor on {t.device}, expected a "
                              f"CUDA device (CPU tensors take the plain "
                              f"version)")
-        if t.device.index != torch.cuda.current_device():
+        if device is None:          # CUDA is initialised: t lives there
+            device = torch._C._cuda_getDevice()
+        if t.get_device() != device:
             raise ValueError(f"{name}: tensor on {t.device}, expected the "
                              f"current CUDA device")
         if t.data_ptr() % 16:
@@ -217,5 +223,6 @@ def refuse_grad(name: str, *tensors) -> None:
 
 
 def stream_handle(t) -> int:
-    """PyTorch's current stream on ``t``'s device, as a C pointer."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """PyTorch's current stream on ``t``'s device, as a C pointer (the raw
+    handle, without building a ``torch.cuda.Stream`` object each call)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

@@ -18,12 +18,12 @@
 //
 // - The key axis is split (flash-decoding): the grid is (KV, B, n_split),
 //   split s covering keys [s * kps, (s + 1) * kps), a whole number of
-//   pages.  n_split comes from the table width on the host, never from
-//   the positions, which live on the device (the grid stays fixed for a
-//   CUDA graph).  A split wholly past the slot's last page or before its
-//   window's first page writes an empty partial (max -1e30, sum 0) and
-//   returns without loading.  At the llama serving shape (KV 8, B 8, 1024
-//   keys, kps 128) that is 512 blocks on 132 SMs.
+//   pages.  n_split = ceil(nb * page / kps) comes from the table width
+//   alone, never from the positions, which live on the device (the grid
+//   stays fixed for a CUDA graph).  A split wholly past the slot's last
+//   page or before its window's first page writes an empty partial (max
+//   -1e30, sum 0) and returns without loading.  At the llama serving
+//   shape (KV 8, B 8, 1024 keys, kps 128) that is 512 blocks on 132 SMs.
 // - Inside a block (4 warps), tiles of 64 keys arrive by 16-byte cp.async
 //   into a 2-stage ring in shared memory, in the pool's own type (1 byte a
 //   value for int8 / fp8), the next tile loading while this one computes.
@@ -351,13 +351,15 @@ template <typename KT>
 static int launch_paged(const void* q, const void* kp, const void* vp,
                         const int* tables, const int* pos, const float* ks,
                         const float* vs, float* part, void* out, int B, int H,
-                        int KV, int D, int page, int nb, int kps, int n_split,
-                        int window, float softcap, cudaStream_t stream) {
+                        int KV, int D, int page, int nb, int kps, int window,
+                        float softcap, cudaStream_t stream) {
   using QT = __nv_bfloat16;
-  if (D != kDecD || KV <= 0 || H != kDecG * KV || page <= 0 || kps % page ||
-      kps / page > kDecMaxSplitPages ||
-      n_split != (nb * page + kps - 1) / kps)
+  if (D != kDecD || KV <= 0 || H != kDecG * KV || page <= 0 || kps <= 0 ||
+      kps % page || kps / page > kDecMaxSplitPages)
     return static_cast<int>(cudaErrorInvalidValue);
+  // as kernels/flash_attention/paged.py:split_plan, which sizes the
+  // workspace
+  const int n_split = (nb * page + kps - 1) / kps;
   const size_t smem = 2 * 2 * sizeof(KT) * kDecTileKeys * kDecD;
   auto kernel = paged_decode_kernel<KT, kDecG>;
   if (smem > 48 * 1024) {
@@ -398,8 +400,8 @@ extern "C" int paged_decode_launch(const void* q, const void* k_pages,
                                    const void* v_scales, void* workspace,
                                    void* out, int B, int H, int KV, int D,
                                    int page, int nb, int keys_per_split,
-                                   int n_split, int window, float softcap,
-                                   int q_dtype, int kv_dtype, void* stream) {
+                                   int window, float softcap, int q_dtype,
+                                   int kv_dtype, void* stream) {
   if (q_dtype != kBF16) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* t = static_cast<const int*>(tables);
@@ -410,22 +412,20 @@ extern "C" int paged_decode_launch(const void* q, const void* k_pages,
   switch (kv_dtype) {
     case kF32:
       return launch_paged<float>(q, k_pages, v_pages, t, p, ks, vs, w, out, B,
-                                 H, KV, D, page, nb, keys_per_split, n_split,
-                                 window, softcap, s);
+                                 H, KV, D, page, nb, keys_per_split, window,
+                                 softcap, s);
     case kBF16:
       return launch_paged<__nv_bfloat16>(q, k_pages, v_pages, t, p, ks, vs, w,
                                          out, B, H, KV, D, page, nb,
-                                         keys_per_split, n_split, window,
-                                         softcap, s);
+                                         keys_per_split, window, softcap, s);
     case kI8:
       return launch_paged<int8_t>(q, k_pages, v_pages, t, p, ks, vs, w, out,
                                   B, H, KV, D, page, nb, keys_per_split,
-                                  n_split, window, softcap, s);
+                                  window, softcap, s);
     case kFP8:
       return launch_paged<__nv_fp8_e4m3>(q, k_pages, v_pages, t, p, ks, vs, w,
                                          out, B, H, KV, D, page, nb,
-                                         keys_per_split, n_split, window,
-                                         softcap, s);
+                                         keys_per_split, window, softcap, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -15,7 +15,8 @@
 // - The sum of squares reduces by warp shuffles alone: no shared memory and
 //   no __syncthreads.
 // - The kernel is templated on chunks per lane and instantiated only for
-//   the widths the paths launch (d 2048, llama3.2-1b; d 1024, mamba2-370m).
+//   the widths the paths launch (d 2048, llama3.2-1b; d 1024, mamba2-370m;
+//   d 256, the small Trainer run of chip_smoke.py).
 //   Each warp reads the f32 weight once, as 16-byte vectors, into
 //   registers, then strides over rows in a grid of as many blocks as the
 //   SMs hold at once (2-4 an SM, by its register count), loading its next
@@ -119,15 +120,18 @@ static int launch_rms(const void* x, const void* w, void* out, int rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Built for bf16 at d 1024 and 2048, what the serving and training paths
-// launch; other types and widths are refused until a configuration needs
-// them and chip_smoke.py checks them (kernels/rmsnorm.py names the widths).
+// Built for bf16 at d 256, 1024 and 2048, what the serving and training
+// paths launch; other types and widths are refused until a configuration
+// needs them and chip_smoke.py checks them (kernels/rmsnorm.py names the
+// widths).
 extern "C" int rmsnorm_launch(const void* x, const void* w, void* out,
                               int rows, int d, float eps, int dtype,
                               void* stream) {
   if (dtype != kBF16) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
+    case 256:
+      return launch_rms<1>(x, w, out, rows, eps, s);
     case 1024:
       return launch_rms<4>(x, w, out, rows, eps, s);
     case 2048:

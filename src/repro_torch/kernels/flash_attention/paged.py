@@ -18,7 +18,8 @@ from .. import _build
 
 NEG_INF = -1e30
 #: keys of one slot that one block of the decode kernel covers (rounded
-#: down to whole pages, at least one page)
+#: down to whole pages, at least one page); 128 was the fastest of 64, 128
+#: and 256 on an H100 (``tools/torch_kernel_ab.py --keys-per-split``)
 KEYS_PER_SPLIT = 128
 #: what the kernel is built for: head_dim and query heads per KV head
 KERNEL_HEAD_DIM, KERNEL_GROUP = 64, 4
@@ -38,15 +39,23 @@ def gather_pages(pages, block_tables, scales=None) -> torch.Tensor:
     return g.reshape((B, nb * pages.shape[1]) + tuple(pages.shape[2:]))
 
 
-def split_plan(nb: int, page: int, keys_per_split: int = 0):
+def split_plan(nb: int, page: int, keys_per_split: int = KEYS_PER_SPLIT):
     """(keys per split, number of splits) of the decode kernel's key axis
     over a block table of ``nb`` pages of ``page`` keys.  A split covers a
     whole number of pages; the count depends on the table's width alone,
     never on the positions (they live on the device), so the kernel's grid
-    is the same at every decode step.  ``keys_per_split`` 0 takes
-    ``KEYS_PER_SPLIT``."""
-    kps = page * max(1, (keys_per_split or KEYS_PER_SPLIT) // page)
+    is the same at every decode step.  ``csrc/paged_decode.cu`` computes
+    the same count."""
+    kps = page * max(1, keys_per_split // page)
     return kps, -(-nb * page // kps)
+
+
+def _as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` in ``dtype`` and contiguous, with no conversion call when it
+    already is (the wrapper runs 16 times a host-bound decode step)."""
+    if t.dtype != dtype:
+        t = t.to(dtype)
+    return t.contiguous()
 
 
 def paged_attention_ref(q, k_pages, v_pages, block_tables, pos, *,
@@ -85,10 +94,20 @@ def paged_flash_decode(q, k_pages, v_pages, block_tables, pos, *,
     grad mode raises, on either device."""
     _build.refuse_grad("paged_flash_decode", q, k_pages, v_pages, k_scales,
                        v_scales)
-    if q.device.type == "cpu":
+    if q.is_cpu:
         return paged_attention_ref(q, k_pages, v_pages, block_tables, pos,
                                    window=window, softcap=softcap,
                                    k_scales=k_scales, v_scales=v_scales)
+    return launch_split(q, k_pages, v_pages, block_tables, pos, window,
+                        softcap, k_scales, v_scales, KEYS_PER_SPLIT)
+
+
+def launch_split(q, k_pages, v_pages, block_tables, pos, window, softcap,
+                 k_scales, v_scales, keys_per_split) -> torch.Tensor:
+    """The kernel and its combine pass with splits of ``keys_per_split``
+    keys: ``paged_flash_decode`` passes ``KEYS_PER_SPLIT``, and
+    ``tools/torch_kernel_ab.py`` times other sizes through this function.
+    Raises on what the kernel is not built for."""
     B, one, H, D = q.shape
     P, page, KV, Dk = k_pages.shape
     nb = block_tables.shape[1]
@@ -115,16 +134,16 @@ def paged_flash_decode(q, k_pages, v_pages, block_tables, pos, *,
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
         raise ValueError("paged_flash_decode: page pools must be contiguous")
     q = q.contiguous()
-    tables = block_tables.to(torch.int32).contiguous()
-    pos = pos.to(torch.int32).contiguous()
+    tables = _as(block_tables, torch.int32)
+    pos = _as(pos, torch.int32)
     tensors = [q, k_pages, v_pages, tables, pos]
     if quantized:
-        k_scales = k_scales.float().contiguous()
-        v_scales = v_scales.float().contiguous()
+        k_scales = _as(k_scales, torch.float32)
+        v_scales = _as(v_scales, torch.float32)
         if k_scales.shape != (P, KV) or v_scales.shape != (P, KV):
             raise ValueError(f"paged_flash_decode: scales must be {(P, KV)}")
         tensors += [k_scales, v_scales]
-    kps, n_split = split_plan(nb, page)
+    kps, n_split = split_plan(nb, page, keys_per_split)
     out = torch.empty_like(q)
     # per (slot, KV head, split): running max and sum of each query row,
     # then its (rows, D) accumulator, all f32
@@ -137,7 +156,7 @@ def paged_flash_decode(q, k_pages, v_pages, block_tables, pos, *,
         tables.data_ptr(), pos.data_ptr(),
         k_scales.data_ptr() if quantized else None,
         v_scales.data_ptr() if quantized else None, work.data_ptr(),
-        out.data_ptr(), B, H, KV, D, page, nb, kps, n_split, int(window),
+        out.data_ptr(), B, H, KV, D, page, nb, kps, int(window),
         float(softcap), _build.dtype_code(q), _build.dtype_code(k_pages),
         _build.stream_handle(q)), "paged_flash_decode")
     paged_flash_decode.launches += 1

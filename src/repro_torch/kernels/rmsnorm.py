@@ -14,9 +14,9 @@ import torch
 
 from . import _build
 
-#: row widths the kernel is instantiated for: llama3.2-1b's d_model 2048
-#: and mamba2-370m's 1024
-KERNEL_WIDTHS = (1024, 2048)
+#: row widths the kernel is instantiated for: llama3.2-1b's d_model 2048,
+#: mamba2-370m's 1024, and 256, the small ``Trainer`` run of chip_smoke.py
+KERNEL_WIDTHS = (256, 1024, 2048)
 
 
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor,
@@ -53,7 +53,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def _forward(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return rmsnorm_ref(x, w, eps)
     return _launch(x, w, eps)
 

@@ -24,6 +24,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                  flash_prefill,
                                                  paged_flash_decode)
+from repro_torch.kernels.flash_attention.paged import launch_split
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models import common as tcm
@@ -221,15 +222,15 @@ def test_kernels_refuse_what_they_are_not_built_for(case):
     """Off the CPU, a dtype, width, head_dim or query group with no kernel
     instantiation raises before any launch (the kernels are built for the
     serving path's bf16, head_dim 64, 4 query heads per KV head, and
-    RMSNorm at d 1024 and 2048)."""
+    RMSNorm at d 256, 1024 and 2048)."""
     kernels.reset_launch_counts()
     if case == "rmsnorm_f32":
         with pytest.raises(TypeError, match="bf16"):
             rmsnorm(_meta(4, 64, dtype=torch.float32),
                     _meta(64, dtype=torch.float32))
     elif case == "rmsnorm_uninstantiated_d":
-        with pytest.raises(ValueError, match=r"d in \(1024, 2048\), got "
-                                             r"d=512"):
+        with pytest.raises(ValueError, match=r"d in \(256, 1024, 2048\), "
+                                             r"got d=512"):
             rmsnorm(_meta(4, 512), _meta(512, dtype=torch.float32))
     elif case == "paged_group_2":
         pages = _meta(3, 4, 2, 64)
@@ -317,3 +318,44 @@ def test_every_c_entry_point_has_a_signature():
     missing = {n: where[n] for n in found if n not in _build.SIGNATURES}
     assert not missing, missing
     assert found, "no extern \"C\" function found in csrc/*.cu"
+
+
+# ---------------------------------------------------------------------------
+# the host side of a launch
+# ---------------------------------------------------------------------------
+
+def _c_dtype_codes():
+    """{name: code} of ``enum DtypeCode`` in ``csrc/common.cuh``."""
+    with open(os.path.join(_build.CSRC, "common.cuh")) as f:
+        body = re.search(r"enum\s+DtypeCode\s*\{([^}]*)\}", f.read()).group(1)
+    return {k.strip(): int(v) for k, v in
+            (item.split("=") for item in body.split(",") if item.strip())}
+
+
+@pytest.mark.parametrize("name", sorted(_build.DTYPE_CODES))
+def test_dtype_code_matches_the_c_sources(name):
+    """A tensor's dtype code is the one the C sources switch on."""
+    c_names = {"float32": "kF32", "bfloat16": "kBF16", "int8": "kI8",
+               "float8_e4m3fn": "kFP8"}
+    code = _build.dtype_code(torch.empty(0, dtype=getattr(torch, name)))
+    assert code == _build.DTYPE_CODES[name] == _c_dtype_codes()[c_names[name]]
+
+
+def test_dtype_code_refuses_other_dtypes():
+    with pytest.raises(TypeError, match="no kernel instantiation"):
+        _build.dtype_code(torch.empty(0, dtype=torch.float16))
+
+
+def test_paged_split_launch_off_cpu_raises_before_any_launch():
+    """The split-size entry that the timing tool uses checks like the
+    wrapper: a well-shaped call on meta tensors reaches the device check
+    and raises there, at any split size, without counting a launch."""
+    kernels.reset_launch_counts()
+    pages = _meta(3, 16, 2, 64)
+    for kps in (16, 64, 128):
+        with pytest.raises(ValueError, match="CUDA device"):
+            launch_split(_meta(1, 1, 8, 64), pages, pages,
+                         _meta(1, 2, dtype=torch.int32),
+                         _meta(1, dtype=torch.int32), 0, 0.0, None, None,
+                         kps)
+    assert kernels.launch_counts()["paged_decode"] == 0

@@ -25,6 +25,7 @@ import torch
 from repro.kernels.flash_attention import paged_attention_ref as jax_paged
 from repro_torch.kernels.flash_attention import paged_flash_decode
 from repro_torch.kernels.flash_attention.paged import (KERNEL_GROUP,
+                                                       KEYS_PER_SPLIT,
                                                        NEG_INF,
                                                        paged_attention_ref,
                                                        split_plan)
@@ -83,7 +84,8 @@ def _block(qg, kp, vp, row, h, ja, jb, pos, window, softcap, ks, vs):
 
 
 def recipe_decode(q, kp, vp, tables, pos, *, window=0, softcap=0.0,
-                  k_scales=None, v_scales=None, keys_per_split=0):
+                  k_scales=None, v_scales=None,
+                  keys_per_split=KEYS_PER_SPLIT):
     """The kernel's algorithm.  Returns the output (B, 1, H, D) in q's
     dtype and, per (slot, KV head), which splits were empty."""
     B, _, H, _ = q.shape

@@ -10,12 +10,13 @@ port on the card, with ``chip_smoke.py``'s timing helpers and shapes.
 so an older commit unpacked with ``git archive`` into a git-ignored
 directory times its own kernels beside this tree's.  Run the two in one
 call, in turns (old, new, new, old), to compare them on one card.  With
-``--keys-per-split`` the paged decode rows are timed once per split size
-(trees whose wrapper has ``KEYS_PER_SPLIT``).  Prints one JSON line per
-row: the paged decode kernel at the serving positions (16..1000) and at
-the profile run's short contexts (128..160), bf16 and int8 pools, beside
-SDPA; RMSNorm at (4096, 2048), (4096, 1024) and (8, 2048) beside
-``F.rms_norm``.  Needs CUDA.
+``--keys-per-split`` the paged decode rows are timed once per split size,
+through the wrapper's ``launch_split`` (trees that have it).  Prints one
+JSON line per row, with the times of ``chip_smoke.both_times`` (host in
+the loop and device time): the paged decode kernel at the serving
+positions (16..1000) and at the profile run's short contexts (128..160),
+bf16 and int8 pools, beside SDPA; RMSNorm at (4096, 2048), (4096, 1024)
+and (8, 2048) beside ``F.rms_norm``.  Needs CUDA.
 """
 from __future__ import annotations
 
@@ -56,26 +57,30 @@ def main(argv=None) -> int:
         rec.update(label=args.label, card=smi)
         print(json.dumps(rec), flush=True)
 
+    def split_decode(kps):
+        """The decode kernel at ``kps`` keys a split (None: the wrapper)."""
+        if kps is None:
+            return None
+        return lambda q, k, v, t, p, k_scales=None, v_scales=None: \
+            paged.launch_split(q, k, v, t, p, 0, 0.0, k_scales, v_scales, kps)
+
     splits = [int(k) for k in args.keys_per_split.split(",") if k]
     for kps in splits or [None]:
-        if kps is not None:
-            paged.KEYS_PER_SPLIT = kps
         for dtype, pool in ((torch.bfloat16, "bf16"), (torch.int8, "int8")):
             for name, positions, full in (
                     ("serving", cs.SERVE_POS, True),
                     ("short", cs.PROFILE_POS, False)):
                 case = cs._paged_case(gen, dtype, positions)
-                ms, host, lib, _ = cs.paged_timings(case, full_table=full)
+                t = cs.paged_timings(case, full_table=full,
+                                     decode=split_decode(kps))
                 emit({"kernel": "paged_decode", "pool": pool,
-                      "positions": name, "keys_per_split": kps, "ms": ms,
-                      "host_ms": host, "sdpa_ms": lib,
+                      "positions": name, "keys_per_split": kps, **t,
                       "bound_ms": cs._paged_bound(case)[0]})
                 del case
     for rows, d in ((cs.SERVE_SLOTS * 512, 2048), (cs.SERVE_SLOTS * 512, 1024),
                     (cs.SERVE_SLOTS, 2048)):
-        ms, lib, host, _ = cs.rmsnorm_timings(gen, rows, d)
-        emit({"kernel": "rmsnorm", "shape": [rows, d], "ms": ms,
-              "host_ms": host, "rms_norm_ms": lib,
+        t, _ = cs.rmsnorm_timings(gen, rows, d)
+        emit({"kernel": "rmsnorm", "shape": [rows, d], **t,
               "bound_ms": cs.bound(2 * rows * d * 2 + d * 4, 4 * rows * d,
                                    "f32")[0]})
     return 0
