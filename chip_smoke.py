@@ -9,7 +9,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build       — builds the CUDA kernels from ``src/repro_torch/kernels/csrc``,
                  logs ``ptxas``'s registers and spills, and counts the
                  HMMA/HGMMA instructions in the SASS (``cuobjdump``) of each
-                 attention kernel: none there fails the run.
+                 attention kernel and each SSD pass that runs a product:
+                 none there fails the run.
 3. kernels     — every kernel against its plain PyTorch version on the card,
                  in bf16, at the serving path's shapes; times the kernel, the
                  plain version and one PyTorch library call as a yardstick,
@@ -27,8 +28,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    paged       — each pool (bf16, int8, fp8, f32) at the serving positions,
                  two calls bitwise equal; at split and page edges with a
                  slot parked at pos == max_seq, a window of 256 beginning
-                 inside a split, softcap 50 and a single slot; bf16 and int8
-                 also timed at the profile run's short contexts beside SDPA.
+                 inside a split, softcap 50 and a single slot; timed beside
+                 SDPA over the pages in use (the row records both sides'
+                 bytes); bf16 and int8 also timed at the profile run's short
+                 contexts.
    prefill     — the serving buckets 8, 32 (shorter than one 64-row tile),
                  128 and 512 with per-row valid lengths, and a local window
                  over padded rows with no valid key.
@@ -39,10 +42,12 @@ Phases, in order; any failure raises and the script exits non-zero:
                  backward calls bitwise equal; both again at S 200 (not a
                  multiple of the tile) and with G 1 (H == KV).
    ssd_scan    — the Mamba2 SSD scan at the serving shape (B 8, S 512, H 32,
-                 P 64, G 1, N 128, chunk 256), with G 2 over a ragged last
-                 chunk and an initial state, and with chunk 16, against its
-                 plain version; no single PyTorch call computes it, so its
-                 row has no library time.
+                 P 64, G 1, N 128, chunk 256), with an initial state, at
+                 the prefill buckets 32 and 128, with G 2 over a ragged last
+                 chunk and an initial state, with 3 heads a group, and with
+                 chunk 16, against its plain version, each twice (bitwise
+                 equal); no single PyTorch call computes it, so its row has
+                 no library time.
 4. serve       — llama3.2-1b at full width (random weights from a seeded
                  generator) serves 16 requests through ``ServeEngine.generate``
                  with bf16 pages and with int8 pages, each twice in turns;
@@ -229,7 +234,8 @@ def phase_device() -> str:
 # kernels whose products run on the tensor cores: their SASS must hold
 # HMMA (mma.sync) or HGMMA (wgmma) instructions
 TENSOR_CORE_KERNELS = ("flash_prefill_kernel", "flash_bwd_dq_kernel",
-                       "flash_bwd_dkv_kernel")
+                       "flash_bwd_dkv_kernel", "ssd_scan_states_kernel",
+                       "ssd_scan_output_kernel")
 
 
 def sass_mma_counts(path: str) -> dict:
@@ -687,11 +693,11 @@ def _layers(case):
              None if vs is None else vs[i]) for i in range(kp.shape[0])]
 
 
-def _paged_bound(case):
-    """(bound ms, by) of one decode call on a case.  Bytes: q read and out
-    written; slot b's pos + 1 keys and values (the whole table for a parked
-    slot); for the pages it walks, their table entries and (quantized
-    pools) their K and V scales of every KV head; pos."""
+def _paged_work(case):
+    """(bytes, operations) of one decode call on a case.  Bytes: q read and
+    out written; slot b's pos + 1 keys and values (the whole table for a
+    parked slot); for the pages it walks, their table entries and
+    (quantized pools) their K and V scales of every KV head; pos."""
     q, kp, _, tables, pos, ks, _ = case
     B, _, H, D = q.shape
     page, KV = kp.shape[2], kp.shape[3]
@@ -700,21 +706,36 @@ def _paged_bound(case):
     keys = int((last + 1).sum())
     pages = int((last // page + 1).sum())
     scale_bytes = 0 if ks is None else pages * KV * 4 * 2
-    return bound(2 * B * H * D * 2 + keys * KV * D * kp.element_size() * 2
-                 + scale_bytes + pages * 4 + B * 4, 4 * D * H * keys, "bf16")
+    return (2 * B * H * D * 2 + keys * KV * D * kp.element_size() * 2
+            + scale_bytes + pages * 4 + B * 4, 4 * D * H * keys)
 
 
-def paged_timings(case, full_table: bool = True, plain: bool = False,
-                  decode=None):
+def _paged_bound(case):
+    """(bound ms, by) of one decode call on a case (``_paged_work``)."""
+    return bound(*_paged_work(case), "bf16")
+
+
+def _paged_library_bytes(case):
+    """Bytes the SDPA yardstick of ``paged_timings`` reads and writes: q,
+    the output, the boolean mask, and the gathered bf16 K and V of every
+    slot over the pages up to the largest position."""
+    q, kp, _, tables, pos, _, _ = case
+    B, _, H, D = q.shape
+    page, KV = kp.shape[2], kp.shape[3]
+    keys = min(tables.shape[1], int(pos.max()) // page + 1) * page
+    return 2 * B * H * D * 2 + B * keys + 2 * B * KV * keys * D * 2
+
+
+def paged_timings(case, plain: bool = False, decode=None):
     """``both_times`` of one decode call on ``case`` against SDPA, and
     ``plain_ms`` (None unless ``plain``), each cycling over its layers'
     pools.  ``decode`` (default: the public wrapper) takes the wrapper's
     arguments, so that another tree's kernel or another split size can be
     timed the same way.  The SDPA yardstick reads bf16 caches already
-    gathered per slot, one per layer, so that it too reads device memory:
-    over the whole table (``full_table``; it then reads every slot's 1024
-    keys where the kernel reads pos + 1, at 1 byte a value for an int8
-    pool), or cut to the pages that hold the largest position."""
+    gathered per slot, one per layer, so that it too reads device memory,
+    over the pages in use: every slot's keys up to the largest position
+    (the kernel reads each slot's pos + 1), in bf16 even for an int8 or
+    fp8 pool (``_paged_library_bytes``)."""
     from repro_torch.kernels.flash_attention import (paged_attention_ref,
                                                      paged_flash_decode)
     from repro_torch.kernels.flash_attention.paged import gather_pages
@@ -726,8 +747,7 @@ def paged_timings(case, full_table: bool = True, plain: bool = False,
                                     v_scales=a[3]), layers)
 
     page = kp.shape[2]
-    nb = tables.shape[1] if full_table else \
-        min(tables.shape[1], int(pos.max()) // page + 1)
+    nb = min(tables.shape[1], int(pos.max()) // page + 1)
     gathered = [tuple(gather_pages(kv, tables[:, :nb], s).bfloat16()
                       .transpose(1, 2) for kv, s in ((kl, ksl), (vl_, vsl)))
                 for kl, vl_, ksl, vsl in layers]
@@ -794,24 +814,30 @@ def check_paged(gen, pool_dtype, label):
                        window, softcap)
     B, _, H, D = q.shape
     t = paged_timings(case, plain=True)
+    nbytes = _paged_work(case)[0]
+    lib_bytes = _paged_library_bytes(case)
     row = {"name": f"paged_decode[{label}]", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
            "replaces": "src/repro/kernels/flash_attention/paged.py:155",
            "shape": f"q ({B}, 1, {H}, {D}) pool {label} page {kp.shape[2]} "
                     f"pos {int(pos.min())}..{int(pos.max())}",
            "timing": f"cold L2: cycles over {kp.shape[0]} layers' pools; "
-                     f"{TIMING}; SDPA reads each slot's whole table",
+                     f"{TIMING}; SDPA reads a gathered bf16 cache of every "
+                     f"slot up to the largest position",
+           "bytes": nbytes, "library_bytes": lib_bytes,
            "max_abs_err": err, "tol": ATTN_TOL, "ms": t["ms"],
            "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
            "library_ms": t["library_ms"],
            "library_device_ms": t["library_device_ms"]}
     row["bound_ms"], row["bound_by"] = _paged_bound(case)
     log(f"[kernels] paged_decode {label} pool, serving positions: "
-        f"{versus('kernel', t, 'SDPA')}; bound {row['bound_ms']:.4f} ms")
+        f"{versus('kernel', t, 'SDPA over the pages in use')}; bound "
+        f"{row['bound_ms']:.4f} ms; bytes: kernel {nbytes / 1e6:.2f} MB, "
+        f"SDPA {lib_bytes / 1e6:.2f} MB ({lib_bytes / nbytes:.2f}x)")
     del case
     if pool_dtype in (torch.bfloat16, torch.int8):
         short = _paged_case(gen, pool_dtype, PROFILE_POS)
-        st = paged_timings(short, full_table=False)
+        st = paged_timings(short)
         log(f"[kernels] paged_decode {label} pool, short contexts pos "
             f"{PROFILE_POS[0]}..{PROFILE_POS[-1]}: "
             f"{versus('kernel', st, 'SDPA over the pages in use')}; bound "
@@ -854,63 +880,112 @@ def _ssd_work(x, Bm, chunk, h0):
     return nbytes, ops
 
 
-def check_ssd(gen):
-    """The SSD scan kernel against its plain version: at the serving shape,
-    with 2 groups over a ragged last chunk and an initial state, and with
-    chunk 16.  Times the serving shape (cold L2).  Returns its JSON row."""
+# (label, shape, chunk) of the SSD scan's checks: the serving shape, with
+# an initial state, the prefill buckets shorter than a 64-row tile (32) and
+# than a chunk (128), 2 groups over a ragged last chunk (256 + 44) with an
+# initial state, 3 heads a group (a block of the output pass then takes one
+# head), and chunks of 16
+SSD_CASES = (
+    ("serve", dict(B=SERVE_SLOTS, S=512, H=32, G=1), SSD_CHUNK),
+    ("serve_h0", dict(B=SERVE_SLOTS, S=512, H=32, G=1, h0=True), SSD_CHUNK),
+    ("bucket32", dict(B=SERVE_SLOTS, S=32, H=32, G=1), SSD_CHUNK),
+    ("bucket128", dict(B=SERVE_SLOTS, S=128, H=32, G=1), SSD_CHUNK),
+    ("groups", dict(B=2, S=300, H=32, G=2, h0=True), SSD_CHUNK),
+    ("groups_odd", dict(B=2, S=300, H=24, G=8, h0=True), SSD_CHUNK),
+    ("chunk16", dict(B=2, S=200, H=32, G=1), 16))
+
+
+def _ssd_compare(gen, label, shape, chunk):
+    """The kernel against its plain version on one case, y within
+    ``SSD_Y_TOL`` and the final state within ``SSD_H_TOL`` of their largest
+    |value|, and twice (bitwise equal); logs and returns max_abs_err."""
     from repro_torch.kernels.ssd_scan import ssd_ref, ssd_scan
-    cases = [("serve", dict(B=SERVE_SLOTS, S=512, H=32, G=1), SSD_CHUNK),
-             ("groups", dict(B=2, S=300, H=32, G=2, h0=True), SSD_CHUNK),
-             ("chunk16", dict(B=2, S=200, H=32, G=1), 16)]
-    row = None
-    for label, shape, chunk in cases:
-        x, a, Bm, Cm, h0 = _ssd_case(gen, **shape)
-        y, hf = ssd_scan(x, a, Bm, Cm, chunk, h0=h0)
-        yr, hr = ssd_ref(x, a, Bm, Cm, chunk, h0=h0)
+    x, a, Bm, Cm, h0 = _ssd_case(gen, **shape)
+    y, hf = ssd_scan(x, a, Bm, Cm, chunk, h0=h0)
+    y2, hf2 = ssd_scan(x, a, Bm, Cm, chunk, h0=h0)
+    yr, hr = ssd_ref(x, a, Bm, Cm, chunk, h0=h0)
+    torch.cuda.synchronize()
+    ey = float((y.float() - yr.float()).abs().max())
+    sy = float(yr.float().abs().max())
+    eh = float((hf - hr).abs().max())
+    sh = float(hr.abs().max())
+    same = torch.equal(y, y2) and torch.equal(hf, hf2)
+    ok = ey <= SSD_Y_TOL * sy and eh <= SSD_H_TOL * sh \
+        and bool(torch.isfinite(y).all()) and bool(torch.isfinite(hf).all())
+    log(f"[kernels] ssd_scan {label} {shape} chunk {chunk}: y max_abs_err "
+        f"{ey:.3e} of max |y| {sy:.3e} (tol {SSD_Y_TOL} relative), state "
+        f"max_abs_err {eh:.3e} of max |h| {sh:.3e} (tol {SSD_H_TOL} "
+        f"relative); two calls bitwise equal {same}; ok={ok}")
+    if not ok:
+        raise AssertionError(f"ssd_scan kernel disagrees with its plain "
+                             f"version ({label})")
+    if not same:
+        raise AssertionError(f"ssd_scan ({label}): two calls differ")
+    return max(ey, eh)
+
+
+def ssd_timings(gen, shape, chunk, plain: bool = False):
+    """Times of the SSD scan at ``shape`` and ``chunk``, cycling over input
+    copies larger than L2: ``ms`` with the host in the loop, ``device_ms``
+    and ``host_ms`` from ``time_device_ms``, ``passes`` (device ms a call
+    of each kernel it launches, under ``torch.profiler``) and ``plain_ms``
+    (None unless ``plain``); and the ``bytes`` and ``ops`` of one call
+    (``_ssd_work``)."""
+    from repro_torch.kernels.ssd_scan import ssd_ref, ssd_scan
+    first = _ssd_case(gen, **shape)
+    nbytes, ops = _ssd_work(first[0], first[2], chunk, first[4])
+    n = n_copies(nbytes)
+    copies = [first[:4]] + [_ssd_case(gen, **shape)[:4] for _ in range(n - 1)]
+    run = cycled(lambda *c: ssd_scan(*c, chunk), copies)
+    t = {"ms": time_ms(run, iters=2 * n)}
+    t["device_ms"], t["host_ms"] = time_device_ms(run, iters=2 * n)
+
+    def loop():
+        for _ in range(2 * n):
+            run()
         torch.cuda.synchronize()
-        ey = float((y.float() - yr.float()).abs().max())
-        sy = float(yr.float().abs().max())
-        eh = float((hf - hr).abs().max())
-        sh = float(hr.abs().max())
-        ok = ey <= SSD_Y_TOL * sy and eh <= SSD_H_TOL * sh \
-            and bool(torch.isfinite(y).all()) and bool(torch.isfinite(hf).all())
-        log(f"[kernels] ssd_scan {label} {shape} chunk {chunk}: y max_abs_err "
-            f"{ey:.3e} of max |y| {sy:.3e} (tol {SSD_Y_TOL} relative), state "
-            f"max_abs_err {eh:.3e} of max |h| {sh:.3e} (tol {SSD_H_TOL} "
-            f"relative) ok={ok}")
-        if not ok:
-            raise AssertionError(f"ssd_scan kernel disagrees with its plain "
-                                 f"version ({label})")
-        if label != "serve":
-            continue
-        nbytes, ops = _ssd_work(x, Bm, chunk, h0)
-        n = n_copies(nbytes)
-        copies = [(x, a, Bm, Cm)] + [_ssd_case(gen, **shape)[:4]
-                                     for _ in range(n - 1)]
-        row = {"name": "ssd_scan", "route": "cuda",
-               "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
-               "replaces": "src/repro/kernels/ssd_scan/kernel.py:82",
-               "shape": f"x ({shape['B']}, {shape['S']}, {shape['H']}, 64) "
-                        f"bf16, B/C G {shape['G']} N 128, chunk {chunk}",
-               "timing": f"cold L2: cycles over {n} input copies; {TIMING}",
-               "max_abs_err": max(ey, eh),
-               "tol": f"y {SSD_Y_TOL} of max |y|, state {SSD_H_TOL} of "
-                      f"max |h|",
-               "ms": time_ms(cycled(lambda *c: ssd_scan(*c, chunk), copies),
-                             iters=2 * n),
-               "device_ms": time_device_ms(cycled(
-                   lambda *c: ssd_scan(*c, chunk), copies), iters=2 * n)[0],
-               "plain_ms": time_ms(cycled(lambda *c: ssd_ref(*c, chunk),
-                                          copies), iters=3, warmup=1),
-               "library_ms": None, "library_device_ms": None,
-               "library_note": "no single PyTorch call computes the SSD scan"}
-        row["bound_ms"], row["bound_by"] = bound(nbytes, ops, "bf16")
-        log(f"[kernels] ssd_scan serve: kernel {row['ms']:.4f} ms "
-            f"(device time {row['device_ms']:.4f} ms), plain "
-            f"{row['plain_ms']:.4f} ms, library none, bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']}; {nbytes / 1e6:.1f} "
-            f"MB, {ops / 1e9:.2f} GFLOP)")
-        del copies
+    t["passes"] = {key.split("(")[0].split("<")[0].removeprefix("void "):
+                   us / 1e3 / (2 * n)
+                   for us, _, key in profiled_kernels(loop)
+                   if "ssd_scan" in key}
+    t["plain_ms"] = time_ms(cycled(lambda *c: ssd_ref(*c, chunk), copies),
+                            iters=3, warmup=1) if plain else None
+    t.update(copies=n, bytes=nbytes, ops=ops)
+    return t
+
+
+def check_ssd(gen):
+    """The SSD scan kernel against its plain version on ``SSD_CASES``,
+    each twice (bitwise equal); times the serving shape (cold L2).  Returns
+    its JSON row."""
+    errs = {label: _ssd_compare(gen, label, shape, chunk)
+            for label, shape, chunk in SSD_CASES}
+    _, shape, chunk = SSD_CASES[0]
+    t = ssd_timings(gen, shape, chunk, plain=True)
+    nbytes, ops = t["bytes"], t["ops"]
+    row = {"name": "ssd_scan", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+           "replaces": "src/repro/kernels/ssd_scan/kernel.py:82",
+           "shape": f"x ({shape['B']}, {shape['S']}, {shape['H']}, 64) "
+                    f"bf16, B/C G {shape['G']} N 128, chunk {chunk}",
+           "timing": f"cold L2: cycles over {t['copies']} input copies; "
+                     f"{TIMING}",
+           "max_abs_err": errs["serve"],
+           "tol": f"y {SSD_Y_TOL} of max |y|, state {SSD_H_TOL} of "
+                  f"max |h|",
+           "ms": t["ms"], "device_ms": t["device_ms"],
+           "passes_ms": t["passes"], "plain_ms": t["plain_ms"],
+           "library_ms": None, "library_device_ms": None,
+           "library_note": "no single PyTorch call computes the SSD scan"}
+    row["bound_ms"], row["bound_by"] = bound(nbytes, ops, "bf16")
+    log(f"[kernels] ssd_scan serve: kernel {row['ms']:.4f} ms "
+        f"(device time {row['device_ms']:.4f} ms: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in t["passes"].items())
+        + f" ms under the profiler; "
+        f"{t['host_ms'] * 1e3:.1f} us of host time a call), plain "
+        f"{row['plain_ms']:.4f} ms, library none, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}; {nbytes / 1e6:.1f} "
+        f"MB, {ops / 1e9:.2f} GFLOP)")
     return row
 
 
@@ -1063,10 +1138,11 @@ def log_top(tag, rows, busy_ms, top=10):
 
 
 # the port's serving kernels as the profiler names them; paged decode is
-# its split kernel and the combine pass after it
+# its split kernel and the combine pass after it, the SSD scan its three
+# passes
 PROFILE_KERNELS = {"paged_decode": "paged_decode_",
                    "flash_prefill": "flash_prefill_kernel",
-                   "rmsnorm": "rmsnorm_kernel", "ssd_scan": "ssd_scan_kernel"}
+                   "rmsnorm": "rmsnorm_kernel", "ssd_scan": "ssd_scan_"}
 
 
 def phase_profile(cfg, model, params, top: int = 10, tag: str = "profile",
@@ -1255,24 +1331,49 @@ def phase_serve_ssm(cfg, model, params):
         raise AssertionError("dense and paged runs gave different tokens")
     log("[serve_ssm] dense and paged runs gave identical greedy tokens")
 
-    # one prefill call of the largest bucket: 8 rows of 512, ragged lengths
+    mamba_prefill_ms(cfg, model, params, rng)
+    phase_profile(cfg, model, params, tag="profile_ssm", paged=False)
+    return counts["dense"]
+
+
+def mamba_prefill_ms(cfg, model, params, rng, repeats: int = 3):
+    """One prefill call of the largest bucket, 8 rows of 512 with ragged
+    lengths, after a warm-up call, ``repeats`` times: ``wall_ms`` (host
+    clock around a synchronised call) and ``host_ms`` (until the call
+    returns, the host's share while the device runs behind it); then one
+    call under ``torch.profiler``: ``device_ms`` (its device kernels' busy
+    time) and ``ssd_ms`` (the SSD scan's share).  Raises on a non-finite
+    logit."""
     toks = torch.tensor(rng.integers(0, cfg.vocab_size, (SERVE_SLOTS, 512)),
                         dtype=torch.int32, device="cuda")
     lens = torch.tensor(np.linspace(16, 512, SERVE_SLOTS).astype(np.int32),
                         device="cuda")
-    model.prefill(params, toks, prompt_lens=lens)              # warm-up
-    times = []
-    for _ in range(3):
+
+    def call():
+        return model.prefill(params, toks, prompt_lens=lens)[0]
+    call()                                                     # warm-up
+    wall, host = [], []
+    for _ in range(repeats):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, _ = model.prefill(params, toks, prompt_lens=lens)
+        logits = call()
+        t1 = time.perf_counter()
         torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
+        wall.append((time.perf_counter() - t0) * 1e3)
+        host.append((t1 - t0) * 1e3)
+    rows = profiled_kernels(lambda: (call(), torch.cuda.synchronize()))
+    t = {"wall_ms": wall, "host_ms": host,
+         "device_ms": sum(r[0] for r in rows) / 1e3,
+         "ssd_ms": sum(r[0] for r in rows if "ssd_scan" in r[2]) / 1e3}
+    finite = bool(torch.isfinite(logits[:, :cfg.vocab_size]).all())
     log(f"[serve_ssm] prefill of {SERVE_SLOTS} rows x 512 (lengths "
-        f"{lens.tolist()}): {', '.join(f'{t:.2f}' for t in times)} ms; "
-        f"logits finite {bool(torch.isfinite(logits[:, :cfg.vocab_size]).all())}")
-    phase_profile(cfg, model, params, tag="profile_ssm", paged=False)
-    return counts["dense"]
+        f"{lens.tolist()}): wall {', '.join(f'{x:.2f}' for x in wall)} ms; "
+        f"host until the call returns {', '.join(f'{x:.2f}' for x in host)}"
+        f" ms; device kernels {t['device_ms']:.2f} ms a call, the SSD scan "
+        f"{t['ssd_ms']:.2f} ms of it; logits finite {finite}")
+    if not finite:
+        raise AssertionError("mamba prefill: non-finite logits")
+    return t
 
 
 def phase_consistency_ssm(model, params, steps: int = 4):

@@ -54,8 +54,9 @@ SIGNATURES: Dict[str, list] = {
     # q, k, v, o, dout, lse, delta scratch, dq, dk, dv,
     # B, Sq, Sk, H, KV, D, causal, window, dtype, stream
     "flash_bwd_launch": [_P] * 10 + [_I] * 9 + [_P],
-    # x, a, B, C, h0 (or null), y, h_final, B, S, H, G, N, P, chunk, stream
-    "ssd_scan_launch": [_P] * 7 + [_I] * 7 + [_P],
+    # x, a, B, C, h0 (or null), workspace, y, h_final, B, S, H, G, N, P,
+    # chunk, stream
+    "ssd_scan_launch": [_P] * 8 + [_I] * 7 + [_P],
     "kernels_error_string": [_I],
 }
 

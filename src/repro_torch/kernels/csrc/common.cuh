@@ -1,7 +1,7 @@
 // Shared helpers of the port's CUDA kernels: dtype codes (kept in step with
 // _build.py:DTYPE_CODES), element conversions to and from float, 16-byte
-// vector loads and stores, cp.async copies into shared memory, and a warp
-// sum.
+// vector loads and stores, cp.async copies into shared memory, a warp sum,
+// and the two halves of programmatic dependent launch.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -89,4 +89,17 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Programmatic dependent launch (sm_90).  A kernel launched after this one
+// with cudaLaunchAttributeProgrammaticStreamSerialization may start once
+// every block of this one has called launch_dependents() or exited; it
+// calls wait_for_prerequisites() before it reads what this one writes,
+// which returns when this kernel has finished and its memory is visible
+// (at once for a kernel launched without the attribute).
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void wait_for_prerequisites() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }

@@ -1,9 +1,9 @@
 // Tensor-core building blocks shared by the attention kernels
-// (flash_prefill.cu, flash_backward.cu): bf16 tiles of 64-element rows in
-// an XOR-swizzled shared layout, cp.async 16-byte copies into them (the
-// copies themselves are in common.cuh), ldmatrix
-// loads of mma.sync fragments, and the m16n8k16 bf16 product with f32
-// accumulation.
+// (flash_prefill.cu, flash_backward.cu) and the SSD scan (ssd_scan.cu):
+// bf16 tiles of 64-element rows in an XOR-swizzled shared layout, cp.async
+// 16-byte copies into them (the copies themselves are in common.cuh),
+// ldmatrix loads of mma.sync fragments, and the m16n8k16 bf16 product with
+// f32 accumulation.
 //
 // Fragment layouts of mma.m16n8k16 (lane = 4 * g + t, g = lane / 4,
 // t = lane % 4):
@@ -89,6 +89,15 @@ __device__ __forceinline__ void load_a_frags(unsigned (&a)[4][4],
     ldsm_x4(a[kc], tile + swz(row0 + (lane & 15), kc * 16 + (lane >> 4) * 8));
 }
 
+// The A fragment of A = T^T for a tile T stored (k rows, m columns): rows
+// [m0, m0 + 16) of A at k columns [k0, k0 + 16), read transposed.
+__device__ __forceinline__ void load_a_km(unsigned* a,
+                                          const __nv_bfloat16* tile, int k0,
+                                          int m0, int lane) {
+  ldsm_x4_trans(a, tile + swz(k0 + (lane & 7) + ((lane >> 4) << 3),
+                              m0 + ((lane >> 3) & 1) * 8));
+}
+
 // B fragments of B = T^T for a tile T stored (n rows, k columns): the two
 // n-tiles of rows [n0, n0 + 16) at k columns [k0, k0 + 16).  b[0], b[1]
 // feed n-tile n0 / 8, b[2], b[3] n-tile n0 / 8 + 1.
@@ -126,15 +135,12 @@ __device__ __forceinline__ void mma_a_tkn(float (&acc)[8][4],
   }
 }
 
-// acc (16 x 64, eight C tiles over the 64 rows of `t`) = A (16 x 64) times
+// acc (16 x 64, eight C tiles over the 64 rows of `t`) += A (16 x 64) times
 // the transpose of the 64 x 64 tile `t` stored (n rows, k columns).
-__device__ __forceinline__ void mma_a_tnk(float (&acc)[8][4],
-                                          const unsigned (&a)[4][4],
-                                          const __nv_bfloat16* t, int lane) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+__device__ __forceinline__ void mma_a_tnk_add(float (&acc)[8][4],
+                                              const unsigned (&a)[4][4],
+                                              const __nv_bfloat16* t,
+                                              int lane) {
 #pragma unroll
   for (int kc = 0; kc < 4; ++kc) {
 #pragma unroll
@@ -145,6 +151,18 @@ __device__ __forceinline__ void mma_a_tnk(float (&acc)[8][4],
       mma_bf16(acc[2 * np + 1], a[kc], b[2], b[3]);
     }
   }
+}
+
+// acc = A (16 x 64) times the transpose of the 64 x 64 tile `t` stored
+// (n rows, k columns).
+__device__ __forceinline__ void mma_a_tnk(float (&acc)[8][4],
+                                          const unsigned (&a)[4][4],
+                                          const __nv_bfloat16* t, int lane) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  mma_a_tnk_add(acc, a, t, lane);
 }
 
 // The f32 C tiles of a 16 x 64 product as bf16 A fragments along k

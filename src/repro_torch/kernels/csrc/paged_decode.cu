@@ -53,16 +53,6 @@ constexpr int kDecStepKeys = 32 / kDecKeyLanes;          // 4 keys a step
 constexpr int kDecSteps = kDecWarpKeys / kDecStepKeys;   // 4 steps a tile
 constexpr int kDecMaxSplitPages = 2 * kDecThreads;
 
-// Programmatic dependent launch (sm_90): the split kernel lets the combine
-// pass launch while it runs; the combine pass waits for the split kernel's
-// memory before it reads the partials.
-__device__ __forceinline__ void launch_dependents() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-__device__ __forceinline__ void wait_for_prerequisites() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-
 // The 8 values of one key a lane holds, widened to float: 8, 16 or 32
 // bytes of shared memory.
 template <typename KT>

@@ -102,17 +102,29 @@ def _launch(x, a, Bm, Cm, Q: int, h0) -> Tuple[torch.Tensor, torch.Tensor]:
         h0 = h0.contiguous()
     y = torch.empty_like(x)
     h_final = torch.empty(B, H, N, P, dtype=torch.float32, device=x.device)
-    _build.require_cuda("ssd_scan", x, a, Bm, Cm, y, h_final,
+    workspace = torch.empty(workspace_floats(B, S, H, N, P, Q),
+                            dtype=torch.float32, device=x.device)
+    _build.require_cuda("ssd_scan", x, a, Bm, Cm, y, h_final, workspace,
                         *([] if h0 is None else [h0]))
     if B and H:
         lib = _build.library()
         _build.check(lib.ssd_scan_launch(
             x.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-            None if h0 is None else h0.data_ptr(), y.data_ptr(),
-            h_final.data_ptr(), B, S, H, G, N, P, Q,
+            None if h0 is None else h0.data_ptr(), workspace.data_ptr(),
+            y.data_ptr(), h_final.data_ptr(), B, S, H, G, N, P, Q,
             _build.stream_handle(x)), "ssd_scan")
+        # one call, whatever the number of passes it launches
         ssd_scan.launches += 1
     return y, h_final
+
+
+def workspace_floats(B: int, S: int, H: int, N: int, P: int, Q: int) -> int:
+    """f32 elements of the kernel's workspace, from the shapes alone: each
+    chunk's (N, P) state per head in f32, the state entering each chunk in
+    bf16, and the cumulative sums of the log decay, padded to whole chunks
+    (``csrc/ssd_scan.cu:ssd_scan_launch``)."""
+    nc = -(-S // Q)
+    return B * nc * H * N * P * 3 // 2 + B * H * nc * Q
 
 
 def ssd_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
