@@ -21,16 +21,21 @@ Phases, in order; any failure raises and the script exits non-zero:
                  and computes the kernel's bound from the bytes and
                  operations this run's inputs need (bytes over 3.35 TB/s or
                  operations over the peak rate of their type).
+   graphs      — paged decode (bf16 and int8 pools) and the SSD scan (with
+                 and without h0), which launch passes under PDL, replayed
+                 from a CUDA graph: bitwise equal to an eager call.
    rmsnorm     — (4096, 2048), (4096, 1024) and (4096, 256) against the
                  plain version;
                  timed at both and at the decode shape (8, 2048) beside
-                 ``F.rms_norm``; a width it is not built for is refused.
+                 ``F.rms_norm``, also as calls replayed from one CUDA graph
+                 (``graph_ms``); a width it is not built for is refused.
    paged       — each pool (bf16, int8, fp8, f32) at the serving positions,
                  two calls bitwise equal; at split and page edges with a
                  slot parked at pos == max_seq, a window of 256 beginning
                  inside a split, softcap 50 and a single slot; timed beside
                  SDPA over the pages in use (the row records both sides'
-                 bytes); bf16 and int8 also timed at the profile run's short
+                 bytes), also replayed from a CUDA graph (``graph_ms``);
+                 bf16 and int8 also timed at the profile run's short
                  contexts.
    prefill     — the serving buckets 8, 32 (shorter than one 64-row tile),
                  128 and 512 with per-row valid lengths, and a local window
@@ -50,20 +55,28 @@ Phases, in order; any failure raises and the script exits non-zero:
                  no library time.
 4. serve       — llama3.2-1b at full width (random weights from a seeded
                  generator) serves 16 requests through ``ServeEngine.generate``
-                 with bf16 pages and with int8 pages, each twice in turns;
-                 asserts every kernel's launch count and that no logit is
-                 NaN.
-   profile     — a short bf16-page run under torch.profiler: device busy
-                 time by kernel against the wall clock, and the port's
-                 kernels' share of it.
+                 with bf16 pages and with int8 pages, each with CUDA graphs
+                 on and off in turns (``cuda_graphs``); then a dense cache
+                 and a sampled run (temperature 0.8, seed 7), 8 requests,
+                 graphs on and off.  Asserts equal tokens on and off, every
+                 kernel's launch count (counted through graph replays), that
+                 no logit is NaN and ``compile_stats`` within the
+                 reference's bound; logs tokens/s, each capture's host ms
+                 and the graphs' pool.
+   profile     — a short bf16-page run under torch.profiler, graphs on and
+                 off: wall and device ms a decode step, launches a step,
+                 the device's idle share, the port's kernels' share.
 5. consistency — prefill + paged decode steps against a longer prefill.
    serve_ssm   — mamba2-370m at full width and depth (random weights from a
                  seeded generator) serves the same 16 requests with a dense
-                 and with a paged ``BatchState``: identical greedy tokens,
-                 exact launch counts (SSD scan per layer and prefill call,
-                 RMSNorm twice per layer and once more per forward, no
-                 attention kernel), no NaN logit; then one prefill call timed
-                 and a short profiled run.
+                 and with a paged ``BatchState``, graphs on and off:
+                 identical greedy tokens, exact launch counts (SSD scan per
+                 layer and prefill call, RMSNorm twice per layer and once
+                 more per forward, no attention kernel), no NaN logit; then
+                 the bucket-512 prefill of 8 rows timed as one
+                 ``model.prefill`` call and through the engine's memoized
+                 prefill entry (graphs on and off: equal first tokens), and
+                 a short profiled run in both modes.
    consistency_ssm — prefill of 300 positions (two chunks, the last ragged)
                  + decode steps against one longer prefill.
 6. train       — llama3.2-1b at full width and depth trains 4 steps through
@@ -192,6 +205,58 @@ def time_device_ms(fn, iters: int = 20, warmup: int = 3):
                        f"stream, down to {iters} calls enqueued")
 
 
+def time_graph_ms(fn, calls: int, replays: int = 5) -> float:
+    """Per-call ms of ``calls`` calls of ``fn`` captured in one CUDA graph
+    and replayed ``replays`` times, CUDA events around the replays: how the
+    serving engine now launches its kernels, with no host in the loop.  The
+    capture's launch counts are taken back out."""
+    from repro_torch import kernels
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    before = kernels.launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    after = kernels.launch_counts()
+    kernels.add_launch_counts({k: before[k] - after[k] for k in after})
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (replays * calls)
+    del graph
+    return ms
+
+
+def graph_equal(fn) -> bool:
+    """Whether ``fn()`` replayed from a captured CUDA graph gives bitwise
+    the output of an eager call (a tensor or a tuple of them)."""
+    from repro_torch import kernels
+
+    def tensors(out):
+        return out if isinstance(out, tuple) else (out,)
+    eager = [t.clone() for t in tensors(fn())]
+    torch.cuda.synchronize()
+    before = kernels.launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = tensors(fn())
+    after = kernels.launch_counts()
+    kernels.add_launch_counts({k: before[k] - after[k] for k in after})
+    for t in static:
+        t.fill_(0)                  # nothing left over from the capture
+    graph.replay()
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(eager, static))
+
+
 def cycled(fn, cases):
     """A call of ``fn`` on the next argument tuple of ``cases`` each time."""
     it = itertools.cycle(cases)
@@ -293,27 +358,38 @@ def _library_sdpa(q, k, v, mask):
 TIMING = ("ms, plain_ms, library_ms with the host in the loop (CUDA events "
           "around the calls); device_ms, library_device_ms with the calls "
           "queued behind a sleep kernel")
+#: how the rows with graph times took them
+GRAPH_TIMING = ("graph_ms, library_graph_ms: the calls captured in one CUDA "
+                "graph and replayed, as the serving engine launches them")
 
 
 def versus(name, t, lib_name):
     """A log fragment: a kernel's times beside a library call's, both with
     the host in the loop (the rows' ms) and as device time."""
+    graph = "" if "graph_ms" not in t else (
+        f"; replayed from a CUDA graph {t['graph_ms']:.4f} ms against "
+        f"{t['library_graph_ms']:.4f} ms "
+        f"({t['graph_ms'] / t['library_graph_ms']:.2f}x)")
     return (f"{name} {t['ms']:.4f} ms, {lib_name} {t['library_ms']:.4f} ms "
             f"({t['ms'] / t['library_ms']:.2f}x) with the host in the loop; "
             f"device time {t['device_ms']:.4f} ms against "
             f"{t['library_device_ms']:.4f} ms "
-            f"({t['device_ms'] / t['library_device_ms']:.2f}x); "
+            f"({t['device_ms'] / t['library_device_ms']:.2f}x){graph}; "
             f"{t['host_ms'] * 1e3:.1f} us of host time a call")
 
 
-def both_times(kernel, library, iters: int) -> dict:
+def both_times(kernel, library, iters: int, graph: bool = False) -> dict:
     """The times of a kernel's and a library call's loops: ``ms`` and
     ``library_ms`` with the host in the loop (``time_ms``), ``device_ms``
-    and ``library_device_ms`` queued behind a sleep kernel, and the
-    kernel's ``host_ms`` a call."""
+    and ``library_device_ms`` queued behind a sleep kernel, the kernel's
+    ``host_ms`` a call, and with ``graph`` also ``graph_ms`` and
+    ``library_graph_ms`` (``time_graph_ms`` over ``iters`` calls)."""
     t = {"ms": time_ms(kernel, iters), "library_ms": time_ms(library, iters)}
     t["device_ms"], t["host_ms"] = time_device_ms(kernel, iters)
     t["library_device_ms"] = time_device_ms(library, iters)[0]
+    if graph:
+        t["graph_ms"] = time_graph_ms(kernel, iters)
+        t["library_graph_ms"] = time_graph_ms(library, iters)
     return t
 
 
@@ -331,7 +407,7 @@ def rmsnorm_timings(gen, rows: int, d: int):
     t = both_times(cycled(lambda x: rmsnorm(x, w), [(x,) for x in xs]),
                    cycled(lambda x: F.rms_norm(x, (d,), wb, 1e-5),
                           [(x,) for x in xs]),
-                   min(max(4 * n, 64), MAX_QUEUED))
+                   min(max(4 * n, 64), MAX_QUEUED), graph=True)
     return t, (xs, w, n)
 
 
@@ -361,9 +437,12 @@ def check_rmsnorm(gen):
            "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
            "replaces": "src/repro/kernels/rmsnorm/kernel.py:30",
            "shape": f"x ({rows}, {d}) bf16",
-           "timing": f"cold L2: cycles over {n} input copies; {TIMING}",
+           "timing": f"cold L2: cycles over {n} input copies; {TIMING}; "
+                     f"{GRAPH_TIMING}",
            "max_abs_err": float(err.max()), "tol": f"rtol {RMS_RTOL}",
            "ms": t["ms"], "device_ms": t["device_ms"],
+           "graph_ms": t["graph_ms"],
+           "library_graph_ms": t["library_graph_ms"],
            "plain_ms": time_ms(cycled(lambda x: rmsnorm_ref(x, w),
                                       [(x,) for x in xs]), iters=n),
            "library_ms": t["library_ms"],
@@ -755,7 +834,8 @@ def paged_timings(case, plain: bool = False, decode=None):
     qt = q.transpose(1, 2)
     t = both_times(run(decode or paged_flash_decode),
                    cycled(lambda gk, gv: _library_sdpa(
-                       qt, gk, gv, mask[:, None, None, :]), gathered), 32)
+                       qt, gk, gv, mask[:, None, None, :]), gathered), 32,
+                   graph=True)
     t["plain_ms"] = time_ms(run(paged_attention_ref), iters=8) if plain \
         else None
     return t
@@ -822,11 +902,13 @@ def check_paged(gen, pool_dtype, label):
            "shape": f"q ({B}, 1, {H}, {D}) pool {label} page {kp.shape[2]} "
                     f"pos {int(pos.min())}..{int(pos.max())}",
            "timing": f"cold L2: cycles over {kp.shape[0]} layers' pools; "
-                     f"{TIMING}; SDPA reads a gathered bf16 cache of every "
-                     f"slot up to the largest position",
+                     f"{TIMING}; {GRAPH_TIMING}; SDPA reads a gathered bf16 "
+                     f"cache of every slot up to the largest position",
            "bytes": nbytes, "library_bytes": lib_bytes,
            "max_abs_err": err, "tol": ATTN_TOL, "ms": t["ms"],
-           "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+           "device_ms": t["device_ms"], "graph_ms": t["graph_ms"],
+           "library_graph_ms": t["library_graph_ms"],
+           "plain_ms": t["plain_ms"],
            "library_ms": t["library_ms"],
            "library_device_ms": t["library_device_ms"]}
     row["bound_ms"], row["bound_by"] = _paged_bound(case)
@@ -989,9 +1071,39 @@ def check_ssd(gen):
     return row
 
 
+def check_graph_replays(gen):
+    """The kernels that launch a pass under programmatic dependent launch
+    (PDL), inside a CUDA graph as the serving engine now runs them: paged
+    decode (its combine pass) on bf16 and int8 pools at the serving
+    positions, and the SSD scan (its carry and output passes) at the
+    serving shape without and with an initial state.  Each replay must be
+    bitwise equal to an eager call."""
+    from repro_torch.kernels.flash_attention import paged_flash_decode
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    for dtype, label in ((torch.bfloat16, "bf16"), (torch.int8, "int8")):
+        q, kp, vp, tables, pos, ks, vs = _paged_case(gen, dtype, L=1)
+        kw = {} if ks is None else dict(k_scales=ks[0], v_scales=vs[0])
+        same = graph_equal(lambda: paged_flash_decode(q, kp[0], vp[0], tables,
+                                                      pos, **kw))
+        log(f"[kernels] paged_decode {label} pool replayed from a CUDA "
+            f"graph: bitwise equal to an eager call {same}")
+        if not same:
+            raise AssertionError(f"paged_decode ({label}): a graph replay "
+                                 f"differs from an eager call")
+    for label, shape, chunk in SSD_CASES[:2]:
+        x, a, Bm, Cm, h0 = _ssd_case(gen, **shape)
+        same = graph_equal(lambda: ssd_scan(x, a, Bm, Cm, chunk, h0=h0))
+        log(f"[kernels] ssd_scan {label} replayed from a CUDA graph: bitwise "
+            f"equal to an eager call {same}")
+        if not same:
+            raise AssertionError(f"ssd_scan ({label}): a graph replay "
+                                 f"differs from an eager call")
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
+    check_graph_replays(gen)
     rows = [check_rmsnorm(gen), check_prefill(gen),
             check_paged(gen, torch.bfloat16, "bf16"),
             check_paged(gen, torch.int8, "int8"), *check_flash_bwd(gen),
@@ -1066,28 +1178,46 @@ def _leaves(tree):
             yield v
 
 
-def phase_serve(cfg, model, params):
+def _n_buckets(prompts) -> int:
+    """Prompt buckets a workload admits (the engine's own rule)."""
+    from repro_torch.serve.engine import _bucket
+    return len({min(_bucket(len(p)), SERVE_MAX_SEQ) for p in prompts})
+
+
+def llama_launches(steps: int, calls: int, paged: bool = True) -> dict:
+    """llama3.2-1b's exact launch counts: 33 RMSNorms a forward (two a
+    layer and the final one), 16 prefill attentions a prefill call, 16
+    paged decodes a decode step with paged KV."""
+    return {"rmsnorm": 33 * (steps + calls), "flash_prefill": 16 * calls,
+            "flash_bwd": 0, "paged_decode": 16 * steps if paged else 0,
+            "ssd_scan": 0}
+
+
+def serve_run(tag, model, params, prompts, new_tokens, graphs, want, **kw):
+    """One ``ServeEngine`` (``cuda_graphs=graphs``, ``kw`` on top of the
+    serving geometry) over ``prompts`` with ``new_tokens`` each, timed
+    after a warm-up and ``reset()``.  With graphs the warm-up is the same
+    workload, so that every variant is captured before the timed run;
+    without, one short request.  Gates, each raising: the exact launch
+    counts ``want(steps, prefill calls)`` of the timed run (and of the
+    capturing run), every request finished, no NaN logit, and
+    ``compile_stats`` within the reference's bound (at most log2(max_chunk)
+    + 1 decode chunk variants, at most one prefill variant a bucket the
+    engine served, warm-up included).
+    Returns the runs' tokens, times, counts and graph statistics."""
     from repro_torch import kernels
     from repro_torch.serve import Request, ServeEngine
-    rng = np.random.default_rng(0)
-    plens = rng.integers(16, 513, SERVE_REQUESTS)
-    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in plens]
-    log(f"[serve] {SERVE_REQUESTS} requests, prompt lengths "
-        f"{sorted(int(n) for n in plens)}, {SERVE_NEW_TOKENS} new tokens each")
-    counts = {}
-    # each page type twice, in turns, so the two compare within their spread
-    for kv in (None, "int8", "int8", None):
-        label = kv or "bf16"
-        watch = NanWatch(model)
-        eng = ServeEngine(watch, params, batch_slots=SERVE_SLOTS,
-                          max_seq=SERVE_MAX_SEQ, paged=True,
-                          page_size=SERVE_PAGE, kv_dtype=kv)
-        eng.generate([Request(uid=-1, prompt=prompts[0][:16],
-                              max_new_tokens=4)])           # warm-up
-        eng.reset()
-        reqs = [Request(uid=i, prompt=p, max_new_tokens=SERVE_NEW_TOKENS)
+    mode = "graphs on" if graphs else "graphs off"
+    watch = NanWatch(model)
+    eng = ServeEngine(watch, params, batch_slots=SERVE_SLOTS,
+                      max_seq=SERVE_MAX_SEQ, page_size=SERVE_PAGE,
+                      cuda_graphs=graphs, **kw)
+
+    def requests():
+        return [Request(uid=i, prompt=p, max_new_tokens=new_tokens)
                 for i, p in enumerate(prompts)]
+
+    def run(reqs):
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
@@ -1095,25 +1225,106 @@ def phase_serve(cfg, model, params):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got = kernels.launch_counts()
-        steps, calls = eng.n_decode_steps, eng.n_prefill_calls
-        want = {"rmsnorm": 33 * (steps + calls),
-                "flash_prefill": 16 * calls, "flash_bwd": 0,
-                "paged_decode": 16 * steps, "ssd_scan": 0}
-        tokens = sum(len(r.generated) for r in reqs)
-        log(f"[serve] {label} pages: {tokens} tokens in {wall:.3f} s = "
-            f"{tokens / wall:.1f} tokens/s; {calls} prefill calls, {steps} "
-            f"decode steps; launches {got} (expected {want})")
-        if got != want:
-            raise AssertionError(f"{label}: launch counts {got} != {want}")
-        if not all(r.done and len(r.generated) == SERVE_NEW_TOKENS
-                   for r in reqs):
-            raise AssertionError(f"{label}: not every request finished")
-        if bool(watch.nan):
-            raise AssertionError(f"{label}: NaN in the logits")
-        counts[label] = got
-        del eng, watch
-        torch.cuda.empty_cache()
-    return counts
+        expect = want(eng.n_decode_steps, eng.n_prefill_calls)
+        if got != expect:
+            raise AssertionError(f"{tag} ({mode}): launch counts {got} != "
+                                 f"{expect}")
+        if not all(r.done and len(r.generated) == new_tokens for r in reqs):
+            raise AssertionError(f"{tag} ({mode}): not every request "
+                                 f"finished")
+        return wall, got, [r.generated for r in reqs]
+
+    out, served = {}, list(prompts)
+    if graphs:
+        out["first_wall_s"], _, out["first_tokens"] = run(requests())
+    else:
+        served.append(prompts[0][:16])
+        eng.generate([Request(uid=-1, prompt=served[-1], max_new_tokens=4)])
+    eng.reset()
+    out["wall_s"], out["launches"], out["tokens"] = run(requests())
+    if bool(watch.nan):
+        raise AssertionError(f"{tag} ({mode}): NaN in the logits")
+    stats = eng.compile_stats
+    limit = int(math.log2(eng.max_chunk)) + 1
+    if stats["decode_chunk_variants"] > limit or \
+            stats["prefill_bucket_variants"] > _n_buckets(served):
+        raise AssertionError(f"{tag} ({mode}): compile_stats {stats} over "
+                             f"the bound ({limit} decode chunk variants, "
+                             f"{_n_buckets(served)} buckets served)")
+    n_tok = sum(len(t) for t in out["tokens"])
+    out.update(steps=eng.n_decode_steps, calls=eng.n_prefill_calls,
+               tokens_per_s=n_tok / out["wall_s"], compile_stats=stats,
+               graphs=eng.graph_stats())
+    first = "" if not graphs else (
+        f" (the capturing run before it: {out['first_wall_s']:.3f} s)")
+    log(f"[{tag}] {mode}: {n_tok} tokens in {out['wall_s']:.3f} s = "
+        f"{out['tokens_per_s']:.1f} tokens/s{first}; {out['calls']} prefill "
+        f"calls, {out['steps']} decode steps "
+        f"({1e3 * out['wall_s'] / out['steps']:.2f} ms of wall per step, "
+        f"prefill included); launches {out['launches']} (exact); "
+        f"compile_stats {stats}")
+    if out["graphs"]:
+        g = out["graphs"]
+        log(f"[{tag}] {mode}: {len(g)} graphs, pool "
+            f"{sum(x['pool_bytes'] for x in g) / 2**20:.1f} MiB; capture "
+            f"host ms " + ", ".join(
+                f"{x['kind']}[{x['key']}] {x['capture_ms']:.1f} "
+                f"(x{x['replays']})" for x in g))
+    del eng, watch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _same_tokens(tag, what, runs):
+    """Raise unless every run of ``runs`` (graphs on: the capturing run
+    and the timed one; graphs off: the timed one) gave the same tokens."""
+    streams = []
+    for r in runs:
+        streams += [r["tokens"]] + ([r["first_tokens"]]
+                                    if "first_tokens" in r else [])
+    if any(s != streams[0] for s in streams):
+        raise AssertionError(f"{tag} {what}: graphs on and off gave "
+                             f"different tokens")
+    log(f"[{tag}] {what}: graphs on and off gave identical tokens "
+        f"({len(streams)} runs)")
+
+
+def phase_serve(cfg, model, params):
+    """llama3.2-1b with bf16 and int8 pages, each with CUDA graphs on and
+    off in turns (on, off, off, on), the full workload; then a dense cache
+    and a sampled run (temperature 0.8, seed 7), 8 requests of 16 new
+    tokens, graphs on and off.  Every run's exact launch gates; equal
+    tokens on and off.  Returns the graphs-on runs' launches by page
+    type."""
+    rng = np.random.default_rng(0)
+    plens = rng.integers(16, 513, SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in plens]
+    log(f"[serve] {SERVE_REQUESTS} requests, prompt lengths "
+        f"{sorted(int(n) for n in plens)}, {SERVE_NEW_TOKENS} new tokens each")
+    runs = {}
+    for kv, graphs in ((None, True), (None, False), ("int8", False),
+                       ("int8", True)):
+        label = kv or "bf16"
+        runs[label, graphs] = serve_run(
+            f"serve {label} pages", model, params, prompts, SERVE_NEW_TOKENS,
+            graphs, llama_launches, paged=True, kv_dtype=kv)
+    for label in ("bf16", "int8"):
+        on, off = runs[label, True], runs[label, False]
+        _same_tokens("serve", f"{label} pages", (on, off))
+        log(f"[serve] {label} pages: graphs on {on['tokens_per_s']:.1f} "
+            f"tokens/s against off {off['tokens_per_s']:.1f} "
+            f"({on['tokens_per_s'] / off['tokens_per_s']:.2f}x)")
+    short = prompts[:SERVE_SLOTS]
+    for what, kw in (("dense cache", dict(paged=False)),
+                     ("sampled, bf16 pages", dict(paged=True,
+                                                  temperature=0.8, seed=7))):
+        want = (lambda s, c: llama_launches(s, c, paged=False)) \
+            if not kw["paged"] else llama_launches
+        pair = [serve_run(f"serve {what}", model, params, short, 16, g, want,
+                          **kw) for g in (True, False)]
+        _same_tokens("serve", what, pair)
+    return {label: runs[label, True]["launches"] for label in ("bf16", "int8")}
 
 
 def profiled_kernels(fn):
@@ -1146,14 +1357,17 @@ PROFILE_KERNELS = {"paged_decode": "paged_decode_",
 
 
 def phase_profile(cfg, model, params, top: int = 10, tag: str = "profile",
-                  paged: bool = True):
+                  paged: bool = True, graphs: bool = True):
     """Where the time goes in a short serve run (bf16 pages, or the dense
-    cache with ``paged=False``): its wall time unprofiled, then its device
-    kernels under ``torch.profiler``."""
+    cache with ``paged=False``; CUDA graphs on or off): its wall time
+    unprofiled, then its device kernels under ``torch.profiler`` (kernels
+    replayed from a graph included)."""
     from repro_torch.serve import Request, ServeEngine
     rng = np.random.default_rng(1)
+    tag = f"{tag}, graphs {'on' if graphs else 'off'}"
     eng = ServeEngine(model, params, batch_slots=SERVE_SLOTS,
-                      max_seq=SERVE_MAX_SEQ, paged=paged, page_size=SERVE_PAGE)
+                      max_seq=SERVE_MAX_SEQ, paged=paged, page_size=SERVE_PAGE,
+                      cuda_graphs=graphs)
     prompts = [rng.integers(0, cfg.vocab_size, 128).astype(np.int32)
                for _ in range(SERVE_SLOTS)]
 
@@ -1166,16 +1380,16 @@ def phase_profile(cfg, model, params, top: int = 10, tag: str = "profile",
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
-    run()                                                   # warm-up
+    run()                                            # warm-up, captures
     wall_ms = run()
+    steps = eng.n_decode_steps
     rows = profiled_kernels(run)
     if not rows:
         log(f"[{tag}] device time: not measured (the profiler recorded no "
-            f"device kernels)")
+            f"device kernels); wall {wall_ms / steps:.2f} ms per step")
         return
     busy_ms = sum(r[0] for r in rows) / 1e3
     launches = sum(r[1] for r in rows)
-    steps = eng.n_decode_steps
     log(f"[{tag}] {cfg.name}: {SERVE_SLOTS} requests x 128 prompt x 32 new "
         f"tokens, {'bf16 pages' if paged else 'dense cache'}, 1 prefill "
         f"call + {steps} decode steps: wall "
@@ -1273,67 +1487,100 @@ def build_mamba_model():
     return cfg, model, params
 
 
+def mamba_launches(L: int):
+    """mamba2-370m's exact launch counts, per forward: one RMSNorm before
+    each block, one gate norm inside it, one final norm; one SSD scan per
+    block and prefill call."""
+    def want(steps, calls):
+        return {"rmsnorm": (2 * L + 1) * (steps + calls), "flash_prefill": 0,
+                "flash_bwd": 0, "paged_decode": 0, "ssd_scan": L * calls}
+    return want
+
+
 def phase_serve_ssm(cfg, model, params):
     """The llama serve phase's 16 requests through mamba2-370m, with the
     dense ``BatchState`` and with ``paged=True`` (an SSM pools nothing; the
-    block tables only account): the same greedy tokens, exact launch
-    counts, no NaN logit.  Then one bucket-512 prefill call of 8 rows,
-    timed, and a short profiled run.  Returns the dense run's launches."""
-    from repro_torch import kernels
-    from repro_torch.serve import Request, ServeEngine
+    block tables only account), each with CUDA graphs on and off in turns:
+    the same greedy tokens from all four, exact launch counts, no NaN
+    logit.  Then the bucket-512 prefill of 8 rows timed as a direct
+    ``model.prefill`` call and through the engine's memoized prefill entry
+    (graphs on and off), and a short profiled run in both modes.  Returns
+    the dense graphs-on run's launches."""
     rng = np.random.default_rng(0)
     plens = rng.integers(16, 513, SERVE_REQUESTS)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in plens]
     log(f"[serve_ssm] {SERVE_REQUESTS} requests, prompt lengths "
         f"{sorted(int(n) for n in plens)}, {SERVE_NEW_TOKENS} new tokens each")
-    L = cfg.n_layers
-    counts, streams = {}, {}
+    want = mamba_launches(cfg.n_layers)
+    runs = {}
+    for label, graphs in (("dense", True), ("dense", False), ("paged", False),
+                          ("paged", True)):
+        runs[label, graphs] = serve_run(
+            f"serve_ssm {label}", model, params, prompts, SERVE_NEW_TOKENS,
+            graphs, want, paged=label == "paged")
+    _same_tokens("serve_ssm", "dense and paged", list(runs.values()))
     for label in ("dense", "paged"):
-        watch = NanWatch(model)
-        eng = ServeEngine(watch, params, batch_slots=SERVE_SLOTS,
-                          max_seq=SERVE_MAX_SEQ, paged=label == "paged",
-                          page_size=SERVE_PAGE)
-        eng.generate([Request(uid=-1, prompt=prompts[0][:16],
-                              max_new_tokens=4)])           # warm-up
-        eng.reset()
-        reqs = [Request(uid=i, prompt=p, max_new_tokens=SERVE_NEW_TOKENS)
-                for i, p in enumerate(prompts)]
-        torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        eng.generate(reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        got = kernels.launch_counts()
-        steps, calls = eng.n_decode_steps, eng.n_prefill_calls
-        # per forward: one RMSNorm before each block, one gate norm inside
-        # it, one final norm; one SSD scan per block and prefill call
-        want = {"rmsnorm": (2 * L + 1) * (steps + calls), "flash_prefill": 0,
-                "flash_bwd": 0, "paged_decode": 0, "ssd_scan": L * calls}
-        tokens = sum(len(r.generated) for r in reqs)
-        log(f"[serve_ssm] {label}: {tokens} tokens in {wall:.3f} s = "
-            f"{tokens / wall:.1f} tokens/s; {calls} prefill calls, {steps} "
-            f"decode steps ({1e3 * wall / steps:.2f} ms of wall per step, "
-            f"prefill included); launches {got} (expected {want})")
-        if got != want:
-            raise AssertionError(f"{label}: launch counts {got} != {want}")
-        if not all(r.done and len(r.generated) == SERVE_NEW_TOKENS
-                   for r in reqs):
-            raise AssertionError(f"{label}: not every request finished")
-        if bool(watch.nan):
-            raise AssertionError(f"{label}: NaN in the logits")
-        counts[label] = got
-        streams[label] = [r.generated for r in reqs]
-        del eng, watch
-        torch.cuda.empty_cache()
-    if streams["dense"] != streams["paged"]:
-        raise AssertionError("dense and paged runs gave different tokens")
-    log("[serve_ssm] dense and paged runs gave identical greedy tokens")
-
+        on, off = runs[label, True], runs[label, False]
+        log(f"[serve_ssm] {label}: graphs on {on['tokens_per_s']:.1f} "
+            f"tokens/s against off {off['tokens_per_s']:.1f} "
+            f"({on['tokens_per_s'] / off['tokens_per_s']:.2f}x)")
     mamba_prefill_ms(cfg, model, params, rng)
-    phase_profile(cfg, model, params, tag="profile_ssm", paged=False)
-    return counts["dense"]
+    firsts = [engine_prefill_ms(cfg, model, params, g)["first"]
+              for g in (True, False)]
+    if firsts[0] != firsts[1]:
+        raise AssertionError("mamba prefill entry: graphs on and off gave "
+                             "different first tokens")
+    for graphs in (True, False):
+        phase_profile(cfg, model, params, tag="profile_ssm", paged=False,
+                      graphs=graphs)
+    return runs["dense", True]["launches"]
+
+
+def engine_prefill_ms(cfg, model, params, graphs: bool, repeats: int = 3):
+    """The bucket-512 prefill of ``mamba_prefill_ms``'s 8 ragged rows
+    through the engine's memoized prefill entry (``_prefill_fn(512)``: the
+    static buffers' uploads, then the graph's replay, or the eager body
+    with ``graphs`` False), after a first call that captures: ``wall_ms``,
+    ``host_ms`` and ``device_ms`` as ``mamba_prefill_ms`` takes them, and
+    the rows' greedy first tokens."""
+    from repro_torch.serve import ServeEngine
+    rng = np.random.default_rng(3)
+    prompts = rng.integers(0, cfg.vocab_size, (SERVE_SLOTS, 512)) \
+        .astype(np.int32)
+    meta = np.stack([np.linspace(16, 512, SERVE_SLOTS),
+                     np.arange(SERVE_SLOTS),
+                     np.full(SERVE_SLOTS, 2)]).astype(np.int32)
+    eng = ServeEngine(model, params, batch_slots=SERVE_SLOTS,
+                      max_seq=SERVE_MAX_SEQ, cuda_graphs=graphs)
+    fn = eng._prefill_fn(512)
+
+    def call():
+        return fn(prompts, meta)[0]
+    call()                                             # eager run, capture
+    wall, host = [], []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        act = call()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        host.append((t1 - t0) * 1e3)
+    first = act[0].tolist()
+    rows = profiled_kernels(lambda: (call(), torch.cuda.synchronize()))
+    t = {"wall_ms": wall, "host_ms": host, "first": first,
+         "device_ms": sum(r[0] for r in rows) / 1e3 if rows else None}
+    dev = "not measured (no kernel rows)" if not rows \
+        else f"{t['device_ms']:.2f} ms"
+    log(f"[serve_ssm] prefill entry, bucket 512, graphs "
+        f"{'on' if graphs else 'off'}: wall "
+        f"{', '.join(f'{x:.2f}' for x in wall)} ms; host until the call "
+        f"returns {', '.join(f'{x:.2f}' for x in host)} ms; device kernels "
+        f"{dev} a call; compile_stats {eng.compile_stats}")
+    del eng
+    torch.cuda.empty_cache()
+    return t
 
 
 def mamba_prefill_ms(cfg, model, params, rng, repeats: int = 3):
@@ -1579,7 +1826,8 @@ def main() -> int:
     rows = phase_kernels()
     cfg, model, params = build_full_model()
     serve = phase_serve(cfg, model, params)
-    phase_profile(cfg, model, params)
+    for graphs in (True, False):
+        phase_profile(cfg, model, params, graphs=graphs)
     phase_consistency(model, params)
     del model, params
     torch.cuda.empty_cache()
@@ -1599,13 +1847,14 @@ def main() -> int:
         tag = tag.rstrip("]")
         if name == "paged_decode":
             row["launches"] = serve[tag][name]
-            row["launches_of"] = f"one serve run, {tag} pages"
+            row["launches_of"] = f"one serve run, {tag} pages, CUDA graphs"
         elif name == "ssd_scan":
             row["launches"] = serve_ssm[name]
-            row["launches_of"] = "one mamba2-370m serve run, dense cache"
+            row["launches_of"] = ("one mamba2-370m serve run, dense cache, "
+                                  "CUDA graphs")
         elif name == "flash_prefill":
             row["launches"] = serve["bf16"][name]
-            row["launches_of"] = "one serve run, bf16 pages"
+            row["launches_of"] = "one serve run, bf16 pages, CUDA graphs"
         else:
             name = name.removesuffix("_lse")
             row["launches"] = train[name]

@@ -24,7 +24,7 @@ its launches), and the CUDA source under ``csrc/`` built by ``_build.py``.
 from . import flash_attention, rmsnorm, ssd_scan
 
 __all__ = ["flash_attention", "rmsnorm", "ssd_scan", "launch_counts",
-           "reset_launch_counts"]
+           "reset_launch_counts", "add_launch_counts"]
 
 
 def _wrappers():
@@ -43,3 +43,14 @@ def launch_counts():
 def reset_launch_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+
+
+def add_launch_counts(delta) -> None:
+    """Add ``delta`` (kernel name -> launches) to the counts.  The counts
+    are kept in Python, where a wrapper launches: a CUDA graph's capture
+    counts launches that never run and its replays count none, so the
+    graph runner takes its capture's delta back out and adds it again at
+    every replay (``serve/graphs.py``)."""
+    wrappers = _wrappers()
+    for name, n in delta.items():
+        wrappers[name].launches += n

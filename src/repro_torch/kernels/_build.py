@@ -196,7 +196,7 @@ def require_cuda(name: str, *tensors) -> None:
     """Raise unless every tensor lies on the current CUDA device with
     16-byte-aligned data, as the kernels' vector loads need.  Every wrapper
     call of a serving step runs it, so it reads only what a check needs
-    (a decode step is host-bound)."""
+    (an eager decode step is host-bound)."""
     device = None
     for t in tensors:
         if not t.is_cuda:

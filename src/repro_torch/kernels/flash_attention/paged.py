@@ -52,7 +52,8 @@ def split_plan(nb: int, page: int, keys_per_split: int = KEYS_PER_SPLIT):
 
 def _as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``t`` in ``dtype`` and contiguous, with no conversion call when it
-    already is (the wrapper runs 16 times a host-bound decode step)."""
+    already is (the wrapper runs 16 times an eager decode step, which is
+    host-bound)."""
     if t.dtype != dtype:
         t = t.to(dtype)
     return t.contiguous()

@@ -88,7 +88,8 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor,
     """x: (..., d); w: (d,) float32.  A CPU tensor takes the plain version;
     a CUDA tensor launches the kernel (``rmsnorm.launches`` counts them).
     Differentiable in x and w on both devices; a call that needs no
-    gradient skips the autograd ``Function`` (serving is host-bound)."""
+    gradient skips the autograd ``Function`` (eager serving is
+    host-bound)."""
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _RMSNorm.apply(x, w, eps)
     return _forward(x, w, eps)

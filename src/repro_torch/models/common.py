@@ -32,8 +32,8 @@ NEG_INF = -1e30
 
 
 def cast(x: torch.Tensor, dtype) -> torch.Tensor:
-    """``x`` in ``dtype``; the same tensor when it already is (the serving
-    path is host-bound, and a no-op ``Tensor.to`` still costs a call)."""
+    """``x`` in ``dtype``; the same tensor when it already is (eager
+    serving is host-bound, and a no-op ``Tensor.to`` still costs a call)."""
     return x if x.dtype == dtype else x.to(dtype)
 
 
@@ -182,6 +182,29 @@ def apply_mlp(p: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
 # KV cache slot updates (continuous batching)
 # ---------------------------------------------------------------------------
 
+def _staged(src, device) -> torch.Tensor:
+    """Host array ``src`` as the tensor a copy to ``device`` reads: in
+    pinned memory for a CUDA device, so that the copy can be queued
+    without waiting (PyTorch's pinned-memory cache keeps the buffer until
+    the copy has run)."""
+    host = torch.from_numpy(np.ascontiguousarray(src))
+    return host.pin_memory() if torch.device(device).type == "cuda" \
+        else host
+
+
+def to_device(src, device) -> torch.Tensor:
+    """A copy of host array ``src`` on ``device``, queued on the current
+    stream without waiting (``torch.tensor(..., device=...)`` synchronises
+    the stream)."""
+    return _staged(src, device).to(device, non_blocking=True, copy=True)
+
+
+def upload(dst: torch.Tensor, src) -> torch.Tensor:
+    """Copy host array ``src`` into ``dst`` in place, staged as
+    :func:`to_device` stages it."""
+    return dst.copy_(_staged(src, dst.device), non_blocking=True)
+
+
 def write_cache_slot(pool: Params, sub: Params, slot: int,
                      axes: Params) -> Params:
     """Write a single-sequence cache ``sub`` (batch dim of size 1) into row
@@ -202,11 +225,10 @@ def write_cache_slots(pool: Params, sub: Params, slots,
         p = pool[key]
         rows = np.nonzero(slots < p.shape[ax])[0]
         if rows.size:
-            dst = torch.tensor(slots[rows], dtype=torch.long,
-                               device=p.device)
-            src = sub[key].index_select(
-                ax, torch.tensor(rows, device=p.device))
-            p.index_copy_(ax, dst, src.to(p.dtype))
+            idx = to_device(np.stack([slots[rows].astype(np.int64), rows]),
+                            p.device)
+            src = sub[key].index_select(ax, idx[1])
+            p.index_copy_(ax, idx[0], src.to(p.dtype))
     return pool
 
 

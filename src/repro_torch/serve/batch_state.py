@@ -3,7 +3,8 @@
 ``BatchState`` owns the pooled cache (one batch row per slot; the model's
 ``cache_slot_axes()`` names where the batch dim sits in each leaf: attention
 KV for the dense decoder, SSM state and conv window for the SSM family)
-plus three (n_slots,) int32 device vectors that ride the decode loop:
+plus three (n_slots,) int32 device vectors that ride the decode loop, the
+rows of one ``slot_vectors`` tensor:
 
 * ``tokens``    — last sampled token per slot,
 * ``pos``       — its absolute position,
@@ -15,10 +16,22 @@ Which slot holds which request is the
 :class:`~repro_torch.serve.scheduler.Scheduler`'s single source of truth.
 A retired slot keeps ``remaining == 0`` and its rows freeze in place until
 the next admission overwrites them.
+
+Every tensor keeps its storage for the life of the state: the engine's
+CUDA graphs replay against fixed addresses, so writers update in place and
+:meth:`BatchState.clear` zeroes instead of reallocating.
 """
 from __future__ import annotations
 
 import torch
+
+
+def slot_vectors(n_slots: int, device):
+    """One (3, n_slots) int32 tensor and its rows ``tokens``, ``pos`` and
+    ``remaining``: an admission activates its slots with one scatter into
+    all three."""
+    vecs = torch.zeros((3, n_slots), dtype=torch.int32, device=device)
+    return (vecs, *vecs.unbind(0))
 
 
 def cache_bytes(cache, keys=None) -> int:
@@ -37,10 +50,13 @@ class BatchState:
         # the unbounded (max_seq-proportional) attention-KV leaves — the
         # ones a paged layout would pool (none for a recurrent state)
         self._kv_keys = set(model.paged_cache_keys())
-        dev = model.device
-        self.tokens = torch.zeros(n_slots, dtype=torch.int32, device=dev)
-        self.pos = torch.zeros(n_slots, dtype=torch.int32, device=dev)
-        self.remaining = torch.zeros(n_slots, dtype=torch.int32, device=dev)
+        self.slot_vectors, self.tokens, self.pos, self.remaining = \
+            slot_vectors(n_slots, model.device)
+
+    def clear(self) -> None:
+        """Back to the state of a fresh pool, in place."""
+        for t in (self.slot_vectors, *self.cache.values()):
+            t.zero_()
 
     def kv_hbm_bytes(self) -> int:
         """Bytes of the unbounded attention-KV leaves only — comparable

@@ -19,9 +19,17 @@ admission and slot lifecycle, a dense :class:`BatchState` or a paged
    device-to-host copy for the pending first tokens and every chunk's
    (tokens, emitted-mask) pairs.
 
-The KV buffers update in place (the reference donates them to ``jit``).
-Capturing a decode chunk as a CUDA graph is later work, so
-:attr:`ServeEngine.compile_stats` reports zeros.
+Where the reference compiles each decode chunk length and each prompt
+bucket's prefill into one ``jax.jit`` program, memoized, the port captures
+each as one CUDA graph (``serve/graphs.py``), memoized per chunk length in
+``_chunk_fns`` and per bucket in ``_prefill_fns``, and replays it;
+:attr:`ServeEngine.compile_stats` counts them under the reference's keys.
+The state tensors keep their storage (the reference donates its buffers to
+``jit``): every write is in place, and :meth:`ServeEngine.reset` zeroes
+them, so the graphs survive it as the reference's compiled functions do.
+On a CPU model the memo entries hold the same bodies, run eagerly;
+``cuda_graphs=False`` runs them eagerly on the card too, the counterpart
+of running the reference under ``jax.disable_jit()``.
 
 An ``executor`` gets the reference's five-method hook at the same points:
 ``on_prefill()`` per admitted request, ``on_decode(n_active)`` per decode
@@ -30,6 +38,7 @@ executor plugs in unchanged.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -39,6 +48,7 @@ import torch
 from ..models import common as cm
 from ..obs import NULL_TRACER
 from .batch_state import BatchState
+from .graphs import GraphedCall
 from .kv_pages import PagedBatchState, scale_key, write_prefill_pages
 from .scheduler import Scheduler
 
@@ -60,12 +70,17 @@ class Request:
 def sample_token(logits: torch.Tensor, generator: torch.Generator,
                  temperature: float = 0.0) -> torch.Tensor:
     """Greedy (T=0: the first maximum, as ``jnp.argmax``) or temperature
-    sampling from ``generator``; logits (B, V) -> (B,) int32."""
+    sampling from ``generator``; logits (B, V) -> (B,) int32.
+
+    A sample is ``argmax(p / q)`` with ``q ~ Exp(1)`` a logit, the draw
+    ``torch.multinomial`` makes for one sample, written out because
+    ``multinomial`` first checks its input on the host, which a CUDA graph
+    cannot capture."""
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     probs = torch.softmax(logits.float() / temperature, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0] \
-        .to(torch.int32)
+    q = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    return torch.argmax(probs / q, dim=-1).to(torch.int32)
 
 
 def _chunk_len(n: int, cap: int) -> int:
@@ -88,7 +103,8 @@ def _bucket(plen: int) -> int:
 
 class ServeEngine:
     """Single-host continuous-batching engine over a port model; runs on
-    the model's device."""
+    the model's device, through CUDA graphs on the card unless
+    ``cuda_graphs`` is False."""
 
     def __init__(self, model, params, batch_slots: int = 4,
                  max_seq: int = 512, temperature: float = 0.0,
@@ -96,7 +112,8 @@ class ServeEngine:
                  eos_token: Optional[int] = None, paged: bool = False,
                  page_size: int = 16, n_pages: Optional[int] = None,
                  kv_dtype: Optional[str] = None,
-                 prefix_cache: bool = False, tracer=None):
+                 prefix_cache: bool = False, tracer=None,
+                 cuda_graphs: bool = True):
         if paged and max_seq % page_size:
             raise ValueError(f"paged engine needs max_seq ({max_seq}) to "
                              f"be a multiple of page_size ({page_size})")
@@ -134,6 +151,16 @@ class ServeEngine:
         self.state = self._new_state()
         self.n_decode_steps = 0           # decode steps executed
         self.n_prefill_calls = 0          # batched bucket prefills run
+        # memoized hot-path entry points, keyed by the only shape-varying
+        # dims (chunk length / prompt bucket), so their count is bounded
+        # by log2(max_chunk) + 1 + n_buckets, as the reference's jit
+        # variants are; on the card each is a CUDA graph, and all of them
+        # share one memory pool (graphs.py says why that is safe)
+        self.cuda_graphs = cuda_graphs and self.device.type == "cuda"
+        self._graph_pool = torch.cuda.graph_pool_handle() \
+            if self.cuda_graphs else None
+        self._chunk_fns: Dict[int, GraphedCall] = {}
+        self._prefill_fns: Dict[int, "BucketPrefill"] = {}
         # admissions whose sampled first token has not been fetched yet:
         # (admit_step, [(slot, request), ...], device tensor of firsts)
         self._pending_first: List[Tuple[int, List, torch.Tensor]] = []
@@ -152,11 +179,14 @@ class ServeEngine:
         return BatchState(self.model, self.slots, self.max_seq)
 
     def reset(self) -> None:
-        """Clear serving state for a fresh workload; the sampling
-        generator is re-seeded, so a seeded run repeats."""
-        self.rng = self._generator()
+        """Clear serving state for a fresh workload, in place: the state
+        tensors are zeroed and the sampling generator re-seeded, so a
+        seeded run repeats, and the captured graphs (which replay against
+        those tensors and that generator) survive, as the reference's
+        compiled functions do."""
+        self.rng.manual_seed(self.seed)
         self.scheduler = Scheduler(self.slots)
-        self.state = self._new_state()
+        self.state.clear()
         self.n_decode_steps = 0
         self.n_prefill_calls = 0
         self._pending_first = []
@@ -165,21 +195,55 @@ class ServeEngine:
 
     @property
     def compile_stats(self) -> Dict[str, int]:
-        """The reference's jit-variant counts; eager PyTorch compiles
-        nothing (CUDA-graph capture of the decode chunk is later work)."""
-        return {"decode_chunk_variants": 0, "prefill_bucket_variants": 0,
-                "n_variants": 0}
+        """Variant counts of the two hot-path entry points, under the
+        reference's keys: CUDA graphs captured on the card, eager bodies
+        memoized on the CPU or with ``cuda_graphs=False``."""
+        d, p = len(self._chunk_fns), len(self._prefill_fns)
+        return {"decode_chunk_variants": d, "prefill_bucket_variants": p,
+                "n_variants": d + p}
+
+    def graph_stats(self) -> List[Dict[str, Any]]:
+        """Per memoized entry point: its kind and key, the host ms of its
+        capture, the graph pool's growth at it, its replays and the kernel
+        launches of one replay (empty without graphs)."""
+        calls = [("decode_chunk", n, f) for n, f in self._chunk_fns.items()]
+        calls += [("prefill_bucket", b, f.call)
+                  for b, f in self._prefill_fns.items()]
+        return [{"kind": kind, "key": key, "capture_ms": f.capture_ms,
+                 "pool_bytes": f.pool_bytes, "replays": f.replays,
+                 "launches": f.launches}
+                for kind, key, f in calls if f.graph is not None]
+
+    # -- memoized entry points -------------------------------------------
+    def _graphed(self, body) -> GraphedCall:
+        gen = self.rng if self.temperature > 0.0 else None
+        return GraphedCall(body, self.cuda_graphs, self._graph_pool, gen)
+
+    def _chunk_fn(self, n: int) -> GraphedCall:
+        fn = self._chunk_fns.get(n)
+        if fn is None:
+            fn = self._graphed(functools.partial(self._decode_body, n))
+            self._chunk_fns[n] = fn
+        return fn
+
+    def _prefill_fn(self, bucket: int) -> "BucketPrefill":
+        fn = self._prefill_fns.get(bucket)
+        if fn is None:
+            fn = BucketPrefill(self, bucket)
+            self._prefill_fns[bucket] = fn
+        return fn
 
     # -- device work -----------------------------------------------------
-    def _decode_chunk(self, n: int):
-        """``n`` decode steps over every slot with on-device termination;
-        returns the (n, slots) emitted tokens and generated-mask."""
+    def _decode_body(self, n: int) -> torch.Tensor:
+        """``n`` decode steps over every slot with on-device termination,
+        reading and writing only the state tensors; returns the emitted
+        tokens and generated-mask as one (2, n, slots) int32 tensor."""
         st = self.state
         tables = st.tables_dev if self.paged else None
         tokens, pos, rem = st.tokens, st.pos, st.remaining
         toks, gens = [], []
         for _ in range(n):
-            logits, st.cache = self.model.decode_step(
+            logits, _ = self.model.decode_step(
                 self.params, st.cache, tokens, pos, block_tables=tables)
             nxt = sample_token(logits, self.rng, self.temperature)
             gen = rem > 0
@@ -194,24 +258,40 @@ class ServeEngine:
             tokens = nxt
             toks.append(nxt)
             gens.append(gen)
-        st.tokens, st.pos, st.remaining = tokens, pos, rem
-        return torch.stack(toks), torch.stack(gens)
+        st.slot_vectors.copy_(torch.stack([tokens, pos, rem]))
+        return torch.stack([torch.stack(toks),
+                            torch.stack(gens).to(torch.int32)])
+
+    def _prefill_body(self, prompts: torch.Tensor,
+                      meta: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+        """One bucket's masked batched prefill and first-token sampling
+        over its static buffers: ``prompts`` (N, bucket) and ``meta``
+        (prompt_lens, slots, budgets) as (3, N) int32.  Returns the rows'
+        new slot vectors (first token, position, budget left) as one
+        (3, N) int32 tensor, and the prefilled sub-cache."""
+        logits, sub = self.model.prefill(
+            self.params, prompts, prompt_lens=meta[0], max_seq=self.max_seq,
+            remat=False)
+        first = sample_token(logits, self.rng, self.temperature)
+        rem = meta[2] - 1
+        if self.eos_token is not None:
+            rem = torch.where(first == self.eos_token, 0, rem)
+        return torch.stack([first, meta[0], rem]), sub
 
     def _prefill(self, prompts: np.ndarray, meta: np.ndarray,
                  tables_sub: Optional[np.ndarray]) -> torch.Tensor:
-        """One bucket's batched admission: masked batched prefill, cache
-        install (slot rows or pages), and slot activation.
+        """One bucket's batched admission: the bucket's memoized prefill,
+        then the cache install (slot rows or pages) and slot activation,
+        eager and indexed from the host.  Returns the admitted rows' first
+        tokens.
 
         ``meta`` packs (prompt_lens, slots, budgets) as host (3, N) int32.
         Dummy rows carry ``slot == n_slots`` and page ids ``n_pages``; they
-        are filtered out of every write.
+        are filtered out of every write.  The prefill's outputs may be a
+        graph's static outputs: each is consumed here, before any later
+        replay is queued.
         """
-        dev = self.device
-        plens = torch.tensor(meta[0], device=dev)
-        logits, sub = self.model.prefill(
-            self.params, torch.tensor(prompts, device=dev),
-            prompt_lens=plens, max_seq=self.max_seq, remat=False)
-        first = sample_token(logits, self.rng, self.temperature)
+        act, sub = self._prefill_fn(prompts.shape[1])(prompts, meta)
         st = self.state
         axes = self.model.cache_slot_axes()
         if tables_sub is not None:
@@ -228,17 +308,15 @@ class ServeEngine:
             cm.write_cache_slots(st.cache, sub, meta[1], dense)
         else:
             cm.write_cache_slots(st.cache, sub, meta[1], axes)
-        rem = torch.tensor(meta[2], device=dev) - 1
-        if self.eos_token is not None:
-            rem = torch.where(first == self.eos_token, 0, rem)
+        # real rows come first, so the selected rows' first tokens are the
+        # admitted requests' in order (a copy: no graph output aliases it)
         rows = np.nonzero(meta[1] < self.slots)[0]
-        rows_dev = torch.tensor(rows, device=dev)
-        slots_dev = torch.tensor(meta[1][rows], device=dev).long()
-        st.tokens[slots_dev] = first[rows_dev]
-        st.pos[slots_dev] = plens[rows_dev]
-        st.remaining[slots_dev] = rem[rows_dev].to(torch.int32)
+        idx = cm.to_device(np.stack([rows, meta[1][rows].astype(np.int64)]),
+                           self.device)
+        vals = act.index_select(1, idx[0])
+        st.slot_vectors.index_copy_(1, idx[1], vals)
         self.n_prefill_calls += 1
-        return first
+        return vals[0]
 
     # -- admission -------------------------------------------------------
     def _allocate_paged(self, slot: int, req: Request, need: int) -> bool:
@@ -361,7 +439,7 @@ class ServeEngine:
         if positive:
             bound = min(positive) if self.scheduler.pending \
                 else max(positive)
-        chunks: List[Tuple[int, Any, Any]] = []
+        chunks: List[Tuple[int, torch.Tensor]] = []
         off = 0                      # steps already run this round
         while bound > 0:
             n = _chunk_len(bound, self.max_chunk)
@@ -371,8 +449,9 @@ class ServeEngine:
                 for step in range(off, off + n):
                     self.executor.on_decode(
                         sum(1 for u in ubs if u > step))
-            toks, gens = self._decode_chunk(n)
-            chunks.append((self.n_decode_steps, toks, gens))
+            # a copy: the next replay of this graph overwrites its output
+            out = self._chunk_fn(n)().clone()
+            chunks.append((self.n_decode_steps, out))
             self.n_decode_steps += n
             bound -= n
             off += n
@@ -389,9 +468,8 @@ class ServeEngine:
         pending, self._pending_first = self._pending_first, []
         if not pending and not chunks:
             return
-        parts = [f for _, _, f in pending]
-        for _, t, g in chunks:
-            parts += [t.reshape(-1), g.reshape(-1).to(torch.int32)]
+        parts = [f for _, _, f in pending] + [o.reshape(-1)
+                                              for _, o in chunks]
         flat = torch.cat(parts).cpu().numpy()
         at = 0
 
@@ -403,14 +481,14 @@ class ServeEngine:
             return out
 
         firsts = [take(f.shape) for _, _, f in pending]
-        fetched = [(take(t.shape), take(g.shape).astype(bool))
-                   for _, t, g in chunks]
+        fetched = [(o[0], o[1].astype(bool))
+                   for o in (take(o.shape) for _, o in chunks)]
         last_step: Dict[int, int] = {}
         for (admit_step, pairs, _), first in zip(pending, firsts):
             for i, (slot, req) in enumerate(pairs):
                 req.generated.append(int(first[i]))
                 last_step[slot] = admit_step
-        for (step0, _, _), (toks, gens) in zip(chunks, fetched):
+        for (step0, _), (toks, gens) in zip(chunks, fetched):
             for slot, req in enumerate(self.scheduler.slots):
                 if req is None:
                     continue
@@ -455,3 +533,22 @@ class ServeEngine:
     def prefix_cache_stats(self) -> Optional[Dict]:
         """None: the prefix cache is not ported yet."""
         return None
+
+
+class BucketPrefill:
+    """One prompt bucket's memoized prefill: static device buffers for the
+    prompts (slots, bucket) and meta (3, slots), filled in place at each
+    call, and the engine's prefill body over them as a
+    :class:`~repro_torch.serve.graphs.GraphedCall`."""
+
+    def __init__(self, engine: ServeEngine, bucket: int):
+        dev, n = engine.device, engine.slots
+        self.prompts = torch.zeros((n, bucket), dtype=torch.int32, device=dev)
+        self.meta = torch.zeros((3, n), dtype=torch.int32, device=dev)
+        self.call = engine._graphed(functools.partial(
+            engine._prefill_body, self.prompts, self.meta))
+
+    def __call__(self, prompts: np.ndarray, meta: np.ndarray):
+        cm.upload(self.prompts, prompts)
+        cm.upload(self.meta, meta)
+        return self.call()

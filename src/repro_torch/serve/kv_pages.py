@@ -37,7 +37,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .batch_state import cache_bytes
+from ..models.common import to_device, upload
+from .batch_state import cache_bytes, slot_vectors
 
 # kv_dtype name -> (storage dtype, qmax): int8 uses the full symmetric grid,
 # fp8-e4m3 its max finite (448)
@@ -284,8 +285,11 @@ class PagedBatchState:
     """Device-side state of the slot pool with paged KV leaves.
 
     Duck-types :class:`~repro_torch.serve.batch_state.BatchState` for the
-    engine (``cache`` / ``tokens`` / ``pos`` / ``remaining``), adding the
-    page pool, the block tables' device mirror, and memory accounting.
+    engine (``cache``, ``slot_vectors`` and its rows ``tokens`` / ``pos`` /
+    ``remaining``, ``clear``),
+    adding the page pool, the block tables' device mirror (a fixed
+    ``(n_slots, max_blocks)`` tensor, rewritten in place), and memory
+    accounting.
     """
 
     def __init__(self, model, n_slots: int, max_seq: int,
@@ -324,20 +328,29 @@ class PagedBatchState:
                 cache[key] = torch.zeros(s.shape, dtype=s.dtype,
                                          device=self.device)
         self.cache = cache
-        self.tokens = torch.zeros(n_slots, dtype=torch.int32,
-                                  device=self.device)
-        self.pos = torch.zeros(n_slots, dtype=torch.int32, device=self.device)
-        self.remaining = torch.zeros(n_slots, dtype=torch.int32,
-                                     device=self.device)
+        self.slot_vectors, self.tokens, self.pos, self.remaining = \
+            slot_vectors(n_slots, self.device)
         self.tables_dev = torch.tensor(self.pool.tables, device=self.device)
         self._synced_version = self.pool.version
 
+    def clear(self) -> None:
+        """Back to the state of a fresh pool, in place: a new host
+        allocator, and every device tensor zeroed (all block-table entries
+        on the parking page)."""
+        pool = self.pool
+        self.pool = PagePool(pool.n_pages, pool.page_size, pool.n_slots,
+                             pool.max_blocks)
+        for t in (self.slot_vectors, self.tables_dev, *self.cache.values()):
+            t.zero_()
+        self._synced_version = self.pool.version
+
     def sync_tables(self) -> None:
-        """Refresh the device mirror after host-side (de)allocations; a
-        no-op while the pool's allocation ``version`` has not moved."""
+        """Refresh the device mirror after host-side (de)allocations, in
+        place; a no-op while the pool's allocation ``version`` has not
+        moved."""
         if self._synced_version == self.pool.version:
             return
-        self.tables_dev = torch.tensor(self.pool.tables, device=self.device)
+        upload(self.tables_dev, self.pool.tables)
         self._synced_version = self.pool.version
 
     def kv_hbm_bytes(self) -> int:
@@ -370,10 +383,11 @@ def write_prefill_pages(pool_leaf: torch.Tensor, sub_leaf: torch.Tensor,
     nb = S // page
     flat = np.asarray(tables_sub).reshape(N * nb)
     rows = np.nonzero(flat < P)[0]
-    dev = pool_leaf.device
-    ids = torch.tensor(flat[rows], dtype=torch.long, device=dev)
+    idx = to_device(np.stack([flat[rows].astype(np.int64), rows]),
+                    pool_leaf.device)
+    ids = idx[0]
     blocks = sub_leaf.reshape((L, N * nb, page) + tuple(sub_leaf.shape[3:]))
-    blocks = blocks.index_select(1, torch.tensor(rows, device=dev))
+    blocks = blocks.index_select(1, idx[1])
     if scales is None:
         pool_leaf[:, ids] = blocks.to(pool_leaf.dtype)
         return pool_leaf
