@@ -10,7 +10,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                  logs ``ptxas``'s registers and spills, and counts the
                  HMMA/HGMMA instructions in the SASS (``cuobjdump``) of each
                  attention kernel and each SSD pass that runs a product:
-                 none there fails the run.
+                 none there fails the run; then each of zamba2-7b's
+                 instantiations on its own line (registers, spills, HMMA).
 3. kernels     — every kernel against its plain PyTorch version on the card,
                  in bf16, at the serving path's shapes; times the kernel, the
                  plain version and one PyTorch library call as a yardstick,
@@ -53,6 +54,19 @@ Phases, in order; any failure raises and the script exits non-zero:
                  chunk 16, against its plain version, each twice (bitwise
                  equal); no single PyTorch call computes it, so its row has
                  no library time.
+   hybrid      — zamba2-7b's instantiations, each against its plain version
+                 and twice (bitwise equal), timed with the host in the loop,
+                 as device time and replayed from a CUDA graph, beside its
+                 bound and yardstick: RMSNorm at (4096, 3584) and
+                 (4096, 7168) (and 8 rows, logged) beside ``F.rms_norm``;
+                 the prefill at head_dim 224 with one query head per KV
+                 head over the buckets 32, 128 and 512 with ragged rows
+                 and a window over rows with no valid key, beside SDPA (the
+                 kernels SDPA picked are logged); paged decode at head_dim
+                 224 on bf16 and int8 pools with the edges above, replayed
+                 from a graph bitwise equal to eager; the SSD scan at B 8,
+                 S 512, H 112, G 2, N 64 with and without h0 and at the
+                 buckets 32 and 128, replayed from a graph likewise.
 4. serve       — llama3.2-1b at full width (random weights from a seeded
                  generator) serves 16 requests through ``ServeEngine.generate``
                  with bf16 pages and with int8 pages, each with CUDA graphs
@@ -88,6 +102,23 @@ Phases, in order; any failure raises and the script exits non-zero:
 7. trainer     — ``Trainer.run()`` at a small width (2 layers, d_model
                  256, bf16, head_dim 64) with an injected failure: it must
                  restart from its checkpoint and finish.
+8. serve_hybrid — zamba2-7b at full width and depth (81 Mamba2 blocks, the
+                 shared attention block 14 times; random weights from a
+                 seeded generator, built after the other models are freed)
+                 serves 8 requests of 24-498 prompt tokens, 32 new tokens
+                 each, with bf16 pages (graphs on and off), int8 pages
+                 (graphs on) and a dense cache (graphs on and off): equal
+                 tokens with graphs on and off, exact launch counts (191
+                 RMSNorms a forward, 81 SSD scans and 14 prefill attentions
+                 a prefill call, 14 paged decodes a paged step), no NaN
+                 logit; tokens/s, peak memory, the graph pool; the dense
+                 and int8 runs' agreement with bf16 pages is logged; a
+                 short profiled run in both modes, the decode steps alone.
+   consistency_hybrid — the prefill of 300 positions and decode steps on a
+                 dense cache and on bf16 pages, each against one longer
+                 prefill.
+
+Each phase's seconds are logged (``[time]``).
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -95,6 +126,7 @@ is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -116,6 +148,12 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
 SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_PAGE = 8, 1024, 16
 SERVE_REQUESTS, SERVE_NEW_TOKENS = 16, 64
+# zamba2-7b, the hybrid: 8 seeded requests of 24-498 prompt tokens, 32 new
+# tokens each; its shared attention block's heads, KV heads and head_dim;
+# its SSD scan's heads, groups and state
+HYBRID_REQUESTS, HYBRID_NEW_TOKENS = 8, 32
+HYBRID_ATTN = dict(H=32, KV=32, D=224)
+HYBRID_SSD = dict(H=112, G=2, N=64)
 # training: seq 1024, global batch 8 as accum 2 micro-batches of 4, 4 steps
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS = 1024, 8, 2, 4
 TRAIN_H, TRAIN_KV, TRAIN_D = 32, 8, 64
@@ -257,6 +295,15 @@ def graph_equal(fn) -> bool:
     return all(torch.equal(a, b) for a, b in zip(eager, static))
 
 
+def release() -> None:
+    """Free what dropped engines held: an engine and its memoized graphs
+    reference each other (a graph's body is a bound method of the engine),
+    so its graphs' pool and static outputs go only when the cycle is
+    collected."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def cycled(fn, cases):
     """A call of ``fn`` on the next argument tuple of ``cases`` each time."""
     it = itertools.cycle(cases)
@@ -298,9 +345,20 @@ def phase_device() -> str:
 
 # kernels whose products run on the tensor cores: their SASS must hold
 # HMMA (mma.sync) or HGMMA (wgmma) instructions
-TENSOR_CORE_KERNELS = ("flash_prefill_kernel", "flash_bwd_dq_kernel",
-                       "flash_bwd_dkv_kernel", "ssd_scan_states_kernel",
-                       "ssd_scan_output_kernel")
+TENSOR_CORE_KERNELS = ("flash_prefill_kernel", "flash_prefill_wide_kernel",
+                       "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                       "ssd_scan_states_kernel", "ssd_scan_output_kernel")
+# zamba2-7b's instantiations, by the start of their mangled names, and
+# whether their products must run on the tensor cores
+HYBRID_INSTANTIATIONS = (
+    ("_Z14rmsnorm_kernelILi14E", False), ("_Z14rmsnorm_kernelILi28E", False),
+    ("_Z22ssd_scan_states_kernelILi64ELi64E", True),
+    ("_Z21ssd_scan_carry_kernelILi64ELi64E", False),
+    ("_Z22ssd_scan_output_kernelILi64ELi64ELi2E", True),
+    ("_Z25flash_prefill_wide_kernelILi224E", True),
+    ("_Z19paged_decode_kernelI13__nv_bfloat16Li224ELi1E", False),
+    ("_Z19paged_decode_kernelIaLi224ELi1E", False),
+    ("_Z27paged_decode_combine_kernelI13__nv_bfloat16Li224ELi1E", False))
 
 
 def sass_mma_counts(path: str) -> dict:
@@ -324,6 +382,24 @@ def sass_mma_counts(path: str) -> dict:
     return counts
 
 
+def ptxas_resources(compiler_log: str) -> dict:
+    """{mangled entry function: (registers, spill store bytes, spill load
+    bytes)} from ``ptxas -v``'s report in the build log."""
+    found, fn = {}, None
+    for line in compiler_log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            found[fn] = [0, 0, 0]
+        elif fn is not None and "spill stores" in line:
+            words = line.replace(",", "").split()
+            found[fn][1] = int(words[words.index("spill") - 2])
+            found[fn][2] = int(words[words.index("loads") - 3])
+        elif fn is not None and "Used" in line and "registers" in line:
+            words = line.split()
+            found[fn][0] = int(words[words.index("registers,") - 1])
+    return {k: tuple(v) for k, v in found.items()}
+
+
 def phase_build() -> None:
     from repro_torch.kernels import _build
     info = _build.build_info()
@@ -342,6 +418,21 @@ def phase_build() -> None:
         if not found or n == 0:
             raise AssertionError(f"{name}: no tensor-core instruction in the "
                                  f"SASS of {info['path']}")
+    # the hybrid's instantiations: each built, its registers and spills,
+    # and HMMA in the SASS of those that run products
+    res = ptxas_resources(str(info["compiler_log"]))
+    for prefix, products in HYBRID_INSTANTIATIONS:
+        fns = [fn for fn in res if fn.startswith(prefix)]
+        if not fns:
+            raise AssertionError(f"{prefix}: not in the build")
+        regs, st, ld = res[fns[0]]
+        hmma = sum(n for fn, n in counts.items() if fn.startswith(prefix))
+        log(f"[build] zamba2-7b {prefix}: {regs} registers, spill stores "
+            f"{st} bytes, spill loads {ld} bytes; {hmma} HMMA/HGMMA "
+            f"instructions")
+        if products and hmma == 0:
+            raise AssertionError(f"{prefix}: no tensor-core instruction in "
+                                 f"its SASS")
 
 
 # ---------------------------------------------------------------------------
@@ -425,15 +516,18 @@ def _rmsnorm_compare(gen, rows: int, d: int):
     return ok, float(err.max())
 
 
-def check_rmsnorm(gen):
+def _rmsnorm_row(gen, rows: int, d: int, name: str = "rmsnorm"):
+    """The kernel at (rows, d) against its plain version and twice (bitwise
+    equal), timed beside ``F.rms_norm`` (``rmsnorm_timings``, graph_ms
+    too) and its bound; logs and returns (its JSON row, ok)."""
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
-    rows, d = SERVE_SLOTS * 512, 2048                 # slots x bucket
     t, (xs, w, n) = rmsnorm_timings(gen, rows, d)
     x = xs[0]
     got, ref = rmsnorm(x, w), rmsnorm_ref(x, w)
+    same = torch.equal(got, rmsnorm(x, w))
     err = (got.float() - ref.float()).abs()
-    ok = bool((err <= RMS_RTOL * ref.float().abs() + 1e-6).all())
-    row = {"name": "rmsnorm", "route": "cuda",
+    ok = bool((err <= RMS_RTOL * ref.float().abs() + 1e-6).all()) and same
+    row = {"name": name, "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
            "replaces": "src/repro/kernels/rmsnorm/kernel.py:30",
            "shape": f"x ({rows}, {d}) bf16",
@@ -449,11 +543,17 @@ def check_rmsnorm(gen):
            "library_device_ms": t["library_device_ms"]}
     row["bound_ms"], row["bound_by"] = bound(
         2 * rows * d * 2 + d * 4, 4 * rows * d, "f32")
-    log(f"[kernels] rmsnorm {row['shape']}: max_abs_err "
-        f"{row['max_abs_err']:.3e} (rtol {RMS_RTOL}) ok={ok}; "
-        f"{versus('kernel', t, 'F.rms_norm')}; bound "
-        f"{row['bound_ms']:.4f} ms")
-    del xs
+    log(f"[kernels] {name} {row['shape']}: max_abs_err "
+        f"{row['max_abs_err']:.3e} (rtol {RMS_RTOL}); two calls bitwise "
+        f"equal {same}; ok={ok}; {versus('kernel', t, 'F.rms_norm')}; "
+        f"bound {row['bound_ms']:.4f} ms")
+    return row, ok
+
+
+def check_rmsnorm(gen):
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    row, ok = _rmsnorm_row(gen, SERVE_SLOTS * 512, 2048)  # slots x bucket
+    rows = SERVE_SLOTS * 512
     # mamba2-370m's block and final norms run at d_model 1024, the small
     # Trainer run at 256: checked, logged, not in the JSON
     oks = [ok] + [_rmsnorm_compare(gen, rows, dd)[0] for dd in (1024, 256)]
@@ -477,63 +577,84 @@ def check_rmsnorm(gen):
     return row
 
 
-def check_prefill(gen):
+def _prefill_row(gen, B, S, H, KV, D, name="flash_prefill", graph=False,
+                 backend=False):
+    """The prefill kernel at one serving bucket (B rows of S with ragged
+    valid lengths, row B // 2 at S // 3) against its plain version, timed
+    beside SDPA over the same causal and valid-length mask (``graph``:
+    graph_ms too) and its bound; with ``graph`` also twice (bitwise
+    equal), and with ``backend`` the kernels SDPA launched are logged.
+    Raises on a disagreement; returns the bucket's JSON row."""
     from repro_torch.kernels.flash_attention import (flash_prefill,
                                                      flash_prefill_ref)
-    B, H, KV, D = SERVE_SLOTS, 32, 8, 64
-    rows = []
+    vl = torch.tensor(np.linspace(1, S, B).astype(np.int32), device="cuda")
+    vl[B // 2] = S // 3
+    n = n_copies(2 * B * S * (H + 2 * KV) * D)
+    cases = [tuple(torch.randn(B, S, heads, D, generator=gen,
+                               device="cuda").bfloat16()
+                   for heads in (H, KV, KV)) for _ in range(n)]
+    q, k, v = cases[0]
+    got = flash_prefill(q, k, v, vl)
+    ref = flash_prefill_ref(q, k, v, vl)
+    same = torch.equal(got, flash_prefill(q, k, v, vl))
+    err = (got.float() - ref.float()).abs()
+    ok = bool((err <= ATTN_TOL + ATTN_TOL * ref.float().abs()).all()) \
+        and same
+    log(f"[kernels] {name} B={B} S={S} H={H} KV={KV} D={D} "
+        f"valid_len={vl.tolist()}: max_abs_err {float(err.max()):.3e} "
+        f"(tol {ATTN_TOL}); two calls bitwise equal {same}; ok={ok}")
+    if not ok:
+        raise AssertionError(f"{name} kernel disagrees with its plain "
+                             f"version")
+    kpos = torch.arange(S, device="cuda")
+    mask = (kpos[None, :] <= kpos[:, None])[None] \
+        & (kpos[None, None, :] < vl[:, None, None])      # (B, S, S)
+
+    def sdpa(q, k, v):
+        return _library_sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), mask[:, None])
+    t = both_times(cycled(lambda q, k, v: flash_prefill(q, k, v, vl), cases),
+                   cycled(sdpa, cases), max(20, n), graph=graph)
+    if backend:
+        names = sorted({key.split("(")[0][:60] for _, _, key in
+                        profiled_kernels(lambda: sdpa(q, k, v))})
+        log(f"[kernels] {name} S={S}: SDPA (boolean mask) launched "
+            f"{names}")
+    row = {"name": name, "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
+           "replaces": "src/repro/kernels/flash_attention/kernel.py:125",
+           "shape": f"q ({B}, {S}, {H}, {D}) kv {KV} heads bf16",
+           "timing": f"cold L2: cycles over {n} input copies; {TIMING}"
+                     + (f"; {GRAPH_TIMING}" if graph else ""),
+           "max_abs_err": float(err.max()), "tol": ATTN_TOL,
+           "ms": t["ms"], "device_ms": t["device_ms"],
+           "plain_ms": time_ms(cycled(
+               lambda q, k, v: flash_prefill_ref(q, k, v, vl), cases),
+               iters=5),
+           "library_ms": t["library_ms"],
+           "library_device_ms": t["library_device_ms"]}
+    if graph:
+        row.update(graph_ms=t["graph_ms"],
+                   library_graph_ms=t["library_graph_ms"])
+    # bytes: q read and out written whole; row b reads K and V only at
+    # its min(S, valid_len) valid keys.  Operations: 4 D per (query,
+    # key) pair left by the causal and valid-length masks.
+    keys = int(torch.clamp(vl, max=S).sum())
+    i = torch.arange(S, device="cuda")
+    pairs = int(torch.minimum(i[None, :] + 1, vl[:, None]).sum()) * H
+    row["bound_ms"], row["bound_by"] = bound(
+        2 * (2 * B * S * H * D + 2 * keys * KV * D) + B * 4,
+        4 * D * pairs, "bf16")
+    log(f"[kernels] {name} S={S}: {versus('kernel', t, 'SDPA')}; "
+        f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']})")
+    return row
+
+
+def check_prefill(gen):
     # 8 and 32: the smallest serving buckets, shorter than one 64-row tile
-    for S in (8, 32, 128, 512):
-        vl = torch.tensor(np.linspace(1, S, B).astype(np.int32),
-                          device="cuda")
-        vl[B // 2] = S // 3
-        n = n_copies(2 * B * S * (H + 2 * KV) * D)
-        cases = [tuple(torch.randn(B, S, heads, D, generator=gen,
-                                   device="cuda").bfloat16()
-                       for heads in (H, KV, KV)) for _ in range(n)]
-        q, k, v = cases[0]
-        got = flash_prefill(q, k, v, vl)
-        ref = flash_prefill_ref(q, k, v, vl)
-        err = (got.float() - ref.float()).abs()
-        ok = bool((err <= ATTN_TOL + ATTN_TOL * ref.float().abs()).all())
-        log(f"[kernels] flash_prefill B={B} S={S} H={H} KV={KV} D={D} "
-            f"valid_len={vl.tolist()}: max_abs_err {float(err.max()):.3e} "
-            f"(tol {ATTN_TOL}) ok={ok}")
-        if not ok:
-            raise AssertionError("flash_prefill kernel disagrees with its "
-                                 "plain version")
-        kpos = torch.arange(S, device="cuda")
-        mask = (kpos[None, :] <= kpos[:, None])[None] \
-            & (kpos[None, None, :] < vl[:, None, None])      # (B, S, S)
-        t = both_times(
-            cycled(lambda q, k, v: flash_prefill(q, k, v, vl), cases),
-            cycled(lambda q, k, v: _library_sdpa(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                mask[:, None]), cases), max(20, n))
-        row = {"name": "flash_prefill", "route": "cuda",
-               "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
-               "replaces": "src/repro/kernels/flash_attention/kernel.py:125",
-               "shape": f"q ({B}, {S}, {H}, {D}) kv {KV} heads bf16",
-               "timing": f"cold L2: cycles over {n} input copies; {TIMING}",
-               "max_abs_err": float(err.max()), "tol": ATTN_TOL,
-               "ms": t["ms"], "device_ms": t["device_ms"],
-               "plain_ms": time_ms(cycled(
-                   lambda q, k, v: flash_prefill_ref(q, k, v, vl), cases),
-                   iters=5),
-               "library_ms": t["library_ms"],
-               "library_device_ms": t["library_device_ms"]}
-        # bytes: q read and out written whole; row b reads K and V only at
-        # its min(S, valid_len) valid keys.  Operations: 4 D per (query,
-        # key) pair left by the causal and valid-length masks.
-        keys = int(torch.clamp(vl, max=S).sum())
-        i = torch.arange(S, device="cuda")
-        pairs = int(torch.minimum(i[None, :] + 1, vl[:, None]).sum()) * H
-        row["bound_ms"], row["bound_by"] = bound(
-            2 * (2 * B * S * H * D + 2 * keys * KV * D) + B * 4,
-            4 * D * pairs, "bf16")
-        log(f"[kernels] flash_prefill S={S}: {versus('kernel', t, 'SDPA')}; "
-            f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms")
-        rows.append(row)
+    rows = [_prefill_row(gen, SERVE_SLOTS, S, 32, 8, 64)
+            for S in (8, 32, 128, 512)]
     check_prefill_padded_window(gen)
     return rows[-1]              # the longest bucket goes in the JSON
 
@@ -556,20 +677,20 @@ def _check_fwd_lse(label, got, lse, ref, lse_ref):
     return err, lse_err
 
 
-def check_prefill_padded_window(gen):
+def check_prefill_padded_window(gen, H=32, KV=8, D=64):
     """A local window over right-padded rows: row 1's padded queries at
     positions >= 40 + 16 - 1 see no valid key and take the kernel's branch
     for that case (the mean of the values their window admits, as the
     reference gives).  Every row is compared, the log-sum-exp too."""
     from repro_torch.kernels.flash_attention import (flash_prefill,
                                                      flash_prefill_ref)
-    B, S, H, KV, D, window = 2, 128, 32, 8, 64, 16
+    B, S, window = 2, 128, 16
     vl = torch.tensor([S, 40], dtype=torch.int32, device="cuda")
     q, k, v = (torch.randn(B, S, heads, D, generator=gen,
                            device="cuda").bfloat16()
                for heads in (H, KV, KV))
-    _check_fwd_lse(f"window {window}, valid_len {vl.tolist()} (rows "
-                   f"without a valid key)",
+    _check_fwd_lse(f"D {D}, window {window}, valid_len {vl.tolist()} "
+                   f"(rows without a valid key)",
                    *flash_prefill(q, k, v, vl, window=window,
                                   return_lse=True),
                    *flash_prefill_ref(q, k, v, vl, window=window,
@@ -732,12 +853,14 @@ SERVE_POS = tuple(int(p) for p in np.linspace(16, 1000, SERVE_SLOTS))
 PROFILE_POS = tuple(int(p) for p in np.linspace(128, 160, SERVE_SLOTS))
 
 
-def _paged_case(gen, pool_dtype, positions=SERVE_POS, L=16):
+def _paged_case(gen, pool_dtype, positions=SERVE_POS, L=16, H=32, KV=8,
+                D=64):
     """Full-width decode operands: one slot per position, page 16, a table
     of 64 pages whose entries past each slot's last page stay parked at page
     0 (a slot at pos == max_seq holds its whole table), and ``L`` layers of
-    pools (16: a timing loop over layers leaves L2 cold)."""
-    B, H, KV, D, page = len(positions), 32, 8, 64, SERVE_PAGE
+    pools (16: a timing loop over layers leaves L2 cold).  Heads and
+    head_dim default to llama3.2-1b's; ``HYBRID_ATTN`` gives zamba2-7b's."""
+    B, page = len(positions), SERVE_PAGE
     nb = SERVE_MAX_SEQ // page
     P = B * nb + 1
     pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
@@ -864,16 +987,19 @@ def _paged_compare(label, case, window=0, softcap=0.0):
     return got, float(err.max())
 
 
-def check_paged(gen, pool_dtype, label):
+def check_paged(gen, pool_dtype, label, attn=None, L=16):
     """The paged decode kernel on one pool type: at the serving positions,
     twice (bitwise equal); at split and page edges, a parked slot
     (pos == max_seq), a window of 256 that begins inside a split, softcap
     50 and a single slot; then timed at the serving positions (its JSON
     row) and, for the serving pools, at the profile run's short contexts
-    (logged)."""
+    (logged).  ``attn`` (heads, KV heads, head_dim; ``HYBRID_ATTN``)
+    replaces llama3.2-1b's, and ``L`` layers of pools cycle in the
+    timing."""
     from repro_torch.kernels.flash_attention import paged_flash_decode
     from repro_torch.kernels.flash_attention.paged import split_plan
-    case = _paged_case(gen, pool_dtype)
+    attn = attn or {}
+    case = _paged_case(gen, pool_dtype, L=L, **attn)
     q, kp, _, tables, pos, _, _ = case
     got, err = _paged_compare(f"{label} pool", case)
     k0, v0, ks0, vs0 = _layers(case)[0]
@@ -890,7 +1016,7 @@ def check_paged(gen, pool_dtype, label):
             ("B 1", (1000,), 0, 0.0)):
         _paged_compare(f"{label} pool, {what} ({kps} keys a split, "
                        f"{n_split} splits)",
-                       _paged_case(gen, pool_dtype, positions, L=1),
+                       _paged_case(gen, pool_dtype, positions, L=1, **attn),
                        window, softcap)
     B, _, H, D = q.shape
     t = paged_timings(case, plain=True)
@@ -918,7 +1044,7 @@ def check_paged(gen, pool_dtype, label):
         f"SDPA {lib_bytes / 1e6:.2f} MB ({lib_bytes / nbytes:.2f}x)")
     del case
     if pool_dtype in (torch.bfloat16, torch.int8):
-        short = _paged_case(gen, pool_dtype, PROFILE_POS)
+        short = _paged_case(gen, pool_dtype, PROFILE_POS, L=L, **attn)
         st = paged_timings(short)
         log(f"[kernels] paged_decode {label} pool, short contexts pos "
             f"{PROFILE_POS[0]}..{PROFILE_POS[-1]}: "
@@ -1006,13 +1132,14 @@ def _ssd_compare(gen, label, shape, chunk):
     return max(ey, eh)
 
 
-def ssd_timings(gen, shape, chunk, plain: bool = False):
+def ssd_timings(gen, shape, chunk, plain: bool = False, graph: bool = False):
     """Times of the SSD scan at ``shape`` and ``chunk``, cycling over input
     copies larger than L2: ``ms`` with the host in the loop, ``device_ms``
     and ``host_ms`` from ``time_device_ms``, ``passes`` (device ms a call
-    of each kernel it launches, under ``torch.profiler``) and ``plain_ms``
-    (None unless ``plain``); and the ``bytes`` and ``ops`` of one call
-    (``_ssd_work``)."""
+    of each kernel it launches, under ``torch.profiler``), ``plain_ms``
+    (None unless ``plain``) and ``graph_ms`` (with ``graph``: the calls
+    replayed from one CUDA graph); and the ``bytes`` and ``ops`` of one
+    call (``_ssd_work``)."""
     from repro_torch.kernels.ssd_scan import ssd_ref, ssd_scan
     first = _ssd_case(gen, **shape)
     nbytes, ops = _ssd_work(first[0], first[2], chunk, first[4])
@@ -1032,6 +1159,8 @@ def ssd_timings(gen, shape, chunk, plain: bool = False):
                    if "ssd_scan" in key}
     t["plain_ms"] = time_ms(cycled(lambda *c: ssd_ref(*c, chunk), copies),
                             iters=3, warmup=1) if plain else None
+    if graph:
+        t["graph_ms"] = time_graph_ms(run, calls=2 * n)
     t.update(copies=n, bytes=nbytes, ops=ops)
     return t
 
@@ -1100,6 +1229,111 @@ def check_graph_replays(gen):
                                  f"differs from an eager call")
 
 
+# zamba2-7b's SSD scan: its serving bucket (B 8, S 512, H 112, G 2, N 64,
+# chunk 256), with an initial state, and the buckets 32 and 128
+HYBRID_SSD_CASES = (
+    ("serve", dict(B=SERVE_SLOTS, S=512, **HYBRID_SSD), SSD_CHUNK),
+    ("serve_h0", dict(B=SERVE_SLOTS, S=512, h0=True, **HYBRID_SSD),
+     SSD_CHUNK),
+    ("bucket32", dict(B=SERVE_SLOTS, S=32, **HYBRID_SSD), SSD_CHUNK),
+    ("bucket128", dict(B=SERVE_SLOTS, S=128, **HYBRID_SSD), SSD_CHUNK))
+
+#: the kernel rows of zamba2-7b's instantiations: the serving run whose
+#: launches each reports (``phase_serve_hybrid``'s runs by page type)
+HYBRID_ROW_RUNS = {"rmsnorm[d3584]": "bf16", "rmsnorm[d7168]": "bf16",
+                   "flash_prefill[D224]": "bf16",
+                   "paged_decode[bf16 D224]": "bf16",
+                   "paged_decode[int8 D224]": "int8",
+                   "ssd_scan[N64]": "bf16"}
+
+
+def check_hybrid_kernels(gen):
+    """zamba2-7b's instantiations of the four serving kernels, each against
+    its plain version and twice (bitwise equal), timed (``ms``,
+    ``device_ms``, ``graph_ms``) beside its bound and library yardstick:
+    RMSNorm at d 3584 and 7168 (4096 rows; 8 rows logged); the prefill at
+    head_dim 224 with one query head per KV head over the buckets 32, 128
+    and 512 and a window over rows with no valid key; paged decode at head
+    224 on bf16 and int8 pools (with ``check_paged``'s edges), replayed
+    from a graph bitwise equal to eager; the SSD scan at state 64 with 2
+    groups on ``HYBRID_SSD_CASES``, replayed from a graph likewise.
+    Returns their JSON rows, each marked with the model."""
+    from repro_torch.kernels.flash_attention import paged_flash_decode
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    rows = []
+    for d in (3584, 7168):
+        row, ok = _rmsnorm_row(gen, SERVE_SLOTS * 512, d, f"rmsnorm[d{d}]")
+        if not ok:
+            raise AssertionError(f"rmsnorm kernel at d {d} disagrees with "
+                                 f"its plain version")
+        rows.append(row)
+        t, (_, _, nc) = rmsnorm_timings(gen, SERVE_SLOTS, d)
+        b_ms, _ = bound(2 * SERVE_SLOTS * d * 2 + d * 4,
+                        4 * SERVE_SLOTS * d, "f32")
+        log(f"[kernels] rmsnorm[d{d}] x ({SERVE_SLOTS}, {d}) bf16 ({nc} "
+            f"input copies): {versus('kernel', t, 'F.rms_norm')}; bound "
+            f"{b_ms:.4f} ms")
+    H, KV, D = HYBRID_ATTN["H"], HYBRID_ATTN["KV"], HYBRID_ATTN["D"]
+    for S in (32, 128, 512):
+        row = _prefill_row(gen, SERVE_SLOTS, S, H, KV, D,
+                           "flash_prefill[D224]", graph=True,
+                           backend=S == 512)
+    rows.append(row)                   # the longest bucket
+    check_prefill_padded_window(gen, H, KV, D)
+    for dtype, label in ((torch.bfloat16, "bf16"), (torch.int8, "int8")):
+        q, kp, vp, tables, pos, ks, vs = _paged_case(gen, dtype, L=1,
+                                                     **HYBRID_ATTN)
+        kw = {} if ks is None else dict(k_scales=ks[0], v_scales=vs[0])
+        same = graph_equal(lambda: paged_flash_decode(q, kp[0], vp[0], tables,
+                                                      pos, **kw))
+        log(f"[kernels] paged_decode {label} D224 pool replayed from a CUDA "
+            f"graph: bitwise equal to an eager call {same}")
+        if not same:
+            raise AssertionError(f"paged_decode ({label} D224): a graph "
+                                 f"replay differs from an eager call")
+        rows.append(check_paged(gen, dtype, f"{label} D224", HYBRID_ATTN,
+                                L=4))
+    errs = {label: _ssd_compare(gen, f"N64 {label}", shape, chunk)
+            for label, shape, chunk in HYBRID_SSD_CASES}
+    for label, shape, chunk in HYBRID_SSD_CASES[:2]:
+        x, a, Bm, Cm, h0 = _ssd_case(gen, **shape)
+        same = graph_equal(lambda: ssd_scan(x, a, Bm, Cm, chunk, h0=h0))
+        log(f"[kernels] ssd_scan N64 {label} replayed from a CUDA graph: "
+            f"bitwise equal to an eager call {same}")
+        if not same:
+            raise AssertionError(f"ssd_scan (N64 {label}): a graph replay "
+                                 f"differs from an eager call")
+    _, shape, chunk = HYBRID_SSD_CASES[0]
+    t = ssd_timings(gen, shape, chunk, plain=True, graph=True)
+    row = {"name": "ssd_scan[N64]", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+           "replaces": "src/repro/kernels/ssd_scan/kernel.py:82",
+           "shape": f"x ({shape['B']}, {shape['S']}, {shape['H']}, 64) "
+                    f"bf16, B/C G {shape['G']} N {shape['N']}, chunk {chunk}",
+           "timing": f"cold L2: cycles over {t['copies']} input copies; "
+                     f"{TIMING}; {GRAPH_TIMING}",
+           "max_abs_err": errs["serve"],
+           "tol": f"y {SSD_Y_TOL} of max |y|, state {SSD_H_TOL} of "
+                  f"max |h|",
+           "ms": t["ms"], "device_ms": t["device_ms"],
+           "graph_ms": t["graph_ms"], "passes_ms": t["passes"],
+           "plain_ms": t["plain_ms"], "library_ms": None,
+           "library_device_ms": None,
+           "library_note": "no single PyTorch call computes the SSD scan"}
+    row["bound_ms"], row["bound_by"] = bound(t["bytes"], t["ops"], "bf16")
+    log(f"[kernels] ssd_scan[N64] serve: kernel {row['ms']:.4f} ms (device "
+        f"time {row['device_ms']:.4f} ms, replayed from a graph "
+        f"{row['graph_ms']:.4f} ms: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in t["passes"].items())
+        + f" ms under the profiler), plain {row['plain_ms']:.4f} ms, "
+        f"library none, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
+        f"{t['bytes'] / 1e6:.1f} MB, {t['ops'] / 1e9:.2f} GFLOP)")
+    rows.append(row)
+    for r in rows:
+        r["model"] = "zamba2-7b"
+    return rows
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
@@ -1107,7 +1341,7 @@ def phase_kernels():
     rows = [check_rmsnorm(gen), check_prefill(gen),
             check_paged(gen, torch.bfloat16, "bf16"),
             check_paged(gen, torch.int8, "int8"), *check_flash_bwd(gen),
-            check_ssd(gen)]
+            check_ssd(gen), *check_hybrid_kernels(gen)]
     # pools the serving path does not use: checked, logged, not in the JSON
     for dtype, label in ((torch.float8_e4m3fn, "fp8"), (torch.float32, "f32")):
         r = check_paged(gen, dtype, label)
@@ -1208,6 +1442,7 @@ def serve_run(tag, model, params, prompts, new_tokens, graphs, want, **kw):
     from repro_torch import kernels
     from repro_torch.serve import Request, ServeEngine
     mode = "graphs on" if graphs else "graphs off"
+    torch.cuda.reset_peak_memory_stats()
     watch = NanWatch(model)
     eng = ServeEngine(watch, params, batch_slots=SERVE_SLOTS,
                       max_seq=SERVE_MAX_SEQ, page_size=SERVE_PAGE,
@@ -1254,7 +1489,8 @@ def serve_run(tag, model, params, prompts, new_tokens, graphs, want, **kw):
     n_tok = sum(len(t) for t in out["tokens"])
     out.update(steps=eng.n_decode_steps, calls=eng.n_prefill_calls,
                tokens_per_s=n_tok / out["wall_s"], compile_stats=stats,
-               graphs=eng.graph_stats())
+               graphs=eng.graph_stats(),
+               peak_bytes=torch.cuda.max_memory_allocated())
     first = "" if not graphs else (
         f" (the capturing run before it: {out['first_wall_s']:.3f} s)")
     log(f"[{tag}] {mode}: {n_tok} tokens in {out['wall_s']:.3f} s = "
@@ -1262,7 +1498,8 @@ def serve_run(tag, model, params, prompts, new_tokens, graphs, want, **kw):
         f"calls, {out['steps']} decode steps "
         f"({1e3 * out['wall_s'] / out['steps']:.2f} ms of wall per step, "
         f"prefill included); launches {out['launches']} (exact); "
-        f"compile_stats {stats}")
+        f"compile_stats {stats}; peak memory "
+        f"{out['peak_bytes'] / 2**30:.2f} GiB")
     if out["graphs"]:
         g = out["graphs"]
         log(f"[{tag}] {mode}: {len(g)} graphs, pool "
@@ -1271,7 +1508,7 @@ def serve_run(tag, model, params, prompts, new_tokens, graphs, want, **kw):
                 f"{x['kind']}[{x['key']}] {x['capture_ms']:.1f} "
                 f"(x{x['replays']})" for x in g))
     del eng, watch
-    torch.cuda.empty_cache()
+    release()
     return out
 
 
@@ -1352,16 +1589,21 @@ def log_top(tag, rows, busy_ms, top=10):
 # its split kernel and the combine pass after it, the SSD scan its three
 # passes
 PROFILE_KERNELS = {"paged_decode": "paged_decode_",
-                   "flash_prefill": "flash_prefill_kernel",
+                   "flash_prefill": "flash_prefill_",
                    "rmsnorm": "rmsnorm_kernel", "ssd_scan": "ssd_scan_"}
 
 
 def phase_profile(cfg, model, params, top: int = 10, tag: str = "profile",
-                  paged: bool = True, graphs: bool = True):
-    """Where the time goes in a short serve run (bf16 pages, or the dense
-    cache with ``paged=False``; CUDA graphs on or off): its wall time
-    unprofiled, then its device kernels under ``torch.profiler`` (kernels
-    replayed from a graph included)."""
+                  paged: bool = True, graphs: bool = True,
+                  detail: bool = False, new_tokens: int = 32):
+    """Where the time goes in a short serve run (8 prompts of 128 tokens,
+    ``new_tokens`` each; bf16 pages, or the dense cache with
+    ``paged=False``; CUDA graphs on or off): its wall time unprofiled, then
+    its device kernels under ``torch.profiler`` (kernels replayed from a
+    graph included).  With ``detail`` each instantiation of the port's
+    kernels on its own line, and the decode steps alone: the same run's
+    wall and device time less those of a run of the same prompts with one
+    new token (its prefill and nothing else)."""
     from repro_torch.serve import Request, ServeEngine
     rng = np.random.default_rng(1)
     tag = f"{tag}, graphs {'on' if graphs else 'off'}"
@@ -1371,11 +1613,11 @@ def phase_profile(cfg, model, params, top: int = 10, tag: str = "profile",
     prompts = [rng.integers(0, cfg.vocab_size, 128).astype(np.int32)
                for _ in range(SERVE_SLOTS)]
 
-    def run():
+    def run(new=new_tokens):
         eng.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        eng.generate([Request(uid=i, prompt=p, max_new_tokens=32)
+        eng.generate([Request(uid=i, prompt=p, max_new_tokens=new)
                       for i, p in enumerate(prompts)])
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
@@ -1387,11 +1629,14 @@ def phase_profile(cfg, model, params, top: int = 10, tag: str = "profile",
     if not rows:
         log(f"[{tag}] device time: not measured (the profiler recorded no "
             f"device kernels); wall {wall_ms / steps:.2f} ms per step")
+        del eng
+        release()
         return
     busy_ms = sum(r[0] for r in rows) / 1e3
     launches = sum(r[1] for r in rows)
-    log(f"[{tag}] {cfg.name}: {SERVE_SLOTS} requests x 128 prompt x 32 new "
-        f"tokens, {'bf16 pages' if paged else 'dense cache'}, 1 prefill "
+    log(f"[{tag}] {cfg.name}: {SERVE_SLOTS} requests x 128 prompt x "
+        f"{new_tokens} new tokens, {'bf16 pages' if paged else 'dense cache'}"
+        f", 1 prefill "
         f"call + {steps} decode steps: wall "
         f"{wall_ms:.1f} ms unprofiled ({wall_ms / steps:.2f} ms per step), "
         f"device kernels {busy_ms:.1f} ms ({busy_ms / steps:.2f} ms per "
@@ -1403,7 +1648,24 @@ def phase_profile(cfg, model, params, top: int = 10, tag: str = "profile",
     log(f"[{tag}] the port's kernels: " + ", ".join(
         f"{k} {ms:.3f} ms ({100 * ms / busy_ms:.1f}%, x{n})"
         for k, (ms, n) in share.items()))
+    if detail:
+        log_top(f"{tag}, the port's kernels by instantiation",
+                [r for r in rows
+                 if any(n in r[2] for n in PROFILE_KERNELS.values())],
+                busy_ms, top=len(rows))
+        pre_wall = run(1)
+        pre_rows = profiled_kernels(lambda: run(1))
+        pre_busy = sum(r[0] for r in pre_rows) / 1e3
+        dec_wall, dec_busy = wall_ms - pre_wall, busy_ms - pre_busy
+        log(f"[{tag}] decode steps alone (less a prefill-only run: wall "
+            f"{pre_wall:.1f} ms, device {pre_busy:.1f} ms): wall "
+            f"{dec_wall / steps:.2f} ms a step, device "
+            f"{dec_busy / steps:.2f} ms a step "
+            f"({(launches - sum(r[1] for r in pre_rows)) / steps:.0f} "
+            f"launches), device idle share {1 - dec_busy / dec_wall:.3f}")
     log_top(tag, rows, busy_ms, top)
+    del eng
+    release()
 
 
 # ---------------------------------------------------------------------------
@@ -1579,7 +1841,7 @@ def engine_prefill_ms(cfg, model, params, graphs: bool, repeats: int = 3):
         f"returns {', '.join(f'{x:.2f}' for x in host)} ms; device kernels "
         f"{dev} a call; compile_stats {eng.compile_stats}")
     del eng
-    torch.cuda.empty_cache()
+    release()
     return t
 
 
@@ -1623,12 +1885,38 @@ def mamba_prefill_ms(cfg, model, params, rng, repeats: int = 3):
     return t
 
 
-def phase_consistency_ssm(model, params, steps: int = 4):
+def _install_pages(model, sub, plens, steps):
+    """A prefill's sub-cache (rows of ``plens`` valid positions) in a fresh
+    bf16 page pool with room for ``steps`` more tokens a row, installed as
+    the engine installs it: paged leaves through ``write_prefill_pages``,
+    the rest as dense slot rows.  Returns (cache, device block tables)."""
+    from repro_torch.serve.kv_pages import PagedBatchState, write_prefill_pages
+    st = PagedBatchState(model, len(plens), SERVE_MAX_SEQ,
+                         page_size=SERVE_PAGE)
+    for b, n in enumerate(plens):
+        st.pool.allocate(b, int(n) + steps)
+    st.sync_tables()
+    tables_sub = st.pool.tables.copy()
+    for b in range(len(plens)):
+        tables_sub[b, st.pool.n_blocks[b]:] = st.pool.n_pages
+    for key in st.cache:
+        if key in model.paged_cache_keys():
+            write_prefill_pages(st.cache[key], sub[key], tables_sub)
+        else:
+            st.cache[key].copy_(sub[key])
+    return st.cache, st.tables_dev
+
+
+def phase_consistency_ssm(model, params, steps: int = 4,
+                          tag: str = "consistency_ssm", max_seq=None,
+                          paged: bool = False):
     """Prefill 300 positions (chunks of 256 and a ragged 44; rows of 300
     and 137 valid positions), then ``steps`` decode steps fed the greedy
     tokens, against the last-position logits of one prefill of the prompt
     and those tokens: the kernel's final state and the conv tail carry the
-    decode."""
+    decode (and, for the hybrid, its KV cache of ``max_seq`` positions:
+    dense, or with ``paged`` installed into bf16 pages, as the engine
+    installs it, and read by the paged decode kernel)."""
     rng = np.random.default_rng(5)
     plens = np.array([300, 137], np.int32)
     B, S0 = len(plens), int(plens.max())
@@ -1638,7 +1926,11 @@ def phase_consistency_ssm(model, params, steps: int = 4):
         prompts[b, :n] = rng.integers(0, model.cfg.vocab_size, n)
     logits, cache = model.prefill(params, torch.tensor(prompts[:, :S0],
                                                        device=dev),
-                                  prompt_lens=torch.tensor(plens, device=dev))
+                                  prompt_lens=torch.tensor(plens, device=dev),
+                                  max_seq=max_seq)
+    tables = None
+    if paged:
+        cache, tables = _install_pages(model, cache, plens, steps)
     tokens = torch.argmax(logits, -1).to(torch.int32)
     pos = torch.tensor(plens, device=dev)
     V = model.cfg.vocab_size
@@ -1646,7 +1938,8 @@ def phase_consistency_ssm(model, params, steps: int = 4):
     for i in range(steps):
         for b in range(B):
             prompts[b, plens[b] + i] = int(tokens[b])
-        logits, cache = model.decode_step(params, cache, tokens, pos)
+        logits, cache = model.decode_step(params, cache, tokens, pos,
+                                          block_tables=tables)
         ref, _ = model.prefill(params,
                                torch.tensor(prompts[:, :S0 + i + 1],
                                             device=dev),
@@ -1655,7 +1948,7 @@ def phase_consistency_ssm(model, params, steps: int = 4):
         gap = float((logits[:, :V].float() - ref[:, :V].float()).abs().max())
         scale = float(ref[:, :V].float().abs().max())
         worst = max(worst, gap / scale)
-        log(f"[consistency_ssm] step {i}: max |decode - prefill| logits "
+        log(f"[{tag}] step {i}: max |decode - prefill| logits "
             f"{gap:.4f} (max |logit| {scale:.3f}, relative {gap / scale:.4f});"
             f" greedy equal {torch.equal(logits.argmax(-1), ref.argmax(-1))}")
         tokens = torch.argmax(logits, -1).to(torch.int32)
@@ -1663,9 +1956,123 @@ def phase_consistency_ssm(model, params, steps: int = 4):
     if not worst <= CONSISTENCY_TOL:
         raise AssertionError(f"prefill/decode logits differ by {worst:.4f} of "
                              f"max |logit| > {CONSISTENCY_TOL}")
-    log(f"[consistency_ssm] ok: worst relative gap {worst:.4f} <= "
-        f"{CONSISTENCY_TOL}")
+    log(f"[{tag}] ok: worst relative gap {worst:.4f} <= {CONSISTENCY_TOL}")
     return worst
+
+
+# ---------------------------------------------------------------------------
+# 5c. serve zamba2-7b (the hybrid) at full width, and its consistency
+# ---------------------------------------------------------------------------
+
+def build_hybrid_model():
+    """zamba2-7b at full width and depth with random weights from a seeded
+    generator (built after the earlier models are freed)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("zamba2-7b")
+    model = build_model(cfg, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    s = cfg.ssm
+    log(f"[serve_hybrid] {cfg.name}: L={cfg.n_layers} d={cfg.d_model} "
+        f"d_inner={model.d_inner} heads={model.nh}x{s.head_dim} "
+        f"state={s.state_dim} groups={s.n_groups} chunk={s.chunk_size}; "
+        f"shared block every {cfg.attn_every} ({model.n_attn} applications)"
+        f" H={cfg.n_heads}/{cfg.n_kv_heads} D={model.attn_head_dim} "
+        f"ff={cfg.d_ff} V={cfg.vocab_size} {cfg.compute_dtype}; "
+        f"{n / 1e9:.3f}B params ({nbytes / 1e9:.2f} GB) drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return cfg, model, params
+
+
+def hybrid_launches(cfg, model, paged: bool):
+    """zamba2-7b's exact launch counts: per forward 2 L + 2 n_attn + 1
+    RMSNorms (191: a norm before each Mamba2 block and its gate norm, two
+    in each application of the shared block, the final norm); per prefill
+    call L SSD scans and n_attn prefill attentions; per decode step n_attn
+    paged decodes on pages, none on a dense cache."""
+    L, A = cfg.n_layers, model.n_attn
+
+    def want(steps, calls):
+        return {"rmsnorm": (2 * L + 2 * A + 1) * (steps + calls),
+                "flash_prefill": A * calls, "flash_bwd": 0,
+                "paged_decode": A * steps if paged else 0,
+                "ssd_scan": L * calls}
+    return want
+
+
+def phase_serve_hybrid(cfg, model, params):
+    """zamba2-7b serves 8 seeded requests (24-498 prompt tokens, 32 new
+    tokens each) with bf16 pages (CUDA graphs on and off), int8 pages
+    (graphs on) and a dense cache (graphs on and off): the same greedy
+    tokens with graphs on and off and from the dense cache and bf16 pages,
+    exact launch counts, no NaN logit; logs tokens/s, peak memory and the
+    graph pool.  Then a short profiled run with bf16 pages in both modes.
+    Returns the graphs-on runs' launches by page type."""
+    rng = np.random.default_rng(0)
+    plens = rng.integers(24, 499, HYBRID_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in plens]
+    log(f"[serve_hybrid] {HYBRID_REQUESTS} requests, prompt lengths "
+        f"{sorted(int(n) for n in plens)}, {HYBRID_NEW_TOKENS} new tokens "
+        f"each")
+    runs = {}
+    for label, graphs, kw in (
+            ("bf16", True, dict(paged=True)),
+            ("bf16", False, dict(paged=True)),
+            ("int8", True, dict(paged=True, kv_dtype="int8")),
+            ("dense", True, dict(paged=False)),
+            ("dense", False, dict(paged=False))):
+        runs[label, graphs] = serve_run(
+            f"serve_hybrid {label}", model, params, prompts,
+            HYBRID_NEW_TOKENS, graphs,
+            hybrid_launches(cfg, model, kw["paged"]), **kw)
+    for label in ("bf16", "dense"):
+        _same_tokens("serve_hybrid", f"{label}",
+                     [runs[label, True], runs[label, False]])
+    _same_tokens("serve_hybrid", "int8 pages (its capturing and timed "
+                 "runs)", [runs["int8", True]])
+    # the dense and paged paths scale q as the reference's do, in bf16 by
+    # a factor rounded to bf16 and in f32: at head_dim 224 they differ by
+    # an ulp, so their greedy tokens may part (consistency_hybrid holds
+    # both paths against one longer prefill); logged, as int8 is
+    for other, why in (("dense", "q scaled in bf16 against f32 on pages"),
+                       ("int8", "quantized KV")):
+        a, b = runs[other, True]["tokens"], runs["bf16", True]["tokens"]
+        same = [sum(x == y for x, y in zip(ra, rb)) for ra, rb in zip(a, b)]
+        first = [next((i for i, (x, y) in enumerate(zip(ra, rb)) if x != y),
+                      None) for ra, rb in zip(a, b)]
+        log(f"[serve_hybrid] {other} against bf16 pages ({why}): "
+            f"{sum(same)} of {sum(len(r) for r in b)} greedy tokens equal; "
+            f"first difference by request {first}")
+    for label in ("bf16", "dense"):
+        on, off = runs[label, True], runs[label, False]
+        log(f"[serve_hybrid] {label}: graphs on {on['tokens_per_s']:.1f} "
+            f"tokens/s against off {off['tokens_per_s']:.1f} "
+            f"({on['tokens_per_s'] / off['tokens_per_s']:.2f}x)")
+    # 8 new tokens (7 decode steps): the profiler's cost grows with the
+    # ~5000 kernels of each step
+    for graphs in (True, False):
+        phase_profile(cfg, model, params, tag="profile_hybrid", paged=True,
+                      graphs=graphs, detail=True, new_tokens=8)
+    return {label: runs[label, True]["launches"] for label in ("bf16", "int8")}
+
+
+def phase_consistency_hybrid(model, params, steps: int = 4):
+    """``phase_consistency_ssm``'s prefill of 300 positions (two SSD
+    chunks, the last ragged) and decode steps through zamba2-7b, on a
+    dense cache of ``SERVE_MAX_SEQ`` positions and on bf16 pages, each
+    within ``CONSISTENCY_TOL`` of the longer prefill."""
+    return [phase_consistency_ssm(model, params, steps,
+                                  tag=f"consistency_hybrid, {what}",
+                                  max_seq=SERVE_MAX_SEQ, paged=paged)
+            for what, paged in (("dense cache", False),
+                                ("bf16 pages", True))]
 
 
 # ---------------------------------------------------------------------------
@@ -1822,30 +2229,53 @@ def phase_trainer():
 def main() -> int:
     smi = phase_device()
     t0 = time.perf_counter()
-    phase_build()
-    rows = phase_kernels()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        log(f"[time] {name}: {seconds[name]:.1f} s")
+        return out
+    timed("build", phase_build)
+    rows = timed("kernels", phase_kernels)
     cfg, model, params = build_full_model()
-    serve = phase_serve(cfg, model, params)
-    for graphs in (True, False):
-        phase_profile(cfg, model, params, graphs=graphs)
-    phase_consistency(model, params)
+    serve = timed("serve", phase_serve, cfg, model, params)
+    timed("profile", lambda: [phase_profile(cfg, model, params, graphs=g)
+                              for g in (True, False)])
+    timed("consistency", phase_consistency, model, params)
     del model, params
-    torch.cuda.empty_cache()
+    release()
     cfg, model, params = build_mamba_model()
-    serve_ssm = phase_serve_ssm(cfg, model, params)
-    phase_consistency_ssm(model, params)
+    serve_ssm = timed("serve_ssm", phase_serve_ssm, cfg, model, params)
+    timed("consistency_ssm", phase_consistency_ssm, model, params)
     del model, params
-    torch.cuda.empty_cache()
-    train = phase_train()
-    phase_trainer()
+    release()
+    train = timed("train", phase_train)
+    timed("trainer", phase_trainer)
+    release()
+    cfg, model, params = timed("build_hybrid", build_hybrid_model)
+    hybrid = timed("serve_hybrid", phase_serve_hybrid, cfg, model, params)
+    timed("consistency_hybrid", phase_consistency_hybrid, model, params)
+    del model, params
+    release()
     # each kernel's launches on the path it serves: paged decode's in one
     # serve run of its page type, the serving prefill's in a bf16-page run,
     # the others' in the training run (the forward with its log-sum-exp
-    # counts as flash_prefill)
+    # counts as flash_prefill); zamba2-7b's instantiations in one of its
+    # serve runs (RMSNorm: both widths, 82 a forward at d 3584 and 109 at
+    # 7168, counted from the code)
     for row in rows:
         name, _, tag = row["name"].partition("[")
         tag = tag.rstrip("]")
-        if name == "paged_decode":
+        if row.get("model") == "zamba2-7b":
+            run = HYBRID_ROW_RUNS[row["name"]]
+            row["launches"] = hybrid[run][name]
+            row["launches_of"] = (f"one zamba2-7b serve run, {run} pages, "
+                                  f"CUDA graphs"
+                                  + (" (both widths)" if name == "rmsnorm"
+                                     else ""))
+        elif name == "paged_decode":
             row["launches"] = serve[tag][name]
             row["launches_of"] = f"one serve run, {tag} pages, CUDA graphs"
         elif name == "ssd_scan":
@@ -1865,8 +2295,9 @@ def main() -> int:
         row["kernel_ms"] = row["ms"]
         if row["launches"] < 1:
             raise AssertionError(f"{row['name']} never ran on the main path")
-    log(f"[done] {time.perf_counter() - t0:.1f} s after the device check; "
-        f"card {smi}")
+    log(f"[done] {time.perf_counter() - t0:.1f} s after the device check "
+        f"({', '.join(f'{k} {v:.1f}' for k, v in seconds.items())}); card "
+        f"{smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

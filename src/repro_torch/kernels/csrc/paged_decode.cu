@@ -10,7 +10,8 @@
 //
 // Bound on the H100: bytes.  Each key and value is read once and used by
 // the G = H / KV query rows of its KV head: 4 flops a byte at G = 4 for a
-// bf16 pool, 8 for int8, far under the ~295 where the tensor cores would
+// bf16 pool, 8 for int8 (1 and 2 at G = 1, zamba2-7b's shared block), far
+// under the ~295 where the tensor cores would
 // limit, and under the CUDA cores' 67 TFLOP/s f32 too (13-27 TFLOP/s is
 // what 3.35 TB/s needs).  So the kernel uses no tensor cores: an
 // mma.m16n8k16 would hold G = 4 live rows of its 16.  What decides its
@@ -28,9 +29,11 @@
 //   into a 2-stage ring in shared memory, in the pool's own type (1 byte a
 //   value for int8 / fp8), the next tile loading while this one computes.
 //   The split's table entries and scales are read once.
-// - Each warp takes 16 keys of a tile, 4 at a time: 8 lanes span one key's
-//   64 values (8 each), the dot products with the G query rows (in
-//   registers, pre-scaled by D^-0.5) reduce over those lanes by shuffles.
+// - Each warp takes 16 keys of a tile, D / 8 lanes to a key (8 values
+//   each): at head_dim 64, 4 keys a step on 8 lanes each; at head_dim 224,
+//   one key a step on 28 lanes, the other 4 holding zeros.  The dot
+//   products with the G query rows (in registers, pre-scaled by D^-0.5)
+//   reduce over a key's lanes by shuffles (over the whole warp at 224).
 //   A quantized pool's scales multiply once per key: s = (q . k_q) * k_scale
 //   and p * v_scale before P.V.  The (G, 8) accumulator of a lane stays in
 //   registers with its warp's running max and sum; the warps merge through
@@ -41,17 +44,30 @@
 //   type.  No atomics: two calls give bitwise-equal outputs.
 #include "common.cuh"
 
-constexpr int kDecD = 64;            // head_dim the kernels are built for
-constexpr int kDecG = 4;             // query rows per KV head
 constexpr int kDecThreads = 128;
 constexpr int kDecWarps = kDecThreads / 32;
 constexpr int kDecTileKeys = 64;     // keys per ring stage
 constexpr int kDecWarpKeys = kDecTileKeys / kDecWarps;   // 16
 constexpr int kDecLaneElems = 8;     // values of one key a lane holds
-constexpr int kDecKeyLanes = kDecD / kDecLaneElems;      // 8 lanes a key
-constexpr int kDecStepKeys = 32 / kDecKeyLanes;          // 4 keys a step
-constexpr int kDecSteps = kDecWarpKeys / kDecStepKeys;   // 4 steps a tile
 constexpr int kDecMaxSplitPages = 2 * kDecThreads;
+
+// How a warp's lanes cover the keys at head_dim D: KEY_LANES lanes a key,
+// STEP_KEYS keys a step, STEPS steps a tile; the first ACTIVE lanes hold
+// a key.  DOT_SPAN is the span of a key's dot-product reduction: its own
+// lanes when their count is a power of two (an xor butterfly stays within
+// the group), else the whole warp (the idle lanes add zeros).
+template <int D>
+struct DecLanes {
+  static constexpr int KEY_LANES = D / kDecLaneElems;
+  static constexpr int STEP_KEYS = 32 / KEY_LANES;
+  static constexpr int STEPS = kDecWarpKeys / STEP_KEYS;
+  static constexpr int ACTIVE = STEP_KEYS * KEY_LANES;
+  static constexpr int DOT_SPAN =
+      (KEY_LANES & (KEY_LANES - 1)) == 0 ? KEY_LANES : 32;
+  static_assert(D % kDecLaneElems == 0 && KEY_LANES <= 32 &&
+                    kDecWarpKeys % STEP_KEYS == 0,
+                "a key fits one warp, whole steps a tile");
+};
 
 // The 8 values of one key a lane holds, widened to float: 8, 16 or 32
 // bytes of shared memory.
@@ -68,7 +84,7 @@ __device__ __forceinline__ void load8(const KT* src, float* dst) {
   }
 }
 
-template <typename KT, int G>
+template <typename KT, int D, int G>
 __global__ void __launch_bounds__(kDecThreads)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const KT* __restrict__ kp, const KT* __restrict__ vp,
@@ -78,12 +94,17 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const float* __restrict__ v_scales,
                     float* __restrict__ part, int H, int KV, int page, int nb,
                     int kps, int window, float softcap) {
-  constexpr int D = kDecD, E = kDecLaneElems, TK = kDecTileKeys;
+  using L = DecLanes<D>;
+  constexpr int E = kDecLaneElems, TK = kDecTileKeys;
   constexpr int VEC = 16 / sizeof(KT);        // values a 16-byte copy moves
   constexpr int CH = D / VEC;                 // 16-byte copies a key row
+  static_assert(TK * CH % kDecThreads == 0, "whole copies per thread");
   const int h = blockIdx.x, b = blockIdx.y, s = blockIdx.z;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int kk = lane / kDecKeyLanes, c = lane % kDecKeyLanes;
+  // an idle lane (past L::ACTIVE) shadows the step's first key with zero
+  // queries: its loads stay in the tile, its products are zero
+  const bool active = lane < L::ACTIVE;
+  const int kk = active ? lane / L::KEY_LANES : 0, c = lane % L::KEY_LANES;
 
   // partial of (b, h, s): max[G], sum[G], acc[G][D]
   float* pm = part + ((static_cast<size_t>(b) * KV + h) * gridDim.z + s) *
@@ -177,9 +198,14 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                             c * E;
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    load16(qb + g * D, qr[g]);
+    if (active) {
+      load16(qb + g * D, qr[g]);
 #pragma unroll
-    for (int e = 0; e < E; ++e) qr[g][e] *= scale;
+      for (int e = 0; e < E; ++e) qr[g][e] *= scale;
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) qr[g][e] = 0.f;
+    }
   }
 
   float m[G], l[G], acc[G][E];
@@ -196,11 +222,11 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
     const KT* kt = k_sh + (i & 1) * TK * D;
     const KT* vt = v_sh + (i & 1) * TK * D;
     const int t0 = ka + i * TK;
-    float sc[kDecSteps][G];
-    float vsc[kDecSteps];
+    float sc[L::STEPS][G];
+    float vsc[L::STEPS];
 #pragma unroll
-    for (int st = 0; st < kDecSteps; ++st) {
-      const int t = warp * kDecWarpKeys + st * kDecStepKeys + kk;
+    for (int st = 0; st < L::STEPS; ++st) {
+      const int t = warp * kDecWarpKeys + st * L::STEP_KEYS + kk;
       const int key = t0 + t;
       float kv[E];
       load8(kt + t * D + c * E, kv);
@@ -216,7 +242,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int e = 0; e < E; ++e) d += qr[g][e] * kv[e];
 #pragma unroll
-        for (int o = 1; o < kDecKeyLanes; o <<= 1)
+        for (int o = 1; o < L::DOT_SPAN; o <<= 1)
           d += __shfl_xor_sync(0xffffffffu, d, o);
         d *= ksc;
         if (softcap > 0.f) d = tanhf(d / softcap) * softcap;
@@ -228,9 +254,9 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
     for (int g = 0; g < G; ++g) {
       float mx = sc[0][g];
 #pragma unroll
-      for (int st = 1; st < kDecSteps; ++st) mx = fmaxf(mx, sc[st][g]);
+      for (int st = 1; st < L::STEPS; ++st) mx = fmaxf(mx, sc[st][g]);
 #pragma unroll
-      for (int o = kDecKeyLanes; o < 32; o <<= 1)
+      for (int o = L::DOT_SPAN; o < 32; o <<= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
       const float m_new = fmaxf(m[g], mx);
       // masked keys hold kNegInf, so their exp underflows to exactly 0
@@ -241,15 +267,15 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < E; ++e) acc[g][e] *= corr;
 #pragma unroll
-      for (int st = 0; st < kDecSteps; ++st) {
+      for (int st = 0; st < L::STEPS; ++st) {
         const float p = expf(sc[st][g] - m_safe);
         l[g] += p;
         sc[st][g] = p * vsc[st];
       }
     }
 #pragma unroll
-    for (int st = 0; st < kDecSteps; ++st) {
-      const int t = warp * kDecWarpKeys + st * kDecStepKeys + kk;
+    for (int st = 0; st < L::STEPS; ++st) {
+      const int t = warp * kDecWarpKeys + st * L::STEP_KEYS + kk;
       float vv[E];
       load8(vt + t * D + c * E, vv);
 #pragma unroll
@@ -262,19 +288,20 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
   }
 
-  // sum over the warp's 4 key lanes groups, then merge the 4 warps
+  // sum over the warp's key lane groups (4 at head_dim 64, one at 224),
+  // then merge the 4 warps
   __shared__ float red_m[kDecWarps][G], red_l[kDecWarps][G];
   __shared__ __align__(16) float red_acc[kDecWarps][G * D];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
 #pragma unroll
-    for (int o = kDecKeyLanes; o < 32; o <<= 1) {
+    for (int o = L::DOT_SPAN; o < 32; o <<= 1) {
       l[g] += __shfl_xor_sync(0xffffffffu, l[g], o);
 #pragma unroll
       for (int e = 0; e < E; ++e)
         acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
     }
-    if (kk == 0) {
+    if (active && kk == 0) {
 #pragma unroll
       for (int e = 0; e < E; ++e) red_acc[warp][g * D + c * E + e] = acc[g][e];
     }
@@ -308,12 +335,12 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
 // Merges the n_split partials of one (slot, KV head): out = sum_s
 // acc_s e^(m_s - M) / sum_s l_s e^(m_s - M), M = max_s m_s.  An empty
 // split (max -1e30) wrote no accumulator and is skipped.
-template <typename QT, int G>
+template <typename QT, int D, int G>
 __global__ void __launch_bounds__(kDecThreads)
 paged_decode_combine_kernel(const float* __restrict__ part,
                             QT* __restrict__ out, int H, int KV,
                             int n_split) {
-  constexpr int D = kDecD, stride = G * (D + 2);
+  constexpr int stride = G * (D + 2);
   const int h = blockIdx.x, b = blockIdx.y;
   const float* base = part + (static_cast<size_t>(b) * KV + h) * n_split *
                                  stride;
@@ -337,21 +364,21 @@ paged_decode_combine_kernel(const float* __restrict__ part,
   }
 }
 
-template <typename KT>
+template <typename KT, int D, int G>
 static int launch_paged(const void* q, const void* kp, const void* vp,
                         const int* tables, const int* pos, const float* ks,
                         const float* vs, float* part, void* out, int B, int H,
-                        int KV, int D, int page, int nb, int kps, int window,
+                        int KV, int page, int nb, int kps, int window,
                         float softcap, cudaStream_t stream) {
   using QT = __nv_bfloat16;
-  if (D != kDecD || KV <= 0 || H != kDecG * KV || page <= 0 || kps <= 0 ||
-      kps % page || kps / page > kDecMaxSplitPages)
+  if (KV <= 0 || H != G * KV || page <= 0 || kps <= 0 || kps % page ||
+      kps / page > kDecMaxSplitPages)
     return static_cast<int>(cudaErrorInvalidValue);
   // as kernels/flash_attention/paged.py:split_plan, which sizes the
   // workspace
   const int n_split = (nb * page + kps - 1) / kps;
-  const size_t smem = 2 * 2 * sizeof(KT) * kDecTileKeys * kDecD;
-  auto kernel = paged_decode_kernel<KT, kDecG>;
+  const size_t smem = 2 * 2 * sizeof(KT) * kDecTileKeys * D;
+  auto kernel = paged_decode_kernel<KT, D, G>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -374,16 +401,50 @@ static int launch_paged(const void* q, const void* kp, const void* vp,
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   const float* cpart = part;
-  err = cudaLaunchKernelEx(&cfg, paged_decode_combine_kernel<QT, kDecG>,
+  err = cudaLaunchKernelEx(&cfg, paged_decode_combine_kernel<QT, D, G>,
                            cpart, static_cast<QT*>(out), H, KV, n_split);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Built for bf16 queries (the serving path's compute type), head_dim 64 and
-// 4 query heads per KV head, over bf16, f32, int8 and fp8-e4m3 pools;
+// The pool types of each (head_dim, query group) instantiation.
+template <int D, int G>
+static int launch_pool(int kv_dtype, const void* q, const void* kp,
+                       const void* vp, const int* t, const int* p,
+                       const float* ks, const float* vs, float* w, void* out,
+                       int B, int H, int KV, int page, int nb, int kps,
+                       int window, float softcap, cudaStream_t s) {
+  switch (kv_dtype) {
+    case kBF16:
+      return launch_paged<__nv_bfloat16, D, G>(q, kp, vp, t, p, ks, vs, w,
+                                               out, B, H, KV, page, nb, kps,
+                                               window, softcap, s);
+    case kI8:
+      return launch_paged<int8_t, D, G>(q, kp, vp, t, p, ks, vs, w, out, B,
+                                        H, KV, page, nb, kps, window,
+                                        softcap, s);
+  }
+  if constexpr (D == 64) {         // llama3.2-1b's head_dim: every pool
+    switch (kv_dtype) {
+      case kF32:
+        return launch_paged<float, D, G>(q, kp, vp, t, p, ks, vs, w, out, B,
+                                         H, KV, page, nb, kps, window,
+                                         softcap, s);
+      case kFP8:
+        return launch_paged<__nv_fp8_e4m3, D, G>(q, kp, vp, t, p, ks, vs, w,
+                                                 out, B, H, KV, page, nb,
+                                                 kps, window, softcap, s);
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Built for bf16 queries (the serving path's compute type) at head_dim 64
+// with 4 query heads per KV head (llama3.2-1b) over bf16, f32, int8 and
+// fp8-e4m3 pools, and at head_dim 224 with one query head per KV head
+// (zamba2-7b's shared attention block) over bf16 and int8 pools;
 // chip_smoke.py checks every one of them.  `workspace` holds
-// B * KV * n_split * 4 * (64 + 2) floats.
+// B * KV * n_split * G * (D + 2) floats.
 extern "C" int paged_decode_launch(const void* q, const void* k_pages,
                                    const void* v_pages, const void* tables,
                                    const void* pos, const void* k_scales,
@@ -392,31 +453,21 @@ extern "C" int paged_decode_launch(const void* q, const void* k_pages,
                                    int page, int nb, int keys_per_split,
                                    int window, float softcap, int q_dtype,
                                    int kv_dtype, void* stream) {
-  if (q_dtype != kBF16) return static_cast<int>(cudaErrorInvalidValue);
+  if (q_dtype != kBF16 || KV <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* t = static_cast<const int*>(tables);
   const int* p = static_cast<const int*>(pos);
   const float* ks = static_cast<const float*>(k_scales);
   const float* vs = static_cast<const float*>(v_scales);
   float* w = static_cast<float*>(workspace);
-  switch (kv_dtype) {
-    case kF32:
-      return launch_paged<float>(q, k_pages, v_pages, t, p, ks, vs, w, out, B,
-                                 H, KV, D, page, nb, keys_per_split, window,
-                                 softcap, s);
-    case kBF16:
-      return launch_paged<__nv_bfloat16>(q, k_pages, v_pages, t, p, ks, vs, w,
-                                         out, B, H, KV, D, page, nb,
-                                         keys_per_split, window, softcap, s);
-    case kI8:
-      return launch_paged<int8_t>(q, k_pages, v_pages, t, p, ks, vs, w, out,
-                                  B, H, KV, D, page, nb, keys_per_split,
-                                  window, softcap, s);
-    case kFP8:
-      return launch_paged<__nv_fp8_e4m3>(q, k_pages, v_pages, t, p, ks, vs, w,
-                                         out, B, H, KV, D, page, nb,
-                                         keys_per_split, window, softcap, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (D == 64 && H == 4 * KV)
+    return launch_pool<64, 4>(kv_dtype, q, k_pages, v_pages, t, p, ks, vs, w,
+                              out, B, H, KV, page, nb, keys_per_split, window,
+                              softcap, s);
+  if (D == 224 && H == KV)
+    return launch_pool<224, 1>(kv_dtype, q, k_pages, v_pages, t, p, ks, vs,
+                               w, out, B, H, KV, page, nb, keys_per_split,
+                               window, softcap, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -19,9 +19,10 @@
 // unchanged, exactly as the reference's zero padding does.
 //
 // Bound on the H100: bytes.  The function reads x, a, B, C once and writes
-// y and the final state once: 44.6 MB at the serving shape (B 8, S 512,
-// H 32, P 64, G 1, N 128, chunk 256), 0.0133 ms at 3.35 TB/s, against about
-// 6.6 GFLOP of causal products (0.0067 ms at 989 TFLOP/s bf16).
+// y and the final state once: 44.6 MB at mamba2-370m's serving shape (B 8,
+// S 512, H 32, P 64, G 1, N 128, chunk 256), 0.0133 ms at 3.35 TB/s,
+// against about 6.6 GFLOP of causal products (0.0067 ms at 989 TFLOP/s
+// bf16); zamba2-7b's (H 112, G 2, N 64) moves about 121 MB.
 //
 // Translation.  The TPU kernel runs a (B, H, chunks) grid whose chunk axis
 // is sequential and carries the N x P state in VMEM.  Here the chunked SSD
@@ -74,11 +75,14 @@
 // the host reads no device value, so a launch can be captured in a CUDA
 // graph.
 //
-// Resources per block (ptxas -v for sm_90a, CUDA 12.8; no spills): states
-// pass 128 threads, 132 registers, 67,600 bytes of shared memory (3 blocks
-// an SM); carry pass 256 threads, 32 registers, none; output pass 128
-// threads, 224 registers and 86,016 bytes with two heads a block (2 blocks
-// an SM), 176 registers and 67,584 bytes with one.
+// Resources per block at N 128 (ptxas -v for sm_90a, CUDA 12.8; no
+// spills): states pass 128 threads, 132 registers, 67,600 bytes of shared
+// memory (3 blocks an SM); carry pass 256 threads, 32 registers, none;
+// output pass 128 threads, 224 registers and 86,016 bytes with two heads a
+// block (2 blocks an SM), 176 registers and 67,584 bytes with one.  At
+// N 64 every B and C row is one tile (N / 64 == 1): a warp of pass (a)
+// owns 16 state rows, and pass (c) stages both heads' y in C's one tile,
+// one after the other.
 #include "mma.cuh"
 
 constexpr int kSsdThreads = 128;     // 4 warps
@@ -540,32 +544,21 @@ static cudaError_t launch_output(const void* x, const void* Bm,
                             has_h0);
 }
 
-// Built for bf16 x / B / C with f32 a at N 128, P 64, the one shape the
-// serving path launches (mamba2-370m) and chip_smoke.py checks; other shapes
-// are refused until a configuration needs them.  Q is the chunk length,
-// 1..256 (a shorter sequence passes min(chunk, S)).  `workspace` holds
-// 3 / 2 * B * nc * H * N * P + B * H * nc * Q floats, nc = ceil(S / Q): the
-// chunk states (f32), the states entering each chunk (bf16) and the
-// cumulative sums.
-extern "C" int ssd_scan_launch(const void* x, const void* a, const void* Bm,
-                               const void* Cm, const void* h0,
-                               void* workspace, void* y, void* h_final,
-                               int B, int S, int H, int G, int N, int P,
-                               int Q, void* stream) {
-  constexpr int kN = 128, kP = 64;
-  if (N != kN || P != kP || Q < 1 || Q > kSsdMaxChunk || G < 1 || H % G ||
-      S < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+// The three passes at state N, head P.
+template <int N, int P>
+static int launch_scan(const void* x, const void* a, const void* Bm,
+                       const void* Cm, const void* h0, void* workspace,
+                       void* y, void* h_final, int B, int S, int H, int G,
+                       int Q, cudaStream_t s) {
   const int nc = (S + Q - 1) / Q;
-  const size_t n_states = static_cast<size_t>(B) * nc * H * kN * kP;
+  const size_t n_states = static_cast<size_t>(B) * nc * H * N * P;
   float* states = static_cast<float*>(workspace);
   __nv_bfloat16* enter = reinterpret_cast<__nv_bfloat16*>(states + n_states);
   float* acs = states + n_states + n_states / 2;
   cudaError_t err;
   if (nc > 0) {
-    constexpr size_t smem = states_smem<kN>();
-    auto kernel = ssd_scan_states_kernel<kN, kP>;
+    constexpr size_t smem = states_smem<N>();
+    auto kernel = ssd_scan_states_kernel<N, P>;
     static unsigned done = 0;
     err = allow_smem(reinterpret_cast<const void*>(kernel), smem, done);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -579,12 +572,13 @@ extern "C" int ssd_scan_launch(const void* x, const void* a, const void* Bm,
   attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr.val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kN * kP / 4 / kCarryThreads, H, B);
+  static_assert(N * P % (4 * kCarryThreads) == 0, "whole carry blocks");
+  cfg.gridDim = dim3(N * P / 4 / kCarryThreads, H, B);
   cfg.blockDim = dim3(kCarryThreads);
   cfg.stream = s;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, ssd_scan_carry_kernel<kN, kP>,
+  err = cudaLaunchKernelEx(&cfg, ssd_scan_carry_kernel<N, P>,
                            static_cast<const float*>(states),
                            static_cast<const float*>(acs),
                            static_cast<const float*>(h0), enter,
@@ -593,11 +587,35 @@ extern "C" int ssd_scan_launch(const void* x, const void* a, const void* Bm,
   if (nc > 0) {
     const int has_h0 = h0 != nullptr;
     err = (H / G) % kSsdHeads == 0
-              ? launch_output<kN, kP, kSsdHeads>(x, Bm, Cm, enter, acs, y, B,
-                                                 S, H, G, Q, nc, has_h0, s)
-              : launch_output<kN, kP, 1>(x, Bm, Cm, enter, acs, y, B, S, H, G,
-                                         Q, nc, has_h0, s);
+              ? launch_output<N, P, kSsdHeads>(x, Bm, Cm, enter, acs, y, B, S,
+                                               H, G, Q, nc, has_h0, s)
+              : launch_output<N, P, 1>(x, Bm, Cm, enter, acs, y, B, S, H, G,
+                                       Q, nc, has_h0, s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Built for bf16 x / B / C with f32 a at head P 64 and state N 128
+// (mamba2-370m) or N 64 (zamba2-7b), the shapes the serving path launches
+// and chip_smoke.py checks; other shapes are refused until a configuration
+// needs them.  Q is the chunk length, 1..256 (a shorter sequence passes
+// min(chunk, S)).  `workspace` holds 3 / 2 * B * nc * H * N * P +
+// B * H * nc * Q floats, nc = ceil(S / Q): the chunk states (f32), the
+// states entering each chunk (bf16) and the cumulative sums.
+extern "C" int ssd_scan_launch(const void* x, const void* a, const void* Bm,
+                               const void* Cm, const void* h0,
+                               void* workspace, void* y, void* h_final,
+                               int B, int S, int H, int G, int N, int P,
+                               int Q, void* stream) {
+  if (P != 64 || Q < 1 || Q > kSsdMaxChunk || G < 1 || H % G || S < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N == 128)
+    return launch_scan<128, 64>(x, a, Bm, Cm, h0, workspace, y, h_final, B,
+                                S, H, G, Q, s);
+  if (N == 64)
+    return launch_scan<64, 64>(x, a, Bm, Cm, h0, workspace, y, h_final, B,
+                               S, H, G, Q, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

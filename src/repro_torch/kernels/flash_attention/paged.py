@@ -21,8 +21,11 @@ NEG_INF = -1e30
 #: down to whole pages, at least one page); 128 was the fastest of 64, 128
 #: and 256 on an H100 (``tools/torch_kernel_ab.py --keys-per-split``)
 KEYS_PER_SPLIT = 128
-#: what the kernel is built for: head_dim and query heads per KV head
+#: what the kernel is built for: head_dim and query heads per KV head of
+#: llama3.2-1b (every pool type below) ...
 KERNEL_HEAD_DIM, KERNEL_GROUP = 64, 4
+#: ... and of zamba2-7b's shared attention block (bf16 and int8 pools)
+WIDE_HEAD_DIM, WIDE_GROUP = 224, 1
 
 _POOL_DTYPES = (torch.float32, torch.bfloat16, torch.int8,
                 torch.float8_e4m3fn)
@@ -128,10 +131,17 @@ def launch_split(q, k_pages, v_pages, block_tables, pos, window, softcap,
             (k_scales is None) != (v_scales is None):
         raise ValueError("paged_flash_decode: int8/fp8 pools need k_scales "
                          "and v_scales, other pools take none")
-    if D != KERNEL_HEAD_DIM or H != KERNEL_GROUP * KV:
+    if (D, H) not in ((KERNEL_HEAD_DIM, KERNEL_GROUP * KV),
+                      (WIDE_HEAD_DIM, WIDE_GROUP * KV)):
         raise ValueError(f"paged_flash_decode kernel is built for head_dim "
-                         f"{KERNEL_HEAD_DIM} and {KERNEL_GROUP} query heads "
-                         f"per KV head, got D={D}, H={H}, KV={KV}")
+                         f"{KERNEL_HEAD_DIM} with {KERNEL_GROUP} query heads "
+                         f"per KV head and head_dim {WIDE_HEAD_DIM} with "
+                         f"{WIDE_GROUP}, got D={D}, H={H}, KV={KV}")
+    if D == WIDE_HEAD_DIM and k_pages.dtype not in (torch.bfloat16,
+                                                    torch.int8):
+        raise TypeError(f"paged_flash_decode kernel at head_dim "
+                        f"{WIDE_HEAD_DIM} is built for bf16 and int8 pools, "
+                        f"got {k_pages.dtype}")
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
         raise ValueError("paged_flash_decode: page pools must be contiguous")
     q = q.contiguous()
@@ -148,7 +158,7 @@ def launch_split(q, k_pages, v_pages, block_tables, pos, window, softcap,
     out = torch.empty_like(q)
     # per (slot, KV head, split): running max and sum of each query row,
     # then its (rows, D) accumulator, all f32
-    work = torch.empty(B * KV * n_split * KERNEL_GROUP * (D + 2),
+    work = torch.empty(B * KV * n_split * (H // KV) * (D + 2),
                        dtype=torch.float32, device=q.device)
     _build.require_cuda("paged_flash_decode", out, work, *tensors)
     lib = _build.library()

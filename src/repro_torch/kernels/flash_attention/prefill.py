@@ -21,6 +21,20 @@ import torch
 from .. import _build
 
 NEG_INF = -1e30
+#: (head_dim, query heads per KV head) the kernel is built for: llama3.2-1b's
+#: head_dim 64 at any group (its serving and training paths), and
+#: zamba2-7b's shared attention block, head_dim 224 with one query head per
+#: KV head (group 0: any)
+KERNEL_CASES = ((64, 0), (224, 1))
+
+
+def query_scale(D: int, dtype: torch.dtype) -> float:
+    """The factor ``D ** -0.5`` as the reference applies it to q: JAX
+    multiplies q by a weak-typed Python float, which it first rounds to q's
+    dtype, then rounds the product once.  In bf16 the factor is not exact
+    unless D is a power of four (bf16(224 ** -0.5) = 0.06689453 against
+    0.06681531); in f32 this is the f32 factor PyTorch would use anyway."""
+    return float(torch.tensor(D ** -0.5, dtype=dtype))
 
 
 def flash_prefill_ref(q, k, v, kv_valid_len: Optional[torch.Tensor] = None,
@@ -38,7 +52,7 @@ def flash_prefill_ref(q, k, v, kv_valid_len: Optional[torch.Tensor] = None,
     G = H // KV
     dev = q.device
     # the reference scales q in its own dtype before the f32 products
-    qr = (q.reshape(B, Sq, KV, G, D) * (D ** -0.5)).float()
+    qr = (q.reshape(B, Sq, KV, G, D) * query_scale(D, q.dtype)).float()
     q_pos = q_offset + torch.arange(Sq, device=dev)
     vl = None if kv_valid_len is None else kv_valid_len.to(dev)
     bk = min(block_k, Sk)
@@ -87,9 +101,11 @@ def flash_prefill(q, k, v, kv_valid_len: Optional[torch.Tensor] = None, *,
     log-sum-exp (B, H, Sq) too.  A CPU tensor takes the plain version
     (``block_k`` sets its key block); a CUDA tensor launches the kernel
     (``flash_prefill.launches`` counts them), which reads q/k/v through
-    their strides and supports bf16, head_dim 64 and ``q_offset == 0``
-    only.  When grad mode is on and an input requires grad, the call goes
-    through ``ops.flash_attention_train`` (the forward with its log-sum-exp,
+    their strides and supports bf16 and ``q_offset == 0`` only, at head_dim
+    64 or at head_dim 224 with one query head per KV head
+    (``KERNEL_CASES``).  When grad mode is on and an input requires grad,
+    the call goes through ``ops.flash_attention_train`` (the forward with
+    its log-sum-exp,
     then the flash backward), which covers what the reference's training
     kernels cover: no softcap, no ``q_offset``, no ``kv_valid_len``; any
     other differentiable call raises."""
@@ -126,9 +142,10 @@ def _forward(q, k, v, kv_valid_len, *, causal, window, softcap=0.0,
     if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
         raise TypeError(f"flash_prefill kernel is built for bf16 q, k, v, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if D != 64:
-        raise ValueError(f"flash_prefill kernel is built for head_dim 64, "
-                         f"got {D}")
+    if not any(D == d and (g == 0 or H == g * KV) for d, g in KERNEL_CASES):
+        raise ValueError(f"flash_prefill kernel is built for head_dim 64 "
+                         f"and for head_dim 224 with one query head per KV "
+                         f"head, got D={D}, H={H}, KV={KV}")
     vec = 16 // q.element_size()
     tensors = []
     for t in (q, k, v):

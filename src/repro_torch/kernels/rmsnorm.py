@@ -15,8 +15,10 @@ import torch
 from . import _build
 
 #: row widths the kernel is instantiated for: llama3.2-1b's d_model 2048,
-#: mamba2-370m's 1024, and 256, the small ``Trainer`` run of chip_smoke.py
-KERNEL_WIDTHS = (256, 1024, 2048)
+#: mamba2-370m's 1024, 256 (the small ``Trainer`` run of chip_smoke.py),
+#: and zamba2-7b's d_model 3584 and 7168 (its d_inner, and the shared
+#: block's concat(h, emb))
+KERNEL_WIDTHS = (256, 1024, 2048, 3584, 7168)
 
 
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor,

@@ -19,8 +19,9 @@ import torch.nn.functional as F
 
 from . import _build
 
-#: the one instantiation of the kernel (state N, head P), bf16 x/B/C, f32 a
-KERNEL_N, KERNEL_P = 128, 64
+#: the instantiations of the kernel, bf16 x/B/C and f32 a: states N
+#: (mamba2-370m's 128, zamba2-7b's 64) at head P 64
+KERNEL_N, KERNEL_P = (64, 128), 64
 #: the longest chunk the kernel's cumulative-sum buffer holds
 MAX_CHUNK = 256
 
@@ -87,9 +88,9 @@ def _launch(x, a, Bm, Cm, Q: int, h0) -> Tuple[torch.Tensor, torch.Tensor]:
             or Cm.dtype != torch.bfloat16 or a.dtype != torch.float32:
         raise TypeError(f"ssd_scan kernel is built for bf16 x/B/C and f32 a, "
                         f"got {x.dtype}/{Bm.dtype}/{Cm.dtype} and {a.dtype}")
-    if (N, P) != (KERNEL_N, KERNEL_P):
-        raise ValueError(f"ssd_scan kernel is built for state {KERNEL_N} and "
-                         f"head_dim {KERNEL_P}, got N={N} P={P}")
+    if N not in KERNEL_N or P != KERNEL_P:
+        raise ValueError(f"ssd_scan kernel is built for state in {KERNEL_N} "
+                         f"and head_dim {KERNEL_P}, got N={N} P={P}")
     if Q > MAX_CHUNK:
         raise ValueError(f"ssd_scan kernel takes chunks of at most "
                          f"{MAX_CHUNK}, got {Q}")

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.flash_attention import flash_prefill, paged_flash_decode
+from ..kernels.flash_attention.prefill import query_scale
 from ..kernels.rmsnorm import rmsnorm
 
 Params = Dict[str, object]
@@ -104,7 +105,8 @@ def decode_attention(q, k_cache, v_cache, *, pos, window: int = 0,
     B, _, H, D = q.shape
     Smax, KV = k_cache.shape[1], k_cache.shape[2]
     G = H // KV
-    qr = q.reshape(B, KV, G, D) * (D ** -0.5)
+    # in q's dtype by the factor rounded to it, as the reference scales q
+    qr = q.reshape(B, KV, G, D) * query_scale(D, q.dtype)
     s = torch.einsum("bkgd,bskd->bkgs", qr.float(), k_cache.float())
     if softcap > 0:
         s = torch.tanh(s / softcap) * softcap
@@ -116,6 +118,21 @@ def decode_attention(q, k_cache, v_cache, *, pos, window: int = 0,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
     return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+def dense_cache_write(cache: torch.Tensor, new: torch.Tensor,
+                      pos: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Write one token's K (or V) per slot into a dense cache, in place.
+
+    cache: (B, Smax, KV, D); new: (B, KV, D); pos: (B,); rows:
+    ``arange(B)`` on the cache's device.  A frozen slot parked at
+    ``pos == Smax`` writes nothing (the reference drops that scatter): its
+    row rewrites the old value."""
+    S = cache.shape[1]
+    slot = torch.clamp(pos, max=S - 1)
+    keep = (pos < S)[:, None, None]
+    cache[rows, slot] = torch.where(keep, new, cache[rows, slot])
+    return cache
 
 
 def project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

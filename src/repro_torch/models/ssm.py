@@ -160,6 +160,42 @@ def mamba_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
     return out, (h_final, tail)
 
 
+def mamba_param_shapes(cfg: ModelConfig, L: int) -> Params:
+    """Shapes of the Mamba2 block leaves stacked over ``L`` layers, in the
+    reference's ``init_mamba_block`` layout."""
+    s, d_in, nh, gn = _dims(cfg)
+    d, bc = cfg.d_model, 2 * gn
+    return {"w_z": (L, d, d_in), "w_x": (L, d, d_in), "w_bc": (L, d, bc),
+            "w_dt": (L, d, nh), "conv_x_w": (L, s.conv_width, d_in),
+            "conv_x_b": (L, d_in), "conv_bc_w": (L, s.conv_width, bc),
+            "conv_bc_b": (L, bc), "dt_bias": (L, nh), "A_log": (L, nh),
+            "D": (L, nh), "gate_norm": {"scale": (L, d_in)},
+            "out_proj": (L, d_in, d)}
+
+
+def mamba_leaf_dtype(name: str, dtype: torch.dtype) -> torch.dtype:
+    """Norm scales, ``dt_bias``, ``A_log`` and ``D`` stay float32 (the
+    reference reads the first three in f32 from its f32 masters);
+    projections, conv weights and biases and the embedding hold ``dtype``
+    (the reference casts them to the compute dtype at use)."""
+    return torch.float32 if name in _F32_LEAVES else dtype
+
+
+def init_mamba_params(shapes: Params, dtype: torch.dtype, device,
+                      generator: Optional[torch.Generator]) -> Params:
+    """Random weights for a tree holding Mamba2 blocks, as the reference's
+    initializers draw them: fan-in-scaled normals for the projections, 0.5
+    for the conv weights, 0.02 for the embedding; zeros for the conv
+    biases, ``dt_bias`` and ``A_log`` (A = -1); ones for ``D`` and norm
+    scales."""
+    return init_params(
+        shapes, lambda name: mamba_leaf_dtype(name, dtype), device,
+        generator, zeros=("conv_x_b", "conv_bc_b", "dt_bias", "A_log"),
+        ones=("D", "scale"),
+        scale=lambda name, per: 0.5 if name.startswith("conv_")
+        else init_scale(name, per))
+
+
 def mamba_decode_step(p: Params, x: torch.Tensor, cache, cfg: ModelConfig):
     """One-token Mamba2 step.  x: (B, 1, d); cache = (ssm_state, conv_window).
 
@@ -219,43 +255,25 @@ class MambaLM:
     def param_shapes(self) -> Params:
         """Shape of every parameter leaf, in the reference's tree layout."""
         cfg = self.cfg
-        s = cfg.ssm
-        L, d, d_in, nh = cfg.n_layers, cfg.d_model, self.d_inner, self.nh
-        bc = 2 * s.n_groups * s.state_dim
+        L, d = cfg.n_layers, cfg.d_model
         embed = {"wte": (cfg.vocab_size, d)}
         if not cfg.tie_embeddings:
             embed["head"] = (d, cfg.vocab_size)
-        mamba = {"w_z": (L, d, d_in), "w_x": (L, d, d_in), "w_bc": (L, d, bc),
-                 "w_dt": (L, d, nh), "conv_x_w": (L, s.conv_width, d_in),
-                 "conv_x_b": (L, d_in), "conv_bc_w": (L, s.conv_width, bc),
-                 "conv_bc_b": (L, bc), "dt_bias": (L, nh), "A_log": (L, nh),
-                 "D": (L, nh), "gate_norm": {"scale": (L, d_in)},
-                 "out_proj": (L, d_in, d)}
         return {"embed": embed, "final_norm": {"scale": (d,)},
-                "layers": {"norm": {"scale": (L, d)}, "mamba": mamba}}
+                "layers": {"norm": {"scale": (L, d)},
+                           "mamba": mamba_param_shapes(cfg, L)}}
 
     def leaf_dtype(self, name: str, dtype=None) -> torch.dtype:
-        """Norm scales, ``dt_bias``, ``A_log`` and ``D`` stay float32 (the
-        reference reads the first three in f32 from its f32 masters);
-        projections, conv weights and biases and the embedding hold
-        ``dtype``, by default the compute dtype (the reference casts them to
-        it at use)."""
-        return torch.float32 if name in _F32_LEAVES \
-            else (dtype or self.compute_dtype)
+        """See :func:`mamba_leaf_dtype`; ``dtype`` defaults to the compute
+        dtype."""
+        return mamba_leaf_dtype(name, dtype or self.compute_dtype)
 
     def init(self, generator: Optional[torch.Generator] = None) -> Params:
         """Random weights on the model's device in their leaf dtypes, drawn
-        from ``generator`` (seed 0 when None), as the reference's
-        initializers draw them: fan-in-scaled normals for the projections,
-        0.5 for the conv weights, 0.02 for the embedding; zeros for the
-        conv biases, ``dt_bias`` and ``A_log`` (A = -1); ones for ``D`` and
-        norm scales."""
-        return init_params(
-            self.param_shapes(), self.leaf_dtype, self.device, generator,
-            zeros=("conv_x_b", "conv_bc_b", "dt_bias", "A_log"),
-            ones=("D", "scale"),
-            scale=lambda name, per: 0.5 if name.startswith("conv_")
-            else init_scale(name, per))
+        from ``generator`` (seed 0 when None), as
+        :func:`init_mamba_params` draws them."""
+        return init_mamba_params(self.param_shapes(), self.compute_dtype,
+                                 self.device, generator)
 
     # -- forward ---------------------------------------------------------
     def logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:

@@ -329,13 +329,8 @@ class DecoderLM:
                                               pos=pos, k_scales=ks,
                                               v_scales=vs)
             else:
-                # a frozen slot parked at pos == max_seq writes nothing (the
-                # reference drops that scatter): rewrite the old value
-                S = kc.shape[1]
-                slot = torch.clamp(pos, max=S - 1)
-                keep = (pos < S)[:, None, None]
-                kc[arange, slot] = torch.where(keep, k[:, 0], kc[arange, slot])
-                vc[arange, slot] = torch.where(keep, v[:, 0], vc[arange, slot])
+                cm.dense_cache_write(kc, k[:, 0], pos, arange)
+                cm.dense_cache_write(vc, v[:, 0], pos, arange)
                 o = cm.decode_attention(q, kc, vc, pos=pos)
             H, D, d = lp["attn"]["wo"].shape
             x = x + o.reshape(B, 1, H * D) \

@@ -61,6 +61,20 @@ def test_rmsnorm_matches_reference(shape, dtype):
         np32(jcm.apply_norm({"scale": jnp.asarray(w)}, jx, "rms")), **tol)
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("d", [3584, 7168])
+def test_rmsnorm_matches_reference_at_hybrid_widths(d, dtype):
+    """zamba2-7b's widths: d_model 3584, and 7168 (its d_inner, and the
+    shared block's concat(h, emb)), at a few rows."""
+    rng = np.random.default_rng(d)
+    x = rng.normal(size=(3, d)).astype(np.float32) * 3.0
+    w = (1.0 + 0.1 * rng.normal(size=d)).astype(np.float32)
+    jx, tx = _pair(x, dtype)
+    got = rmsnorm(tx, torch.tensor(w))
+    np.testing.assert_allclose(np32(got), np32(jax_rmsnorm(jx, jnp.asarray(w))),
+                               **DTYPES[dtype][2])
+
+
 # ---------------------------------------------------------------------------
 # prefill attention with per-row valid lengths
 # ---------------------------------------------------------------------------
@@ -82,6 +96,43 @@ def test_prefill_attention_matches_chunked_attention(G, D, dtype):
                         block_k=16)
     assert got.dtype == tq.dtype and got.shape == tq.shape
     np.testing.assert_allclose(np32(got), np32(ref), **DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_prefill_attention_matches_chunked_attention_at_head_dim_224(dtype):
+    """zamba2-7b's shared block: head_dim 224, one query head per KV head,
+    ragged rows; in bf16 the scaled q rounds as the reference's does."""
+    rng = np.random.default_rng(224)
+    B, S, H, D = 2, 40, 2, 224
+    q, k, v = (rng.normal(size=(B, S, H, D)).astype(np.float32)
+               for _ in range(3))
+    vl = np.array([S, 17], np.int32)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in (q, k, v))
+    ref = jcm.chunked_attention(jq, jk, jv, causal=True, block_k=16,
+                                kv_valid_len=jnp.asarray(vl))
+    got = flash_prefill(tq, tk, tv, torch.tensor(vl), causal=True,
+                        block_k=16)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    np.testing.assert_allclose(np32(got), np32(ref), **DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("D", [224, 32])
+def test_prefill_plain_version_scales_q_as_the_reference(D):
+    """The plain prefill's bf16 scaled q is JAX's ``q * D ** -0.5`` bit for
+    bit (one elementwise rounding), read out through the log-sum-exp: row
+    j of a batch of one query and one key has key e_j, so its only score,
+    and its log-sum-exp, is element j of the scaled q.  Multiplying by the
+    f32 factor, as the port did before, differs in some elements at these
+    head_dims (at 64 the factor is exact in bf16)."""
+    rng = np.random.default_rng(D)
+    H = 16
+    q_row = rng.normal(size=(1, 1, H, D)).astype(np.float32)
+    q = torch.tensor(np.repeat(q_row, D, axis=0)).bfloat16()
+    k = torch.eye(D)[:, None, None, :].expand(D, 1, H, D).bfloat16()
+    _, lse = flash_prefill(q, k, torch.zeros_like(k), return_lse=True)
+    want = np32(jnp.asarray(q_row, jnp.bfloat16) * D ** -0.5)[0, 0]
+    assert np.array_equal(np32(lse[:, :, 0]).T, want)
+    assert not np.array_equal(np32(q[0, 0] * D ** -0.5), want)
 
 
 @pytest.mark.parametrize("window,softcap", [(7, 0.0), (0, 2.5), (9, 1.5)])
@@ -221,20 +272,23 @@ def _meta(*shape, dtype=torch.bfloat16):
 def test_kernels_refuse_what_they_are_not_built_for(case):
     """Off the CPU, a dtype, width, head_dim or query group with no kernel
     instantiation raises before any launch (the kernels are built for the
-    serving path's bf16, head_dim 64, 4 query heads per KV head, and
-    RMSNorm at d 256, 1024 and 2048)."""
+    serving path's bf16: attention at head_dim 64, paged decode there
+    with 4 query heads per KV head, both at head_dim 224 with one, and
+    RMSNorm at d 256, 1024, 2048, 3584 and 7168)."""
     kernels.reset_launch_counts()
     if case == "rmsnorm_f32":
         with pytest.raises(TypeError, match="bf16"):
             rmsnorm(_meta(4, 64, dtype=torch.float32),
                     _meta(64, dtype=torch.float32))
     elif case == "rmsnorm_uninstantiated_d":
-        with pytest.raises(ValueError, match=r"d in \(256, 1024, 2048\), "
-                                             r"got d=512"):
+        with pytest.raises(ValueError, match=r"d in \(256, 1024, 2048, "
+                                             r"3584, 7168\), got d=512"):
             rmsnorm(_meta(4, 512), _meta(512, dtype=torch.float32))
     elif case == "paged_group_2":
         pages = _meta(3, 4, 2, 64)
-        with pytest.raises(ValueError, match="4 query heads per KV head"):
+        with pytest.raises(ValueError, match="head_dim 64 with 4 query heads "
+                                             "per KV head and head_dim 224 "
+                                             "with 1"):
             paged_flash_decode(_meta(1, 1, 4, 64), pages, pages,
                                _meta(1, 2, dtype=torch.int32),
                                _meta(1, dtype=torch.int32))
@@ -244,7 +298,9 @@ def test_kernels_refuse_what_they_are_not_built_for(case):
             flash_prefill(q, q, q)
     elif case == "prefill_d16":
         q = _meta(1, 8, 2, 16)
-        with pytest.raises(ValueError, match="head_dim 64"):
+        with pytest.raises(ValueError, match="head_dim 64 and for head_dim "
+                                             "224 with one query head per "
+                                             "KV head"):
             flash_prefill(q, q, q)
     else:
         pages = _meta(3, 4, 2, 64)
@@ -253,6 +309,44 @@ def test_kernels_refuse_what_they_are_not_built_for(case):
                                pages, pages,
                                _meta(1, 2, dtype=torch.int32),
                                _meta(1, dtype=torch.int32))
+    assert kernels.launch_counts() == {"rmsnorm": 0, "flash_prefill": 0,
+                                       "flash_bwd": 0, "paged_decode": 0,
+                                       "ssd_scan": 0}
+
+
+@pytest.mark.parametrize("case", ["prefill_224_group_2", "paged_224_fp8",
+                                  "paged_224_f32", "paged_224_group_2",
+                                  "rmsnorm_d4096"])
+def test_kernels_refuse_around_the_hybrid_instantiations(case):
+    """What zamba2-7b's instantiations do not cover raises before any
+    launch: head_dim 224 with 2 query heads per KV head, fp8 and f32
+    pools at head_dim 224, and a width between those built."""
+    kernels.reset_launch_counts()
+    if case == "prefill_224_group_2":
+        q, kv = _meta(1, 8, 4, 224), _meta(1, 8, 2, 224)
+        with pytest.raises(ValueError, match="got D=224, H=4, KV=2"):
+            flash_prefill(q, kv, kv)
+    elif case in ("paged_224_fp8", "paged_224_f32"):
+        dt = torch.float8_e4m3fn if case == "paged_224_fp8" \
+            else torch.float32
+        pages = _meta(3, 4, 2, 224, dtype=dt)
+        with pytest.raises(TypeError, match="bf16 and int8 pools"):
+            paged_flash_decode(_meta(1, 1, 2, 224), pages, pages,
+                               _meta(1, 2, dtype=torch.int32),
+                               _meta(1, dtype=torch.int32),
+                               k_scales=_meta(3, 2, dtype=torch.float32)
+                               if dt != torch.float32 else None,
+                               v_scales=_meta(3, 2, dtype=torch.float32)
+                               if dt != torch.float32 else None)
+    elif case == "paged_224_group_2":
+        pages = _meta(3, 4, 2, 224)
+        with pytest.raises(ValueError, match="got D=224, H=4, KV=2"):
+            paged_flash_decode(_meta(1, 1, 4, 224), pages, pages,
+                               _meta(1, 2, dtype=torch.int32),
+                               _meta(1, dtype=torch.int32))
+    else:
+        with pytest.raises(ValueError, match="got d=4096"):
+            rmsnorm(_meta(4, 4096), _meta(4096, dtype=torch.float32))
     assert kernels.launch_counts() == {"rmsnorm": 0, "flash_prefill": 0,
                                        "flash_bwd": 0, "paged_decode": 0,
                                        "ssd_scan": 0}

@@ -26,7 +26,8 @@ from repro.kernels.flash_attention import paged_attention_ref as jax_paged
 from repro_torch.kernels.flash_attention import paged_flash_decode
 from repro_torch.kernels.flash_attention.paged import (KERNEL_GROUP,
                                                        KEYS_PER_SPLIT,
-                                                       NEG_INF,
+                                                       NEG_INF, WIDE_GROUP,
+                                                       WIDE_HEAD_DIM,
                                                        paged_attention_ref,
                                                        split_plan)
 from torch_parity import F32_TOL, np32
@@ -47,11 +48,11 @@ def _split_pages(s, kps, pos, window):
 
 def _block(qg, kp, vp, row, h, ja, jb, pos, window, softcap, ks, vs):
     """One block of the kernel: (max, sum, acc) of its split."""
-    G = qg.shape[0]
+    G, Dh = qg.shape
     ka, kb = ja * PAGE, jb * PAGE
     wm = torch.full((WARPS, G), NEG_INF)
     wl = torch.zeros(WARPS, G)
-    wacc = torch.zeros(WARPS, G, D)
+    wacc = torch.zeros(WARPS, G, Dh)
     for t0 in range(ka, kb, TILE):
         for w in range(WARPS):
             keys = torch.arange(t0 + w * WARP_KEYS, t0 + (w + 1) * WARP_KEYS)
@@ -62,7 +63,7 @@ def _block(qg, kp, vp, row, h, ja, jb, pos, window, softcap, ks, vs):
             # masked, so any finite stand-in gives the same sums
             kc = keys.clamp(max=kb - 1)
             pid = row[kc // PAGE]
-            kraw = kp[pid, kc % PAGE, h].float()               # (16, D)
+            kraw = kp[pid, kc % PAGE, h].float()               # (16, Dh)
             vraw = vp[pid, kc % PAGE, h].float()
             ksc = ks[pid, h] if ks is not None else torch.ones(WARP_KEYS)
             vsc = vs[pid, h] if vs is not None else torch.ones(WARP_KEYS)
@@ -86,13 +87,15 @@ def _block(qg, kp, vp, row, h, ja, jb, pos, window, softcap, ks, vs):
 def recipe_decode(q, kp, vp, tables, pos, *, window=0, softcap=0.0,
                   k_scales=None, v_scales=None,
                   keys_per_split=KEYS_PER_SPLIT):
-    """The kernel's algorithm.  Returns the output (B, 1, H, D) in q's
-    dtype and, per (slot, KV head), which splits were empty."""
+    """The kernel's algorithm.  Returns the output (B, 1, H, Dh) in q's
+    dtype and, per (slot, KV head), which splits were empty (KV heads and
+    head_dim Dh from the pools)."""
     B, _, H, _ = q.shape
+    KV, Dh = kp.shape[2], kp.shape[3]
     G = H // KV
     kps, n_split = split_plan(NB, PAGE, keys_per_split)
-    qr = q.float().reshape(B, KV, G, D) * D ** -0.5
-    out = torch.empty(B, KV, G, D)
+    qr = q.float().reshape(B, KV, G, Dh) * Dh ** -0.5
+    out = torch.empty(B, KV, G, Dh)
     empty = torch.zeros(B, KV, n_split, dtype=torch.bool)
     for b in range(B):
         p_b = int(pos[b])
@@ -111,7 +114,7 @@ def recipe_decode(q, kp, vp, tables, pos, *, window=0, softcap=0.0,
             L = sum(l * torch.exp(m - M) for m, l, _ in parts)
             acc = sum(a * torch.exp(m - M)[:, None] for m, _, a in parts)
             out[b, h] = acc / torch.clamp(L, min=1e-20)[:, None]
-    return out.reshape(B, 1, H, D).to(q.dtype), empty
+    return out.reshape(B, 1, H, Dh).to(q.dtype), empty
 
 
 # ---------------------------------------------------------------------------
@@ -130,16 +133,18 @@ def _positions(kps):
                     np.int32)
 
 
-def _operands(pool, pos, seed=0):
+def _operands(pool, pos, seed=0, d=D, group=KERNEL_GROUP):
     """Seeded q (f32), pools of one type stored identically for both
     packages, tables whose entries past each slot's last page are parked
-    at page 0, and per-(page, KV head) scales for quantized pools."""
+    at page 0, and per-(page, KV head) scales for quantized pools; head_dim
+    ``d`` and ``group`` query heads per KV head (llama3.2-1b's by
+    default)."""
     rng = np.random.default_rng(seed)
-    B, H = len(pos), KERNEL_GROUP * KV
+    B, H = len(pos), group * KV
     P = B * NB + 1
-    q = rng.normal(size=(B, 1, H, D)).astype(np.float32)
-    kf = rng.normal(size=(P, PAGE, KV, D)).astype(np.float32)
-    vf = rng.normal(size=(P, PAGE, KV, D)).astype(np.float32)
+    q = rng.normal(size=(B, 1, H, d)).astype(np.float32)
+    kf = rng.normal(size=(P, PAGE, KV, d)).astype(np.float32)
+    vf = rng.normal(size=(P, PAGE, KV, d)).astype(np.float32)
     tables = np.zeros((B, NB), np.int32)
     perm = rng.permutation(np.arange(1, P))
     for b, p in enumerate(pos):
@@ -184,6 +189,32 @@ def test_split_recipe_matches_reference(pool, kps, window, softcap):
     assert got.shape == q.shape and got.dtype == torch.float32
     np.testing.assert_allclose(np32(got), np32(ref), **F32_TOL)
     # pos 0 sees one key: every split after the first is empty
+    assert bool(empty[0, :, 1:].all()) and not bool(empty[0, :, 0].any())
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("kps", [16, 128])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (100, 50.0)])
+def test_split_recipe_matches_reference_at_head_dim_224(pool, kps, window,
+                                                        softcap):
+    """zamba2-7b's instantiation, head_dim 224 with one query head per KV
+    head (a key on 28 lanes, one key a step): each warp still takes 16
+    keys of a tile, so the same recipe models it, on the pools it is built
+    for."""
+    pos = _positions(kps)
+    q, (jk, jv, tk, tv), tables, ks, vs = _operands(
+        pool, pos, seed=kps + 224, d=WIDE_HEAD_DIM, group=WIDE_GROUP)
+    jsc = {} if ks is None else {"k_scales": jnp.asarray(ks),
+                                 "v_scales": jnp.asarray(vs)}
+    tsc = {} if ks is None else {"k_scales": torch.tensor(ks),
+                                 "v_scales": torch.tensor(vs)}
+    ref = jax_paged(jnp.asarray(q), jk, jv, jnp.asarray(tables),
+                    jnp.asarray(pos), window=window, softcap=softcap, **jsc)
+    got, empty = recipe_decode(torch.tensor(q), tk, tv, torch.tensor(tables),
+                               torch.tensor(pos), window=window,
+                               softcap=softcap, keys_per_split=kps, **tsc)
+    assert got.shape == q.shape == (len(pos), 1, KV, WIDE_HEAD_DIM)
+    np.testing.assert_allclose(np32(got), np32(ref), **F32_TOL)
     assert bool(empty[0, :, 1:].all()) and not bool(empty[0, :, 0].any())
 
 

@@ -106,7 +106,7 @@ def recipe_scan(x, a, Bm, Cm, chunk, h0=None, state_update="split",
     S_c = sum(torch.einsum("bckhn,bckhp->bchnp", Bh, part) for part in parts)
 
     # (b) the states entering each chunk
-    h = torch.zeros(B, H, N, P) if h0 is None else h0
+    h = torch.zeros(B, H, Bm.shape[3], P) if h0 is None else h0
     entering = []
     for c in range(nc):
         entering.append(h)
@@ -125,19 +125,19 @@ def recipe_scan(x, a, Bm, Cm, chunk, h0=None, state_update="split",
     return y, h
 
 
-def _operands(seed, B, S, H, G, h0):
+def _operands(seed, B, S, H, G, h0, n=N):
     """x, a, B, C (and h0) from seeded numpy: x, B, C normal and rounded to
     bf16 (the kernel's input type), a the log decay -0.03 U(0, 1) of
     ``chip_smoke.py:_ssd_case`` (the served model's scale), h0 normal f32;
-    the same f32 values go to both packages."""
+    B and C of state ``n``; the same f32 values go to both packages."""
     rng = np.random.default_rng(seed)
 
     def bf16(*shape):
         return np32(torch.tensor(rng.normal(size=shape).astype(np.float32))
                     .to(torch.bfloat16))
     out = [bf16(B, S, H, P), (-0.03 * rng.random((B, S, H))).astype(
-        np.float32), bf16(B, S, G, N), bf16(B, S, G, N)]
-    out.append(rng.normal(size=(B, H, N, P)).astype(np.float32) if h0
+        np.float32), bf16(B, S, G, n), bf16(B, S, G, n)]
+    out.append(rng.normal(size=(B, H, n, P)).astype(np.float32) if h0
                else None)
     return out
 
@@ -182,6 +182,35 @@ def test_recipe_matches_reference_kernel(S, G):
     """The same against the Pallas kernel (``ops.ssd``, interpret mode),
     which takes no initial state."""
     args = _operands(S + 10 * G, 2, S, 4, G, False)
+    ref = jax_ssd(*(jnp.asarray(t) for t in args[:4]), chunk=CHUNK,
+                  interpret=True)
+    ey, eh = _errors(_recipe(args), ref)
+    assert ey <= SSD_Y_TOL, ey
+    assert eh <= SSD_H_TOL, eh
+
+
+# zamba2-7b's state 64 with 2 groups: the serving length and a ragged one
+# with an initial state
+CASES_64 = [(512, False), (300, True)]
+
+
+@pytest.mark.parametrize("S,h0", CASES_64)
+def test_recipe_matches_reference_at_state_64(S, h0):
+    """The recipe at N 64, G 2 (the kernel's other instantiation) against
+    ``ssd_chunked`` at chip_smoke.py's tolerances."""
+    args = _operands(S + 64 + h0, 2, S, 4, 2, h0, n=64)
+    ref = jssm.ssd_chunked(*(jnp.asarray(t) for t in args[:4]), CHUNK,
+                           h0=None if args[4] is None
+                           else jnp.asarray(args[4]))
+    ey, eh = _errors(_recipe(args), ref)
+    assert ey <= SSD_Y_TOL, ey
+    assert eh <= SSD_H_TOL, eh
+
+
+def test_recipe_matches_reference_kernel_at_state_64():
+    """The same against the Pallas kernel in interpret mode, at the
+    serving length."""
+    args = _operands(64, 2, 512, 4, 2, False, n=64)
     ref = jax_ssd(*(jnp.asarray(t) for t in args[:4]), chunk=CHUNK,
                   interpret=True)
     ey, eh = _errors(_recipe(args), ref)

@@ -74,6 +74,20 @@ def test_ssd_scan_matches_reference_kernel(S, chunk, G):
         np.testing.assert_allclose(np32(got), np32(want), **SSD_TOL)
 
 
+@pytest.mark.parametrize("S,chunk", [(48, 16), (40, 32)])
+def test_ssd_scan_matches_reference_kernel_at_state_64(S, chunk):
+    """zamba2-7b's state 64 with 2 groups (heads 2 a group here): the
+    plain version against the Pallas kernel in interpret mode."""
+    B, H, P, G, N = 2, 4, 16, 2, 64
+    x, a, Bm, Cm = _ssd_inputs(S + N, B, S, H, P, G, N)
+    y, hf = ssd_scan(*map(torch.tensor, (x, a, Bm, Cm)), chunk)
+    jy, jh = jax_ssd(*map(jnp.asarray, (x, a, Bm, Cm)), chunk=chunk,
+                     interpret=True)
+    for got, want in ((y, jy), (hf, jh)):
+        assert tuple(got.shape) == want.shape
+        np.testing.assert_allclose(np32(got), np32(want), **SSD_TOL)
+
+
 @pytest.mark.parametrize("S,chunk,G", [(40, 16, 1), (24, 32, 2),
                                        (64, 16, 2)])
 def test_ssd_chunked_with_initial_state(S, chunk, G):
@@ -348,13 +362,14 @@ def _meta(*shape, dtype=torch.bfloat16):
 
 
 @pytest.mark.parametrize("case,error,match", [
-    ("f32", TypeError, "bf16"), ("state16", ValueError, "state 128"),
+    ("f32", TypeError, "bf16"),
+    ("state16", ValueError, r"state in \(64, 128\)"),
     ("chunk512", ValueError, "at most 256"), ("h0_bf16", ValueError, "h0"),
     ("meta", ValueError, "CUDA device")])
 def test_ssd_kernel_refuses_what_it_is_not_built_for(case, error, match):
-    """Off the CPU the wrapper launches the one instantiation it is built
-    for (bf16 x/B/C, f32 a, N 128, P 64, chunks up to 256) or raises; it
-    never falls back to the plain version."""
+    """Off the CPU the wrapper launches the instantiations it is built
+    for (bf16 x/B/C, f32 a, N 64 or 128, P 64, chunks up to 256) or
+    raises; it never falls back to the plain version."""
     kernels.reset_launch_counts()
     B, S, H, P, G, N = 1, 600, 4, 64, 1, 128
     x, a = _meta(B, S, H, P), _meta(B, S, H, dtype=torch.float32)
