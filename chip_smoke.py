@@ -11,7 +11,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                  HMMA/HGMMA instructions in the SASS (``cuobjdump``) of each
                  attention kernel and each SSD pass that runs a product:
                  none there fails the run; then each of zamba2-7b's
-                 instantiations on its own line (registers, spills, HMMA).
+                 instantiations on its own line (registers, spills, HMMA),
+                 its training backward's at head_dim 224 too.
 3. kernels     — every kernel against its plain PyTorch version on the card,
                  in bf16, at the serving path's shapes; times the kernel, the
                  plain version and one PyTorch library call as a yardstick,
@@ -46,7 +47,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                  log-sum-exp and the flash backward against their plain
                  versions, timed beside SDPA's forward and backward; two
                  backward calls bitwise equal; both again at S 200 (not a
-                 multiple of the tile) and with G 1 (H == KV).
+                 multiple of the tile) and with G 1 (H == KV).  Then the
+                 same at zamba2-7b's training attention (B 4, S 1024, H 32,
+                 KV 32, D 224: the forward's log-sum-exp and the backward
+                 built for it) and at S 200; its backward row
+                 (``flash_bwd[D224]``) goes in the JSON.
    ssd_scan    — the Mamba2 SSD scan at the serving shape (B 8, S 512, H 32,
                  P 64, G 1, N 128, chunk 256), with an initial state, at
                  the prefill buckets 32 and 128, with G 2 over a ragged last
@@ -117,6 +122,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    consistency_hybrid — the prefill of 300 positions and decode steps on a
                  dense cache and on bf16 pages, each against one longer
                  prefill.
+9. ssd_grads   — the SSD scan's autograd Function (kernel forward, plain
+                 f32 backward): gradients of x, a, B, C and h0 against plain
+                 autograd on the same bf16 inputs at N 128, G 1 and N 64,
+                 G 2 over a ragged last chunk with an initial state; then
+                 the forward kernel and the plain backward timed at each
+                 training phase's shape.
+   train_ssm   — mamba2-370m at full width and depth (48 layers) trains as
+                 the train phase does (same settings and gates; exact
+                 RMSNorm and SSD launches a step); step ms, tokens/s, peak
+                 memory, a profiled step's idle share and top kernels, and
+                 the plain SSD backward's share of a step (computed from
+                 its timed calls).
+   train_hybrid — zamba2-7b at full width with 15 of its 81 layers (two
+                 groups of 6, the 3-block tail, the shared block 3 times:
+                 its full-depth f32 training state would not fit the card)
+                 trains the same way, with exact RMSNorm, SSD, flash
+                 forward and head_dim-224 flash backward launches a step.
 
 Each phase's seconds are logged (``[time]``).
 
@@ -157,6 +179,13 @@ HYBRID_SSD = dict(H=112, G=2, N=64)
 # training: seq 1024, global batch 8 as accum 2 micro-batches of 4, 4 steps
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS = 1024, 8, 2, 4
 TRAIN_H, TRAIN_KV, TRAIN_D = 32, 8, 64
+# zamba2-7b trains at full width with its depth cut to 15 of 81 layers (two
+# groups of 6, the 3-block tail, the shared block applied 3 times): at 81
+# layers its f32 masters, gradients and AdamW moments (16 bytes a
+# parameter, 6.917 B parameters) would need ~111 GB, more than the card's
+# 80 GB; at 15, 1.74 B parameters, ~28 GB (~35 GB with a micro-batch's f32
+# gradients beside the accumulated ones)
+HYBRID_TRAIN_LAYERS = 15
 LSE_TOL = 1e-3         # forward log-sum-exp, absolute
 BWD_TOL = 2e-2         # dq, dk, dv, relative to each one's largest |value|
 ATTN_TOL = 2e-2        # bf16 attention, as tests/test_kernels.py uses
@@ -166,6 +195,10 @@ CONSISTENCY_TOL = 5e-2  # prefill vs decode logits, relative to max |logit|
 # the final state relative to its largest |value| (f32 on both sides, only
 # the order of the sums differs)
 SSD_Y_TOL, SSD_H_TOL = 2e-2, 1e-3
+# SSD gradients through the autograd Function (kernel forward, plain f32
+# backward) against plain autograd on the same bf16 inputs, relative to each
+# one's largest |value|: the backward is the same f32 recompute either way
+SSD_GRAD_TOL = 1e-3
 SSD_CHUNK = 256
 # a timing loop cycles over copies of its inputs that together hold this many
 # bytes, 5x the H100's 50 MB L2, so each call reads device memory as the
@@ -358,7 +391,10 @@ HYBRID_INSTANTIATIONS = (
     ("_Z25flash_prefill_wide_kernelILi224E", True),
     ("_Z19paged_decode_kernelI13__nv_bfloat16Li224ELi1E", False),
     ("_Z19paged_decode_kernelIaLi224ELi1E", False),
-    ("_Z27paged_decode_combine_kernelI13__nv_bfloat16Li224ELi1E", False))
+    ("_Z27paged_decode_combine_kernelI13__nv_bfloat16Li224ELi1E", False),
+    ("_Z21flash_bwd_prep_kernelILi224E", False),
+    ("_Z24flash_bwd_dq_wide_kernelILi224E", True),
+    ("_Z25flash_bwd_dkv_wide_kernelILi224E", True))
 
 
 def sass_mma_counts(path: str) -> dict:
@@ -739,18 +775,21 @@ def _check_bwd_edge(gen, B, S, H, KV, D=TRAIN_D):
                flash_attention_bwd_ref(q, k, v, o, do, lse))
 
 
-def check_flash_bwd(gen):
-    """The training path's attention kernels at its shape: the forward with
-    its log-sum-exp and the flash backward, each against its plain version
-    on the same inputs, and timed (cold L2) beside SDPA's forward and its
-    backward through ``torch.autograd.grad`` on a saved forward.  Returns
-    the forward's and the backward's JSON rows."""
+def check_flash_bwd(gen, H=TRAIN_H, KV=TRAIN_KV, D=TRAIN_D,
+                    edges=((2, 200, 32, 8), (2, 256, 8, 8)), tag=""):
+    """The training path's attention kernels at its shape (a micro-batch of
+    ``TRAIN_SEQ``; llama3.2-1b's heads by default, zamba2-7b's shared block
+    with ``HYBRID_ATTN``): the forward with its log-sum-exp and the flash
+    backward, each against its plain version on the same inputs, and timed
+    (cold L2) beside SDPA's forward and its backward through
+    ``torch.autograd.grad`` on a saved forward; then both again at the
+    ``edges`` shapes (B, S, H, KV).  Returns the forward's and the
+    backward's JSON rows, named with ``tag``."""
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_bwd_ref,
                                                      flash_prefill,
                                                      flash_prefill_ref)
-    B, S, H, KV, D = TRAIN_BATCH // TRAIN_ACCUM, TRAIN_SEQ, TRAIN_H, \
-        TRAIN_KV, TRAIN_D
+    B, S = TRAIN_BATCH // TRAIN_ACCUM, TRAIN_SEQ
     shape = f"B {B} S {S} H {H} KV {KV} D {D} causal bf16"
     io_bytes = 2 * B * S * (H + 2 * KV) * D          # q, k, v
     n = n_copies(io_bytes * 2 + 2 * 2 * B * S * H * D)
@@ -781,9 +820,9 @@ def check_flash_bwd(gen):
     if not same:
         raise AssertionError("flash_bwd kernel is not deterministic")
     del got, again
-    # the tile edges: S not a multiple of the 64-row tile, and G 1
-    for cB, cS, cH, cKV in ((2, 200, 32, 8), (2, 256, 8, 8)):
-        _check_bwd_edge(gen, cB, cS, cH, cKV)
+    # the tile edges: S not a multiple of the 64-row tile, and another G
+    for cB, cS, cH, cKV in edges:
+        _check_bwd_edge(gen, cB, cS, cH, cKV, D)
 
     def sdpa_saved(q, k, v, o, do, lse):
         qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
@@ -804,7 +843,7 @@ def check_flash_bwd(gen):
         cycled(lambda *c: flash_attention_bwd(*c), cases),
         cycled(lambda out, inputs, g: torch.autograd.grad(
             out, inputs, g, retain_graph=True), saved), 2 * n)
-    fwd = {"name": "flash_prefill_lse", "route": "cuda",
+    fwd = {"name": "flash_prefill_lse" + tag, "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
            "replaces": "src/repro/kernels/flash_attention/kernel.py:125",
            "shape": f"q ({B}, {S}, {H}, {D}) kv {KV} heads bf16, causal, "
@@ -819,7 +858,7 @@ def check_flash_bwd(gen):
     # flops per admitted pair
     fwd["bound_ms"], fwd["bound_by"] = bound(
         io_bytes + 2 * B * S * H * D + 4 * B * H * S, 4 * D * pairs, "bf16")
-    bwd = {"name": "flash_bwd", "route": "cuda",
+    bwd = {"name": "flash_bwd" + tag, "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/flash_backward.cu",
            "replaces": "src/repro/kernels/flash_attention/backward.py:125",
            "also_replaces": "src/repro/kernels/flash_attention/"
@@ -1113,22 +1152,31 @@ def _ssd_compare(gen, label, shape, chunk):
     y2, hf2 = ssd_scan(x, a, Bm, Cm, chunk, h0=h0)
     yr, hr = ssd_ref(x, a, Bm, Cm, chunk, h0=h0)
     torch.cuda.synchronize()
+    err = _ssd_agree("kernels", f"ssd_scan {label} {shape} chunk {chunk}",
+                     y, hf, yr, hr)
+    same = torch.equal(y, y2) and torch.equal(hf, hf2)
+    log(f"[kernels] ssd_scan {label}: two calls bitwise equal {same}")
+    if not same:
+        raise AssertionError(f"ssd_scan ({label}): two calls differ")
+    return err
+
+
+def _ssd_agree(tag, label, y, hf, yr, hr):
+    """The kernel's y within ``SSD_Y_TOL`` and final state within
+    ``SSD_H_TOL`` of the plain version's largest |value|, both finite;
+    logs, raises on a mismatch, and returns the larger max_abs_err."""
     ey = float((y.float() - yr.float()).abs().max())
     sy = float(yr.float().abs().max())
     eh = float((hf - hr).abs().max())
     sh = float(hr.abs().max())
-    same = torch.equal(y, y2) and torch.equal(hf, hf2)
     ok = ey <= SSD_Y_TOL * sy and eh <= SSD_H_TOL * sh \
         and bool(torch.isfinite(y).all()) and bool(torch.isfinite(hf).all())
-    log(f"[kernels] ssd_scan {label} {shape} chunk {chunk}: y max_abs_err "
-        f"{ey:.3e} of max |y| {sy:.3e} (tol {SSD_Y_TOL} relative), state "
-        f"max_abs_err {eh:.3e} of max |h| {sh:.3e} (tol {SSD_H_TOL} "
-        f"relative); two calls bitwise equal {same}; ok={ok}")
+    log(f"[{tag}] {label}: y max_abs_err {ey:.3e} of max |y| {sy:.3e} (tol "
+        f"{SSD_Y_TOL} relative), state max_abs_err {eh:.3e} of max |h| "
+        f"{sh:.3e} (tol {SSD_H_TOL} relative) ok={ok}")
     if not ok:
         raise AssertionError(f"ssd_scan kernel disagrees with its plain "
                              f"version ({label})")
-    if not same:
-        raise AssertionError(f"ssd_scan ({label}): two calls differ")
     return max(ey, eh)
 
 
@@ -1198,6 +1246,97 @@ def check_ssd(gen):
         f"{row['bound_ms']:.4f} ms ({row['bound_by']}; {nbytes / 1e6:.1f} "
         f"MB, {ops / 1e9:.2f} GFLOP)")
     return row
+
+
+# the SSD gradient checks on the card, (label, shape, chunk): both
+# instantiations (N 128, G 1 and N 64, G 2) over a ragged last chunk (256 +
+# 44) with an initial state
+SSD_GRAD_CASES = (
+    ("N128 G1", dict(B=2, S=300, H=32, G=1, h0=True), SSD_CHUNK),
+    ("N64 G2", dict(B=2, S=300, h0=True, **HYBRID_SSD), SSD_CHUNK))
+# the training phases' SSD scans: a micro-batch of TRAIN_SEQ positions
+SSD_TRAIN_SHAPES = {
+    "mamba2-370m": dict(B=TRAIN_BATCH // TRAIN_ACCUM, S=TRAIN_SEQ, H=32, G=1),
+    "zamba2-7b": dict(B=TRAIN_BATCH // TRAIN_ACCUM, S=TRAIN_SEQ,
+                      **HYBRID_SSD)}
+
+
+def phase_ssd_grads():
+    """The SSD scan's autograd ``Function`` on the card (kernel forward,
+    plain f32 backward), on ``SSD_GRAD_CASES``: its y and final state
+    against ``ssd_ref`` (``_ssd_agree``), and the gradients of x, a, B, C
+    and h0 through both against plain autograd of ``ssd_ref`` on the same
+    bf16 inputs, each within ``SSD_GRAD_TOL`` of its largest |value| and
+    finite; the ``Function`` launches the kernel once and its backward
+    none.  The backward recomputes ``ssd_ref`` from the saved inputs, so
+    the gradient check covers the dispatch and the dtypes; the forward
+    check covers the kernel.  Then, at each training phase's shape, the
+    kernel's y and final state, through the ``Function`` and the serving
+    call, against ``ssd_ref``, and the forward kernel's time beside the
+    plain backward's (y's gradient only, as the models take it).  Returns
+    {model: plain backward ms}."""
+    from repro_torch import kernels
+    from repro_torch.kernels.ssd_scan import ssd_ref, ssd_scan
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    for label, shape, chunk in SSD_GRAD_CASES:
+        ops = _ssd_case(gen, **shape)
+        wy = torch.randn(ops[0].shape, generator=gen, device="cuda")
+        wh = torch.randn(ops[4].shape, generator=gen, device="cuda")
+
+        def grads(fn):
+            leaves = [t.clone().requires_grad_() for t in ops]
+            y, h = fn(*leaves[:4], chunk, h0=leaves[4])
+            ((y.float() * wy).sum() + (h * wh).sum()).backward()
+            return [t.grad for t in leaves], y.detach(), h.detach()
+        kernels.reset_launch_counts()
+        got, y, h = grads(ssd_scan)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()["ssd_scan"]
+        ref, yr, hr = grads(ssd_ref)
+        _ssd_agree("ssd_grads", f"{label} {shape} chunk {chunk}, the "
+                   f"Function's forward", y, h, yr, hr)
+        errs = {name: (float((g.float() - r.float()).abs().max()),
+                       float(r.float().abs().max()))
+                for name, g, r in zip(("x", "a", "B", "C", "h0"), got, ref)}
+        ok = launches == 1 and all(
+            e <= SSD_GRAD_TOL * sc for e, sc in errs.values()) and all(
+            bool(torch.isfinite(g.float()).all()) for g in got) and all(
+            g.dtype == t.dtype for g, t in zip(got, ops))
+        log(f"[ssd_grads] {label} {shape} chunk {chunk}: kernel launches "
+            f"{launches} (forward); " + ", ".join(
+                f"d{k} max_abs_err {e:.3e} of max {sc:.3e}"
+                for k, (e, sc) in errs.items())
+            + f" (tol {SSD_GRAD_TOL} relative) ok={ok}")
+        if not ok:
+            raise AssertionError(f"ssd_scan Function gradients disagree with "
+                                 f"plain autograd ({label})")
+    out = {}
+    for name, shape in SSD_TRAIN_SHAPES.items():
+        x, a, Bm, Cm, _ = _ssd_case(gen, **shape)
+        leaves = [t.clone().requires_grad_() for t in (x, a, Bm, Cm)]
+        y, hf = ssd_scan(*leaves, SSD_CHUNK)
+        ys, hs = ssd_scan(x, a, Bm, Cm, SSD_CHUNK)
+        yr, hr = ssd_ref(x, a, Bm, Cm, SSD_CHUNK)
+        label = f"{name} training shape {shape} chunk {SSD_CHUNK}"
+        _ssd_agree("ssd_grads", f"{label}, the Function", y.detach(),
+                   hf.detach(), yr, hr)
+        _ssd_agree("ssd_grads", f"{label}, the serving call", ys, hs, yr, hr)
+        del ys, hs, yr, hr
+        fwd_ms = time_ms(lambda: ssd_scan(x, a, Bm, Cm, SSD_CHUNK), iters=10)
+        dy = torch.randn(y.shape, generator=gen, device="cuda").bfloat16()
+        torch.cuda.reset_peak_memory_stats()
+        bwd_ms = time_ms(lambda: torch.autograd.grad(y, leaves, dy,
+                                                     retain_graph=True),
+                         iters=3, warmup=1)
+        out[name] = bwd_ms
+        log(f"[ssd_grads] {name} training shape {shape} chunk {SSD_CHUNK}: "
+            f"forward kernel {fwd_ms:.4f} ms, plain f32 backward "
+            f"{bwd_ms:.3f} ms ({bwd_ms / fwd_ms:.0f}x; peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+        del x, a, Bm, Cm, leaves, y, hf, dy
+    release()
+    return out
 
 
 def check_graph_replays(gen):
@@ -1342,6 +1481,12 @@ def phase_kernels():
             check_paged(gen, torch.bfloat16, "bf16"),
             check_paged(gen, torch.int8, "int8"), *check_flash_bwd(gen),
             check_ssd(gen), *check_hybrid_kernels(gen)]
+    # zamba2-7b's training attention: head_dim 224, one query head per KV
+    # head; its forward with lse is checked and logged, its backward row
+    # goes in the JSON
+    rows.append(check_flash_bwd(gen, **HYBRID_ATTN,
+                                edges=((2, 200, 32, 32),), tag="[D224]")[1])
+    rows[-1]["model"] = "zamba2-7b"
     # pools the serving path does not use: checked, logged, not in the JSON
     for dtype, label in ((torch.float8_e4m3fn, "fp8"), (torch.float32, "f32")):
         r = check_paged(gen, dtype, label)
@@ -2079,31 +2224,37 @@ def phase_consistency_hybrid(model, params, steps: int = 4):
 # 6. train at full width, 7. Trainer restart at a small width
 # ---------------------------------------------------------------------------
 
-def phase_train():
-    """Train llama3.2-1b at full width and depth for ``TRAIN_STEPS`` steps
-    through ``make_train_step``.  Returns the launch counts of those
-    steps."""
+def train_model(tag, cfg, describe, per_step, ours):
+    """Train ``cfg`` on the card for ``TRAIN_STEPS`` steps through
+    ``make_train_step`` (f32 masters, bf16 compute, AdamW, remat; seq
+    ``TRAIN_SEQ``, global batch ``TRAIN_BATCH`` as ``TRAIN_ACCUM``
+    micro-batches)
+    on the port's ``DataPipeline``: a finite non-zero gradient on every
+    parameter leaf after the first backward, finite losses, exactly
+    ``per_step`` launches a step; logs step ms, tokens/s and peak memory,
+    then profiles one more step (device idle share, the time of the port's
+    kernels by the name fragments in ``ours``, the top kernels).  The model
+    is freed before it returns.  Returns {"counts": the launches of the
+    timed steps, "step_ms": the last timed step's ms, "tokens_per_s",
+    "peak_gib", "idle"}."""
     from repro_torch import kernels
-    from repro_torch.configs import get_config
     from repro_torch.data import DataPipeline
     from repro_torch.models import build_model
     from repro_torch.train import (OptimizerConfig, init_train_state,
                                    loss_and_grads, make_train_step)
     from repro_torch.tree import flatten
-    cfg = get_config("llama3.2-1b")
     model = build_model(cfg, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = init_train_state(model, seed=0)
     torch.cuda.synchronize()
     n = sum(t.numel() for _, t in flatten(state.params))
-    log(f"[train] {cfg.name}: L={cfg.n_layers} d={cfg.d_model} "
-        f"H={cfg.n_heads}/{cfg.n_kv_heads} D={cfg.resolved_head_dim} "
-        f"V={cfg.vocab_size}; {n / 1e9:.3f}B params in {cfg.param_dtype}, "
-        f"compute {cfg.compute_dtype}; state drawn in "
+    log(f"[{tag}] {cfg.name}: {describe(model)} V={cfg.vocab_size}; "
+        f"{n / 1e9:.3f}B params in {cfg.param_dtype}, compute "
+        f"{cfg.compute_dtype}; state drawn in "
         f"{time.perf_counter() - t0:.1f} s; seq {TRAIN_SEQ}, global batch "
-        f"{TRAIN_BATCH} = {TRAIN_ACCUM} x {TRAIN_BATCH // TRAIN_ACCUM}, "
-        f"AdamW, remat")
+        f"{TRAIN_BATCH} = {TRAIN_ACCUM} x {TRAIN_BATCH // TRAIN_ACCUM}, AdamW, "
+        f"remat")
     pipeline = DataPipeline(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)
     batches = [pipeline.next_batch() for _ in range(TRAIN_STEPS)]
 
@@ -2114,7 +2265,7 @@ def phase_train():
     norms = torch.stack([g.float().norm() for _, g in named]).tolist()
     bad = [(p, nrm) for (p, _), nrm in zip(named, norms)
            if not (math.isfinite(nrm) and nrm > 0)]
-    log(f"[train] first backward: {len(named)} parameter leaves, gradient "
+    log(f"[{tag}] first backward: {len(named)} parameter leaves, gradient "
         f"norms {min(norms):.3e}..{max(norms):.3e}; leaves without a finite "
         f"non-zero gradient: {bad}")
     if bad:
@@ -2123,13 +2274,6 @@ def phase_train():
 
     step_fn = make_train_step(model, OptimizerConfig(lr=3e-4, warmup_steps=2),
                               accum_steps=TRAIN_ACCUM, remat=True)
-    # per step: 2 micro-batches x (33 norms forward + 32 recomputed under
-    # remat; the final norm sits outside the checkpoint), x (16 attention
-    # forwards + 16 recomputed), x 16 attention backwards
-    per_step = {"rmsnorm": TRAIN_ACCUM * (33 + 32),
-                "flash_prefill": TRAIN_ACCUM * (16 + 16),
-                "flash_bwd": TRAIN_ACCUM * 16, "paged_decode": 0,
-                "ssd_scan": 0}
     tokens = TRAIN_BATCH * TRAIN_SEQ
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -2143,7 +2287,7 @@ def phase_train():
         now = kernels.launch_counts()
         step_counts = {k: now[k] - before[k] for k in now}
         before = now
-        log(f"[train] step {i}: loss {loss:.4f}, grad_norm "
+        log(f"[{tag}] step {i}: loss {loss:.4f}, grad_norm "
             f"{float(metrics['grad_norm']):.3f}, {dt * 1e3:.1f} ms, "
             f"{tokens / dt:.1f} tokens/s; launches {step_counts}")
         if not math.isfinite(loss):
@@ -2152,8 +2296,11 @@ def phase_train():
             raise AssertionError(f"step {i}: launch counts {step_counts} != "
                                  f"{per_step}")
     counts = kernels.launch_counts()
-    log(f"[train] {TRAIN_STEPS} steps: launches {counts}; peak device "
-        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[{tag}] {TRAIN_STEPS} steps: launches {counts}; peak device "
+        f"memory {peak:.2f} GiB")
+    out = {"counts": counts, "step_ms": dt * 1e3, "tokens_per_s": tokens / dt,
+           "peak_gib": peak, "idle": None}
 
     # where the time of one more step goes, against the last timed step
     def one_step():
@@ -2162,28 +2309,133 @@ def phase_train():
         float(metrics["loss"])
     rows = profiled_kernels(one_step)
     if not rows:
-        log("[train] device time: not measured (the profiler recorded no "
-            "device kernels)")
+        log(f"[{tag}] device time: not measured (the profiler recorded no "
+            f"device kernels)")
     else:
         busy_ms = sum(r[0] for r in rows) / 1e3
-        ours = {"flash_bwd": "flash_bwd_",
-                "flash_bwd dK/dV": "flash_bwd_dkv_kernel",
-                "flash_bwd dQ": "flash_bwd_dq_kernel",
-                "flash_bwd delta": "flash_bwd_delta_kernel",
-                "flash_prefill": "flash_prefill_kernel",
-                "rmsnorm": "rmsnorm_kernel"}
-        share = {k: sum(r[0] for r in rows if tag in r[2]) / 1e3
-                 for k, tag in ours.items()}
-        log(f"[train] profiled step: device kernels {busy_ms:.1f} ms "
+        share = {k: sum(r[0] for r in rows if name in r[2]) / 1e3
+                 for k, name in ours.items()}
+        out["idle"] = 1 - busy_ms / (dt * 1e3)
+        log(f"[{tag}] profiled step: device kernels {busy_ms:.1f} ms "
             f"({sum(r[1] for r in rows)} launches) against {dt * 1e3:.1f} ms "
             f"of wall time unprofiled (the last timed step): device idle "
-            f"share {1 - busy_ms / (dt * 1e3):.3f}; the port's kernels "
+            f"share {out['idle']:.3f}; the port's kernels "
             + ", ".join(f"{k} {v:.1f} ms ({100 * v / busy_ms:.1f}%)"
                         for k, v in share.items()))
-        log_top("train", rows, busy_ms)
-    del state, model
-    torch.cuda.empty_cache()
-    return counts
+        log_top(tag, rows, busy_ms)
+    del state, model, step_fn
+    release()
+    return out
+
+
+def phase_train():
+    """Train llama3.2-1b at full width and depth for ``TRAIN_STEPS`` steps
+    through ``make_train_step``.  Returns the launch counts of those
+    steps."""
+    from repro_torch.configs import get_config
+    # per step: 2 micro-batches x (33 norms forward + 32 recomputed under
+    # remat; the final norm sits outside the checkpoint), x (16 attention
+    # forwards + 16 recomputed), x 16 attention backwards
+    per_step = {"rmsnorm": TRAIN_ACCUM * (33 + 32),
+                "flash_prefill": TRAIN_ACCUM * (16 + 16),
+                "flash_bwd": TRAIN_ACCUM * 16, "paged_decode": 0,
+                "ssd_scan": 0}
+    ours = {"flash_bwd": "flash_bwd_",
+            "flash_bwd dK/dV": "flash_bwd_dkv_kernel",
+            "flash_bwd dQ": "flash_bwd_dq_kernel",
+            "flash_bwd delta": "flash_bwd_delta_kernel",
+            "flash_prefill": "flash_prefill_kernel",
+            "rmsnorm": "rmsnorm_kernel"}
+
+    def describe(m):
+        c = m.cfg
+        return (f"L={c.n_layers} d={c.d_model} H={c.n_heads}/{c.n_kv_heads} "
+                f"D={c.resolved_head_dim}")
+    return train_model("train", get_config("llama3.2-1b"), describe,
+                       per_step, ours)["counts"]
+
+
+def _ssd_share(tag, out, bwd_ms, calls):
+    """Logs the plain SSD backward's share of a step, computed from its
+    time at the step's shape (``phase_ssd_grads``) times its calls."""
+    share = bwd_ms * calls / out["step_ms"]
+    log(f"[{tag}] the plain SSD backward: {calls} calls a step x "
+        f"{bwd_ms:.3f} ms (timed alone at the step's shape) = "
+        f"{bwd_ms * calls:.1f} ms, {share:.3f} of the last timed step's "
+        f"{out['step_ms']:.1f} ms (computed)")
+    out["ssd_bwd_share"] = share
+    return out
+
+
+def phase_train_ssm(ssd_bwd_ms):
+    """Train mamba2-370m at full width and depth (48 layers) as
+    ``phase_train`` trains llama3.2-1b.  Per micro-batch, counted from the
+    code: 2 L + 1 RMSNorms forward (a norm before each block, its gate
+    norm, the final norm) and 2 L recomputed under remat, L SSD scans
+    forward and L recomputed; no attention.  Returns ``train_model``'s
+    summary with the plain SSD backward's share of a step."""
+    from repro_torch.configs import get_config
+    cfg = get_config("mamba2-370m")
+    L = cfg.n_layers
+    per_step = {"rmsnorm": TRAIN_ACCUM * ((2 * L + 1) + 2 * L),
+                "flash_prefill": 0, "flash_bwd": 0, "paged_decode": 0,
+                "ssd_scan": TRAIN_ACCUM * (L + L)}
+    ours = {"ssd_scan (forward)": "ssd_scan_", "rmsnorm": "rmsnorm_kernel"}
+
+    def describe(m):
+        s = m.cfg.ssm
+        return (f"L={m.cfg.n_layers} d={m.cfg.d_model} d_inner={m.d_inner} "
+                f"heads={m.nh}x{s.head_dim} state={s.state_dim} "
+                f"groups={s.n_groups} chunk={s.chunk_size}")
+    out = train_model("train_ssm", cfg, describe, per_step, ours)
+    return _ssd_share("train_ssm", out, ssd_bwd_ms, TRAIN_ACCUM * L)
+
+
+def phase_train_hybrid(ssd_bwd_ms):
+    """Train zamba2-7b at full width with its depth cut to
+    ``HYBRID_TRAIN_LAYERS`` (the reason beside the constant) as
+    ``phase_train`` trains llama3.2-1b.  Per micro-batch, counted from the
+    code: 2 L + 2 A + 1 RMSNorms forward (A applications of the shared
+    block) and, under remat, those of the full groups again (2 per Mamba2
+    block, 2 per application; the tail and its application run outside
+    the checkpoint); L SSD scans forward and the groups' again; A flash
+    forwards with their log-sum-exp and the groups' again; A flash
+    backwards at head_dim 224.  Returns ``train_model``'s summary with the
+    plain SSD backward's share of a step."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("zamba2-7b"),
+                              n_layers=HYBRID_TRAIN_LAYERS)
+    # as HybridLM counts them: full groups, the tail, shared applications
+    L = cfg.n_layers
+    groups, tail = divmod(L, cfg.attn_every)
+    A = groups + (1 if tail else 0)
+    in_groups = groups * cfg.attn_every
+    log(f"[train_hybrid] {cfg.name} at {L} of 81 layers ({groups} groups of "
+        f"{cfg.attn_every}, a tail of {tail}, the shared block "
+        f"applied {A} times): at 81 its f32 masters, gradients and AdamW "
+        f"moments alone would need ~111 GB of the card's 80 GB")
+    per_step = {"rmsnorm": TRAIN_ACCUM * ((2 * L + 2 * A + 1)
+                                          + 2 * in_groups + 2 * groups),
+                "flash_prefill": TRAIN_ACCUM * (A + groups),
+                "flash_bwd": TRAIN_ACCUM * A, "paged_decode": 0,
+                "ssd_scan": TRAIN_ACCUM * (L + in_groups)}
+    ours = {"flash_bwd (D224)": "flash_bwd_",
+            "flash_bwd dK/dV": "flash_bwd_dkv_wide_kernel",
+            "flash_bwd dQ": "flash_bwd_dq_wide_kernel",
+            "flash_bwd pre-pass": "flash_bwd_prep_kernel",
+            "flash_prefill (D224, lse)": "flash_prefill_wide_kernel",
+            "ssd_scan (forward)": "ssd_scan_", "rmsnorm": "rmsnorm_kernel"}
+
+    def describe(m):
+        s = m.cfg.ssm
+        return (f"L={m.cfg.n_layers} d={m.cfg.d_model} d_inner={m.d_inner} "
+                f"heads={m.nh}x{s.head_dim} state={s.state_dim} "
+                f"groups={s.n_groups}; shared block every "
+                f"{m.cfg.attn_every} ({m.n_attn} applications) "
+                f"H={m.cfg.n_heads}/{m.cfg.n_kv_heads} D={m.attn_head_dim} "
+                f"ff={m.cfg.d_ff}")
+    out = train_model("train_hybrid", cfg, describe, per_step, ours)
+    return _ssd_share("train_hybrid", out, ssd_bwd_ms, TRAIN_ACCUM * L)
 
 
 def phase_trainer():
@@ -2259,16 +2511,25 @@ def main() -> int:
     timed("consistency_hybrid", phase_consistency_hybrid, model, params)
     del model, params
     release()
+    ssd_bwd = timed("ssd_grads", phase_ssd_grads)
+    timed("train_ssm", phase_train_ssm, ssd_bwd["mamba2-370m"])
+    train_hybrid = timed("train_hybrid", phase_train_hybrid,
+                         ssd_bwd["zamba2-7b"])["counts"]
     # each kernel's launches on the path it serves: paged decode's in one
     # serve run of its page type, the serving prefill's in a bf16-page run,
     # the others' in the training run (the forward with its log-sum-exp
     # counts as flash_prefill); zamba2-7b's instantiations in one of its
     # serve runs (RMSNorm: both widths, 82 a forward at d 3584 and 109 at
-    # 7168, counted from the code)
+    # 7168, counted from the code), its flash backward in its training run
     for row in rows:
         name, _, tag = row["name"].partition("[")
         tag = tag.rstrip("]")
-        if row.get("model") == "zamba2-7b":
+        if row["name"] == "flash_bwd[D224]":
+            row["launches"] = train_hybrid[name]
+            row["launches_of"] = (f"one zamba2-7b training run at "
+                                  f"{HYBRID_TRAIN_LAYERS} layers, "
+                                  f"{TRAIN_STEPS} steps")
+        elif row.get("model") == "zamba2-7b":
             run = HYBRID_ROW_RUNS[row["name"]]
             row["launches"] = hybrid[run][name]
             row["launches_of"] = (f"one zamba2-7b serve run, {run} pages, "

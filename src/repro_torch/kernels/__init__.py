@@ -10,16 +10,16 @@ its launches), and the CUDA source under ``csrc/`` built by ``_build.py``.
 - ``flash_attention.prefill``    prefill attention with per-row valid
                                  lengths and an optional log-sum-exp
                                  output (replaces ``flash_attention_fwd``)
-- ``flash_attention.backward``   flash-attention backward (replaces
-                                 ``flash_attention_bwd``)
+- ``flash_attention.backward``   flash-attention backward at head_dim 64
+                                 and 224 (replaces ``flash_attention_bwd``)
 - ``flash_attention.ops``        ``flash_attention_train``, the autograd
                                  ``Function`` over the two above
 - ``flash_attention.paged``      paged decode attention over bf16 / f32 /
                                  int8 / fp8 pools (replaces
                                  ``paged_flash_decode``)
 - ``ssd_scan``                   Mamba2 SSD chunked scan with an optional
-                                 initial state (replaces ``ssd_scan``);
-                                 serving only
+                                 initial state (replaces ``ssd_scan``),
+                                 differentiable (plain f32 backward)
 """
 from . import flash_attention, rmsnorm, ssd_scan
 

@@ -51,9 +51,10 @@ SIGNATURES: Dict[str, list] = {
     "flash_prefill_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                              _I, _I, _F, _I, _P],
-    # q, k, v, o, dout, lse, delta scratch, dq, dk, dv,
-    # B, Sq, Sk, H, KV, D, causal, window, dtype, stream
-    "flash_bwd_launch": [_P] * 10 + [_I] * 9 + [_P],
+    # q, k, v, o, dout, lse, delta scratch, scaled-q scratch (or null at
+    # head_dim 64), dq, dk, dv, B, Sq, Sk, H, KV, D, causal, window, dtype,
+    # stream
+    "flash_bwd_launch": [_P] * 11 + [_I] * 9 + [_P],
     # x, a, B, C, h0 (or null), workspace, y, h_final, B, S, H, G, N, P,
     # chunk, stream
     "ssd_scan_launch": [_P] * 8 + [_I] * 7 + [_P],

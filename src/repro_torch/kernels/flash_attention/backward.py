@@ -7,26 +7,32 @@ the GQA sum of ``ops.py:_fa_train_bwd``.  Layout is the model's: q, o, dO
 ``(B, Sq, H, D)``, k, v ``(B, Sk, KV, D)`` with ``H % KV == 0`` (query head
 ``h`` reads KV head ``h // G``), lse ``(B, H, Sq)`` f32 from the forward
 (``flash_prefill(..., return_lse=True)``).  Returns (dq, dk, dv) in the
-dtypes of q, k, v; dK and dV are summed over each KV head's group.
+dtypes of q, k, v; dK and dV are summed over each KV head's group.  q is
+scaled as the forward scales it (``prefill.query_scale``): in its own
+dtype by ``D ** -0.5`` rounded to that dtype.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import _build
+from .prefill import KERNEL_CASES, query_scale
 
 
 def flash_attention_bwd_ref(q, k, v, o, do, lse, causal: bool = True,
                             window: int = 0):
     """Plain version, the kernels' oracle: the flash recipe in f32.  P is
     recomputed from the saved lse, ``delta = rowsum(dO * O)``,
-    ``dS = P * (dP - delta)``; q is scaled in f32, as the TPU backward
-    scales it."""
+    ``dS = P * (dP - delta)``.  q is scaled as the forward scales it, in
+    its own dtype by the factor rounded to that dtype (the reference's
+    jnp attention, which its training differentiates): that scaled q
+    enters the scores and dK, and dQ is scaled by the same factor (exact
+    at head_dim 64, where the factor is 2^-3)."""
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
-    scale = D ** -0.5
-    qs = q.float().reshape(B, Sq, KV, G, D) * scale
+    scale = query_scale(D, q.dtype)
+    qs = (q * scale).float().reshape(B, Sq, KV, G, D)
     dof = do.float().reshape(B, Sq, KV, G, D)
     kf, vf = k.float(), v.float()
     s = torch.einsum("bqkgd,bskd->bkgqs", qs, kf)
@@ -52,10 +58,13 @@ def flash_attention_bwd(q, k, v, o, do, lse, causal: bool = True,
                         window: int = 0):
     """(dq, dk, dv) of attention at the saved (o, lse).  A CPU tensor takes
     the plain version; a CUDA tensor launches the kernels (one count in
-    ``flash_attention_bwd.launches`` per call: the delta pre-pass, dQ and
-    dK/dV), built for bf16 and head_dim 64 only, and launched only for
-    what the training path gives it and the card's check covers: causal,
-    no window, Sq == Sk."""
+    ``flash_attention_bwd.launches`` per call: the pre-pass, dQ and
+    dK/dV), built for bf16 at head_dim 64 (any group) and at head_dim 224
+    with one query head per KV head (``prefill.KERNEL_CASES``, the
+    forward's cases), and launched only for what the training path gives
+    it and the card's check covers: causal, no window, Sq == Sk.  At
+    head_dim 224 the pre-pass also writes the scaled q to a scratch that
+    the wrapper allocates."""
     _build.refuse_grad("flash_attention_bwd", q, k, v, o, do)
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, do, lse, causal, window)
@@ -76,9 +85,10 @@ def flash_attention_bwd(q, k, v, o, do, lse, causal: bool = True,
     if lse.dtype != torch.float32:
         raise TypeError(f"flash_attention_bwd: lse must be float32, got "
                         f"{lse.dtype}")
-    if D != 64:
+    if not any(D == d and (g == 0 or H == g * KV) for d, g in KERNEL_CASES):
         raise ValueError(f"flash_attention_bwd kernel is built for head_dim "
-                         f"64, got {D}")
+                         f"64 and for head_dim 224 with one query head per "
+                         f"KV head, got D={D}, H={H}, KV={KV}")
     if not causal or window or Sq != Sk:
         raise NotImplementedError(
             f"flash_attention_bwd kernel: causal={causal} window={window} "
@@ -89,12 +99,15 @@ def flash_attention_bwd(q, k, v, o, do, lse, causal: bool = True,
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    # the scaled q, written by the pre-pass where the scale is not exact
+    qs = None if D == 64 else torch.empty_like(q)
     _build.require_cuda("flash_attention_bwd", q, k, v, o, do, lse, delta,
-                        dq, dk, dv)
+                        dq, dk, dv, *([] if qs is None else [qs]))
     lib = _build.library()
     _build.check(lib.flash_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        None if qs is None else qs.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KV, D, int(causal),
         int(window), _build.dtype_code(q), _build.stream_handle(q)),
         "flash_attention_bwd")

@@ -7,8 +7,10 @@ runs, ``models/ssm.py:ssd_chunked``: within a chunk of Q positions the dual
 form ``(C Bᵀ ∘ L) x`` with ``L[q, k] = exp(a_cs[q] - a_cs[k])`` for
 ``q >= k``, plus the contribution of the (N, P) state carried in from the
 previous chunks, which is then advanced to the chunk's end.  Head ``h``
-reads B/C group ``h // (H / G)``.  Serving only: the SSD backward belongs to
-the training slice, so the wrapper refuses inputs that need a gradient.
+reads B/C group ``h // (H / G)``.  Differentiable: the reference has no SSD
+backward kernel (``jax.grad`` differentiates the jnp ``ssd_chunked``), so
+the autograd ``Function`` here runs the kernel forward and recomputes the
+plain f32 chunked form in its backward, as ``rmsnorm.py`` does.
 """
 from __future__ import annotations
 
@@ -128,6 +130,45 @@ def workspace_floats(B: int, S: int, H: int, N: int, P: int, Q: int) -> int:
     return B * nc * H * N * P * 3 // 2 + B * H * nc * Q
 
 
+def _forward(x, a, Bm, Cm, chunk: int, h0):
+    """The plain version on a CPU tensor, else one launch of the kernel."""
+    if x.device.type == "cpu":
+        return ssd_ref(x, a, Bm, Cm, chunk, h0)
+    return _launch(x, a, Bm, Cm, max(1, min(chunk, x.shape[1])), h0)
+
+
+class _SsdScanTrain(torch.autograd.Function):
+    """Forward: the kernel (the plain version on the CPU).  Backward: the
+    plain chunked form recomputed in f32 from the saved inputs and
+    differentiated by autograd, each gradient returned in its input's
+    dtype: what ``jax.grad`` of the reference's ``ssd_chunked`` computes.
+    The JAX package has no SSD backward kernel, so this is no stand-in for
+    one.  ``ssd_ref`` masks the segment sums before ``exp``, so the
+    gradient stays finite where exp would overflow above the diagonal."""
+
+    @staticmethod
+    def forward(ctx, x, a, Bm, Cm, h0, chunk):
+        ctx.save_for_backward(x, a, Bm, Cm, h0)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return _forward(x, a, Bm, Cm, chunk, h0)
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        inputs = [t for t in ctx.saved_tensors if t is not None]
+        with torch.enable_grad():
+            leaves = [t.detach().float().requires_grad_() for t in inputs]
+            y, h = ssd_ref(*leaves[:4], ctx.chunk, *leaves[4:])
+            outs, douts = zip(*[(o, g.float()) for o, g in
+                                ((y, dy), (h, dh)) if g is not None])
+            # C does not reach the final state: with y unused it gets none
+            grads = torch.autograd.grad(outs, leaves, douts,
+                                        allow_unused=True)
+        grads = [torch.zeros_like(t) if g is None else g.to(t.dtype)
+                 for g, t in zip(grads, inputs)]
+        return (*grads[:4], grads[4] if len(grads) > 4 else None, None)
+
+
 def ssd_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
              Cm: torch.Tensor, chunk: int,
              h0: Optional[torch.Tensor] = None
@@ -136,19 +177,20 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
     h0: optional (B, H, N, P).  Chunks of ``min(chunk, S)`` positions.  A
     CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (``ssd_scan.launches`` counts them), which masks a ragged last chunk
-    itself.  Returns (y in x's dtype, final state float32).  Not
-    differentiable: an input that requires grad under grad mode raises, on
-    either device."""
-    _build.refuse_grad("ssd_scan", x, a, Bm, Cm, h0)
+    itself.  Returns (y in x's dtype, final state float32).  When grad mode
+    is on and an input requires grad, the call goes through the autograd
+    ``Function`` (the same forward, a plain f32 backward); otherwise it is
+    the serving call, with no graph."""
     B, S, H, P = x.shape
     if a.shape != (B, S, H) or Bm.shape != Cm.shape or Bm.shape[:2] != (B, S) \
             or H % Bm.shape[2]:
         raise ValueError(f"ssd_scan: bad shapes x {tuple(x.shape)} a "
                          f"{tuple(a.shape)} B {tuple(Bm.shape)} C "
                          f"{tuple(Cm.shape)}")
-    if x.device.type == "cpu":
-        return ssd_ref(x, a, Bm, Cm, chunk, h0)
-    return _launch(x, a, Bm, Cm, max(1, min(chunk, S)), h0)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (x, a, Bm, Cm, h0)):
+        return _SsdScanTrain.apply(x, a, Bm, Cm, h0, chunk)
+    return _forward(x, a, Bm, Cm, chunk, h0)
 
 
 ssd_scan.launches = 0

@@ -405,3 +405,22 @@ def softmax_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
         return nll.sum() / nll.numel()
     mask = mask.float()
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def lm_loss(model, params: Params, batch, remat: bool = True):
+    """The next-token loss of the reference's language models: embed
+    ``batch["tokens"]`` in the model's compute dtype, run
+    ``model.forward_hidden`` (with ``remat``), the final norm and the
+    unembedding (``model.logits``), then the mean cross entropy with z-loss
+    1e-4 against ``batch["targets"]`` (over ``batch["mask"]`` when given).
+    Returns (loss, metrics)."""
+    tokens = torch.as_tensor(batch["tokens"], device=model.device)
+    x = embed_tokens(params["embed"], tokens, model.compute_dtype)
+    x, _ = model.forward_hidden(params, x, remat=remat)
+    logits = model.logits(params, x)
+    targets = torch.as_tensor(batch["targets"], device=model.device)
+    mask = batch.get("mask")
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=model.device)
+    loss = softmax_cross_entropy(logits, targets, mask, z_loss=1e-4)
+    return loss, {"ce_loss": loss, "loss": loss}

@@ -17,20 +17,26 @@ Parameters keep the reference's tree: ``embed``, ``shared``,
 the recurrent state as dense slot rows (``ssm``, ``conv``) and the shared
 block's KV per application (``k``, ``v``), which a paged engine pools.
 Every cache leaf is written in place, so a captured decode step keeps its
-addresses.  Training (``forward_hidden``, ``loss``) waits for ROADMAP.md
-queue 1, item 8t.
+addresses.  Training (``forward_hidden``, ``loss``) follows the reference:
+each group (the shared block and its ``attn_every`` Mamba2 blocks) runs
+under ``torch.utils.checkpoint`` when ``remat`` is on, the tail outside
+it, on f32 masters (``init(dtype=)``); the shared block's attention goes
+through the differentiable flash attention (forward with its log-sum-exp,
+then the flash backward) and the Mamba2 blocks' scans through the SSD
+scan's autograd ``Function``.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from . import common as cm
 from .common import Params
 from .ssm import (init_mamba_params, mamba_block, mamba_decode_step,
-                  mamba_leaf_dtype, mamba_param_shapes)
+                  mamba_layer, mamba_leaf_dtype, mamba_param_shapes)
 from .transformer import LeafSpec, resolve_device, unstack_layers
 
 
@@ -94,12 +100,16 @@ class HybridLM:
         leaf in ``dtype``, by default the compute dtype."""
         return mamba_leaf_dtype(name, dtype or self.compute_dtype)
 
-    def init(self, generator: Optional[torch.Generator] = None) -> Params:
-        """Random weights on the model's device in their leaf dtypes, drawn
-        from ``generator`` (seed 0 when None) as ``ssm.init_mamba_params``
-        draws them (the shared block's matrices fan-in-scaled normals)."""
-        return init_mamba_params(self.param_shapes(), self.compute_dtype,
-                                 self.device, generator)
+    def init(self, generator: Optional[torch.Generator] = None,
+             dtype=None) -> Params:
+        """Random weights on the model's device, drawn from ``generator``
+        (seed 0 when None) as ``ssm.init_mamba_params`` draws them (the
+        shared block's matrices fan-in-scaled normals), in their leaf
+        dtypes (:meth:`leaf_dtype`): ``dtype`` defaults to the compute
+        dtype (serving); training passes ``self.param_dtype``."""
+        return init_mamba_params(self.param_shapes(),
+                                 dtype or self.compute_dtype, self.device,
+                                 generator)
 
     # -- the shared block ------------------------------------------------
     def _shared_fwd(self, sp: Params, h: torch.Tensor, emb: torch.Tensor,
@@ -156,18 +166,39 @@ class HybridLM:
         x = cm.apply_norm(params["final_norm"], x, self.cfg.norm)
         return cm.unembed(params["embed"], x)
 
+    def _group_fwd(self, shared: Params, layers, x: torch.Tensor,
+                   emb: torch.Tensor) -> torch.Tensor:
+        """One application of the shared block, then its Mamba2 layers."""
+        x = self._shared_fwd(shared, x, emb)[0]
+        for lp in layers:
+            x = mamba_layer(lp, x, self.cfg)
+        return x
+
     def forward_hidden(self, params: Params, x: torch.Tensor,
                        remat: bool = True):
-        raise NotImplementedError(
-            f"{self.cfg.name}: training the hybrid family waits for its "
-            f"slice, an SSD backward and a flash backward at head_dim "
-            f"{self.attn_head_dim} (ROADMAP.md queue 1, item 8t)")
+        """Run the stack on embedded input x (B, S, d), which is also the
+        ``emb`` every application of the shared block reads.  With
+        ``remat`` each full group runs under ``torch.utils.checkpoint``
+        (only its input is kept, the backward recomputes the rest), as the
+        reference wraps its scanned group in ``jax.checkpoint``; the tail
+        runs outside it, as there.  Returns (x, {})."""
+        layers = unstack_layers(params["layers"], self.cfg.n_layers)
+        emb, shared = x, params["shared"]
+        for a, group in self._groups():
+            lps = [layers[i] for i in group]
+            if remat and a < self.n_groups:
+                x = checkpoint(self._group_fwd, shared, lps, x, emb,
+                               use_reentrant=False)
+            else:
+                x = self._group_fwd(shared, lps, x, emb)
+        return x, {}
 
     def loss(self, params: Params, batch, rng=None, remat: bool = True):
-        raise NotImplementedError(
-            f"{self.cfg.name}: training the hybrid family waits for its "
-            f"slice, an SSD backward and a flash backward at head_dim "
-            f"{self.attn_head_dim} (ROADMAP.md queue 1, item 8t)")
+        """Mean next-token cross entropy with z-loss 1e-4 over ``batch``
+        ("tokens", "targets", optional "mask"), as the reference's
+        ``HybridLM.loss``.  ``rng`` is accepted for its signature.  Returns
+        (loss, metrics)."""
+        return cm.lm_loss(self, params, batch, remat)
 
     # -- serving ---------------------------------------------------------
     def _cache_struct(self, B: int, max_seq: int) -> Dict[str, LeafSpec]:

@@ -1,15 +1,18 @@
 """Mamba2 (SSD, state-space duality) blocks and LM stack of the port: the
-serving path of the JAX package's ``models/ssm.py:MambaLM``.
+JAX package's ``models/ssm.py:MambaLM``, serving and training.
 
 The chunked SSD scan (``ssd_chunked``) goes through the ``ssd_scan`` kernel
-wrapper: its plain version on the CPU, the Hopper kernel on the card.  The
-one-token recurrence, the depthwise causal convolution and its decode step
-are plain PyTorch, as the reference leaves them to XLA.  Parameters keep
-the reference's stacked layout (every layer leaf has a leading ``n_layers``
-dim) and the layer loop runs over views of it, as in ``DecoderLM``.  The
-recurrent caches (SSM state, conv window) are written in place.  Training
-(``forward_hidden``, ``loss``) waits for the training slice of the SSM
-family, which also needs an SSD backward (ROADMAP.md queue 1).
+wrapper: its plain version on the CPU, the Hopper kernel on the card; under
+autograd its backward recomputes the plain f32 chunked form, as the
+reference differentiates its jnp scan.  The one-token recurrence, the
+depthwise causal convolution and its decode step are plain PyTorch, as the
+reference leaves them to XLA.  Parameters keep the reference's stacked
+layout (every layer leaf has a leading ``n_layers`` dim) and the layer loop
+runs over views of it, as in ``DecoderLM``.  The recurrent caches (SSM
+state, conv window) are written in place.  Training (``forward_hidden``,
+``loss``) runs each layer under ``torch.utils.checkpoint`` when ``remat``
+is on, as the reference wraps its scanned layer in ``jax.checkpoint``, on
+f32 masters (``init(dtype=)``).
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels.ssd_scan import ssd_scan
@@ -160,6 +164,14 @@ def mamba_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
     return out, (h_final, tail)
 
 
+def mamba_layer(lp: Params, x: torch.Tensor, cfg: ModelConfig
+                ) -> torch.Tensor:
+    """A residual layer of the training forward: x + mamba_block(norm(x)),
+    ``lp`` holding the layer's ``norm`` and ``mamba`` leaves."""
+    h = cm.apply_norm(lp["norm"], x, cfg.norm)
+    return x + mamba_block(lp["mamba"], h, cfg)
+
+
 def mamba_param_shapes(cfg: ModelConfig, L: int) -> Params:
     """Shapes of the Mamba2 block leaves stacked over ``L`` layers, in the
     reference's ``init_mamba_block`` layout."""
@@ -268,12 +280,15 @@ class MambaLM:
         dtype."""
         return mamba_leaf_dtype(name, dtype or self.compute_dtype)
 
-    def init(self, generator: Optional[torch.Generator] = None) -> Params:
-        """Random weights on the model's device in their leaf dtypes, drawn
-        from ``generator`` (seed 0 when None), as
-        :func:`init_mamba_params` draws them."""
-        return init_mamba_params(self.param_shapes(), self.compute_dtype,
-                                 self.device, generator)
+    def init(self, generator: Optional[torch.Generator] = None,
+             dtype=None) -> Params:
+        """Random weights on the model's device, drawn from ``generator``
+        (seed 0 when None) as :func:`init_mamba_params` draws them, in
+        their leaf dtypes (:meth:`leaf_dtype`): ``dtype`` defaults to the
+        compute dtype (serving); training passes ``self.param_dtype``."""
+        return init_mamba_params(self.param_shapes(),
+                                 dtype or self.compute_dtype, self.device,
+                                 generator)
 
     # -- forward ---------------------------------------------------------
     def logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -282,14 +297,24 @@ class MambaLM:
 
     def forward_hidden(self, params: Params, x: torch.Tensor,
                        remat: bool = True):
-        raise NotImplementedError(
-            f"{self.cfg.name}: training the SSM family waits for its slice "
-            f"and an SSD backward kernel (ROADMAP.md queue 1, item 8)")
+        """Run the layer stack on embedded input x (B, S, d).  With
+        ``remat`` each layer (its norm and block) runs under
+        ``torch.utils.checkpoint``: only its input is kept, and the
+        backward recomputes the rest.  Returns (x, {})."""
+        for lp in unstack_layers(params["layers"], self.cfg.n_layers):
+            if remat:
+                x = checkpoint(mamba_layer, lp, x, self.cfg,
+                               use_reentrant=False)
+            else:
+                x = mamba_layer(lp, x, self.cfg)
+        return x, {}
 
     def loss(self, params: Params, batch, rng=None, remat: bool = True):
-        raise NotImplementedError(
-            f"{self.cfg.name}: training the SSM family waits for its slice "
-            f"and an SSD backward kernel (ROADMAP.md queue 1, item 8)")
+        """Mean next-token cross entropy with z-loss 1e-4 over ``batch``
+        ("tokens", "targets", optional "mask"), as the reference's
+        ``MambaLM.loss``.  ``rng`` is accepted for its signature.  Returns
+        (loss, metrics)."""
+        return cm.lm_loss(self, params, batch, remat)
 
     # -- serving ---------------------------------------------------------
     def _cache_struct(self, B: int, max_seq: int = 0) -> Dict[str, LeafSpec]:

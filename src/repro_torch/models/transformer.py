@@ -201,14 +201,6 @@ class DecoderLM:
                 x = self._layer_fwd(lp, x, q_offset)
         return x, {}
 
-    def _embed_input(self, params: Params, tokens: torch.Tensor,
-                     patch_embeds=None) -> torch.Tensor:
-        if patch_embeds is not None:
-            raise NotImplementedError("the VLM patch prefix is not ported "
-                                      "yet (ROADMAP.md queue 1)")
-        tokens = torch.as_tensor(tokens, device=self.device)
-        return cm.embed_tokens(params["embed"], tokens, self.compute_dtype)
-
     # -- training --------------------------------------------------------
     def loss(self, params: Params, batch: Dict[str, torch.Tensor],
              rng=None, remat: bool = True):
@@ -216,16 +208,10 @@ class DecoderLM:
         ("tokens", "targets", optional "mask"), as the reference's
         ``DecoderLM.loss``.  ``rng`` is accepted for its signature (a dense
         model draws nothing).  Returns (loss, metrics)."""
-        x = self._embed_input(params, batch["tokens"],
-                              batch.get("patch_embeds"))
-        x, _ = self.forward_hidden(params, x, remat=remat)
-        logits = self.logits(params, x)
-        targets = torch.as_tensor(batch["targets"], device=self.device)
-        mask = batch.get("mask")
-        if mask is not None:
-            mask = torch.as_tensor(mask, device=self.device)
-        loss = cm.softmax_cross_entropy(logits, targets, mask, z_loss=1e-4)
-        return loss, {"ce_loss": loss, "loss": loss}
+        if batch.get("patch_embeds") is not None:
+            raise NotImplementedError("the VLM patch prefix is not ported "
+                                      "yet (ROADMAP.md queue 1)")
+        return cm.lm_loss(self, params, batch, remat)
 
     # -- serving ---------------------------------------------------------
     def _cache_struct(self, B: int, max_seq: int) -> Dict[str, LeafSpec]:

@@ -444,10 +444,16 @@ def test_build_model_needs_the_card_unless_told():
 
 
 def test_training_entry_points_wait_for_their_slice():
-    _, _, _, tmodel, tparams = twin(ARCH)
-    batch = {"tokens": torch.zeros(1, 4, dtype=torch.int32),
-             "targets": torch.zeros(1, 4, dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="item 8t"):
-        tmodel.loss(tparams, batch)
-    with pytest.raises(NotImplementedError, match="item 8t"):
-        tmodel.forward_hidden(tparams, torch.zeros(1, 4, 64))
+    """The training slice has landed: ``forward_hidden`` and ``loss`` run
+    (with and without remat, the same loss; held against the reference in
+    ``tests/test_torch_ssm_train.py``)."""
+    _, _, cfg, tmodel, tparams = twin(ARCH)
+    rng = np.random.default_rng(1)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (1, 5)),
+                        dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    losses = [float(tmodel.loss(tparams, batch, remat=r)[0])
+              for r in (True, False)]
+    assert np.isfinite(losses[0]) and losses[0] == losses[1]
+    x, aux = tmodel.forward_hidden(tparams, torch.zeros(1, 4, cfg.d_model))
+    assert x.shape == (1, 4, cfg.d_model) and aux == {}

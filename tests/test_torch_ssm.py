@@ -340,20 +340,30 @@ def test_params_from_jax_keeps_decay_leaves_in_f32(compute):
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
 def test_ssd_scan_refuses_gradients(device):
-    """Serving only: an input that requires grad raises before anything
-    runs, on the CPU and off it."""
+    """Gradients go through the SSD scan's autograd ``Function`` (kernel
+    forward, plain f32 backward); what it refuses is what the kernel
+    refuses.  On the CPU an input that requires grad builds the
+    ``Function``'s graph and ``torch.no_grad`` builds none; off the CPU
+    with no card (``meta``) the ``Function`` still refuses the launch,
+    before anything runs."""
     kernels.reset_launch_counts()
     dt = torch.float32 if device == "cpu" else torch.bfloat16
     x = torch.zeros(1, 16, 2, 64, dtype=dt, device=device,
                     requires_grad=True)
     a = torch.zeros(1, 16, 2, device=device)
     bc = torch.zeros(1, 16, 1, 128, dtype=dt, device=device)
-    with pytest.raises(RuntimeError, match="not differentiable"):
-        ssd_scan(x, a, bc, bc, 16)
+    if device == "cpu":
+        y, _ = ssd_scan(x, a, bc, bc, 16)
+        assert type(y.grad_fn).__name__ == "_SsdScanTrainBackward"
+        y.sum().backward()
+        assert x.grad.shape == x.shape
+    else:
+        with pytest.raises(ValueError, match="CUDA device"):
+            ssd_scan(x, a, bc, bc, 16)
     with torch.no_grad():
         if device == "cpu":
             y, _ = ssd_scan(x, a, bc, bc, 16)
-            assert not y.requires_grad
+            assert not y.requires_grad and y.grad_fn is None
     assert kernels.launch_counts()["ssd_scan"] == 0
 
 
@@ -398,10 +408,16 @@ def test_build_model_needs_the_card_unless_told():
 
 
 def test_training_entry_points_wait_for_their_slice():
-    _, _, _, tmodel, tparams = twin(ARCH)
-    batch = {"tokens": torch.zeros(1, 4, dtype=torch.int32),
-             "targets": torch.zeros(1, 4, dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.loss(tparams, batch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.forward_hidden(tparams, torch.zeros(1, 4, 64))
+    """The training slice has landed: ``forward_hidden`` and ``loss`` run
+    (with and without remat, the same loss; held against the reference in
+    ``tests/test_torch_ssm_train.py``)."""
+    _, _, cfg, tmodel, tparams = twin(ARCH)
+    rng = np.random.default_rng(1)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (1, 5)),
+                        dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    losses = [float(tmodel.loss(tparams, batch, remat=r)[0])
+              for r in (True, False)]
+    assert np.isfinite(losses[0]) and losses[0] == losses[1]
+    x, aux = tmodel.forward_hidden(tparams, torch.zeros(1, 4, cfg.d_model))
+    assert x.shape == (1, 4, cfg.d_model) and aux == {}

@@ -163,19 +163,23 @@ def _meta(*shape, dtype=torch.bfloat16):
 @pytest.mark.parametrize("case,error,match", [
     ("bf16_d64", ValueError, "CUDA device"), ("f32", TypeError, "bf16"),
     ("d16", ValueError, "head_dim 64"), ("lse_bf16", TypeError, "float32"),
+    ("d224_g2", ValueError, "head_dim 224 with one query head"),
+    ("bf16_d224", ValueError, "CUDA device"),
     ("window", NotImplementedError, "training path"),
     ("non_causal", NotImplementedError, "training path"),
     ("sq_ne_sk", NotImplementedError, "training path")])
 def test_flash_bwd_refuses_what_it_is_not_built_for(case, error, match):
     """Off the CPU the backward launches its kernel or raises before any
     launch; with no card here every case raises.  Beside dtype and
-    head_dim it refuses what the training path does not give it: a
-    window, no causal mask, Sq != Sk."""
+    head_dim (64 at any group, 224 with one query head per KV head) it
+    refuses what the training path does not give it: a window, no causal
+    mask, Sq != Sk."""
     kernels.reset_launch_counts()
-    D = 16 if case == "d16" else 64
+    D = {"d16": 16, "d224_g2": 224, "bf16_d224": 224}.get(case, 64)
     dt = torch.float32 if case == "f32" else torch.bfloat16
     Sk = 16 if case == "sq_ne_sk" else 8
-    q, kv = _meta(1, 8, 4, D, dtype=dt), _meta(1, Sk, 2, D, dtype=dt)
+    KV = 4 if case == "bf16_d224" else 2
+    q, kv = _meta(1, 8, 4, D, dtype=dt), _meta(1, Sk, KV, D, dtype=dt)
     lse = _meta(1, 4, 8, dtype=torch.bfloat16 if case == "lse_bf16"
                 else torch.float32)
     with pytest.raises(error, match=match):
