@@ -139,6 +139,31 @@ Phases, in order; any failure raises and the script exits non-zero:
                  its full-depth f32 training state would not fit the card)
                  trains the same way, with exact RMSNorm, SSD, flash
                  forward and head_dim-224 flash backward launches a step.
+10. dvfs       — (run right after consistency, while the serve phase's
+                 llama3.2-1b is loaded) the DVFS stack on the card, with NVML
+                 read by ``ctypes`` (``libnvidia-ml.so.1``; a missing library,
+                 function or energy counter fails the phase, a counter that
+                 decreases too): the card's supported memory and graphics
+                 clocks, every ``h100_grid()`` pair among them, idle watts over
+                 2 s; ``launch.serve.main`` at full width (h100 chip model, 8
+                 slots, 16 requests): finite plan rows and executed totals, one
+                 prefill hook a request and one decode hook a step,
+                 ``check_executor`` clean, exact launches of paged decode, the
+                 prefill and RMSNorm; the serve phase's 16 requests behind a
+                 ``DvfsSession(chip="h100")`` executor, repeated for at least 5
+                 s after a capturing run, against the energy counter (joules a
+                 token and mean watts, gross and net of idle, the SM and memory
+                 clocks seen, beside the executor's modeled auto and planned
+                 energy and time); ``Trainer`` on llama3.2-1b at full width
+                 (the train phase's settings, 20 steps, the window steps 1..19,
+                 at least 5 s) behind the train executor planned for that
+                 shape, with an NVML energy meter read each step: finite
+                 losses, every phase booked, the executor's books through their
+                 checkpoint JSON into a fresh executor equal; joules and
+                 seconds a step against the modeled ones; then
+                 ``launch.train.main --smoke`` (the reduced config at the
+                 kernels' widths) for 2 steps into a temporary directory.
+                 Nothing sets a clock: the card runs at its own.
 
 Each phase's seconds are logged (``[time]``).
 
@@ -209,6 +234,10 @@ COLD_BYTES = 256 << 20
 # at most this many calls behind its sleep kernel, well inside the launch
 # queue, which would otherwise block the host until the device drains it
 MAX_COPIES, MAX_QUEUED = 256, 512
+# the dvfs phase: each NVML energy window lasts at least this long (the
+# counter updates coarsely), and the training window's Trainer runs this
+# many steps (step 0 outside the window)
+DVFS_WINDOW_S, DVFS_TRAIN_STEPS = 5.0, 20
 
 
 def log(msg: str) -> None:
@@ -2443,18 +2472,14 @@ def phase_trainer():
     failure at step 3: it restarts from the step-2 checkpoint and
     finishes."""
     from repro_torch.ckpt import CheckpointManager
-    from repro_torch.configs import get_config
+    from repro_torch.configs import card_smoke_config, get_config
     from repro_torch.data import DataPipeline
     from repro_torch.models import build_model
     from repro_torch.runtime import FailureInjector
     from repro_torch.train import OptimizerConfig, make_train_step
     from repro_torch.train.loop import Trainer, TrainerConfig
-    # llama3.2-1b's family at a small width that keeps what the kernels are
-    # built for: bf16 compute and head_dim 64 (RMSNorm is built for d 256)
-    cfg = dataclasses.replace(get_config("llama3.2-1b"), name="llama-small",
-                              n_layers=2, d_model=256, n_heads=4,
-                              n_kv_heads=2, head_dim=64, d_ff=1024,
-                              vocab_size=257)
+    # llama3.2-1b's family at the smallest widths the kernels are built for
+    cfg = card_smoke_config(get_config("llama3.2-1b"))
     model = build_model(cfg, device="cuda")
     build = os.path.join(ROOT, "build")
     os.makedirs(build, exist_ok=True)
@@ -2478,6 +2503,437 @@ def phase_trainer():
     return out
 
 
+# ---------------------------------------------------------------------------
+# 10. dvfs: the planning layer around serving and training, and NVML reads
+# ---------------------------------------------------------------------------
+
+class Nvml:
+    """The card's counters through NVML by ``ctypes`` (``libnvidia-ml.so.1``,
+    installed with the card's NVIDIA software): name, power limit, supported
+    and current clocks, power draw and the energy counter (a running total
+    in mJ).  The device is the one CUDA calls 0, found by its UUID.  A
+    missing library, function or device raises; an energy read below the
+    last one raises."""
+
+    CLOCK_SM, CLOCK_MEM = 1, 2
+
+    def __init__(self):
+        import ctypes as c
+        self.c = c
+        lib = c.CDLL("libnvidia-ml.so.1")
+        u, p = c.c_uint, c.POINTER
+        dev = c.c_void_p
+        for name, args in (
+                ("nvmlInit_v2", []), ("nvmlShutdown", []),
+                ("nvmlDeviceGetCount_v2", [p(u)]),
+                ("nvmlDeviceGetHandleByIndex_v2", [u, p(dev)]),
+                ("nvmlDeviceGetName", [dev, c.c_char_p, u]),
+                ("nvmlDeviceGetUUID", [dev, c.c_char_p, u]),
+                ("nvmlDeviceGetPowerManagementLimit", [dev, p(u)]),
+                ("nvmlDeviceGetPowerUsage", [dev, p(u)]),
+                ("nvmlDeviceGetClockInfo", [dev, c.c_int, p(u)]),
+                ("nvmlDeviceGetSupportedMemoryClocks", [dev, p(u), p(u)]),
+                ("nvmlDeviceGetSupportedGraphicsClocks", [dev, u, p(u), p(u)]),
+                ("nvmlDeviceGetTotalEnergyConsumption",
+                 [dev, p(c.c_ulonglong)])):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = args, c.c_int
+        lib.nvmlErrorString.argtypes = [c.c_int]
+        lib.nvmlErrorString.restype = c.c_char_p
+        self.lib = lib
+        self._call("nvmlInit_v2")
+        want = str(torch.cuda.get_device_properties(0).uuid).lower()
+        count = u()
+        self._call("nvmlDeviceGetCount_v2", c.byref(count))
+        self.handle = None
+        for i in range(count.value):
+            h = dev()
+            self._call("nvmlDeviceGetHandleByIndex_v2", u(i), c.byref(h))
+            if self._text("nvmlDeviceGetUUID", h).lower() \
+                    .removeprefix("gpu-") == want.removeprefix("gpu-"):
+                self.handle = h
+        if self.handle is None:
+            raise RuntimeError(f"NVML lists no device with CUDA device 0's "
+                               f"UUID {want} ({count.value} devices)")
+        self.last_mj = 0
+
+    def _call(self, name, *args):
+        ret = getattr(self.lib, name)(*args)
+        if ret != 0:
+            raise RuntimeError(f"{name}: NVML error {ret} "
+                               f"({self.lib.nvmlErrorString(ret).decode()})")
+
+    def _text(self, name, handle):
+        buf = self.c.create_string_buffer(96)
+        self._call(name, handle, buf, self.c.c_uint(96))
+        return buf.value.decode()
+
+    def _uint(self, name, *args):
+        out = self.c.c_uint()
+        self._call(name, self.handle, *args, self.c.byref(out))
+        return out.value
+
+    def name(self) -> str:
+        return self._text("nvmlDeviceGetName", self.handle)
+
+    def power_limit_w(self) -> float:
+        return self._uint("nvmlDeviceGetPowerManagementLimit") / 1e3
+
+    def power_w(self) -> float:
+        return self._uint("nvmlDeviceGetPowerUsage") / 1e3
+
+    def clocks_mhz(self):
+        """(SM clock, memory clock) now, in MHz."""
+        return (self._uint("nvmlDeviceGetClockInfo", self.CLOCK_SM),
+                self._uint("nvmlDeviceGetClockInfo", self.CLOCK_MEM))
+
+    def _list(self, name, *args):
+        n = self.c.c_uint(512)
+        buf = (self.c.c_uint * 512)()
+        self._call(name, self.handle, *args, self.c.byref(n), buf)
+        return sorted(buf[i] for i in range(n.value))
+
+    def supported_clocks(self) -> dict:
+        """{memory clock: [graphics clocks supported at it]}, ascending."""
+        return {m: self._list("nvmlDeviceGetSupportedGraphicsClocks",
+                              self.c.c_uint(m))
+                for m in self._list("nvmlDeviceGetSupportedMemoryClocks")}
+
+    def energy_j(self) -> float:
+        """The energy counter in joules, read after the device's queued
+        work is done; raises if it went backwards."""
+        torch.cuda.synchronize()
+        out = self.c.c_ulonglong()
+        self._call("nvmlDeviceGetTotalEnergyConsumption", self.handle,
+                   self.c.byref(out))
+        if out.value < self.last_mj:
+            raise AssertionError(f"NVML energy counter decreased: "
+                                 f"{out.value} mJ after {self.last_mj} mJ")
+        self.last_mj = out.value
+        return out.value / 1e3
+
+    def close(self) -> None:
+        self._call("nvmlShutdown")
+
+
+def dvfs_grid_check(nvml) -> float:
+    """Logs the card's supported clocks and holds ``h100_grid()`` to them
+    (every grid clock supported at every grid memory clock: raises
+    otherwise); reads the energy counter over 2 s of idle.  Returns the
+    idle watts."""
+    from repro_torch.core import h100_grid
+    log(f"[dvfs] NVML: {nvml.name()}, power limit "
+        f"{nvml.power_limit_w():.2f} W")
+    supported = nvml.supported_clocks()
+    for mem, cores in supported.items():
+        log(f"[dvfs] supported: memory {mem} MHz, {len(cores)} graphics "
+            f"clocks {cores[0]}..{cores[-1]} MHz: {cores}")
+    grid = h100_grid()
+    missing = [(m, c) for m in grid.mem_clocks_mhz
+               for c in grid.core_clocks_mhz
+               if c not in supported.get(m, ())]
+    if missing:
+        raise AssertionError(f"h100_grid() clocks the card does not support "
+                             f"(memory, graphics MHz): {missing}")
+    log(f"[dvfs] h100_grid(): memory {grid.mem_clocks_mhz}, graphics "
+        f"{grid.core_clocks_mhz} MHz: every pair supported")
+    e0, t0 = nvml.energy_j(), time.perf_counter()
+    draws = []
+    while time.perf_counter() - t0 < 2.0:
+        draws.append(nvml.power_w())
+        time.sleep(0.1)
+    idle_w = (nvml.energy_j() - e0) / (time.perf_counter() - t0)
+    log(f"[dvfs] idle: {idle_w:.2f} W mean over 2 s from the energy counter "
+        f"(power reads {min(draws):.1f}..{max(draws):.1f} W); clocks now "
+        f"{nvml.clocks_mhz()} MHz (SM, memory)")
+    return idle_w
+
+
+def _check_hooks(tag, ex, requests, decode_steps):
+    """The executor's books against the engine: one prefill hook a request
+    admitted, one decode hook a decode step, and its energy ledger tied
+    out (``check_executor``); every number finite."""
+    from repro_torch.obs import check_executor
+    phases = ex.summary()["phases"]
+    pre = sum(r["steps"] for n, r in phases.items() if n == "prefill")
+    dec = sum(r["steps"] for n, r in phases.items() if n != "prefill")
+    problems = check_executor(ex)
+    bad = [(n, k) for n, r in phases.items() for k, v in r.items()
+           if not math.isfinite(v)]
+    if (pre, dec) != (requests, decode_steps) or problems or bad:
+        raise AssertionError(f"{tag}: prefill/decode hooks {(pre, dec)} != "
+                             f"{(requests, decode_steps)}, ledger "
+                             f"{problems}, non-finite {bad}")
+
+
+def dvfs_serve_launcher():
+    """``launch.serve.main`` at full width on the card (llama3.2-1b, the
+    h100 chip model, 8 slots): finite plan rows and executed totals, the
+    executor's hooks against the engine's calls, and the exact launches of
+    the three serving kernels (counted through graph replays)."""
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = serve.main(["--arch", "llama3.2-1b", "--chip", "h100", "--slots",
+                      str(SERVE_SLOTS), "--requests", "16",
+                      "--max-new-tokens", "16"])
+    torch.cuda.synchronize()
+    got = kernels.launch_counts()
+    want = llama_launches(out["n_decode_steps"], out["n_prefill_calls"])
+    rows = [v for r in out["plan"].values() for v in r.values()
+            if isinstance(v, float)]
+    if got != want or not all(math.isfinite(v) for v in rows) or not all(
+            math.isfinite(v) for v in out["executed"].values()):
+        raise AssertionError(f"serve launcher: launches {got} != {want}, or "
+                             f"a plan row or the executed totals not finite")
+    _check_hooks("serve launcher", out["executor"], out["requests"],
+                 out["n_decode_steps"])
+    log(f"[dvfs] serve launcher: {out['requests']} requests, "
+        f"{out['tokens']} tokens in {out['seconds']:.2f} s; "
+        f"{out['n_prefill_calls']} prefill calls, {out['n_decode_steps']} "
+        f"decode steps = the executor's hooks; launches {got} (exact)")
+
+
+def _window_line(tag, joules, wall, idle_w, clocks):
+    sm = sorted({c[0] for c in clocks})
+    mem = sorted({c[1] for c in clocks})
+    log(f"[{tag}] measured: {joules:.2f} J over {wall:.3f} s = "
+        f"{joules / wall:.2f} W mean ({joules / wall - idle_w:.2f} W net of "
+        f"{idle_w:.2f} W idle); clocks seen SM {sm[0]}..{sm[-1]} MHz, memory "
+        f"{mem} MHz (auto: nothing set)")
+
+
+def dvfs_serve_window(nvml, cfg, model, params, idle_w):
+    """The serve phase's 16 requests on bf16 pages, CUDA graphs on, behind a
+    ``DvfsSession(chip="h100")`` serve executor, repeated (``reset()``
+    between repeats) over at least ``DVFS_WINDOW_S`` of generation after a
+    warm-up that captures every graph; the energy counter is read before
+    and after the window.  Logs joules a generated token and mean watts,
+    gross and net of idle, beside the executor's modeled energy and time
+    for the same hook calls (the auto baseline and the plan)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.dvfs import DvfsSession
+    from repro_torch.serve import Request, ServeEngine
+    rng = np.random.default_rng(0)                  # phase_serve's requests
+    plens = rng.integers(16, 513, SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in plens]
+    with DvfsSession(chip="h100") as sess:
+        sess.plan_serve(
+            cfg, n_slots=SERVE_SLOTS,
+            prefill_shape=ShapeConfig(name="serve_prefill", seq_len=512,
+                                      global_batch=1, kind="prefill"),
+            decode_shape=ShapeConfig(name="serve_decode", seq_len=512,
+                                     global_batch=SERVE_SLOTS,
+                                     kind="decode"))
+        ex = sess.serve_executor()
+        eng = ServeEngine(model, params, batch_slots=SERVE_SLOTS,
+                          max_seq=SERVE_MAX_SEQ, page_size=SERVE_PAGE,
+                          paged=True, executor=ex)
+
+        def run():
+            eng.reset()
+            reqs = [Request(uid=i, prompt=p, max_new_tokens=SERVE_NEW_TOKENS)
+                    for i, p in enumerate(prompts)]
+            eng.generate(reqs)
+            _check_hooks("serve window", ex, len(reqs), eng.n_decode_steps)
+            return sum(len(r.generated) for r in reqs)
+
+        run()                                       # captures every graph
+        keys = ("time_s", "energy_j", "base_time_s", "base_energy_j")
+        modeled = dict.fromkeys(keys, 0.0)
+        tokens, repeats, clocks = 0, 0, []
+        e0, t0 = nvml.energy_j(), time.perf_counter()
+        while time.perf_counter() - t0 < DVFS_WINDOW_S:
+            tokens += run()
+            repeats += 1
+            tot = ex.summary()["totals"]
+            for k in keys:
+                modeled[k] += tot[k]
+            clocks.append(nvml.clocks_mhz())
+        joules, wall = nvml.energy_j() - e0, time.perf_counter() - t0
+    del eng
+    release()
+    tag = "dvfs serve"
+    log(f"[{tag}] {repeats} repeats of the {SERVE_REQUESTS} requests, "
+        f"{tokens} tokens in {wall:.3f} s ({tokens / wall:.1f} tokens/s)")
+    _window_line(tag, joules, wall, idle_w, clocks)
+    net = joules - idle_w * wall
+    log(f"[{tag}] measured: {joules / tokens:.5f} J a generated token "
+        f"({net / tokens:.5f} net of idle)")
+    log(f"[{tag}] modeled (h100_like, the same hook calls): auto "
+        f"{modeled['base_energy_j']:.3f} J in {modeled['base_time_s']:.4f} s,"
+        f" the plan {modeled['energy_j']:.3f} J in {modeled['time_s']:.4f} s;"
+        f" measured / modeled auto: energy "
+        f"{joules / modeled['base_energy_j']:.3f}, time "
+        f"{wall / modeled['base_time_s']:.3f}")
+    return {"joules": joules, "wall_s": wall, "tokens": tokens,
+            "repeats": repeats, "modeled": modeled, "clocks": clocks}
+
+
+@dataclasses.dataclass
+class StepReading:
+    step: int
+    time_s: float
+    energy_j: float
+    clocks: tuple                 # (SM, memory) MHz at the read
+
+
+class NvmlStepMeter:
+    """The ``Trainer``'s ``energy_meter``: at each ``on_step`` (after the
+    trainer has waited for the step's loss) the stream is synchronised and
+    the energy counter read; a step's reading is the joules and wall
+    seconds since the previous one (step 0's since construction)."""
+
+    def __init__(self, nvml):
+        self.nvml = nvml
+        self.records = []
+        self.last = (nvml.energy_j(), time.perf_counter())
+
+    def on_step(self, step):
+        now = (self.nvml.energy_j(), time.perf_counter())
+        rec = StepReading(step, now[1] - self.last[1], now[0] - self.last[0],
+                          self.nvml.clocks_mhz())
+        self.last = now
+        self.records.append(rec)
+        return rec
+
+    def totals(self):
+        return {"steps": len(self.records),
+                "time_s": sum(r.time_s for r in self.records),
+                "energy_j": sum(r.energy_j for r in self.records)}
+
+
+class BooksOnlyCheckpoints:
+    """The checkpoint manager of the full-width training window: each save
+    keeps only ``extra`` (the data cursor and the executor's books), round
+    tripped through JSON as ``CheckpointManager`` writes it, and no
+    tensors: the f32 masters and AdamW moments of 1.236 B parameters would
+    be a ~20 GB write.  ``Trainer``'s restart from real checkpoints is the
+    trainer phase's."""
+
+    def __init__(self):
+        self.extra = {}
+
+    def latest_step(self):
+        return None
+
+    def save(self, step, state, extra=None):
+        self.extra[step] = json.loads(json.dumps(extra or {}))
+
+
+def dvfs_train_window(nvml, idle_w):
+    """``Trainer`` on llama3.2-1b at full width with the train phase's
+    settings for ``DVFS_TRAIN_STEPS`` steps, behind
+    ``DvfsSession(chip="h100", tau=0.0)``'s train executor planned for the
+    executed shape, with ``NvmlStepMeter`` as its energy meter.  The window
+    is steps 1..N-1 (step 0 holds the state's init); it must last at least
+    ``DVFS_WINDOW_S``.  Gates: finite losses, every phase in the
+    executor's summary, its books through the saved JSON into a fresh
+    executor give the same summary.  Logs measured joules and seconds a
+    step against the executor's modeled ones."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data import DataPipeline
+    from repro_torch.dvfs import DvfsSession
+    from repro_torch.models import build_model
+    from repro_torch.train import OptimizerConfig, make_train_step
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    cfg = get_config("llama3.2-1b")
+    shape = ShapeConfig(name="chip_smoke_train", seq_len=TRAIN_SEQ,
+                        global_batch=TRAIN_BATCH, kind="train")
+    model = build_model(cfg, device="cuda")
+    ckpt = BooksOnlyCheckpoints()
+    with DvfsSession(chip="h100", tau=0.0) as sess:
+        sess.plan_train(cfg, shape=shape)
+        meter = NvmlStepMeter(nvml)
+        trainer = Trainer(
+            model, make_train_step(model, OptimizerConfig(lr=3e-4,
+                                                          warmup_steps=2),
+                                   accum_steps=TRAIN_ACCUM, remat=True),
+            DataPipeline(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0),
+            ckpt, TrainerConfig(total_steps=DVFS_TRAIN_STEPS,
+                                ckpt_every=DVFS_TRAIN_STEPS),
+            energy_meter=meter, executor=sess.train_executor())
+        out = trainer.run()
+        fresh = sess.train_executor()
+        fresh.load_state_dict(ckpt.extra[DVFS_TRAIN_STEPS]["dvfs_exec"])
+    hist = trainer.history
+    summary = out["dvfs"]
+    if not all(math.isfinite(h["loss"]) for h in hist) \
+            or set(summary["phases"]) != {"fwd", "bwd", "opt"} \
+            or fresh.summary() != summary:
+        raise AssertionError(f"dvfs train: losses {[h['loss'] for h in hist]}"
+                             f", phases {sorted(summary['phases'])}, or the "
+                             f"books did not survive their JSON round trip")
+    window = meter.records[1:]
+    joules = sum(r.energy_j for r in window)
+    wall = sum(r.time_s for r in window)
+    if wall < DVFS_WINDOW_S:
+        raise AssertionError(f"dvfs train: window {wall:.3f} s is shorter "
+                             f"than {DVFS_WINDOW_S} s")
+    n = len(window)
+    plan_t = sum(h["dvfs_time_s"] for h in hist[1:]) / n
+    plan_e = sum(h["dvfs_energy_j"] for h in hist[1:]) / n
+    # the auto baseline of the same steps (the per-step plan numbers leave
+    # out the phase-boundary switches, which the summary books)
+    base_t = summary["totals"]["base_time_s"] / DVFS_TRAIN_STEPS
+    base_e = summary["totals"]["base_energy_j"] / DVFS_TRAIN_STEPS
+    tag = "dvfs train"
+    log(f"[{tag}] {cfg.name} full width, {DVFS_TRAIN_STEPS} steps of "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens; losses {hist[0]['loss']:.4f} "
+        f"-> {hist[-1]['loss']:.4f}; window steps 1..{DVFS_TRAIN_STEPS - 1}")
+    _window_line(tag, joules, wall, idle_w, [r.clocks for r in window])
+    per = [round(r.energy_j, 1) for r in window]
+    log(f"[{tag}] measured a step: {joules / n:.2f} J "
+        f"({(joules - idle_w * wall) / n:.2f} net of idle) in "
+        f"{wall / n:.4f} s (per-step J {per})")
+    log(f"[{tag}] modeled a step (h100_like): the plan {plan_e:.3f} J in "
+        f"{plan_t:.4f} s, auto {base_e:.3f} J in {base_t:.4f} s; measured / "
+        f"modeled: energy {joules / n / plan_e:.3f} (plan), "
+        f"{joules / n / base_e:.3f} (auto); time {wall / n / plan_t:.3f} "
+        f"(plan), {wall / n / base_t:.3f} (auto)")
+    del trainer, model
+    release()
+    return {"joules": joules, "wall_s": wall, "steps": n,
+            "plan": (plan_t, plan_e), "auto": (base_t, base_e)}
+
+
+def dvfs_train_launcher():
+    """``launch.train.main`` on the card with ``--smoke`` (the reduced
+    config at its kernels' widths), 2 steps, checkpoints in a temporary
+    directory under ``build/``, removed after."""
+    from repro_torch.launch import train
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as ckpt_dir:
+        out = train.main(["--arch", "llama3.2-1b", "--smoke", "--steps", "2",
+                          "--ckpt-dir", ckpt_dir])
+    done = out["done"]
+    if done["final_step"] != 2 or not math.isfinite(done["final_loss"]) \
+            or set(done["dvfs"]["phases"]) != {"fwd", "bwd", "opt"}:
+        raise AssertionError(f"train launcher: {done}")
+    log(f"[dvfs] train launcher: 2 steps on the card, final loss "
+        f"{done['final_loss']:.4f}, executed {done['dvfs']['totals']}")
+
+
+def phase_dvfs(cfg, model, params):
+    """The DVFS stack on the card, reading NVML: the grid and idle check,
+    the serve launcher at full width, the serve and training windows, the
+    train launcher.  ``model`` is the serve phase's llama3.2-1b."""
+    nvml = Nvml()
+    try:
+        idle_w = dvfs_grid_check(nvml)
+        dvfs_serve_launcher()
+        release()
+        serve = dvfs_serve_window(nvml, cfg, model, params, idle_w)
+        train = dvfs_train_window(nvml, idle_w)
+        dvfs_train_launcher()
+    finally:
+        nvml.close()
+    return {"idle_w": idle_w, "serve": serve, "train": train}
+
+
 def main() -> int:
     smi = phase_device()
     t0 = time.perf_counter()
@@ -2496,6 +2952,7 @@ def main() -> int:
     timed("profile", lambda: [phase_profile(cfg, model, params, graphs=g)
                               for g in (True, False)])
     timed("consistency", phase_consistency, model, params)
+    timed("dvfs", phase_dvfs, cfg, model, params)
     del model, params
     release()
     cfg, model, params = build_mamba_model()

@@ -15,8 +15,9 @@ Two duck-typed hooks book each step, as in the reference:
   its state rides in the checkpoint's ``extra["dvfs_exec"]``, so a restart
   resumes its books.
 
-The loop imports nothing of a DVFS stack: the port's own arrives with the
-next serving slice, and any object with these methods plugs in.
+The loop imports nothing of a DVFS stack: the port's own
+(``repro_torch.dvfs``'s ``TrainGovernorExecutor``), or any object with
+these methods, plugs in.
 """
 from __future__ import annotations
 
