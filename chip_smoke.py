@@ -31,6 +31,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                  timed at both and at the decode shape (8, 2048) beside
                  ``F.rms_norm``, also as calls replayed from one CUDA graph
                  (``graph_ms``); a width it is not built for is refused.
+   group2      — paged decode at head_dim 64 with 2 query heads per KV head
+                 (granite-moe's attention, 16 heads over 8, and the card
+                 smoke config's, 4 over 2): bf16 and int8 pools replayed
+                 from a CUDA graph bitwise equal to eager, against the plain
+                 version with the paged checks below; timed at granite's
+                 shape on bf16 (row ``paged_decode[D64G2 bf16]``, its
+                 launches from the ``--smoke`` serve launcher); fp8 and f32
+                 checked and logged.  The build phase logs its ``ptxas``
+                 registers and spills; a spill in a serving pool fails.
    paged       — each pool (bf16, int8, fp8, f32) at the serving positions,
                  two calls bitwise equal; at split and page edges with a
                  slot parked at pos == max_seq, a window of 256 beginning
@@ -86,6 +95,22 @@ Phases, in order; any failure raises and the script exits non-zero:
                  off: wall and device ms a decode step, launches a step,
                  the device's idle share, the port's kernels' share.
 5. consistency — prefill + paged decode steps against a longer prefill.
+   serve_prefix — (after dvfs) llama3.2-1b with the radix prefix cache: 24
+                 requests on 4 shared templates of 128, 200, 256 and 333
+                 tokens (two end mid-page: copy-on-write tails) plus 16-128
+                 unique tokens, 32 new each; bf16 and int8 pages, the cache
+                 off and on, graphs on and off, and a small pool whose
+                 admissions evict.  Greedy tokens on equal off (a request
+                 that parts is held spliced against cold within 2e-2 of
+                 max |logit|, argmax equal before it, and logged), hits,
+                 copy-on-write copies, evictions, exact launches, a drained
+                 pool after the tree's flush; hit rates, peak distinct
+                 pages and tokens/s on against off logged.
+   wave        — ``WaveEngine`` against the continuous engine (dense
+                 cache, graphs on) over the serve phase's 16 requests:
+                 tokens/s of both and their ratio, the wave's exact
+                 launches, finite logits; equal greedy tokens on 8 prompts
+                 of 128 tokens, where left-padding is a no-op.
    serve_ssm   — mamba2-370m at full width and depth (random weights from a
                  seeded generator) serves the same 16 requests with a dense
                  and with a paged ``BatchState``, graphs on and off:
@@ -149,7 +174,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                  slots, 16 requests): finite plan rows and executed totals, one
                  prefill hook a request and one decode hook a step,
                  ``check_executor`` clean, exact launches of paged decode, the
-                 prefill and RMSNorm; the serve phase's 16 requests behind a
+                 prefill and RMSNorm; the same with ``--smoke`` (the reduced
+                 config at the kernels' widths, paged decode at a query
+                 group of 2); the serve phase's 16 requests behind a
                  ``DvfsSession(chip="h100")`` executor, repeated for at least 5
                  s after a capturing run, against the energy counter (joules a
                  token and mean watts, gross and net of idle, the SM and memory
@@ -424,6 +451,14 @@ HYBRID_INSTANTIATIONS = (
     ("_Z21flash_bwd_prep_kernelILi224E", False),
     ("_Z24flash_bwd_dq_wide_kernelILi224E", True),
     ("_Z25flash_bwd_dkv_wide_kernelILi224E", True))
+# paged decode at head_dim 64 with 2 query heads per KV head (the card
+# smoke config's and granite-moe's attention): the instantiations of the
+# serving pools (bf16, int8) and the combine pass may not spill; the f32
+# and fp8 ones, off the serving path, are logged
+GROUP2_INSTANTIATIONS = ("_Z19paged_decode_kernelI13__nv_bfloat16Li64ELi2E",
+                         "_Z19paged_decode_kernelIaLi64ELi2E",
+                         "_Z27paged_decode_combine_kernelI13__nv_bfloat16"
+                         "Li64ELi2E")
 
 
 def sass_mma_counts(path: str) -> dict:
@@ -498,6 +533,18 @@ def phase_build() -> None:
         if products and hmma == 0:
             raise AssertionError(f"{prefix}: no tensor-core instruction in "
                                  f"its SASS")
+    for fn in sorted(f for f in res if "paged_decode" in f
+                     and "Li64ELi2E" in f):
+        regs, st, ld = res[fn]
+        log(f"[build] paged_decode D64 G2 {fn[:64]}: {regs} registers, "
+            f"spill stores {st} bytes, spill loads {ld} bytes")
+    for prefix in GROUP2_INSTANTIATIONS:
+        fns = [fn for fn in res if fn.startswith(prefix)]
+        if not fns:
+            raise AssertionError(f"{prefix}: not in the build")
+        if res[fns[0]][1] or res[fns[0]][2]:
+            raise AssertionError(f"{prefix}: spills {res[fns[0]][1:]} "
+                                 f"bytes (stores, loads)")
 
 
 # ---------------------------------------------------------------------------
@@ -1055,15 +1102,13 @@ def _paged_compare(label, case, window=0, softcap=0.0):
     return got, float(err.max())
 
 
-def check_paged(gen, pool_dtype, label, attn=None, L=16):
-    """The paged decode kernel on one pool type: at the serving positions,
-    twice (bitwise equal); at split and page edges, a parked slot
-    (pos == max_seq), a window of 256 that begins inside a split, softcap
-    50 and a single slot; then timed at the serving positions (its JSON
-    row) and, for the serving pools, at the profile run's short contexts
-    (logged).  ``attn`` (heads, KV heads, head_dim; ``HYBRID_ATTN``)
-    replaces llama3.2-1b's, and ``L`` layers of pools cycle in the
-    timing."""
+def paged_agreement(gen, pool_dtype, label, attn=None, L=16):
+    """The paged decode kernel against its plain version on one pool type:
+    at the serving positions, twice (bitwise equal); at split and page
+    edges, a parked slot (pos == max_seq), a window of 256 that begins
+    inside a split, softcap 50 and a single slot.  ``attn`` (heads, KV
+    heads, head_dim; ``HYBRID_ATTN``) replaces llama3.2-1b's; the serving
+    case holds ``L`` layers of pools.  Returns (case, max_abs_err)."""
     from repro_torch.kernels.flash_attention import paged_flash_decode
     from repro_torch.kernels.flash_attention.paged import split_plan
     attn = attn or {}
@@ -1086,6 +1131,16 @@ def check_paged(gen, pool_dtype, label, attn=None, L=16):
                        f"{n_split} splits)",
                        _paged_case(gen, pool_dtype, positions, L=1, **attn),
                        window, softcap)
+    return case, err
+
+
+def check_paged(gen, pool_dtype, label, attn=None, L=16):
+    """``paged_agreement``, then the kernel timed at the serving positions
+    (its JSON row) and, for the serving pools, at the profile run's short
+    contexts (logged); ``L`` layers of pools cycle in the timing."""
+    attn = attn or {}
+    case, err = paged_agreement(gen, pool_dtype, label, attn, L)
+    q, kp, _, tables, pos, _, _ = case
     B, _, H, D = q.shape
     t = paged_timings(case, plain=True)
     nbytes = _paged_work(case)[0]
@@ -1397,6 +1452,50 @@ def check_graph_replays(gen):
                                  f"differs from an eager call")
 
 
+#: paged decode at head_dim 64 with 2 query heads per KV head: granite-moe's
+#: attention (16 heads, 8 KV heads) and the card smoke config's (4, 2)
+GROUP2_ATTN = {"granite": dict(H=16, KV=8, D=64),
+               "smoke": dict(H=4, KV=2, D=64)}
+
+
+def check_group2_kernels(gen):
+    """The paged decode kernel's (D 64, G 2) instantiation: at both
+    ``GROUP2_ATTN`` shapes on bf16 and int8 pools, replayed from a CUDA
+    graph bitwise equal to eager and ``paged_agreement``'s checks (the
+    serving positions twice, bitwise equal; the edges, a window, softcap,
+    one slot); timed at granite's shape on bf16 (its JSON row,
+    ``paged_decode[D64G2 bf16]``); the fp8 and f32 pools checked and
+    logged.  Returns the row."""
+    from repro_torch.kernels.flash_attention import paged_flash_decode
+    for shape, attn in GROUP2_ATTN.items():
+        for dtype, label in ((torch.bfloat16, "bf16"), (torch.int8, "int8")):
+            q, kp, vp, tables, pos, ks, vs = _paged_case(gen, dtype, L=1,
+                                                         **attn)
+            kw = {} if ks is None else dict(k_scales=ks[0], v_scales=vs[0])
+            same = graph_equal(lambda: paged_flash_decode(
+                q, kp[0], vp[0], tables, pos, **kw))
+            log(f"[kernels] paged_decode {label} D64G2 {shape} pool "
+                f"replayed from a CUDA graph: bitwise equal to an eager "
+                f"call {same}")
+            if not same:
+                raise AssertionError(f"paged_decode ({label} D64G2 {shape}):"
+                                     f" a graph replay differs from an "
+                                     f"eager call")
+            if (shape, label) != ("granite", "bf16"):
+                paged_agreement(gen, dtype, f"D64G2 {label} {shape}", attn,
+                                L=1)
+    row = check_paged(gen, torch.bfloat16, "D64G2 bf16",
+                      GROUP2_ATTN["granite"])
+    row["model"] = ("granite-moe-1b-a400m's attention shape; launched by "
+                    "llama3.2-1b --smoke (card_smoke_config)")
+    for dtype, label in ((torch.float8_e4m3fn, "fp8"), (torch.float32, "f32")):
+        _, err = paged_agreement(gen, dtype, f"D64G2 {label}",
+                                 GROUP2_ATTN["granite"], L=1)
+        log(f"[kernels] paged_decode[D64G2 {label}] (not on the serving "
+            f"path): max_abs_err {err:.3e}")
+    return row
+
+
 # zamba2-7b's SSD scan: its serving bucket (B 8, S 512, H 112, G 2, N 64,
 # chunk 256), with an initial state, and the buckets 32 and 128
 HYBRID_SSD_CASES = (
@@ -1508,8 +1607,9 @@ def phase_kernels():
     check_graph_replays(gen)
     rows = [check_rmsnorm(gen), check_prefill(gen),
             check_paged(gen, torch.bfloat16, "bf16"),
-            check_paged(gen, torch.int8, "int8"), *check_flash_bwd(gen),
-            check_ssd(gen), *check_hybrid_kernels(gen)]
+            check_paged(gen, torch.int8, "int8"), check_group2_kernels(gen),
+            *check_flash_bwd(gen), check_ssd(gen),
+            *check_hybrid_kernels(gen)]
     # zamba2-7b's training attention: head_dim 224, one query head per KV
     # head; its forward with lse is checked and logged, its backward row
     # goes in the JSON
@@ -1540,23 +1640,29 @@ def _ms(t) -> str:
 
 class NanWatch:
     """Delegates to the model and ORs a device flag whenever prefill or
-    decode logits hold a NaN (no host sync on the hot path)."""
+    decode logits hold a NaN (``nan``), another for an infinity (``inf``);
+    no host sync on the hot path."""
 
     def __init__(self, model):
         self.model = model
         self.nan = torch.zeros((), dtype=torch.bool, device=model.device)
+        self.inf = torch.zeros((), dtype=torch.bool, device=model.device)
 
     def __getattr__(self, name):
         return getattr(self.model, name)
 
+    def _watch(self, logits):
+        self.nan |= torch.isnan(logits).any()
+        self.inf |= torch.isinf(logits).any()
+
     def prefill(self, *args, **kwargs):
         logits, cache = self.model.prefill(*args, **kwargs)
-        self.nan |= torch.isnan(logits).any()
+        self._watch(logits)
         return logits, cache
 
     def decode_step(self, *args, **kwargs):
         logits, cache = self.model.decode_step(*args, **kwargs)
-        self.nan |= torch.isnan(logits).any()
+        self._watch(logits)
         return logits, cache
 
 
@@ -1592,19 +1698,23 @@ def _n_buckets(prompts) -> int:
     return len({min(_bucket(len(p)), SERVE_MAX_SEQ) for p in prompts})
 
 
-def llama_launches(steps: int, calls: int, paged: bool = True) -> dict:
+def llama_launches(steps: int, calls: int, paged: bool = True,
+                   layers: int = 16) -> dict:
     """llama3.2-1b's exact launch counts: 33 RMSNorms a forward (two a
     layer and the final one), 16 prefill attentions a prefill call, 16
-    paged decodes a decode step with paged KV."""
-    return {"rmsnorm": 33 * (steps + calls), "flash_prefill": 16 * calls,
-            "flash_bwd": 0, "paged_decode": 16 * steps if paged else 0,
-            "ssd_scan": 0}
+    paged decodes a decode step with paged KV; ``layers`` for a config
+    cut in depth (2 in ``card_smoke_config``)."""
+    return {"rmsnorm": (2 * layers + 1) * (steps + calls),
+            "flash_prefill": layers * calls, "flash_bwd": 0,
+            "paged_decode": layers * steps if paged else 0, "ssd_scan": 0}
 
 
-def serve_run(tag, model, params, prompts, new_tokens, graphs, want, **kw):
+def serve_run(tag, model, params, prompts, new_tokens, graphs, want,
+              inspect=None, **kw):
     """One ``ServeEngine`` (``cuda_graphs=graphs``, ``kw`` on top of the
     serving geometry) over ``prompts`` with ``new_tokens`` each, timed
-    after a warm-up and ``reset()``.  With graphs the warm-up is the same
+    after a warm-up and ``reset()``; ``inspect(engine)``, when given, adds
+    its dict to the result after the timed run.  With graphs the warm-up is the same
     workload, so that every variant is captured before the timed run;
     without, one short request.  Gates, each raising: the exact launch
     counts ``want(steps, prefill calls)`` of the timed run (and of the
@@ -1660,6 +1770,8 @@ def serve_run(tag, model, params, prompts, new_tokens, graphs, want, **kw):
         raise AssertionError(f"{tag} ({mode}): compile_stats {stats} over "
                              f"the bound ({limit} decode chunk variants, "
                              f"{_n_buckets(served)} buckets served)")
+    if inspect is not None:
+        out.update(inspect(eng))
     n_tok = sum(len(t) for t in out["tokens"])
     out.update(steps=eng.n_decode_steps, calls=eng.n_prefill_calls,
                tokens_per_s=n_tok / out["wall_s"], compile_stats=stats,
@@ -1897,6 +2009,251 @@ def phase_consistency(model, params, steps: int = 4):
     log(f"[consistency] ok: worst relative gap {worst:.4f} <= "
         f"{CONSISTENCY_TOL}")
     return worst
+
+
+# ---------------------------------------------------------------------------
+# 5a. the prefix cache and the wave baseline at full width
+# ---------------------------------------------------------------------------
+
+# serve_prefix: 24 requests of 4 shared "system prompt" templates (two
+# page-aligned, two ending mid-page, which exercises the copy-on-write
+# tail), each followed by 16-128 unique tokens, 32 new tokens each; the
+# small-pool run's pages, fewer than the 193 distinct pages the run holds at
+# its peak in the default pool (tree pages included; counted on the CPU at
+# smoke width, where the page accounting is the same), so that admissions
+# must evict tree pages
+PREFIX_TEMPLATES = (128, 200, 256, 333)
+PREFIX_REQUESTS, PREFIX_NEW_TOKENS = 24, 32
+PREFIX_SMALL_POOL = 161
+
+
+def prefix_workload(vocab: int):
+    """The serve_prefix prompts, request i on template i % 4: the first
+    admission round (8 slots) seeds the tree, later rounds find their
+    template in it."""
+    rng = np.random.default_rng(11)
+    temps = [rng.integers(0, vocab, n) for n in PREFIX_TEMPLATES]
+    return [np.concatenate([temps[i % len(temps)],
+                            rng.integers(0, vocab, int(rng.integers(16, 129)))
+                            ]).astype(np.int32)
+            for i in range(PREFIX_REQUESTS)]
+
+
+def prefix_stats(eng) -> dict:
+    """What a serve_prefix run reports of its engine after the timed run:
+    the cache's counters (None with it off), the pool's peak of distinct
+    pages in use; with the cache on, the tree is flushed and the pool must
+    then hold every page but the parking one."""
+    pool = eng.state.pool
+    out = {"cache": eng.prefix_cache_stats(),
+           "peak_pages": pool.stats()["peak_allocated_pages"]}
+    if eng.prefix_cache is not None:
+        eng.prefix_cache.flush(pool)
+        out["drained"] = pool.n_free == pool.n_pages - 1
+    return out
+
+
+def _parting(a, b):
+    """Index of the first token where two streams differ, or None."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def prefix_near_tie(tag, model, params, prompts, off, r, j, kv_dtype):
+    """Request ``r``'s greedy stream with the cache on parted from the
+    cache off at token ``j``: hold its spliced decode against a cold one.
+    A warm engine serves the first request of the same template, then both
+    it and a cache-less twin admit request ``r``; both decode fed the
+    cache-off tokens.  Gates: the logits within ``ATTN_TOL`` of max |logit|
+    at every step up to ``j``, the argmax equal before ``j``; logs the
+    top-2 gap of the cold logits at ``j``."""
+    from repro_torch.serve import Request, ServeEngine
+    if j == 0:                  # the prefill re-runs the prompt as cold
+        raise AssertionError(f"{tag} request {r}: the first token differs")
+    kw = dict(batch_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
+              page_size=SERVE_PAGE, paged=True, kv_dtype=kv_dtype,
+              cuda_graphs=False)
+    warm = ServeEngine(model, params, prefix_cache=True, **kw)
+    primer = r % len(PREFIX_TEMPLATES)
+    warm.generate([Request(uid=-1, prompt=prompts[primer], max_new_tokens=1)])
+    cold = ServeEngine(model, params, **kw)
+    rows = []
+    for eng in (warm, cold):
+        eng.submit([Request(uid=r, prompt=prompts[r],
+                            max_new_tokens=PREFIX_NEW_TOKENS)])
+        eng._admit()
+        slot = next(s for s, q in enumerate(eng.scheduler.slots)
+                    if q is not None and q.uid == r)
+        st = eng.state
+        tok, pos = st.tokens.clone(), st.pos.clone()
+        out = []
+        for k in range(j):                  # logits of tokens 1..j
+            tok[slot] = off[k]
+            logits, _ = model.decode_step(params, st.cache, tok, pos,
+                                          block_tables=st.tables_dev)
+            out.append(logits[slot, :model.cfg.vocab_size].float())
+            pos = pos + 1
+        rows.append(out)
+    hit = warm.prefix_cache_stats()
+    worst = 0.0
+    for k, (lw, lc) in enumerate(zip(*rows), start=1):
+        gap = float((lw - lc).abs().max()) / float(lc.abs().max())
+        worst = max(worst, gap)
+        if k < j and int(lw.argmax()) != int(lc.argmax()):
+            raise AssertionError(f"{tag} request {r}: spliced and cold "
+                                 f"argmax differ at token {k} < {j}")
+    top2 = torch.topk(rows[1][-1], 2).values
+    log(f"[{tag}] request {r} parts at token {j}: spliced against cold "
+        f"logits, worst relative gap {worst:.2e} (tol {ATTN_TOL}), argmax "
+        f"equal before it; cold top-2 gap there {float(top2[0] - top2[1]):.4e}"
+        f" (hit {hit['hit_tokens']} tokens, cow {hit['cow_copies']})")
+    if worst > ATTN_TOL:
+        raise AssertionError(f"{tag} request {r}: spliced logits {worst:.3e}"
+                             f" of max |logit| from the cold ones")
+    del warm, cold
+    release()
+
+
+def phase_serve_prefix(cfg, model, params):
+    """llama3.2-1b with the radix prefix cache over ``prefix_workload``,
+    bf16 and int8 pages: per page type the cache off (graphs on) and on
+    (graphs on and off), then bf16 with the cache on in a pool of
+    ``PREFIX_SMALL_POOL`` pages.  Gates: every run's exact launches (the
+    prompt is re-run whole, so the counts of the cache off), the greedy
+    tokens of every cache-on run equal the cache-off ones of its page
+    type (where a request parts, ``prefix_near_tie`` instead), hits and
+    hit tokens, at least one copy-on-write copy, at least one eviction in
+    the small pool, a drained pool after the tree's flush.  Logs the hit
+    rates, peak distinct pages and tokens/s on against off."""
+    prompts = prefix_workload(cfg.vocab_size)
+    log(f"[serve_prefix] {PREFIX_REQUESTS} requests on templates of "
+        f"{PREFIX_TEMPLATES} tokens, prompt lengths "
+        f"{[len(p) for p in prompts]}, {PREFIX_NEW_TOKENS} new tokens each")
+    runs, near = {}, []
+    for kv in (None, "int8"):
+        label = kv or "bf16"
+        for cache, graphs, n_pages in ((False, True, None), (True, True, None),
+                                       (True, False, None)) + \
+                (((True, True, PREFIX_SMALL_POOL),) if kv is None else ()):
+            what = f"{label} pages, cache {'on' if cache else 'off'}" + (
+                f", {n_pages} pages" if n_pages else "")
+            out = serve_run(f"serve_prefix {what}", model, params, prompts,
+                            PREFIX_NEW_TOKENS, graphs, llama_launches,
+                            inspect=prefix_stats, paged=True, kv_dtype=kv,
+                            prefix_cache=cache, n_pages=n_pages)
+            runs[label, cache, graphs, n_pages] = out
+            st = out["cache"]
+            if cache:
+                log(f"[serve_prefix] {what} ({'graphs on' if graphs else
+                    'graphs off'}): hit rate {st['hit_rate']:.3f} "
+                    f"({st['hits']} of {st['hits'] + st['misses']} lookups),"
+                    f" token hit rate {st['token_hit_rate']:.3f} "
+                    f"({st['hit_tokens']} of {st['lookup_tokens']}); "
+                    f"{st['cow_copies']} copy-on-write copies, "
+                    f"{st['evictions']} evictions; peak distinct pages "
+                    f"{out['peak_pages']}")
+                if not (st["hits"] > 0 and st["hit_tokens"] > 0
+                        and st["cow_copies"] >= 1 and out["drained"]) or (
+                        n_pages and st["evictions"] < 1):
+                    raise AssertionError(f"serve_prefix {what}: cache stats "
+                                         f"{st}, drained {out['drained']}")
+            off = runs[label, False, True, None]["tokens"]
+            for r, (a, b) in enumerate(zip(off, out["tokens"])):
+                j = _parting(a, b)
+                if j is not None:
+                    log(f"[serve_prefix] {what}: request {r} parts from the "
+                        f"cache off at token {j} of {len(a)}")
+                    near.append((label, r, j))
+                    prefix_near_tie("serve_prefix", model, params, prompts,
+                                    a, r, j, kv)
+        off = runs[label, False, True, None]
+        for graphs in (True, False):
+            on = runs[label, True, graphs, None]
+            log(f"[serve_prefix] {label} pages, graphs "
+                f"{'on' if graphs else 'off'}: cache on "
+                f"{on['tokens_per_s']:.1f} tokens/s against off (graphs on) "
+                f"{off['tokens_per_s']:.1f} "
+                f"({on['tokens_per_s'] / off['tokens_per_s']:.2f}x); peak "
+                f"distinct pages {on['peak_pages']} against "
+                f"{off['peak_pages']}")
+    log(f"[serve_prefix] greedy tokens with the cache on equal the cache "
+        f"off in every run" + ("" if not near else
+                               f", but for near ties at {near}"))
+    return {k: {"tokens_per_s": v["tokens_per_s"], "cache": v["cache"],
+                "peak_pages": v["peak_pages"], "launches": v["launches"]}
+            for k, v in runs.items()}
+
+
+def phase_wave(cfg, model, params):
+    """``WaveEngine`` (2 waves of 8, left-padded, dense decode in plain
+    PyTorch) against the continuous ``ServeEngine`` (dense cache, graphs
+    on) over the serve phase's 16 requests: tokens/s of both and their
+    ratio, the wave's exact launches (16 flash prefills a wave, 33
+    RMSNorms a forward, no paged decode), finite logits; and on 8 prompts
+    of equal length (left-padding a no-op) greedy tokens equal to the
+    continuous engine's."""
+    from repro_torch import kernels
+    from repro_torch.serve import Request, WaveEngine
+    rng = np.random.default_rng(0)                  # phase_serve's requests
+    plens = rng.integers(16, 513, SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in plens]
+    equal = [rng.integers(0, cfg.vocab_size, 128).astype(np.int32)
+             for _ in range(SERVE_SLOTS)]
+    watch = NanWatch(model)
+    wave = WaveEngine(watch, params, batch_slots=SERVE_SLOTS,
+                      max_seq=SERVE_MAX_SEQ)
+
+    def dense(steps, calls):
+        return llama_launches(steps, calls, paged=False)
+
+    def run(ps, new):
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=new)
+                for i, p in enumerate(ps)]
+        wave.reset()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        wave.generate(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = kernels.launch_counts()
+        waves = -(-len(ps) // SERVE_SLOTS)
+        want = dense(wave.n_decode_steps, waves)
+        if got != want or not all(r.done and len(r.generated) == new
+                                  for r in reqs):
+            raise AssertionError(f"wave: launches {got} != {want}, or a "
+                                 f"request unfinished")
+        return wall, got, [r.generated for r in reqs]
+
+    _, _, wave_equal = run(equal, 16)
+    cont_equal = serve_run("wave continuous, equal prompts", model, params,
+                           equal, 16, True, dense, paged=False)
+    for r, (a, b) in enumerate(zip(wave_equal, cont_equal["tokens"])):
+        j = _parting(a, b)
+        if j is not None:
+            raise AssertionError(f"wave: request {r} of equal-length "
+                                 f"prompts parts from the continuous "
+                                 f"engine at token {j}")
+    log(f"[wave] {SERVE_SLOTS} prompts of 128 tokens, 16 new each: wave and "
+        f"continuous greedy tokens identical")
+    wall, got, tokens = run(prompts, SERVE_NEW_TOKENS)
+    if bool(watch.nan) or bool(watch.inf):
+        raise AssertionError("wave: a logit not finite")
+    n_tok = sum(len(t) for t in tokens)
+    cont = serve_run("wave continuous", model, params, prompts,
+                     SERVE_NEW_TOKENS, True, dense, paged=False)
+    ratio = cont["tokens_per_s"] / (n_tok / wall)
+    log(f"[wave] {SERVE_REQUESTS} requests, {SERVE_NEW_TOKENS} new tokens "
+        f"each: wave {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} "
+        f"tokens/s ({wave.n_decode_steps} decode steps, launches {got}, "
+        f"exact) against continuous (dense cache, graphs on) "
+        f"{cont['tokens_per_s']:.1f} tokens/s ({cont['steps']} decode "
+        f"steps): continuous / wave {ratio:.2f}x")
+    del wave, watch
+    release()
+    return {"wave_tokens_per_s": n_tok / wall,
+            "continuous_tokens_per_s": cont["tokens_per_s"], "ratio": ratio,
+            "wave_launches": got}
 
 
 # ---------------------------------------------------------------------------
@@ -2666,33 +3023,40 @@ def _check_hooks(tag, ex, requests, decode_steps):
                              f"{problems}, non-finite {bad}")
 
 
-def dvfs_serve_launcher():
-    """``launch.serve.main`` at full width on the card (llama3.2-1b, the
-    h100 chip model, 8 slots): finite plan rows and executed totals, the
+def dvfs_serve_launcher(smoke: bool = False):
+    """``launch.serve.main`` on the card (llama3.2-1b, the h100 chip model,
+    8 slots) at full width, or with ``--smoke`` (``card_smoke_config``: 2
+    layers, 4 query heads and 2 KV heads at head_dim 64, so paged decode
+    at a query group of 2): finite plan rows and executed totals, the
     executor's hooks against the engine's calls, and the exact launches of
-    the three serving kernels (counted through graph replays)."""
+    the three serving kernels (counted through graph replays).  Returns
+    the launch counts."""
     from repro_torch import kernels
     from repro_torch.launch import serve
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     out = serve.main(["--arch", "llama3.2-1b", "--chip", "h100", "--slots",
                       str(SERVE_SLOTS), "--requests", "16",
-                      "--max-new-tokens", "16"])
+                      "--max-new-tokens", "16"]
+                     + (["--smoke"] if smoke else []))
     torch.cuda.synchronize()
     got = kernels.launch_counts()
-    want = llama_launches(out["n_decode_steps"], out["n_prefill_calls"])
+    want = llama_launches(out["n_decode_steps"], out["n_prefill_calls"],
+                          layers=2 if smoke else 16)
     rows = [v for r in out["plan"].values() for v in r.values()
             if isinstance(v, float)]
     if got != want or not all(math.isfinite(v) for v in rows) or not all(
             math.isfinite(v) for v in out["executed"].values()):
-        raise AssertionError(f"serve launcher: launches {got} != {want}, or "
-                             f"a plan row or the executed totals not finite")
-    _check_hooks("serve launcher", out["executor"], out["requests"],
-                 out["n_decode_steps"])
-    log(f"[dvfs] serve launcher: {out['requests']} requests, "
-        f"{out['tokens']} tokens in {out['seconds']:.2f} s; "
+        raise AssertionError(f"serve launcher{' --smoke' * smoke}: "
+                             f"launches {got} != {want}, or a plan row or "
+                             f"the executed totals not finite")
+    _check_hooks(f"serve launcher{' --smoke' * smoke}", out["executor"],
+                 out["requests"], out["n_decode_steps"])
+    log(f"[dvfs] serve launcher{' --smoke' * smoke}: {out['requests']} "
+        f"requests, {out['tokens']} tokens in {out['seconds']:.2f} s; "
         f"{out['n_prefill_calls']} prefill calls, {out['n_decode_steps']} "
         f"decode steps = the executor's hooks; launches {got} (exact)")
+    return got
 
 
 def _window_line(tag, joules, wall, idle_w, clocks):
@@ -2919,19 +3283,22 @@ def dvfs_train_launcher():
 
 def phase_dvfs(cfg, model, params):
     """The DVFS stack on the card, reading NVML: the grid and idle check,
-    the serve launcher at full width, the serve and training windows, the
-    train launcher.  ``model`` is the serve phase's llama3.2-1b."""
+    the serve launcher at full width and with ``--smoke``, the serve and
+    training windows, the train launcher.  ``model`` is the serve phase's llama3.2-1b."""
     nvml = Nvml()
     try:
         idle_w = dvfs_grid_check(nvml)
         dvfs_serve_launcher()
+        release()
+        smoke_launches = dvfs_serve_launcher(smoke=True)
         release()
         serve = dvfs_serve_window(nvml, cfg, model, params, idle_w)
         train = dvfs_train_window(nvml, idle_w)
         dvfs_train_launcher()
     finally:
         nvml.close()
-    return {"idle_w": idle_w, "serve": serve, "train": train}
+    return {"idle_w": idle_w, "serve": serve, "train": train,
+            "smoke_launches": smoke_launches}
 
 
 def main() -> int:
@@ -2952,7 +3319,9 @@ def main() -> int:
     timed("profile", lambda: [phase_profile(cfg, model, params, graphs=g)
                               for g in (True, False)])
     timed("consistency", phase_consistency, model, params)
-    timed("dvfs", phase_dvfs, cfg, model, params)
+    dvfs = timed("dvfs", phase_dvfs, cfg, model, params)
+    timed("serve_prefix", phase_serve_prefix, cfg, model, params)
+    timed("wave", phase_wave, cfg, model, params)
     del model, params
     release()
     cfg, model, params = build_mamba_model()
@@ -2981,7 +3350,12 @@ def main() -> int:
     for row in rows:
         name, _, tag = row["name"].partition("[")
         tag = tag.rstrip("]")
-        if row["name"] == "flash_bwd[D224]":
+        if row["name"] == "paged_decode[D64G2 bf16]":
+            row["launches"] = dvfs["smoke_launches"][name]
+            row["launches_of"] = ("the serve launcher with --smoke "
+                                  "(card_smoke_config: 2 layers, 4 heads, "
+                                  "2 KV heads), bf16 pages, CUDA graphs")
+        elif row["name"] == "flash_bwd[D224]":
             row["launches"] = train_hybrid[name]
             row["launches_of"] = (f"one zamba2-7b training run at "
                                   f"{HYBRID_TRAIN_LAYERS} layers, "

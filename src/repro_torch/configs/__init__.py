@@ -29,9 +29,13 @@ def get_config(arch: str) -> ModelConfig:
 def card_smoke_config(cfg: ModelConfig) -> ModelConfig:
     """``smoke_config(cfg)`` at the smallest widths the port's CUDA kernels
     are built for, the reduced config of a smoke run on the card: d_model
-    256 (RMSNorm's narrowest row), head_dim 64 (the flash and paged decode
-    kernels' width for any group), d_ff 1024.  The dense family only: the
-    SSD scan is built for the served models' state and head widths."""
+    256 (RMSNorm's narrowest row), head_dim 64, d_ff 1024.  The smoke
+    config's heads stay (4 query heads, 2 KV heads: a group of 2), which
+    the flash prefill kernel takes at head_dim 64 for any group and the
+    paged decode kernel is built for
+    (``kernels.flash_attention.paged.KERNEL_CASES``).  The dense
+    family only: the SSD scan is built for the served models' state and
+    head widths."""
     if cfg.family != "dense":
         raise NotImplementedError(
             f"{cfg.name}: no reduced config runs the card's kernels for "

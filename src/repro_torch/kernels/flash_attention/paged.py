@@ -21,14 +21,17 @@ NEG_INF = -1e30
 #: down to whole pages, at least one page); 128 was the fastest of 64, 128
 #: and 256 on an H100 (``tools/torch_kernel_ab.py --keys-per-split``)
 KEYS_PER_SPLIT = 128
-#: what the kernel is built for: head_dim and query heads per KV head of
-#: llama3.2-1b (every pool type below) ...
-KERNEL_HEAD_DIM, KERNEL_GROUP = 64, 4
-#: ... and of zamba2-7b's shared attention block (bf16 and int8 pools)
-WIDE_HEAD_DIM, WIDE_GROUP = 224, 1
-
 _POOL_DTYPES = (torch.float32, torch.bfloat16, torch.int8,
                 torch.float8_e4m3fn)
+#: what the kernel is built for, as (head_dim, query heads per KV head,
+#: pool dtypes): llama3.2-1b's attention; the reduced config of a smoke run
+#: on the card (``configs.card_smoke_config``), which granite-moe's
+#: attention shares; zamba2-7b's shared attention block
+KERNEL_CASES = ((64, 4, _POOL_DTYPES), (64, 2, _POOL_DTYPES),
+                (224, 1, (torch.bfloat16, torch.int8)))
+
+_POOL_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16",
+               torch.int8: "int8", torch.float8_e4m3fn: "fp8"}
 
 
 def gather_pages(pages, block_tables, scales=None) -> torch.Tensor:
@@ -131,17 +134,17 @@ def launch_split(q, k_pages, v_pages, block_tables, pos, window, softcap,
             (k_scales is None) != (v_scales is None):
         raise ValueError("paged_flash_decode: int8/fp8 pools need k_scales "
                          "and v_scales, other pools take none")
-    if (D, H) not in ((KERNEL_HEAD_DIM, KERNEL_GROUP * KV),
-                      (WIDE_HEAD_DIM, WIDE_GROUP * KV)):
-        raise ValueError(f"paged_flash_decode kernel is built for head_dim "
-                         f"{KERNEL_HEAD_DIM} with {KERNEL_GROUP} query heads "
-                         f"per KV head and head_dim {WIDE_HEAD_DIM} with "
-                         f"{WIDE_GROUP}, got D={D}, H={H}, KV={KV}")
-    if D == WIDE_HEAD_DIM and k_pages.dtype not in (torch.bfloat16,
-                                                    torch.int8):
-        raise TypeError(f"paged_flash_decode kernel at head_dim "
-                        f"{WIDE_HEAD_DIM} is built for bf16 and int8 pools, "
-                        f"got {k_pages.dtype}")
+    pools = [dt for d, g, dt in KERNEL_CASES if (d, g * KV) == (D, H)]
+    if not pools:
+        raise ValueError(f"paged_flash_decode kernel is built for "
+                         f"(head_dim, query heads per KV head) in "
+                         f"{[(d, g) for d, g, _ in KERNEL_CASES]}, got "
+                         f"D={D}, H={H}, KV={KV}")
+    if k_pages.dtype not in pools[0]:
+        raise TypeError(f"paged_flash_decode kernel at head_dim {D} with "
+                        f"{H // KV} query heads per KV head is built for "
+                        f"{' and '.join(_POOL_NAMES[t] for t in pools[0])} "
+                        f"pools, got {k_pages.dtype}")
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
         raise ValueError("paged_flash_decode: page pools must be contiguous")
     q = q.contiguous()

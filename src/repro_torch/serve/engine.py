@@ -31,6 +31,15 @@ On a CPU model the memo entries hold the same bodies, run eagerly;
 ``cuda_graphs=False`` runs them eagerly on the card too, the counterpart
 of running the reference under ``jax.disable_jit()``.
 
+With ``prefix_cache=True`` (paged only) a
+:class:`~repro_torch.cache.RadixCache` indexes finished prefills by their
+prompt tokens at page granularity: admission splices cached prefix pages
+read-only into the slot's block table (a partly matching tail page is
+copied on write, in place), the bucket's prefill still runs the whole
+prompt but its writes to the shared pages are skipped, and every fully
+valid prompt page is adopted into the tree after the prefill, as in the
+reference.
+
 An ``executor`` gets the reference's five-method hook at the same points:
 ``on_prefill()`` per admitted request, ``on_decode(n_active)`` per decode
 step, ``finish()``, ``reset()`` and ``summary()``, so a DVFS governor
@@ -45,11 +54,13 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..cache import RadixCache, extras_namespace
 from ..models import common as cm
 from ..obs import NULL_TRACER
 from .batch_state import BatchState
 from .graphs import GraphedCall
-from .kv_pages import PagedBatchState, scale_key, write_prefill_pages
+from .kv_pages import (PagedBatchState, cow_copy_block, scale_key,
+                       write_prefill_pages)
 from .scheduler import Scheduler
 
 
@@ -123,10 +134,6 @@ class ServeEngine:
         if prefix_cache and not paged:
             raise ValueError("prefix_cache needs paged=True (sharing is "
                              "a block-table splice)")
-        if prefix_cache:
-            raise NotImplementedError("prefix_cache=True waits for the "
-                                      "prefix-cache slice (ROADMAP.md "
-                                      "queue 1, item 5)")
         self.model = model
         self.params = params
         self.device = model.device
@@ -146,7 +153,10 @@ class ServeEngine:
         self.page_size = page_size
         self.n_pages = n_pages
         self.kv_dtype = kv_dtype
-        self.prefix_cache = None
+        # radix prefix index over the page pool (see the module docstring)
+        self.prefix_cache: Optional[RadixCache] = \
+            RadixCache(page_size, seed=seed) if prefix_cache else None
+        self._slot_shared: Dict[int, int] = {}  # slot -> spliced full pages
         self.scheduler = Scheduler(batch_slots)
         self.state = self._new_state()
         self.n_decode_steps = 0           # decode steps executed
@@ -183,13 +193,18 @@ class ServeEngine:
         tensors are zeroed and the sampling generator re-seeded, so a
         seeded run repeats, and the captured graphs (which replay against
         those tensors and that generator) survive, as the reference's
-        compiled functions do."""
+        compiled functions do.  The prefix cache starts empty: the cleared
+        state's page pool is a new one, whose ids the old tree's nodes
+        would not own."""
         self.rng.manual_seed(self.seed)
         self.scheduler = Scheduler(self.slots)
         self.state.clear()
         self.n_decode_steps = 0
         self.n_prefill_calls = 0
         self._pending_first = []
+        if self.prefix_cache is not None:
+            self.prefix_cache = RadixCache(self.page_size, seed=self.seed)
+        self._slot_shared = {}
         if self.executor is not None:
             self.executor.reset()
 
@@ -319,18 +334,71 @@ class ServeEngine:
         return vals[0]
 
     # -- admission -------------------------------------------------------
+    def _cache_key(self, req: Request) -> Tuple[int, List[int]]:
+        """(namespace, token stream) identifying the request's cache
+        pages.  Extras would condition every K/V position and pick the
+        namespace, as in the reference; the ported families take none, so
+        every request is in namespace 0."""
+        return extras_namespace(req.extras), \
+            [int(t) for t in np.asarray(req.prompt, np.int64)]
+
+    def _prefix_match(self, req: Request, need: int):
+        """Cached pages spliceable into a ``need``-token reservation:
+        ``(full_pages, tail_hit)``, the tail (a partly matching page the
+        request overwrites past the match) taken only when the reservation
+        has a block left for its copy."""
+        if self.prefix_cache is None:
+            return [], None
+        ns, key = self._cache_key(req)
+        pages, _, tail = self.prefix_cache.match(key, ns=ns, tail=True)
+        if tail is not None and \
+                len(pages) + 1 > max(-(-need // self.page_size), 1):
+            tail = None
+        return pages, tail
+
     def _allocate_paged(self, slot: int, req: Request, need: int) -> bool:
-        """Reserve ``slot``'s pages for the whole request; False when the
-        pool cannot cover it yet (the caller defers the admission)."""
+        """Reserve ``slot``'s pages for the whole request, splicing any
+        cached prefix; on pool pressure, evict cold tree-only pages before
+        deferring.  A tail hit is copied on write here, since the
+        divergent write span is known at admission.  False when the pool
+        cannot cover the request yet (the caller defers the admission)."""
         pool = self.state.pool
-        if pool.allocate(slot, need):
-            return True
-        if not int(pool.n_blocks.sum()):  # no slot holds pages: the
-            # request can never fit, backpressure would deadlock
-            raise ValueError(
-                f"request {req.uid} needs {need} tokens; the page pool "
-                f"holds {pool.n_free * pool.page_size} usable")
-        return False
+        shared, tail = self._prefix_match(req, need)
+        splice = list(shared) + ([tail[0]] if tail is not None else [])
+        need_pages = max(-(-need // self.page_size), 1)
+        fresh = need_pages - len(splice)
+        extra = 0 if tail is None else 1        # the copy's target page
+        if self.prefix_cache is not None and pool.n_free < fresh + extra:
+            # the matched pages are the tree's most recently used, but a
+            # pool under enough pressure would evict them too and the
+            # splice below would then raise (as the reference's does): they
+            # are held while the evictor runs
+            for p in splice:
+                pool.retain_page(p)
+            self.prefix_cache.evict(pool, fresh + extra - pool.n_free)
+            for p in splice:
+                pool.release_page(p)
+        if tail is not None and pool.n_free < fresh + 1:
+            # no page left for the copy: splice the full pages only (the
+            # prefill recomputes the tail anyway)
+            tail, splice = None, list(shared)
+        if not pool.allocate(slot, need, shared=splice):
+            if not int(pool.n_blocks.sum()):  # no slot holds pages: the
+                # request can never fit, backpressure would deadlock
+                raise ValueError(
+                    f"request {req.uid} needs {need} tokens; the page pool "
+                    f"holds {pool.n_free * pool.page_size} usable")
+            return False
+        self._slot_shared[slot] = len(shared)
+        if tail is not None:
+            cow_copy_block(self.state, slot, len(shared))
+        if self.tracer.enabled and (shared or tail is not None):
+            self.tracer.instant(
+                self.trace_track, "prefix-hit",
+                float(self.n_decode_steps), cat="cache",
+                args={"uid": req.uid, "shared_pages": len(shared),
+                      "cow_tail": tail is not None, "slot": slot})
+        return True
 
     def _admit(self) -> None:
         """Admit every admissible queued request, bucketed by prompt
@@ -403,6 +471,12 @@ class ServeEngine:
             for i, (slot, _) in enumerate(pairs):
                 nb = int(pool.n_blocks[slot])
                 tables_sub[i, :nb] = pool.tables[slot, :nb]
+                # spliced prefix pages are shared read-only: this row's
+                # prefill re-derives their K/V, so its writes there are
+                # skipped (ids >= n_pages); decode reads the real ids
+                # through the device block tables
+                tables_sub[i, :self._slot_shared.pop(slot, 0)] = \
+                    pool.n_pages
         if self.executor is not None:
             for _ in pairs:
                 self.executor.on_prefill()
@@ -414,6 +488,18 @@ class ServeEngine:
                     args={"uid": req.uid, "slot": slot, "bucket": bucket,
                           "prompt_len": len(req.prompt)})
         first = self._prefill(prompts, meta, tables_sub)
+        if self.prefix_cache is not None:
+            # adopt every fully valid prompt page (the decode span never
+            # enters the tree): shared head chunks are already nodes, fresh
+            # ones are retained
+            pool = self.state.pool
+            for slot, req in pairs:
+                ns, key = self._cache_key(req)
+                n_full = len(key) // self.page_size
+                if n_full:
+                    self.prefix_cache.insert(
+                        key, [int(p) for p in pool.tables[slot, :n_full]],
+                        pool, ns=ns)
         self._pending_first.append((self.n_decode_steps, list(pairs),
                                     first))
 
@@ -531,8 +617,15 @@ class ServeEngine:
         return None if self.executor is None else self.executor.summary()
 
     def prefix_cache_stats(self) -> Optional[Dict]:
-        """None: the prefix cache is not ported yet."""
-        return None
+        """Radix-tree hit and occupancy counters plus the pool's sharing
+        counters; None when the cache is off."""
+        if self.prefix_cache is None:
+            return None
+        ps = self.state.pool.stats()
+        return {**self.prefix_cache.stats(),
+                "shared_pages": ps["shared_pages"],
+                "cow_copies": ps["cow_copies"],
+                "evictions": ps["evictions"]}
 
 
 class BucketPrefill:

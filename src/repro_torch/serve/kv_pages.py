@@ -16,6 +16,8 @@ fixed-size pages plus a per-slot *block table* replaces the dense per-slot
   accounting only, as in the reference.
 * :func:`write_prefill_pages` — scatter a freshly prefilled sub-cache into
   the pages of each admitted slot's table row, in place.
+* :func:`cow_copy_block` — resolve a copy-on-write of a slot's block (a
+  radix-cache tail hit) on the device, in place.
 
 Page 0 is the reserved **parking page**: it is never allocated, and every
 unallocated or freed block-table entry points at it.  The decode kernel
@@ -397,3 +399,28 @@ def write_prefill_pages(pool_leaf: torch.Tensor, sub_leaf: torch.Tensor,
                                     pool_leaf.dtype, qmax)
     scales[:, ids] = new_scale
     return pool_leaf, scales
+
+
+def cow_copy_block(state: PagedBatchState, slot: int, block: int) -> bool:
+    """Resolve a copy-on-write for ``slot``'s ``block`` on the device.
+
+    Host side the pool swaps the slot onto a fresh exclusive page; device
+    side the shared page's payload (and its per-(page, KV-head) scale row,
+    when the pool is quantized) is copied into the new page **in place**,
+    so the writer diverges privately while every other holder keeps
+    reading the original bytes.  The cache leaves keep their storage: the
+    engine's captured graphs replay against their addresses, so a rebound
+    leaf would leave them writing a dead pool.  Returns True when a copy
+    happened (False: the page was already exclusive and writes land in
+    place)."""
+    moved = state.pool.cow(slot, block)
+    if moved is None:
+        return False
+    old, new = moved
+    for k in state.paged_keys:
+        keys = (k, scale_key(k)) if state.quant is not None else (k,)
+        for key in keys:
+            leaf = state.cache[key]
+            leaf[:, new].copy_(leaf[:, old])
+    state.sync_tables()
+    return True

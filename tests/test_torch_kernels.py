@@ -273,8 +273,10 @@ def test_kernels_refuse_what_they_are_not_built_for(case):
     """Off the CPU, a dtype, width, head_dim or query group with no kernel
     instantiation raises before any launch (the kernels are built for the
     serving path's bf16: attention at head_dim 64, paged decode there
-    with 4 query heads per KV head, both at head_dim 224 with one, and
-    RMSNorm at d 256, 1024, 2048, 3584 and 7168)."""
+    with 4 or 2 query heads per KV head, both at head_dim 224 with one,
+    and RMSNorm at d 256, 1024, 2048, 3584 and 7168).  Group 2 at head_dim
+    64, built for the card smoke config, passes the case checks and stops
+    only at the device check; group 3 is refused."""
     kernels.reset_launch_counts()
     if case == "rmsnorm_f32":
         with pytest.raises(TypeError, match="bf16"):
@@ -286,10 +288,13 @@ def test_kernels_refuse_what_they_are_not_built_for(case):
             rmsnorm(_meta(4, 512), _meta(512, dtype=torch.float32))
     elif case == "paged_group_2":
         pages = _meta(3, 4, 2, 64)
-        with pytest.raises(ValueError, match="head_dim 64 with 4 query heads "
-                                             "per KV head and head_dim 224 "
-                                             "with 1"):
+        with pytest.raises(ValueError, match="expected a CUDA device"):
             paged_flash_decode(_meta(1, 1, 4, 64), pages, pages,
+                               _meta(1, 2, dtype=torch.int32),
+                               _meta(1, dtype=torch.int32))
+        with pytest.raises(ValueError, match=r"\[\(64, 4\), \(64, 2\), "
+                                             r"\(224, 1\)\], got D=64, H=6"):
+            paged_flash_decode(_meta(1, 1, 6, 64), pages, pages,
                                _meta(1, 2, dtype=torch.int32),
                                _meta(1, dtype=torch.int32))
     elif case == "prefill_f32":

@@ -93,3 +93,25 @@ def test_card_smoke_config_keeps_the_kernels_widths():
         == (ref.n_layers, ref.vocab_size, ref.n_kv_heads)
     with pytest.raises(NotImplementedError, match="full width"):
         card_smoke_config(get_config("mamba2-370m"))
+
+
+def test_card_smoke_configs_are_built_kernel_cases():
+    """Every dense arch's reduced config on the card runs only what the
+    kernels are built for: its (head_dim, query heads per KV head) is a
+    case of the paged decode kernel (with bf16 pools, which the serve
+    launcher serves from) and of the flash prefill kernel, and its d_model
+    a width of the RMSNorm kernel."""
+    from repro_torch.configs import REGISTRY, card_smoke_config
+    from repro_torch.kernels.flash_attention import paged, prefill
+    from repro_torch.kernels.rmsnorm import KERNEL_WIDTHS
+    dense = [c for c in REGISTRY.values() if c.family == "dense"]
+    assert dense
+    for full in dense:
+        cfg = card_smoke_config(full)
+        D, G = cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads
+        assert cfg.n_heads % cfg.n_kv_heads == 0
+        assert any((d, g) == (D, G) and torch.bfloat16 in pools
+                   for d, g, pools in paged.KERNEL_CASES), (full.name, D, G)
+        assert any(d == D and g in (0, G)
+                   for d, g in prefill.KERNEL_CASES), (full.name, D, G)
+        assert cfg.d_model in KERNEL_WIDTHS, full.name

@@ -24,13 +24,17 @@ import torch
 
 from repro.kernels.flash_attention import paged_attention_ref as jax_paged
 from repro_torch.kernels.flash_attention import paged_flash_decode
-from repro_torch.kernels.flash_attention.paged import (KERNEL_GROUP,
+from repro_torch.kernels.flash_attention.paged import (KERNEL_CASES,
                                                        KEYS_PER_SPLIT,
-                                                       NEG_INF, WIDE_GROUP,
-                                                       WIDE_HEAD_DIM,
+                                                       NEG_INF,
                                                        paged_attention_ref,
                                                        split_plan)
 from torch_parity import F32_TOL, np32
+
+# the kernel's instantiations: llama3.2-1b's group at head_dim 64, the
+# card smoke config's, and zamba2-7b's shared block at head_dim 224
+(_, KERNEL_GROUP, _), (_, SMOKE_GROUP, _), (WIDE_HEAD_DIM, WIDE_GROUP, _) = \
+    KERNEL_CASES
 
 TILE, WARPS = 64, 4          # keys per ring stage; warps per block
 WARP_KEYS = TILE // WARPS    # keys of a tile each warp takes
@@ -214,6 +218,31 @@ def test_split_recipe_matches_reference_at_head_dim_224(pool, kps, window,
                                torch.tensor(pos), window=window,
                                softcap=softcap, keys_per_split=kps, **tsc)
     assert got.shape == q.shape == (len(pos), 1, KV, WIDE_HEAD_DIM)
+    np.testing.assert_allclose(np32(got), np32(ref), **F32_TOL)
+    assert bool(empty[0, :, 1:].all()) and not bool(empty[0, :, 0].any())
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("kps", [16, 128])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (100, 50.0)])
+def test_split_recipe_matches_reference_at_group_2(pool, kps, window,
+                                                   softcap):
+    """The card smoke config's instantiation (and granite-moe's): head_dim
+    64 with 2 query heads per KV head, the same lanes a key as at group 4
+    with 2 query rows of partials, on every pool type it is built for."""
+    pos = _positions(kps)
+    q, (jk, jv, tk, tv), tables, ks, vs = _operands(
+        pool, pos, seed=kps + 2, group=SMOKE_GROUP)
+    jsc = {} if ks is None else {"k_scales": jnp.asarray(ks),
+                                 "v_scales": jnp.asarray(vs)}
+    tsc = {} if ks is None else {"k_scales": torch.tensor(ks),
+                                 "v_scales": torch.tensor(vs)}
+    ref = jax_paged(jnp.asarray(q), jk, jv, jnp.asarray(tables),
+                    jnp.asarray(pos), window=window, softcap=softcap, **jsc)
+    got, empty = recipe_decode(torch.tensor(q), tk, tv, torch.tensor(tables),
+                               torch.tensor(pos), window=window,
+                               softcap=softcap, keys_per_split=kps, **tsc)
+    assert got.shape == q.shape == (len(pos), 1, SMOKE_GROUP * KV, D)
     np.testing.assert_allclose(np32(got), np32(ref), **F32_TOL)
     assert bool(empty[0, :, 1:].all()) and not bool(empty[0, :, 0].any())
 

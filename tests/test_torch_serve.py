@@ -174,8 +174,12 @@ def test_temperature_run_repeats_after_reset():
 
 def test_engine_rejects_what_is_not_ported():
     _, _, _, tmodel, tparams = twin()
-    with pytest.raises(NotImplementedError, match="prefix-cache"):
-        TorchEngine(tmodel, tparams, paged=True, prefix_cache=True)
+    with pytest.raises(NotImplementedError, match="extras"):
+        TorchEngine(tmodel, tparams, paged=True, prefix_cache=True).generate(
+            [TorchRequest(uid=0, prompt=np.arange(8, dtype=np.int32),
+                          extras={"patch_embeds": np.zeros((1, 2, 4))})])
+    with pytest.raises(ValueError, match="paged=True"):
+        TorchEngine(tmodel, tparams, prefix_cache=True)
     with pytest.raises(ValueError):
         TorchEngine(tmodel, tparams, kv_dtype="int8")
     assert TorchEngine(tmodel, tparams).compile_stats["n_variants"] == 0
