@@ -10,9 +10,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                  logs ``ptxas``'s registers and spills, and counts the
                  HMMA/HGMMA instructions in the SASS (``cuobjdump``) of each
                  attention kernel and each SSD pass that runs a product:
-                 none there fails the run; then each of zamba2-7b's
-                 instantiations on its own line (registers, spills, HMMA),
-                 its training backward's at head_dim 224 too.
+                 none there fails the run; then each of zamba2-7b's and
+                 gpt3-xl's instantiations on its own line (registers,
+                 spills, HMMA), their training backwards' at head_dim 224
+                 and 128 too.
 3. kernels     — every kernel against its plain PyTorch version on the card,
                  in bf16, at the serving path's shapes; times the kernel, the
                  plain version and one PyTorch library call as a yardstick,
@@ -81,6 +82,18 @@ Phases, in order; any failure raises and the script exits non-zero:
                  from a graph bitwise equal to eager; the SSD scan at B 8,
                  S 512, H 112, G 2, N 64 with and without h0 and at the
                  buckets 32 and 128, replayed from a graph likewise.
+   gpt3        — gpt3-xl's instantiations (head_dim 128, one query head per
+                 KV head, 16 heads), each against its plain version and
+                 twice (bitwise equal), timed as the hybrid's are: the
+                 prefill over the buckets 32, 128 and 512 with ragged rows
+                 (row ``flash_prefill[D128]``), B 1 at S 77 and a window
+                 over rows with no valid key; the training forward with its
+                 log-sum-exp and the backward at gpt3-xl's micro-batch (B 8,
+                 S 1024; rows ``flash_prefill_lse[D128]``,
+                 ``flash_bwd[D128]``), and at S 200 and B 1 S 77; paged
+                 decode on bf16 and int8 pools with the paged edges, replayed
+                 from a graph bitwise equal to eager (rows
+                 ``paged_decode[D128G1 bf16]`` and ``[D128G1 int8]``).
 4. serve       — llama3.2-1b at full width (random weights from a seeded
                  generator) serves 16 requests through ``ServeEngine.generate``
                  with bf16 pages and with int8 pages, each with CUDA graphs
@@ -111,6 +124,27 @@ Phases, in order; any failure raises and the script exits non-zero:
                  tokens/s of both and their ratio, the wave's exact
                  launches, finite logits; equal greedy tokens on 8 prompts
                  of 128 tokens, where left-padding is a no-op.
+   serve_gpt3  — gpt3-xl (the paper's GPT-3 1.3B: 24 layers, d_model 2048,
+                 16 heads of 128, learned positions, LayerNorm, tanh GELU,
+                 vocab 50257) at full width and depth, random weights from
+                 a seeded generator, serves the serve phase's 16 requests
+                 with bf16 and int8 pages and a dense cache, graphs on and
+                 off: equal tokens on and off per cache type, exact launches
+                 (24 flash prefills a bucket call, 24 paged decodes a paged
+                 step, no RMSNorm), no NaN logit; tokens/s, peak memory,
+                 each capture's host ms; a profiled bf16-page run in both
+                 modes, its decode steps alone.
+   consistency_gpt3 — ``consistency`` on gpt3-xl with bf16 and int8 pages
+                 (each decode step adds ``wpe[pos]``).
+   train_gpt3  — gpt3-xl at full width and depth trains 4 steps at the
+                 paper's shape, 40 x 1024 tokens a step as 5 micro-batches
+                 of 8 (the train phase's settings and gates otherwise:
+                 exact launches, 5 x (24 + 24) flash forwards and 5 x 24
+                 backwards a step, no RMSNorm).
+   dvfs_gpt3   — ``Trainer`` on gpt3-xl at ``paper_gpt3xl`` behind the
+                 train executor planned for that shape, over an NVML energy
+                 window of at least 5 s; then ``launch.train.main --arch
+                 gpt3-xl --smoke``.
    serve_ssm   — mamba2-370m at full width and depth (random weights from a
                  seeded generator) serves the same 16 requests with a dense
                  and with a paged ``BatchState``, graphs on and off:
@@ -238,6 +272,14 @@ TRAIN_H, TRAIN_KV, TRAIN_D = 32, 8, 64
 # 80 GB; at 15, 1.74 B parameters, ~28 GB (~35 GB with a micro-batch's f32
 # gradients beside the accumulated ones)
 HYBRID_TRAIN_LAYERS = 15
+# gpt3-xl, the paper's GPT-3 1.3B: its attention's heads, KV heads and
+# head_dim (MHA: one query head per KV head); it trains at the paper's
+# shape (configs/shapes.py:PAPER_GPT3XL), 40 x 1024 tokens a step, as 5
+# micro-batches of 8, and its DVFS window runs this many Trainer steps
+# (step 0 outside the window; at more than a second a step the rest last
+# longer than DVFS_WINDOW_S)
+GPT3_ATTN = dict(H=16, KV=16, D=128)
+GPT3_BATCH, GPT3_ACCUM, GPT3_DVFS_STEPS = 40, 5, 6
 LSE_TOL = 1e-3         # forward log-sum-exp, absolute
 BWD_TOL = 2e-2         # dq, dk, dv, relative to each one's largest |value|
 ATTN_TOL = 2e-2        # bf16 attention, as tests/test_kernels.py uses
@@ -451,6 +493,16 @@ HYBRID_INSTANTIATIONS = (
     ("_Z21flash_bwd_prep_kernelILi224E", False),
     ("_Z24flash_bwd_dq_wide_kernelILi224E", True),
     ("_Z25flash_bwd_dkv_wide_kernelILi224E", True))
+# gpt3-xl's instantiations (head_dim 128, one query head per KV head), as
+# zamba2-7b's above
+GPT3_INSTANTIATIONS = (
+    ("_Z25flash_prefill_wide_kernelILi128E", True),
+    ("_Z19paged_decode_kernelI13__nv_bfloat16Li128ELi1E", False),
+    ("_Z19paged_decode_kernelIaLi128ELi1E", False),
+    ("_Z27paged_decode_combine_kernelI13__nv_bfloat16Li128ELi1E", False),
+    ("_Z21flash_bwd_prep_kernelILi128E", False),
+    ("_Z24flash_bwd_dq_wide_kernelILi128E", True),
+    ("_Z25flash_bwd_dkv_wide_kernelILi128E", True))
 # paged decode at head_dim 64 with 2 query heads per KV head (the card
 # smoke config's and granite-moe's attention): the instantiations of the
 # serving pools (bf16, int8) and the combine pass may not spill; the f32
@@ -518,21 +570,23 @@ def phase_build() -> None:
         if not found or n == 0:
             raise AssertionError(f"{name}: no tensor-core instruction in the "
                                  f"SASS of {info['path']}")
-    # the hybrid's instantiations: each built, its registers and spills,
-    # and HMMA in the SASS of those that run products
+    # the hybrid's and gpt3-xl's instantiations: each built, its registers
+    # and spills, and HMMA in the SASS of those that run products
     res = ptxas_resources(str(info["compiler_log"]))
-    for prefix, products in HYBRID_INSTANTIATIONS:
-        fns = [fn for fn in res if fn.startswith(prefix)]
-        if not fns:
-            raise AssertionError(f"{prefix}: not in the build")
-        regs, st, ld = res[fns[0]]
-        hmma = sum(n for fn, n in counts.items() if fn.startswith(prefix))
-        log(f"[build] zamba2-7b {prefix}: {regs} registers, spill stores "
-            f"{st} bytes, spill loads {ld} bytes; {hmma} HMMA/HGMMA "
-            f"instructions")
-        if products and hmma == 0:
-            raise AssertionError(f"{prefix}: no tensor-core instruction in "
-                                 f"its SASS")
+    for model, table in (("zamba2-7b", HYBRID_INSTANTIATIONS),
+                         ("gpt3-xl", GPT3_INSTANTIATIONS)):
+        for prefix, products in table:
+            fns = [fn for fn in res if fn.startswith(prefix)]
+            if not fns:
+                raise AssertionError(f"{prefix}: not in the build")
+            regs, st, ld = res[fns[0]]
+            hmma = sum(n for fn, n in counts.items() if fn.startswith(prefix))
+            log(f"[build] {model} {prefix}: {regs} registers, spill stores "
+                f"{st} bytes, spill loads {ld} bytes; {hmma} HMMA/HGMMA "
+                f"instructions")
+            if products and hmma == 0:
+                raise AssertionError(f"{prefix}: no tensor-core instruction "
+                                     f"in its SASS")
     for fn in sorted(f for f in res if "paged_decode" in f
                      and "Li64ELi2E" in f):
         regs, st, ld = res[fn]
@@ -852,10 +906,12 @@ def _check_bwd_edge(gen, B, S, H, KV, D=TRAIN_D):
 
 
 def check_flash_bwd(gen, H=TRAIN_H, KV=TRAIN_KV, D=TRAIN_D,
-                    edges=((2, 200, 32, 8), (2, 256, 8, 8)), tag=""):
+                    edges=((2, 200, 32, 8), (2, 256, 8, 8)), tag="",
+                    B=TRAIN_BATCH // TRAIN_ACCUM):
     """The training path's attention kernels at its shape (a micro-batch of
-    ``TRAIN_SEQ``; llama3.2-1b's heads by default, zamba2-7b's shared block
-    with ``HYBRID_ATTN``): the forward with its log-sum-exp and the flash
+    ``B`` rows of ``TRAIN_SEQ``; llama3.2-1b's heads by default, zamba2-7b's
+    shared block with ``HYBRID_ATTN``, gpt3-xl's with ``GPT3_ATTN``): the
+    forward with its log-sum-exp and the flash
     backward, each against its plain version on the same inputs, and timed
     (cold L2) beside SDPA's forward and its backward through
     ``torch.autograd.grad`` on a saved forward; then both again at the
@@ -865,7 +921,7 @@ def check_flash_bwd(gen, H=TRAIN_H, KV=TRAIN_KV, D=TRAIN_D,
                                                      flash_attention_bwd_ref,
                                                      flash_prefill,
                                                      flash_prefill_ref)
-    B, S = TRAIN_BATCH // TRAIN_ACCUM, TRAIN_SEQ
+    S = TRAIN_SEQ
     shape = f"B {B} S {S} H {H} KV {KV} D {D} causal bf16"
     io_bytes = 2 * B * S * (H + 2 * KV) * D          # q, k, v
     n = n_copies(io_bytes * 2 + 2 * 2 * B * S * H * D)
@@ -1601,6 +1657,75 @@ def check_hybrid_kernels(gen):
     return rows
 
 
+def _prefill_compare(gen, B, S, H, KV, D, valid_len):
+    """The prefill kernel with its log-sum-exp against its plain version at
+    one more serving shape (rows of ``valid_len`` valid keys), at
+    ``ATTN_TOL`` and ``LSE_TOL``; logged."""
+    from repro_torch.kernels.flash_attention import (flash_prefill,
+                                                     flash_prefill_ref)
+    q, k, v = (torch.randn(B, S, heads, D, generator=gen,
+                           device="cuda").bfloat16()
+               for heads in (H, KV, KV))
+    vl = torch.tensor(valid_len, dtype=torch.int32, device="cuda")
+    _check_fwd_lse(f"B {B} S {S} H {H} KV {KV} D {D}, valid_len "
+                   f"{valid_len}",
+                   *flash_prefill(q, k, v, vl, return_lse=True),
+                   *flash_prefill_ref(q, k, v, vl, return_lse=True))
+
+
+#: the kernel rows of gpt3-xl's instantiations: the run whose launches each
+#: reports (``phase_serve_gpt3``'s runs by page type, or its training run)
+GPT3_ROW_RUNS = {"flash_prefill[D128]": "bf16",
+                 "paged_decode[D128G1 bf16]": "bf16",
+                 "paged_decode[D128G1 int8]": "int8",
+                 "flash_prefill_lse[D128]": "train",
+                 "flash_bwd[D128]": "train"}
+
+
+def check_gpt3_kernels(gen):
+    """gpt3-xl's instantiations of the three attention kernels (head_dim
+    128, one query head per KV head, 16 heads), each against its plain
+    version and twice (bitwise equal), timed (``ms``, ``device_ms``, and
+    ``graph_ms`` on the serving path) beside its bound and library
+    yardstick: the prefill over the buckets 32, 128 and 512 with ragged
+    rows, one slot of an odd length (B 1, S 77, 45 valid keys) and a window
+    over rows with no valid key; the training forward with its
+    log-sum-exp and the flash backward at gpt3-xl's micro-batch (B 8,
+    S 1024), and both at S 200 and at B 1, S 77; paged decode on bf16 and
+    int8 pools with ``check_paged``'s edges (split and page edges, a parked
+    slot, a window, softcap, B 1), replayed from a CUDA graph bitwise equal
+    to eager.  Returns the JSON rows named in ``GPT3_ROW_RUNS``, each marked
+    with the model."""
+    from repro_torch.kernels.flash_attention import paged_flash_decode
+    H, KV, D = GPT3_ATTN["H"], GPT3_ATTN["KV"], GPT3_ATTN["D"]
+    for S in (32, 128, 512):
+        row = _prefill_row(gen, SERVE_SLOTS, S, H, KV, D,
+                           "flash_prefill[D128]", graph=True,
+                           backend=S == 512)
+    rows = [row]                       # the longest bucket
+    _prefill_compare(gen, 1, 77, H, KV, D, [45])
+    check_prefill_padded_window(gen, H, KV, D)
+    rows += check_flash_bwd(gen, **GPT3_ATTN,
+                            edges=((2, 200, H, KV), (1, 77, H, KV)),
+                            tag="[D128]", B=GPT3_BATCH // GPT3_ACCUM)
+    for dtype, label in ((torch.bfloat16, "bf16"), (torch.int8, "int8")):
+        q, kp, vp, tables, pos, ks, vs = _paged_case(gen, dtype, L=1,
+                                                     **GPT3_ATTN)
+        kw = {} if ks is None else dict(k_scales=ks[0], v_scales=vs[0])
+        same = graph_equal(lambda: paged_flash_decode(q, kp[0], vp[0], tables,
+                                                      pos, **kw))
+        log(f"[kernels] paged_decode {label} D128G1 pool replayed from a CUDA "
+            f"graph: bitwise equal to an eager call {same}")
+        if not same:
+            raise AssertionError(f"paged_decode ({label} D128G1): a graph "
+                                 f"replay differs from an eager call")
+        rows.append(check_paged(gen, dtype, f"D128G1 {label}", GPT3_ATTN,
+                                L=4))
+    for r in rows:
+        r["model"] = "gpt3-xl"
+    return rows
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
@@ -1616,6 +1741,7 @@ def phase_kernels():
     rows.append(check_flash_bwd(gen, **HYBRID_ATTN,
                                 edges=((2, 200, 32, 32),), tag="[D224]")[1])
     rows[-1]["model"] = "zamba2-7b"
+    rows += check_gpt3_kernels(gen)
     # pools the serving path does not use: checked, logged, not in the JSON
     for dtype, label in ((torch.float8_e4m3fn, "fp8"), (torch.float32, "f32")):
         r = check_paged(gen, dtype, label)
@@ -1666,10 +1792,12 @@ class NanWatch:
         return logits, cache
 
 
-def build_full_model():
+def build_full_model(arch: str = "llama3.2-1b"):
+    """A dense arch at full width and depth with random weights from a
+    seeded generator, in the compute dtype (serving)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
-    cfg = get_config("llama3.2-1b")
+    cfg = get_config(arch)
     model = build_model(cfg, device="cuda")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -1677,10 +1805,13 @@ def build_full_model():
     params = model.init(gen)
     torch.cuda.synchronize()
     n = sum(t.numel() for t in _leaves(params))
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     log(f"[serve] {cfg.name}: L={cfg.n_layers} d={cfg.d_model} "
         f"H={cfg.n_heads}/{cfg.n_kv_heads} D={cfg.resolved_head_dim} "
-        f"ff={cfg.d_ff} V={cfg.vocab_size} {cfg.compute_dtype}; "
-        f"{n / 1e9:.3f}B params drawn in {time.perf_counter() - t0:.1f} s")
+        f"ff={cfg.d_ff} V={cfg.vocab_size} {cfg.norm} norm, "
+        f"{cfg.positional} positions, {cfg.activation} "
+        f"{cfg.compute_dtype}; {n / 1e9:.3f}B params ({nbytes / 1e9:.2f} "
+        f"GB) drawn in {time.perf_counter() - t0:.1f} s")
     return cfg, model, params
 
 
@@ -1812,6 +1943,16 @@ def _same_tokens(tag, what, runs):
         f"({len(streams)} runs)")
 
 
+def serve_prompts(vocab: int, tag: str = "serve"):
+    """The serve phases' ``SERVE_REQUESTS`` seeded prompts (24-498 tokens),
+    logged under ``tag``."""
+    rng = np.random.default_rng(0)
+    plens = rng.integers(16, 513, SERVE_REQUESTS)
+    log(f"[{tag}] {SERVE_REQUESTS} requests, prompt lengths "
+        f"{sorted(int(n) for n in plens)}, {SERVE_NEW_TOKENS} new tokens each")
+    return [rng.integers(0, vocab, n).astype(np.int32) for n in plens]
+
+
 def phase_serve(cfg, model, params):
     """llama3.2-1b with bf16 and int8 pages, each with CUDA graphs on and
     off in turns (on, off, off, on), the full workload; then a dense cache
@@ -1819,12 +1960,7 @@ def phase_serve(cfg, model, params):
     tokens, graphs on and off.  Every run's exact launch gates; equal
     tokens on and off.  Returns the graphs-on runs' launches by page
     type."""
-    rng = np.random.default_rng(0)
-    plens = rng.integers(16, 513, SERVE_REQUESTS)
-    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in plens]
-    log(f"[serve] {SERVE_REQUESTS} requests, prompt lengths "
-        f"{sorted(int(n) for n in plens)}, {SERVE_NEW_TOKENS} new tokens each")
+    prompts = serve_prompts(cfg.vocab_size)
     runs = {}
     for kv, graphs in ((None, True), (None, False), ("int8", False),
                        ("int8", True)):
@@ -1958,9 +2094,13 @@ def phase_profile(cfg, model, params, top: int = 10, tag: str = "profile",
 # 5. prefill / decode consistency
 # ---------------------------------------------------------------------------
 
-def phase_consistency(model, params, steps: int = 4):
+def phase_consistency(model, params, steps: int = 4, kv_dtype=None,
+                      tag: str = "consistency"):
     """Prefill P, then ``steps`` paged decode steps fed the greedy tokens,
-    against the last-position logits of one prefill of P + those tokens."""
+    against the last-position logits of one prefill of P + those tokens;
+    bf16 pages, or ``kv_dtype`` ("int8") pages installed as the engine
+    installs them (a fresh scale a page)."""
+    from repro_torch.models.common import kv_qmax
     from repro_torch.serve.kv_pages import PagedBatchState, write_prefill_pages
     rng = np.random.default_rng(5)
     plens = np.array([100, 37], np.int32)
@@ -1969,7 +2109,8 @@ def phase_consistency(model, params, steps: int = 4):
     prompts = np.zeros((B, bucket + steps), np.int32)
     for b, n in enumerate(plens):
         prompts[b, :n] = rng.integers(0, model.cfg.vocab_size, n)
-    st = PagedBatchState(model, B, SERVE_MAX_SEQ, page_size=SERVE_PAGE)
+    st = PagedBatchState(model, B, SERVE_MAX_SEQ, page_size=SERVE_PAGE,
+                         kv_dtype=kv_dtype)
     for b, n in enumerate(plens):
         st.pool.allocate(b, int(n) + steps)
     st.sync_tables()
@@ -1981,7 +2122,13 @@ def phase_consistency(model, params, steps: int = 4):
     for b in range(B):
         tables_sub[b, st.pool.n_blocks[b]:] = st.pool.n_pages
     for key in ("k", "v"):
-        write_prefill_pages(st.cache[key], sub[key], tables_sub)
+        scales = st.cache.get(f"{key}_scale")
+        if scales is None:
+            write_prefill_pages(st.cache[key], sub[key], tables_sub)
+        else:
+            write_prefill_pages(st.cache[key], sub[key], tables_sub,
+                                scales=scales,
+                                qmax=kv_qmax(st.cache[key].dtype))
     tokens = torch.argmax(logits, -1).to(torch.int32)
     pos = torch.tensor(plens, device=dev)
     worst = 0.0
@@ -1998,7 +2145,7 @@ def phase_consistency(model, params, steps: int = 4):
         gap = float((logits[:, :V].float() - ref[:, :V].float()).abs().max())
         scale = float(ref[:, :V].float().abs().max())
         worst = max(worst, gap / scale)
-        log(f"[consistency] step {i}: max |decode - prefill| logits {gap:.4f}"
+        log(f"[{tag}] step {i}: max |decode - prefill| logits {gap:.4f}"
             f" (max |logit| {scale:.3f}, relative {gap / scale:.4f}); greedy "
             f"equal {torch.equal(logits.argmax(-1), ref.argmax(-1))}")
         tokens = torch.argmax(logits, -1).to(torch.int32)
@@ -2006,8 +2153,7 @@ def phase_consistency(model, params, steps: int = 4):
     if worst > CONSISTENCY_TOL:
         raise AssertionError(f"prefill/decode logits differ by {worst:.4f} of "
                              f"max |logit| > {CONSISTENCY_TOL}")
-    log(f"[consistency] ok: worst relative gap {worst:.4f} <= "
-        f"{CONSISTENCY_TOL}")
+    log(f"[{tag}] ok: worst relative gap {worst:.4f} <= {CONSISTENCY_TOL}")
     return worst
 
 
@@ -2254,6 +2400,73 @@ def phase_wave(cfg, model, params):
     return {"wave_tokens_per_s": n_tok / wall,
             "continuous_tokens_per_s": cont["tokens_per_s"], "ratio": ratio,
             "wave_launches": got}
+
+
+# ---------------------------------------------------------------------------
+# 5a'. serve gpt3-xl (the paper's GPT-3 1.3B) at full width, and its
+# prefill / decode consistency
+# ---------------------------------------------------------------------------
+
+def gpt3_launches(layers: int, paged: bool = True):
+    """gpt3-xl's exact launch counts: no RMSNorm (LayerNorm has no kernel),
+    ``layers`` prefill attentions a prefill call, ``layers`` paged decodes a
+    decode step on pages, none on a dense cache."""
+    def want(steps, calls):
+        return {"rmsnorm": 0, "flash_prefill": layers * calls,
+                "flash_bwd": 0, "paged_decode": layers * steps if paged else 0,
+                "ssd_scan": 0}
+    return want
+
+
+def phase_serve_gpt3(cfg, model, params):
+    """gpt3-xl at full width and depth serves the serve phase's 16 requests
+    (64 new tokens each) with bf16 and int8 pages, each with CUDA graphs on
+    and off in turns (on, off, off, on), and a dense cache (graphs on and
+    off): equal tokens on and off per cache type, exact launches (24 flash
+    prefills a bucket call, 24 paged decodes a paged step, no RMSNorm), no
+    NaN logit; logs tokens/s, peak memory and each capture's host ms, and
+    the int8 and dense runs' agreement with bf16 pages.  Then a short
+    profiled bf16-page run in both modes, with its decode steps alone.
+    Returns the graphs-on runs' launches by page type."""
+    prompts = serve_prompts(cfg.vocab_size, "serve_gpt3")
+    runs = {}
+    for label, graphs, kw in (
+            ("bf16", True, dict(paged=True)),
+            ("bf16", False, dict(paged=True)),
+            ("int8", False, dict(paged=True, kv_dtype="int8")),
+            ("int8", True, dict(paged=True, kv_dtype="int8")),
+            ("dense", True, dict(paged=False)),
+            ("dense", False, dict(paged=False))):
+        runs[label, graphs] = serve_run(
+            f"serve_gpt3 {label}", model, params, prompts, SERVE_NEW_TOKENS,
+            graphs, gpt3_launches(cfg.n_layers, kw["paged"]), **kw)
+    for label in ("bf16", "int8", "dense"):
+        on, off = runs[label, True], runs[label, False]
+        _same_tokens("serve_gpt3", label, (on, off))
+        log(f"[serve_gpt3] {label}: graphs on {on['tokens_per_s']:.1f} "
+            f"tokens/s against off {off['tokens_per_s']:.1f} "
+            f"({on['tokens_per_s'] / off['tokens_per_s']:.2f}x)")
+    # the dense path scales q in bf16 by a factor rounded to bf16, the
+    # paged kernel in f32 (as the reference's two paths do), and int8 pages
+    # quantize: logged against bf16 pages, not gated
+    for other in ("dense", "int8"):
+        a, b = runs[other, True]["tokens"], runs["bf16", True]["tokens"]
+        same = sum(x == y for ra, rb in zip(a, b) for x, y in zip(ra, rb))
+        log(f"[serve_gpt3] {other} against bf16 pages: {same} of "
+            f"{sum(len(r) for r in b)} greedy tokens equal")
+    for graphs in (True, False):
+        phase_profile(cfg, model, params, tag="profile_gpt3", paged=True,
+                      graphs=graphs, detail=True)
+    return {label: runs[label, True]["launches"] for label in ("bf16", "int8")}
+
+
+def phase_consistency_gpt3(model, params):
+    """``phase_consistency`` on gpt3-xl, bf16 and int8 pages: each decode
+    step adds ``wpe[pos]``, the longer prefill ``wpe[0:S]``, so a position
+    off by one shows here."""
+    return [phase_consistency(model, params, kv_dtype=kv,
+                              tag=f"consistency_gpt3, {kv or 'bf16'} pages")
+            for kv in (None, "int8")]
 
 
 # ---------------------------------------------------------------------------
@@ -2610,11 +2823,11 @@ def phase_consistency_hybrid(model, params, steps: int = 4):
 # 6. train at full width, 7. Trainer restart at a small width
 # ---------------------------------------------------------------------------
 
-def train_model(tag, cfg, describe, per_step, ours):
+def train_model(tag, cfg, describe, per_step, ours, batch=TRAIN_BATCH,
+                accum=TRAIN_ACCUM):
     """Train ``cfg`` on the card for ``TRAIN_STEPS`` steps through
     ``make_train_step`` (f32 masters, bf16 compute, AdamW, remat; seq
-    ``TRAIN_SEQ``, global batch ``TRAIN_BATCH`` as ``TRAIN_ACCUM``
-    micro-batches)
+    ``TRAIN_SEQ``, global batch ``batch`` as ``accum`` micro-batches)
     on the port's ``DataPipeline``: a finite non-zero gradient on every
     parameter leaf after the first backward, finite losses, exactly
     ``per_step`` launches a step; logs step ms, tokens/s and peak memory,
@@ -2639,13 +2852,12 @@ def train_model(tag, cfg, describe, per_step, ours):
         f"{n / 1e9:.3f}B params in {cfg.param_dtype}, compute "
         f"{cfg.compute_dtype}; state drawn in "
         f"{time.perf_counter() - t0:.1f} s; seq {TRAIN_SEQ}, global batch "
-        f"{TRAIN_BATCH} = {TRAIN_ACCUM} x {TRAIN_BATCH // TRAIN_ACCUM}, AdamW, "
-        f"remat")
-    pipeline = DataPipeline(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+        f"{batch} = {accum} x {batch // accum}, AdamW, remat")
+    pipeline = DataPipeline(cfg.vocab_size, batch, TRAIN_SEQ, seed=0)
     batches = [pipeline.next_batch() for _ in range(TRAIN_STEPS)]
 
     # every leaf gets a finite, non-zero gradient from the first backward
-    micro = {k: v[:TRAIN_BATCH // TRAIN_ACCUM] for k, v in batches[0].items()}
+    micro = {k: v[:batch // accum] for k, v in batches[0].items()}
     _, _, grads = loss_and_grads(model, state.params, micro, remat=True)
     named = flatten(grads)
     norms = torch.stack([g.float().norm() for _, g in named]).tolist()
@@ -2659,14 +2871,14 @@ def train_model(tag, cfg, describe, per_step, ours):
     del grads, named
 
     step_fn = make_train_step(model, OptimizerConfig(lr=3e-4, warmup_steps=2),
-                              accum_steps=TRAIN_ACCUM, remat=True)
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+                              accum_steps=accum, remat=True)
+    tokens = batch * TRAIN_SEQ
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     before = kernels.launch_counts()
-    for i, batch in enumerate(batches):
+    for i, data in enumerate(batches):
         t0 = time.perf_counter()
-        state, metrics = step_fn(state, batch)
+        state, metrics = step_fn(state, data)
         loss = float(metrics["loss"])
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
@@ -2822,6 +3034,37 @@ def phase_train_hybrid(ssd_bwd_ms):
                 f"ff={m.cfg.d_ff}")
     out = train_model("train_hybrid", cfg, describe, per_step, ours)
     return _ssd_share("train_hybrid", out, ssd_bwd_ms, TRAIN_ACCUM * L)
+
+
+def phase_train_gpt3():
+    """Train gpt3-xl at full width and depth at the paper's shape, 40 x 1024
+    tokens a step as ``GPT3_ACCUM`` micro-batches of 8, as ``phase_train``
+    trains llama3.2-1b.  Per micro-batch, counted from the code
+    (``tests/test_torch_gpt3.py`` counts the same calls on the CPU): L flash
+    forwards with their log-sum-exp, L more in the backward's recompute
+    under remat, L flash backwards at head_dim 128; no RMSNorm.  Returns
+    ``train_model``'s summary."""
+    from repro_torch.configs import get_config
+    cfg = get_config("gpt3-xl")
+    L = cfg.n_layers
+    per_step = {"rmsnorm": 0, "flash_prefill": GPT3_ACCUM * (L + L),
+                "flash_bwd": GPT3_ACCUM * L, "paged_decode": 0,
+                "ssd_scan": 0}
+    ours = {"flash_bwd (D128)": "flash_bwd_",
+            "flash_bwd dK/dV": "flash_bwd_dkv_wide_kernel",
+            "flash_bwd dQ": "flash_bwd_dq_wide_kernel",
+            "flash_bwd pre-pass": "flash_bwd_prep_kernel",
+            "flash_prefill (D128, lse)": "flash_prefill_wide_kernel",
+            "LayerNorm (PyTorch's)": "layer_norm"}
+
+    def describe(m):
+        c = m.cfg
+        return (f"L={c.n_layers} d={c.d_model} H={c.n_heads}/{c.n_kv_heads} "
+                f"D={c.resolved_head_dim} ff={c.d_ff} {c.norm} norm, "
+                f"{c.positional} positions ({c.max_train_seq} rows), "
+                f"{c.activation}")
+    return train_model("train_gpt3", cfg, describe, per_step, ours,
+                       batch=GPT3_BATCH, accum=GPT3_ACCUM)
 
 
 def phase_trainer():
@@ -3079,10 +3322,7 @@ def dvfs_serve_window(nvml, cfg, model, params, idle_w):
     from repro_torch.configs import ShapeConfig
     from repro_torch.dvfs import DvfsSession
     from repro_torch.serve import Request, ServeEngine
-    rng = np.random.default_rng(0)                  # phase_serve's requests
-    plens = rng.integers(16, 513, SERVE_REQUESTS)
-    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in plens]
+    prompts = serve_prompts(cfg.vocab_size, "dvfs serve")
     with DvfsSession(chip="h100") as sess:
         sess.plan_serve(
             cfg, n_slots=SERVE_SLOTS,
@@ -3173,9 +3413,9 @@ class BooksOnlyCheckpoints:
     """The checkpoint manager of the full-width training window: each save
     keeps only ``extra`` (the data cursor and the executor's books), round
     tripped through JSON as ``CheckpointManager`` writes it, and no
-    tensors: the f32 masters and AdamW moments of 1.236 B parameters would
-    be a ~20 GB write.  ``Trainer``'s restart from real checkpoints is the
-    trainer phase's."""
+    tensors: the f32 masters and AdamW moments of a full-width model would
+    be a ~20 GB write (12 bytes a parameter).  ``Trainer``'s restart from
+    real checkpoints is the trainer phase's."""
 
     def __init__(self):
         self.extra = {}
@@ -3187,15 +3427,16 @@ class BooksOnlyCheckpoints:
         self.extra[step] = json.loads(json.dumps(extra or {}))
 
 
-def dvfs_train_window(nvml, idle_w):
-    """``Trainer`` on llama3.2-1b at full width with the train phase's
-    settings for ``DVFS_TRAIN_STEPS`` steps, behind
-    ``DvfsSession(chip="h100", tau=0.0)``'s train executor planned for the
-    executed shape, with ``NvmlStepMeter`` as its energy meter.  The window
-    is steps 1..N-1 (step 0 holds the state's init); it must last at least
-    ``DVFS_WINDOW_S``.  Gates: finite losses, every phase in the
-    executor's summary, its books through the saved JSON into a fresh
-    executor give the same summary.  Logs measured joules and seconds a
+def dvfs_train_window(nvml, idle_w, arch="llama3.2-1b", shape=None,
+                      accum=TRAIN_ACCUM, steps=DVFS_TRAIN_STEPS):
+    """``Trainer`` on ``arch`` at full width (AdamW, remat) for ``steps``
+    steps of ``shape`` (the train phase's: seq 1024, batch 8) as ``accum``
+    micro-batches, behind ``DvfsSession(chip="h100", tau=0.0)``'s train
+    executor planned for that shape, with ``NvmlStepMeter`` as its energy
+    meter.  The window is steps 1..N-1 (step 0 holds the state's init); it
+    must last at least ``DVFS_WINDOW_S``.  Gates: finite losses, every
+    phase in the executor's summary, its books through the saved JSON into
+    a fresh executor give the same summary.  Logs measured joules and seconds a
     step against the executor's modeled ones."""
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.data import DataPipeline
@@ -3203,9 +3444,9 @@ def dvfs_train_window(nvml, idle_w):
     from repro_torch.models import build_model
     from repro_torch.train import OptimizerConfig, make_train_step
     from repro_torch.train.loop import Trainer, TrainerConfig
-    cfg = get_config("llama3.2-1b")
-    shape = ShapeConfig(name="chip_smoke_train", seq_len=TRAIN_SEQ,
-                        global_batch=TRAIN_BATCH, kind="train")
+    cfg = get_config(arch)
+    shape = shape or ShapeConfig(name="chip_smoke_train", seq_len=TRAIN_SEQ,
+                                 global_batch=TRAIN_BATCH, kind="train")
     model = build_model(cfg, device="cuda")
     ckpt = BooksOnlyCheckpoints()
     with DvfsSession(chip="h100", tau=0.0) as sess:
@@ -3214,14 +3455,14 @@ def dvfs_train_window(nvml, idle_w):
         trainer = Trainer(
             model, make_train_step(model, OptimizerConfig(lr=3e-4,
                                                           warmup_steps=2),
-                                   accum_steps=TRAIN_ACCUM, remat=True),
-            DataPipeline(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0),
-            ckpt, TrainerConfig(total_steps=DVFS_TRAIN_STEPS,
-                                ckpt_every=DVFS_TRAIN_STEPS),
+                                   accum_steps=accum, remat=True),
+            DataPipeline(cfg.vocab_size, shape.global_batch, shape.seq_len,
+                         seed=0),
+            ckpt, TrainerConfig(total_steps=steps, ckpt_every=steps),
             energy_meter=meter, executor=sess.train_executor())
         out = trainer.run()
         fresh = sess.train_executor()
-        fresh.load_state_dict(ckpt.extra[DVFS_TRAIN_STEPS]["dvfs_exec"])
+        fresh.load_state_dict(ckpt.extra[steps]["dvfs_exec"])
     hist = trainer.history
     summary = out["dvfs"]
     if not all(math.isfinite(h["loss"]) for h in hist) \
@@ -3241,12 +3482,13 @@ def dvfs_train_window(nvml, idle_w):
     plan_e = sum(h["dvfs_energy_j"] for h in hist[1:]) / n
     # the auto baseline of the same steps (the per-step plan numbers leave
     # out the phase-boundary switches, which the summary books)
-    base_t = summary["totals"]["base_time_s"] / DVFS_TRAIN_STEPS
-    base_e = summary["totals"]["base_energy_j"] / DVFS_TRAIN_STEPS
-    tag = "dvfs train"
-    log(f"[{tag}] {cfg.name} full width, {DVFS_TRAIN_STEPS} steps of "
-        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens; losses {hist[0]['loss']:.4f} "
-        f"-> {hist[-1]['loss']:.4f}; window steps 1..{DVFS_TRAIN_STEPS - 1}")
+    base_t = summary["totals"]["base_time_s"] / steps
+    base_e = summary["totals"]["base_energy_j"] / steps
+    tag = f"dvfs train {cfg.name}"
+    log(f"[{tag}] full width, {steps} steps of {shape.global_batch} x "
+        f"{shape.seq_len} tokens ({shape.name}, {accum} micro-batches); "
+        f"losses {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}; window "
+        f"steps 1..{steps - 1}")
     _window_line(tag, joules, wall, idle_w, [r.clocks for r in window])
     per = [round(r.energy_j, 1) for r in window]
     log(f"[{tag}] measured a step: {joules / n:.2f} J "
@@ -3263,22 +3505,23 @@ def dvfs_train_window(nvml, idle_w):
             "plan": (plan_t, plan_e), "auto": (base_t, base_e)}
 
 
-def dvfs_train_launcher():
-    """``launch.train.main`` on the card with ``--smoke`` (the reduced
-    config at its kernels' widths), 2 steps, checkpoints in a temporary
-    directory under ``build/``, removed after."""
+def dvfs_train_launcher(arch: str = "llama3.2-1b"):
+    """``launch.train.main --arch <arch>`` on the card with ``--smoke`` (the
+    reduced config at its kernels' widths), 2 steps, checkpoints in a
+    temporary directory under ``build/``, removed after."""
     from repro_torch.launch import train
     build = os.path.join(ROOT, "build")
     os.makedirs(build, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as ckpt_dir:
-        out = train.main(["--arch", "llama3.2-1b", "--smoke", "--steps", "2",
+        out = train.main(["--arch", arch, "--smoke", "--steps", "2",
                           "--ckpt-dir", ckpt_dir])
     done = out["done"]
     if done["final_step"] != 2 or not math.isfinite(done["final_loss"]) \
             or set(done["dvfs"]["phases"]) != {"fwd", "bwd", "opt"}:
         raise AssertionError(f"train launcher: {done}")
-    log(f"[dvfs] train launcher: 2 steps on the card, final loss "
-        f"{done['final_loss']:.4f}, executed {done['dvfs']['totals']}")
+    log(f"[dvfs] train launcher --arch {arch} --smoke: 2 steps on the card, "
+        f"final loss {done['final_loss']:.4f}, executed "
+        f"{done['dvfs']['totals']}")
 
 
 def phase_dvfs(cfg, model, params):
@@ -3299,6 +3542,26 @@ def phase_dvfs(cfg, model, params):
         nvml.close()
     return {"idle_w": idle_w, "serve": serve, "train": train,
             "smoke_launches": smoke_launches}
+
+
+def phase_dvfs_gpt3(idle_w):
+    """gpt3-xl behind the DVFS stack on the card, reading NVML: the
+    ``Trainer`` at the paper's shape (``paper_gpt3xl``: 40 x 1024 tokens a
+    step as ``GPT3_ACCUM`` micro-batches) for ``GPT3_DVFS_STEPS`` steps
+    behind the train executor planned for that shape, over an energy
+    window of at least ``DVFS_WINDOW_S`` (``idle_w``: the dvfs phase's idle
+    watts); then ``launch.train.main --arch gpt3-xl --smoke`` (learned
+    positions and LayerNorm at the kernels' widths)."""
+    from repro_torch.configs import get_shape
+    nvml = Nvml()
+    try:
+        train = dvfs_train_window(nvml, idle_w, "gpt3-xl",
+                                  get_shape("paper_gpt3xl"), GPT3_ACCUM,
+                                  GPT3_DVFS_STEPS)
+        dvfs_train_launcher("gpt3-xl")
+    finally:
+        nvml.close()
+    return train
 
 
 def main() -> int:
@@ -3324,6 +3587,13 @@ def main() -> int:
     timed("wave", phase_wave, cfg, model, params)
     del model, params
     release()
+    cfg, model, params = timed("build_gpt3", build_full_model, "gpt3-xl")
+    serve_gpt3 = timed("serve_gpt3", phase_serve_gpt3, cfg, model, params)
+    timed("consistency_gpt3", phase_consistency_gpt3, model, params)
+    del model, params
+    release()
+    train_gpt3 = timed("train_gpt3", phase_train_gpt3)["counts"]
+    timed("dvfs_gpt3", phase_dvfs_gpt3, dvfs["idle_w"])
     cfg, model, params = build_mamba_model()
     serve_ssm = timed("serve_ssm", phase_serve_ssm, cfg, model, params)
     timed("consistency_ssm", phase_consistency_ssm, model, params)
@@ -3350,7 +3620,19 @@ def main() -> int:
     for row in rows:
         name, _, tag = row["name"].partition("[")
         tag = tag.rstrip("]")
-        if row["name"] == "paged_decode[D64G2 bf16]":
+        if row.get("model") == "gpt3-xl":
+            run = GPT3_ROW_RUNS[row["name"]]
+            name = name.removesuffix("_lse")
+            if run == "train":
+                row["launches"] = train_gpt3[name]
+                row["launches_of"] = (f"one gpt3-xl training run, "
+                                      f"{TRAIN_STEPS} steps of {GPT3_BATCH} "
+                                      f"x {TRAIN_SEQ} tokens")
+            else:
+                row["launches"] = serve_gpt3[run][name]
+                row["launches_of"] = (f"one gpt3-xl serve run, {run} pages, "
+                                      f"CUDA graphs")
+        elif row["name"] == "paged_decode[D64G2 bf16]":
             row["launches"] = dvfs["smoke_launches"][name]
             row["launches_of"] = ("the serve launcher with --smoke "
                                   "(card_smoke_config: 2 layers, 4 heads, "

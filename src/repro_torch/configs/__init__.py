@@ -2,21 +2,23 @@
 canonical input shapes (``--shape <name>``).
 
 The registry holds the archs whose model family the port has: llama3.2-1b
-(dense decoder), mamba2-370m (SSM) and zamba2-7b (hybrid: Mamba2 and a
-shared attention block); the JAX package's other archs join as their model
-families are ported (see ROADMAP.md).
+and gpt3-xl (dense decoders: RoPE, RMSNorm and SwiGLU; learned positions,
+LayerNorm and tanh GELU), mamba2-370m (SSM) and zamba2-7b (hybrid: Mamba2
+and a shared attention block); the JAX package's other archs join as their
+model families are ported (see ROADMAP.md).
 """
 from __future__ import annotations
 
 from dataclasses import replace
 from typing import Dict
 
-from . import llama3_2_1b, mamba2_370m, zamba2_7b
+from . import gpt3_xl, llama3_2_1b, mamba2_370m, zamba2_7b
 from .base import ModelConfig, MoEConfig, SSMConfig, ShapeConfig, smoke_config
 from .shapes import SHAPES, get_shape, smoke_shape
 
 REGISTRY: Dict[str, ModelConfig] = {
-    m.CONFIG.name: m.CONFIG for m in (llama3_2_1b, mamba2_370m, zamba2_7b)}
+    m.CONFIG.name: m.CONFIG
+    for m in (llama3_2_1b, gpt3_xl, mamba2_370m, zamba2_7b)}
 
 
 def get_config(arch: str) -> ModelConfig:
@@ -29,7 +31,10 @@ def get_config(arch: str) -> ModelConfig:
 def card_smoke_config(cfg: ModelConfig) -> ModelConfig:
     """``smoke_config(cfg)`` at the smallest widths the port's CUDA kernels
     are built for, the reduced config of a smoke run on the card: d_model
-    256 (RMSNorm's narrowest row), head_dim 64, d_ff 1024.  The smoke
+    256 (RMSNorm's narrowest row), head_dim 64, d_ff 1024.  The config's
+    recipe stays: its norm (RMSNorm, or LayerNorm, which runs no kernel),
+    its positions (RoPE, or a learned table of the smoke config's
+    ``max_train_seq`` rows) and its activation.  The smoke
     config's heads stay (4 query heads, 2 KV heads: a group of 2), which
     the flash prefill kernel takes at head_dim 64 for any group and the
     paged decode kernel is built for

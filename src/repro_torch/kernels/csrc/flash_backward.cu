@@ -19,9 +19,9 @@
 // bf16 once.  At head_dim 64 the scale is 2^-3: q * scale is exact in
 // bf16, and scaling an f32 product by it is exact too, which the 64-wide
 // dK/dV kernel uses (it reads the raw q tile and scales its products).  At
-// head_dim 224 (bf16 scale 0.06689453) neither holds, so a pre-pass writes
-// the rounded q * scale once, and the 224-wide kernels read that tile in
-// the scores and in dK (second half of this file).
+// head_dim 128 (bf16 scale 0.08837891) and 224 (0.06689453) neither holds,
+// so a pre-pass writes the rounded q * scale once, and the wide kernels
+// read that tile in the scores and in dK (second half of this file).
 //
 // Bound on the H100: operations.  Per admitted (query, key) pair the
 // gradient needs 5 products of 2 * D flops (QK^T, dO V^T, dS K, P^T dO,
@@ -400,30 +400,35 @@ static int launch_bwd(const void* q, const void* k, const void* v,
 }
 
 // Built for bf16 at head_dim 64 (any query group: llama3.2-1b) and, in the
-// second half of this file, at head_dim 224 with one query head per KV head
-// (zamba2-7b's shared attention block); other cases are refused until a
-// configuration needs them and chip_smoke.py checks them.
+// second half of this file, at head_dim 128 and 224 with one query head per
+// KV head (gpt3-xl; zamba2-7b's shared attention block); other cases are
+// refused until a configuration needs them and chip_smoke.py checks them.
 
 // ---------------------------------------------------------------------------
-// Head_dim 224.  The design above, reshaped for rows of 224 elements as the
-// head_dim-224 forward (flash_prefill.cu) reshapes its own:
-// - Rows sit at a pitch of D + 8 elements (29 16-byte chunks, 20 banks on
-//   from the row before), so the 8 rows one ldmatrix phase reads and the
-//   epilogue's 4-byte stores cover the 32 banks once.
+// Wide rows: head_dim 128 and 224.  The design above, reshaped for rows
+// longer than 64 elements as the wide forward (flash_prefill.cu) reshapes
+// its own:
+// - Rows sit at a pitch of D + 8 elements (at 224, 29 16-byte chunks, 20
+//   banks on from the row before; at 128, 17 chunks, 4 banks on), so the 8
+//   rows one ldmatrix phase reads and the epilogue's 4-byte stores cover
+//   the 32 banks once.
 // - The scale is not a power of two: a pre-pass (a warp a row) writes
 //   qs = bf16(q * scale) beside delta = rowsum(dO * O), both kernels read
 //   qs, and dQ is scaled by the same bf16 factor at the end.
-// - Registers: a warp's 16 x 224 f32 accumulator is 112 a lane, so no
-//   fragment of qs, dO, K or V stays resident: each is re-read from shared
-//   memory at every k-step, and the inner tiles are 32 wide (16 score
-//   registers).  dK and dV would need 224 registers together, so they come
-//   from two passes of one launch: blockIdx.y selects dV (P^T dO) or dK
-//   (dS^T qs) for a key tile, each pass recomputing S^T (and the dK pass
-//   dP^T): 8 products per admitted pair against the function's 5.
+// - Registers: a warp's 16 x D f32 accumulator is D / 2 a lane (112 at
+//   224, 64 at 128), so no fragment of qs, dO, K or V stays resident: each
+//   is re-read from shared memory at every k-step, and the inner tiles are
+//   32 wide (16 score registers).  dK and dV would need D registers
+//   together (224: too many beside the scores), so they come from two
+//   passes of one launch: blockIdx.y selects dV (P^T dO) or dK (dS^T qs)
+//   for a key tile, each pass recomputing S^T (and the dK pass dP^T): 8
+//   products per admitted pair against the function's 5.  128 runs the
+//   same code; at 128 one pass could hold both sums, which is work for a
+//   PR that makes it faster.
 // - Shared memory: dQ holds qs and dO (64 rows each) and a 2-stage ring of
-//   32-key K and V tiles, 116 KB; dK/dV holds K and V (64 rows) and a
-//   2-stage ring of 32-query qs and dO tiles with their lse and delta,
-//   117 KB; one block an SM.
+//   32-key K and V tiles, 116 KB at 224 and 68 KB at 128; dK/dV holds K and
+//   V (64 rows) and a 2-stage ring of 32-query qs and dO tiles with their
+//   lse and delta, 117 KB at 224 and 69 KB at 128.
 // Deterministic as above: no atomics, every sum in a fixed order.
 // ---------------------------------------------------------------------------
 
@@ -883,6 +888,9 @@ extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v,
   if (D == 64)
     return launch_bwd<64>(q, k, v, o, dout, l, d, dq, dk, dv, B, Sq, Sk, H,
                           KV, causal, window, s);
+  if (D == 128 && H == KV && qs != nullptr)
+    return launch_bwd_wide<128>(q, k, v, o, dout, l, d, qs, dq, dk, dv, B,
+                                Sq, Sk, H, KV, causal, window, s);
   if (D == 224 && H == KV && qs != nullptr)
     return launch_bwd_wide<224>(q, k, v, o, dout, l, d, qs, dq, dk, dv, B,
                                 Sq, Sk, H, KV, causal, window, s);

@@ -262,23 +262,29 @@ static int launch_prefill(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// Head_dim 224 (zamba2-7b's shared attention block, one query head per KV
-// head).  The design above, reshaped for rows of 224 elements:
-// - A row is 28 16-byte chunks, which the 8-chunk XOR swizzle of mma.cuh's
-//   64-element tiles does not tile.  These tiles keep each row at a pitch
-//   of D + 8 elements instead: 29 chunks, 116 words, 20 banks on from the
-//   row before, so the 8 rows one ldmatrix phase reads at one column start
-//   at banks 0, 20, 8, 28, 16, 4, 24, 12 and cover the 32 banks once (the
-//   epilogue's 4-byte stores likewise).
-// - Registers: the 16 x 224 f32 accumulator of a warp alone is 112 a lane,
-//   so Q's 56 fragment registers do not stay: Q is scaled in shared memory
-//   once and its fragments are re-read by ldmatrix at every k-step, and
-//   the key tiles hold 32 keys (16 score registers, not 32).
+// Wide rows: head_dim 128 (gpt3-xl) and 224 (zamba2-7b's shared attention
+// block), one query head per KV head.  The design above, reshaped for rows
+// longer than the 64-element tiles of mma.cuh:
+// - A 224-element row is 28 16-byte chunks, which the 8-chunk XOR swizzle
+//   of those tiles does not tile.  These tiles keep each row at a pitch of
+//   D + 8 elements instead: at 224, 29 chunks (116 words, 20 banks on from
+//   the row before), so the 8 rows one ldmatrix phase reads at one column
+//   start at banks 0, 20, 8, 28, 16, 4, 24, 12; at 128, 17 chunks (68
+//   words, 4 banks on), so they start at banks 0, 4, .., 28.  Either way
+//   they cover the 32 banks once (the epilogue's 4-byte stores likewise).
+// - Registers: a warp's 16 x D f32 accumulator is D / 2 a lane (112 at
+//   224, 64 at 128), and Q's fragments would be D / 4 more (56, 32).  At
+//   224 they do not fit beside it, so Q is scaled in shared memory once and
+//   its fragments are re-read by ldmatrix at every k-step; 128 runs the
+//   same code (the re-read costs shared-memory bandwidth, not registers).
+//   The key tiles hold 32 keys (16 score registers, not 32).
 // - Shared memory: Q (64 rows) and a 2-stage K/V ring of 32-key tiles,
-//   87 KB, two blocks an SM.
+//   87 KB at 224 and 52 KB at 128; __launch_bounds__(.., 2) lets ptxas use
+//   up to 255 registers a thread (chip_smoke.py's build phase logs what it
+//   took).
 // ---------------------------------------------------------------------------
 
-constexpr int kWideBK = 32;          // keys per tile at head_dim 224
+constexpr int kWideBK = 32;          // keys per tile at head_dim 128 and 224
 
 // Rows [row0, row0 + ROWS) of a (rows, D) bf16 slice into a tile of pitch
 // D + 8; rows at or past `rows` are zero-filled.
@@ -553,9 +559,10 @@ static int launch_prefill_wide(const void* q, const void* k, const void* v,
 }
 
 // Built for bf16 at head_dim 64 (any query group: llama3.2-1b's serving and
-// training paths) and at head_dim 224 with one query head per KV head
-// (zamba2-7b's shared attention block); other cases are refused until a
-// configuration needs them and chip_smoke.py checks them.  lse may be null.
+// training paths) and at head_dim 128 and 224 with one query head per KV
+// head (gpt3-xl; zamba2-7b's shared attention block); other cases are
+// refused until a configuration needs them and chip_smoke.py checks them.
+// lse may be null.
 // Strides are in elements; the wrapper makes each a multiple of 8 (16-byte
 // rows for cp.async) with unit stride along D.
 extern "C" int flash_prefill_launch(
@@ -574,6 +581,9 @@ extern "C" int flash_prefill_launch(
   if (D == 64)
     return launch_prefill<64>(q, k, v, vl, out, l, B, Sq, Sk, H, KV, st,
                               causal, window, softcap, s);
+  if (D == 128 && H == KV)
+    return launch_prefill_wide<128>(q, k, v, vl, out, l, B, Sq, Sk, H, KV,
+                                    st, causal, window, softcap, s);
   if (D == 224 && H == KV)
     return launch_prefill_wide<224>(q, k, v, vl, out, l, B, Sq, Sk, H, KV,
                                     st, causal, window, softcap, s);

@@ -10,8 +10,8 @@
 //
 // Bound on the H100: bytes.  Each key and value is read once and used by
 // the G = H / KV query rows of its KV head: 4 flops a byte at G = 4 for a
-// bf16 pool, 8 for int8 (2 and 4 at G = 2, 1 and 2 at G = 1, zamba2-7b's
-// shared block), far
+// bf16 pool, 8 for int8 (2 and 4 at G = 2, 1 and 2 at G = 1: gpt3-xl and
+// zamba2-7b's shared block), far
 // under the ~295 where the tensor cores would
 // limit, and under the CUDA cores' 67 TFLOP/s f32 too (13-27 TFLOP/s is
 // what 3.35 TB/s needs).  So the kernel uses no tensor cores: an
@@ -31,10 +31,11 @@
 //   value for int8 / fp8), the next tile loading while this one computes.
 //   The split's table entries and scales are read once.
 // - Each warp takes 16 keys of a tile, D / 8 lanes to a key (8 values
-//   each): at head_dim 64, 4 keys a step on 8 lanes each; at head_dim 224,
-//   one key a step on 28 lanes, the other 4 holding zeros.  The dot
-//   products with the G query rows (in registers, pre-scaled by D^-0.5)
-//   reduce over a key's lanes by shuffles (over the whole warp at 224).
+//   each): at head_dim 64, 4 keys a step on 8 lanes each; at head_dim 128,
+//   2 keys a step on 16 lanes each; at head_dim 224, one key a step on 28
+//   lanes, the other 4 holding zeros.  The dot products with the G query
+//   rows (in registers, pre-scaled by D^-0.5) reduce over a key's lanes by
+//   shuffles (over the whole warp at 224).
 //   A quantized pool's scales multiply once per key: s = (q . k_q) * k_scale
 //   and p * v_scale before P.V.  The (G, 8) accumulator of a lane stays in
 //   registers with its warp's running max and sum; the warps merge through
@@ -289,8 +290,8 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
   }
 
-  // sum over the warp's key lane groups (4 at head_dim 64, one at 224),
-  // then merge the 4 warps
+  // sum over the warp's key lane groups (4 at head_dim 64, 2 at 128, one
+  // at 224), then merge the 4 warps
   __shared__ float red_m[kDecWarps][G], red_l[kDecWarps][G];
   __shared__ __align__(16) float red_acc[kDecWarps][G * D];
 #pragma unroll
@@ -443,9 +444,9 @@ static int launch_pool(int kv_dtype, const void* q, const void* kp,
 // Built for bf16 queries (the serving path's compute type) at head_dim 64
 // with 4 query heads per KV head (llama3.2-1b) and with 2 (the reduced
 // config of a smoke run on the card; granite-moe's attention) over bf16,
-// f32, int8 and fp8-e4m3 pools, and at head_dim 224 with one query head
-// per KV head (zamba2-7b's shared attention block) over bf16 and int8
-// pools; kernels/flash_attention/paged.py:KERNEL_CASES lists the same, and
+// f32, int8 and fp8-e4m3 pools, and at head_dim 128 and 224 with one
+// query head per KV head (gpt3-xl; zamba2-7b's shared attention block)
+// over bf16 and int8 pools; kernels/flash_attention/paged.py:KERNEL_CASES lists the same, and
 // chip_smoke.py checks every one of them.  `workspace` holds
 // B * KV * n_split * G * (D + 2) floats.
 extern "C" int paged_decode_launch(const void* q, const void* k_pages,
@@ -472,6 +473,10 @@ extern "C" int paged_decode_launch(const void* q, const void* k_pages,
     return launch_pool<64, 2>(kv_dtype, q, k_pages, v_pages, t, p, ks, vs, w,
                               out, B, H, KV, page, nb, keys_per_split, window,
                               softcap, s);
+  if (D == 128 && H == KV)
+    return launch_pool<128, 1>(kv_dtype, q, k_pages, v_pages, t, p, ks, vs,
+                               w, out, B, H, KV, page, nb, keys_per_split,
+                               window, softcap, s);
   if (D == 224 && H == KV)
     return launch_pool<224, 1>(kv_dtype, q, k_pages, v_pages, t, p, ks, vs,
                                w, out, B, H, KV, page, nb, keys_per_split,

@@ -27,7 +27,7 @@ def flash_attention_bwd_ref(q, k, v, o, do, lse, causal: bool = True,
     its own dtype by the factor rounded to that dtype (the reference's
     jnp attention, which its training differentiates): that scaled q
     enters the scores and dK, and dQ is scaled by the same factor (exact
-    at head_dim 64, where the factor is 2^-3)."""
+    at head_dim 64, where the factor is 2^-3; not at 128 or 224)."""
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -59,12 +59,12 @@ def flash_attention_bwd(q, k, v, o, do, lse, causal: bool = True,
     """(dq, dk, dv) of attention at the saved (o, lse).  A CPU tensor takes
     the plain version; a CUDA tensor launches the kernels (one count in
     ``flash_attention_bwd.launches`` per call: the pre-pass, dQ and
-    dK/dV), built for bf16 at head_dim 64 (any group) and at head_dim 224
-    with one query head per KV head (``prefill.KERNEL_CASES``, the
+    dK/dV), built for bf16 at head_dim 64 (any group) and at head_dim 128
+    and 224 with one query head per KV head (``prefill.KERNEL_CASES``, the
     forward's cases), and launched only for what the training path gives
     it and the card's check covers: causal, no window, Sq == Sk.  At
-    head_dim 224 the pre-pass also writes the scaled q to a scratch that
-    the wrapper allocates."""
+    head_dim 128 and 224 the pre-pass also writes the scaled q to a scratch
+    that the wrapper allocates."""
     _build.refuse_grad("flash_attention_bwd", q, k, v, o, do)
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, do, lse, causal, window)
@@ -87,8 +87,8 @@ def flash_attention_bwd(q, k, v, o, do, lse, causal: bool = True,
                         f"{lse.dtype}")
     if not any(D == d and (g == 0 or H == g * KV) for d, g in KERNEL_CASES):
         raise ValueError(f"flash_attention_bwd kernel is built for head_dim "
-                         f"64 and for head_dim 224 with one query head per "
-                         f"KV head, got D={D}, H={H}, KV={KV}")
+                         f"64 and for head_dim 128 and 224 with one query "
+                         f"head per KV head, got D={D}, H={H}, KV={KV}")
     if not causal or window or Sq != Sk:
         raise NotImplementedError(
             f"flash_attention_bwd kernel: causal={causal} window={window} "

@@ -22,18 +22,19 @@ from .. import _build
 
 NEG_INF = -1e30
 #: (head_dim, query heads per KV head) the kernel is built for: llama3.2-1b's
-#: head_dim 64 at any group (its serving and training paths), and
-#: zamba2-7b's shared attention block, head_dim 224 with one query head per
-#: KV head (group 0: any)
-KERNEL_CASES = ((64, 0), (224, 1))
+#: head_dim 64 at any group (its serving and training paths), gpt3-xl's
+#: head_dim 128 and zamba2-7b's shared attention block's head_dim 224, each
+#: with one query head per KV head (group 0: any)
+KERNEL_CASES = ((64, 0), (128, 1), (224, 1))
 
 
 def query_scale(D: int, dtype: torch.dtype) -> float:
     """The factor ``D ** -0.5`` as the reference applies it to q: JAX
     multiplies q by a weak-typed Python float, which it first rounds to q's
     dtype, then rounds the product once.  In bf16 the factor is not exact
-    unless D is a power of four (bf16(224 ** -0.5) = 0.06689453 against
-    0.06681531); in f32 this is the f32 factor PyTorch would use anyway."""
+    unless D is a power of four (bf16(128 ** -0.5) = 0.08837891 against
+    0.08838835, bf16(224 ** -0.5) = 0.06689453 against 0.06681531); in
+    f32 this is the f32 factor PyTorch would use anyway."""
     return float(torch.tensor(D ** -0.5, dtype=dtype))
 
 
@@ -102,7 +103,7 @@ def flash_prefill(q, k, v, kv_valid_len: Optional[torch.Tensor] = None, *,
     (``block_k`` sets its key block); a CUDA tensor launches the kernel
     (``flash_prefill.launches`` counts them), which reads q/k/v through
     their strides and supports bf16 and ``q_offset == 0`` only, at head_dim
-    64 or at head_dim 224 with one query head per KV head
+    64 or at head_dim 128 or 224 with one query head per KV head
     (``KERNEL_CASES``).  When grad mode is on and an input requires grad,
     the call goes through ``ops.flash_attention_train`` (the forward with
     its log-sum-exp,
@@ -144,8 +145,8 @@ def _forward(q, k, v, kv_valid_len, *, causal, window, softcap=0.0,
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if not any(D == d and (g == 0 or H == g * KV) for d, g in KERNEL_CASES):
         raise ValueError(f"flash_prefill kernel is built for head_dim 64 "
-                         f"and for head_dim 224 with one query head per KV "
-                         f"head, got D={D}, H={H}, KV={KV}")
+                         f"and for head_dim 128 and 224 with one query head "
+                         f"per KV head, got D={D}, H={H}, KV={KV}")
     vec = 16 // q.element_size()
     tensors = []
     for t in (q, k, v):

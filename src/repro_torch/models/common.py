@@ -46,15 +46,13 @@ def cast(x: torch.Tensor, dtype) -> torch.Tensor:
 def apply_norm(p: Params, x: torch.Tensor, kind: str,
                eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm goes through the fused kernel (its plain version on the
-    CPU); LayerNorm, which has no TPU kernel, stays plain."""
+    CPU); LayerNorm, which has no TPU kernel, is PyTorch's on f32 rows
+    (the reference's f32 mean, biased variance and rsqrt, then the f32
+    scale and bias), cast back to x's dtype."""
     if kind == "rms":
         return rmsnorm(x, p["scale"], eps)
-    x32 = x.float()
-    mu = x32.mean(dim=-1, keepdim=True)
-    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
-    y = (x32 - mu) * torch.rsqrt(var + eps)
-    y = y * p["scale"].float() + p["bias"].float()
-    return y.to(x.dtype)
+    return F.layer_norm(x.float(), x.shape[-1:], p["scale"].float(),
+                        p["bias"].float(), eps).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -361,8 +359,29 @@ def gather_tail_window(x: torch.Tensor, lens: torch.Tensor,
 # Embedding / unembedding
 # ---------------------------------------------------------------------------
 
-def embed_tokens(p: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return cast(p["wte"][tokens], dtype)
+def embed_tokens(p: Params, tokens: torch.Tensor, dtype,
+                 pos_offset: int = 0) -> torch.Tensor:
+    """Token embeddings of ``tokens`` (..., S) in ``dtype``; with a learned
+    position table (``p["wpe"]``) plus the rows of positions
+    ``pos_offset .. pos_offset + S - 1``, each table cast to ``dtype``
+    before the sum, as the reference adds them.  A position past the
+    table's rows raises: the reference's ``jnp.take`` fills such a row with
+    NaN, and on the card the index would be a device-side assert."""
+    x = cast(p["wte"][tokens], dtype)
+    if "wpe" in p:
+        S, rows = tokens.shape[-1], p["wpe"].shape[0]
+        check_positions(pos_offset + S, rows)
+        x = x + cast(p["wpe"][pos_offset:pos_offset + S], dtype)
+    return x
+
+
+def check_positions(n: int, rows: int) -> None:
+    """Raise unless positions ``0 .. n - 1`` have rows in a learned position
+    table of ``rows`` rows."""
+    if n > rows:
+        raise ValueError(f"positions up to {n - 1} need a learned position "
+                         f"table of {n} rows; wpe has {rows} "
+                         f"(max_train_seq)")
 
 
 _VOCAB_PAD = 512

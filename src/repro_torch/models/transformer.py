@@ -8,9 +8,14 @@ signatures and cache layouts; the caches are written in place.  Training
 (``forward_hidden``, ``loss``) runs each layer under
 ``torch.utils.checkpoint`` when ``remat`` is on, as the reference wraps
 each layer group in ``jax.checkpoint``.  Serving holds its matrices in the
-compute dtype, training in ``cfg.param_dtype`` (``init(dtype=)``).  MoE
-layers, local/global ring caches and the VLM prefix raise
-``NotImplementedError`` until their slices land (ROADMAP.md, queue 1).
+compute dtype, training in ``cfg.param_dtype`` (``init(dtype=)``).
+Positions are rotary (``positional="rope"``) or a learned table
+``embed/wpe`` of ``max_train_seq`` rows added to the token embeddings
+(``"learned"``, gpt3-xl); a position past that table raises, at the cache
+(``init_cache``, and so at engine construction) and at ``prefill`` /
+``loss`` (``common.embed_tokens``).  MoE layers, local/global ring caches
+and the VLM prefix raise ``NotImplementedError`` until their slices land
+(ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -32,10 +37,11 @@ class LeafSpec(NamedTuple):
 
 
 def init_scale(name: str, per_layer_shape) -> float:
-    """Standard deviation of a random leaf: 0.02 for embeddings, else
-    1/sqrt(fan-in), the fan-in being the per-layer leaf's first dim (as the
-    reference draws them)."""
-    return 0.02 if name in ("wte", "head") else per_layer_shape[0] ** -0.5
+    """Standard deviation of a random leaf: 0.02 for embeddings (tokens,
+    learned positions, the head), else 1/sqrt(fan-in), the fan-in being the
+    per-layer leaf's first dim (as the reference draws them)."""
+    return 0.02 if name in ("wte", "wpe", "head") \
+        else per_layer_shape[0] ** -0.5
 
 
 def init_params(shapes, leaf_dtype, device, generator=None, *,
@@ -106,10 +112,6 @@ class DecoderLM:
             raise NotImplementedError(
                 f"{cfg.name}: local/global ring caches are not ported yet "
                 f"(ROADMAP.md queue 1, the rest of the decoder family)")
-        if cfg.positional == "learned":
-            raise NotImplementedError(
-                f"{cfg.name}: learned positions are not ported yet "
-                f"(ROADMAP.md queue 1, the rest of the decoder family)")
         self.cfg = cfg
         self.block_k = block_k
         self.device = resolve_device(device)
@@ -126,6 +128,8 @@ class DecoderLM:
         L, d, H, KV, D = (cfg.n_layers, cfg.d_model, cfg.n_heads,
                           cfg.n_kv_heads, self.head_dim)
         embed = {"wte": (cfg.vocab_size, d)}
+        if cfg.positional == "learned":
+            embed["wpe"] = (cfg.max_train_seq, d)
         if not cfg.tie_embeddings:
             embed["head"] = (d, cfg.vocab_size)
 
@@ -216,6 +220,8 @@ class DecoderLM:
     # -- serving ---------------------------------------------------------
     def _cache_struct(self, B: int, max_seq: int) -> Dict[str, LeafSpec]:
         cfg = self.cfg
+        if cfg.positional == "learned":
+            cm.check_positions(max_seq, cfg.max_train_seq)
         shape = (self.n_groups, B, max_seq, cfg.n_kv_heads, self.head_dim)
         return {"k": LeafSpec(shape, self.compute_dtype),
                 "v": LeafSpec(shape, self.compute_dtype)}
@@ -286,8 +292,17 @@ class DecoderLM:
         """
         cfg = self.cfg
         B = tokens.shape[0]
-        x = cm.embed_tokens(params["embed"], tokens[:, None],
-                            self.compute_dtype)
+        e = params["embed"]
+        if "wpe" in e:
+            # the reference's order: both rows added in the parameter
+            # dtype, then cast.  A frozen slot parked one past a cache of
+            # the table's length reads the last row, where the reference
+            # reads NaN; its logits are never used
+            row = torch.clamp(pos, max=e["wpe"].shape[0] - 1)
+            x = cm.cast(e["wte"][tokens[:, None]] + e["wpe"][row[:, None]],
+                        self.compute_dtype)
+        else:
+            x = cm.embed_tokens(e, tokens[:, None], self.compute_dtype)
         paged = block_tables is not None
         arange = torch.arange(B, device=tokens.device)
         layers = unstack_layers(params["layers"], cfg.n_layers)

@@ -98,12 +98,11 @@ def test_prefill_attention_matches_chunked_attention(G, D, dtype):
     np.testing.assert_allclose(np32(got), np32(ref), **DTYPES[dtype][2])
 
 
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
-def test_prefill_attention_matches_chunked_attention_at_head_dim_224(dtype):
-    """zamba2-7b's shared block: head_dim 224, one query head per KV head,
-    ragged rows; in bf16 the scaled q rounds as the reference's does."""
-    rng = np.random.default_rng(224)
-    B, S, H, D = 2, 40, 2, 224
+def _one_group_prefill_matches(D, dtype):
+    """The prefill at head_dim ``D`` with one query head per KV head over
+    ragged rows against the reference's ``chunked_attention``."""
+    rng = np.random.default_rng(D)
+    B, S, H = 2, 40, 2
     q, k, v = (rng.normal(size=(B, S, H, D)).astype(np.float32)
                for _ in range(3))
     vl = np.array([S, 17], np.int32)
@@ -116,14 +115,28 @@ def test_prefill_attention_matches_chunked_attention_at_head_dim_224(dtype):
     np.testing.assert_allclose(np32(got), np32(ref), **DTYPES[dtype][2])
 
 
-@pytest.mark.parametrize("D", [224, 32])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_prefill_attention_matches_chunked_attention_at_head_dim_224(dtype):
+    """zamba2-7b's shared block: head_dim 224, one query head per KV head,
+    ragged rows; in bf16 the scaled q rounds as the reference's does."""
+    _one_group_prefill_matches(224, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_prefill_attention_matches_chunked_attention_at_head_dim_128(dtype):
+    """gpt3-xl's attention: head_dim 128, one query head per KV head (MHA),
+    ragged rows; in bf16 the scaled q rounds as the reference's does."""
+    _one_group_prefill_matches(128, dtype)
+
+
+@pytest.mark.parametrize("D", [224, 32, 128])
 def test_prefill_plain_version_scales_q_as_the_reference(D):
     """The plain prefill's bf16 scaled q is JAX's ``q * D ** -0.5`` bit for
     bit (one elementwise rounding), read out through the log-sum-exp: row
     j of a batch of one query and one key has key e_j, so its only score,
     and its log-sum-exp, is element j of the scaled q.  Multiplying by the
     f32 factor, as the port did before, differs in some elements at these
-    head_dims (at 64 the factor is exact in bf16)."""
+    head_dims (at 64 the factor is exact in bf16; gpt3-xl's 128 is not)."""
     rng = np.random.default_rng(D)
     H = 16
     q_row = rng.normal(size=(1, 1, H, D)).astype(np.float32)
@@ -181,7 +194,7 @@ def _paged_operands(pool: str, seed=0, B=3, H=4, KV=2, D=32, P=16, page=16,
         .astype(np.int32)
     kf = rng.normal(size=(P, page, KV, D)).astype(np.float32)
     vf = rng.normal(size=(P, page, KV, D)).astype(np.float32)
-    if pool == "f32":
+    if pool in ("f32", "bf16"):
         return q, kf, vf, tables, None, None
     qmax = {"int8": 127.0, "fp8": 448.0}[pool]
     ks = (np.abs(kf).max(axis=(1, 3)) / qmax + 1e-8).astype(np.float32)
@@ -194,6 +207,7 @@ def _paged_operands(pool: str, seed=0, B=3, H=4, KV=2, D=32, P=16, page=16,
 
 
 _POOL = {"f32": (jnp.float32, torch.float32),
+         "bf16": (jnp.bfloat16, torch.bfloat16),
          "int8": (jnp.int8, torch.int8),
          "fp8": (jnp.float8_e4m3fn, torch.float8_e4m3fn)}
 
@@ -226,6 +240,34 @@ def test_paged_decode_matches_reference(pool, window, softcap, positions):
                              torch.tensor(pos), window=window,
                              softcap=softcap, **tsc)
     assert got.shape == (3, 1, 4, 32) and got.dtype == torch.float32
+    np.testing.assert_allclose(np32(got), np32(ref), **F32_TOL)
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("window,softcap,positions", _COMBOS)
+def test_paged_decode_matches_reference_at_head_dim_128(pool, window,
+                                                        softcap, positions):
+    """gpt3-xl's instantiation, head_dim 128 with one query head per KV
+    head, on the pools it is built for (the values stored in bf16 or int8
+    alike in both packages)."""
+    q, kq, vq, tables, ks, vs = _paged_operands(pool, seed=128, H=2, D=128)
+    pos = np.asarray(positions, np.int32)
+    for b, p in enumerate(pos):                  # park the unused tail
+        tables[b, p // kq.shape[1] + 1:] = 0
+    jd, td = _POOL[pool]
+    jk, jv = jnp.asarray(kq).astype(jd), jnp.asarray(vq).astype(jd)
+    tk, tv = torch.tensor(kq).to(td), torch.tensor(vq).to(td)
+    assert np.array_equal(np32(jk), np32(tk))    # same stored values
+    jsc = {} if ks is None else {"k_scales": jnp.asarray(ks),
+                                 "v_scales": jnp.asarray(vs)}
+    tsc = {} if ks is None else {"k_scales": torch.tensor(ks),
+                                 "v_scales": torch.tensor(vs)}
+    ref = jax_paged(jnp.asarray(q), jk, jv, jnp.asarray(tables),
+                    jnp.asarray(pos), window=window, softcap=softcap, **jsc)
+    got = paged_flash_decode(torch.tensor(q), tk, tv, torch.tensor(tables),
+                             torch.tensor(pos), window=window,
+                             softcap=softcap, **tsc)
+    assert got.shape == (3, 1, 2, 128) and got.dtype == torch.float32
     np.testing.assert_allclose(np32(got), np32(ref), **F32_TOL)
 
 
@@ -273,7 +315,8 @@ def test_kernels_refuse_what_they_are_not_built_for(case):
     """Off the CPU, a dtype, width, head_dim or query group with no kernel
     instantiation raises before any launch (the kernels are built for the
     serving path's bf16: attention at head_dim 64, paged decode there
-    with 4 or 2 query heads per KV head, both at head_dim 224 with one,
+    with 4 or 2 query heads per KV head, both at head_dim 128 and 224 with
+    one,
     and RMSNorm at d 256, 1024, 2048, 3584 and 7168).  Group 2 at head_dim
     64, built for the card smoke config, passes the case checks and stops
     only at the device check; group 3 is refused."""
@@ -293,7 +336,8 @@ def test_kernels_refuse_what_they_are_not_built_for(case):
                                _meta(1, 2, dtype=torch.int32),
                                _meta(1, dtype=torch.int32))
         with pytest.raises(ValueError, match=r"\[\(64, 4\), \(64, 2\), "
-                                             r"\(224, 1\)\], got D=64, H=6"):
+                                             r"\(128, 1\), \(224, 1\)\], "
+                                             r"got D=64, H=6"):
             paged_flash_decode(_meta(1, 1, 6, 64), pages, pages,
                                _meta(1, 2, dtype=torch.int32),
                                _meta(1, dtype=torch.int32))
@@ -304,8 +348,8 @@ def test_kernels_refuse_what_they_are_not_built_for(case):
     elif case == "prefill_d16":
         q = _meta(1, 8, 2, 16)
         with pytest.raises(ValueError, match="head_dim 64 and for head_dim "
-                                             "224 with one query head per "
-                                             "KV head"):
+                                             "128 and 224 with one query "
+                                             "head per KV head"):
             flash_prefill(q, q, q)
     else:
         pages = _meta(3, 4, 2, 64)
@@ -352,6 +396,43 @@ def test_kernels_refuse_around_the_hybrid_instantiations(case):
     else:
         with pytest.raises(ValueError, match="got d=4096"):
             rmsnorm(_meta(4, 4096), _meta(4096, dtype=torch.float32))
+    assert kernels.launch_counts() == {"rmsnorm": 0, "flash_prefill": 0,
+                                       "flash_bwd": 0, "paged_decode": 0,
+                                       "ssd_scan": 0}
+
+
+@pytest.mark.parametrize("case", ["prefill_128_group_2", "paged_128_fp8",
+                                  "paged_128_group_2", "paged_128_int8"])
+def test_kernels_refuse_around_the_gpt3_instantiations(case):
+    """What gpt3-xl's instantiations (head_dim 128, one query head per KV
+    head; paged decode over bf16 and int8 pools) do not cover raises
+    before any launch; an int8 pool at 128 passes the case checks and
+    stops only at the device check."""
+    kernels.reset_launch_counts()
+    scales = dict(k_scales=_meta(3, 2, dtype=torch.float32),
+                  v_scales=_meta(3, 2, dtype=torch.float32))
+    tables, pos = _meta(1, 2, dtype=torch.int32), _meta(1, dtype=torch.int32)
+    if case == "prefill_128_group_2":
+        q, kv = _meta(1, 8, 4, 128), _meta(1, 8, 2, 128)
+        with pytest.raises(ValueError, match="got D=128, H=4, KV=2"):
+            flash_prefill(q, kv, kv)
+    elif case == "paged_128_fp8":
+        pages = _meta(3, 4, 2, 128, dtype=torch.float8_e4m3fn)
+        with pytest.raises(TypeError, match="head_dim 128 with 1 query "
+                                            "heads per KV head is built for "
+                                            "bf16 and int8 pools"):
+            paged_flash_decode(_meta(1, 1, 2, 128), pages, pages, tables,
+                               pos, **scales)
+    elif case == "paged_128_group_2":
+        pages = _meta(3, 4, 2, 128)
+        with pytest.raises(ValueError, match="got D=128, H=4, KV=2"):
+            paged_flash_decode(_meta(1, 1, 4, 128), pages, pages, tables,
+                               pos)
+    else:
+        pages = _meta(3, 4, 2, 128, dtype=torch.int8)
+        with pytest.raises(ValueError, match="expected a CUDA device"):
+            paged_flash_decode(_meta(1, 1, 2, 128), pages, pages, tables,
+                               pos, **scales)
     assert kernels.launch_counts() == {"rmsnorm": 0, "flash_prefill": 0,
                                        "flash_bwd": 0, "paged_decode": 0,
                                        "ssd_scan": 0}

@@ -32,9 +32,10 @@ from repro_torch.kernels.flash_attention.paged import (KERNEL_CASES,
 from torch_parity import F32_TOL, np32
 
 # the kernel's instantiations: llama3.2-1b's group at head_dim 64, the
-# card smoke config's, and zamba2-7b's shared block at head_dim 224
-(_, KERNEL_GROUP, _), (_, SMOKE_GROUP, _), (WIDE_HEAD_DIM, WIDE_GROUP, _) = \
-    KERNEL_CASES
+# card smoke config's, gpt3-xl's at head_dim 128 and zamba2-7b's shared
+# block at head_dim 224
+((_, KERNEL_GROUP, _), (_, SMOKE_GROUP, _), (GPT3_HEAD_DIM, GPT3_GROUP, _),
+ (WIDE_HEAD_DIM, WIDE_GROUP, _)) = KERNEL_CASES
 
 TILE, WARPS = 64, 4          # keys per ring stage; warps per block
 WARP_KEYS = TILE // WARPS    # keys of a tile each warp takes
@@ -196,18 +197,12 @@ def test_split_recipe_matches_reference(pool, kps, window, softcap):
     assert bool(empty[0, :, 1:].all()) and not bool(empty[0, :, 0].any())
 
 
-@pytest.mark.parametrize("pool", ["bf16", "int8"])
-@pytest.mark.parametrize("kps", [16, 128])
-@pytest.mark.parametrize("window,softcap", [(0, 0.0), (100, 50.0)])
-def test_split_recipe_matches_reference_at_head_dim_224(pool, kps, window,
-                                                        softcap):
-    """zamba2-7b's instantiation, head_dim 224 with one query head per KV
-    head (a key on 28 lanes, one key a step): each warp still takes 16
-    keys of a tile, so the same recipe models it, on the pools it is built
-    for."""
+def _one_group_recipe_matches(pool, kps, window, softcap, d, group):
+    """The recipe at head_dim ``d`` with ``group`` (1) query heads per KV
+    head against the reference, on the split and page edges."""
     pos = _positions(kps)
     q, (jk, jv, tk, tv), tables, ks, vs = _operands(
-        pool, pos, seed=kps + 224, d=WIDE_HEAD_DIM, group=WIDE_GROUP)
+        pool, pos, seed=kps + d, d=d, group=group)
     jsc = {} if ks is None else {"k_scales": jnp.asarray(ks),
                                  "v_scales": jnp.asarray(vs)}
     tsc = {} if ks is None else {"k_scales": torch.tensor(ks),
@@ -217,9 +212,35 @@ def test_split_recipe_matches_reference_at_head_dim_224(pool, kps, window,
     got, empty = recipe_decode(torch.tensor(q), tk, tv, torch.tensor(tables),
                                torch.tensor(pos), window=window,
                                softcap=softcap, keys_per_split=kps, **tsc)
-    assert got.shape == q.shape == (len(pos), 1, KV, WIDE_HEAD_DIM)
+    assert got.shape == q.shape == (len(pos), 1, group * KV, d)
     np.testing.assert_allclose(np32(got), np32(ref), **F32_TOL)
     assert bool(empty[0, :, 1:].all()) and not bool(empty[0, :, 0].any())
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("kps", [16, 128])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (100, 50.0)])
+def test_split_recipe_matches_reference_at_head_dim_224(pool, kps, window,
+                                                        softcap):
+    """zamba2-7b's instantiation, head_dim 224 with one query head per KV
+    head (a key on 28 lanes, one key a step): each warp still takes 16
+    keys of a tile, so the same recipe models it, on the pools it is built
+    for."""
+    _one_group_recipe_matches(pool, kps, window, softcap, WIDE_HEAD_DIM,
+                              WIDE_GROUP)
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("kps", [16, 128])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (100, 50.0)])
+def test_split_recipe_matches_reference_at_head_dim_128(pool, kps, window,
+                                                        softcap):
+    """gpt3-xl's instantiation, head_dim 128 with one query head per KV
+    head (a key on 16 lanes, 2 keys a step): the same 16 keys a warp takes
+    of a tile, on the pools it is built for."""
+    assert (GPT3_HEAD_DIM, GPT3_GROUP) == (128, 1)
+    _one_group_recipe_matches(pool, kps, window, softcap, GPT3_HEAD_DIM,
+                              GPT3_GROUP)
 
 
 @pytest.mark.parametrize("pool", ["bf16", "int8", "fp8"])

@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.flash_attention.backward import \
+    flash_attention_bwd as flash_attention_bwd_pallas
 from repro.kernels.flash_attention.kernel import flash_attention_fwd
 from repro.kernels.flash_attention.ops import \
     flash_attention_train as jax_flash_train
@@ -85,6 +87,57 @@ def test_forward_lse_matches_reference(G, causal, window):
     np.testing.assert_allclose(
         np32(o), np32(o_ref).reshape(B, H, S, D).transpose(0, 2, 1, 3),
         **F32_TOL)
+
+
+def _to_bh(a, S, D):
+    """(B, S, H, D) as the TPU kernels' (B * H, S, D)."""
+    return jnp.asarray(a).transpose(0, 2, 1, 3).reshape(-1, S, D)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("S", [48, 64])
+def test_forward_lse_matches_reference_at_head_dim_128(S, dtype):
+    """gpt3-xl's training forward, head_dim 128 with one query head per KV
+    head: the plain version's output and log-sum-exp against the TPU
+    kernel's ``return_lse=True`` in interpret mode, called on whole blocks
+    of 16 as its ops wrapper calls it.  In bf16 the plain version rounds q * scale and P
+    as the reference's jnp attention does, the TPU kernel neither, so bf16
+    is held at ``BF16_TOL``."""
+    B, H, D = 2, 2, 128
+    q, k, v, _ = _operands(B, S, S, H, H, D, seed=S)
+    jd, td, tol = {"f32": (jnp.float32, torch.float32, F32_TOL),
+                   "bf16": (jnp.bfloat16, torch.bfloat16, BF16_TOL)}[dtype]
+    o_ref, lse_ref = flash_attention_fwd(
+        *(_to_bh(a, S, D).astype(jd) for a in (q, k, v)), causal=True,
+        block_q=16, block_k=16, return_lse=True, interpret=True)
+    o, lse = flash_prefill(*(torch.tensor(a).to(td) for a in (q, k, v)),
+                           block_k=16, return_lse=True)
+    assert o.dtype == td and lse.shape == (B, H, S)
+    np.testing.assert_allclose(np32(lse), np32(lse_ref).reshape(B, H, S),
+                               **tol)
+    np.testing.assert_allclose(
+        np32(o), np32(o_ref).reshape(B, H, S, D).transpose(0, 2, 1, 3), **tol)
+
+
+@pytest.mark.parametrize("S", [48, 64])
+def test_flash_bwd_plain_version_matches_reference_at_head_dim_128(S):
+    """The flash backward's plain version (the kernels' oracle) at head_dim
+    128 against the TPU kernels' ``flash_attention_bwd`` in interpret mode,
+    on the same saved output and log-sum-exp (whole blocks of 16), in
+    f32."""
+    B, H, D = 2, 2, 128
+    q, k, v, do = _operands(B, S, S, H, H, D, seed=S + 1)
+    tq, tk, tv, tdo = (torch.tensor(a) for a in (q, k, v, do))
+    o, lse = flash_prefill(tq, tk, tv, block_k=16, return_lse=True)
+    got = flash_attention_bwd(tq, tk, tv, o, tdo, lse)
+    ref = flash_attention_bwd_pallas(
+        *(_to_bh(a, S, D) for a in (q, k, v, np32(o), do)),
+        jnp.asarray(np32(lse)).reshape(B * H, S, 1), causal=True,
+        block_q=16, block_k=16, interpret=True)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        np.testing.assert_allclose(
+            np32(g), np32(r).reshape(B, H, S, D).transpose(0, 2, 1, 3),
+            **FLASH_BWD_TOL, err_msg=name)
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
@@ -163,22 +216,25 @@ def _meta(*shape, dtype=torch.bfloat16):
 @pytest.mark.parametrize("case,error,match", [
     ("bf16_d64", ValueError, "CUDA device"), ("f32", TypeError, "bf16"),
     ("d16", ValueError, "head_dim 64"), ("lse_bf16", TypeError, "float32"),
-    ("d224_g2", ValueError, "head_dim 224 with one query head"),
+    ("d224_g2", ValueError, "128 and 224 with one query head"),
     ("bf16_d224", ValueError, "CUDA device"),
+    ("d128_g2", ValueError, "128 and 224 with one query head"),
+    ("bf16_d128", ValueError, "CUDA device"),
     ("window", NotImplementedError, "training path"),
     ("non_causal", NotImplementedError, "training path"),
     ("sq_ne_sk", NotImplementedError, "training path")])
 def test_flash_bwd_refuses_what_it_is_not_built_for(case, error, match):
     """Off the CPU the backward launches its kernel or raises before any
     launch; with no card here every case raises.  Beside dtype and
-    head_dim (64 at any group, 224 with one query head per KV head) it
-    refuses what the training path does not give it: a window, no causal
-    mask, Sq != Sk."""
+    head_dim (64 at any group, 128 and 224 with one query head per KV
+    head) it refuses what the training path does not give it: a window, no
+    causal mask, Sq != Sk."""
     kernels.reset_launch_counts()
-    D = {"d16": 16, "d224_g2": 224, "bf16_d224": 224}.get(case, 64)
+    D = {"d16": 16, "d224_g2": 224, "bf16_d224": 224, "d128_g2": 128,
+         "bf16_d128": 128}.get(case, 64)
     dt = torch.float32 if case == "f32" else torch.bfloat16
     Sk = 16 if case == "sq_ne_sk" else 8
-    KV = 4 if case == "bf16_d224" else 2
+    KV = 4 if case in ("bf16_d224", "bf16_d128") else 2
     q, kv = _meta(1, 8, 4, D, dtype=dt), _meta(1, Sk, KV, D, dtype=dt)
     lse = _meta(1, 4, 8, dtype=torch.bfloat16 if case == "lse_bf16"
                 else torch.float32)
