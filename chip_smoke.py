@@ -10,10 +10,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                  logs ``ptxas``'s registers and spills, and counts the
                  HMMA/HGMMA instructions in the SASS (``cuobjdump``) of each
                  attention kernel and each SSD pass that runs a product:
-                 none there fails the run; then each of zamba2-7b's and
-                 gpt3-xl's instantiations on its own line (registers,
-                 spills, HMMA), their training backwards' at head_dim 224
-                 and 128 too.
+                 none there fails the run; then each of zamba2-7b's,
+                 gpt3-xl's and llama3.2-3b's instantiations on its own
+                 line (registers, spills, HMMA), their training backwards'
+                 at head_dim 224 and 128 too.
 3. kernels     — every kernel against its plain PyTorch version on the card,
                  in bf16, at the serving path's shapes; times the kernel, the
                  plain version and one PyTorch library call as a yardstick,
@@ -38,7 +38,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                  from a CUDA graph bitwise equal to eager, against the plain
                  version with the paged checks below; timed at granite's
                  shape on bf16 (row ``paged_decode[D64G2 bf16]``, its
-                 launches from the ``--smoke`` serve launcher); fp8 and f32
+                 launches from granite's full-width serve run); fp8 and f32
                  checked and logged.  The build phase logs its ``ptxas``
                  registers and spills; a spill in a serving pool fails.
    paged       — each pool (bf16, int8, fp8, f32) at the serving positions,
@@ -94,6 +94,17 @@ Phases, in order; any failure raises and the script exits non-zero:
                  decode on bf16 and int8 pools with the paged edges, replayed
                  from a graph bitwise equal to eager (rows
                  ``paged_decode[D128G1 bf16]`` and ``[D128G1 int8]``).
+   llama3b     — llama3.2-3b's instantiations (head_dim 128, 3 query heads
+                 per KV head, 24 heads over 8; RMSNorm at d 3072), as
+                 gpt3-xl's: the prefill over the buckets with ragged rows
+                 (row ``flash_prefill[D128G3]``), B 1 at S 77, B 2 at S 200
+                 and a window; the training forward and backward at the
+                 micro-batch B 2, S 1024 (rows ``flash_prefill_lse[D128G3]``,
+                 ``flash_bwd[D128G3]``) and their edges; paged decode on
+                 bf16 and int8 pools with the paged edges and graph replays
+                 (rows ``paged_decode[D128G3 bf16]``, ``[D128G3 int8]``);
+                 RMSNorm at (4096, 3072) (row ``rmsnorm[3072]``) and
+                 (8, 3072) beside ``F.rms_norm``.
 4. serve       — llama3.2-1b at full width (random weights from a seeded
                  generator) serves 16 requests through ``ServeEngine.generate``
                  with bf16 pages and with int8 pages, each with CUDA graphs
@@ -145,6 +156,34 @@ Phases, in order; any failure raises and the script exits non-zero:
                  train executor planned for that shape, over an NVML energy
                  window of at least 5 s; then ``launch.train.main --arch
                  gpt3-xl --smoke``.
+   serve_llama3b — llama3.2-3b (28 layers, d_model 3072, 24 heads over 8
+                 at head_dim 128, d_ff 8192, vocab 128256, tied; 3.213 B
+                 parameters) at full width and depth serves as serve_gpt3
+                 (exact launches: 57 RMSNorms a forward, 28 prefills a
+                 bucket call, 28 paged decodes a paged step).
+   consistency_llama3b — ``consistency`` on it, bf16 and int8 pages.
+   train_llama3b — 4 steps of 8 x 1024 tokens as 4 micro-batches of 2, at
+                 ``LLAMA3B_TRAIN_LAYERS`` layers (the train phase's gates).
+   serve_moe   — granite-moe-1b-a400m (24 layers, d_model 1024, 16 heads
+                 over 8 at head_dim 64, 32 experts of d_ff 512, top-8,
+                 vocab 49155; 1.335 B parameters, 0.429 B active) at full
+                 width and depth serves as serve_gpt3 (exact launches as
+                 llama's at 24 layers; every routed pair kept); then the MoE
+                 layer's share of a prefill bucket's and a decode step's
+                 device time.
+   consistency_moe — ``consistency`` on it, bf16 and int8 pages, the longer
+                 prefill held to the decode path's experts and, after each
+                 layer but the last, its residual: each layer's output at
+                 the decoded token within 5% of the decode path's, the
+                 logits within the gate, routing flips only at near-ties
+                 (their f32 top-k margins logged); the prefill held to the
+                 experts alone and the unheld prefill logged beside (at full
+                 depth they part by more than the gate: bf16 rounding adds
+                 up over granite's 24 random layers).
+   train_moe   — 4 steps of 8 x 1024 tokens as 2 micro-batches of 4
+                 (capacity 1280 a layer and expert), the load balance,
+                 router z-loss and dropped fraction logged each step, a
+                 non-zero gradient on every leaf, the router's included.
    serve_ssm   — mamba2-370m at full width and depth (random weights from a
                  seeded generator) serves the same 16 requests with a dense
                  and with a paged ``BatchState``, graphs on and off:
@@ -210,7 +249,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                  ``check_executor`` clean, exact launches of paged decode, the
                  prefill and RMSNorm; the same with ``--smoke`` (the reduced
                  config at the kernels' widths, paged decode at a query
-                 group of 2); the serve phase's 16 requests behind a
+                 group of 2); ``launch.serve.main --arch
+                 granite-moe-1b-a400m`` with ``--smoke`` and at full width
+                 with 2 requests; the serve phase's 16 requests behind a
                  ``DvfsSession(chip="h100")`` executor, repeated for at least 5
                  s after a capturing run, against the energy counter (joules a
                  token and mean watts, gross and net of idle, the SM and memory
@@ -233,6 +274,7 @@ is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import itertools
@@ -280,11 +322,31 @@ HYBRID_TRAIN_LAYERS = 15
 # longer than DVFS_WINDOW_S)
 GPT3_ATTN = dict(H=16, KV=16, D=128)
 GPT3_BATCH, GPT3_ACCUM, GPT3_DVFS_STEPS = 40, 5, 6
+# llama3.2-3b: its attention's heads, KV heads and head_dim (3 query heads
+# per KV head); it trains 8 x 1024 tokens a step as LLAMA3B_ACCUM
+# micro-batches of 2 at full width with its depth cut to
+# LLAMA3B_TRAIN_LAYERS of 28 layers.  Its f32 masters, gradients and two
+# AdamW moments are 16 bytes a parameter and a micro-batch's f32 gradients
+# beside the accumulated ones 4 more: 64.3 GB at 28 layers (3.213 B
+# parameters), 56.2 GB at 24 (2.810 B), computed; AdamW's f32 temporaries
+# over the largest stacked leaf (w_gate, 0.70 B values at 28 layers: 2.8
+# GB each) come on top.  At 28 layers the fourth step ran out of an H100
+# 80GB's 79.2 GiB (68.1 GiB allocated, 8.9 reserved but unallocated)
+LLAMA3B_ATTN = dict(H=24, KV=8, D=128)
+LLAMA3B_ACCUM, LLAMA3B_TRAIN_LAYERS = 4, 24
+# granite-moe-1b-a400m trains 8 x 1024 tokens a step as MOE_ACCUM
+# micro-batches of 4 (4096 tokens, 32768 routed pairs a layer)
+MOE_ACCUM = 2
 LSE_TOL = 1e-3         # forward log-sum-exp, absolute
 BWD_TOL = 2e-2         # dq, dk, dv, relative to each one's largest |value|
 ATTN_TOL = 2e-2        # bf16 attention, as tests/test_kernels.py uses
 RMS_RTOL = 1e-2        # RMSNorm, relative (one bf16 ulp is 2**-8)
 CONSISTENCY_TOL = 5e-2  # prefill vs decode logits, relative to max |logit|
+# an MoE routing flip between the decode path and a longer prefill is a
+# near-tie only below this f32 gap between a token's K-th and (K+1)-th
+# router probability (the bf16 rounding that parts the two paths moves a
+# probability by ~1e-4 at granite's near-uniform random routing)
+ROUTE_FLIP_MARGIN = 2e-3
 # SSD scan: y relative to its largest |value| (a bf16 output, one ulp 2**-8);
 # the final state relative to its largest |value| (f32 on both sides, only
 # the order of the sums differs)
@@ -309,8 +371,12 @@ MAX_COPIES, MAX_QUEUED = 256, 512
 DVFS_WINDOW_S, DVFS_TRAIN_STEPS = 5.0, 20
 
 
+_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """``msg`` on its own line, after the seconds since the script began."""
+    print(f"[{time.perf_counter() - _START:6.1f} s] {msg}", flush=True)
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -503,6 +569,15 @@ GPT3_INSTANTIATIONS = (
     ("_Z21flash_bwd_prep_kernelILi128E", False),
     ("_Z24flash_bwd_dq_wide_kernelILi128E", True),
     ("_Z25flash_bwd_dkv_wide_kernelILi128E", True))
+# llama3.2-3b's own instantiations (RMSNorm at d 3072; paged decode at
+# head_dim 128 with 3 query heads per KV head: a lane holds 3 query rows);
+# its prefill and backward are gpt3-xl's wide kernels at head_dim 128.  A
+# spill is logged, not refused
+LLAMA3B_INSTANTIATIONS = (
+    ("_Z14rmsnorm_kernelILi12E", False),
+    ("_Z19paged_decode_kernelI13__nv_bfloat16Li128ELi3E", False),
+    ("_Z19paged_decode_kernelIaLi128ELi3E", False),
+    ("_Z27paged_decode_combine_kernelI13__nv_bfloat16Li128ELi3E", False))
 # paged decode at head_dim 64 with 2 query heads per KV head (the card
 # smoke config's and granite-moe's attention): the instantiations of the
 # serving pools (bf16, int8) and the combine pass may not spill; the f32
@@ -574,7 +649,8 @@ def phase_build() -> None:
     # and spills, and HMMA in the SASS of those that run products
     res = ptxas_resources(str(info["compiler_log"]))
     for model, table in (("zamba2-7b", HYBRID_INSTANTIATIONS),
-                         ("gpt3-xl", GPT3_INSTANTIATIONS)):
+                         ("gpt3-xl", GPT3_INSTANTIATIONS),
+                         ("llama3.2-3b", LLAMA3B_INSTANTIATIONS)):
         for prefix, products in table:
             fns = [fn for fn in res if fn.startswith(prefix)]
             if not fns:
@@ -1520,8 +1596,9 @@ def check_group2_kernels(gen):
     graph bitwise equal to eager and ``paged_agreement``'s checks (the
     serving positions twice, bitwise equal; the edges, a window, softcap,
     one slot); timed at granite's shape on bf16 (its JSON row,
-    ``paged_decode[D64G2 bf16]``); the fp8 and f32 pools checked and
-    logged.  Returns the row."""
+    ``paged_decode[D64G2 bf16]``, whose launches come from granite's
+    full-width serve run); the fp8 and f32 pools checked and logged.
+    Returns the row."""
     from repro_torch.kernels.flash_attention import paged_flash_decode
     for shape, attn in GROUP2_ATTN.items():
         for dtype, label in ((torch.bfloat16, "bf16"), (torch.int8, "int8")):
@@ -1542,8 +1619,8 @@ def check_group2_kernels(gen):
                                 L=1)
     row = check_paged(gen, torch.bfloat16, "D64G2 bf16",
                       GROUP2_ATTN["granite"])
-    row["model"] = ("granite-moe-1b-a400m's attention shape; launched by "
-                    "llama3.2-1b --smoke (card_smoke_config)")
+    row["model"] = ("granite-moe-1b-a400m (its attention: 16 heads over 8 "
+                    "at head_dim 64)")
     for dtype, label in ((torch.float8_e4m3fn, "fp8"), (torch.float32, "f32")):
         _, err = paged_agreement(gen, dtype, f"D64G2 {label}",
                                  GROUP2_ATTN["granite"], L=1)
@@ -1726,6 +1803,72 @@ def check_gpt3_kernels(gen):
     return rows
 
 
+#: the kernel rows of llama3.2-3b's instantiations: the run whose launches
+#: each reports (``phase_serve_llama3b``'s runs by page type, or its
+#: training run)
+LLAMA3B_ROW_RUNS = {"flash_prefill[D128G3]": "bf16",
+                    "paged_decode[D128G3 bf16]": "bf16",
+                    "paged_decode[D128G3 int8]": "int8",
+                    "flash_prefill_lse[D128G3]": "train",
+                    "flash_bwd[D128G3]": "train",
+                    "rmsnorm[3072]": "bf16"}
+
+
+def check_llama3b_kernels(gen):
+    """llama3.2-3b's instantiations (head_dim 128 with 3 query heads per KV
+    head: 24 heads over 8; RMSNorm at d 3072), each against its plain
+    version and twice (bitwise equal), timed as gpt3-xl's are beside its
+    bound and library yardstick: the prefill over the buckets 32, 128 and
+    512 with ragged rows (its row at B 8, S 512), B 1 at S 77 and B 2 at
+    S 200 with ragged rows, and a window over rows with no valid key; the
+    training forward with its log-sum-exp and the backward at the training
+    micro-batch (B 2, S 1024), and both at S 200 and B 1, S 77; paged
+    decode on bf16 and int8 pools at the serving positions with
+    ``check_paged``'s edges, replayed from a CUDA graph bitwise equal to
+    eager; RMSNorm at (4096, 3072) (graph_ms too) and the decode shape
+    (8, 3072), logged.  Returns the JSON rows named in
+    ``LLAMA3B_ROW_RUNS``, each marked with the model."""
+    from repro_torch.kernels.flash_attention import paged_flash_decode
+    H, KV, D = LLAMA3B_ATTN["H"], LLAMA3B_ATTN["KV"], LLAMA3B_ATTN["D"]
+    for S in (32, 128, 512):
+        row = _prefill_row(gen, SERVE_SLOTS, S, H, KV, D,
+                           "flash_prefill[D128G3]", graph=True,
+                           backend=S == 512)
+    rows = [row]                       # the longest bucket
+    _prefill_compare(gen, 1, 77, H, KV, D, [45])
+    _prefill_compare(gen, 2, 200, H, KV, D, [200, 131])
+    check_prefill_padded_window(gen, H, KV, D)
+    rows += check_flash_bwd(gen, **LLAMA3B_ATTN,
+                            edges=((2, 200, H, KV), (1, 77, H, KV)),
+                            tag="[D128G3]", B=TRAIN_BATCH // LLAMA3B_ACCUM)
+    for dtype, label in ((torch.bfloat16, "bf16"), (torch.int8, "int8")):
+        q, kp, vp, tables, pos, ks, vs = _paged_case(gen, dtype, L=1,
+                                                     **LLAMA3B_ATTN)
+        kw = {} if ks is None else dict(k_scales=ks[0], v_scales=vs[0])
+        same = graph_equal(lambda: paged_flash_decode(q, kp[0], vp[0], tables,
+                                                      pos, **kw))
+        log(f"[kernels] paged_decode {label} D128G3 pool replayed from a CUDA "
+            f"graph: bitwise equal to an eager call {same}")
+        if not same:
+            raise AssertionError(f"paged_decode ({label} D128G3): a graph "
+                                 f"replay differs from an eager call")
+        rows.append(check_paged(gen, dtype, f"D128G3 {label}", LLAMA3B_ATTN,
+                                L=4))
+    row, ok = _rmsnorm_row(gen, SERVE_SLOTS * 512, 3072, "rmsnorm[3072]")
+    if not ok:
+        raise AssertionError("rmsnorm kernel at d 3072 disagrees with its "
+                             "plain version")
+    rows.append(row)
+    tt, (_, _, nc) = rmsnorm_timings(gen, SERVE_SLOTS, 3072)
+    b_ms, _ = bound(2 * SERVE_SLOTS * 3072 * 2 + 3072 * 4,
+                    4 * SERVE_SLOTS * 3072, "f32")
+    log(f"[kernels] rmsnorm x ({SERVE_SLOTS}, 3072) bf16 ({nc} input "
+        f"copies): {versus('kernel', tt, 'F.rms_norm')}; bound {b_ms:.4f} ms")
+    for r in rows:
+        r["model"] = "llama3.2-3b"
+    return rows
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
@@ -1742,6 +1885,7 @@ def phase_kernels():
                                 edges=((2, 200, 32, 32),), tag="[D224]")[1])
     rows[-1]["model"] = "zamba2-7b"
     rows += check_gpt3_kernels(gen)
+    rows += check_llama3b_kernels(gen)
     # pools the serving path does not use: checked, logged, not in the JSON
     for dtype, label in ((torch.float8_e4m3fn, "fp8"), (torch.float32, "f32")):
         r = check_paged(gen, dtype, label)
@@ -2007,6 +2151,10 @@ def log_top(tag, rows, busy_ms, top=10):
             f"  x{count:<6d} {key[:90]}")
 
 
+# an eager profiled serve run takes this many new tokens (7 decode steps):
+# the profiler records every operator the host issues, and at 32 tokens
+# its own cost made mamba2-370m's eager run 58 s of the script
+PROFILE_EAGER_TOKENS = 8
 # the port's serving kernels as the profiler names them; paged decode is
 # its split kernel and the combine pass after it, the SSD scan its three
 # passes
@@ -2017,9 +2165,10 @@ PROFILE_KERNELS = {"paged_decode": "paged_decode_",
 
 def phase_profile(cfg, model, params, top: int = 10, tag: str = "profile",
                   paged: bool = True, graphs: bool = True,
-                  detail: bool = False, new_tokens: int = 32):
+                  detail: bool = False, new_tokens: int | None = None):
     """Where the time goes in a short serve run (8 prompts of 128 tokens,
-    ``new_tokens`` each; bf16 pages, or the dense cache with
+    ``new_tokens`` each: by default 32 with graphs, ``PROFILE_EAGER_TOKENS``
+    without; bf16 pages, or the dense cache with
     ``paged=False``; CUDA graphs on or off): its wall time unprofiled, then
     its device kernels under ``torch.profiler`` (kernels replayed from a
     graph included).  With ``detail`` each instantiation of the port's
@@ -2027,6 +2176,8 @@ def phase_profile(cfg, model, params, top: int = 10, tag: str = "profile",
     wall and device time less those of a run of the same prompts with one
     new token (its prefill and nothing else)."""
     from repro_torch.serve import Request, ServeEngine
+    if new_tokens is None:
+        new_tokens = 32 if graphs else PROFILE_EAGER_TOKENS
     rng = np.random.default_rng(1)
     tag = f"{tag}, graphs {'on' if graphs else 'off'}"
     eng = ServeEngine(model, params, batch_slots=SERVE_SLOTS,
@@ -2095,65 +2246,87 @@ def phase_profile(cfg, model, params, top: int = 10, tag: str = "profile",
 # ---------------------------------------------------------------------------
 
 def phase_consistency(model, params, steps: int = 4, kv_dtype=None,
-                      tag: str = "consistency"):
+                      tag: str = "consistency", hold: str = "hold"):
     """Prefill P, then ``steps`` paged decode steps fed the greedy tokens,
     against the last-position logits of one prefill of P + those tokens;
-    bf16 pages, or ``kv_dtype`` ("int8") pages installed as the engine
-    installs them (a fresh scale a page)."""
+    pages of the compute dtype, or ``kv_dtype`` ("int8") pages installed as
+    the engine installs them (a fresh scale a page): within
+    ``CONSISTENCY_TOL`` of the largest |logit|.
+
+    An MoE model's longer prefill is held to the decode path
+    (``HeldPath``): with ``hold`` "experts" it takes the experts the decode
+    path chose at every position, with "hold" their residual after each
+    layer too, and each layer's output at the decoded token is then gated
+    as well.  Its own routing flips where two router probabilities nearly
+    tie, and with granite's random experts one flip moves a token's output
+    by several percent of the residual: the routing is held so that the
+    gate sees the two paths' arithmetic (``PERF.md`` §6, PR 23)."""
     from repro_torch.models.common import kv_qmax
     from repro_torch.serve.kv_pages import PagedBatchState, write_prefill_pages
     rng = np.random.default_rng(5)
     plens = np.array([100, 37], np.int32)
     B, bucket = len(plens), 128
     dev = model.device
+    V = model.cfg.vocab_size
     prompts = np.zeros((B, bucket + steps), np.int32)
     for b, n in enumerate(plens):
-        prompts[b, :n] = rng.integers(0, model.cfg.vocab_size, n)
+        prompts[b, :n] = rng.integers(0, V, n)
     st = PagedBatchState(model, B, SERVE_MAX_SEQ, page_size=SERVE_PAGE,
                          kv_dtype=kv_dtype)
     for b, n in enumerate(plens):
         st.pool.allocate(b, int(n) + steps)
     st.sync_tables()
-    logits, sub = model.prefill(params, torch.tensor(prompts[:, :bucket],
-                                                     device=dev),
-                                prompt_lens=torch.tensor(plens, device=dev),
-                                max_seq=SERVE_MAX_SEQ)
-    tables_sub = st.pool.tables.copy()
-    for b in range(B):
-        tables_sub[b, st.pool.n_blocks[b]:] = st.pool.n_pages
-    for key in ("k", "v"):
-        scales = st.cache.get(f"{key}_scale")
-        if scales is None:
-            write_prefill_pages(st.cache[key], sub[key], tables_sub)
-        else:
-            write_prefill_pages(st.cache[key], sub[key], tables_sub,
-                                scales=scales,
-                                qmax=kv_qmax(st.cache[key].dtype))
-    tokens = torch.argmax(logits, -1).to(torch.int32)
-    pos = torch.tensor(plens, device=dev)
-    worst = 0.0
-    for i in range(steps):
+    held = HeldPath(model, B, bucket + steps, hold) if model.cfg.is_moe \
+        else None
+    with held or contextlib.nullcontext():
+        if held:
+            held.record()
+        logits, sub = model.prefill(params, torch.tensor(
+            prompts[:, :bucket], device=dev),
+            prompt_lens=torch.tensor(plens, device=dev),
+            max_seq=SERVE_MAX_SEQ)
+        tables_sub = st.pool.tables.copy()
         for b in range(B):
-            prompts[b, plens[b] + i] = int(tokens[b])
-        logits, _ = model.decode_step(params, st.cache, tokens, pos,
-                                      block_tables=st.tables_dev)
-        ref, _ = model.prefill(params, torch.tensor(prompts, device=dev),
-                               prompt_lens=torch.tensor(plens + i + 1,
-                                                        device=dev),
-                               max_seq=SERVE_MAX_SEQ)
-        V = model.cfg.vocab_size
-        gap = float((logits[:, :V].float() - ref[:, :V].float()).abs().max())
-        scale = float(ref[:, :V].float().abs().max())
-        worst = max(worst, gap / scale)
-        log(f"[{tag}] step {i}: max |decode - prefill| logits {gap:.4f}"
-            f" (max |logit| {scale:.3f}, relative {gap / scale:.4f}); greedy "
-            f"equal {torch.equal(logits.argmax(-1), ref.argmax(-1))}")
+            tables_sub[b, st.pool.n_blocks[b]:] = st.pool.n_pages
+        for key in ("k", "v"):
+            scales = st.cache.get(f"{key}_scale")
+            if scales is None:
+                write_prefill_pages(st.cache[key], sub[key], tables_sub)
+            else:
+                write_prefill_pages(st.cache[key], sub[key], tables_sub,
+                                    scales=scales,
+                                    qmax=kv_qmax(st.cache[key].dtype))
         tokens = torch.argmax(logits, -1).to(torch.int32)
-        pos = pos + 1
+        pos = torch.tensor(plens, device=dev)
+        worst = 0.0
+        for i in range(steps):
+            for b in range(B):
+                prompts[b, plens[b] + i] = int(tokens[b])
+            if held:
+                held.record(pos)
+            logits, _ = model.decode_step(params, st.cache, tokens, pos,
+                                          block_tables=st.tables_dev)
+            if held:
+                held.apply(pos)
+            ref = model.prefill(params, torch.tensor(prompts, device=dev),
+                                prompt_lens=torch.tensor(plens + i + 1,
+                                                         device=dev),
+                                max_seq=SERVE_MAX_SEQ)[0]
+            gap = float((logits[:, :V].float()
+                         - ref[:, :V].float()).abs().max())
+            scale = float(ref[:, :V].float().abs().max())
+            worst = max(worst, gap / scale)
+            log(f"[{tag}] step {i}: max |decode - prefill| logits {gap:.4g}"
+                f" (max |logit| {scale:.3f}, relative {gap / scale:.4g}); "
+                f"greedy equal "
+                f"{torch.equal(logits.argmax(-1), ref.argmax(-1))}"
+                + (f" ({held.summary()})" if held else ""))
+            tokens = torch.argmax(logits, -1).to(torch.int32)
+            pos = pos + 1
     if worst > CONSISTENCY_TOL:
         raise AssertionError(f"prefill/decode logits differ by {worst:.4f} of "
                              f"max |logit| > {CONSISTENCY_TOL}")
-    log(f"[{tag}] ok: worst relative gap {worst:.4f} <= {CONSISTENCY_TOL}")
+    log(f"[{tag}] ok: worst relative gap {worst:.4g} <= {CONSISTENCY_TOL}")
     return worst
 
 
@@ -2419,16 +2592,28 @@ def gpt3_launches(layers: int, paged: bool = True):
 
 
 def phase_serve_gpt3(cfg, model, params):
-    """gpt3-xl at full width and depth serves the serve phase's 16 requests
-    (64 new tokens each) with bf16 and int8 pages, each with CUDA graphs on
-    and off in turns (on, off, off, on), and a dense cache (graphs on and
-    off): equal tokens on and off per cache type, exact launches (24 flash
-    prefills a bucket call, 24 paged decodes a paged step, no RMSNorm), no
-    NaN logit; logs tokens/s, peak memory and each capture's host ms, and
-    the int8 and dense runs' agreement with bf16 pages.  Then a short
-    profiled bf16-page run in both modes, with its decode steps alone.
-    Returns the graphs-on runs' launches by page type."""
-    prompts = serve_prompts(cfg.vocab_size, "serve_gpt3")
+    """gpt3-xl at full width and depth: ``serve_full_model`` with its exact
+    launches (24 flash prefills a bucket call, 24 paged decodes a paged
+    step, no RMSNorm).  Returns the graphs-on runs' launches by page
+    type."""
+    return serve_full_model("serve_gpt3", cfg, model, params,
+                            lambda paged: gpt3_launches(cfg.n_layers, paged),
+                            profile_modes=(True, False))
+
+
+def serve_full_model(tag, cfg, model, params, launches,
+                     profile_modes=(True,)):
+    """A model at full width serves the serve phase's 16 requests (64 new
+    tokens each) with bf16 and int8 pages, each with CUDA graphs on and off
+    in turns (on, off, off, on), and a dense cache (graphs on and off):
+    equal tokens on and off per cache type, exact launches
+    (``launches(paged)``, a ``want(steps, calls)``), no NaN logit; logs
+    tokens/s, peak memory and each capture's host ms, and the int8 and
+    dense runs' agreement with bf16 pages.  Then a short profiled
+    bf16-page run with graphs on (and off where ``profile_modes`` holds
+    False), with its decode steps alone.  Returns the graphs-on runs'
+    launches by page type."""
+    prompts = serve_prompts(cfg.vocab_size, tag)
     runs = {}
     for label, graphs, kw in (
             ("bf16", True, dict(paged=True)),
@@ -2438,12 +2623,12 @@ def phase_serve_gpt3(cfg, model, params):
             ("dense", True, dict(paged=False)),
             ("dense", False, dict(paged=False))):
         runs[label, graphs] = serve_run(
-            f"serve_gpt3 {label}", model, params, prompts, SERVE_NEW_TOKENS,
-            graphs, gpt3_launches(cfg.n_layers, kw["paged"]), **kw)
+            f"{tag} {label}", model, params, prompts, SERVE_NEW_TOKENS,
+            graphs, launches(kw["paged"]), **kw)
     for label in ("bf16", "int8", "dense"):
         on, off = runs[label, True], runs[label, False]
-        _same_tokens("serve_gpt3", label, (on, off))
-        log(f"[serve_gpt3] {label}: graphs on {on['tokens_per_s']:.1f} "
+        _same_tokens(tag, label, (on, off))
+        log(f"[{tag}] {label}: graphs on {on['tokens_per_s']:.1f} "
             f"tokens/s against off {off['tokens_per_s']:.1f} "
             f"({on['tokens_per_s'] / off['tokens_per_s']:.2f}x)")
     # the dense path scales q in bf16 by a factor rounded to bf16, the
@@ -2452,10 +2637,11 @@ def phase_serve_gpt3(cfg, model, params):
     for other in ("dense", "int8"):
         a, b = runs[other, True]["tokens"], runs["bf16", True]["tokens"]
         same = sum(x == y for ra, rb in zip(a, b) for x, y in zip(ra, rb))
-        log(f"[serve_gpt3] {other} against bf16 pages: {same} of "
+        log(f"[{tag}] {other} against bf16 pages: {same} of "
             f"{sum(len(r) for r in b)} greedy tokens equal")
-    for graphs in (True, False):
-        phase_profile(cfg, model, params, tag="profile_gpt3", paged=True,
+    for graphs in profile_modes:
+        phase_profile(cfg, model, params,
+                      tag=tag.replace("serve", "profile"), paged=True,
                       graphs=graphs, detail=True)
     return {label: runs[label, True]["launches"] for label in ("bf16", "int8")}
 
@@ -2467,6 +2653,287 @@ def phase_consistency_gpt3(model, params):
     return [phase_consistency(model, params, kv_dtype=kv,
                               tag=f"consistency_gpt3, {kv or 'bf16'} pages")
             for kv in (None, "int8")]
+
+
+# ---------------------------------------------------------------------------
+# 5a''. serve llama3.2-3b and granite-moe-1b-a400m at full width, and their
+# prefill / decode consistency
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "granite-moe-1b-a400m"
+
+
+def _llama_style(layers: int):
+    """``launches(paged)`` of a RoPE / RMSNorm decoder of ``layers`` layers
+    (``llama_launches``): llama3.2-3b, and granite-moe-1b-a400m, whose MoE
+    layer launches none of the port's kernels."""
+    return lambda paged: (lambda s, c: llama_launches(s, c, paged, layers))
+
+
+def phase_serve_llama3b(cfg, model, params):
+    """llama3.2-3b at full width and depth: ``serve_full_model`` with its
+    exact launches (57 RMSNorms a forward, 28 flash prefills at head_dim
+    128 with 3 query heads per KV head a bucket call, 28 paged decodes a
+    paged step).  Returns the graphs-on runs' launches by page type."""
+    return serve_full_model("serve_llama3b", cfg, model, params,
+                            _llama_style(cfg.n_layers))
+
+
+def phase_consistency_llama3b(model, params):
+    """``phase_consistency`` on llama3.2-3b, bf16 and int8 pages."""
+    return [phase_consistency(model, params, kv_dtype=kv,
+                              tag=f"consistency_llama3b, {kv or 'bf16'} "
+                                  f"pages")
+            for kv in (None, "int8")]
+
+
+class HeldPath:
+    """Holds an MoE model's longer prefill to its decode path, for
+    ``phase_consistency``: while active it wraps ``common.route_top_k``
+    (the MoE layer's routing) and the model's ``_mlp_block`` (a layer's
+    residual after its MoE layer).
+
+    After :meth:`record` each call keeps, layer by layer, the experts chosen
+    and the residual at the positions it computes (a prefill's whole rows,
+    or a decode step's token a row at ``pos``).  After :meth:`apply` a
+    longer prefill takes, at every position up to each row's ``pos``, the
+    recorded experts (top-k weights from its own probabilities,
+    renormalised as the layer does); with ``hold`` "hold", after each layer
+    but the last, the recorded residual at those positions too, so that
+    each layer starts from the decode path's state: its output at the
+    decoded token then parts from the decode path's by that layer's own
+    rounding, and its own routing flips only at near-ties.  Both must hold
+    (:meth:`summary`)."""
+
+    def __init__(self, model, B: int, S: int, hold: str):
+        cfg = model.cfg
+        assert hold in ("experts", "hold"), hold
+        self.model, self.hold = model, hold
+        self.routes = torch.zeros(cfg.n_layers, B, S, cfg.moe.top_k,
+                                  dtype=torch.long, device=model.device)
+        self.stream = torch.zeros(cfg.n_layers, B, S, cfg.d_model,
+                                  dtype=model.compute_dtype,
+                                  device=model.device)
+
+    def __enter__(self):
+        from repro_torch.models import common as cm
+        self.cm, self.orig_route = cm, cm.route_top_k
+        self.orig_block = self.model._mlp_block
+        cm.route_top_k = self._route
+        self.model._mlp_block = self._block
+        return self
+
+    def __exit__(self, *exc):
+        self.cm.route_top_k = self.orig_route
+        del self.model._mlp_block
+
+    def _set(self, recording: bool, pos):
+        self.recording = recording
+        self.pos = None if pos is None else pos.long()
+        self.route_layer = self.block_layer = 0
+        self.flips, self.parted = [], []
+
+    def record(self, pos=None):
+        """The next call (a prefill, or a decode step at ``pos``) records."""
+        self._set(True, pos)
+
+    def apply(self, pos):
+        """The next call, a prefill, is held up to each row's ``pos``."""
+        self._set(False, pos)
+
+    def _held(self, S: int) -> torch.Tensor:
+        """(B, S): the positions up to each row's ``pos``."""
+        return (torch.arange(S, device=self.pos.device)[None, :]
+                <= self.pos[:, None])
+
+    def _route(self, xt, router, top_k):
+        logits, probs, top_w, top_e = self.orig_route(xt, router, top_k)
+        layer, B = self.route_layer, self.routes.shape[1]
+        self.route_layer += 1
+        S = xt.shape[0] // B
+        if self.recording:
+            if self.pos is None:                          # a prefill
+                self.routes[layer, :, :S] = top_e.view(B, S, top_k)
+            else:                                         # a decode step
+                self.routes[layer, torch.arange(B), self.pos] = top_e
+            return logits, probs, top_w, top_e
+        at = self._held(S).reshape(B * S, 1)
+        chosen = torch.where(at, self.routes[layer, :, :S].reshape(
+            B * S, top_k), top_e)
+        if self.hold == "hold":
+            top = probs.topk(top_k + 1, dim=-1).values
+            self.flips.append((at[:, 0] & (chosen.sort(-1).values
+                                           != top_e.sort(-1).values).any(-1),
+                               top[:, top_k - 1] - top[:, top_k]))
+        w = probs.gather(-1, chosen)
+        return logits, probs, w / torch.clamp(w.sum(-1, keepdim=True),
+                                              min=1e-9), chosen
+
+    def _block(self, lp, x, drop=True):
+        out, aux = self.orig_block(lp, x, drop)
+        if self.hold != "hold":
+            return out, aux
+        layer = self.block_layer
+        self.block_layer += 1
+        B, S = out.shape[:2]
+        rows = torch.arange(B, device=out.device)
+        if self.recording:
+            if self.pos is None:
+                self.stream[layer, :, :S] = out
+            else:
+                self.stream[layer, rows, self.pos] = out[:, 0]
+            return out, aux
+        mine = out[rows, self.pos].float()
+        theirs = self.stream[layer, rows, self.pos].float()
+        self.parted.append(((mine - theirs).norm(dim=-1)
+                            / theirs.norm(dim=-1)).max())
+        if layer < self.stream.shape[0] - 1:
+            out = torch.where(self._held(S)[..., None],
+                              self.stream[layer, :, :S], out)
+        return out, aux
+
+    def summary(self) -> str:
+        """The last held prefill: with ``hold`` "hold", each layer's parting
+        at the decoded token and the flips of its own routing; raises where
+        a layer parts by more than ``CONSISTENCY_TOL`` or a flip's f32
+        margin is ``ROUTE_FLIP_MARGIN`` or more."""
+        if self.hold != "hold":
+            return "the prefill held to the decode path's experts"
+        flip = torch.stack([f for f, _ in self.flips])
+        margin = torch.stack([m for _, m in self.flips])[flip]
+        parted = torch.stack(self.parted).tolist()
+        n = int(flip.sum())
+        if n and float(margin.max()) >= ROUTE_FLIP_MARGIN:
+            raise AssertionError(f"a routing flip at an f32 top-k margin of "
+                                 f"{float(margin.max()):.2e} >= "
+                                 f"{ROUTE_FLIP_MARGIN}: not a near-tie")
+        worst = max(range(len(parted)), key=parted.__getitem__)
+        if parted[worst] > CONSISTENCY_TOL:
+            raise AssertionError(f"layer {worst}'s output at the decoded "
+                                 f"token parts from the decode path's by "
+                                 f"{parted[worst]:.4f} > {CONSISTENCY_TOL}")
+        return ("the prefill held to the decode path's experts and "
+                "residual: its layers' outputs at the decoded token part "
+                "from the decode path's by (relative L2, by layer) "
+                + " ".join(f"{v:.1e}" for v in parted)
+                + f"; its own routing: {n} of {flip.numel()} (position, "
+                f"layer) choices differ"
+                + ("" if not n else
+                   f", at f32 top-k margins {float(margin.min()):.2e}.."
+                   f"{float(margin.max()):.2e}"))
+
+
+@contextlib.contextmanager
+def plain_path():
+    """The port's plain path on the card: the model's kernel wrappers
+    (prefill attention, paged decode, RMSNorm) replaced by their plain
+    versions, and the expert products by one ``torch.mm`` an expert, so
+    that a float32 model runs end to end."""
+    from repro_torch.kernels.flash_attention.paged import paged_attention_ref
+    from repro_torch.kernels.flash_attention.prefill import flash_prefill_ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_ref
+    from repro_torch.models import common as cm
+
+    def grouped_mm(a, w, offs):
+        out, start = a.new_empty(a.shape[0], w.shape[-1]), 0
+        for e, end in enumerate(offs.tolist()):
+            out[start:end] = a[start:end] @ w[e]
+            start = end
+        return out
+    saved = (cm.flash_prefill, cm.paged_flash_decode, cm.rmsnorm,
+             torch._grouped_mm)
+    cm.flash_prefill, cm.paged_flash_decode, cm.rmsnorm = (
+        flash_prefill_ref, paged_attention_ref, rmsnorm_ref)
+    torch._grouped_mm = grouped_mm
+    try:
+        yield
+    finally:
+        (cm.flash_prefill, cm.paged_flash_decode, cm.rmsnorm,
+         torch._grouped_mm) = saved
+
+
+def moe_share(cfg, model, params):
+    """The MoE layer's share of the device time of a prefill bucket (8 rows
+    of 512 tokens) and of a decode step (8 slots on a dense cache): the
+    call, and its 24 ``apply_moe`` calls alone on the inputs they got in
+    it, each captured in a CUDA graph and replayed (``time_graph_ms``: no
+    host in the loop).  Logged."""
+    from repro_torch.models import common as cm
+    orig, calls = cm.apply_moe, []
+
+    def recorded(p, x, **kw):
+        calls.append((p, x.clone(), kw))
+        return orig(p, x, **kw)
+    rng = np.random.default_rng(9)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (SERVE_SLOTS, 512)),
+                        dtype=torch.int32, device="cuda")
+    logits, cache = model.prefill(params, toks, max_seq=SERVE_MAX_SEQ)
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    pos = torch.full((SERVE_SLOTS,), 512, dtype=torch.int32, device="cuda")
+    for what, fn in (
+            ("prefill bucket (8 x 512)", lambda: model.prefill(
+                params, toks, max_seq=SERVE_MAX_SEQ)),
+            ("decode step (8 slots, dense cache)", lambda:
+             model.decode_step(params, cache, tok, pos))):
+        calls.clear()
+        cm.apply_moe = recorded
+        try:
+            fn()
+        finally:
+            cm.apply_moe = orig
+        layers = list(calls)
+        step = time_graph_ms(fn, 1, replays=3)
+        moe = time_graph_ms(lambda: [orig(p, x, **kw)
+                                     for p, x, kw in layers], 1, replays=3)
+        log(f"[serve_moe] MoE share of a {what}: its {len(layers)} MoE "
+            f"layers {moe:.3f} of {step:.3f} ms of device time "
+            f"({moe / step:.3f}), both replayed from a CUDA graph")
+    del cache, calls, layers
+    release()
+
+
+def phase_serve_moe(cfg, model, params):
+    """granite-moe-1b-a400m at full width and depth: ``serve_full_model``
+    with its exact launches (49 RMSNorms a forward, 24 flash prefills at
+    head_dim 64 with 2 query heads per KV head a bucket call, 24 paged
+    decodes a paged step; the MoE layer's products are library GEMMs, every
+    routed pair kept), then the MoE layer's share of a prefill bucket's and
+    a decode step's device time (``moe_share``).  Returns the graphs-on
+    runs' launches by page type."""
+    out = serve_full_model("serve_moe", cfg, model, params,
+                           _llama_style(cfg.n_layers))
+    moe_share(cfg, model, params)
+    return out
+
+
+def phase_consistency_moe(model, params):
+    """``phase_consistency`` on granite-moe-1b-a400m at full width and
+    depth.  End to end: the same weights in float32 on the port's plain
+    path (``plain_path``, f32 pages), the longer prefill held to the decode
+    path's experts, which leaves the two paths' f32 rounding alone.  Beside
+    it, the main path (the kernels, bf16 and int8 pages): the longer
+    prefill held to the decode path's experts and residual, each layer's
+    output at the decoded token and the logits within the gate, each flip
+    of its own routing a near-tie (``HeldPath``)."""
+    from repro_torch.models import build_model
+    fmodel = build_model(dataclasses.replace(model.cfg,
+                                             compute_dtype="float32"),
+                         device="cuda")
+
+    def as_f32(tree):
+        return {k: as_f32(v) if isinstance(v, dict) else v.float()
+                for k, v in tree.items()}
+    fparams = as_f32(params)
+    with plain_path():
+        out = [phase_consistency(fmodel, fparams, hold="experts",
+                                 tag="consistency_moe, float32 plain path, "
+                                     "f32 pages")]
+    del fmodel, fparams
+    release()
+    return out + [phase_consistency(model, params, kv_dtype=kv,
+                                    tag=f"consistency_moe, {kv or 'bf16'} "
+                                        f"pages")
+                  for kv in (None, "int8")]
 
 
 # ---------------------------------------------------------------------------
@@ -2885,8 +3352,11 @@ def train_model(tag, cfg, describe, per_step, ours, batch=TRAIN_BATCH,
         now = kernels.launch_counts()
         step_counts = {k: now[k] - before[k] for k in now}
         before = now
+        aux = "".join(f", {k} {float(metrics[k]):.5f}"
+                      for k in ("load_balance", "router_z", "dropped_frac")
+                      if k in metrics)
         log(f"[{tag}] step {i}: loss {loss:.4f}, grad_norm "
-            f"{float(metrics['grad_norm']):.3f}, {dt * 1e3:.1f} ms, "
+            f"{float(metrics['grad_norm']):.3f}{aux}, {dt * 1e3:.1f} ms, "
             f"{tokens / dt:.1f} tokens/s; launches {step_counts}")
         if not math.isfinite(loss):
             raise AssertionError(f"step {i}: loss {loss} is not finite")
@@ -3065,6 +3535,66 @@ def phase_train_gpt3():
                 f"{c.activation}")
     return train_model("train_gpt3", cfg, describe, per_step, ours,
                        batch=GPT3_BATCH, accum=GPT3_ACCUM)
+
+
+def _describe(m) -> str:
+    c = m.cfg
+    moe = "" if not c.is_moe else (
+        f", {c.moe.n_experts} experts top-{c.moe.top_k} at capacity "
+        f"factor {c.moe.capacity_factor}")
+    return (f"L={c.n_layers} d={c.d_model} H={c.n_heads}/{c.n_kv_heads} "
+            f"D={c.resolved_head_dim} ff={c.d_ff}{moe}")
+
+
+def phase_train_llama3b():
+    """Train llama3.2-3b at full width and ``LLAMA3B_TRAIN_LAYERS`` layers,
+    8 x 1024 tokens a step as ``LLAMA3B_ACCUM`` micro-batches of 2, as
+    ``phase_train`` trains llama3.2-1b.  Per micro-batch, counted from the
+    code (``tests/test_torch_llama3b.py`` counts the same calls on the
+    CPU): 2 L + 1 RMSNorms forward and 2 L more in the recompute, L flash
+    forwards with their log-sum-exp and L more in the recompute, L flash
+    backwards at head_dim 128 with 3 query heads per KV head.  The
+    profiled step's dK/dV against dQ time shows the dK/dV pass's balance
+    (a block walks 3 query heads x its query tiles).  Returns
+    ``train_model``'s summary."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("llama3.2-3b"),
+                              n_layers=LLAMA3B_TRAIN_LAYERS)
+    L, A = cfg.n_layers, LLAMA3B_ACCUM
+    per_step = {"rmsnorm": A * (2 * L + 1 + 2 * L),
+                "flash_prefill": A * 2 * L, "flash_bwd": A * L,
+                "paged_decode": 0, "ssd_scan": 0}
+    ours = {"flash_bwd (D128G3)": "flash_bwd_",
+            "flash_bwd dK/dV": "flash_bwd_dkv_wide_kernel",
+            "flash_bwd dQ": "flash_bwd_dq_wide_kernel",
+            "flash_bwd pre-pass": "flash_bwd_prep_kernel",
+            "flash_prefill (D128G3, lse)": "flash_prefill_wide_kernel",
+            "rmsnorm": "rmsnorm_kernel"}
+    return train_model("train_llama3b", cfg, _describe, per_step, ours,
+                       accum=A)
+
+
+def phase_train_moe():
+    """Train granite-moe-1b-a400m at full width and depth, 8 x 1024 tokens
+    a step as ``MOE_ACCUM`` micro-batches of 4 (capacity 1280 a layer and
+    expert), as ``phase_train`` trains llama3.2-1b; each step logs the
+    layer-mean load balance, router z-loss and dropped fraction, and the
+    first backward's gradient gate covers the router.  Launches a step as
+    for llama3.2-1b at 24 layers (the MoE layer launches none of the
+    port's kernels).  Returns ``train_model``'s summary."""
+    from repro_torch.configs import get_config
+    cfg = get_config(MOE_ARCH)
+    L, A = cfg.n_layers, MOE_ACCUM
+    per_step = {"rmsnorm": A * (2 * L + 1 + 2 * L),
+                "flash_prefill": A * 2 * L, "flash_bwd": A * L,
+                "paged_decode": 0, "ssd_scan": 0}
+    ours = {"flash_bwd (D64)": "flash_bwd_",
+            "flash_prefill (D64, lse)": "flash_prefill_kernel",
+            "rmsnorm": "rmsnorm_kernel",
+            "the experts' grouped GEMMs (torch's CUTLASS sm90 kernels)":
+                "enable_3x_kernel_for_sm9x"}
+    return train_model("train_moe", cfg, _describe, per_step, ours,
+                       accum=A)
 
 
 def phase_trainer():
@@ -3266,36 +3796,39 @@ def _check_hooks(tag, ex, requests, decode_steps):
                              f"{problems}, non-finite {bad}")
 
 
-def dvfs_serve_launcher(smoke: bool = False):
-    """``launch.serve.main`` on the card (llama3.2-1b, the h100 chip model,
-    8 slots) at full width, or with ``--smoke`` (``card_smoke_config``: 2
-    layers, 4 query heads and 2 KV heads at head_dim 64, so paged decode
-    at a query group of 2): finite plan rows and executed totals, the
+def dvfs_serve_launcher(smoke: bool = False, arch: str = "llama3.2-1b",
+                        requests: int = 16):
+    """``launch.serve.main`` on the card (``arch``, by default llama3.2-1b,
+    the h100 chip model, 8 slots, ``requests`` requests) at full width, or
+    with ``--smoke`` (``card_smoke_config``: 2 layers, 4 query heads and 2
+    KV heads at head_dim 64, so paged decode at a query group of 2; an MoE
+    arch keeps 4 experts, top-2): finite plan rows and executed totals, the
     executor's hooks against the engine's calls, and the exact launches of
-    the three serving kernels (counted through graph replays).  Returns
-    the launch counts."""
+    the three serving kernels (counted through graph replays; the MoE
+    layer launches none of them).  Returns the launch counts."""
     from repro_torch import kernels
+    from repro_torch.configs import get_config
     from repro_torch.launch import serve
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    out = serve.main(["--arch", "llama3.2-1b", "--chip", "h100", "--slots",
-                      str(SERVE_SLOTS), "--requests", "16",
+    out = serve.main(["--arch", arch, "--chip", "h100", "--slots",
+                      str(SERVE_SLOTS), "--requests", str(requests),
                       "--max-new-tokens", "16"]
                      + (["--smoke"] if smoke else []))
     torch.cuda.synchronize()
     got = kernels.launch_counts()
     want = llama_launches(out["n_decode_steps"], out["n_prefill_calls"],
-                          layers=2 if smoke else 16)
+                          layers=2 if smoke else get_config(arch).n_layers)
     rows = [v for r in out["plan"].values() for v in r.values()
             if isinstance(v, float)]
+    what = f"serve launcher --arch {arch}{' --smoke' * smoke}"
     if got != want or not all(math.isfinite(v) for v in rows) or not all(
             math.isfinite(v) for v in out["executed"].values()):
-        raise AssertionError(f"serve launcher{' --smoke' * smoke}: "
-                             f"launches {got} != {want}, or a plan row or "
-                             f"the executed totals not finite")
-    _check_hooks(f"serve launcher{' --smoke' * smoke}", out["executor"],
-                 out["requests"], out["n_decode_steps"])
-    log(f"[dvfs] serve launcher{' --smoke' * smoke}: {out['requests']} "
+        raise AssertionError(f"{what}: launches {got} != {want}, or a plan "
+                             f"row or the executed totals not finite")
+    _check_hooks(what, out["executor"], out["requests"],
+                 out["n_decode_steps"])
+    log(f"[dvfs] {what}: {out['requests']} "
         f"requests, {out['tokens']} tokens in {out['seconds']:.2f} s; "
         f"{out['n_prefill_calls']} prefill calls, {out['n_decode_steps']} "
         f"decode steps = the executor's hooks; launches {got} (exact)")
@@ -3526,14 +4059,20 @@ def dvfs_train_launcher(arch: str = "llama3.2-1b"):
 
 def phase_dvfs(cfg, model, params):
     """The DVFS stack on the card, reading NVML: the grid and idle check,
-    the serve launcher at full width and with ``--smoke``, the serve and
-    training windows, the train launcher.  ``model`` is the serve phase's llama3.2-1b."""
+    the serve launcher at full width and with ``--smoke`` (llama3.2-1b;
+    granite-moe-1b-a400m with ``--smoke`` and at full width with 2
+    requests), the serve and training windows, the train launcher.
+    ``model`` is the serve phase's llama3.2-1b."""
     nvml = Nvml()
     try:
         idle_w = dvfs_grid_check(nvml)
         dvfs_serve_launcher()
         release()
         smoke_launches = dvfs_serve_launcher(smoke=True)
+        release()
+        dvfs_serve_launcher(smoke=True, arch=MOE_ARCH)
+        release()
+        dvfs_serve_launcher(arch=MOE_ARCH, requests=2)
         release()
         serve = dvfs_serve_window(nvml, cfg, model, params, idle_w)
         train = dvfs_train_window(nvml, idle_w)
@@ -3594,6 +4133,20 @@ def main() -> int:
     release()
     train_gpt3 = timed("train_gpt3", phase_train_gpt3)["counts"]
     timed("dvfs_gpt3", phase_dvfs_gpt3, dvfs["idle_w"])
+    cfg, model, params = timed("build_llama3b", build_full_model,
+                               "llama3.2-3b")
+    serve_llama3b = timed("serve_llama3b", phase_serve_llama3b, cfg, model,
+                          params)
+    timed("consistency_llama3b", phase_consistency_llama3b, model, params)
+    del model, params
+    release()
+    train_llama3b = timed("train_llama3b", phase_train_llama3b)["counts"]
+    cfg, model, params = timed("build_moe", build_full_model, MOE_ARCH)
+    serve_moe = timed("serve_moe", phase_serve_moe, cfg, model, params)
+    timed("consistency_moe", phase_consistency_moe, model, params)
+    del model, params
+    release()
+    timed("train_moe", phase_train_moe)
     cfg, model, params = build_mamba_model()
     serve_ssm = timed("serve_ssm", phase_serve_ssm, cfg, model, params)
     timed("consistency_ssm", phase_consistency_ssm, model, params)
@@ -3632,11 +4185,25 @@ def main() -> int:
                 row["launches"] = serve_gpt3[run][name]
                 row["launches_of"] = (f"one gpt3-xl serve run, {run} pages, "
                                       f"CUDA graphs")
+        elif row.get("model") == "llama3.2-3b":
+            run = LLAMA3B_ROW_RUNS[row["name"]]
+            name = name.removesuffix("_lse")
+            if run == "train":
+                row["launches"] = train_llama3b[name]
+                row["launches_of"] = (f"one llama3.2-3b training run at "
+                                      f"{LLAMA3B_TRAIN_LAYERS} layers, "
+                                      f"{TRAIN_STEPS} steps of "
+                                      f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens")
+            else:
+                row["launches"] = serve_llama3b[run][name]
+                row["launches_of"] = (f"one llama3.2-3b serve run, {run} "
+                                      f"pages, CUDA graphs")
         elif row["name"] == "paged_decode[D64G2 bf16]":
-            row["launches"] = dvfs["smoke_launches"][name]
-            row["launches_of"] = ("the serve launcher with --smoke "
-                                  "(card_smoke_config: 2 layers, 4 heads, "
-                                  "2 KV heads), bf16 pages, CUDA graphs")
+            row["launches"] = serve_moe["bf16"][name]
+            row["launches_of"] = ("one granite-moe-1b-a400m serve run at "
+                                  "full width, bf16 pages, CUDA graphs (the "
+                                  "serve launcher with --smoke launched "
+                                  f"{dvfs['smoke_launches'][name]})")
         elif row["name"] == "flash_bwd[D224]":
             row["launches"] = train_hybrid[name]
             row["launches_of"] = (f"one zamba2-7b training run at "

@@ -4,9 +4,9 @@ One context manager replaces the hand-wired pipeline every benchmark and
 example used to rebuild (build workload, run campaign, call the right
 planner, construct the right bundle, wire the right executor)::
 
-    from repro.dvfs import DvfsSession
+    from repro_torch.dvfs import DvfsSession
 
-    with DvfsSession(chip="tpu-v5e", tau=0.005) as sess:
+    with DvfsSession(chip="h100", tau=0.005) as sess:
         sess.plan_serve(cfg, n_slots=4, prefill_shape=pre,
                         decode_shape=dec)
         engine = ServeEngine(model, params, batch_slots=4,
@@ -14,7 +14,7 @@ planner, construct the right bundle, wire the right executor)::
         engine.generate(requests)
         report = sess.report()
 
-    with DvfsSession(chip="tpu-v5e", tau=0.006,
+    with DvfsSession(chip="h100", tau=0.006,
                      governor="pass-level") as sess:
         sess.plan_train(cfg, shape=shape)
         trainer = Trainer(..., executor=sess.train_executor())

@@ -558,10 +558,12 @@ static int launch_prefill_wide(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Built for bf16 at head_dim 64 (any query group: llama3.2-1b's serving and
-// training paths) and at head_dim 128 and 224 with one query head per KV
-// head (gpt3-xl; zamba2-7b's shared attention block); other cases are
-// refused until a configuration needs them and chip_smoke.py checks them.
+// Built for bf16 at head_dim 64 (any query group: llama3.2-1b's and
+// granite-moe-1b-a400m's serving and training paths), at head_dim 128 and
+// 224 with one query head per KV head (gpt3-xl; zamba2-7b's shared
+// attention block) and at head_dim 128 with 3 (llama3.2-3b: the wide kernel
+// reads KV head h / G, so only the grid changes); other cases are refused
+// until a configuration needs them and chip_smoke.py checks them.
 // lse may be null.
 // Strides are in elements; the wrapper makes each a multiple of 8 (16-byte
 // rows for cp.async) with unit stride along D.
@@ -581,7 +583,7 @@ extern "C" int flash_prefill_launch(
   if (D == 64)
     return launch_prefill<64>(q, k, v, vl, out, l, B, Sq, Sk, H, KV, st,
                               causal, window, softcap, s);
-  if (D == 128 && H == KV)
+  if (D == 128 && (H == KV || H == 3 * KV))
     return launch_prefill_wide<128>(q, k, v, vl, out, l, B, Sq, Sk, H, KV,
                                     st, causal, window, softcap, s);
   if (D == 224 && H == KV)

@@ -10,8 +10,8 @@
 //
 // Bound on the H100: bytes.  Each key and value is read once and used by
 // the G = H / KV query rows of its KV head: 4 flops a byte at G = 4 for a
-// bf16 pool, 8 for int8 (2 and 4 at G = 2, 1 and 2 at G = 1: gpt3-xl and
-// zamba2-7b's shared block), far
+// bf16 pool, 8 for int8 (3 and 6 at G = 3: llama3.2-3b; 2 and 4 at G = 2;
+// 1 and 2 at G = 1: gpt3-xl and zamba2-7b's shared block), far
 // under the ~295 where the tensor cores would
 // limit, and under the CUDA cores' 67 TFLOP/s f32 too (13-27 TFLOP/s is
 // what 3.35 TB/s needs).  So the kernel uses no tensor cores: an
@@ -445,8 +445,10 @@ static int launch_pool(int kv_dtype, const void* q, const void* kp,
 // with 4 query heads per KV head (llama3.2-1b) and with 2 (the reduced
 // config of a smoke run on the card; granite-moe's attention) over bf16,
 // f32, int8 and fp8-e4m3 pools, and at head_dim 128 and 224 with one
-// query head per KV head (gpt3-xl; zamba2-7b's shared attention block)
-// over bf16 and int8 pools; kernels/flash_attention/paged.py:KERNEL_CASES lists the same, and
+// query head per KV head (gpt3-xl; zamba2-7b's shared attention block) and
+// at head_dim 128 with 3 (llama3.2-3b: a lane holds 3 query rows and a
+// (3, 8) accumulator) over bf16 and int8 pools;
+// kernels/flash_attention/paged.py:KERNEL_CASES lists the same, and
 // chip_smoke.py checks every one of them.  `workspace` holds
 // B * KV * n_split * G * (D + 2) floats.
 extern "C" int paged_decode_launch(const void* q, const void* k_pages,
@@ -475,6 +477,10 @@ extern "C" int paged_decode_launch(const void* q, const void* k_pages,
                               softcap, s);
   if (D == 128 && H == KV)
     return launch_pool<128, 1>(kv_dtype, q, k_pages, v_pages, t, p, ks, vs,
+                               w, out, B, H, KV, page, nb, keys_per_split,
+                               window, softcap, s);
+  if (D == 128 && H == 3 * KV)
+    return launch_pool<128, 3>(kv_dtype, q, k_pages, v_pages, t, p, ks, vs,
                                w, out, B, H, KV, page, nb, keys_per_split,
                                window, softcap, s);
   if (D == 224 && H == KV)

@@ -15,9 +15,10 @@
 // - The sum of squares reduces by warp shuffles alone: no shared memory and
 //   no __syncthreads.
 // - The kernel is templated on chunks per lane and instantiated only for
-//   the widths the paths launch (d 2048, llama3.2-1b; d 1024, mamba2-370m;
-//   d 256, the small Trainer run of chip_smoke.py; d 3584 and 7168,
-//   zamba2-7b's d_model and its d_inner and shared block's 2 d_model).
+//   the widths the paths launch (d 2048, llama3.2-1b; d 1024, mamba2-370m
+//   and granite-moe-1b-a400m; d 256, the small Trainer run of chip_smoke.py;
+//   d 3072, llama3.2-3b; d 3584 and 7168, zamba2-7b's d_model and its
+//   d_inner and shared block's 2 d_model).
 //   Up to d 2048 each warp reads the f32 weight once, as 16-byte vectors,
 //   into registers; then it strides over rows in a grid of as many blocks
 //   as the SMs hold at once (2-4 an SM, by its register count), loading
@@ -32,6 +33,10 @@
 //   7168), and at d 7168 the next row is loaded only after this one is
 //   stored (the row alone is 112 registers a lane; the other warps on the
 //   SM hide the load).  Each row is still read once and written once.
+//   d 3072 (CPL 12, 96 values a lane) takes d 3584's scheme by the same
+//   count: the weight in registers would need ~16 CPL = 192 on top of the
+//   loop's own, so it is read through L1 (12 KB); the row and the
+//   prefetched next row are 48 registers each.
 #include "common.cuh"
 
 constexpr int kRmsWarps = 4;          // warps (rows in flight) per block
@@ -155,7 +160,7 @@ static int launch_rms(const void* x, const void* w, void* out, int rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Built for bf16 at d 256, 1024, 2048, 3584 and 7168, what the serving
+// Built for bf16 at d 256, 1024, 2048, 3072, 3584 and 7168, what the serving
 // and training paths launch; other types and widths are refused until a configuration
 // needs them and chip_smoke.py checks them (kernels/rmsnorm.py names the
 // widths).
@@ -171,6 +176,8 @@ extern "C" int rmsnorm_launch(const void* x, const void* w, void* out,
       return launch_rms<4>(x, w, out, rows, eps, s);
     case 2048:
       return launch_rms<8>(x, w, out, rows, eps, s);
+    case 3072:
+      return launch_rms<12>(x, w, out, rows, eps, s);
     case 3584:
       return launch_rms<14>(x, w, out, rows, eps, s);
     case 7168:

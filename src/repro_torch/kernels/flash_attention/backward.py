@@ -59,10 +59,11 @@ def flash_attention_bwd(q, k, v, o, do, lse, causal: bool = True,
     """(dq, dk, dv) of attention at the saved (o, lse).  A CPU tensor takes
     the plain version; a CUDA tensor launches the kernels (one count in
     ``flash_attention_bwd.launches`` per call: the pre-pass, dQ and
-    dK/dV), built for bf16 at head_dim 64 (any group) and at head_dim 128
-    and 224 with one query head per KV head (``prefill.KERNEL_CASES``, the
-    forward's cases), and launched only for what the training path gives
-    it and the card's check covers: causal, no window, Sq == Sk.  At
+    dK/dV), built for bf16 at head_dim 64 (any group), at head_dim 128
+    and 224 with one query head per KV head and at head_dim 128 with 3
+    (``prefill.KERNEL_CASES``, the forward's cases), and launched only
+    for what the training path gives it and the card's check covers:
+    causal, no window, Sq == Sk.  At
     head_dim 128 and 224 the pre-pass also writes the scaled q to a scratch
     that the wrapper allocates."""
     _build.refuse_grad("flash_attention_bwd", q, k, v, o, do)
@@ -88,7 +89,8 @@ def flash_attention_bwd(q, k, v, o, do, lse, causal: bool = True,
     if not any(D == d and (g == 0 or H == g * KV) for d, g in KERNEL_CASES):
         raise ValueError(f"flash_attention_bwd kernel is built for head_dim "
                          f"64 and for head_dim 128 and 224 with one query "
-                         f"head per KV head, got D={D}, H={H}, KV={KV}")
+                         f"head per KV head, and head_dim 128 with 3, got "
+                         f"D={D}, H={H}, KV={KV}")
     if not causal or window or Sq != Sk:
         raise NotImplementedError(
             f"flash_attention_bwd kernel: causal={causal} window={window} "

@@ -25,10 +25,12 @@ _POOL_DTYPES = (torch.float32, torch.bfloat16, torch.int8,
                 torch.float8_e4m3fn)
 #: what the kernel is built for, as (head_dim, query heads per KV head,
 #: pool dtypes): llama3.2-1b's attention; the reduced config of a smoke run
-#: on the card (``configs.card_smoke_config``), which granite-moe's
-#: attention shares; gpt3-xl's; zamba2-7b's shared attention block
+#: on the card (``configs.card_smoke_config``), which granite-moe-1b-a400m's
+#: attention shares; gpt3-xl's; llama3.2-3b's; zamba2-7b's shared attention
+#: block
 KERNEL_CASES = ((64, 4, _POOL_DTYPES), (64, 2, _POOL_DTYPES),
                 (128, 1, (torch.bfloat16, torch.int8)),
+                (128, 3, (torch.bfloat16, torch.int8)),
                 (224, 1, (torch.bfloat16, torch.int8)))
 
 _POOL_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16",

@@ -1,5 +1,5 @@
-"""Model registry of the port: config -> model instance (the dense decoder,
-the SSM family and the hybrid so far)."""
+"""Model registry of the port: config -> model instance (the dense and MoE
+decoders, the SSM family and the hybrid so far)."""
 from __future__ import annotations
 
 from ..configs.base import ModelConfig
@@ -12,7 +12,7 @@ def build_model(cfg: ModelConfig, block_k: int = 1024, device="cuda"):
     """Instantiate the model implementation for a config on ``device``
     (``block_k``, the plain attention's key block, is the dense decoder's
     and the hybrid's shared block's: the SSM family has no attention)."""
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return DecoderLM(cfg, block_k=block_k, device=device)
     if cfg.family == "ssm":
         return MambaLM(cfg, device=device)

@@ -1,13 +1,14 @@
 """Shared model-building blocks of the port (PyTorch, functional).
 
-The dense subset of the JAX package's ``models/common.py``: the same public
-names and the same tensor layouts at every function, so the tests can hold
-each against its counterpart.  Parameters are nested dicts of tensors; norm
-scales stay float32 and every matrix and embedding is cast to the
-activations' dtype at each use (:func:`cast`), as the JAX package casts
-them.  Serving keeps its weights in the compute dtype, where the cast
-returns the same tensor and launches nothing; training keeps float32
-masters, and the cast is where their gradients come back to float32.
+The dense and MoE subset of the JAX package's ``models/common.py``: the
+same public names and the same tensor layouts at every function, so the
+tests can hold each against its counterpart.  Parameters are nested dicts
+of tensors; norm scales (and the MoE router, read in f32) stay float32 and
+every matrix and embedding is cast to the activations' dtype at each use
+(:func:`cast`), as the JAX package casts them.  Serving keeps its weights
+in the compute dtype, where the cast returns the same tensor and launches
+nothing; training keeps float32 masters, and the cast is where their
+gradients come back to float32.
 
 Where the JAX package returns an updated copy of a cache (``.at[].set``),
 the port writes the cache tensors in place and returns them; rows the
@@ -191,6 +192,132 @@ def apply_mlp(p: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
         else:
             raise ValueError(activation)
     return h @ w("w_down")
+
+
+def mlp_shapes(d: int, d_ff: int, activation: str) -> Dict[str, tuple]:
+    """Leaf shapes of one dense MLP (the reference's ``init_mlp``)."""
+    p = {"w_up": (d, d_ff), "w_down": (d_ff, d)}
+    if activation == "swiglu":
+        p["w_gate"] = (d, d_ff)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (token-choice top-k, capacity-bounded in training)
+# ---------------------------------------------------------------------------
+
+def moe_shapes(d: int, d_ff: int, n_experts: int, activation: str,
+               shared_expert: bool) -> Params:
+    """Leaf shapes of one MoE layer (the reference's ``init_moe``): the
+    router (d, E), each expert's MLP stacked on a leading E dim, and the
+    optional shared expert's dense MLP."""
+    p: Params = {"router": (d, n_experts)}
+    for name, shape in mlp_shapes(d, d_ff, activation).items():
+        p[name] = (n_experts,) + shape
+    if shared_expert:
+        p["shared"] = mlp_shapes(d, d_ff, activation)
+    return p
+
+
+def route_top_k(xt: torch.Tensor, router: torch.Tensor, top_k: int):
+    """Token-choice routing of xt (T, d): (f32 logits, softmax probs, top-k
+    weights renormalised by ``max(sum, 1e-9)``, top-k experts), the k
+    choices in descending order with the lower expert first on a tie, as
+    ``lax.top_k`` orders them (a stable descending sort)."""
+    logits = xt.float() @ router.float()                      # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_w, top_e = top_w[:, :top_k], top_e[:, :top_k]
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    return logits, probs, top_w, top_e
+
+
+def expert_ranks(flat_e: torch.Tensor, n_experts: int):
+    """(order, row, rank, counts) of the routed pairs ``flat_e`` (T * K,):
+    the pairs sorted by expert (``order[i]`` is the pair at sorted row i,
+    ``row`` its inverse), each pair's rank within its expert and each
+    expert's pair count.  The sort is stable, so within an expert the pairs
+    keep the flat order and a pair's rank (its row less its expert's start)
+    is the reference's ``cumsum(one_hot) - one_hot``."""
+    n = flat_e.shape[0]
+    order = torch.argsort(flat_e, stable=True)
+    row = torch.empty_like(order).scatter_(
+        0, order, torch.arange(n, device=flat_e.device))
+    counts = torch.zeros(n_experts, dtype=torch.long,
+                         device=flat_e.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    rank = row - (torch.cumsum(counts, 0) - counts)[flat_e]
+    return order, row, rank, counts
+
+
+def apply_moe(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
+              capacity_factor: float, activation: str, shared_expert: bool,
+              drop: bool = True):
+    """The reference's ``apply_moe``: x (B, S, d) -> (y, aux).
+
+    Routing by :func:`route_top_k` (f32 logits).  A routed pair (token t,
+    choice j) takes its rank within its expert in the flat (T * K) order,
+    token-major then the j-th choice; with ``drop`` (training) it counts
+    only below the capacity ``C = max(int(cf * T * K / E), 1)``, without
+    (serving) every pair counts.  The combine sums the kept pairs'
+    outputs in f32, weighted by their top-k weights, and casts back; the
+    shared expert, when configured, adds a dense MLP.  aux: the Switch load
+    balance, the router z-loss and the dropped fraction, by the reference's
+    formulas.
+
+    Layout: where the reference scatters into an (E, C, d) buffer (at
+    serving's C = T * K, E times the routed work), the port computes the
+    same function over the T * K pairs sorted by expert, the reference's
+    order kept within an expert (:func:`expert_ranks`).  The three expert
+    products are ``torch._grouped_mm`` over those rows with offsets from
+    the per-expert counts; a dropped pair is
+    computed and masked out of the combine.  Every shape is fixed by
+    (B, S): no host sync, so a decode step or prefill bucket stays
+    capturable in a CUDA graph."""
+    B, S, d = x.shape
+    T, K, E = B * S, top_k, n_experts
+    xt = x.reshape(T, d)
+    logits, probs, top_w, top_e = route_top_k(xt, p["router"], K)
+    flat_e = top_e.reshape(T * K)
+    order, row, rank, counts = expert_ranks(flat_e, E)
+    offs = torch.cumsum(counts, 0).to(torch.int32)
+
+    def grouped(a, w):
+        return torch._grouped_mm(a, cast(w, a.dtype), offs=offs)
+
+    xs = xt[order // K]                                       # (T*K, d)
+    if activation == "swiglu":
+        h = F.silu(grouped(xs, p["w_gate"])) * grouped(xs, p["w_up"])
+    else:
+        u = grouped(xs, p["w_up"])
+        if activation == "gelu":
+            h = F.gelu(u, approximate="tanh")
+        elif activation == "relu2":
+            h = torch.square(F.relu(u))
+        else:
+            raise ValueError(activation)
+    yp = grouped(h, p["w_down"])[row]                         # flat order
+    if drop:
+        C = max(int(capacity_factor * T * K / E), 1)
+        keep = rank < C
+        yp = torch.where(keep[:, None], yp, torch.zeros((), dtype=yp.dtype,
+                                                        device=yp.device))
+        # the mean as XLA computes the reference's (a division by a
+        # constant becomes a product with its f32 reciprocal), so that the
+        # dropped fraction is the reference's bit for bit
+        dropped = 1.0 - keep.float().sum() * (1.0 / (T * K))
+    else:
+        dropped = torch.zeros((), device=x.device)
+    y = (yp.reshape(T, K, d).float() * top_w[..., None]).sum(1)
+    y = y.reshape(B, S, d).to(x.dtype)
+    if shared_expert:
+        y = y + apply_mlp(p["shared"], x, activation)
+
+    aux = {"load_balance": E * (probs.mean(0)
+                                * (counts.float() / max(T * K, 1))).sum(),
+           "router_z": torch.logsumexp(logits, dim=-1).square().mean(),
+           "dropped_frac": dropped}
+    return y, aux
 
 
 # ---------------------------------------------------------------------------
@@ -432,14 +559,23 @@ def lm_loss(model, params: Params, batch, remat: bool = True):
     ``model.forward_hidden`` (with ``remat``), the final norm and the
     unembedding (``model.logits``), then the mean cross entropy with z-loss
     1e-4 against ``batch["targets"]`` (over ``batch["mask"]`` when given).
-    Returns (loss, metrics)."""
+    An MoE model adds its layer-mean load balance and router z-loss at the
+    config's weights and reports the three aux terms.  Returns (loss,
+    metrics)."""
+    cfg = model.cfg
     tokens = torch.as_tensor(batch["tokens"], device=model.device)
     x = embed_tokens(params["embed"], tokens, model.compute_dtype)
-    x, _ = model.forward_hidden(params, x, remat=remat)
+    x, aux = model.forward_hidden(params, x, remat=remat)
     logits = model.logits(params, x)
     targets = torch.as_tensor(batch["targets"], device=model.device)
     mask = batch.get("mask")
     if mask is not None:
         mask = torch.as_tensor(mask, device=model.device)
     loss = softmax_cross_entropy(logits, targets, mask, z_loss=1e-4)
-    return loss, {"ce_loss": loss, "loss": loss}
+    metrics = {"ce_loss": loss}
+    if cfg.is_moe:
+        loss = (loss + cfg.moe.aux_loss_weight * aux["load_balance"]
+                + cfg.moe.router_z_loss_weight * aux["router_z"])
+        metrics.update(aux)
+    metrics["loss"] = loss
+    return loss, metrics

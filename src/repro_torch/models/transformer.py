@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM of the port: the dense path of the JAX
-package's ``models/transformer.py:DecoderLM``.
+"""Decoder-only transformer LM of the port: the dense and MoE paths of the
+JAX package's ``models/transformer.py:DecoderLM``.
 
 Parameters keep the reference's stacked layout: every layer leaf has a
 leading ``n_layers`` dim, and the layer loop runs over views of it.  The
@@ -13,7 +13,10 @@ Positions are rotary (``positional="rope"``) or a learned table
 ``embed/wpe`` of ``max_train_seq`` rows added to the token embeddings
 (``"learned"``, gpt3-xl); a position past that table raises, at the cache
 (``init_cache``, and so at engine construction) and at ``prefill`` /
-``loss`` (``common.embed_tokens``).  MoE layers, local/global ring caches
+``loss`` (``common.embed_tokens``).  An MoE config (``cfg.is_moe``) takes
+``common.apply_moe`` for every layer's MLP: capacity-bounded in training,
+every routed pair kept in prefill and decode, its aux terms averaged over
+the layers as the reference's scan averages them.  Local/global ring caches
 and the VLM prefix raise ``NotImplementedError`` until their slices land
 (ROADMAP.md, queue 1).
 """
@@ -38,9 +41,10 @@ class LeafSpec(NamedTuple):
 
 def init_scale(name: str, per_layer_shape) -> float:
     """Standard deviation of a random leaf: 0.02 for embeddings (tokens,
-    learned positions, the head), else 1/sqrt(fan-in), the fan-in being the
-    per-layer leaf's first dim (as the reference draws them)."""
-    return 0.02 if name in ("wte", "wpe", "head") \
+    learned positions, the head) and the MoE router, else 1/sqrt(fan-in),
+    the fan-in being the per-layer leaf's first dim (as the reference draws
+    them: E for the stacked experts' leaves)."""
+    return 0.02 if name in ("wte", "wpe", "head", "router") \
         else per_layer_shape[0] ** -0.5
 
 
@@ -99,15 +103,14 @@ def unstack_layers(tree, n: int):
 
 
 class DecoderLM:
-    """Dense decoder LM over stacked (n_layers, ...) parameters."""
+    """Dense or MoE decoder LM over stacked (n_layers, ...) parameters."""
 
     def __init__(self, cfg: ModelConfig, block_k: int = 1024,
                  device="cuda"):
-        if cfg.family != "dense" or cfg.is_moe:
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"{cfg.name}: family {cfg.family!r} (MoE / VLM) is not "
-                f"ported yet (ROADMAP.md queue 1, the rest of the decoder "
-                f"family)")
+                f"{cfg.name}: family {cfg.family!r} (VLM) is not ported yet "
+                f"(ROADMAP.md queue 1, the rest of the decoder family)")
         if cfg.attn_window:
             raise NotImplementedError(
                 f"{cfg.name}: local/global ring caches are not ported yet "
@@ -139,9 +142,16 @@ class DecoderLM:
                 p["bias"] = (L, d)
             return p
 
-        mlp = {"w_up": (L, d, cfg.d_ff), "w_down": (L, cfg.d_ff, d)}
-        if cfg.activation == "swiglu":
-            mlp["w_gate"] = (L, d, cfg.d_ff)
+        def stacked(tree):
+            return {k: stacked(v) if isinstance(v, dict) else (L,) + v
+                    for k, v in tree.items()}
+        if cfg.is_moe:
+            ffn = {"moe": stacked(cm.moe_shapes(
+                d, cfg.d_ff, cfg.moe.n_experts, cfg.activation,
+                cfg.moe.shared_expert))}
+        else:
+            ffn = {"mlp": stacked(cm.mlp_shapes(d, cfg.d_ff,
+                                                cfg.activation))}
         final = {"scale": (d,)}
         if cfg.norm == "layer":
             final["bias"] = (d,)
@@ -149,13 +159,14 @@ class DecoderLM:
                 "layers": {"norm_attn": norm(),
                            "attn": {"wq": (L, d, H, D), "wk": (L, d, KV, D),
                                     "wv": (L, d, KV, D), "wo": (L, H, D, d)},
-                           "norm_mlp": norm(), "mlp": mlp}}
+                           "norm_mlp": norm(), **ffn}}
 
     def leaf_dtype(self, name: str, dtype=None) -> torch.dtype:
-        """Norm scales and biases stay float32 (read in f32 by the norm);
-        every matrix and embedding holds ``dtype``, by default the compute
-        dtype (serving; training passes ``self.param_dtype``)."""
-        return torch.float32 if name in ("scale", "bias") \
+        """Norm scales and biases and the MoE router stay float32 (read in
+        f32 by the norm and by the routing); every other matrix and
+        embedding holds ``dtype``, by default the compute dtype (serving;
+        training passes ``self.param_dtype``)."""
+        return torch.float32 if name in ("scale", "bias", "router") \
             else (dtype or self.compute_dtype)
 
     def init(self, generator: Optional[torch.Generator] = None,
@@ -175,12 +186,22 @@ class DecoderLM:
         x = cm.apply_norm(params["final_norm"], x, self.cfg.norm)
         return cm.unembed(params["embed"], x)
 
-    def _mlp_block(self, lp: Params, x: torch.Tensor) -> torch.Tensor:
-        h = cm.apply_norm(lp["norm_mlp"], x, self.cfg.norm)
-        return x + cm.apply_mlp(lp["mlp"], h, self.cfg.activation)
+    def _mlp_block(self, lp: Params, x: torch.Tensor, drop: bool = True):
+        """x plus the layer's MLP, or its MoE layer (capacity-bounded with
+        ``drop``, as in training; prefill and decode keep every pair);
+        returns (x, the MoE aux dict, empty for a dense layer)."""
+        cfg = self.cfg
+        h = cm.apply_norm(lp["norm_mlp"], x, cfg.norm)
+        if not cfg.is_moe:
+            return x + cm.apply_mlp(lp["mlp"], h, cfg.activation), {}
+        h, aux = cm.apply_moe(
+            lp["moe"], h, n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+            capacity_factor=cfg.moe.capacity_factor,
+            activation=cfg.activation, shared_expert=cfg.moe.shared_expert,
+            drop=drop)
+        return x + h, aux
 
-    def _layer_fwd(self, lp: Params, x: torch.Tensor,
-                   q_offset: int) -> torch.Tensor:
+    def _layer_fwd(self, lp: Params, x: torch.Tensor, q_offset: int):
         cfg = self.cfg
         h = cm.apply_norm(lp["norm_attn"], x, cfg.norm)
         h = cm.attention_block(
@@ -195,23 +216,33 @@ class DecoderLM:
                        ) -> Tuple[torch.Tensor, Dict]:
         """Run the layer stack on embedded input x (B, S, d).  With
         ``remat`` each layer runs under ``torch.utils.checkpoint``: only
-        its input is kept, and the backward recomputes the rest.  Returns
-        (x, aux) with aux empty (a dense model has no MoE losses)."""
-        for lp in unstack_layers(params["layers"], self.cfg.n_layers):
+        its input is kept, and the backward recomputes the rest (the MoE
+        layer's routing included).  Returns (x, aux): aux is empty for a
+        dense model; for an MoE model each of ``load_balance``,
+        ``router_z`` and ``dropped_frac`` summed over the layers and divided
+        by ``n_layers``, as the reference's scan reduces them."""
+        L = self.cfg.n_layers
+        total: Dict[str, torch.Tensor] = {}
+        for lp in unstack_layers(params["layers"], L):
             if remat:
-                x = checkpoint(self._layer_fwd, lp, x, q_offset,
-                               use_reentrant=False)
+                x, aux = checkpoint(self._layer_fwd, lp, x, q_offset,
+                                    use_reentrant=False)
             else:
-                x = self._layer_fwd(lp, x, q_offset)
-        return x, {}
+                x, aux = self._layer_fwd(lp, x, q_offset)
+            for k, v in aux.items():
+                total[k] = total[k] + v if k in total else v
+        # divided as XLA divides by a constant: times its f32 reciprocal
+        return x, {k: v * (1.0 / L) for k, v in total.items()}
 
     # -- training --------------------------------------------------------
     def loss(self, params: Params, batch: Dict[str, torch.Tensor],
              rng=None, remat: bool = True):
         """Mean next-token cross entropy with z-loss 1e-4 over ``batch``
         ("tokens", "targets", optional "mask"), as the reference's
-        ``DecoderLM.loss``.  ``rng`` is accepted for its signature (a dense
-        model draws nothing).  Returns (loss, metrics)."""
+        ``DecoderLM.loss``, plus an MoE model's weighted load balance and
+        router z-loss (its three aux terms in the metrics).  ``rng`` is
+        accepted for its signature (the model draws nothing).  Returns
+        (loss, metrics)."""
         if batch.get("patch_embeds") is not None:
             raise NotImplementedError("the VLM patch prefix is not ported "
                                       "yet (ROADMAP.md queue 1)")
@@ -261,7 +292,7 @@ class DecoderLM:
                 positional=cfg.positional, causal=True,
                 softcap=cfg.attn_logit_softcap, block_k=self.block_k,
                 return_kv=True, kv_valid_len=valid_len)
-            x = self._mlp_block(lp, x + h)
+            x, _ = self._mlp_block(lp, x + h, drop=False)
             cache["k"][layer, :, :S] = k
             cache["v"][layer, :, :S] = v
         last = x[:, -1:] if valid_len is None \
@@ -336,5 +367,5 @@ class DecoderLM:
             H, D, d = lp["attn"]["wo"].shape
             x = x + o.reshape(B, 1, H * D) \
                 @ cm.cast(lp["attn"]["wo"], x.dtype).reshape(H * D, d)
-            x = self._mlp_block(lp, x)
+            x, _ = self._mlp_block(lp, x, drop=False)
         return self.logits(params, x)[:, 0], cache

@@ -75,6 +75,19 @@ def test_rmsnorm_matches_reference_at_hybrid_widths(d, dtype):
                                **DTYPES[dtype][2])
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_rmsnorm_matches_reference_at_llama3b_width(dtype):
+    """llama3.2-3b's d_model 3072, at a few rows."""
+    rng = np.random.default_rng(3072)
+    x = rng.normal(size=(3, 3072)).astype(np.float32) * 3.0
+    w = (1.0 + 0.1 * rng.normal(size=3072)).astype(np.float32)
+    jx, tx = _pair(x, dtype)
+    got = rmsnorm(tx, torch.tensor(w))
+    np.testing.assert_allclose(np32(got),
+                               np32(jax_rmsnorm(jx, jnp.asarray(w))),
+                               **DTYPES[dtype][2])
+
+
 # ---------------------------------------------------------------------------
 # prefill attention with per-row valid lengths
 # ---------------------------------------------------------------------------
@@ -98,13 +111,14 @@ def test_prefill_attention_matches_chunked_attention(G, D, dtype):
     np.testing.assert_allclose(np32(got), np32(ref), **DTYPES[dtype][2])
 
 
-def _one_group_prefill_matches(D, dtype):
-    """The prefill at head_dim ``D`` with one query head per KV head over
-    ragged rows against the reference's ``chunked_attention``."""
+def _one_group_prefill_matches(D, dtype, G=1):
+    """The prefill at head_dim ``D`` with ``G`` query heads per KV head (2
+    KV heads) over ragged rows against the reference's
+    ``chunked_attention``."""
     rng = np.random.default_rng(D)
-    B, S, H = 2, 40, 2
-    q, k, v = (rng.normal(size=(B, S, H, D)).astype(np.float32)
-               for _ in range(3))
+    B, S, KV = 2, 40, 2
+    q, k, v = (rng.normal(size=(B, S, heads, D)).astype(np.float32)
+               for heads in (G * KV, KV, KV))
     vl = np.array([S, 17], np.int32)
     (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in (q, k, v))
     ref = jcm.chunked_attention(jq, jk, jv, causal=True, block_k=16,
@@ -127,6 +141,14 @@ def test_prefill_attention_matches_chunked_attention_at_head_dim_128(dtype):
     """gpt3-xl's attention: head_dim 128, one query head per KV head (MHA),
     ragged rows; in bf16 the scaled q rounds as the reference's does."""
     _one_group_prefill_matches(128, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_prefill_attention_matches_chunked_attention_at_head_dim_128_group_3(
+        dtype):
+    """llama3.2-3b's attention: head_dim 128, 3 query heads per KV head
+    (6 over 2 here), ragged rows."""
+    _one_group_prefill_matches(128, dtype, G=3)
 
 
 @pytest.mark.parametrize("D", [224, 32, 128])
@@ -271,6 +293,33 @@ def test_paged_decode_matches_reference_at_head_dim_128(pool, window,
     np.testing.assert_allclose(np32(got), np32(ref), **F32_TOL)
 
 
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("window,softcap,positions", _COMBOS)
+def test_paged_decode_matches_reference_at_head_dim_128_group_3(
+        pool, window, softcap, positions):
+    """llama3.2-3b's instantiation, head_dim 128 with 3 query heads per KV
+    head (6 over 2 here), on the pools it is built for."""
+    q, kq, vq, tables, ks, vs = _paged_operands(pool, seed=3, H=6, D=128)
+    pos = np.asarray(positions, np.int32)
+    for b, p in enumerate(pos):                  # park the unused tail
+        tables[b, p // kq.shape[1] + 1:] = 0
+    jd, td = _POOL[pool]
+    jk, jv = jnp.asarray(kq).astype(jd), jnp.asarray(vq).astype(jd)
+    tk, tv = torch.tensor(kq).to(td), torch.tensor(vq).to(td)
+    assert np.array_equal(np32(jk), np32(tk))    # same stored values
+    jsc = {} if ks is None else {"k_scales": jnp.asarray(ks),
+                                 "v_scales": jnp.asarray(vs)}
+    tsc = {} if ks is None else {"k_scales": torch.tensor(ks),
+                                 "v_scales": torch.tensor(vs)}
+    ref = jax_paged(jnp.asarray(q), jk, jv, jnp.asarray(tables),
+                    jnp.asarray(pos), window=window, softcap=softcap, **jsc)
+    got = paged_flash_decode(torch.tensor(q), tk, tv, torch.tensor(tables),
+                             torch.tensor(pos), window=window,
+                             softcap=softcap, **tsc)
+    assert got.shape == (3, 1, 6, 128) and got.dtype == torch.float32
+    np.testing.assert_allclose(np32(got), np32(ref), **F32_TOL)
+
+
 # ---------------------------------------------------------------------------
 # routing by device
 # ---------------------------------------------------------------------------
@@ -316,10 +365,10 @@ def test_kernels_refuse_what_they_are_not_built_for(case):
     instantiation raises before any launch (the kernels are built for the
     serving path's bf16: attention at head_dim 64, paged decode there
     with 4 or 2 query heads per KV head, both at head_dim 128 and 224 with
-    one,
-    and RMSNorm at d 256, 1024, 2048, 3584 and 7168).  Group 2 at head_dim
-    64, built for the card smoke config, passes the case checks and stops
-    only at the device check; group 3 is refused."""
+    one and at head_dim 128 with 3, and RMSNorm at d 256, 1024, 2048,
+    3072, 3584 and 7168).  Group 2 at head_dim 64, built for the card
+    smoke config, passes the case checks and stops only at the device
+    check; group 3 is refused."""
     kernels.reset_launch_counts()
     if case == "rmsnorm_f32":
         with pytest.raises(TypeError, match="bf16"):
@@ -327,7 +376,8 @@ def test_kernels_refuse_what_they_are_not_built_for(case):
                     _meta(64, dtype=torch.float32))
     elif case == "rmsnorm_uninstantiated_d":
         with pytest.raises(ValueError, match=r"d in \(256, 1024, 2048, "
-                                             r"3584, 7168\), got d=512"):
+                                             r"3072, 3584, 7168\), got "
+                                             r"d=512"):
             rmsnorm(_meta(4, 512), _meta(512, dtype=torch.float32))
     elif case == "paged_group_2":
         pages = _meta(3, 4, 2, 64)
@@ -336,8 +386,9 @@ def test_kernels_refuse_what_they_are_not_built_for(case):
                                _meta(1, 2, dtype=torch.int32),
                                _meta(1, dtype=torch.int32))
         with pytest.raises(ValueError, match=r"\[\(64, 4\), \(64, 2\), "
-                                             r"\(128, 1\), \(224, 1\)\], "
-                                             r"got D=64, H=6"):
+                                             r"\(128, 1\), \(128, 3\), "
+                                             r"\(224, 1\)\], got D=64, "
+                                             r"H=6"):
             paged_flash_decode(_meta(1, 1, 6, 64), pages, pages,
                                _meta(1, 2, dtype=torch.int32),
                                _meta(1, dtype=torch.int32))
@@ -433,6 +484,48 @@ def test_kernels_refuse_around_the_gpt3_instantiations(case):
         with pytest.raises(ValueError, match="expected a CUDA device"):
             paged_flash_decode(_meta(1, 1, 2, 128), pages, pages, tables,
                                pos, **scales)
+    assert kernels.launch_counts() == {"rmsnorm": 0, "flash_prefill": 0,
+                                       "flash_bwd": 0, "paged_decode": 0,
+                                       "ssd_scan": 0}
+
+
+@pytest.mark.parametrize("case", ["prefill_128_group_3", "paged_128_group_3",
+                                  "paged_128_group_3_int8",
+                                  "paged_128_group_3_fp8",
+                                  "prefill_128_group_4", "rmsnorm_d3072"])
+def test_kernels_take_the_llama3b_instantiations(case):
+    """llama3.2-3b's instantiations (head_dim 128 with 3 query heads per KV
+    head, the prefill and paged decode over bf16 and int8 pools; RMSNorm at
+    d 3072) pass the case checks and stop only at the device check; an fp8
+    pool there and 4 query heads per KV head at 128 are refused; nothing
+    launches."""
+    kernels.reset_launch_counts()
+    scales = dict(k_scales=_meta(3, 2, dtype=torch.float32),
+                  v_scales=_meta(3, 2, dtype=torch.float32))
+    tables, pos = _meta(1, 2, dtype=torch.int32), _meta(1, dtype=torch.int32)
+    if case in ("prefill_128_group_3", "prefill_128_group_4"):
+        G = 3 if case.endswith("3") else 4
+        q, kv = _meta(1, 8, 2 * G, 128), _meta(1, 8, 2, 128)
+        with pytest.raises(ValueError, match="expected a CUDA device"
+                           if G == 3 else "got D=128, H=8, KV=2"):
+            flash_prefill(q, kv, kv)
+    elif case == "paged_128_group_3_fp8":
+        pages = _meta(3, 4, 2, 128, dtype=torch.float8_e4m3fn)
+        with pytest.raises(TypeError, match="head_dim 128 with 3 query "
+                                            "heads per KV head is built for "
+                                            "bf16 and int8 pools"):
+            paged_flash_decode(_meta(1, 1, 6, 128), pages, pages, tables,
+                               pos, **scales)
+    elif case.startswith("paged"):
+        int8 = case.endswith("int8")
+        pages = _meta(3, 4, 2, 128, dtype=torch.int8 if int8
+                      else torch.bfloat16)
+        with pytest.raises(ValueError, match="expected a CUDA device"):
+            paged_flash_decode(_meta(1, 1, 6, 128), pages, pages, tables,
+                               pos, **(scales if int8 else {}))
+    else:
+        with pytest.raises(ValueError, match="expected a CUDA device"):
+            rmsnorm(_meta(4, 3072), _meta(3072, dtype=torch.float32))
     assert kernels.launch_counts() == {"rmsnorm": 0, "flash_prefill": 0,
                                        "flash_bwd": 0, "paged_decode": 0,
                                        "ssd_scan": 0}

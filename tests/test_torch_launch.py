@@ -96,16 +96,17 @@ def test_card_smoke_config_keeps_the_kernels_widths():
 
 
 def test_card_smoke_configs_are_built_kernel_cases():
-    """Every dense arch's reduced config on the card runs only what the
-    kernels are built for: its (head_dim, query heads per KV head) is a
+    """Every dense and MoE arch's reduced config on the card runs only what
+    the kernels are built for: its (head_dim, query heads per KV head) is a
     case of the paged decode kernel (with bf16 pools, which the serve
     launcher serves from) and of the flash prefill kernel, and its d_model
-    a width of the RMSNorm kernel."""
+    a width of the RMSNorm kernel; the MoE family keeps the smoke config's
+    4 experts, top-2."""
     from repro_torch.configs import REGISTRY, card_smoke_config
     from repro_torch.kernels.flash_attention import paged, prefill
     from repro_torch.kernels.rmsnorm import KERNEL_WIDTHS
-    dense = [c for c in REGISTRY.values() if c.family == "dense"]
-    assert dense
+    dense = [c for c in REGISTRY.values() if c.family in ("dense", "moe")]
+    assert {c.family for c in dense} == {"dense", "moe"}
     for full in dense:
         cfg = card_smoke_config(full)
         D, G = cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads
@@ -115,3 +116,5 @@ def test_card_smoke_configs_are_built_kernel_cases():
         assert any(d == D and g in (0, G)
                    for d, g in prefill.KERNEL_CASES), (full.name, D, G)
         assert cfg.d_model in KERNEL_WIDTHS, full.name
+        if full.is_moe:
+            assert (cfg.moe.n_experts, cfg.moe.top_k) == (4, 2), full.name

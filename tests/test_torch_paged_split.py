@@ -32,9 +32,10 @@ from repro_torch.kernels.flash_attention.paged import (KERNEL_CASES,
 from torch_parity import F32_TOL, np32
 
 # the kernel's instantiations: llama3.2-1b's group at head_dim 64, the
-# card smoke config's, gpt3-xl's at head_dim 128 and zamba2-7b's shared
-# block at head_dim 224
+# card smoke config's, gpt3-xl's and llama3.2-3b's at head_dim 128 and
+# zamba2-7b's shared block at head_dim 224
 ((_, KERNEL_GROUP, _), (_, SMOKE_GROUP, _), (GPT3_HEAD_DIM, GPT3_GROUP, _),
+ (LLAMA3B_HEAD_DIM, LLAMA3B_GROUP, _),
  (WIDE_HEAD_DIM, WIDE_GROUP, _)) = KERNEL_CASES
 
 TILE, WARPS = 64, 4          # keys per ring stage; warps per block
@@ -198,8 +199,8 @@ def test_split_recipe_matches_reference(pool, kps, window, softcap):
 
 
 def _one_group_recipe_matches(pool, kps, window, softcap, d, group):
-    """The recipe at head_dim ``d`` with ``group`` (1) query heads per KV
-    head against the reference, on the split and page edges."""
+    """The recipe at head_dim ``d`` with ``group`` (1 or 3) query heads per
+    KV head against the reference, on the split and page edges."""
     pos = _positions(kps)
     q, (jk, jv, tk, tv), tables, ks, vs = _operands(
         pool, pos, seed=kps + d, d=d, group=group)
@@ -241,6 +242,19 @@ def test_split_recipe_matches_reference_at_head_dim_128(pool, kps, window,
     assert (GPT3_HEAD_DIM, GPT3_GROUP) == (128, 1)
     _one_group_recipe_matches(pool, kps, window, softcap, GPT3_HEAD_DIM,
                               GPT3_GROUP)
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("kps", [16, 128])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (100, 50.0)])
+def test_split_recipe_matches_reference_at_head_dim_128_group_3(
+        pool, kps, window, softcap):
+    """llama3.2-3b's instantiation, head_dim 128 with 3 query heads per KV
+    head (a key on 16 lanes, 2 keys a step, 3 query rows of partials), on
+    the pools it is built for."""
+    assert (LLAMA3B_HEAD_DIM, LLAMA3B_GROUP) == (128, 3)
+    _one_group_recipe_matches(pool, kps, window, softcap, LLAMA3B_HEAD_DIM,
+                              LLAMA3B_GROUP)
 
 
 @pytest.mark.parametrize("pool", ["bf16", "int8", "fp8"])

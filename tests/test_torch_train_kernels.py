@@ -141,6 +141,53 @@ def test_flash_bwd_plain_version_matches_reference_at_head_dim_128(S):
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_forward_lse_matches_reference_at_head_dim_128_group_3(dtype):
+    """llama3.2-3b's training forward, head_dim 128 with 3 query heads per
+    KV head (6 over 2 here): output and log-sum-exp against the TPU
+    kernel's ``return_lse=True`` with ``group=3`` in interpret mode."""
+    B, S, H, KV, D = 2, 48, 6, 2, 128
+    q, k, v, _ = _operands(B, S, S, H, KV, D, seed=3)
+    jd, td, tol = {"f32": (jnp.float32, torch.float32, F32_TOL),
+                   "bf16": (jnp.bfloat16, torch.bfloat16, BF16_TOL)}[dtype]
+    o_ref, lse_ref = flash_attention_fwd(
+        *(_to_bh(a, S, D).astype(jd) for a in (q, k, v)), causal=True,
+        block_q=16, block_k=16, group=H // KV, return_lse=True,
+        interpret=True)
+    o, lse = flash_prefill(*(torch.tensor(a).to(td) for a in (q, k, v)),
+                           block_k=16, return_lse=True)
+    assert o.dtype == td and lse.shape == (B, H, S)
+    np.testing.assert_allclose(np32(lse), np32(lse_ref).reshape(B, H, S),
+                               **tol)
+    np.testing.assert_allclose(
+        np32(o), np32(o_ref).reshape(B, H, S, D).transpose(0, 2, 1, 3), **tol)
+
+
+def test_flash_attention_train_matches_reference_at_head_dim_128_group_3():
+    """llama3.2-3b's differentiable attention, head_dim 128 with 3 query
+    heads per KV head (6 over 2 here): the output and dq, dk, dv (dk and dv
+    summed over each KV head's 3 query heads) against the JAX package's
+    ``flash_attention_train`` in interpret mode, in f32."""
+    B, S, H, KV, D = 1, 48, 6, 2, 128
+    q, k, v, w = _operands(B, S, S, H, KV, D, seed=33)
+
+    def loss_ref(q, k, v):
+        o = jax_flash_train(q, k, v, True, 0, 16, 16, True)
+        return jnp.sum(o * w), o
+
+    (_, o_ref), g_ref = jax.value_and_grad(loss_ref, argnums=(0, 1, 2),
+                                           has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    o = flash_attention_train(tq, tk, tv, True, 0)
+    (o * torch.tensor(w)).sum().backward()
+    np.testing.assert_allclose(np32(o), np32(o_ref), **F32_TOL)
+    for name, got, ref in zip(("dq", "dk", "dv"), (tq, tk, tv), g_ref):
+        assert got.grad.shape == got.shape
+        np.testing.assert_allclose(np32(got.grad), np32(ref),
+                                   **FLASH_BWD_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_rmsnorm_grads_match_reference(dtype):
     """dx in x's dtype and dw in f32, as ``jax.grad`` of ``apply_norm``."""
     jd, td, tol = {"f32": (jnp.float32, torch.float32, F32_TOL),
@@ -220,6 +267,7 @@ def _meta(*shape, dtype=torch.bfloat16):
     ("bf16_d224", ValueError, "CUDA device"),
     ("d128_g2", ValueError, "128 and 224 with one query head"),
     ("bf16_d128", ValueError, "CUDA device"),
+    ("bf16_d128_g3", ValueError, "CUDA device"),
     ("window", NotImplementedError, "training path"),
     ("non_causal", NotImplementedError, "training path"),
     ("sq_ne_sk", NotImplementedError, "training path")])
@@ -227,16 +275,17 @@ def test_flash_bwd_refuses_what_it_is_not_built_for(case, error, match):
     """Off the CPU the backward launches its kernel or raises before any
     launch; with no card here every case raises.  Beside dtype and
     head_dim (64 at any group, 128 and 224 with one query head per KV
-    head) it refuses what the training path does not give it: a window, no
-    causal mask, Sq != Sk."""
+    head, 128 with 3) it refuses what the training path does not give it:
+    a window, no causal mask, Sq != Sk."""
     kernels.reset_launch_counts()
     D = {"d16": 16, "d224_g2": 224, "bf16_d224": 224, "d128_g2": 128,
-         "bf16_d128": 128}.get(case, 64)
+         "bf16_d128": 128, "bf16_d128_g3": 128}.get(case, 64)
     dt = torch.float32 if case == "f32" else torch.bfloat16
     Sk = 16 if case == "sq_ne_sk" else 8
     KV = 4 if case in ("bf16_d224", "bf16_d128") else 2
-    q, kv = _meta(1, 8, 4, D, dtype=dt), _meta(1, Sk, KV, D, dtype=dt)
-    lse = _meta(1, 4, 8, dtype=torch.bfloat16 if case == "lse_bf16"
+    H = 6 if case == "bf16_d128_g3" else 4
+    q, kv = _meta(1, 8, H, D, dtype=dt), _meta(1, Sk, KV, D, dtype=dt)
+    lse = _meta(1, H, 8, dtype=torch.bfloat16 if case == "lse_bf16"
                 else torch.float32)
     with pytest.raises(error, match=match):
         flash_attention_bwd(q, kv, kv, q, q, lse, causal=case != "non_causal",
