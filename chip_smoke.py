@@ -105,6 +105,23 @@ Phases, in order; any failure raises and the script exits non-zero:
                  (rows ``paged_decode[D128G3 bf16]``, ``[D128G3 int8]``);
                  RMSNorm at (4096, 3072) (row ``rmsnorm[3072]``) and
                  (8, 3072) beside ``F.rms_norm``.
+   vlm         — internvl2-1b's instantiations (head_dim 64, 7 query heads
+                 per KV head, 14 heads over 2; RMSNorm at d 896), as
+                 llama3.2-3b's: the prefill at 256 patch rows + the buckets
+                 32, 128 and 512 (row ``flash_prefill[D64G7]`` at S 768),
+                 B 1 at S 333 and a window; the training forward and
+                 backward at B 4, S 1024 (rows ``flash_prefill_lse[D64G7]``,
+                 ``flash_bwd[D64G7]``) and their edges; paged decode on
+                 bf16 and int8 pools with the edges and graph replays (rows
+                 ``paged_decode[D64G7 bf16]``, ``[D64G7 int8]``); RMSNorm
+                 at (4096, 896) (row ``rmsnorm[896]``), 13 rows and 8.
+   yi          — yi-34b's (head_dim 128, 7 query heads per KV head, 56
+                 over 8): the prefill over the buckets 32, 512 and 128 (row
+                 ``flash_prefill[D128G7]`` at yi's bucket, S 128), B 1 at
+                 S 77, B 2 at S 200 and a window, with the log-sum-exp;
+                 paged decode on bf16 and int8 pools with the edges and
+                 graph replays (rows ``paged_decode[D128G7 bf16]``,
+                 ``[D128G7 int8]``); the backward refuses (128, 7).
 4. serve       — llama3.2-1b at full width (random weights from a seeded
                  generator) serves 16 requests through ``ServeEngine.generate``
                  with bf16 pages and with int8 pages, each with CUDA graphs
@@ -184,6 +201,29 @@ Phases, in order; any failure raises and the script exits non-zero:
                  (capacity 1280 a layer and expert), the load balance,
                  router z-loss and dropped fraction logged each step, a
                  non-zero gradient on every leaf, the router's included.
+   serve_vlm   — internvl2-1b (24 layers, d_model 896, 14 heads over 2 at
+                 head_dim 64, vocab 151655, tied; 0.494 B parameters) at
+                 full width and depth serves the serve phase's 16 prompts,
+                 the even ones behind 256 seeded patch rows of width 896,
+                 the odd ones text-only (a prefill call per bucket and
+                 extras signature), as serve_gpt3 (exact launches as
+                 llama's at 24 layers); the unaligned head's share of a
+                 decode step logged.
+   consistency_vlm — ``consistency`` behind the same 256 patch rows in
+                 both prefills, bf16 and int8 pages.
+   train_vlm   — 4 steps of 8 rows (256 patch rows + 768 text tokens) as
+                 2 micro-batches of 4 (the train phase's gates).
+   serve_yi    — yi-34b (60 layers, d_model 7168, 56 heads over 8 at
+                 head_dim 128, d_ff 20480, vocab 64000; 34.389 B
+                 parameters, 68.78 GB in bf16, drawn a layer at a time for
+                 its MLP leaves) at full width and depth serves 8 prompts of
+                 65-128 tokens (one bucket: each engine captures that
+                 bucket's prefill graph and the decode chunks'), 32 new
+                 each, as serve_gpt3 (exact launches: 121 RMSNorms a
+                 forward, 60 prefills a call, 60 paged decodes a step);
+                 peak memory; the profiled decode step's wall and device ms
+                 against the 20.5 ms of reading the weights once.
+   consistency_yi — ``consistency`` on it, bf16 and int8 pages.
    serve_ssm   — mamba2-370m at full width and depth (random weights from a
                  seeded generator) serves the same 16 requests with a dense
                  and with a paged ``BatchState``, graphs on and off:
@@ -251,7 +291,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                  config at the kernels' widths, paged decode at a query
                  group of 2); ``launch.serve.main --arch
                  granite-moe-1b-a400m`` with ``--smoke`` and at full width
-                 with 2 requests; the serve phase's 16 requests behind a
+                 with 2 requests, ``--arch internvl2-1b --smoke`` (text-only
+                 requests, as the reference's launcher builds them); the
+                 serve phase's 16 requests behind a
                  ``DvfsSession(chip="h100")`` executor, repeated for at least 5
                  s after a capturing run, against the energy counter (joules a
                  token and mean watts, gross and net of idle, the SM and memory
@@ -337,6 +379,23 @@ LLAMA3B_ACCUM, LLAMA3B_TRAIN_LAYERS = 4, 24
 # granite-moe-1b-a400m trains 8 x 1024 tokens a step as MOE_ACCUM
 # micro-batches of 4 (4096 tokens, 32768 routed pairs a layer)
 MOE_ACCUM = 2
+# internvl2-1b: its attention's heads, KV heads and head_dim (7 query heads
+# per KV head) and the patch rows a request or a training row carries
+# (its vision_prefix_len, each row of width d_model 896); it trains 8 rows
+# a step as TRAIN_ACCUM micro-batches of 4, each row the patch rows and
+# TRAIN_SEQ - VLM_PREFIX text tokens
+VLM_ARCH, VLM_PREFIX = "internvl2-1b", 256
+VLM_ATTN = dict(H=14, KV=2, D=64)
+# yi-34b: its attention's heads, KV heads and head_dim (7 query heads per
+# KV head).  It serves YI_REQUESTS seeded prompts of 65-128 tokens, one
+# prompt bucket (128), YI_NEW_TOKENS new each: beside its 68.8 GB of bf16
+# weights (64.1 GiB, computed) the card keeps ~15 GiB, and a prefill
+# bucket's CUDA graph holds its 2.0 GB sub-cache (60 layers x 8 rows x 1024
+# positions x 240 KiB of K/V a token, computed) as a static output, so the
+# workload captures one prefill graph and the decode chunks' graphs
+YI_ARCH = "yi-34b"
+YI_ATTN = dict(H=56, KV=8, D=128)
+YI_REQUESTS, YI_NEW_TOKENS = 8, 32
 LSE_TOL = 1e-3         # forward log-sum-exp, absolute
 BWD_TOL = 2e-2         # dq, dk, dv, relative to each one's largest |value|
 ATTN_TOL = 2e-2        # bf16 attention, as tests/test_kernels.py uses
@@ -578,6 +637,20 @@ LLAMA3B_INSTANTIATIONS = (
     ("_Z19paged_decode_kernelI13__nv_bfloat16Li128ELi3E", False),
     ("_Z19paged_decode_kernelIaLi128ELi3E", False),
     ("_Z27paged_decode_combine_kernelI13__nv_bfloat16Li128ELi3E", False))
+# internvl2-1b's own instantiations (RMSNorm at d 896, its last chunk on
+# 16 lanes; paged decode at head_dim 64 with 7 query heads per KV head);
+# its prefill and backward are the head_dim-64 kernels.  yi-34b's: paged
+# decode at head_dim 128 with 7 (its prefill is the wide kernel at 128, its
+# RMSNorm d 7168's).  A spill is logged, not refused
+VLM_INSTANTIATIONS = (
+    ("_Z14rmsnorm_kernelILi4ELi16E", False),
+    ("_Z19paged_decode_kernelI13__nv_bfloat16Li64ELi7E", False),
+    ("_Z19paged_decode_kernelIaLi64ELi7E", False),
+    ("_Z27paged_decode_combine_kernelI13__nv_bfloat16Li64ELi7E", False))
+YI_INSTANTIATIONS = (
+    ("_Z19paged_decode_kernelI13__nv_bfloat16Li128ELi7E", False),
+    ("_Z19paged_decode_kernelIaLi128ELi7E", False),
+    ("_Z27paged_decode_combine_kernelI13__nv_bfloat16Li128ELi7E", False))
 # paged decode at head_dim 64 with 2 query heads per KV head (the card
 # smoke config's and granite-moe's attention): the instantiations of the
 # serving pools (bf16, int8) and the combine pass may not spill; the f32
@@ -645,12 +718,15 @@ def phase_build() -> None:
         if not found or n == 0:
             raise AssertionError(f"{name}: no tensor-core instruction in the "
                                  f"SASS of {info['path']}")
-    # the hybrid's and gpt3-xl's instantiations: each built, its registers
-    # and spills, and HMMA in the SASS of those that run products
+    # the hybrid's, gpt3-xl's, llama3.2-3b's, internvl2-1b's and yi-34b's
+    # instantiations: each built, its registers and spills, and HMMA in the
+    # SASS of those that run products
     res = ptxas_resources(str(info["compiler_log"]))
     for model, table in (("zamba2-7b", HYBRID_INSTANTIATIONS),
                          ("gpt3-xl", GPT3_INSTANTIATIONS),
-                         ("llama3.2-3b", LLAMA3B_INSTANTIATIONS)):
+                         ("llama3.2-3b", LLAMA3B_INSTANTIATIONS),
+                         (VLM_ARCH, VLM_INSTANTIATIONS),
+                         (YI_ARCH, YI_INSTANTIATIONS)):
         for prefix, products in table:
             fns = [fn for fn in res if fn.startswith(prefix)]
             if not fns:
@@ -1750,6 +1826,46 @@ def _prefill_compare(gen, B, S, H, KV, D, valid_len):
                    *flash_prefill_ref(q, k, v, vl, return_lse=True))
 
 
+def _paged_graph_and_rows(gen, attn, tag, L):
+    """Paged decode at ``attn`` on bf16 and int8 pools: a CUDA graph replay
+    bitwise equal to an eager call, then ``check_paged`` (the serving
+    positions twice, bitwise equal; the split and page edges, a parked
+    slot, a window, softcap, B 1; timed over ``L`` layers' pools).
+    Returns the two rows, ``paged_decode[<tag> bf16]`` and ``[<tag>
+    int8]``."""
+    from repro_torch.kernels.flash_attention import paged_flash_decode
+    rows = []
+    for dtype, label in ((torch.bfloat16, "bf16"), (torch.int8, "int8")):
+        q, kp, vp, tables, pos, ks, vs = _paged_case(gen, dtype, L=1, **attn)
+        kw = {} if ks is None else dict(k_scales=ks[0], v_scales=vs[0])
+        same = graph_equal(lambda: paged_flash_decode(q, kp[0], vp[0], tables,
+                                                      pos, **kw))
+        log(f"[kernels] paged_decode {label} {tag} pool replayed from a CUDA "
+            f"graph: bitwise equal to an eager call {same}")
+        if not same:
+            raise AssertionError(f"paged_decode ({label} {tag}): a graph "
+                                 f"replay differs from an eager call")
+        rows.append(check_paged(gen, dtype, f"{tag} {label}", attn, L=L))
+    return rows
+
+
+def _rmsnorm_width(gen, d: int):
+    """RMSNorm at one model's width: ``_rmsnorm_row`` at the prefill shape
+    (4096, d) (its JSON row, ``rmsnorm[<d>]``), the plain version at 13
+    rows (a grid whose last block holds one row), and the decode shape
+    (8, d) timed beside ``F.rms_norm``, logged."""
+    row, ok = _rmsnorm_row(gen, SERVE_SLOTS * 512, d, f"rmsnorm[{d}]")
+    if not (_rmsnorm_compare(gen, 13, d)[0] and ok):
+        raise AssertionError(f"rmsnorm kernel at d {d} disagrees with its "
+                             f"plain version")
+    tt, (_, _, nc) = rmsnorm_timings(gen, SERVE_SLOTS, d)
+    b_ms, _ = bound(2 * SERVE_SLOTS * d * 2 + d * 4, 4 * SERVE_SLOTS * d,
+                    "f32")
+    log(f"[kernels] rmsnorm x ({SERVE_SLOTS}, {d}) bf16 ({nc} input "
+        f"copies): {versus('kernel', tt, 'F.rms_norm')}; bound {b_ms:.4f} ms")
+    return row
+
+
 #: the kernel rows of gpt3-xl's instantiations: the run whose launches each
 #: reports (``phase_serve_gpt3``'s runs by page type, or its training run)
 GPT3_ROW_RUNS = {"flash_prefill[D128]": "bf16",
@@ -1773,7 +1889,6 @@ def check_gpt3_kernels(gen):
     slot, a window, softcap, B 1), replayed from a CUDA graph bitwise equal
     to eager.  Returns the JSON rows named in ``GPT3_ROW_RUNS``, each marked
     with the model."""
-    from repro_torch.kernels.flash_attention import paged_flash_decode
     H, KV, D = GPT3_ATTN["H"], GPT3_ATTN["KV"], GPT3_ATTN["D"]
     for S in (32, 128, 512):
         row = _prefill_row(gen, SERVE_SLOTS, S, H, KV, D,
@@ -1785,19 +1900,7 @@ def check_gpt3_kernels(gen):
     rows += check_flash_bwd(gen, **GPT3_ATTN,
                             edges=((2, 200, H, KV), (1, 77, H, KV)),
                             tag="[D128]", B=GPT3_BATCH // GPT3_ACCUM)
-    for dtype, label in ((torch.bfloat16, "bf16"), (torch.int8, "int8")):
-        q, kp, vp, tables, pos, ks, vs = _paged_case(gen, dtype, L=1,
-                                                     **GPT3_ATTN)
-        kw = {} if ks is None else dict(k_scales=ks[0], v_scales=vs[0])
-        same = graph_equal(lambda: paged_flash_decode(q, kp[0], vp[0], tables,
-                                                      pos, **kw))
-        log(f"[kernels] paged_decode {label} D128G1 pool replayed from a CUDA "
-            f"graph: bitwise equal to an eager call {same}")
-        if not same:
-            raise AssertionError(f"paged_decode ({label} D128G1): a graph "
-                                 f"replay differs from an eager call")
-        rows.append(check_paged(gen, dtype, f"D128G1 {label}", GPT3_ATTN,
-                                L=4))
+    rows += _paged_graph_and_rows(gen, GPT3_ATTN, "D128G1", L=4)
     for r in rows:
         r["model"] = "gpt3-xl"
     return rows
@@ -1825,10 +1928,8 @@ def check_llama3b_kernels(gen):
     micro-batch (B 2, S 1024), and both at S 200 and B 1, S 77; paged
     decode on bf16 and int8 pools at the serving positions with
     ``check_paged``'s edges, replayed from a CUDA graph bitwise equal to
-    eager; RMSNorm at (4096, 3072) (graph_ms too) and the decode shape
-    (8, 3072), logged.  Returns the JSON rows named in
-    ``LLAMA3B_ROW_RUNS``, each marked with the model."""
-    from repro_torch.kernels.flash_attention import paged_flash_decode
+    eager; RMSNorm at d 3072 (``_rmsnorm_width``).  Returns the JSON rows
+    named in ``LLAMA3B_ROW_RUNS``, each marked with the model."""
     H, KV, D = LLAMA3B_ATTN["H"], LLAMA3B_ATTN["KV"], LLAMA3B_ATTN["D"]
     for S in (32, 128, 512):
         row = _prefill_row(gen, SERVE_SLOTS, S, H, KV, D,
@@ -1841,31 +1942,99 @@ def check_llama3b_kernels(gen):
     rows += check_flash_bwd(gen, **LLAMA3B_ATTN,
                             edges=((2, 200, H, KV), (1, 77, H, KV)),
                             tag="[D128G3]", B=TRAIN_BATCH // LLAMA3B_ACCUM)
-    for dtype, label in ((torch.bfloat16, "bf16"), (torch.int8, "int8")):
-        q, kp, vp, tables, pos, ks, vs = _paged_case(gen, dtype, L=1,
-                                                     **LLAMA3B_ATTN)
-        kw = {} if ks is None else dict(k_scales=ks[0], v_scales=vs[0])
-        same = graph_equal(lambda: paged_flash_decode(q, kp[0], vp[0], tables,
-                                                      pos, **kw))
-        log(f"[kernels] paged_decode {label} D128G3 pool replayed from a CUDA "
-            f"graph: bitwise equal to an eager call {same}")
-        if not same:
-            raise AssertionError(f"paged_decode ({label} D128G3): a graph "
-                                 f"replay differs from an eager call")
-        rows.append(check_paged(gen, dtype, f"D128G3 {label}", LLAMA3B_ATTN,
-                                L=4))
-    row, ok = _rmsnorm_row(gen, SERVE_SLOTS * 512, 3072, "rmsnorm[3072]")
-    if not ok:
-        raise AssertionError("rmsnorm kernel at d 3072 disagrees with its "
-                             "plain version")
-    rows.append(row)
-    tt, (_, _, nc) = rmsnorm_timings(gen, SERVE_SLOTS, 3072)
-    b_ms, _ = bound(2 * SERVE_SLOTS * 3072 * 2 + 3072 * 4,
-                    4 * SERVE_SLOTS * 3072, "f32")
-    log(f"[kernels] rmsnorm x ({SERVE_SLOTS}, 3072) bf16 ({nc} input "
-        f"copies): {versus('kernel', tt, 'F.rms_norm')}; bound {b_ms:.4f} ms")
+    rows += _paged_graph_and_rows(gen, LLAMA3B_ATTN, "D128G3", L=4)
+    rows.append(_rmsnorm_width(gen, 3072))
     for r in rows:
         r["model"] = "llama3.2-3b"
+    return rows
+
+
+#: the kernel rows of internvl2-1b's instantiations: the run whose launches
+#: each reports (``phase_serve_vlm``'s runs by page type, or its training
+#: run)
+VLM_ROW_RUNS = {"flash_prefill[D64G7]": "bf16",
+                "paged_decode[D64G7 bf16]": "bf16",
+                "paged_decode[D64G7 int8]": "int8",
+                "flash_prefill_lse[D64G7]": "train",
+                "flash_bwd[D64G7]": "train",
+                "rmsnorm[896]": "bf16"}
+
+
+def check_vlm_kernels(gen):
+    """internvl2-1b's instantiations (head_dim 64 with 7 query heads per KV
+    head: 14 heads over 2; RMSNorm at d 896), each against its plain
+    version and twice (bitwise equal), timed as llama3.2-3b's are beside
+    its bound and library yardstick: the prefill at its serving shapes,
+    the 256 patch rows before a prompt bucket of 32, 128 and 512 (S 288,
+    384, 768; its row at B 8, S 768) with ragged rows, B 1 at S 333 and a
+    window over rows with no valid key (the 14 heads are 14 blocks of the
+    grid's head axis, no tiling over heads); the training forward with its
+    log-sum-exp and the backward at the micro-batch (B 4, S 1024: 256 patch
+    rows and 768 text tokens), and both at S 200 and B 1, S 77; paged
+    decode on bf16 and int8 pools with ``check_paged``'s edges, replayed
+    from a CUDA graph bitwise equal to eager; RMSNorm at d 896, its last
+    16-byte chunk on 16 lanes (``_rmsnorm_width``).  Returns the JSON rows
+    named in ``VLM_ROW_RUNS``, each marked with the model."""
+    H, KV, D = VLM_ATTN["H"], VLM_ATTN["KV"], VLM_ATTN["D"]
+    for S in (32, 128, 512):
+        row = _prefill_row(gen, SERVE_SLOTS, VLM_PREFIX + S, H, KV, D,
+                           "flash_prefill[D64G7]", graph=True,
+                           backend=S == 512)
+    rows = [row]                       # the longest bucket
+    _prefill_compare(gen, 1, VLM_PREFIX + 77, H, KV, D, [VLM_PREFIX + 45])
+    check_prefill_padded_window(gen, H, KV, D)
+    rows += check_flash_bwd(gen, **VLM_ATTN,
+                            edges=((2, 200, H, KV), (1, 77, H, KV)),
+                            tag="[D64G7]")
+    rows += _paged_graph_and_rows(gen, VLM_ATTN, "D64G7", L=16)
+    rows.append(_rmsnorm_width(gen, 896))
+    for r in rows:
+        r["model"] = VLM_ARCH
+    return rows
+
+
+#: the kernel rows of yi-34b's instantiations: the run whose launches each
+#: reports (``phase_serve_yi``'s runs by page type)
+YI_ROW_RUNS = {"flash_prefill[D128G7]": "bf16",
+               "paged_decode[D128G7 bf16]": "bf16",
+               "paged_decode[D128G7 int8]": "int8"}
+
+
+def check_yi_kernels(gen):
+    """yi-34b's instantiations (head_dim 128 with 7 query heads per KV
+    head: 56 heads over 8), each against its plain version and twice
+    (bitwise equal), timed beside its bound and library yardstick: the
+    prefill over the buckets 32, 512 and 128 with ragged rows (its row at
+    yi's serving bucket, B 8, S 128), B 1 at S 77, B 2 at S 200 with ragged
+    rows and a window over rows with no valid key, each with its
+    log-sum-exp checked; paged decode on bf16 and int8 pools with
+    ``check_paged``'s edges, replayed from a CUDA graph bitwise equal to
+    eager.  The backward is not built at (128, 7) (no path trains yi-34b):
+    a call on the card raises.  Returns the JSON rows named in
+    ``YI_ROW_RUNS``, each marked with the model."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    H, KV, D = YI_ATTN["H"], YI_ATTN["KV"], YI_ATTN["D"]
+    for S in (32, 512, 128):
+        row = _prefill_row(gen, SERVE_SLOTS, S, H, KV, D,
+                           "flash_prefill[D128G7]", graph=True,
+                           backend=S == 128)
+    rows = [row]                       # yi's serving bucket
+    _prefill_compare(gen, 1, 77, H, KV, D, [45])
+    _prefill_compare(gen, 2, 200, H, KV, D, [200, 131])
+    check_prefill_padded_window(gen, H, KV, D)
+    q = torch.zeros(1, 64, H, D, dtype=torch.bfloat16, device="cuda")
+    kv = torch.zeros(1, 64, KV, D, dtype=torch.bfloat16, device="cuda")
+    lse = torch.zeros(1, H, 64, device="cuda")
+    try:
+        flash_attention_bwd(q, kv, kv, q, q, lse)
+    except ValueError as e:
+        log(f"[kernels] flash_bwd at (128, 7) refused on the card: {e}")
+    else:
+        raise AssertionError("flash_bwd ran at head_dim 128 with 7 query "
+                             "heads per KV head, which it is not built for")
+    rows += _paged_graph_and_rows(gen, YI_ATTN, "D128G7", L=4)
+    for r in rows:
+        r["model"] = YI_ARCH
     return rows
 
 
@@ -1886,6 +2055,8 @@ def phase_kernels():
     rows[-1]["model"] = "zamba2-7b"
     rows += check_gpt3_kernels(gen)
     rows += check_llama3b_kernels(gen)
+    rows += check_vlm_kernels(gen)
+    rows += check_yi_kernels(gen)
     # pools the serving path does not use: checked, logged, not in the JSON
     for dtype, label in ((torch.float8_e4m3fn, "fp8"), (torch.float32, "f32")):
         r = check_paged(gen, dtype, label)
@@ -1985,9 +2156,10 @@ def llama_launches(steps: int, calls: int, paged: bool = True,
 
 
 def serve_run(tag, model, params, prompts, new_tokens, graphs, want,
-              inspect=None, **kw):
+              inspect=None, extras=None, **kw):
     """One ``ServeEngine`` (``cuda_graphs=graphs``, ``kw`` on top of the
-    serving geometry) over ``prompts`` with ``new_tokens`` each, timed
+    serving geometry) over ``prompts`` with ``new_tokens`` each (and
+    ``extras[i]``, a dict of prefill inputs, on prompt i when given), timed
     after a warm-up and ``reset()``; ``inspect(engine)``, when given, adds
     its dict to the result after the timed run.  With graphs the warm-up is the same
     workload, so that every variant is captured before the timed run;
@@ -2008,7 +2180,8 @@ def serve_run(tag, model, params, prompts, new_tokens, graphs, want,
                       cuda_graphs=graphs, **kw)
 
     def requests():
-        return [Request(uid=i, prompt=p, max_new_tokens=new_tokens)
+        return [Request(uid=i, prompt=p, max_new_tokens=new_tokens,
+                        extras=dict(extras[i]) if extras else {})
                 for i, p in enumerate(prompts)]
 
     def run(reqs):
@@ -2161,6 +2334,10 @@ PROFILE_EAGER_TOKENS = 8
 PROFILE_KERNELS = {"paged_decode": "paged_decode_",
                    "flash_prefill": "flash_prefill_",
                    "rmsnorm": "rmsnorm_kernel", "ssd_scan": "ssd_scan_"}
+# cuBLAS's kernels for operands not aligned to 16 bytes, as the profiler
+# names them (the head's GEMMs and GEMVs at a vocab of 50257, 49155 or
+# 151655 columns)
+UNALIGNED_KERNELS = ("align1", "gemmSN")
 
 
 def phase_profile(cfg, model, params, top: int = 10, tag: str = "profile",
@@ -2174,7 +2351,11 @@ def phase_profile(cfg, model, params, top: int = 10, tag: str = "profile",
     graph included).  With ``detail`` each instantiation of the port's
     kernels on its own line, and the decode steps alone: the same run's
     wall and device time less those of a run of the same prompts with one
-    new token (its prefill and nothing else)."""
+    new token (its prefill and nothing else), and the share of the device
+    time in cuBLAS's kernels for operands that are not 16-byte aligned
+    (``UNALIGNED_KERNELS``: the head at a vocab that is not a multiple of
+    8).  Returns, with ``detail``, {"wall_ms", "device_ms"} of a decode
+    step alone (None where the profiler recorded nothing)."""
     from repro_torch.serve import Request, ServeEngine
     if new_tokens is None:
         new_tokens = 32 if graphs else PROFILE_EAGER_TOKENS
@@ -2204,7 +2385,7 @@ def phase_profile(cfg, model, params, top: int = 10, tag: str = "profile",
             f"device kernels); wall {wall_ms / steps:.2f} ms per step")
         del eng
         release()
-        return
+        return None
     busy_ms = sum(r[0] for r in rows) / 1e3
     launches = sum(r[1] for r in rows)
     log(f"[{tag}] {cfg.name}: {SERVE_SLOTS} requests x 128 prompt x "
@@ -2221,7 +2402,14 @@ def phase_profile(cfg, model, params, top: int = 10, tag: str = "profile",
     log(f"[{tag}] the port's kernels: " + ", ".join(
         f"{k} {ms:.3f} ms ({100 * ms / busy_ms:.1f}%, x{n})"
         for k, (ms, n) in share.items()))
+    summary = None
     if detail:
+        head = [r for r in rows if any(n in r[2] for n in UNALIGNED_KERNELS)]
+        head_ms = sum(r[0] for r in head) / 1e3
+        log(f"[{tag}] unaligned-operand GEMM/GEMV kernels (the head at "
+            f"vocab {cfg.vocab_size}): {head_ms:.3f} ms "
+            f"({100 * head_ms / busy_ms:.1f}% of the device time, x"
+            f"{sum(r[1] for r in head)}, {head_ms / steps:.4f} ms a step)")
         log_top(f"{tag}, the port's kernels by instantiation",
                 [r for r in rows
                  if any(n in r[2] for n in PROFILE_KERNELS.values())],
@@ -2236,9 +2424,11 @@ def phase_profile(cfg, model, params, top: int = 10, tag: str = "profile",
             f"{dec_busy / steps:.2f} ms a step "
             f"({(launches - sum(r[1] for r in pre_rows)) / steps:.0f} "
             f"launches), device idle share {1 - dec_busy / dec_wall:.3f}")
+        summary = {"wall_ms": dec_wall / steps, "device_ms": dec_busy / steps}
     log_top(tag, rows, busy_ms, top)
     del eng
     release()
+    return summary
 
 
 # ---------------------------------------------------------------------------
@@ -2246,12 +2436,15 @@ def phase_profile(cfg, model, params, top: int = 10, tag: str = "profile",
 # ---------------------------------------------------------------------------
 
 def phase_consistency(model, params, steps: int = 4, kv_dtype=None,
-                      tag: str = "consistency", hold: str = "hold"):
+                      tag: str = "consistency", hold: str = "hold",
+                      prefix: int = 0):
     """Prefill P, then ``steps`` paged decode steps fed the greedy tokens,
     against the last-position logits of one prefill of P + those tokens;
     pages of the compute dtype, or ``kv_dtype`` ("int8") pages installed as
     the engine installs them (a fresh scale a page): within
-    ``CONSISTENCY_TOL`` of the largest |logit|.
+    ``CONSISTENCY_TOL`` of the largest |logit|.  With ``prefix`` (a VLM)
+    both prefills take the same ``prefix`` seeded patch rows a row before
+    the prompt, and the decode positions start past them.
 
     An MoE model's longer prefill is held to the decode path
     (``HeldPath``): with ``hold`` "experts" it takes the experts the decode
@@ -2271,10 +2464,15 @@ def phase_consistency(model, params, steps: int = 4, kv_dtype=None,
     prompts = np.zeros((B, bucket + steps), np.int32)
     for b, n in enumerate(plens):
         prompts[b, :n] = rng.integers(0, V, n)
+    patch = {}
+    if prefix:
+        patch["patch_embeds"] = torch.tensor(
+            rng.normal(size=(B, prefix, model.cfg.d_model)),
+            dtype=torch.float32, device=dev)
     st = PagedBatchState(model, B, SERVE_MAX_SEQ, page_size=SERVE_PAGE,
                          kv_dtype=kv_dtype)
     for b, n in enumerate(plens):
-        st.pool.allocate(b, int(n) + steps)
+        st.pool.allocate(b, prefix + int(n) + steps)
     st.sync_tables()
     held = HeldPath(model, B, bucket + steps, hold) if model.cfg.is_moe \
         else None
@@ -2284,7 +2482,7 @@ def phase_consistency(model, params, steps: int = 4, kv_dtype=None,
         logits, sub = model.prefill(params, torch.tensor(
             prompts[:, :bucket], device=dev),
             prompt_lens=torch.tensor(plens, device=dev),
-            max_seq=SERVE_MAX_SEQ)
+            max_seq=SERVE_MAX_SEQ, **patch)
         tables_sub = st.pool.tables.copy()
         for b in range(B):
             tables_sub[b, st.pool.n_blocks[b]:] = st.pool.n_pages
@@ -2297,7 +2495,7 @@ def phase_consistency(model, params, steps: int = 4, kv_dtype=None,
                                     scales=scales,
                                     qmax=kv_qmax(st.cache[key].dtype))
         tokens = torch.argmax(logits, -1).to(torch.int32)
-        pos = torch.tensor(plens, device=dev)
+        pos = torch.tensor(plens + prefix, device=dev)
         worst = 0.0
         for i in range(steps):
             for b in range(B):
@@ -2311,7 +2509,7 @@ def phase_consistency(model, params, steps: int = 4, kv_dtype=None,
             ref = model.prefill(params, torch.tensor(prompts, device=dev),
                                 prompt_lens=torch.tensor(plens + i + 1,
                                                          device=dev),
-                                max_seq=SERVE_MAX_SEQ)[0]
+                                max_seq=SERVE_MAX_SEQ, **patch)[0]
             gap = float((logits[:, :V].float()
                          - ref[:, :V].float()).abs().max())
             scale = float(ref[:, :V].float().abs().max())
@@ -2602,18 +2800,22 @@ def phase_serve_gpt3(cfg, model, params):
 
 
 def serve_full_model(tag, cfg, model, params, launches,
-                     profile_modes=(True,)):
-    """A model at full width serves the serve phase's 16 requests (64 new
-    tokens each) with bf16 and int8 pages, each with CUDA graphs on and off
-    in turns (on, off, off, on), and a dense cache (graphs on and off):
-    equal tokens on and off per cache type, exact launches
-    (``launches(paged)``, a ``want(steps, calls)``), no NaN logit; logs
-    tokens/s, peak memory and each capture's host ms, and the int8 and
-    dense runs' agreement with bf16 pages.  Then a short profiled
+                     profile_modes=(True,), prompts=None,
+                     new_tokens=SERVE_NEW_TOKENS, extras=None):
+    """A model at full width serves ``prompts`` (by default the serve
+    phase's 16 requests; ``extras``, per prompt, as ``serve_run`` takes
+    them), ``new_tokens`` new tokens each, with bf16 and int8 pages, each
+    with CUDA graphs on and off in turns (on, off, off, on), and a dense
+    cache (graphs on and off): equal tokens on and off per cache type,
+    exact launches (``launches(paged)``, a ``want(steps, calls)``), no NaN
+    logit; logs tokens/s, peak memory and each capture's host ms, and the
+    int8 and dense runs' agreement with bf16 pages.  Then a short profiled
     bf16-page run with graphs on (and off where ``profile_modes`` holds
     False), with its decode steps alone.  Returns the graphs-on runs'
-    launches by page type."""
-    prompts = serve_prompts(cfg.vocab_size, tag)
+    launches by page type, and the profiled runs' decode steps under
+    "profile" (``phase_profile``'s summaries by graph mode)."""
+    if prompts is None:
+        prompts = serve_prompts(cfg.vocab_size, tag)
     runs = {}
     for label, graphs, kw in (
             ("bf16", True, dict(paged=True)),
@@ -2623,8 +2825,8 @@ def serve_full_model(tag, cfg, model, params, launches,
             ("dense", True, dict(paged=False)),
             ("dense", False, dict(paged=False))):
         runs[label, graphs] = serve_run(
-            f"{tag} {label}", model, params, prompts, SERVE_NEW_TOKENS,
-            graphs, launches(kw["paged"]), **kw)
+            f"{tag} {label}", model, params, prompts, new_tokens,
+            graphs, launches(kw["paged"]), extras=extras, **kw)
     for label in ("bf16", "int8", "dense"):
         on, off = runs[label, True], runs[label, False]
         _same_tokens(tag, label, (on, off))
@@ -2639,11 +2841,15 @@ def serve_full_model(tag, cfg, model, params, launches,
         same = sum(x == y for ra, rb in zip(a, b) for x, y in zip(ra, rb))
         log(f"[{tag}] {other} against bf16 pages: {same} of "
             f"{sum(len(r) for r in b)} greedy tokens equal")
-    for graphs in profile_modes:
-        phase_profile(cfg, model, params,
-                      tag=tag.replace("serve", "profile"), paged=True,
-                      graphs=graphs, detail=True)
-    return {label: runs[label, True]["launches"] for label in ("bf16", "int8")}
+    profiles = {graphs: phase_profile(cfg, model, params,
+                                      tag=tag.replace("serve", "profile"),
+                                      paged=True, graphs=graphs, detail=True)
+                for graphs in profile_modes}
+    out = {label: runs[label, True]["launches"]
+           for label in ("bf16", "int8")}
+    out["profile"] = profiles
+    out["peak_bytes"] = max(r["peak_bytes"] for r in runs.values())
+    return out
 
 
 def phase_consistency_gpt3(model, params):
@@ -2937,6 +3143,118 @@ def phase_consistency_moe(model, params):
 
 
 # ---------------------------------------------------------------------------
+# 5a'''. serve internvl2-1b (the VLM patch prefix) and yi-34b at full width,
+# and their prefill / decode consistency
+# ---------------------------------------------------------------------------
+
+def vlm_extras(cfg, n: int):
+    """The VLM serve phase's prefill inputs: ``VLM_PREFIX`` seeded patch
+    rows of width d_model (float32, as a stub ViT would hand them over) on
+    every even request, none on the odd ones (text-only requests)."""
+    rng = np.random.default_rng(24)
+    return [{"patch_embeds": rng.normal(size=(1, VLM_PREFIX, cfg.d_model)
+                                        ).astype(np.float32)}
+            if i % 2 == 0 else {} for i in range(n)]
+
+
+def phase_serve_vlm(cfg, model, params):
+    """internvl2-1b at full width and depth: ``serve_full_model`` over the
+    serve phase's 16 prompts, the even ones behind 256 seeded patch rows
+    (``vlm_extras``), the odd ones text-only, so that a round's admissions
+    take a prefill call per (bucket, extras signature); exact launches as
+    llama3.2-1b's at 24 layers (49 RMSNorms a forward, 24 flash prefills at
+    head_dim 64 with 7 query heads per KV head a prefill call, 24 paged
+    decodes a paged step).  Returns the graphs-on runs' launches by page
+    type."""
+    prompts = serve_prompts(cfg.vocab_size, "serve_vlm")
+    extras = vlm_extras(cfg, len(prompts))
+    log(f"[serve_vlm] requests 0, 2, .. carry {VLM_PREFIX} patch rows of "
+        f"width {cfg.d_model} (positions 0..{VLM_PREFIX - 1}); 1, 3, .. "
+        f"are text-only")
+    return serve_full_model("serve_vlm", cfg, model, params,
+                            _llama_style(cfg.n_layers), prompts=prompts,
+                            extras=extras)
+
+
+def phase_consistency_vlm(model, params):
+    """``phase_consistency`` on internvl2-1b, bf16 and int8 pages, both
+    prefills behind the same 256 seeded patch rows."""
+    return [phase_consistency(model, params, kv_dtype=kv, prefix=VLM_PREFIX,
+                              tag=f"consistency_vlm, {kv or 'bf16'} pages")
+            for kv in (None, "int8")]
+
+
+def phase_train_vlm():
+    """Train internvl2-1b at full width and depth, 8 rows a step as
+    ``TRAIN_ACCUM`` micro-batches of 4, each row 256 seeded patch rows and
+    768 text tokens (the loss over the text), as ``phase_train`` trains
+    llama3.2-1b.  Launches a step as for llama3.2-1b at 24 layers, the
+    attention at head_dim 64 with 7 query heads per KV head over 1024
+    positions.  Returns ``train_model``'s summary."""
+    from repro_torch.configs import get_config
+    cfg = get_config(VLM_ARCH)
+    L, A = cfg.n_layers, TRAIN_ACCUM
+    per_step = {"rmsnorm": A * (2 * L + 1 + 2 * L),
+                "flash_prefill": A * 2 * L, "flash_bwd": A * L,
+                "paged_decode": 0, "ssd_scan": 0}
+    ours = {"flash_bwd (D64G7)": "flash_bwd_",
+            "flash_bwd dK/dV": "flash_bwd_dkv_kernel",
+            "flash_bwd dQ": "flash_bwd_dq_kernel",
+            "flash_prefill (D64G7, lse)": "flash_prefill_kernel",
+            "rmsnorm": "rmsnorm_kernel",
+            "unaligned-operand GEMMs (the head at vocab 151655)": "align1"}
+    return train_model("train_vlm", cfg, _describe, per_step, ours,
+                       accum=A, prefix=VLM_PREFIX)
+
+
+def yi_prompts(vocab: int):
+    """yi-34b's ``YI_REQUESTS`` seeded prompts of 65-128 tokens: one prompt
+    bucket (128)."""
+    rng = np.random.default_rng(34)
+    plens = rng.integers(65, 129, YI_REQUESTS)
+    log(f"[serve_yi] {YI_REQUESTS} requests, prompt lengths "
+        f"{sorted(int(n) for n in plens)}, {YI_NEW_TOKENS} new tokens each")
+    return [rng.integers(0, vocab, n).astype(np.int32) for n in plens]
+
+
+def phase_serve_yi(cfg, model, params):
+    """yi-34b at full width and depth (60 layers, 56 heads over 8 at
+    head_dim 128, 68.8 GB of bf16 weights): ``serve_full_model`` over
+    ``yi_prompts`` (one prompt bucket; each engine captures that bucket's
+    prefill graph and its decode chunks' graphs, no other), exact launches
+    (121 RMSNorms a forward, 60 flash prefills at head_dim 128 with 7
+    query heads per KV head a prefill call, 60 paged decodes a paged step),
+    peak memory; then the profiled decode step's wall and device ms
+    against the floor of reading the weights once (``bytes / 3.35
+    TB/s``).  An out-of-memory error fails the phase.  Returns the
+    graphs-on runs' launches by page type."""
+    prompts = yi_prompts(cfg.vocab_size)
+    out = serve_full_model("serve_yi", cfg, model, params,
+                           _llama_style(cfg.n_layers), prompts=prompts,
+                           new_tokens=YI_NEW_TOKENS)
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    floor = nbytes / HBM_BYTES_PER_S * 1e3
+    step = out["profile"][True]
+    log(f"[serve_yi] weights {nbytes / 1e9:.2f} GB: a decode step cannot "
+        f"take less than {floor:.2f} ms (read once at 3.35 TB/s); the "
+        f"decode step alone (graphs on) " + (
+            "not measured" if step is None else
+            f"{step['wall_ms']:.2f} ms of wall ({step['wall_ms'] / floor:.2f}x"
+            f"), {step['device_ms']:.2f} ms of device "
+            f"({step['device_ms'] / floor:.2f}x)")
+        + f"; peak memory {out['peak_bytes'] / 2**30:.2f} GiB of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}")
+    return out
+
+
+def phase_consistency_yi(model, params):
+    """``phase_consistency`` on yi-34b, bf16 and int8 pages."""
+    return [phase_consistency(model, params, kv_dtype=kv,
+                              tag=f"consistency_yi, {kv or 'bf16'} pages")
+            for kv in (None, "int8")]
+
+
+# ---------------------------------------------------------------------------
 # 5b. serve mamba2-370m at full width, and its prefill / decode consistency
 # ---------------------------------------------------------------------------
 
@@ -3012,9 +3330,10 @@ def phase_serve_ssm(cfg, model, params):
 
 def engine_prefill_ms(cfg, model, params, graphs: bool, repeats: int = 3):
     """The bucket-512 prefill of ``mamba_prefill_ms``'s 8 ragged rows
-    through the engine's memoized prefill entry (``_prefill_fn(512)``: the
-    static buffers' uploads, then the graph's replay, or the eager body
-    with ``graphs`` False), after a first call that captures: ``wall_ms``,
+    through the engine's memoized text-only prefill entry
+    (``_prefill_fn(512, {})``: the static buffers' uploads, then the
+    graph's replay, or the eager body with ``graphs`` False), after a
+    first call that captures: ``wall_ms``,
     ``host_ms`` and ``device_ms`` as ``mamba_prefill_ms`` takes them, and
     the rows' greedy first tokens."""
     from repro_torch.serve import ServeEngine
@@ -3026,10 +3345,10 @@ def engine_prefill_ms(cfg, model, params, graphs: bool, repeats: int = 3):
                      np.full(SERVE_SLOTS, 2)]).astype(np.int32)
     eng = ServeEngine(model, params, batch_slots=SERVE_SLOTS,
                       max_seq=SERVE_MAX_SEQ, cuda_graphs=graphs)
-    fn = eng._prefill_fn(512)
+    fn = eng._prefill_fn(512, {})
 
     def call():
-        return fn(prompts, meta)[0]
+        return fn(prompts, meta, {})[0]
     call()                                             # eager run, capture
     wall, host = [], []
     for _ in range(repeats):
@@ -3291,11 +3610,13 @@ def phase_consistency_hybrid(model, params, steps: int = 4):
 # ---------------------------------------------------------------------------
 
 def train_model(tag, cfg, describe, per_step, ours, batch=TRAIN_BATCH,
-                accum=TRAIN_ACCUM):
+                accum=TRAIN_ACCUM, prefix=0):
     """Train ``cfg`` on the card for ``TRAIN_STEPS`` steps through
     ``make_train_step`` (f32 masters, bf16 compute, AdamW, remat; seq
     ``TRAIN_SEQ``, global batch ``batch`` as ``accum`` micro-batches)
-    on the port's ``DataPipeline``: a finite non-zero gradient on every
+    on the port's ``DataPipeline`` (with ``prefix``, a VLM's rows: that
+    many seeded patch rows of width d_model, then ``TRAIN_SEQ - prefix``
+    text tokens; the loss covers the text): a finite non-zero gradient on every
     parameter leaf after the first backward, finite losses, exactly
     ``per_step`` launches a step; logs step ms, tokens/s and peak memory,
     then profiles one more step (device idle share, the time of the port's
@@ -3320,8 +3641,13 @@ def train_model(tag, cfg, describe, per_step, ours, batch=TRAIN_BATCH,
         f"{cfg.compute_dtype}; state drawn in "
         f"{time.perf_counter() - t0:.1f} s; seq {TRAIN_SEQ}, global batch "
         f"{batch} = {accum} x {batch // accum}, AdamW, remat")
-    pipeline = DataPipeline(cfg.vocab_size, batch, TRAIN_SEQ, seed=0)
+    pipeline = DataPipeline(cfg.vocab_size, batch, TRAIN_SEQ - prefix, seed=0)
     batches = [pipeline.next_batch() for _ in range(TRAIN_STEPS)]
+    if prefix:
+        rng = np.random.default_rng(0)
+        for b in batches:
+            b["patch_embeds"] = rng.normal(
+                size=(batch, prefix, cfg.d_model)).astype(np.float32)
 
     # every leaf gets a finite, non-zero gradient from the first backward
     micro = {k: v[:batch // accum] for k, v in batches[0].items()}
@@ -4074,6 +4400,8 @@ def phase_dvfs(cfg, model, params):
         release()
         dvfs_serve_launcher(arch=MOE_ARCH, requests=2)
         release()
+        dvfs_serve_launcher(smoke=True, arch=VLM_ARCH)
+        release()
         serve = dvfs_serve_window(nvml, cfg, model, params, idle_w)
         train = dvfs_train_window(nvml, idle_w)
         dvfs_train_launcher()
@@ -4147,6 +4475,17 @@ def main() -> int:
     del model, params
     release()
     timed("train_moe", phase_train_moe)
+    cfg, model, params = timed("build_vlm", build_full_model, VLM_ARCH)
+    serve_vlm = timed("serve_vlm", phase_serve_vlm, cfg, model, params)
+    timed("consistency_vlm", phase_consistency_vlm, model, params)
+    del model, params
+    release()
+    train_vlm = timed("train_vlm", phase_train_vlm)["counts"]
+    cfg, model, params = timed("build_yi", build_full_model, YI_ARCH)
+    serve_yi = timed("serve_yi", phase_serve_yi, cfg, model, params)
+    timed("consistency_yi", phase_consistency_yi, model, params)
+    del model, params
+    release()
     cfg, model, params = build_mamba_model()
     serve_ssm = timed("serve_ssm", phase_serve_ssm, cfg, model, params)
     timed("consistency_ssm", phase_consistency_ssm, model, params)
@@ -4198,6 +4537,26 @@ def main() -> int:
                 row["launches"] = serve_llama3b[run][name]
                 row["launches_of"] = (f"one llama3.2-3b serve run, {run} "
                                       f"pages, CUDA graphs")
+        elif row.get("model") == VLM_ARCH:
+            run = VLM_ROW_RUNS[row["name"]]
+            name = name.removesuffix("_lse")
+            if run == "train":
+                row["launches"] = train_vlm[name]
+                row["launches_of"] = (f"one {VLM_ARCH} training run, "
+                                      f"{TRAIN_STEPS} steps of {TRAIN_BATCH}"
+                                      f" x ({VLM_PREFIX} patch rows + "
+                                      f"{TRAIN_SEQ - VLM_PREFIX} tokens)")
+            else:
+                row["launches"] = serve_vlm[run][name]
+                row["launches_of"] = (f"one {VLM_ARCH} serve run, {run} "
+                                      f"pages, CUDA graphs, half the "
+                                      f"requests behind {VLM_PREFIX} patch "
+                                      f"rows")
+        elif row.get("model") == YI_ARCH:
+            run = YI_ROW_RUNS[row["name"]]
+            row["launches"] = serve_yi[run][name]
+            row["launches_of"] = (f"one {YI_ARCH} serve run, {run} pages, "
+                                  f"CUDA graphs")
         elif row["name"] == "paged_decode[D64G2 bf16]":
             row["launches"] = serve_moe["bf16"][name]
             row["launches_of"] = ("one granite-moe-1b-a400m serve run at "

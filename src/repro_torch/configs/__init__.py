@@ -2,27 +2,28 @@
 canonical input shapes (``--shape <name>``).
 
 The registry holds the archs whose model family the port has: llama3.2-1b,
-llama3.2-3b and gpt3-xl (dense decoders: RoPE, RMSNorm and SwiGLU at
-head_dim 64 and at head_dim 128 with 3 query heads per KV head; learned
-positions, LayerNorm and tanh GELU), granite-moe-1b-a400m (MoE: 32 experts,
-top-8), mamba2-370m (SSM) and zamba2-7b (hybrid: Mamba2 and a shared
-attention block); the JAX package's other archs join as their model
-families are ported (see ROADMAP.md).
+llama3.2-3b, yi-34b and gpt3-xl (dense decoders: RoPE, RMSNorm and SwiGLU
+at head_dim 64 and at head_dim 128 with 3 or 7 query heads per KV head;
+learned positions, LayerNorm and tanh GELU), internvl2-1b (VLM: the dense
+decoder behind a prefix of patch embeddings), granite-moe-1b-a400m (MoE:
+32 experts, top-8), mamba2-370m (SSM) and zamba2-7b (hybrid: Mamba2 and a
+shared attention block); the JAX package's other archs join as their
+model families are ported (see ROADMAP.md).
 """
 from __future__ import annotations
 
 from dataclasses import replace
 from typing import Dict
 
-from . import (gpt3_xl, granite_moe_1b_a400m, llama3_2_1b, llama3_2_3b,
-               mamba2_370m, zamba2_7b)
+from . import (gpt3_xl, granite_moe_1b_a400m, internvl2_1b, llama3_2_1b,
+               llama3_2_3b, mamba2_370m, yi_34b, zamba2_7b)
 from .base import ModelConfig, MoEConfig, SSMConfig, ShapeConfig, smoke_config
 from .shapes import SHAPES, get_shape, smoke_shape
 
 REGISTRY: Dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
-    for m in (llama3_2_1b, llama3_2_3b, gpt3_xl, granite_moe_1b_a400m,
-              mamba2_370m, zamba2_7b)}
+    for m in (llama3_2_1b, llama3_2_3b, yi_34b, gpt3_xl, internvl2_1b,
+              granite_moe_1b_a400m, mamba2_370m, zamba2_7b)}
 
 
 def get_config(arch: str) -> ModelConfig:
@@ -43,10 +44,10 @@ def card_smoke_config(cfg: ModelConfig) -> ModelConfig:
     the flash prefill kernel takes at head_dim 64 for any group and the
     paged decode kernel is built for
     (``kernels.flash_attention.paged.KERNEL_CASES``).  The MoE family
-    keeps the smoke config's 4 experts and top-2, each expert at d_ff 1024.
-    The dense and MoE families only: the SSD scan is built for the served
-    models' state and head widths."""
-    if cfg.family not in ("dense", "moe"):
+    keeps the smoke config's 4 experts and top-2, each expert at d_ff 1024;
+    the VLM family its 8 patch rows.  The dense, MoE and VLM families only:
+    the SSD scan is built for the served models' state and head widths."""
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
             f"{cfg.name}: no reduced config runs the card's kernels for "
             f"family {cfg.family!r}; run it at full width")

@@ -193,9 +193,10 @@ def dtype_code(t) -> int:
     return code
 
 
-def require_cuda(name: str, *tensors) -> None:
-    """Raise unless every tensor lies on the current CUDA device with
-    16-byte-aligned data, as the kernels' vector loads need.  Every wrapper
+def require_cuda(name: str, *tensors, align: int = 16) -> None:
+    """Raise unless every tensor lies on the current CUDA device with data
+    aligned to ``align`` bytes: 16 for what the kernels' vector loads read,
+    the element size for what they read a value at a time.  Every wrapper
     call of a serving step runs it, so it reads only what a check needs
     (an eager decode step is host-bound)."""
     device = None
@@ -209,8 +210,9 @@ def require_cuda(name: str, *tensors) -> None:
         if t.get_device() != device:
             raise ValueError(f"{name}: tensor on {t.device}, expected the "
                              f"current CUDA device")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: tensor data not 16-byte aligned")
+        if t.data_ptr() % align:
+            raise ValueError(f"{name}: tensor data not {align}-byte "
+                             f"aligned")
 
 
 def refuse_grad(name: str, *tensors) -> None:

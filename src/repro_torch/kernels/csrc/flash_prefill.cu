@@ -561,8 +561,9 @@ static int launch_prefill_wide(const void* q, const void* k, const void* v,
 // Built for bf16 at head_dim 64 (any query group: llama3.2-1b's and
 // granite-moe-1b-a400m's serving and training paths), at head_dim 128 and
 // 224 with one query head per KV head (gpt3-xl; zamba2-7b's shared
-// attention block) and at head_dim 128 with 3 (llama3.2-3b: the wide kernel
-// reads KV head h / G, so only the grid changes); other cases are refused
+// attention block) and at head_dim 128 with 3 and 7 (llama3.2-3b, yi-34b:
+// the wide kernel reads KV head h / G, so only the grid changes); other
+// cases are refused
 // until a configuration needs them and chip_smoke.py checks them.
 // lse may be null.
 // Strides are in elements; the wrapper makes each a multiple of 8 (16-byte
@@ -583,7 +584,7 @@ extern "C" int flash_prefill_launch(
   if (D == 64)
     return launch_prefill<64>(q, k, v, vl, out, l, B, Sq, Sk, H, KV, st,
                               causal, window, softcap, s);
-  if (D == 128 && (H == KV || H == 3 * KV))
+  if (D == 128 && (H == KV || H == 3 * KV || H == 7 * KV))
     return launch_prefill_wide<128>(q, k, v, vl, out, l, B, Sq, Sk, H, KV,
                                     st, causal, window, softcap, s);
   if (D == 224 && H == KV)

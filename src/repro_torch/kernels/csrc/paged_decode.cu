@@ -10,11 +10,11 @@
 //
 // Bound on the H100: bytes.  Each key and value is read once and used by
 // the G = H / KV query rows of its KV head: 4 flops a byte at G = 4 for a
-// bf16 pool, 8 for int8 (3 and 6 at G = 3: llama3.2-3b; 2 and 4 at G = 2;
-// 1 and 2 at G = 1: gpt3-xl and zamba2-7b's shared block), far
-// under the ~295 where the tensor cores would
-// limit, and under the CUDA cores' 67 TFLOP/s f32 too (13-27 TFLOP/s is
-// what 3.35 TB/s needs).  So the kernel uses no tensor cores: an
+// bf16 pool, 8 for int8 (7 and 14 at G = 7: internvl2-1b and yi-34b; 3 and
+// 6 at G = 3: llama3.2-3b; 2 and 4 at G = 2; 1 and 2 at G = 1: gpt3-xl
+// and zamba2-7b's shared block), far under the ~295 where the tensor cores
+// would limit, and under the CUDA cores' 67 TFLOP/s f32 too (13-47
+// TFLOP/s is what 3.35 TB/s needs).  So the kernel uses no tensor cores: an
 // mma.m16n8k16 would hold G = 4 live rows of its 16.  What decides its
 // time is how many bytes are in flight across the card, so:
 //
@@ -381,11 +381,18 @@ static int launch_paged(const void* q, const void* kp, const void* vp,
   const int n_split = (nb * page + kps - 1) / kps;
   const size_t smem = 2 * 2 * sizeof(KT) * kDecTileKeys * D;
   auto kernel = paged_decode_kernel<KT, D, G>;
-  if (smem > 48 * 1024) {
+  // the ring is dynamic shared memory; beside the static merge buffer
+  // (4 x G x D floats: 14 KB at (128, 7)) it can pass the 48 KB a launch
+  // gets without opting in even when the ring alone does not (an int8
+  // ring at (128, 7): 32 KB + 17.5 KB), so every instantiation opts in
+  // to its ring's size once
+  static bool opted_in = false;
+  if (!opted_in) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in = true;
   }
   kernel<<<dim3(KV, B, n_split), kDecThreads, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const KT*>(kp),
@@ -426,7 +433,7 @@ static int launch_pool(int kv_dtype, const void* q, const void* kp,
                                         H, KV, page, nb, kps, window,
                                         softcap, s);
   }
-  if constexpr (D == 64) {         // llama3.2-1b's head_dim: every pool
+  if constexpr (D == 64 && G <= 4) {   // llama3.2-1b's head_dim: every pool
     switch (kv_dtype) {
       case kF32:
         return launch_paged<float, D, G>(q, kp, vp, t, p, ks, vs, w, out, B,
@@ -445,9 +452,13 @@ static int launch_pool(int kv_dtype, const void* q, const void* kp,
 // with 4 query heads per KV head (llama3.2-1b) and with 2 (the reduced
 // config of a smoke run on the card; granite-moe's attention) over bf16,
 // f32, int8 and fp8-e4m3 pools, and at head_dim 128 and 224 with one
-// query head per KV head (gpt3-xl; zamba2-7b's shared attention block) and
-// at head_dim 128 with 3 (llama3.2-3b: a lane holds 3 query rows and a
-// (3, 8) accumulator) over bf16 and int8 pools;
+// query head per KV head (gpt3-xl; zamba2-7b's shared attention block), at
+// head_dim 128 with 3 (llama3.2-3b: a lane holds 3 query rows and a
+// (3, 8) accumulator) and with 7 (yi-34b), and at head_dim 64 with 7
+// (internvl2-1b) over bf16 and int8 pools.  At G 7 a lane holds 7 query
+// rows, a (7, 8) accumulator and 7 scores a step of its tile, and the
+// warps' merge buffer is 4 x 7 x D floats (14 KB at D 128);
+// chip_smoke.py's build phase logs their registers and spills;
 // kernels/flash_attention/paged.py:KERNEL_CASES lists the same, and
 // chip_smoke.py checks every one of them.  `workspace` holds
 // B * KV * n_split * G * (D + 2) floats.
@@ -481,6 +492,14 @@ extern "C" int paged_decode_launch(const void* q, const void* k_pages,
                                window, softcap, s);
   if (D == 128 && H == 3 * KV)
     return launch_pool<128, 3>(kv_dtype, q, k_pages, v_pages, t, p, ks, vs,
+                               w, out, B, H, KV, page, nb, keys_per_split,
+                               window, softcap, s);
+  if (D == 64 && H == 7 * KV)
+    return launch_pool<64, 7>(kv_dtype, q, k_pages, v_pages, t, p, ks, vs, w,
+                              out, B, H, KV, page, nb, keys_per_split, window,
+                              softcap, s);
+  if (D == 128 && H == 7 * KV)
+    return launch_pool<128, 7>(kv_dtype, q, k_pages, v_pages, t, p, ks, vs,
                                w, out, B, H, KV, page, nb, keys_per_split,
                                window, softcap, s);
   if (D == 224 && H == KV)

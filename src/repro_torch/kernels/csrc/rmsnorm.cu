@@ -18,7 +18,8 @@
 //   the widths the paths launch (d 2048, llama3.2-1b; d 1024, mamba2-370m
 //   and granite-moe-1b-a400m; d 256, the small Trainer run of chip_smoke.py;
 //   d 3072, llama3.2-3b; d 3584 and 7168, zamba2-7b's d_model and its
-//   d_inner and shared block's 2 d_model).
+//   d_inner and shared block's 2 d_model, and yi-34b's d_model 7168; d
+//   896, internvl2-1b, below).
 //   Up to d 2048 each warp reads the f32 weight once, as 16-byte vectors,
 //   into registers; then it strides over rows in a grid of as many blocks
 //   as the SMs hold at once (2-4 an SM, by its register count), loading
@@ -37,6 +38,12 @@
 //   count: the weight in registers would need ~16 CPL = 192 on top of the
 //   loop's own, so it is read through L1 (12 KB); the row and the
 //   prefetched next row are 48 registers each.
+// - A row that is not a whole number of 512-byte warp loads (d 896,
+//   internvl2-1b: 112 chunks, 3.5 a lane) gives its last chunk to the
+//   first LAST lanes only (16 at d 896): the other lanes neither load nor
+//   store it and add nothing to the sum of squares.  Each row is still one
+//   read and one write; the last load instruction of a row moves 256
+//   contiguous bytes instead of 512.
 #include "common.cuh"
 
 constexpr int kRmsWarps = 4;          // warps (rows in flight) per block
@@ -51,18 +58,23 @@ __device__ __forceinline__ float4 ldg_in_place(const float* p) {
   return v;
 }
 
-template <int CPL>                    // 16-byte chunks per lane: d = 256 CPL
+// 16-byte chunks per lane, the last of them held by the first LAST lanes
+// only: d = 256 (CPL - 1) + 8 LAST
+template <int CPL, int LAST = 32>
 __global__ void __launch_bounds__(kRmsWarps * 32)
 rmsnorm_kernel(const __nv_bfloat16* __restrict__ x,
                const float* __restrict__ w, __nv_bfloat16* __restrict__ out,
                int rows, float eps) {
-  constexpr int D = 256 * CPL;
+  static_assert(LAST > 0 && LAST <= 32, "the last chunk's lanes");
+  constexpr int D = 256 * (CPL - 1) + 8 * LAST;
   constexpr bool kWeightRegs = CPL <= 8;   // the weight held in registers
   constexpr bool kPrefetch = CPL <= 14;    // the next row loaded early
   const int lane = threadIdx.x % 32;
   const int n_warps = gridDim.x * kRmsWarps;
   int r = blockIdx.x * kRmsWarps + threadIdx.x / 32;
   if (r >= rows) return;
+  // whether this lane holds chunk i (every chunk but a short last one)
+  auto held = [&](int i) { return LAST == 32 || i < CPL - 1 || lane < LAST; };
 
   // chunk i's 8 weights: from registers, or through L1 at each use
   float wr[kWeightRegs ? CPL : 1][8];
@@ -74,21 +86,26 @@ rmsnorm_kernel(const __nv_bfloat16* __restrict__ x,
   };
   if constexpr (kWeightRegs) {
 #pragma unroll
-    for (int i = 0; i < CPL; ++i) weights(i, wr[i]);
+    for (int i = 0; i < CPL; ++i)
+      if (held(i)) weights(i, wr[i]);
   }
 
+  // a chunk this lane does not hold stays zero: it adds nothing to the sum
   uint4 cur[CPL];
   const uint4* xr = reinterpret_cast<const uint4*>(x);
 #pragma unroll
   for (int i = 0; i < CPL; ++i)
-    cur[i] = xr[static_cast<size_t>(r) * (D / 8) + i * 32 + lane];
+    cur[i] = held(i) ? xr[static_cast<size_t>(r) * (D / 8) + i * 32 + lane]
+                     : make_uint4(0, 0, 0, 0);
   for (; r < rows; r += n_warps) {
     const int rn = r + n_warps;
     uint4 nxt[kPrefetch ? CPL : 1];
     if (kPrefetch && rn < rows) {
 #pragma unroll
       for (int i = 0; i < (kPrefetch ? CPL : 0); ++i)
-        nxt[i] = xr[static_cast<size_t>(rn) * (D / 8) + i * 32 + lane];
+        nxt[i] = held(i)
+                     ? xr[static_cast<size_t>(rn) * (D / 8) + i * 32 + lane]
+                     : make_uint4(0, 0, 0, 0);
     }
     float ss = 0.f;
 #pragma unroll
@@ -106,6 +123,7 @@ rmsnorm_kernel(const __nv_bfloat16* __restrict__ x,
         reinterpret_cast<uint4*>(out) + static_cast<size_t>(r) * (D / 8);
 #pragma unroll
     for (int i = 0; i < CPL; ++i) {
+      if (!held(i)) continue;
       const auto* e = reinterpret_cast<const __nv_bfloat16*>(&cur[i]);
       float wl[8];
       if constexpr (!kWeightRegs) weights(i, wl);
@@ -123,14 +141,15 @@ rmsnorm_kernel(const __nv_bfloat16* __restrict__ x,
     } else if (rn < rows) {
 #pragma unroll
       for (int i = 0; i < CPL; ++i)
-        cur[i] = xr[static_cast<size_t>(rn) * (D / 8) + i * 32 + lane];
+        if (held(i))
+          cur[i] = xr[static_cast<size_t>(rn) * (D / 8) + i * 32 + lane];
     }
   }
 }
 
 // Blocks of the kernel resident on the whole card (SMs times blocks an SM
 // holds at its register count), found once per instantiation.
-template <int CPL>
+template <int CPL, int LAST>
 static int resident_blocks(int* blocks) {
   static int cached = 0;
   if (cached == 0) {
@@ -140,7 +159,7 @@ static int resident_blocks(int* blocks) {
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, rmsnorm_kernel<CPL>, kRmsWarps * 32, 0);
+          &per_sm, rmsnorm_kernel<CPL, LAST>, kRmsWarps * 32, 0);
     if (err != cudaSuccess) return static_cast<int>(err);
     cached = sms * max(1, per_sm);
   }
@@ -148,20 +167,20 @@ static int resident_blocks(int* blocks) {
   return 0;
 }
 
-template <int CPL>
+template <int CPL, int LAST = 32>
 static int launch_rms(const void* x, const void* w, void* out, int rows,
                       float eps, cudaStream_t stream) {
   int resident = 0;
-  if (int err = resident_blocks<CPL>(&resident)) return err;
+  if (int err = resident_blocks<CPL, LAST>(&resident)) return err;
   const int blocks = min((rows + kRmsWarps - 1) / kRmsWarps, resident);
-  rmsnorm_kernel<CPL><<<blocks, kRmsWarps * 32, 0, stream>>>(
+  rmsnorm_kernel<CPL, LAST><<<blocks, kRmsWarps * 32, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(w),
       static_cast<__nv_bfloat16*>(out), rows, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Built for bf16 at d 256, 1024, 2048, 3072, 3584 and 7168, what the serving
-// and training paths launch; other types and widths are refused until a configuration
+// Built for bf16 at d 256, 896, 1024, 2048, 3072, 3584 and 7168, what the
+// serving and training paths launch; other types and widths are refused until a configuration
 // needs them and chip_smoke.py checks them (kernels/rmsnorm.py names the
 // widths).
 extern "C" int rmsnorm_launch(const void* x, const void* w, void* out,
@@ -172,6 +191,8 @@ extern "C" int rmsnorm_launch(const void* x, const void* w, void* out,
   switch (d) {
     case 256:
       return launch_rms<1>(x, w, out, rows, eps, s);
+    case 896:                         // 3 chunks a lane, a fourth on 16
+      return launch_rms<4, 16>(x, w, out, rows, eps, s);
     case 1024:
       return launch_rms<4>(x, w, out, rows, eps, s);
     case 2048:

@@ -16,7 +16,14 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from .prefill import KERNEL_CASES, query_scale
+from .prefill import query_scale
+
+#: (head_dim, query heads per KV head) the backward is built for, the
+#: training paths': head_dim 64 at any group (llama3.2-1b, granite-moe,
+#: internvl2-1b), 128 with 1 and 3 (gpt3-xl, llama3.2-3b) and 224 with 1
+#: (zamba2-7b's shared block).  The forward's ``prefill.KERNEL_CASES``
+#: also holds (128, 7), yi-34b's, which no path trains.
+KERNEL_CASES = ((64, 0), (128, 1), (224, 1), (128, 3))
 
 
 def flash_attention_bwd_ref(q, k, v, o, do, lse, causal: bool = True,
@@ -61,7 +68,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, causal: bool = True,
     ``flash_attention_bwd.launches`` per call: the pre-pass, dQ and
     dK/dV), built for bf16 at head_dim 64 (any group), at head_dim 128
     and 224 with one query head per KV head and at head_dim 128 with 3
-    (``prefill.KERNEL_CASES``, the forward's cases), and launched only
+    (``KERNEL_CASES``), and launched only
     for what the training path gives it and the card's check covers:
     causal, no window, Sq == Sk.  At
     head_dim 128 and 224 the pre-pass also writes the scaled q to a scratch

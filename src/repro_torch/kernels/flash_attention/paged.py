@@ -26,11 +26,13 @@ _POOL_DTYPES = (torch.float32, torch.bfloat16, torch.int8,
 #: what the kernel is built for, as (head_dim, query heads per KV head,
 #: pool dtypes): llama3.2-1b's attention; the reduced config of a smoke run
 #: on the card (``configs.card_smoke_config``), which granite-moe-1b-a400m's
-#: attention shares; gpt3-xl's; llama3.2-3b's; zamba2-7b's shared attention
-#: block
+#: attention shares; internvl2-1b's; gpt3-xl's; llama3.2-3b's; yi-34b's;
+#: zamba2-7b's shared attention block
 KERNEL_CASES = ((64, 4, _POOL_DTYPES), (64, 2, _POOL_DTYPES),
+                (64, 7, (torch.bfloat16, torch.int8)),
                 (128, 1, (torch.bfloat16, torch.int8)),
                 (128, 3, (torch.bfloat16, torch.int8)),
+                (128, 7, (torch.bfloat16, torch.int8)),
                 (224, 1, (torch.bfloat16, torch.int8)))
 
 _POOL_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16",
@@ -166,7 +168,12 @@ def launch_split(q, k_pages, v_pages, block_tables, pos, window, softcap,
     # then its (rows, D) accumulator, all f32
     work = torch.empty(B * KV * n_split * (H // KV) * (D + 2),
                        dtype=torch.float32, device=q.device)
-    _build.require_cuda("paged_flash_decode", out, work, *tensors)
+    _build.require_cuda("paged_flash_decode", out, work, *tensors[:3])
+    # the tables, positions and scales are read a value at a time; a
+    # layer's (P, KV) scales start at a multiple of P * KV * 4 bytes, which
+    # is 16-byte aligned only when P * KV is a multiple of 4 (not at
+    # internvl2-1b's 2 KV heads over an odd page count)
+    _build.require_cuda("paged_flash_decode", *tensors[3:], align=4)
     lib = _build.library()
     _build.check(lib.paged_decode_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),

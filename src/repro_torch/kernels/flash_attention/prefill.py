@@ -21,12 +21,13 @@ import torch
 from .. import _build
 
 NEG_INF = -1e30
-#: (head_dim, query heads per KV head) the kernel is built for: llama3.2-1b's
-#: and granite-moe-1b-a400m's head_dim 64 at any group (their serving and
-#: training paths), gpt3-xl's head_dim 128 and zamba2-7b's shared attention
-#: block's head_dim 224, each with one query head per KV head, and
-#: llama3.2-3b's head_dim 128 with 3 (group 0: any)
-KERNEL_CASES = ((64, 0), (128, 1), (224, 1), (128, 3))
+#: (head_dim, query heads per KV head) the kernel is built for: llama3.2-1b's,
+#: granite-moe-1b-a400m's and internvl2-1b's head_dim 64 at any group (their
+#: serving and training paths), gpt3-xl's head_dim 128 and zamba2-7b's
+#: shared attention block's head_dim 224, each with one query head per KV
+#: head, llama3.2-3b's head_dim 128 with 3 and yi-34b's with 7 (group 0:
+#: any)
+KERNEL_CASES = ((64, 0), (128, 1), (224, 1), (128, 3), (128, 7))
 
 
 def query_scale(D: int, dtype: torch.dtype) -> float:
@@ -105,7 +106,7 @@ def flash_prefill(q, k, v, kv_valid_len: Optional[torch.Tensor] = None, *,
     (``flash_prefill.launches`` counts them), which reads q/k/v through
     their strides and supports bf16 and ``q_offset == 0`` only, at head_dim
     64, at head_dim 128 or 224 with one query head per KV head, or at
-    head_dim 128 with 3 (``KERNEL_CASES``).  When grad mode is on and an
+    head_dim 128 with 3 or 7 (``KERNEL_CASES``).  When grad mode is on and an
     input requires grad, the call goes through
     ``ops.flash_attention_train`` (the forward with its log-sum-exp, then
     the flash backward), which covers what the reference's training
@@ -147,8 +148,8 @@ def _forward(q, k, v, kv_valid_len, *, causal, window, softcap=0.0,
     if not any(D == d and (g == 0 or H == g * KV) for d, g in KERNEL_CASES):
         raise ValueError(f"flash_prefill kernel is built for head_dim 64 "
                          f"and for head_dim 128 and 224 with one query head "
-                         f"per KV head, and head_dim 128 with 3, got D={D}, "
-                         f"H={H}, KV={KV}")
+                         f"per KV head, and head_dim 128 with 3 or 7, got "
+                         f"D={D}, H={H}, KV={KV}")
     vec = 16 // q.element_size()
     tensors = []
     for t in (q, k, v):

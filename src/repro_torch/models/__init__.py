@@ -1,5 +1,5 @@
-"""Model registry of the port: config -> model instance (the dense and MoE
-decoders, the SSM family and the hybrid so far)."""
+"""Model registry of the port: config -> model instance (the dense, MoE and
+VLM decoders, the SSM family and the hybrid so far)."""
 from __future__ import annotations
 
 from ..configs.base import ModelConfig
@@ -10,9 +10,9 @@ from .transformer import DecoderLM
 
 def build_model(cfg: ModelConfig, block_k: int = 1024, device="cuda"):
     """Instantiate the model implementation for a config on ``device``
-    (``block_k``, the plain attention's key block, is the dense decoder's
-    and the hybrid's shared block's: the SSM family has no attention)."""
-    if cfg.family in ("dense", "moe"):
+    (``block_k``, the plain attention's key block, is the decoder's and the
+    hybrid's shared block's: the SSM family has no attention)."""
+    if cfg.family in ("dense", "moe", "vlm"):
         return DecoderLM(cfg, block_k=block_k, device=device)
     if cfg.family == "ssm":
         return MambaLM(cfg, device=device)

@@ -555,18 +555,23 @@ def softmax_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
 
 def lm_loss(model, params: Params, batch, remat: bool = True):
     """The next-token loss of the reference's language models: embed
-    ``batch["tokens"]`` in the model's compute dtype, run
-    ``model.forward_hidden`` (with ``remat``), the final norm and the
-    unembedding (``model.logits``), then the mean cross entropy with z-loss
-    1e-4 against ``batch["targets"]`` (over ``batch["mask"]`` when given).
-    An MoE model adds its layer-mean load balance and router z-loss at the
-    config's weights and reports the three aux terms.  Returns (loss,
-    metrics)."""
+    ``batch["tokens"]`` in the model's compute dtype (behind
+    ``batch["patch_embeds"]``, for a model that has ``_embed_input``), run
+    ``model.forward_hidden`` (with ``remat``), drop the patch positions,
+    then the final norm and the unembedding (``model.logits``), then the
+    mean cross entropy with z-loss 1e-4 against ``batch["targets"]`` (over
+    ``batch["mask"]`` when given).  An MoE model adds its layer-mean load
+    balance and router z-loss at the config's weights and reports the
+    three aux terms.  Returns (loss, metrics)."""
     cfg = model.cfg
     tokens = torch.as_tensor(batch["tokens"], device=model.device)
-    x = embed_tokens(params["embed"], tokens, model.compute_dtype)
+    patch = batch.get("patch_embeds")
+    if patch is None:
+        x = embed_tokens(params["embed"], tokens, model.compute_dtype)
+    else:
+        x = model._embed_input(params, tokens, patch)
     x, aux = model.forward_hidden(params, x, remat=remat)
-    logits = model.logits(params, x)
+    logits = model.logits(params, x[:, x.shape[1] - tokens.shape[1]:])
     targets = torch.as_tensor(batch["targets"], device=model.device)
     mask = batch.get("mask")
     if mask is not None:

@@ -16,12 +16,17 @@ Positions are rotary (``positional="rope"``) or a learned table
 ``loss`` (``common.embed_tokens``).  An MoE config (``cfg.is_moe``) takes
 ``common.apply_moe`` for every layer's MLP: capacity-bounded in training,
 every routed pair kept in prefill and decode, its aux terms averaged over
-the layers as the reference's scan averages them.  Local/global ring caches
-and the VLM prefix raise ``NotImplementedError`` until their slices land
-(ROADMAP.md, queue 1).
+the layers as the reference's scan averages them.  A VLM config
+(``family="vlm"``) takes precomputed patch embeddings (``patch_embeds``,
+(B, P, d)) in ``prefill`` and ``loss``: cast to the compute dtype and
+placed before the token embeddings, so text position t sits at P + t;
+the loss is taken over the text positions only.  Local/global ring caches
+raise ``NotImplementedError`` until their slice lands (ROADMAP.md, queue
+1).
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -48,13 +53,22 @@ def init_scale(name: str, per_layer_shape) -> float:
         else per_layer_shape[0] ** -0.5
 
 
+#: a stacked leaf of more values than this is drawn a layer at a time, so
+#: that its float32 draw never sits whole beside the model's weights
+#: (yi-34b's w_gate: 8.8e9 values, 35 GB in float32, computed); the largest
+#: leaf of every smaller registered config (zamba2-7b's w_z, 2.1e9) is one
+#: draw
+DRAW_WHOLE_MAX = 1 << 32
+
+
 def init_params(shapes, leaf_dtype, device, generator=None, *,
                 zeros=(), ones=(), scale=init_scale) -> Params:
     """Random weights for a tree of (stacked) leaf shapes, drawn in tree
     order from ``generator`` (seed 0 when None): leaves named in ``zeros``
     or ``ones`` are filled; every other leaf is a normal scaled by
     ``scale(name, per_layer_shape)``, drawn in float32 and stored in
-    ``leaf_dtype(name)``.  Leaves under ``layers`` carry a leading
+    ``leaf_dtype(name)``, in one draw, or one a layer past
+    ``DRAW_WHOLE_MAX`` values.  Leaves under ``layers`` carry a leading
     ``n_layers`` dim, which the fan-in skips."""
     if generator is None:
         generator = torch.Generator(device=device)
@@ -71,10 +85,17 @@ def init_params(shapes, leaf_dtype, device, generator=None, *,
                 fill = torch.zeros if name in zeros else torch.ones
                 out[name] = fill(shape, dtype=dt, device=device)
                 continue
+            std = scale(name, shape[1:] if stacked else shape)
+            if stacked and math.prod(shape) > DRAW_WHOLE_MAX:
+                out[name] = torch.empty(shape, dtype=dt, device=device)
+                for layer in out[name]:
+                    layer.copy_(torch.randn(
+                        shape[1:], generator=generator, device=device,
+                        dtype=torch.float32).mul_(std))
+                continue
             w = torch.randn(shape, generator=generator, device=device,
                             dtype=torch.float32)
-            out[name] = w.mul_(scale(name, shape[1:] if stacked else shape)
-                               ).to(dt)
+            out[name] = w.mul_(std).to(dt)
         return out
 
     return build(shapes, False)
@@ -107,10 +128,9 @@ class DecoderLM:
 
     def __init__(self, cfg: ModelConfig, block_k: int = 1024,
                  device="cuda"):
-        if cfg.family not in ("dense", "moe"):
-            raise NotImplementedError(
-                f"{cfg.name}: family {cfg.family!r} (VLM) is not ported yet "
-                f"(ROADMAP.md queue 1, the rest of the decoder family)")
+        if cfg.family not in ("dense", "moe", "vlm"):
+            raise ValueError(f"{cfg.name}: DecoderLM runs the dense, MoE and "
+                             f"VLM families, not {cfg.family!r}")
         if cfg.attn_window:
             raise NotImplementedError(
                 f"{cfg.name}: local/global ring caches are not ported yet "
@@ -182,6 +202,16 @@ class DecoderLM:
                            zeros=("bias",), ones=("scale",))
 
     # -- forward ---------------------------------------------------------
+    def _embed_input(self, params: Params, tokens: torch.Tensor,
+                     patch_embeds=None) -> torch.Tensor:
+        """Token embeddings (B, S, d) in the compute dtype, with the patch
+        rows (B, P, d), cast to the compute dtype, placed before them."""
+        x = cm.embed_tokens(params["embed"], tokens, self.compute_dtype)
+        if patch_embeds is None:
+            return x
+        patch = torch.as_tensor(patch_embeds, device=self.device)
+        return torch.cat([cm.cast(patch, self.compute_dtype), x], dim=1)
+
     def logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         x = cm.apply_norm(params["final_norm"], x, self.cfg.norm)
         return cm.unembed(params["embed"], x)
@@ -238,14 +268,12 @@ class DecoderLM:
     def loss(self, params: Params, batch: Dict[str, torch.Tensor],
              rng=None, remat: bool = True):
         """Mean next-token cross entropy with z-loss 1e-4 over ``batch``
-        ("tokens", "targets", optional "mask"), as the reference's
+        ("tokens", "targets", optional "mask" and "patch_embeds": the loss
+        then covers the text positions only), as the reference's
         ``DecoderLM.loss``, plus an MoE model's weighted load balance and
         router z-loss (its three aux terms in the metrics).  ``rng`` is
         accepted for its signature (the model draws nothing).  Returns
         (loss, metrics)."""
-        if batch.get("patch_embeds") is not None:
-            raise NotImplementedError("the VLM patch prefix is not ported "
-                                      "yet (ROADMAP.md queue 1)")
         return cm.lm_loss(self, params, batch, remat)
 
     # -- serving ---------------------------------------------------------
@@ -265,25 +293,27 @@ class DecoderLM:
                 patch_embeds=None, max_seq: Optional[int] = None,
                 remat: bool = True,
                 prompt_lens: Optional[torch.Tensor] = None):
-        """Process prompts (B, S); return (last-position logits (B, Vp),
-        cache {"k", "v"} of (L, B, max_seq, KV, D)).
+        """Process prompts (B, S) behind ``patch_embeds`` (B, P, d) when
+        given; return (last-position logits (B, Vp), cache {"k", "v"} of
+        (L, B, max_seq, KV, D) holding positions 0 .. P + S - 1).
 
         ``prompt_lens`` (B,) enables batched bucketed prefill: rows are
-        right-padded to S, attention masks padded keys, and the logits are
-        taken at each row's last valid position.  ``remat`` is accepted for
-        the reference's signature; inference keeps no activations.
+        right-padded to S, attention masks keys past ``P + prompt_lens``,
+        and the logits are taken at each row's last valid position,
+        ``P + prompt_len - 1``.  ``remat`` is accepted for the reference's
+        signature; inference keeps no activations.
         """
-        if patch_embeds is not None:
-            raise NotImplementedError("the VLM patch prefix is not ported "
-                                      "yet (ROADMAP.md queue 1)")
         cfg = self.cfg
         tokens = torch.as_tensor(tokens, device=self.device)
-        x = cm.embed_tokens(params["embed"], tokens, self.compute_dtype)
-        B, S = tokens.shape
+        x = self._embed_input(params, tokens, patch_embeds)
+        B, S = x.shape[0], x.shape[1]
+        P = S - tokens.shape[1]                      # patch positions
         max_seq = max_seq or S
         cache = self.init_cache(B, max_seq)
-        valid_len = None if prompt_lens is None else \
-            torch.as_tensor(prompt_lens, device=self.device).to(torch.int32)
+        valid_len = None
+        if prompt_lens is not None:
+            valid_len = torch.as_tensor(prompt_lens, device=self.device
+                                        ).to(torch.int32) + P
         layers = unstack_layers(params["layers"], cfg.n_layers)
         for layer, lp in enumerate(layers):
             h = cm.apply_norm(lp["norm_attn"], x, cfg.norm)

@@ -7,8 +7,10 @@ admission and slot lifecycle, a dense :class:`BatchState` or a paged
 :class:`PagedBatchState` for device state, and the model math here.
 
 1. *Batched bucketed admission* — the requests admitted in a round are
-   grouped by power-of-two prompt bucket and prefilled in one batched call
-   per bucket (``batch_slots`` rows, per-row ``prompt_lens`` masking); the
+   grouped by power-of-two prompt bucket and extras signature and
+   prefilled in one batched call per group (``batch_slots`` rows, per-row
+   ``prompt_lens`` masking; a VLM request's ``patch_embeds`` rows stacked
+   before its tokens, zero rows for the unused slots); the
    slots' tokens / positions / budgets are set on the device in the same
    call, and the sampled first tokens are fetched at the next round sync.
 2. *On-device termination* — the per-slot budget ``remaining`` rides every
@@ -22,7 +24,8 @@ admission and slot lifecycle, a dense :class:`BatchState` or a paged
 Where the reference compiles each decode chunk length and each prompt
 bucket's prefill into one ``jax.jit`` program, memoized, the port captures
 each as one CUDA graph (``serve/graphs.py``), memoized per chunk length in
-``_chunk_fns`` and per bucket in ``_prefill_fns``, and replays it;
+``_chunk_fns`` and per (bucket, extras signature) in ``_prefill_fns``
+(the patch rows are a static input of the graph), and replays it;
 :attr:`ServeEngine.compile_stats` counts them under the reference's keys.
 The state tensors keep their storage (the reference donates its buffers to
 ``jit``): every write is in place, and :meth:`ServeEngine.reset` zeroes
@@ -73,8 +76,8 @@ class Request:
     done: bool = False
     # engine decode-step counter at completion (latency-in-steps metric)
     finished_step: Optional[int] = None
-    # family-specific prefill inputs (vision patches, audio frames); the
-    # ported families (dense decoder, SSM) take none
+    # family-specific prefill inputs: a VLM request's "patch_embeds"
+    # (1, P, d); the encdec family's "frames" are not ported yet
     extras: Dict[str, Any] = field(default_factory=dict)
 
 
@@ -170,7 +173,7 @@ class ServeEngine:
         self._graph_pool = torch.cuda.graph_pool_handle() \
             if self.cuda_graphs else None
         self._chunk_fns: Dict[int, GraphedCall] = {}
-        self._prefill_fns: Dict[int, "BucketPrefill"] = {}
+        self._prefill_fns: Dict[Tuple, "BucketPrefill"] = {}
         # admissions whose sampled first token has not been fetched yet:
         # (admit_step, [(slot, request), ...], device tensor of firsts)
         self._pending_first: List[Tuple[int, List, torch.Tensor]] = []
@@ -211,9 +214,12 @@ class ServeEngine:
     @property
     def compile_stats(self) -> Dict[str, int]:
         """Variant counts of the two hot-path entry points, under the
-        reference's keys: CUDA graphs captured on the card, eager bodies
-        memoized on the CPU or with ``cuda_graphs=False``."""
-        d, p = len(self._chunk_fns), len(self._prefill_fns)
+        reference's keys and as it counts them: decode chunk lengths, and
+        prompt buckets (the reference memoizes one jitted prefill a bucket;
+        here a bucket holds one CUDA graph, or eager body, per extras
+        signature, which ``graph_stats`` lists)."""
+        d = len(self._chunk_fns)
+        p = len({bucket for bucket, _ in self._prefill_fns})
         return {"decode_chunk_variants": d, "prefill_bucket_variants": p,
                 "n_variants": d + p}
 
@@ -222,8 +228,8 @@ class ServeEngine:
         capture, the graph pool's growth at it, its replays and the kernel
         launches of one replay (empty without graphs)."""
         calls = [("decode_chunk", n, f) for n, f in self._chunk_fns.items()]
-        calls += [("prefill_bucket", b, f.call)
-                  for b, f in self._prefill_fns.items()]
+        calls += [("prefill_bucket", key, f.call)
+                  for key, f in self._prefill_fns.items()]
         return [{"kind": kind, "key": key, "capture_ms": f.capture_ms,
                  "pool_bytes": f.pool_bytes, "replays": f.replays,
                  "launches": f.launches}
@@ -241,11 +247,13 @@ class ServeEngine:
             self._chunk_fns[n] = fn
         return fn
 
-    def _prefill_fn(self, bucket: int) -> "BucketPrefill":
-        fn = self._prefill_fns.get(bucket)
+    def _prefill_fn(self, bucket: int, extras: Dict[str, np.ndarray]
+                    ) -> "BucketPrefill":
+        key = (bucket, _signature(extras))
+        fn = self._prefill_fns.get(key)
         if fn is None:
-            fn = BucketPrefill(self, bucket)
-            self._prefill_fns[bucket] = fn
+            fn = BucketPrefill(self, bucket, extras)
+            self._prefill_fns[key] = fn
         return fn
 
     # -- device work -----------------------------------------------------
@@ -277,25 +285,30 @@ class ServeEngine:
         return torch.stack([torch.stack(toks),
                             torch.stack(gens).to(torch.int32)])
 
-    def _prefill_body(self, prompts: torch.Tensor,
-                      meta: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
-        """One bucket's masked batched prefill and first-token sampling
-        over its static buffers: ``prompts`` (N, bucket) and ``meta``
-        (prompt_lens, slots, budgets) as (3, N) int32.  Returns the rows'
-        new slot vectors (first token, position, budget left) as one
-        (3, N) int32 tensor, and the prefilled sub-cache."""
+    def _prefill_body(self, prompts: torch.Tensor, meta: torch.Tensor,
+                      extras: Dict[str, torch.Tensor]
+                      ) -> Tuple[torch.Tensor, Dict]:
+        """One group's masked batched prefill and first-token sampling
+        over its static buffers: ``prompts`` (N, bucket), ``meta``
+        (prompt_lens, slots, budgets) as (3, N) int32 and ``extras`` (the
+        rows' patch embeddings, if any).  Returns the rows' new slot
+        vectors (first token, position, budget left) as one (3, N) int32
+        tensor, and the prefilled sub-cache."""
         logits, sub = self.model.prefill(
             self.params, prompts, prompt_lens=meta[0], max_seq=self.max_seq,
-            remat=False)
+            remat=False, **extras)
         first = sample_token(logits, self.rng, self.temperature)
         rem = meta[2] - 1
         if self.eos_token is not None:
             rem = torch.where(first == self.eos_token, 0, rem)
-        return torch.stack([first, meta[0], rem]), sub
+        prefix = extras["patch_embeds"].shape[1] \
+            if "patch_embeds" in extras else 0
+        return torch.stack([first, meta[0] + prefix, rem]), sub
 
     def _prefill(self, prompts: np.ndarray, meta: np.ndarray,
-                 tables_sub: Optional[np.ndarray]) -> torch.Tensor:
-        """One bucket's batched admission: the bucket's memoized prefill,
+                 tables_sub: Optional[np.ndarray],
+                 extras: Dict[str, np.ndarray]) -> torch.Tensor:
+        """One group's batched admission: the group's memoized prefill,
         then the cache install (slot rows or pages) and slot activation,
         eager and indexed from the host.  Returns the admitted rows' first
         tokens.
@@ -306,7 +319,8 @@ class ServeEngine:
         graph's static outputs: each is consumed here, before any later
         replay is queued.
         """
-        act, sub = self._prefill_fn(prompts.shape[1])(prompts, meta)
+        act, sub = self._prefill_fn(prompts.shape[1], extras)(
+            prompts, meta, extras)
         st = self.state
         axes = self.model.cache_slot_axes()
         if tables_sub is not None:
@@ -334,13 +348,20 @@ class ServeEngine:
         return vals[0]
 
     # -- admission -------------------------------------------------------
+    @staticmethod
+    def _req_prefix(req: Request) -> int:
+        """Positions a request's patch rows take before its prompt."""
+        pe = req.extras.get("patch_embeds")
+        return 0 if pe is None else np.shape(pe)[1]
+
     def _cache_key(self, req: Request) -> Tuple[int, List[int]]:
-        """(namespace, token stream) identifying the request's cache
-        pages.  Extras would condition every K/V position and pick the
-        namespace, as in the reference; the ported families take none, so
-        every request is in namespace 0."""
-        return extras_namespace(req.extras), \
-            [int(t) for t in np.asarray(req.prompt, np.int64)]
+        """(namespace, position-token stream) identifying the request's
+        cache pages, as in the reference: the extras condition every K/V
+        position, so they pick the namespace (bit-identical patch rows
+        share one); each patch row is a sentinel position -1, then the
+        prompt ids follow."""
+        return extras_namespace(req.extras), [-1] * self._req_prefix(req) \
+            + [int(t) for t in np.asarray(req.prompt, np.int64)]
 
     def _prefix_match(self, req: Request, need: int):
         """Cached pages spliceable into a ``need``-token reservation:
@@ -418,21 +439,23 @@ class ServeEngine:
                 req.finished_step = self.n_decode_steps
                 self.scheduler.release(slot)
                 continue
-            if req.extras:
+            if set(req.extras) - {"patch_embeds"}:
                 raise NotImplementedError(
                     f"request {req.uid}: prefill extras "
-                    f"{sorted(req.extras)} belong to model families not "
-                    f"ported yet (ROADMAP.md queue 1)")
+                    f"{sorted(set(req.extras) - {'patch_embeds'})} belong "
+                    f"to model families not ported yet (ROADMAP.md queue 1)")
             prompt = np.asarray(req.prompt, np.int32)
-            if prompt.size + req.max_new_tokens > self.max_seq + 1:
+            prefix = self._req_prefix(req)
+            if prefix + prompt.size + req.max_new_tokens > self.max_seq + 1:
                 raise ValueError(
-                    f"request {req.uid}: prompt {prompt.size} + "
+                    f"request {req.uid}: prompt {prefix + prompt.size} + "
                     f"{req.max_new_tokens} new tokens exceeds "
                     f"max_seq={self.max_seq}")
             if self.paged:
-                # positions written: prompt 0..P-1, decode P..P+new-2 (the
-                # final sampled token is emitted, never cached)
-                need = prompt.size + req.max_new_tokens - 1
+                # positions written: patch rows and prompt 0..n-1, decode
+                # n..n+new-2 (the final sampled token is emitted, never
+                # cached)
+                need = prefix + prompt.size + req.max_new_tokens - 1
                 if not self._allocate_paged(slot, req, need):
                     self.scheduler.requeue(slot)
                     break
@@ -441,15 +464,20 @@ class ServeEngine:
             return
         if self.paged:
             self.state.sync_tables()
-        groups: Dict[int, List[Tuple[int, Request]]] = {}
+        # one prefill call per (prompt bucket, extras signature), as in the
+        # reference: rows of a call stack, so text-only and patch requests
+        # take separate calls.  The bucket caps at the room the cache has
+        # behind the patch rows.  The reference orders the groups by their
+        # str(); the same order keeps prefill, executor and trace calls in
+        # the same sequence
+        groups: Dict[Tuple, List[Tuple[int, Request]]] = {}
         for slot, req in admitted:
-            b = min(_bucket(len(req.prompt)), self.max_seq)
-            groups.setdefault(b, []).append((slot, req))
-        # the reference orders its (bucket, extras-signature) groups by
-        # their str(); the same order keeps prefill, executor and trace
-        # calls in the same sequence
-        for b in sorted(groups, key=lambda b: str((b, ()))):
-            self._admit_bucket(b, groups[b])
+            b = min(_bucket(len(req.prompt)),
+                    self.max_seq - self._req_prefix(req))
+            groups.setdefault((b, _signature(req.extras)), []).append(
+                (slot, req))
+        for key in sorted(groups, key=str):
+            self._admit_bucket(key[0], groups[key])
 
     def _admit_bucket(self, bucket: int,
                       pairs: List[Tuple[int, Request]]) -> None:
@@ -463,6 +491,12 @@ class ServeEngine:
             meta[0, i] = p.size
             meta[1, i] = slot
             meta[2, i] = req.max_new_tokens
+        # each extra stacked over the rows, zeros for the dummy rows
+        extras: Dict[str, np.ndarray] = {}
+        for key in pairs[0][1].extras:
+            rows = [np.asarray(r.extras[key])[0] for _, r in pairs]
+            extras[key] = np.stack(
+                rows + [np.zeros_like(rows[0])] * (N - len(pairs)))
         tables_sub = None
         if self.paged:
             pool = self.state.pool
@@ -487,7 +521,7 @@ class ServeEngine:
                     float(self.n_decode_steps), cat="lifecycle",
                     args={"uid": req.uid, "slot": slot, "bucket": bucket,
                           "prompt_len": len(req.prompt)})
-        first = self._prefill(prompts, meta, tables_sub)
+        first = self._prefill(prompts, meta, tables_sub, extras)
         if self.prefix_cache is not None:
             # adopt every fully valid prompt page (the decode span never
             # enters the tree): shared head chunks are already nodes, fresh
@@ -628,20 +662,33 @@ class ServeEngine:
                 "evictions": ps["evictions"]}
 
 
-class BucketPrefill:
-    """One prompt bucket's memoized prefill: static device buffers for the
-    prompts (slots, bucket) and meta (3, slots), filled in place at each
-    call, and the engine's prefill body over them as a
-    :class:`~repro_torch.serve.graphs.GraphedCall`."""
+def _signature(extras: Dict[str, Any]) -> Tuple:
+    """The extras' names and shapes, sorted: requests of one prefill call
+    share it (the reference's grouping key beside the bucket)."""
+    return tuple(sorted((k, np.shape(v)) for k, v in extras.items()))
 
-    def __init__(self, engine: ServeEngine, bucket: int):
+
+class BucketPrefill:
+    """One (prompt bucket, extras signature)'s memoized prefill: static
+    device buffers for the prompts (slots, bucket), meta (3, slots) and
+    each extra stacked over the slots (a VLM call's patch rows, (slots, P,
+    d)), filled in place at each call, and the engine's prefill body over
+    them as a :class:`~repro_torch.serve.graphs.GraphedCall`."""
+
+    def __init__(self, engine: ServeEngine, bucket: int,
+                 extras: Dict[str, np.ndarray]):
         dev, n = engine.device, engine.slots
         self.prompts = torch.zeros((n, bucket), dtype=torch.int32, device=dev)
         self.meta = torch.zeros((3, n), dtype=torch.int32, device=dev)
+        self.extras = {k: torch.zeros_like(torch.from_numpy(v), device=dev)
+                       for k, v in extras.items()}
         self.call = engine._graphed(functools.partial(
-            engine._prefill_body, self.prompts, self.meta))
+            engine._prefill_body, self.prompts, self.meta, self.extras))
 
-    def __call__(self, prompts: np.ndarray, meta: np.ndarray):
+    def __call__(self, prompts: np.ndarray, meta: np.ndarray,
+                 extras: Dict[str, np.ndarray]):
         cm.upload(self.prompts, prompts)
         cm.upload(self.meta, meta)
+        for k, buf in self.extras.items():
+            cm.upload(buf, extras[k])
         return self.call()

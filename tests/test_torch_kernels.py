@@ -88,6 +88,37 @@ def test_rmsnorm_matches_reference_at_llama3b_width(dtype):
                                **DTYPES[dtype][2])
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_rmsnorm_matches_reference_at_vlm_width(dtype):
+    """internvl2-1b's d_model 896, at a few rows, against the JAX package's
+    ``rmsnorm_ref`` and its model-level ``apply_norm``."""
+    rng = np.random.default_rng(896)
+    x = rng.normal(size=(3, 896)).astype(np.float32) * 3.0
+    w = (1.0 + 0.1 * rng.normal(size=896)).astype(np.float32)
+    jx, tx = _pair(x, dtype)
+    tol = DTYPES[dtype][2]
+    np.testing.assert_allclose(np32(rmsnorm(tx, torch.tensor(w))),
+                               np32(jax_rmsnorm(jx, jnp.asarray(w))), **tol)
+    np.testing.assert_allclose(
+        np32(tcm.apply_norm({"scale": torch.tensor(w)}, tx, "rms")),
+        np32(jcm.apply_norm({"scale": jnp.asarray(w)}, jx, "rms")), **tol)
+
+
+def test_rmsnorm_kernel_chunks_cover_the_row_once():
+    """``csrc/rmsnorm.cu``'s layout at d 896: lane l holds chunk i at
+    values 8 (32 i + l) .. + 7, 3 chunks on every lane and a 4th on lanes
+    0-15 only (``rmsnorm_kernel<4, 16>``); together they hold every value
+    of the row exactly once, and the dispatch names that instantiation."""
+    CPL, LAST = 4, 16
+    held = [8 * (32 * i + lane) + j for i in range(CPL) for lane in range(32)
+            if i < CPL - 1 or lane < LAST for j in range(8)]
+    assert sorted(held) == list(range(896))
+    assert 256 * (CPL - 1) + 8 * LAST == 896
+    with open(os.path.join(_build.CSRC, "rmsnorm.cu")) as f:
+        src = f.read()
+    assert re.search(r"case 896:.*\n\s*return launch_rms<4, 16>\(", src)
+
+
 # ---------------------------------------------------------------------------
 # prefill attention with per-row valid lengths
 # ---------------------------------------------------------------------------
@@ -149,6 +180,14 @@ def test_prefill_attention_matches_chunked_attention_at_head_dim_128_group_3(
     """llama3.2-3b's attention: head_dim 128, 3 query heads per KV head
     (6 over 2 here), ragged rows."""
     _one_group_prefill_matches(128, dtype, G=3)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("D", [64, 128])
+def test_prefill_attention_matches_chunked_attention_at_group_7(D, dtype):
+    """7 query heads per KV head (14 over 2 here): internvl2-1b's attention
+    at head_dim 64 and yi-34b's at 128, ragged rows."""
+    _one_group_prefill_matches(D, dtype, G=7)
 
 
 @pytest.mark.parametrize("D", [224, 32, 128])
@@ -320,6 +359,35 @@ def test_paged_decode_matches_reference_at_head_dim_128_group_3(
     np.testing.assert_allclose(np32(got), np32(ref), **F32_TOL)
 
 
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("window,softcap,positions", _COMBOS)
+@pytest.mark.parametrize("D", [64, 128])
+def test_paged_decode_matches_reference_at_group_7(D, pool, window, softcap,
+                                                   positions):
+    """internvl2-1b's instantiation (head_dim 64) and yi-34b's (128), 7
+    query heads per KV head (14 over 2 here), on the pools they are built
+    for."""
+    q, kq, vq, tables, ks, vs = _paged_operands(pool, seed=D + 7, H=14, D=D)
+    pos = np.asarray(positions, np.int32)
+    for b, p in enumerate(pos):                  # park the unused tail
+        tables[b, p // kq.shape[1] + 1:] = 0
+    jd, td = _POOL[pool]
+    jk, jv = jnp.asarray(kq).astype(jd), jnp.asarray(vq).astype(jd)
+    tk, tv = torch.tensor(kq).to(td), torch.tensor(vq).to(td)
+    assert np.array_equal(np32(jk), np32(tk))    # same stored values
+    jsc = {} if ks is None else {"k_scales": jnp.asarray(ks),
+                                 "v_scales": jnp.asarray(vs)}
+    tsc = {} if ks is None else {"k_scales": torch.tensor(ks),
+                                 "v_scales": torch.tensor(vs)}
+    ref = jax_paged(jnp.asarray(q), jk, jv, jnp.asarray(tables),
+                    jnp.asarray(pos), window=window, softcap=softcap, **jsc)
+    got = paged_flash_decode(torch.tensor(q), tk, tv, torch.tensor(tables),
+                             torch.tensor(pos), window=window,
+                             softcap=softcap, **tsc)
+    assert got.shape == (3, 1, 14, D) and got.dtype == torch.float32
+    np.testing.assert_allclose(np32(got), np32(ref), **F32_TOL)
+
+
 # ---------------------------------------------------------------------------
 # routing by device
 # ---------------------------------------------------------------------------
@@ -364,9 +432,9 @@ def test_kernels_refuse_what_they_are_not_built_for(case):
     """Off the CPU, a dtype, width, head_dim or query group with no kernel
     instantiation raises before any launch (the kernels are built for the
     serving path's bf16: attention at head_dim 64, paged decode there
-    with 4 or 2 query heads per KV head, both at head_dim 128 and 224 with
-    one and at head_dim 128 with 3, and RMSNorm at d 256, 1024, 2048,
-    3072, 3584 and 7168).  Group 2 at head_dim 64, built for the card
+    with 4, 2 or 7 query heads per KV head, both at head_dim 128 and 224
+    with one and at head_dim 128 with 3 and 7, and RMSNorm at d 256, 896,
+    1024, 2048, 3072, 3584 and 7168).  Group 2 at head_dim 64, built for the card
     smoke config, passes the case checks and stops only at the device
     check; group 3 is refused."""
     kernels.reset_launch_counts()
@@ -375,9 +443,9 @@ def test_kernels_refuse_what_they_are_not_built_for(case):
             rmsnorm(_meta(4, 64, dtype=torch.float32),
                     _meta(64, dtype=torch.float32))
     elif case == "rmsnorm_uninstantiated_d":
-        with pytest.raises(ValueError, match=r"d in \(256, 1024, 2048, "
-                                             r"3072, 3584, 7168\), got "
-                                             r"d=512"):
+        with pytest.raises(ValueError, match=r"d in \(256, 896, 1024, "
+                                             r"2048, 3072, 3584, 7168\), "
+                                             r"got d=512"):
             rmsnorm(_meta(4, 512), _meta(512, dtype=torch.float32))
     elif case == "paged_group_2":
         pages = _meta(3, 4, 2, 64)
@@ -386,7 +454,8 @@ def test_kernels_refuse_what_they_are_not_built_for(case):
                                _meta(1, 2, dtype=torch.int32),
                                _meta(1, dtype=torch.int32))
         with pytest.raises(ValueError, match=r"\[\(64, 4\), \(64, 2\), "
-                                             r"\(128, 1\), \(128, 3\), "
+                                             r"\(64, 7\), \(128, 1\), "
+                                             r"\(128, 3\), \(128, 7\), "
                                              r"\(224, 1\)\], got D=64, "
                                              r"H=6"):
             paged_flash_decode(_meta(1, 1, 6, 64), pages, pages,
@@ -484,6 +553,48 @@ def test_kernels_refuse_around_the_gpt3_instantiations(case):
         with pytest.raises(ValueError, match="expected a CUDA device"):
             paged_flash_decode(_meta(1, 1, 2, 128), pages, pages, tables,
                                pos, **scales)
+    assert kernels.launch_counts() == {"rmsnorm": 0, "flash_prefill": 0,
+                                       "flash_bwd": 0, "paged_decode": 0,
+                                       "ssd_scan": 0}
+
+
+@pytest.mark.parametrize("case", ["prefill_64_group_7", "prefill_128_group_7",
+                                  "paged_64_group_7", "paged_64_group_7_int8",
+                                  "paged_128_group_7",
+                                  "paged_128_group_7_int8",
+                                  "paged_64_group_7_fp8", "rmsnorm_d896"])
+def test_kernels_take_the_group_7_instantiations(case):
+    """internvl2-1b's and yi-34b's instantiations (7 query heads per KV
+    head: the prefill at head_dim 64 and 128, paged decode there over bf16
+    and int8 pools; RMSNorm at d 896) pass the case checks and stop only
+    at the device check; an fp8 pool at group 7 is refused; nothing
+    launches."""
+    kernels.reset_launch_counts()
+    scales = dict(k_scales=_meta(3, 2, dtype=torch.float32),
+                  v_scales=_meta(3, 2, dtype=torch.float32))
+    tables, pos = _meta(1, 2, dtype=torch.int32), _meta(1, dtype=torch.int32)
+    D = 128 if "_128_" in case else 64
+    if case.startswith("prefill"):
+        q, kv = _meta(1, 8, 14, D), _meta(1, 8, 2, D)
+        with pytest.raises(ValueError, match="expected a CUDA device"):
+            flash_prefill(q, kv, kv)
+    elif case.endswith("fp8"):
+        pages = _meta(3, 4, 2, D, dtype=torch.float8_e4m3fn)
+        with pytest.raises(TypeError, match="head_dim 64 with 7 query "
+                                            "heads per KV head is built for "
+                                            "bf16 and int8 pools"):
+            paged_flash_decode(_meta(1, 1, 14, D), pages, pages, tables,
+                               pos, **scales)
+    elif case.startswith("paged"):
+        int8 = case.endswith("int8")
+        pages = _meta(3, 4, 2, D, dtype=torch.int8 if int8
+                      else torch.bfloat16)
+        with pytest.raises(ValueError, match="expected a CUDA device"):
+            paged_flash_decode(_meta(1, 1, 14, D), pages, pages, tables,
+                               pos, **(scales if int8 else {}))
+    else:
+        with pytest.raises(ValueError, match="expected a CUDA device"):
+            rmsnorm(_meta(4, 896), _meta(896, dtype=torch.float32))
     assert kernels.launch_counts() == {"rmsnorm": 0, "flash_prefill": 0,
                                        "flash_bwd": 0, "paged_decode": 0,
                                        "ssd_scan": 0}

@@ -32,11 +32,11 @@ from repro_torch.kernels.flash_attention.paged import (KERNEL_CASES,
 from torch_parity import F32_TOL, np32
 
 # the kernel's instantiations: llama3.2-1b's group at head_dim 64, the
-# card smoke config's, gpt3-xl's and llama3.2-3b's at head_dim 128 and
-# zamba2-7b's shared block at head_dim 224
-((_, KERNEL_GROUP, _), (_, SMOKE_GROUP, _), (GPT3_HEAD_DIM, GPT3_GROUP, _),
- (LLAMA3B_HEAD_DIM, LLAMA3B_GROUP, _),
- (WIDE_HEAD_DIM, WIDE_GROUP, _)) = KERNEL_CASES
+# card smoke config's, internvl2-1b's, gpt3-xl's, llama3.2-3b's and
+# yi-34b's at head_dim 128 and zamba2-7b's shared block at head_dim 224
+((_, KERNEL_GROUP, _), (_, SMOKE_GROUP, _), (VLM_HEAD_DIM, VLM_GROUP, _),
+ (GPT3_HEAD_DIM, GPT3_GROUP, _), (LLAMA3B_HEAD_DIM, LLAMA3B_GROUP, _),
+ (YI_HEAD_DIM, YI_GROUP, _), (WIDE_HEAD_DIM, WIDE_GROUP, _)) = KERNEL_CASES
 
 TILE, WARPS = 64, 4          # keys per ring stage; warps per block
 WARP_KEYS = TILE // WARPS    # keys of a tile each warp takes
@@ -199,8 +199,8 @@ def test_split_recipe_matches_reference(pool, kps, window, softcap):
 
 
 def _one_group_recipe_matches(pool, kps, window, softcap, d, group):
-    """The recipe at head_dim ``d`` with ``group`` (1 or 3) query heads per
-    KV head against the reference, on the split and page edges."""
+    """The recipe at head_dim ``d`` with ``group`` (1, 3 or 7) query heads
+    per KV head against the reference, on the split and page edges."""
     pos = _positions(kps)
     q, (jk, jv, tk, tv), tables, ks, vs = _operands(
         pool, pos, seed=kps + d, d=d, group=group)
@@ -255,6 +255,22 @@ def test_split_recipe_matches_reference_at_head_dim_128_group_3(
     assert (LLAMA3B_HEAD_DIM, LLAMA3B_GROUP) == (128, 3)
     _one_group_recipe_matches(pool, kps, window, softcap, LLAMA3B_HEAD_DIM,
                               LLAMA3B_GROUP)
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("kps", [16, 128])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (100, 50.0)])
+@pytest.mark.parametrize("which", ["internvl2", "yi"])
+def test_split_recipe_matches_reference_at_group_7(which, pool, kps, window,
+                                                   softcap):
+    """internvl2-1b's instantiation, head_dim 64 with 7 query heads per KV
+    head (a key on 8 lanes, 4 keys a step), and yi-34b's, head_dim 128
+    with 7 (16 lanes, 2 keys a step): 7 query rows of partials, on the
+    pools they are built for."""
+    d, g = (VLM_HEAD_DIM, VLM_GROUP) if which == "internvl2" \
+        else (YI_HEAD_DIM, YI_GROUP)
+    assert (d, g) == ((64, 7) if which == "internvl2" else (128, 7))
+    _one_group_recipe_matches(pool, kps, window, softcap, d, g)
 
 
 @pytest.mark.parametrize("pool", ["bf16", "int8", "fp8"])

@@ -177,7 +177,7 @@ def test_engine_rejects_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="extras"):
         TorchEngine(tmodel, tparams, paged=True, prefix_cache=True).generate(
             [TorchRequest(uid=0, prompt=np.arange(8, dtype=np.int32),
-                          extras={"patch_embeds": np.zeros((1, 2, 4))})])
+                          extras={"frames": np.zeros((1, 2, 4))})])
     with pytest.raises(ValueError, match="paged=True"):
         TorchEngine(tmodel, tparams, prefix_cache=True)
     with pytest.raises(ValueError):

@@ -188,6 +188,73 @@ def test_flash_attention_train_matches_reference_at_head_dim_128_group_3():
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_forward_lse_matches_reference_at_group_7(dtype):
+    """internvl2-1b's training forward, head_dim 64 with 7 query heads per
+    KV head (14 over 2): output and log-sum-exp against the TPU kernel's
+    ``return_lse=True`` with ``group=7`` in interpret mode."""
+    B, S, H, KV, D = 1, 48, 14, 2, 64
+    q, k, v, _ = _operands(B, S, S, H, KV, D, seed=7)
+    jd, td, tol = {"f32": (jnp.float32, torch.float32, F32_TOL),
+                   "bf16": (jnp.bfloat16, torch.bfloat16, BF16_TOL)}[dtype]
+    o_ref, lse_ref = flash_attention_fwd(
+        *(_to_bh(a, S, D).astype(jd) for a in (q, k, v)), causal=True,
+        block_q=16, block_k=16, group=H // KV, return_lse=True,
+        interpret=True)
+    o, lse = flash_prefill(*(torch.tensor(a).to(td) for a in (q, k, v)),
+                           block_k=16, return_lse=True)
+    assert o.dtype == td and lse.shape == (B, H, S)
+    np.testing.assert_allclose(np32(lse), np32(lse_ref).reshape(B, H, S),
+                               **tol)
+    np.testing.assert_allclose(
+        np32(o), np32(o_ref).reshape(B, H, S, D).transpose(0, 2, 1, 3), **tol)
+
+
+def test_flash_attention_train_matches_reference_at_group_7():
+    """internvl2-1b's differentiable attention, head_dim 64 with 7 query
+    heads per KV head (14 over 2): the output and dq, dk, dv (dk and dv
+    summed over each KV head's 7 query heads) against the JAX package's
+    ``flash_attention_train`` in interpret mode, in f32."""
+    B, S, H, KV, D = 1, 32, 14, 2, 64
+    q, k, v, w = _operands(B, S, S, H, KV, D, seed=77)
+
+    def loss_ref(q, k, v):
+        o = jax_flash_train(q, k, v, True, 0, 16, 16, True)
+        return jnp.sum(o * w), o
+
+    (_, o_ref), g_ref = jax.value_and_grad(loss_ref, argnums=(0, 1, 2),
+                                           has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    o = flash_attention_train(tq, tk, tv, True, 0)
+    (o * torch.tensor(w)).sum().backward()
+    np.testing.assert_allclose(np32(o), np32(o_ref), **F32_TOL)
+    for name, got, ref in zip(("dq", "dk", "dv"), (tq, tk, tv), g_ref):
+        assert got.grad.shape == got.shape
+        np.testing.assert_allclose(np32(got.grad), np32(ref),
+                                   **FLASH_BWD_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("D,fwd,bwd", [(64, "CUDA device", "CUDA device"),
+                                       (128, "CUDA device",
+                                        "got D=128, H=14, KV=2")])
+def test_group_7_instantiations_forward_and_backward(D, fwd, bwd):
+    """At 7 query heads per KV head the forward is built at head_dim 64
+    (internvl2-1b) and 128 (yi-34b), the backward at 64 only: no path
+    trains yi-34b, so the backward keeps refusing (128, 7).  Off the CPU
+    each call launches its kernel or raises before any launch; with no
+    card here every case raises."""
+    kernels.reset_launch_counts()
+    q, kv = _meta(1, 8, 14, D), _meta(1, 8, 2, D)
+    with pytest.raises(ValueError, match=fwd):
+        flash_prefill(q, kv, kv, return_lse=True)
+    with pytest.raises(ValueError, match=bwd):
+        flash_attention_bwd(q, kv, kv, q, q,
+                            _meta(1, 14, 8, dtype=torch.float32))
+    assert kernels.launch_counts()["flash_prefill"] == 0
+    assert kernels.launch_counts()["flash_bwd"] == 0
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_rmsnorm_grads_match_reference(dtype):
     """dx in x's dtype and dw in f32, as ``jax.grad`` of ``apply_norm``."""
     jd, td, tol = {"f32": (jnp.float32, torch.float32, F32_TOL),

@@ -5,6 +5,14 @@ the same inputs: the reference is ``conftest.smoke_model`` (float32,
 ``PRNGKey(0)``, ``block_k=16``), its parameters cross over through
 ``repro_torch.models.convert.params_from_jax``, and inputs come from seeded
 numpy.  Both run on the CPU; the port's kernels take their plain versions.
+
+Importing this module caps PyTorch's intra-op threads at one for the
+process (every port test file imports it, so under pytest-xdist each
+worker is capped when it collects): the tests' tensors are small, and
+with one OpenMP pool of ``os.cpu_count()`` threads a worker, the workers'
+pools and XLA's contend for the cores (a granite decode test of
+``test_torch_moe_consistency.py`` took 245.6 s in four workers against
+~31 s alone).
 """
 import numpy as np
 import torch
@@ -20,6 +28,8 @@ BF16_TOL = dict(rtol=2e-2, atol=2e-2)   # tests/test_kernels.py bf16
 LOGITS_TOL = dict(rtol=1e-4, atol=1e-4)  # whole-model logits in f32
 QUANT_TOL = 5e-2                        # int8 / fp8 pages (test_quantized_kv)
 SSD_TOL = dict(rtol=3e-4, atol=3e-4)    # SSD scan (tests/test_kernels.py)
+
+torch.set_num_threads(1)
 
 _TWINS = {}
 
