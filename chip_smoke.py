@@ -11,9 +11,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                  HMMA/HGMMA instructions in the SASS (``cuobjdump``) of each
                  attention kernel and each SSD pass that runs a product:
                  none there fails the run; then each of zamba2-7b's,
-                 gpt3-xl's and llama3.2-3b's instantiations on its own
-                 line (registers, spills, HMMA), their training backwards'
-                 at head_dim 224 and 128 too.
+                 gpt3-xl's, llama3.2-3b's, internvl2-1b's, yi-34b's and
+                 seamless-m4t-medium's instantiations on its own line
+                 (registers, spills, HMMA), their training backwards' at
+                 head_dim 224 and 128 too.
 3. kernels     — every kernel against its plain PyTorch version on the card,
                  in bf16, at the serving path's shapes; times the kernel, the
                  plain version and one PyTorch library call as a yardstick,
@@ -122,6 +123,21 @@ Phases, in order; any failure raises and the script exits non-zero:
                  paged decode on bf16 and int8 pools with the edges and
                  graph replays (rows ``paged_decode[D128G7 bf16]``,
                  ``[D128G7 int8]``); the backward refuses (128, 7).
+   encdec      — seamless-m4t-medium's (head_dim 64, one query head per KV
+                 head, 16 over 16): the prefill without the causal mask at
+                 the encoder's serving shape (B 8, S 1024; row
+                 ``flash_prefill[enc D64G1 nc]``) and at the
+                 cross-attention's, 32 and 512 text positions over 1024
+                 frames (row ``flash_prefill[cross]`` at 512), then 37
+                 positions (a partial tile) and a ragged valid length, each
+                 with its log-sum-exp; the training forward and backward
+                 without the mask at B 4, S 1024 (rows
+                 ``flash_prefill_lse[enc]``, ``flash_bwd[enc nc]``) and at
+                 Sq 512 over Sk 1024 (``[cross]``) with odd edges, and the
+                 wide backward at head_dim 128 at Sq 77 over 200 (logged);
+                 paged decode at (64, 1) on bf16 and int8 pools with the
+                 edges and graph replays (rows ``paged_decode[D64G1
+                 bf16]``, ``[D64G1 int8]``).
 4. serve       — llama3.2-1b at full width (random weights from a seeded
                  generator) serves 16 requests through ``ServeEngine.generate``
                  with bf16 pages and with int8 pages, each with CUDA graphs
@@ -224,6 +240,22 @@ Phases, in order; any failure raises and the script exits non-zero:
                  peak memory; the profiled decode step's wall and device ms
                  against the 20.5 ms of reading the weights once.
    consistency_yi — ``consistency`` on it, bf16 and int8 pages.
+   serve_encdec — seamless-m4t-medium (12 encoder and 12 decoder layers,
+                 d_model 1024, 16 heads over 16 at head_dim 64, d_ff 4096,
+                 vocab 256206 untied; 0.920 B parameters) at full width and
+                 depth serves the serve phase's 16 prompts, each request
+                 with its own 1024 seeded frames of width 1024, as
+                 serve_gpt3 (exact launches: 36 flash prefills a prefill
+                 call, 12 encoder, 12 self, 12 cross; 12 paged decodes a
+                 paged step; no RMSNorm); the unaligned head's share of the
+                 profiled decode step, and the plain cross-attention
+                 decode's (its 12 calls replayed from a graph, computed).
+   consistency_encdec — ``consistency`` with the same frames in both
+                 prefills, bf16 and int8 pages.
+   train_encdec — 4 steps of 8 rows (1024 frames and 512 text tokens) as 2
+                 micro-batches of 4 (the train phase's gates; 2 x 72 flash
+                 forwards and 2 x 36 backwards a step, non-causal and at
+                 Sq != Sk in the encoder and the cross-attention).
    serve_ssm   — mamba2-370m at full width and depth (random weights from a
                  seeded generator) serves the same 16 requests with a dense
                  and with a paged ``BatchState``, graphs on and off:
@@ -396,6 +428,14 @@ VLM_ATTN = dict(H=14, KV=2, D=64)
 YI_ARCH = "yi-34b"
 YI_ATTN = dict(H=56, KV=8, D=128)
 YI_REQUESTS, YI_NEW_TOKENS = 8, 32
+# seamless-m4t-medium, the encoder-decoder: its attention's heads, KV heads
+# and head_dim (one query head per KV head, in the encoder, the decoder and
+# the cross-attention alike), the frames each request or training row
+# carries (its encoder_frontend_len, each frame of width d_model 1024) and
+# the text tokens of a training row
+ENCDEC_ARCH = "seamless-m4t-medium"
+ENCDEC_ATTN = dict(H=16, KV=16, D=64)
+ENCDEC_FRAMES, ENCDEC_TEXT = 1024, 512
 LSE_TOL = 1e-3         # forward log-sum-exp, absolute
 BWD_TOL = 2e-2         # dq, dk, dv, relative to each one's largest |value|
 ATTN_TOL = 2e-2        # bf16 attention, as tests/test_kernels.py uses
@@ -651,6 +691,16 @@ YI_INSTANTIATIONS = (
     ("_Z19paged_decode_kernelI13__nv_bfloat16Li128ELi7E", False),
     ("_Z19paged_decode_kernelIaLi128ELi7E", False),
     ("_Z27paged_decode_combine_kernelI13__nv_bfloat16Li128ELi7E", False))
+# seamless-m4t-medium's: paged decode at head_dim 64 with one query head
+# per KV head, and the head_dim-64 prefill and backward, which it runs
+# without the causal mask and at Sq != Sk.  A spill is logged, not refused
+ENCDEC_INSTANTIATIONS = (
+    ("_Z19paged_decode_kernelI13__nv_bfloat16Li64ELi1E", False),
+    ("_Z19paged_decode_kernelIaLi64ELi1E", False),
+    ("_Z27paged_decode_combine_kernelI13__nv_bfloat16Li64ELi1E", False),
+    ("_Z20flash_prefill_kernelILi64E", True),
+    ("_Z19flash_bwd_dq_kernelILi64E", True),
+    ("_Z20flash_bwd_dkv_kernelILi64E", True))
 # paged decode at head_dim 64 with 2 query heads per KV head (the card
 # smoke config's and granite-moe's attention): the instantiations of the
 # serving pools (bf16, int8) and the combine pass may not spill; the f32
@@ -718,15 +768,16 @@ def phase_build() -> None:
         if not found or n == 0:
             raise AssertionError(f"{name}: no tensor-core instruction in the "
                                  f"SASS of {info['path']}")
-    # the hybrid's, gpt3-xl's, llama3.2-3b's, internvl2-1b's and yi-34b's
-    # instantiations: each built, its registers and spills, and HMMA in the
-    # SASS of those that run products
+    # the hybrid's, gpt3-xl's, llama3.2-3b's, internvl2-1b's, yi-34b's and
+    # seamless-m4t-medium's instantiations: each built, its registers and
+    # spills, and HMMA in the SASS of those that run products
     res = ptxas_resources(str(info["compiler_log"]))
     for model, table in (("zamba2-7b", HYBRID_INSTANTIATIONS),
                          ("gpt3-xl", GPT3_INSTANTIATIONS),
                          ("llama3.2-3b", LLAMA3B_INSTANTIATIONS),
                          (VLM_ARCH, VLM_INSTANTIATIONS),
-                         (YI_ARCH, YI_INSTANTIATIONS)):
+                         (YI_ARCH, YI_INSTANTIATIONS),
+                         (ENCDEC_ARCH, ENCDEC_INSTANTIATIONS)):
         for prefix, products in table:
             fns = [fn for fn in res if fn.startswith(prefix)]
             if not fns:
@@ -1038,66 +1089,80 @@ def _check_bwd(shape, got, ref):
     return errs
 
 
-def _check_bwd_edge(gen, B, S, H, KV, D=TRAIN_D):
-    """The causal forward with its log-sum-exp and the backward at one more
-    shape, each against its plain version (logged, not in the JSON)."""
+def _attn_shape(B, Sq, Sk, H, KV, D, causal) -> str:
+    """A log's name of an attention shape: S when Sq == Sk."""
+    seq = f"S {Sq}" if Sq == Sk else f"Sq {Sq} Sk {Sk}"
+    return (f"B {B} {seq} H {H} KV {KV} D {D} "
+            f"{'causal' if causal else 'non-causal'} bf16")
+
+
+def _check_bwd_edge(gen, B, S, H, KV, D=TRAIN_D, causal=True, Sk=None):
+    """The forward with its log-sum-exp and the backward at one more shape
+    (S queries over ``Sk`` keys, by default S; causal or not), each against
+    its plain version (logged, not in the JSON)."""
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_bwd_ref,
                                                      flash_prefill,
                                                      flash_prefill_ref)
-    shape = f"B {B} S {S} H {H} KV {KV} D {D} causal bf16"
-    q, k, v = (torch.randn(B, S, heads, D, generator=gen,
-                           device="cuda").bfloat16()
-               for heads in (H, KV, KV))
+    Sk = Sk or S
+    shape = _attn_shape(B, S, Sk, H, KV, D, causal)
+    q = torch.randn(B, S, H, D, generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn(B, Sk, KV, D, generator=gen,
+                        device="cuda").bfloat16() for _ in range(2))
     do = torch.randn(B, S, H, D, generator=gen, device="cuda").bfloat16()
-    o, lse = flash_prefill(q, k, v, return_lse=True)
+    o, lse = flash_prefill(q, k, v, causal=causal, return_lse=True)
     _check_fwd_lse(f"with lse, {shape}", o, lse,
-                   *flash_prefill_ref(q, k, v, return_lse=True))
-    _check_bwd(shape, flash_attention_bwd(q, k, v, o, do, lse),
-               flash_attention_bwd_ref(q, k, v, o, do, lse))
+                   *flash_prefill_ref(q, k, v, causal=causal,
+                                      return_lse=True))
+    _check_bwd(shape, flash_attention_bwd(q, k, v, o, do, lse, causal),
+               flash_attention_bwd_ref(q, k, v, o, do, lse, causal))
 
 
 def check_flash_bwd(gen, H=TRAIN_H, KV=TRAIN_KV, D=TRAIN_D,
                     edges=((2, 200, 32, 8), (2, 256, 8, 8)), tag="",
-                    B=TRAIN_BATCH // TRAIN_ACCUM):
+                    B=TRAIN_BATCH // TRAIN_ACCUM, Sq=TRAIN_SEQ, Sk=None,
+                    causal=True):
     """The training path's attention kernels at its shape (a micro-batch of
-    ``B`` rows of ``TRAIN_SEQ``; llama3.2-1b's heads by default, zamba2-7b's
-    shared block with ``HYBRID_ATTN``, gpt3-xl's with ``GPT3_ATTN``): the
-    forward with its log-sum-exp and the flash
+    ``B`` rows, ``Sq`` queries over ``Sk`` keys, by default ``TRAIN_SEQ``
+    both, causal or not; llama3.2-1b's heads by default, zamba2-7b's
+    shared block with ``HYBRID_ATTN``, gpt3-xl's with ``GPT3_ATTN``,
+    seamless-m4t-medium's non-causal encoder and cross-attention with
+    ``ENCDEC_ATTN``): the forward with its log-sum-exp and the flash
     backward, each against its plain version on the same inputs, and timed
     (cold L2) beside SDPA's forward and its backward through
     ``torch.autograd.grad`` on a saved forward; then both again at the
-    ``edges`` shapes (B, S, H, KV).  Returns the forward's and the
-    backward's JSON rows, named with ``tag``."""
+    ``edges`` shapes (B, S, H, KV), or (B, S, H, KV, Sk) for S queries
+    over Sk keys.  Returns the forward's and the backward's JSON rows,
+    named with ``tag``."""
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_bwd_ref,
                                                      flash_prefill,
                                                      flash_prefill_ref)
-    S = TRAIN_SEQ
-    shape = f"B {B} S {S} H {H} KV {KV} D {D} causal bf16"
-    io_bytes = 2 * B * S * (H + 2 * KV) * D          # q, k, v
-    n = n_copies(io_bytes * 2 + 2 * 2 * B * S * H * D)
+    Sk = Sk or Sq
+    shape = _attn_shape(B, Sq, Sk, H, KV, D, causal)
+    io_bytes = 2 * B * (Sq * H + 2 * Sk * KV) * D    # q, k, v
+    n = n_copies(io_bytes * 2 + 2 * 2 * B * Sq * H * D)
 
     def case():
-        q, k, v = (torch.randn(B, S, heads, D, generator=gen,
-                               device="cuda").bfloat16()
-                   for heads in (H, KV, KV))
-        do = torch.randn(B, S, H, D, generator=gen, device="cuda").bfloat16()
-        o, lse = flash_prefill(q, k, v, return_lse=True)
+        q = torch.randn(B, Sq, H, D, generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn(B, Sk, KV, D, generator=gen,
+                            device="cuda").bfloat16() for _ in range(2))
+        do = torch.randn(B, Sq, H, D, generator=gen, device="cuda").bfloat16()
+        o, lse = flash_prefill(q, k, v, causal=causal, return_lse=True)
         return q, k, v, o, do, lse
     cases = [case() for _ in range(n)]
     q, k, v, o, do, lse = cases[0]
 
     err, lse_err = _check_fwd_lse(
         f"with lse, {shape}", o, lse,
-        *flash_prefill_ref(q, k, v, return_lse=True))
+        *flash_prefill_ref(q, k, v, causal=causal, return_lse=True))
 
-    got = flash_attention_bwd(q, k, v, o, do, lse)
+    got = flash_attention_bwd(q, k, v, o, do, lse, causal)
     errs = _check_bwd(shape, got, flash_attention_bwd_ref(q, k, v, o, do,
-                                                          lse))
+                                                          lse, causal))
     # no atomics and sums in a fixed order: a second call on the same
     # inputs gives bitwise-equal gradients
-    again = flash_attention_bwd(q, k, v, o, do, lse)
+    again = flash_attention_bwd(q, k, v, o, do, lse, causal)
     same = all(torch.equal(a, b) for a, b in zip(got, again))
     log(f"[kernels] flash_bwd {shape}: two calls bitwise equal (dq, dk, dv): "
         f"{same}")
@@ -1105,55 +1170,60 @@ def check_flash_bwd(gen, H=TRAIN_H, KV=TRAIN_KV, D=TRAIN_D,
         raise AssertionError("flash_bwd kernel is not deterministic")
     del got, again
     # the tile edges: S not a multiple of the 64-row tile, and another G
-    for cB, cS, cH, cKV in edges:
-        _check_bwd_edge(gen, cB, cS, cH, cKV, D)
+    # (or Sk, for Sq queries over Sk keys)
+    for edge in edges:
+        _check_bwd_edge(gen, *edge[:4], D, causal, *edge[4:])
 
     def sdpa_saved(q, k, v, o, do, lse):
         qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
                       for t in (q, k, v))
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                              enable_gqa=True)
         return out, (qt, kt, vt), do.transpose(1, 2)
     saved = [sdpa_saved(*c) for c in cases]
     timing = f"cold L2: cycles over {n} input copies; {TIMING}"
-    pairs = _attention_pairs(B, H, S)
+    pairs = _attention_pairs(B, H, Sq) if causal else B * H * Sq * Sk
+    mode = "causal" if causal else "non-causal"
     t_fwd = both_times(
-        cycled(lambda q, k, v, *_: flash_prefill(q, k, v, return_lse=True),
-               cases),
+        cycled(lambda q, k, v, *_: flash_prefill(q, k, v, causal=causal,
+                                                 return_lse=True), cases),
         cycled(lambda q, k, v, *_: F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=True), cases), 4 * n)
+            is_causal=causal, enable_gqa=True), cases), 4 * n)
     t_bwd = both_times(
-        cycled(lambda *c: flash_attention_bwd(*c), cases),
+        cycled(lambda *c: flash_attention_bwd(*c, causal), cases),
         cycled(lambda out, inputs, g: torch.autograd.grad(
             out, inputs, g, retain_graph=True), saved), 2 * n)
+    kv_shape = f"kv {KV} heads" if Sq == Sk else f"kv ({B}, {Sk}, {KV})"
     fwd = {"name": "flash_prefill_lse" + tag, "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
            "replaces": "src/repro/kernels/flash_attention/kernel.py:125",
-           "shape": f"q ({B}, {S}, {H}, {D}) kv {KV} heads bf16, causal, "
+           "shape": f"q ({B}, {Sq}, {H}, {D}) {kv_shape} bf16, {mode}, "
                     f"with lse", "timing": timing,
            "max_abs_err": max(err, lse_err), "tol": ATTN_TOL,
            "ms": t_fwd["ms"], "device_ms": t_fwd["device_ms"],
            "plain_ms": time_ms(cycled(lambda q, k, v, *_: flash_prefill_ref(
-               q, k, v, return_lse=True), cases), iters=3, warmup=1),
+               q, k, v, causal=causal, return_lse=True), cases), iters=3,
+               warmup=1),
            "library_ms": t_fwd["library_ms"],
            "library_device_ms": t_fwd["library_device_ms"]}
     # bytes: q, k, v read, o written, lse written (f32); 2 products of 2 D
     # flops per admitted pair
     fwd["bound_ms"], fwd["bound_by"] = bound(
-        io_bytes + 2 * B * S * H * D + 4 * B * H * S, 4 * D * pairs, "bf16")
+        io_bytes + 2 * B * Sq * H * D + 4 * B * H * Sq, 4 * D * pairs,
+        "bf16")
     bwd = {"name": "flash_bwd" + tag, "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/flash_backward.cu",
            "replaces": "src/repro/kernels/flash_attention/backward.py:125",
            "also_replaces": "src/repro/kernels/flash_attention/"
                             "backward.py:144",
-           "shape": f"q ({B}, {S}, {H}, {D}) kv {KV} heads bf16, causal",
+           "shape": f"q ({B}, {Sq}, {H}, {D}) {kv_shape} bf16, {mode}",
            "timing": timing,
            "max_abs_err": max(e for e, _ in errs.values()),
            "tol": f"{BWD_TOL} of each output's largest |value|",
            "ms": t_bwd["ms"], "device_ms": t_bwd["device_ms"],
            "plain_ms": time_ms(cycled(lambda *c: flash_attention_bwd_ref(
-               *c), cases), iters=3, warmup=1),
+               *c, causal), cases), iters=3, warmup=1),
            "library_ms": t_bwd["library_ms"],
            "library_device_ms": t_bwd["library_device_ms"]}
     # bytes: q, k, v, o, dO read, lse read (f32), dq, dk, dv written;
@@ -1161,7 +1231,7 @@ def check_flash_bwd(gen, H=TRAIN_H, KV=TRAIN_KV, D=TRAIN_D,
     # dO V^T, dS K, P^T dO, dS^T Q; the kernels' recompute of QK^T and
     # dO V^T in the second kernel is the design's, not the function's)
     bwd["bound_ms"], bwd["bound_by"] = bound(
-        2 * io_bytes + 2 * 2 * B * S * H * D + 4 * B * H * S,
+        2 * io_bytes + 2 * 2 * B * Sq * H * D + 4 * B * H * Sq,
         5 * 2 * D * pairs, "bf16")
     for row, t in ((fwd, t_fwd), (bwd, t_bwd)):
         log(f"[kernels] {row['name']} {shape}: {versus('kernel', t, 'SDPA')}"
@@ -2038,6 +2108,142 @@ def check_yi_kernels(gen):
     return rows
 
 
+def _nc_prefill_row(gen, B, Sq, Sk, H, KV, D, name, graph=False):
+    """The prefill kernel without the causal mask, ``Sq`` queries over
+    ``Sk`` keys, every key valid (an encoder's self-attention at Sq == Sk;
+    a decoder's cross-attention, a prompt bucket over the encoder's
+    frames), against its plain version with its log-sum-exp and twice
+    (bitwise equal), timed beside SDPA without a mask (``graph``: graph_ms
+    too) and its bound.  Raises on a disagreement; returns the JSON row."""
+    from repro_torch.kernels.flash_attention import (flash_prefill,
+                                                     flash_prefill_ref)
+    shape = _attn_shape(B, Sq, Sk, H, KV, D, False)
+    n = n_copies(2 * B * (Sq * H + 2 * Sk * KV) * D)
+    cases = [(torch.randn(B, Sq, H, D, generator=gen,
+                          device="cuda").bfloat16(),
+              *(torch.randn(B, Sk, KV, D, generator=gen,
+                            device="cuda").bfloat16() for _ in range(2)))
+             for _ in range(n)]
+    q, k, v = cases[0]
+    got, lse = flash_prefill(q, k, v, causal=False, return_lse=True)
+    err, lse_err = _check_fwd_lse(
+        f"{name} {shape}", got, lse,
+        *flash_prefill_ref(q, k, v, causal=False, return_lse=True))
+    same = torch.equal(got, flash_prefill(q, k, v, causal=False))
+    log(f"[kernels] {name} {shape}: two calls bitwise equal {same}")
+    if not same:
+        raise AssertionError(f"{name} kernel is not deterministic")
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            enable_gqa=True)
+    t = both_times(cycled(lambda q, k, v: flash_prefill(q, k, v,
+                                                        causal=False),
+                          cases), cycled(sdpa, cases), max(20, n),
+                   graph=graph)
+    kv_shape = f"kv {KV} heads" if Sq == Sk else f"kv ({B}, {Sk}, {KV})"
+    row = {"name": name, "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
+           "replaces": "src/repro/kernels/flash_attention/kernel.py:125",
+           "shape": f"q ({B}, {Sq}, {H}, {D}) {kv_shape} bf16, non-causal",
+           "timing": f"cold L2: cycles over {n} input copies; {TIMING}"
+                     + (f"; {GRAPH_TIMING}" if graph else ""),
+           "max_abs_err": max(err, lse_err), "tol": ATTN_TOL,
+           "ms": t["ms"], "device_ms": t["device_ms"],
+           "plain_ms": time_ms(cycled(
+               lambda q, k, v: flash_prefill_ref(q, k, v, causal=False),
+               cases), iters=5),
+           "library_ms": t["library_ms"],
+           "library_device_ms": t["library_device_ms"]}
+    if graph:
+        row.update(graph_ms=t["graph_ms"],
+                   library_graph_ms=t["library_graph_ms"])
+    # bytes: q read, out written, K and V read, the valid lengths; 2
+    # products of 2 D flops per (query, key) pair, every pair admitted
+    row["bound_ms"], row["bound_by"] = bound(
+        2 * (2 * B * Sq * H * D + 2 * B * Sk * KV * D) + B * 4,
+        4 * D * B * H * Sq * Sk, "bf16")
+    log(f"[kernels] {name} {shape}: {versus('kernel', t, 'SDPA')}; plain "
+        f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']})")
+    return row
+
+
+#: the kernel rows of seamless-m4t-medium's calls: the run whose launches
+#: each reports (``phase_serve_encdec``'s runs by page type, or its
+#: training run)
+ENCDEC_ROW_RUNS = {"flash_prefill[enc D64G1 nc]": "bf16",
+                   "flash_prefill[cross]": "bf16",
+                   "paged_decode[D64G1 bf16]": "bf16",
+                   "paged_decode[D64G1 int8]": "int8",
+                   "flash_prefill_lse[enc]": "train",
+                   "flash_bwd[enc nc]": "train",
+                   "flash_prefill_lse[cross]": "train",
+                   "flash_bwd[cross]": "train"}
+
+
+def check_encdec_kernels(gen):
+    """seamless-m4t-medium's calls (16 heads over 16 at head_dim 64), each
+    against its plain version and twice (bitwise equal), timed beside its
+    bound and library yardstick (SDPA without a mask; over the pages in
+    use for paged decode): the prefill without the causal mask at the
+    encoder's serving shape (B 8, S = F = 1024; row ``flash_prefill[enc
+    D64G1 nc]``) and at the cross-attention's, a prompt bucket of 32 and
+    512 text positions over 1024 frames (row ``flash_prefill[cross]`` at
+    512), then 37 positions (a partial 64-row tile) and a ragged valid
+    length without the mask, logged; the training forward with its
+    log-sum-exp and the backward without the mask at the encoder's
+    micro-batch (B 4, S 1024; rows ``flash_prefill_lse[enc]``,
+    ``flash_bwd[enc nc]``) and at the cross-attention's (B 4, Sq 512 over
+    Sk 1024; rows ``flash_prefill_lse[cross]``, ``flash_bwd[cross]``), with
+    edges at S 200, Sq 37 and 300 over 1024 and 77 keys, and at head_dim
+    128 (the wide kernels, logged); paged decode at head_dim 64 with one
+    query head per KV head on bf16 and int8 pools with ``check_paged``'s
+    edges, replayed from a CUDA graph bitwise equal to eager (rows
+    ``paged_decode[D64G1 bf16]``, ``[D64G1 int8]``).  Returns the JSON rows
+    named in ``ENCDEC_ROW_RUNS``, each marked with the model."""
+    from repro_torch.kernels.flash_attention import (flash_prefill,
+                                                     flash_prefill_ref)
+    H, KV, D = ENCDEC_ATTN["H"], ENCDEC_ATTN["KV"], ENCDEC_ATTN["D"]
+    Fr, B = ENCDEC_FRAMES, SERVE_SLOTS
+    rows = [_nc_prefill_row(gen, B, Fr, Fr, H, KV, D,
+                            "flash_prefill[enc D64G1 nc]", graph=True)]
+    for Sq in (32, 512):
+        row = _nc_prefill_row(gen, B, Sq, Fr, H, KV, D,
+                              "flash_prefill[cross]", graph=True)
+    rows.append(row)                   # the longest bucket
+    q = torch.randn(2, 37, H, D, generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn(2, Fr, KV, D, generator=gen,
+                        device="cuda").bfloat16() for _ in range(2))
+    _check_fwd_lse(f"{_attn_shape(2, 37, Fr, H, KV, D, False)} (a partial "
+                   f"query tile)",
+                   *flash_prefill(q, k, v, causal=False, return_lse=True),
+                   *flash_prefill_ref(q, k, v, causal=False,
+                                      return_lse=True))
+    vl = torch.tensor([Fr, 300], dtype=torch.int32, device="cuda")
+    _check_fwd_lse(f"{_attn_shape(2, 37, Fr, H, KV, D, False)}, valid_len "
+                   f"{vl.tolist()}",
+                   *flash_prefill(q, k, v, vl, causal=False,
+                                  return_lse=True),
+                   *flash_prefill_ref(q, k, v, vl, causal=False,
+                                      return_lse=True))
+    fwd, bwd = check_flash_bwd(gen, **ENCDEC_ATTN, causal=False,
+                               edges=((2, 200, H, KV),), tag="[enc]")
+    bwd["name"] = "flash_bwd[enc nc]"
+    rows += [fwd, bwd]
+    rows += check_flash_bwd(gen, **ENCDEC_ATTN, causal=False, Sq=ENCDEC_TEXT,
+                            Sk=Fr, tag="[cross]",
+                            edges=((2, 37, H, KV, Fr), (1, 300, H, KV, 77)))
+    # the wide kernels' masks without the causal mask at Sq != Sk (no
+    # path runs them so; checked so that the wrapper's gate holds there)
+    _check_bwd_edge(gen, 1, 77, 16, 16, 128, False, 200)
+    rows += _paged_graph_and_rows(gen, ENCDEC_ATTN, "D64G1", L=16)
+    for r in rows:
+        r["model"] = ENCDEC_ARCH
+    return rows
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
@@ -2057,6 +2263,7 @@ def phase_kernels():
     rows += check_llama3b_kernels(gen)
     rows += check_vlm_kernels(gen)
     rows += check_yi_kernels(gen)
+    rows += check_encdec_kernels(gen)
     # pools the serving path does not use: checked, logged, not in the JSON
     for dtype, label in ((torch.float8_e4m3fn, "fp8"), (torch.float32, "f32")):
         r = check_paged(gen, dtype, label)
@@ -2108,8 +2315,9 @@ class NanWatch:
 
 
 def build_full_model(arch: str = "llama3.2-1b"):
-    """A dense arch at full width and depth with random weights from a
-    seeded generator, in the compute dtype (serving)."""
+    """A dense, MoE, VLM or encoder-decoder arch at full width and depth
+    with random weights from a seeded generator, in the compute dtype
+    (serving)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     cfg = get_config(arch)
@@ -2121,7 +2329,9 @@ def build_full_model(arch: str = "llama3.2-1b"):
     torch.cuda.synchronize()
     n = sum(t.numel() for t in _leaves(params))
     nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
-    log(f"[serve] {cfg.name}: L={cfg.n_layers} d={cfg.d_model} "
+    enc = f" (and {cfg.n_encoder_layers} encoder layers)" \
+        if cfg.n_encoder_layers else ""
+    log(f"[serve] {cfg.name}: L={cfg.n_layers}{enc} d={cfg.d_model} "
         f"H={cfg.n_heads}/{cfg.n_kv_heads} D={cfg.resolved_head_dim} "
         f"ff={cfg.d_ff} V={cfg.vocab_size} {cfg.norm} norm, "
         f"{cfg.positional} positions, {cfg.activation} "
@@ -2163,8 +2373,9 @@ def serve_run(tag, model, params, prompts, new_tokens, graphs, want,
     after a warm-up and ``reset()``; ``inspect(engine)``, when given, adds
     its dict to the result after the timed run.  With graphs the warm-up is the same
     workload, so that every variant is captured before the timed run;
-    without, one short request.  Gates, each raising: the exact launch
-    counts ``want(steps, prefill calls)`` of the timed run (and of the
+    without, one short request (with the first prompt's extras).  Gates,
+    each raising: the exact launch counts ``want(steps, prefill calls)``
+    of the timed run (and of the
     capturing run), every request finished, no NaN logit, and
     ``compile_stats`` within the reference's bound (at most log2(max_chunk)
     + 1 decode chunk variants, at most one prefill variant a bucket the
@@ -2206,7 +2417,8 @@ def serve_run(tag, model, params, prompts, new_tokens, graphs, want,
         out["first_wall_s"], _, out["first_tokens"] = run(requests())
     else:
         served.append(prompts[0][:16])
-        eng.generate([Request(uid=-1, prompt=served[-1], max_new_tokens=4)])
+        eng.generate([Request(uid=-1, prompt=served[-1], max_new_tokens=4,
+                              extras=dict(extras[0]) if extras else {})])
     eng.reset()
     out["wall_s"], out["launches"], out["tokens"] = run(requests())
     if bool(watch.nan):
@@ -2336,13 +2548,15 @@ PROFILE_KERNELS = {"paged_decode": "paged_decode_",
                    "rmsnorm": "rmsnorm_kernel", "ssd_scan": "ssd_scan_"}
 # cuBLAS's kernels for operands not aligned to 16 bytes, as the profiler
 # names them (the head's GEMMs and GEMVs at a vocab of 50257, 49155 or
-# 151655 columns)
-UNALIGNED_KERNELS = ("align1", "gemmSN")
+# 151655 columns, an odd count: align1; at 256206, even but not a multiple
+# of 8: align2)
+UNALIGNED_KERNELS = ("align1", "align2", "gemmSN")
 
 
 def phase_profile(cfg, model, params, top: int = 10, tag: str = "profile",
                   paged: bool = True, graphs: bool = True,
-                  detail: bool = False, new_tokens: int | None = None):
+                  detail: bool = False, new_tokens: int | None = None,
+                  extras=None):
     """Where the time goes in a short serve run (8 prompts of 128 tokens,
     ``new_tokens`` each: by default 32 with graphs, ``PROFILE_EAGER_TOKENS``
     without; bf16 pages, or the dense cache with
@@ -2354,8 +2568,10 @@ def phase_profile(cfg, model, params, top: int = 10, tag: str = "profile",
     new token (its prefill and nothing else), and the share of the device
     time in cuBLAS's kernels for operands that are not 16-byte aligned
     (``UNALIGNED_KERNELS``: the head at a vocab that is not a multiple of
-    8).  Returns, with ``detail``, {"wall_ms", "device_ms"} of a decode
-    step alone (None where the profiler recorded nothing)."""
+    8).  ``extras``, when given, is every request's dict of prefill inputs
+    (an encoder-decoder's frames).  Returns, with ``detail``, {"wall_ms",
+    "device_ms"} of a decode step alone (None where the profiler recorded
+    nothing)."""
     from repro_torch.serve import Request, ServeEngine
     if new_tokens is None:
         new_tokens = 32 if graphs else PROFILE_EAGER_TOKENS
@@ -2371,7 +2587,8 @@ def phase_profile(cfg, model, params, top: int = 10, tag: str = "profile",
         eng.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        eng.generate([Request(uid=i, prompt=p, max_new_tokens=new)
+        eng.generate([Request(uid=i, prompt=p, max_new_tokens=new,
+                              extras=dict(extras or {}))
                       for i, p in enumerate(prompts)])
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
@@ -2437,14 +2654,17 @@ def phase_profile(cfg, model, params, top: int = 10, tag: str = "profile",
 
 def phase_consistency(model, params, steps: int = 4, kv_dtype=None,
                       tag: str = "consistency", hold: str = "hold",
-                      prefix: int = 0):
+                      prefix: int = 0, frames: int = 0):
     """Prefill P, then ``steps`` paged decode steps fed the greedy tokens,
     against the last-position logits of one prefill of P + those tokens;
     pages of the compute dtype, or ``kv_dtype`` ("int8") pages installed as
     the engine installs them (a fresh scale a page): within
     ``CONSISTENCY_TOL`` of the largest |logit|.  With ``prefix`` (a VLM)
     both prefills take the same ``prefix`` seeded patch rows a row before
-    the prompt, and the decode positions start past them.
+    the prompt, and the decode positions start past them; with ``frames``
+    (an encoder-decoder) both take the same ``frames`` seeded frames a row
+    for the encoder, and the dense cross K/V rows are installed beside the
+    pages as the engine installs them.
 
     An MoE model's longer prefill is held to the decode path
     (``HeldPath``): with ``hold`` "experts" it takes the experts the decode
@@ -2468,6 +2688,10 @@ def phase_consistency(model, params, steps: int = 4, kv_dtype=None,
     if prefix:
         patch["patch_embeds"] = torch.tensor(
             rng.normal(size=(B, prefix, model.cfg.d_model)),
+            dtype=torch.float32, device=dev)
+    if frames:
+        patch["frames"] = torch.tensor(
+            rng.normal(size=(B, frames, model.cfg.d_model)),
             dtype=torch.float32, device=dev)
     st = PagedBatchState(model, B, SERVE_MAX_SEQ, page_size=SERVE_PAGE,
                          kv_dtype=kv_dtype)
@@ -2494,6 +2718,9 @@ def phase_consistency(model, params, steps: int = 4, kv_dtype=None,
                 write_prefill_pages(st.cache[key], sub[key], tables_sub,
                                     scales=scales,
                                     qmax=kv_qmax(st.cache[key].dtype))
+        for key in model.cache_slot_axes():
+            if key not in model.paged_cache_keys():
+                st.cache[key].copy_(sub[key])
         tokens = torch.argmax(logits, -1).to(torch.int32)
         pos = torch.tensor(plens + prefix, device=dev)
         worst = 0.0
@@ -2801,7 +3028,8 @@ def phase_serve_gpt3(cfg, model, params):
 
 def serve_full_model(tag, cfg, model, params, launches,
                      profile_modes=(True,), prompts=None,
-                     new_tokens=SERVE_NEW_TOKENS, extras=None):
+                     new_tokens=SERVE_NEW_TOKENS, extras=None,
+                     profile_extras=None):
     """A model at full width serves ``prompts`` (by default the serve
     phase's 16 requests; ``extras``, per prompt, as ``serve_run`` takes
     them), ``new_tokens`` new tokens each, with bf16 and int8 pages, each
@@ -2811,7 +3039,8 @@ def serve_full_model(tag, cfg, model, params, launches,
     logit; logs tokens/s, peak memory and each capture's host ms, and the
     int8 and dense runs' agreement with bf16 pages.  Then a short profiled
     bf16-page run with graphs on (and off where ``profile_modes`` holds
-    False), with its decode steps alone.  Returns the graphs-on runs'
+    False; each request with ``profile_extras``), with its decode steps
+    alone.  Returns the graphs-on runs'
     launches by page type, and the profiled runs' decode steps under
     "profile" (``phase_profile``'s summaries by graph mode)."""
     if prompts is None:
@@ -2843,7 +3072,8 @@ def serve_full_model(tag, cfg, model, params, launches,
             f"{sum(len(r) for r in b)} greedy tokens equal")
     profiles = {graphs: phase_profile(cfg, model, params,
                                       tag=tag.replace("serve", "profile"),
-                                      paged=True, graphs=graphs, detail=True)
+                                      paged=True, graphs=graphs, detail=True,
+                                      extras=profile_extras)
                 for graphs in profile_modes}
     out = {label: runs[label, True]["launches"]
            for label in ("bf16", "int8")}
@@ -3255,6 +3485,142 @@ def phase_consistency_yi(model, params):
 
 
 # ---------------------------------------------------------------------------
+# 5a''''. serve and train seamless-m4t-medium (the encoder-decoder) at full
+# width, and its prefill / decode consistency
+# ---------------------------------------------------------------------------
+
+def encdec_launches(cfg):
+    """``launches(paged)`` of seamless-m4t-medium: no RMSNorm (LayerNorm
+    has no kernel); n_encoder_layers + 2 n_layers flash prefills a prefill
+    call (12 encoder self-attentions, 12 decoder self-attentions, 12
+    cross-attentions: 36); n_layers paged decodes a paged decode step (the
+    cross-attention decode is the plain ``common.decode_attention``), none
+    on a dense cache."""
+    n_attn = cfg.n_encoder_layers + 2 * cfg.n_layers
+
+    def launches(paged):
+        def want(steps, calls):
+            return {"rmsnorm": 0, "flash_prefill": n_attn * calls,
+                    "flash_bwd": 0,
+                    "paged_decode": cfg.n_layers * steps if paged else 0,
+                    "ssd_scan": 0}
+        return want
+    return launches
+
+
+def encdec_extras(cfg, n: int):
+    """The encoder-decoder serve phase's prefill inputs: each request's own
+    ``ENCDEC_FRAMES`` seeded frames of width d_model (float32, as a stub
+    speech frontend would hand them over)."""
+    rng = np.random.default_rng(25)
+    return [{"frames": rng.normal(size=(1, ENCDEC_FRAMES, cfg.d_model)
+                                  ).astype(np.float32)} for _ in range(n)]
+
+
+def cross_decode_share(cfg, step):
+    """The plain cross-attention decode's device time a decode step:
+    n_layers calls of ``common.decode_attention`` over the dense cross K/V
+    of ``SERVE_SLOTS`` slots at pos F - 1 (bf16 caches upcast to f32 each
+    call, as the decode step runs them), replayed from one CUDA graph,
+    against the profiled decode step's device ms ``step`` (computed share;
+    logged).  Returns the ms."""
+    from repro_torch.models.common import decode_attention
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(25)
+    L, B, Fr = cfg.n_layers, SERVE_SLOTS, cfg.encoder_frontend_len
+    H, KV, D = ENCDEC_ATTN["H"], ENCDEC_ATTN["KV"], ENCDEC_ATTN["D"]
+    ck, cv = (torch.randn(L, B, Fr, KV, D, generator=gen,
+                          device="cuda").bfloat16() for _ in range(2))
+    q = torch.randn(B, 1, H, D, generator=gen, device="cuda").bfloat16()
+    pos = torch.full((B,), Fr - 1, dtype=torch.int32, device="cuda")
+
+    def layers():
+        for i in range(L):
+            decode_attention(q, ck[i], cv[i], pos=pos)
+    ms = time_graph_ms(layers, calls=1, replays=10)
+    nbytes = 2 * ck.numel() * ck.element_size()
+    log(f"[serve_encdec] cross-attention decode (common.decode_attention, "
+        f"{L} layers x {B} slots x {Fr} frames, bf16 K/V {nbytes / 1e6:.0f} "
+        f"MB read and upcast to f32 each step): {ms:.4f} ms a step "
+        f"replayed from a graph (reading the bf16 K/V once: "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms); "
+        + ("the profiled decode step's device time: not measured"
+           if step is None else
+           f"{ms / step['device_ms']:.3f} of the profiled decode step's "
+           f"{step['device_ms']:.2f} ms of device (computed)"))
+    del ck, cv
+    release()
+    return ms
+
+
+def phase_serve_encdec(cfg, model, params):
+    """seamless-m4t-medium at full width and depth (12 encoder and 12
+    decoder layers, d_model 1024, 16 heads over 16 at head_dim 64, vocab
+    256206 untied; 0.920 B parameters): ``serve_full_model`` over the serve
+    phase's 16 prompts, each request with its own 1024 seeded frames
+    (``encdec_extras``): bf16 and int8 pages (the self-attention K/V; the
+    cross K/V stay dense bf16 rows) and a dense cache, graphs on and off,
+    exact launches (``encdec_launches``); then the profiled decode step
+    (its head GEMM's share logged: ``align2`` kernels) and the cross-attention
+    decode's share of it (``cross_decode_share``).  Returns the graphs-on
+    runs' launches by page type."""
+    prompts = serve_prompts(cfg.vocab_size, "serve_encdec")
+    extras = encdec_extras(cfg, len(prompts))
+    log(f"[serve_encdec] every request carries {ENCDEC_FRAMES} frames of "
+        f"width {cfg.d_model} for the encoder (no cache position)")
+    out = serve_full_model("serve_encdec", cfg, model, params,
+                           encdec_launches(cfg), prompts=prompts,
+                           extras=extras, profile_extras=extras[0])
+    out["cross_ms"] = cross_decode_share(cfg, out["profile"][True])
+    return out
+
+
+def phase_consistency_encdec(model, params):
+    """``phase_consistency`` on seamless-m4t-medium, bf16 and int8 pages,
+    both prefills encoding the same 1024 seeded frames a row (the decode
+    step's cross-attention reads the dense cross K/V the first prefill
+    left)."""
+    return [phase_consistency(model, params, kv_dtype=kv,
+                              frames=ENCDEC_FRAMES,
+                              tag=f"consistency_encdec, {kv or 'bf16'} "
+                                  f"pages")
+            for kv in (None, "int8")]
+
+
+def phase_train_encdec():
+    """Train seamless-m4t-medium at full width and depth, 8 rows a step as
+    ``TRAIN_ACCUM`` micro-batches of 4, each row 1024 seeded frames for the
+    encoder and ``ENCDEC_TEXT`` text tokens for the decoder (the loss over
+    the text), as ``phase_train`` trains llama3.2-1b.  Per micro-batch,
+    counted from the code (``tests/test_torch_encdec.py`` counts the same
+    calls on the CPU): 36 flash forwards with their log-sum-exp (12
+    encoder non-causal at S 1024, 12 decoder causal at S 512, 12
+    cross-attention non-causal at Sq 512 over Sk 1024) and 36 more in the
+    recompute under remat, 36 flash backwards; no RMSNorm.  Returns
+    ``train_model``'s summary."""
+    from repro_torch.configs import get_config
+    cfg = get_config(ENCDEC_ARCH)
+    A, n_attn = TRAIN_ACCUM, cfg.n_encoder_layers + 2 * cfg.n_layers
+    per_step = {"rmsnorm": 0, "flash_prefill": A * 2 * n_attn,
+                "flash_bwd": A * n_attn, "paged_decode": 0, "ssd_scan": 0}
+    ours = {"flash_bwd (D64G1)": "flash_bwd_",
+            "flash_bwd dK/dV": "flash_bwd_dkv_kernel",
+            "flash_bwd dQ": "flash_bwd_dq_kernel",
+            "flash_prefill (D64G1, lse)": "flash_prefill_kernel",
+            "LayerNorm (PyTorch's)": "layer_norm",
+            "unaligned-operand GEMMs (the head at vocab 256206)": "align2"}
+
+    def describe(m):
+        c = m.cfg
+        return (f"{c.n_encoder_layers} encoder + {c.n_layers} decoder "
+                f"layers, d={c.d_model} H={c.n_heads}/{c.n_kv_heads} "
+                f"D={c.resolved_head_dim} ff={c.d_ff} {c.norm} norm, "
+                f"{c.activation}")
+    return train_model("train_encdec", cfg, describe, per_step, ours,
+                       accum=A, frames=ENCDEC_FRAMES, seq=ENCDEC_TEXT)
+
+
+# ---------------------------------------------------------------------------
 # 5b. serve mamba2-370m at full width, and its prefill / decode consistency
 # ---------------------------------------------------------------------------
 
@@ -3610,14 +3976,16 @@ def phase_consistency_hybrid(model, params, steps: int = 4):
 # ---------------------------------------------------------------------------
 
 def train_model(tag, cfg, describe, per_step, ours, batch=TRAIN_BATCH,
-                accum=TRAIN_ACCUM, prefix=0):
+                accum=TRAIN_ACCUM, prefix=0, frames=0, seq=TRAIN_SEQ):
     """Train ``cfg`` on the card for ``TRAIN_STEPS`` steps through
-    ``make_train_step`` (f32 masters, bf16 compute, AdamW, remat; seq
-    ``TRAIN_SEQ``, global batch ``batch`` as ``accum`` micro-batches)
+    ``make_train_step`` (f32 masters, bf16 compute, AdamW, remat; ``seq``
+    positions a row, global batch ``batch`` as ``accum`` micro-batches)
     on the port's ``DataPipeline`` (with ``prefix``, a VLM's rows: that
-    many seeded patch rows of width d_model, then ``TRAIN_SEQ - prefix``
-    text tokens; the loss covers the text): a finite non-zero gradient on every
-    parameter leaf after the first backward, finite losses, exactly
+    many seeded patch rows of width d_model, then ``seq - prefix`` text
+    tokens; the loss covers the text; with ``frames``, an
+    encoder-decoder's rows: that many seeded frames of width d_model for
+    the encoder beside ``seq`` text tokens): a finite non-zero gradient on
+    every parameter leaf after the first backward, finite losses, exactly
     ``per_step`` launches a step; logs step ms, tokens/s and peak memory,
     then profiles one more step (device idle share, the time of the port's
     kernels by the name fragments in ``ours``, the top kernels).  The model
@@ -3639,15 +4007,18 @@ def train_model(tag, cfg, describe, per_step, ours, batch=TRAIN_BATCH,
     log(f"[{tag}] {cfg.name}: {describe(model)} V={cfg.vocab_size}; "
         f"{n / 1e9:.3f}B params in {cfg.param_dtype}, compute "
         f"{cfg.compute_dtype}; state drawn in "
-        f"{time.perf_counter() - t0:.1f} s; seq {TRAIN_SEQ}, global batch "
-        f"{batch} = {accum} x {batch // accum}, AdamW, remat")
-    pipeline = DataPipeline(cfg.vocab_size, batch, TRAIN_SEQ - prefix, seed=0)
+        f"{time.perf_counter() - t0:.1f} s; seq {seq}"
+        + (f" (and {frames} frames)" if frames else "")
+        + f", global batch {batch} = {accum} x {batch // accum}, AdamW, "
+          f"remat")
+    pipeline = DataPipeline(cfg.vocab_size, batch, seq - prefix, seed=0)
     batches = [pipeline.next_batch() for _ in range(TRAIN_STEPS)]
-    if prefix:
-        rng = np.random.default_rng(0)
-        for b in batches:
-            b["patch_embeds"] = rng.normal(
-                size=(batch, prefix, cfg.d_model)).astype(np.float32)
+    rng = np.random.default_rng(0)
+    for b in batches:
+        for key, rows in (("patch_embeds", prefix), ("frames", frames)):
+            if rows:
+                b[key] = rng.normal(size=(batch, rows, cfg.d_model)).astype(
+                    np.float32)
 
     # every leaf gets a finite, non-zero gradient from the first backward
     micro = {k: v[:batch // accum] for k, v in batches[0].items()}
@@ -3665,7 +4036,7 @@ def train_model(tag, cfg, describe, per_step, ours, batch=TRAIN_BATCH,
 
     step_fn = make_train_step(model, OptimizerConfig(lr=3e-4, warmup_steps=2),
                               accum_steps=accum, remat=True)
-    tokens = batch * TRAIN_SEQ
+    tokens = batch * seq
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     before = kernels.launch_counts()
@@ -4486,6 +4857,13 @@ def main() -> int:
     timed("consistency_yi", phase_consistency_yi, model, params)
     del model, params
     release()
+    cfg, model, params = timed("build_encdec", build_full_model, ENCDEC_ARCH)
+    serve_encdec = timed("serve_encdec", phase_serve_encdec, cfg, model,
+                         params)
+    timed("consistency_encdec", phase_consistency_encdec, model, params)
+    del model, params
+    release()
+    train_encdec = timed("train_encdec", phase_train_encdec)["counts"]
     cfg, model, params = build_mamba_model()
     serve_ssm = timed("serve_ssm", phase_serve_ssm, cfg, model, params)
     timed("consistency_ssm", phase_consistency_ssm, model, params)
@@ -4552,6 +4930,20 @@ def main() -> int:
                                       f"pages, CUDA graphs, half the "
                                       f"requests behind {VLM_PREFIX} patch "
                                       f"rows")
+        elif row.get("model") == ENCDEC_ARCH:
+            run = ENCDEC_ROW_RUNS[row["name"]]
+            name = name.removesuffix("_lse")
+            if run == "train":
+                row["launches"] = train_encdec[name]
+                row["launches_of"] = (f"one {ENCDEC_ARCH} training run, "
+                                      f"{TRAIN_STEPS} steps of {TRAIN_BATCH}"
+                                      f" x ({ENCDEC_FRAMES} frames + "
+                                      f"{ENCDEC_TEXT} tokens)")
+            else:
+                row["launches"] = serve_encdec[run][name]
+                row["launches_of"] = (f"one {ENCDEC_ARCH} serve run, {run} "
+                                      f"pages, CUDA graphs, each request "
+                                      f"with {ENCDEC_FRAMES} frames")
         elif row.get("model") == YI_ARCH:
             run = YI_ROW_RUNS[row["name"]]
             row["launches"] = serve_yi[run][name]

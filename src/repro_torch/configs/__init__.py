@@ -6,9 +6,11 @@ llama3.2-3b, yi-34b and gpt3-xl (dense decoders: RoPE, RMSNorm and SwiGLU
 at head_dim 64 and at head_dim 128 with 3 or 7 query heads per KV head;
 learned positions, LayerNorm and tanh GELU), internvl2-1b (VLM: the dense
 decoder behind a prefix of patch embeddings), granite-moe-1b-a400m (MoE:
-32 experts, top-8), mamba2-370m (SSM) and zamba2-7b (hybrid: Mamba2 and a
-shared attention block); the JAX package's other archs join as their
-model families are ported (see ROADMAP.md).
+32 experts, top-8), seamless-m4t-medium (encoder-decoder: a bidirectional
+encoder over stubbed frame embeddings, a decoder with cross-attention to
+its output), mamba2-370m (SSM) and zamba2-7b (hybrid: Mamba2 and a shared
+attention block); the JAX package's other archs join as their model
+families are ported (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -16,14 +18,16 @@ from dataclasses import replace
 from typing import Dict
 
 from . import (gpt3_xl, granite_moe_1b_a400m, internvl2_1b, llama3_2_1b,
-               llama3_2_3b, mamba2_370m, yi_34b, zamba2_7b)
+               llama3_2_3b, mamba2_370m, seamless_m4t_medium, yi_34b,
+               zamba2_7b)
 from .base import ModelConfig, MoEConfig, SSMConfig, ShapeConfig, smoke_config
 from .shapes import SHAPES, get_shape, smoke_shape
 
 REGISTRY: Dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
     for m in (llama3_2_1b, llama3_2_3b, yi_34b, gpt3_xl, internvl2_1b,
-              granite_moe_1b_a400m, mamba2_370m, zamba2_7b)}
+              granite_moe_1b_a400m, seamless_m4t_medium, mamba2_370m,
+              zamba2_7b)}
 
 
 def get_config(arch: str) -> ModelConfig:
@@ -46,7 +50,9 @@ def card_smoke_config(cfg: ModelConfig) -> ModelConfig:
     (``kernels.flash_attention.paged.KERNEL_CASES``).  The MoE family
     keeps the smoke config's 4 experts and top-2, each expert at d_ff 1024;
     the VLM family its 8 patch rows.  The dense, MoE and VLM families only:
-    the SSD scan is built for the served models' state and head widths."""
+    the SSD scan is built for the served models' state and head widths,
+    and the encoder-decoder has no launcher (the reference's serve
+    launcher refuses it too)."""
     if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
             f"{cfg.name}: no reduced config runs the card's kernels for "

@@ -27,8 +27,14 @@
 // gradient needs 5 products of 2 * D flops (QK^T, dO V^T, dS K, P^T dO,
 // dS^T Q) against 2 * D bytes per row read once; these kernels do 7, since
 // the dK/dV kernel recomputes QK^T and dO V^T.  The wrapper launches them
-// only for causal attention with no window and Sq == Sk, what the training
-// path gives them; the masks below are written for the general case.
+// with no window for what the training paths give them: causal attention
+// at Sq == Sk (a decoder's self-attention), and non-causal attention at any
+// Sq and Sk (an encoder's self-attention at Sq == Sk; a decoder's
+// cross-attention, Sq text positions over Sk encoder frames).  Query rows
+// and keys are counted separately everywhere: the dQ grid runs over Sq and
+// its key loop to Sk, the dK/dV grid over Sk and its query loop to Sq; a
+// partial last tile of either (rows past Sq or keys past Sk, zero-filled
+// on load) fails tile_full and is masked pair by pair by admitted().
 // Design (deterministic: no atomics, every sum in a fixed order, so two
 // calls on the same inputs give bitwise-equal gradients):
 //
@@ -45,18 +51,24 @@
 // - dK/dV: one block of 4 warps per (64-key tile, KV head, batch row); each
 //   warp owns 16 key rows, whose K and V fragments stay in registers.  It
 //   loops over the G query heads of its group and, for each, over the query
-//   tiles from the causal start (2-stage ring of Q, dO, lse and delta
-//   tiles).  The scores come out transposed, S^T = K Q^T and
-//   dP^T = V dO^T, so P^T and dS^T lie in accumulator layout and feed
-//   dV += P^T dO and dK += dS^T Q directly as bf16 A operands.  The group's
-//   sum stays in f32 registers: no KV repeat in memory and no atomics.  Key
-//   tile 0 sees the most query tiles under the causal mask and is launched
-//   first.  Load balance: at S 1024 and G 4 the first key tile runs 64
-//   iterations and the last 4, against a mean of 34; the 512 blocks of the
-//   training shape fill the card's slots (two blocks an SM at this kernel's
-//   register count) about twice, and launching the heaviest first lets the
-//   light ones fill in behind them, so the group is not split over blocks
-//   (that would need a second pass to add the halves without atomics).
+//   tiles from the causal start, or from 0 without the causal mask (a
+//   2-stage ring of Q, dO, lse and delta tiles).  The scores come out
+//   transposed, S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T lie in
+//   accumulator layout and feed dV += P^T dO and dK += dS^T Q directly as
+//   bf16 A operands.  The group's sum stays in f32 registers: no KV repeat
+//   in memory and no atomics.  Load balance, causal: key tile 0 sees the
+//   most query tiles and is launched first; at S 1024 and G 4 it runs 64
+//   iterations and the last tile 4, against a mean of 34; the 512 blocks
+//   of the training shape fill the card's slots (two blocks an SM at this
+//   kernel's register count) about twice, and launching the heaviest first
+//   lets the light ones fill in behind them, so the group is not split
+//   over blocks (that would need a second pass to add the halves without
+//   atomics).  Non-causal, every key tile walks the same G * ceil(Sq / 64)
+//   query tiles, so the blocks are equal: at seamless-m4t-medium's encoder
+//   (Sq = Sk = 1024, G 1, 16 heads, B 4) 16 iterations each over 1024
+//   blocks, at its cross-attention (Sq 512 over Sk 1024) 8 each over the
+//   same 1024 blocks, and the dQ grid's 64-row query tiles each walk all
+//   Sk / 64 key tiles.
 //
 // Layouts are the model's, contiguous: q, o, dO, dQ (B, Sq, H, D);
 // k, v, dK, dV (B, Sk, KV, D); lse, delta (B, H, Sq) f32.

@@ -22,6 +22,19 @@
 // stops at the valid length and never reads those keys, so the kernel
 // takes that average in an explicit branch after the loop.
 //
+// Queries and keys are counted apart: Sq and Sk are independent, query
+// position i sits at i and key position j at j (q_offset 0), so the
+// kernel serves a decoder's causal self-attention (Sq == Sk), an
+// encoder's non-causal self-attention and a decoder's non-causal
+// cross-attention (seamless-m4t-medium: a prompt bucket of 32..512 text
+// positions over 1024 encoder frames).  Without the causal mask every
+// query tile walks the same ceil(kv_valid / 64) key tiles, so the
+// heaviest-first order below is moot and a tile is full exactly when its
+// keys all lie below the valid length; the "no valid key" branch is taken
+// only by a row with kv_valid_len 0, whose mean then runs over all Sk
+// keys as the reference's does.  A query tile past Sq (a bucket of 32 or
+// 37 rows in the 64-row tile) loads zero rows and stores none of them.
+//
 // Bound on the H100: operations at long prompts (2 * D flops per score for
 // QK and again for PV against 2 * D bytes per key read once per 64-row query
 // tile), bytes at short ones.  Design: both products run on the tensor
@@ -558,8 +571,9 @@ static int launch_prefill_wide(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Built for bf16 at head_dim 64 (any query group: llama3.2-1b's and
-// granite-moe-1b-a400m's serving and training paths), at head_dim 128 and
+// Built for bf16 at head_dim 64 (any query group: llama3.2-1b's,
+// granite-moe-1b-a400m's and seamless-m4t-medium's serving and training
+// paths, the last causal and not), at head_dim 128 and
 // 224 with one query head per KV head (gpt3-xl; zamba2-7b's shared
 // attention block) and at head_dim 128 with 3 and 7 (llama3.2-3b, yi-34b:
 // the wide kernel reads KV head h / G, so only the grid changes); other

@@ -11,9 +11,10 @@
 // Bound on the H100: bytes.  Each key and value is read once and used by
 // the G = H / KV query rows of its KV head: 4 flops a byte at G = 4 for a
 // bf16 pool, 8 for int8 (7 and 14 at G = 7: internvl2-1b and yi-34b; 3 and
-// 6 at G = 3: llama3.2-3b; 2 and 4 at G = 2; 1 and 2 at G = 1: gpt3-xl
-// and zamba2-7b's shared block), far under the ~295 where the tensor cores
-// would limit, and under the CUDA cores' 67 TFLOP/s f32 too (13-47
+// 6 at G = 3: llama3.2-3b; 2 and 4 at G = 2; 1 and 2 at G = 1: gpt3-xl,
+// seamless-m4t-medium's decoder and zamba2-7b's shared block), far under
+// the ~295 where the tensor cores would limit, and under the CUDA cores'
+// 67 TFLOP/s f32 too (13-47
 // TFLOP/s is what 3.35 TB/s needs).  So the kernel uses no tensor cores: an
 // mma.m16n8k16 would hold G = 4 live rows of its 16.  What decides its
 // time is how many bytes are in flight across the card, so:
@@ -433,7 +434,7 @@ static int launch_pool(int kv_dtype, const void* q, const void* kp,
                                         H, KV, page, nb, kps, window,
                                         softcap, s);
   }
-  if constexpr (D == 64 && G <= 4) {   // llama3.2-1b's head_dim: every pool
+  if constexpr (D == 64 && (G == 2 || G == 4)) {  // every pool
     switch (kv_dtype) {
       case kF32:
         return launch_paged<float, D, G>(q, kp, vp, t, p, ks, vs, w, out, B,
@@ -455,7 +456,9 @@ static int launch_pool(int kv_dtype, const void* q, const void* kp,
 // query head per KV head (gpt3-xl; zamba2-7b's shared attention block), at
 // head_dim 128 with 3 (llama3.2-3b: a lane holds 3 query rows and a
 // (3, 8) accumulator) and with 7 (yi-34b), and at head_dim 64 with 7
-// (internvl2-1b) over bf16 and int8 pools.  At G 7 a lane holds 7 query
+// (internvl2-1b) and with 1 (seamless-m4t-medium's decoder, 16 heads over
+// 16: a lane holds one query row and a (1, 8) accumulator, as at (128, 1))
+// over bf16 and int8 pools.  At G 7 a lane holds 7 query
 // rows, a (7, 8) accumulator and 7 scores a step of its tile, and the
 // warps' merge buffer is 4 x 7 x D floats (14 KB at D 128);
 // chip_smoke.py's build phase logs their registers and spills;
@@ -494,6 +497,10 @@ extern "C" int paged_decode_launch(const void* q, const void* k_pages,
     return launch_pool<128, 3>(kv_dtype, q, k_pages, v_pages, t, p, ks, vs,
                                w, out, B, H, KV, page, nb, keys_per_split,
                                window, softcap, s);
+  if (D == 64 && H == KV)
+    return launch_pool<64, 1>(kv_dtype, q, k_pages, v_pages, t, p, ks, vs, w,
+                              out, B, H, KV, page, nb, keys_per_split, window,
+                              softcap, s);
   if (D == 64 && H == 7 * KV)
     return launch_pool<64, 7>(kv_dtype, q, k_pages, v_pages, t, p, ks, vs, w,
                               out, B, H, KV, page, nb, keys_per_split, window,

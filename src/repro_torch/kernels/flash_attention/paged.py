@@ -26,10 +26,12 @@ _POOL_DTYPES = (torch.float32, torch.bfloat16, torch.int8,
 #: what the kernel is built for, as (head_dim, query heads per KV head,
 #: pool dtypes): llama3.2-1b's attention; the reduced config of a smoke run
 #: on the card (``configs.card_smoke_config``), which granite-moe-1b-a400m's
-#: attention shares; internvl2-1b's; gpt3-xl's; llama3.2-3b's; yi-34b's;
-#: zamba2-7b's shared attention block
+#: attention shares; internvl2-1b's; seamless-m4t-medium's decoder (one
+#: query head per KV head); gpt3-xl's; llama3.2-3b's; yi-34b's; zamba2-7b's
+#: shared attention block
 KERNEL_CASES = ((64, 4, _POOL_DTYPES), (64, 2, _POOL_DTYPES),
                 (64, 7, (torch.bfloat16, torch.int8)),
+                (64, 1, (torch.bfloat16, torch.int8)),
                 (128, 1, (torch.bfloat16, torch.int8)),
                 (128, 3, (torch.bfloat16, torch.int8)),
                 (128, 7, (torch.bfloat16, torch.int8)),

@@ -22,8 +22,10 @@ from .. import _build
 
 NEG_INF = -1e30
 #: (head_dim, query heads per KV head) the kernel is built for: llama3.2-1b's,
-#: granite-moe-1b-a400m's and internvl2-1b's head_dim 64 at any group (their
-#: serving and training paths), gpt3-xl's head_dim 128 and zamba2-7b's
+#: granite-moe-1b-a400m's, internvl2-1b's and seamless-m4t-medium's head_dim
+#: 64 at any group (their serving and training paths; seamless-m4t-medium's
+#: encoder and cross-attention non-causal, the latter with Sq != Sk),
+#: gpt3-xl's head_dim 128 and zamba2-7b's
 #: shared attention block's head_dim 224, each with one query head per KV
 #: head, llama3.2-3b's head_dim 128 with 3 and yi-34b's with 7 (group 0:
 #: any)
@@ -104,9 +106,11 @@ def flash_prefill(q, k, v, kv_valid_len: Optional[torch.Tensor] = None, *,
     log-sum-exp (B, H, Sq) too.  A CPU tensor takes the plain version
     (``block_k`` sets its key block); a CUDA tensor launches the kernel
     (``flash_prefill.launches`` counts them), which reads q/k/v through
-    their strides and supports bf16 and ``q_offset == 0`` only, at head_dim
-    64, at head_dim 128 or 224 with one query head per KV head, or at
-    head_dim 128 with 3 or 7 (``KERNEL_CASES``).  When grad mode is on and an
+    their strides, causal or not, at any Sq and Sk (query i at position i,
+    key j at j: a decoder's cross-attention is Sq text positions over Sk
+    encoder frames), and supports bf16 and ``q_offset == 0`` only, at
+    head_dim 64, at head_dim 128 or 224 with one query head per KV head,
+    or at head_dim 128 with 3 or 7 (``KERNEL_CASES``).  When grad mode is on and an
     input requires grad, the call goes through
     ``ops.flash_attention_train`` (the forward with its log-sum-exp, then
     the flash backward), which covers what the reference's training

@@ -1,6 +1,7 @@
 """Shared model-building blocks of the port (PyTorch, functional).
 
-The dense and MoE subset of the JAX package's ``models/common.py``: the
+The dense, MoE and encoder-decoder subset of the JAX package's
+``models/common.py`` (cross-attention included): the
 same public names and the same tensor layouts at every function, so the
 tests can hold each against its counterpart.  Parameters are nested dicts
 of tensors; norm scales (and the MoE router, read in f32) stay float32 and
@@ -147,24 +148,28 @@ def attention_block(p: Params, x: torch.Tensor, *, cfg_theta: float,
                     block_k: int = 1024, kv_x: Optional[torch.Tensor] = None,
                     return_kv: bool = False,
                     kv_valid_len: Optional[torch.Tensor] = None):
-    """Self-attention block over x (B, S, d): projections, RoPE, attention,
-    output projection.  ``kv_valid_len`` (B,) masks key positions >= the
+    """Attention block over x (B, S, d), and over a cross input ``kv_x``
+    (B, Sk, d) when given: projections (k and v from ``kv_x``), RoPE (on k
+    only for self-attention), attention, output projection.  A cross
+    input drops the causal mask (``causal and kv_x is None``), as the
+    reference does; with ``return_kv`` the (k, v) returned are then the
+    cross input's.  ``kv_valid_len`` (B,) masks key positions >= the
     per-row valid length (batched bucketed prefill).  Attention is
     differentiable under the JAX package's own condition for its Pallas
     training kernels (no softcap, no ``q_offset``, no ``kv_valid_len``;
-    see ``flash_prefill``)."""
-    if kv_x is not None:
-        raise NotImplementedError("cross-attention (kv_x) belongs to the "
-                                  "encoder-decoder slice (ROADMAP queue 1)")
+    see ``flash_prefill``); a cross input takes that path too (the
+    reference differentiates its jnp attention there)."""
+    kv_src = x if kv_x is None else kv_x
     q = project_heads(x, p["wq"])
-    k = project_heads(x, p["wk"])
-    v = project_heads(x, p["wv"])
+    k = project_heads(kv_src, p["wk"])
+    v = project_heads(kv_src, p["wv"])
     if positional == "rope":
         positions = q_offset + torch.arange(x.shape[1], device=x.device)
         q = apply_rope(q, positions, cfg_theta)
-        k = apply_rope(k, positions, cfg_theta)
-    o = chunked_attention(q, k, v, causal=causal, window=window,
-                          q_offset=q_offset, softcap=softcap,
+        if kv_x is None:
+            k = apply_rope(k, positions, cfg_theta)
+    o = chunked_attention(q, k, v, causal=causal and kv_x is None,
+                          window=window, q_offset=q_offset, softcap=softcap,
                           block_k=block_k, kv_valid_len=kv_valid_len)
     H, D, d = p["wo"].shape
     out = o.reshape(x.shape[0], x.shape[1], H * D) \

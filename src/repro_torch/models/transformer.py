@@ -62,14 +62,16 @@ DRAW_WHOLE_MAX = 1 << 32
 
 
 def init_params(shapes, leaf_dtype, device, generator=None, *,
-                zeros=(), ones=(), scale=init_scale) -> Params:
+                zeros=(), ones=(), scale=init_scale,
+                stacked_keys=("layers",)) -> Params:
     """Random weights for a tree of (stacked) leaf shapes, drawn in tree
     order from ``generator`` (seed 0 when None): leaves named in ``zeros``
     or ``ones`` are filled; every other leaf is a normal scaled by
     ``scale(name, per_layer_shape)``, drawn in float32 and stored in
     ``leaf_dtype(name)``, in one draw, or one a layer past
-    ``DRAW_WHOLE_MAX`` values.  Leaves under ``layers`` carry a leading
-    ``n_layers`` dim, which the fan-in skips."""
+    ``DRAW_WHOLE_MAX`` values.  Leaves under a subtree named in
+    ``stacked_keys`` (``layers``; an encoder-decoder's ``enc_layers`` and
+    ``dec_layers``) carry a leading layer dim, which the fan-in skips."""
     if generator is None:
         generator = torch.Generator(device=device)
         generator.manual_seed(0)
@@ -78,7 +80,7 @@ def init_params(shapes, leaf_dtype, device, generator=None, *,
         out = {}
         for name, val in tree.items():
             if isinstance(val, dict):
-                out[name] = build(val, stacked or name == "layers")
+                out[name] = build(val, stacked or name in stacked_keys)
                 continue
             shape, dt = val, leaf_dtype(name)
             if name in zeros or name in ones:
@@ -125,6 +127,10 @@ def unstack_layers(tree, n: int):
 
 class DecoderLM:
     """Dense or MoE decoder LM over stacked (n_layers, ...) parameters."""
+
+    #: the prefill inputs beside the tokens that a request may carry
+    #: (``serve.engine``): a VLM's patch embeddings
+    prefill_extras = ("patch_embeds",)
 
     def __init__(self, cfg: ModelConfig, block_k: int = 1024,
                  device="cuda"):

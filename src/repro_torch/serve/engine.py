@@ -10,9 +10,10 @@ admission and slot lifecycle, a dense :class:`BatchState` or a paged
    grouped by power-of-two prompt bucket and extras signature and
    prefilled in one batched call per group (``batch_slots`` rows, per-row
    ``prompt_lens`` masking; a VLM request's ``patch_embeds`` rows stacked
-   before its tokens, zero rows for the unused slots); the
-   slots' tokens / positions / budgets are set on the device in the same
-   call, and the sampled first tokens are fetched at the next round sync.
+   before its tokens, an encoder-decoder request's ``frames`` stacked for
+   its encoder, zero rows for the unused slots); the slots' tokens /
+   positions / budgets are set on the device in the same call, and the
+   sampled first tokens are fetched at the next round sync.
 2. *On-device termination* — the per-slot budget ``remaining`` rides every
    decode step: a slot that hits its max-len or samples ``eos_token``
    freezes in place (``torch.where`` on the device, no host involvement).
@@ -25,11 +26,12 @@ Where the reference compiles each decode chunk length and each prompt
 bucket's prefill into one ``jax.jit`` program, memoized, the port captures
 each as one CUDA graph (``serve/graphs.py``), memoized per chunk length in
 ``_chunk_fns`` and per (bucket, extras signature) in ``_prefill_fns``
-(the patch rows are a static input of the graph), and replays it;
-:attr:`ServeEngine.compile_stats` counts them under the reference's keys.
-The state tensors keep their storage (the reference donates its buffers to
-``jit``): every write is in place, and :meth:`ServeEngine.reset` zeroes
-them, so the graphs survive it as the reference's compiled functions do.
+(the patch rows or encoder frames are a static input of the graph), and
+replays it; :attr:`ServeEngine.compile_stats` counts them under the
+reference's keys.  The state tensors keep their storage (the reference
+donates its buffers to ``jit``): every write is in place, and
+:meth:`ServeEngine.reset` zeroes them, so the graphs survive it as the
+reference's compiled functions do.
 On a CPU model the memo entries hold the same bodies, run eagerly;
 ``cuda_graphs=False`` runs them eagerly on the card too, the counterpart
 of running the reference under ``jax.disable_jit()``.
@@ -76,8 +78,9 @@ class Request:
     done: bool = False
     # engine decode-step counter at completion (latency-in-steps metric)
     finished_step: Optional[int] = None
-    # family-specific prefill inputs: a VLM request's "patch_embeds"
-    # (1, P, d); the encdec family's "frames" are not ported yet
+    # family-specific prefill inputs, the model's ``prefill_extras``: a
+    # VLM request's "patch_embeds" (1, P, d), an encoder-decoder request's
+    # "frames" (1, F, d)
     extras: Dict[str, Any] = field(default_factory=dict)
 
 
@@ -291,9 +294,10 @@ class ServeEngine:
         """One group's masked batched prefill and first-token sampling
         over its static buffers: ``prompts`` (N, bucket), ``meta``
         (prompt_lens, slots, budgets) as (3, N) int32 and ``extras`` (the
-        rows' patch embeddings, if any).  Returns the rows' new slot
-        vectors (first token, position, budget left) as one (3, N) int32
-        tensor, and the prefilled sub-cache."""
+        rows' patch embeddings or encoder frames, if any; frames take no
+        cache position).  Returns the rows' new slot vectors (first token,
+        position, budget left) as one (3, N) int32 tensor, and the
+        prefilled sub-cache."""
         logits, sub = self.model.prefill(
             self.params, prompts, prompt_lens=meta[0], max_seq=self.max_seq,
             remat=False, **extras)
@@ -439,11 +443,13 @@ class ServeEngine:
                 req.finished_step = self.n_decode_steps
                 self.scheduler.release(slot)
                 continue
-            if set(req.extras) - {"patch_embeds"}:
+            takes = getattr(self.model, "prefill_extras", ())
+            unknown = sorted(set(req.extras) - set(takes))
+            if unknown:
                 raise NotImplementedError(
-                    f"request {req.uid}: prefill extras "
-                    f"{sorted(set(req.extras) - {'patch_embeds'})} belong "
-                    f"to model families not ported yet (ROADMAP.md queue 1)")
+                    f"request {req.uid}: prefill extras {unknown} are not "
+                    f"inputs of {self.model.cfg.name} (it takes "
+                    f"{list(takes)})")
             prompt = np.asarray(req.prompt, np.int32)
             prefix = self._req_prefix(req)
             if prefix + prompt.size + req.max_new_tokens > self.max_seq + 1:
@@ -672,8 +678,9 @@ class BucketPrefill:
     """One (prompt bucket, extras signature)'s memoized prefill: static
     device buffers for the prompts (slots, bucket), meta (3, slots) and
     each extra stacked over the slots (a VLM call's patch rows, (slots, P,
-    d)), filled in place at each call, and the engine's prefill body over
-    them as a :class:`~repro_torch.serve.graphs.GraphedCall`."""
+    d); an encoder-decoder call's frames, (slots, F, d)), filled in place
+    at each call, and the engine's prefill body over them as a
+    :class:`~repro_torch.serve.graphs.GraphedCall`."""
 
     def __init__(self, engine: ServeEngine, bucket: int,
                  extras: Dict[str, np.ndarray]):

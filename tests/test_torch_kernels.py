@@ -190,6 +190,38 @@ def test_prefill_attention_matches_chunked_attention_at_group_7(D, dtype):
     _one_group_prefill_matches(D, dtype, G=7)
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("Sq,Sk", [(40, 40), (37, 70), (5, 40), (70, 21)])
+@pytest.mark.parametrize("G", [1, 2])
+def test_prefill_attention_non_causal_matches_chunked_attention(G, Sq, Sk,
+                                                                dtype):
+    """seamless-m4t-medium's non-causal attention at head_dim 64: its
+    encoder's self-attention (Sq == Sk) and its decoder's cross-attention
+    (a prompt bucket of Sq text positions over Sk encoder frames, Sq != Sk,
+    the last query and key blocks partial), one query head per KV head as
+    it is served and 2, against the reference's ``chunked_attention`` with
+    ``causal=False``; and with the log-sum-exp, every query's sum runs
+    over all Sk keys."""
+    rng = np.random.default_rng(Sq * 100 + Sk + G)
+    B, KV, D = 2, 2, 64
+    q = rng.normal(size=(B, Sq, G * KV, D)).astype(np.float32)
+    k, v = (rng.normal(size=(B, Sk, KV, D)).astype(np.float32)
+            for _ in range(2))
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in (q, k, v))
+    ref = jcm.chunked_attention(jq, jk, jv, causal=False, block_k=16)
+    got = flash_prefill(tq, tk, tv, causal=False, block_k=16)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    np.testing.assert_allclose(np32(got), np32(ref), **DTYPES[dtype][2])
+    out, lse = flash_prefill(tq, tk, tv, causal=False, block_k=16,
+                             return_lse=True)
+    assert torch.equal(out, got) and lse.shape == (B, G * KV, Sq)
+    s = np.einsum("bqhd,bkhd->bhqk", np32(tq) / 8.0,
+                  np.repeat(np32(tk), G, axis=2))
+    want = np.log(np.exp(s - s.max(-1, keepdims=True)).sum(-1)) \
+        + s.max(-1)
+    np.testing.assert_allclose(np32(lse), want, **DTYPES[dtype][2])
+
+
 @pytest.mark.parametrize("D", [224, 32, 128])
 def test_prefill_plain_version_scales_q_as_the_reference(D):
     """The plain prefill's bf16 scaled q is JAX's ``q * D ** -0.5`` bit for
@@ -432,7 +464,7 @@ def test_kernels_refuse_what_they_are_not_built_for(case):
     """Off the CPU, a dtype, width, head_dim or query group with no kernel
     instantiation raises before any launch (the kernels are built for the
     serving path's bf16: attention at head_dim 64, paged decode there
-    with 4, 2 or 7 query heads per KV head, both at head_dim 128 and 224
+    with 4, 2, 7 or 1 query heads per KV head, both at head_dim 128 and 224
     with one and at head_dim 128 with 3 and 7, and RMSNorm at d 256, 896,
     1024, 2048, 3072, 3584 and 7168).  Group 2 at head_dim 64, built for the card
     smoke config, passes the case checks and stops only at the device
@@ -454,7 +486,8 @@ def test_kernels_refuse_what_they_are_not_built_for(case):
                                _meta(1, 2, dtype=torch.int32),
                                _meta(1, dtype=torch.int32))
         with pytest.raises(ValueError, match=r"\[\(64, 4\), \(64, 2\), "
-                                             r"\(64, 7\), \(128, 1\), "
+                                             r"\(64, 7\), \(64, 1\), "
+                                             r"\(128, 1\), "
                                              r"\(128, 3\), \(128, 7\), "
                                              r"\(224, 1\)\], got D=64, "
                                              r"H=6"):
@@ -595,6 +628,44 @@ def test_kernels_take_the_group_7_instantiations(case):
     else:
         with pytest.raises(ValueError, match="expected a CUDA device"):
             rmsnorm(_meta(4, 896), _meta(896, dtype=torch.float32))
+    assert kernels.launch_counts() == {"rmsnorm": 0, "flash_prefill": 0,
+                                       "flash_bwd": 0, "paged_decode": 0,
+                                       "ssd_scan": 0}
+
+
+@pytest.mark.parametrize("case", ["prefill_cross", "prefill_encoder",
+                                  "paged_64_group_1", "paged_64_group_1_int8",
+                                  "paged_64_group_1_fp8"])
+def test_kernels_take_the_encdec_instantiations(case):
+    """seamless-m4t-medium's calls (16 heads over 16 at head_dim 64): the
+    prefill non-causal at Sq == Sk (the encoder) and at Sq != Sk (the
+    cross-attention, 37 text positions over 70 frames), paged decode at one
+    query head per KV head over bf16 and int8 pools, pass the case checks
+    and stop only at the device check; an fp8 pool there is refused;
+    nothing launches."""
+    kernels.reset_launch_counts()
+    scales = dict(k_scales=_meta(3, 16, dtype=torch.float32),
+                  v_scales=_meta(3, 16, dtype=torch.float32))
+    tables, pos = _meta(1, 2, dtype=torch.int32), _meta(1, dtype=torch.int32)
+    if case.startswith("prefill"):
+        q = _meta(2, 37 if case == "prefill_cross" else 70, 16, 64)
+        kv = _meta(2, 70, 16, 64)
+        with pytest.raises(ValueError, match="expected a CUDA device"):
+            flash_prefill(q, kv, kv, causal=False)
+    elif case.endswith("fp8"):
+        pages = _meta(3, 4, 16, 64, dtype=torch.float8_e4m3fn)
+        with pytest.raises(TypeError, match="head_dim 64 with 1 query "
+                                            "heads per KV head is built for "
+                                            "bf16 and int8 pools"):
+            paged_flash_decode(_meta(1, 1, 16, 64), pages, pages, tables,
+                               pos, **scales)
+    else:
+        int8 = case.endswith("int8")
+        pages = _meta(3, 4, 16, 64, dtype=torch.int8 if int8
+                      else torch.bfloat16)
+        with pytest.raises(ValueError, match="expected a CUDA device"):
+            paged_flash_decode(_meta(1, 1, 16, 64), pages, pages, tables,
+                               pos, **(scales if int8 else {}))
     assert kernels.launch_counts() == {"rmsnorm": 0, "flash_prefill": 0,
                                        "flash_bwd": 0, "paged_decode": 0,
                                        "ssd_scan": 0}

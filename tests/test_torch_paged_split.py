@@ -32,11 +32,13 @@ from repro_torch.kernels.flash_attention.paged import (KERNEL_CASES,
 from torch_parity import F32_TOL, np32
 
 # the kernel's instantiations: llama3.2-1b's group at head_dim 64, the
-# card smoke config's, internvl2-1b's, gpt3-xl's, llama3.2-3b's and
-# yi-34b's at head_dim 128 and zamba2-7b's shared block at head_dim 224
+# card smoke config's, internvl2-1b's, seamless-m4t-medium's decoder's,
+# gpt3-xl's, llama3.2-3b's and yi-34b's at head_dim 128 and zamba2-7b's
+# shared block at head_dim 224
 ((_, KERNEL_GROUP, _), (_, SMOKE_GROUP, _), (VLM_HEAD_DIM, VLM_GROUP, _),
- (GPT3_HEAD_DIM, GPT3_GROUP, _), (LLAMA3B_HEAD_DIM, LLAMA3B_GROUP, _),
- (YI_HEAD_DIM, YI_GROUP, _), (WIDE_HEAD_DIM, WIDE_GROUP, _)) = KERNEL_CASES
+ (ENC_HEAD_DIM, ENC_GROUP, _), (GPT3_HEAD_DIM, GPT3_GROUP, _),
+ (LLAMA3B_HEAD_DIM, LLAMA3B_GROUP, _), (YI_HEAD_DIM, YI_GROUP, _),
+ (WIDE_HEAD_DIM, WIDE_GROUP, _)) = KERNEL_CASES
 
 TILE, WARPS = 64, 4          # keys per ring stage; warps per block
 WARP_KEYS = TILE // WARPS    # keys of a tile each warp takes
@@ -271,6 +273,19 @@ def test_split_recipe_matches_reference_at_group_7(which, pool, kps, window,
         else (YI_HEAD_DIM, YI_GROUP)
     assert (d, g) == ((64, 7) if which == "internvl2" else (128, 7))
     _one_group_recipe_matches(pool, kps, window, softcap, d, g)
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("kps", [16, 128])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (100, 50.0)])
+def test_split_recipe_matches_reference_at_head_dim_64_group_1(
+        pool, kps, window, softcap):
+    """seamless-m4t-medium's decoder instantiation, head_dim 64 with one
+    query head per KV head (16 over 16: a key on 8 lanes, 4 keys a step,
+    one query row of partials), on the pools it is built for and serves."""
+    assert (ENC_HEAD_DIM, ENC_GROUP) == (64, 1)
+    _one_group_recipe_matches(pool, kps, window, softcap, ENC_HEAD_DIM,
+                              ENC_GROUP)
 
 
 @pytest.mark.parametrize("pool", ["bf16", "int8", "fp8"])

@@ -323,6 +323,32 @@ def test_flash_prefill_differentiates_through_the_flash_backward():
         torch.testing.assert_close(o, grads[0][0], rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("Sq,Sk", [(48, 80), (80, 32), (64, 64)])
+def test_flash_bwd_plain_version_matches_reference_non_causal(Sq, Sk):
+    """seamless-m4t-medium's training attention at head_dim 64, one query
+    head per KV head, without the causal mask: the encoder's
+    self-attention (Sq == Sk) and the decoder's cross-attention (Sq text
+    positions over Sk frames, either longer).  The flash backward's plain
+    version (the kernels' oracle) against the TPU kernels'
+    ``flash_attention_bwd(causal=False)`` in interpret mode, on the same
+    saved output and log-sum-exp (whole blocks of 16), in f32."""
+    B, H, D = 2, 2, 64
+    q, k, v, do = _operands(B, Sq, Sk, H, H, D, seed=Sq + Sk)
+    tq, tk, tv, tdo = (torch.tensor(a) for a in (q, k, v, do))
+    o, lse = flash_prefill(tq, tk, tv, causal=False, block_k=16,
+                           return_lse=True)
+    got = flash_attention_bwd(tq, tk, tv, o, tdo, lse, causal=False)
+    ref = flash_attention_bwd_pallas(
+        _to_bh(q, Sq, D), _to_bh(k, Sk, D), _to_bh(v, Sk, D),
+        _to_bh(np32(o), Sq, D), _to_bh(do, Sq, D),
+        jnp.asarray(np32(lse)).reshape(B * H, Sq, 1), causal=False,
+        block_q=16, block_k=16, interpret=True)
+    for name, g, r, S in zip(("dq", "dk", "dv"), got, ref, (Sq, Sk, Sk)):
+        np.testing.assert_allclose(
+            np32(g), np32(r).reshape(B, H, S, D).transpose(0, 2, 1, 3),
+            **FLASH_BWD_TOL, err_msg=name)
+
+
 def _meta(*shape, dtype=torch.bfloat16):
     return torch.empty(*shape, dtype=dtype, device="meta")
 
@@ -336,25 +362,29 @@ def _meta(*shape, dtype=torch.bfloat16):
     ("bf16_d128", ValueError, "CUDA device"),
     ("bf16_d128_g3", ValueError, "CUDA device"),
     ("window", NotImplementedError, "training path"),
-    ("non_causal", NotImplementedError, "training path"),
+    ("non_causal", ValueError, "CUDA device"),
+    ("non_causal_sq_ne_sk", ValueError, "CUDA device"),
     ("sq_ne_sk", NotImplementedError, "training path")])
 def test_flash_bwd_refuses_what_it_is_not_built_for(case, error, match):
     """Off the CPU the backward launches its kernel or raises before any
     launch; with no card here every case raises.  Beside dtype and
     head_dim (64 at any group, 128 and 224 with one query head per KV
-    head, 128 with 3) it refuses what the training path does not give it:
-    a window, no causal mask, Sq != Sk."""
+    head, 128 with 3) it refuses what the training paths do not give it:
+    a window, and a causal mask at Sq != Sk.  Non-causal attention, at
+    Sq == Sk (an encoder) or not (cross-attention), passes those gates and
+    is refused only for want of a card."""
     kernels.reset_launch_counts()
     D = {"d16": 16, "d224_g2": 224, "bf16_d224": 224, "d128_g2": 128,
          "bf16_d128": 128, "bf16_d128_g3": 128}.get(case, 64)
     dt = torch.float32 if case == "f32" else torch.bfloat16
-    Sk = 16 if case == "sq_ne_sk" else 8
+    Sk = 16 if case.endswith("sq_ne_sk") else 8
     KV = 4 if case in ("bf16_d224", "bf16_d128") else 2
     H = 6 if case == "bf16_d128_g3" else 4
     q, kv = _meta(1, 8, H, D, dtype=dt), _meta(1, Sk, KV, D, dtype=dt)
     lse = _meta(1, H, 8, dtype=torch.bfloat16 if case == "lse_bf16"
                 else torch.float32)
     with pytest.raises(error, match=match):
-        flash_attention_bwd(q, kv, kv, q, q, lse, causal=case != "non_causal",
+        flash_attention_bwd(q, kv, kv, q, q, lse,
+                            causal=not case.startswith("non_causal"),
                             window=8 if case == "window" else 0)
     assert kernels.launch_counts()["flash_bwd"] == 0
