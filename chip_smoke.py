@@ -11,8 +11,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                  HMMA/HGMMA instructions in the SASS (``cuobjdump``) of each
                  attention kernel and each SSD pass that runs a product:
                  none there fails the run; then each of zamba2-7b's,
-                 gpt3-xl's, llama3.2-3b's, internvl2-1b's, yi-34b's and
-                 seamless-m4t-medium's instantiations on its own line
+                 gpt3-xl's, llama3.2-3b's, internvl2-1b's, yi-34b's,
+                 seamless-m4t-medium's, llama4-scout-17b-a16e's and
+                 nemotron-4-340b's instantiations on its own line
                  (registers, spills, HMMA), their training backwards' at
                  head_dim 224 and 128 too.
 3. kernels     — every kernel against its plain PyTorch version on the card,
@@ -138,6 +139,28 @@ Phases, in order; any failure raises and the script exits non-zero:
                  paged decode at (64, 1) on bf16 and int8 pools with the
                  edges and graph replays (rows ``paged_decode[D64G1
                  bf16]``, ``[D64G1 int8]``).
+   llama4      — llama4-scout-17b-a16e's (head_dim 128, 5 query heads per
+                 KV head, 40 over 8; RMSNorm at d 5120): the prefill with
+                 the local window of 8192 at the short traffic's bucket
+                 (B 8, S 512), over rows straddling a window of 100
+                 (B 3, S 300) and at the long traffic's bucket (B 4,
+                 S 16384, rows of 8160-12000 valid keys; row
+                 ``flash_prefill[D128G5 w8192]``, SDPA with the window as an
+                 explicit mask); paged decode at (128, 5) on bf16 and int8
+                 pools with the paged edges and graph replays (rows
+                 ``paged_decode[D128G5 bf16]``, ``[D128G5 int8]``); RMSNorm
+                 at (4096, 5120) (row ``rmsnorm[5120]``); the forward and
+                 the backward with window 32 at B 2, S 1024, 4 heads over 2
+                 at head_dim 64 (row ``flash_bwd[D64G2 w32]``), and at
+                 window 256, S 77 and 200, a window of 40 beginning
+                 mid-tile and S 64.
+   nemotron    — nemotron-4-340b's (head_dim 192, 12 query heads per KV
+                 head, 96 over 8): the prefill over the buckets 32, 128 and
+                 512 (row ``flash_prefill[D192G12]``), B 1 at S 77, B 2 at
+                 S 200 and a window; paged decode (12 rows a KV head in 3
+                 blocks of 4) on bf16 and int8 pools with the paged edges
+                 and graph replays (rows ``paged_decode[D192G12 bf16]``,
+                 ``[D192G12 int8]``).
 4. serve       — llama3.2-1b at full width (random weights from a seeded
                  generator) serves 16 requests through ``ServeEngine.generate``
                  with bf16 pages and with int8 pages, each with CUDA graphs
@@ -229,16 +252,16 @@ Phases, in order; any failure raises and the script exits non-zero:
                  both prefills, bf16 and int8 pages.
    train_vlm   — 4 steps of 8 rows (256 patch rows + 768 text tokens) as
                  2 micro-batches of 4 (the train phase's gates).
-   serve_yi    — yi-34b (60 layers, d_model 7168, 56 heads over 8 at
-                 head_dim 128, d_ff 20480, vocab 64000; 34.389 B
-                 parameters, 68.78 GB in bf16, drawn a layer at a time for
-                 its MLP leaves) at full width and depth serves 8 prompts of
-                 65-128 tokens (one bucket: each engine captures that
-                 bucket's prefill graph and the decode chunks'), 32 new
-                 each, as serve_gpt3 (exact launches: 121 RMSNorms a
-                 forward, 60 prefills a call, 60 paged decodes a step);
-                 peak memory; the profiled decode step's wall and device ms
-                 against the 20.5 ms of reading the weights once.
+   serve_yi    — yi-34b (d_model 7168, 56 heads over 8 at head_dim 128,
+                 d_ff 20480, vocab 64000; 34.389 B parameters at its 60
+                 layers, drawn a layer at a time for its MLP leaves) at full
+                 width and 30 layers (``YI_SERVE_LAYERS``: the script's time
+                 limit) serves 8 prompts of 65-128 tokens (one bucket: each
+                 engine captures that bucket's prefill graph and the decode
+                 chunks'), 32 new each, as serve_gpt3 (exact launches: 61
+                 RMSNorms a forward, 30 prefills a call, 30 paged decodes a
+                 step); peak memory; the profiled decode step's wall and
+                 device ms against the time of reading the weights once.
    consistency_yi — ``consistency`` on it, bf16 and int8 pages.
    serve_encdec — seamless-m4t-medium (12 encoder and 12 decoder layers,
                  d_model 1024, 16 heads over 16 at head_dim 64, d_ff 4096,
@@ -309,6 +332,40 @@ Phases, in order; any failure raises and the script exits non-zero:
                  its full-depth f32 training state would not fit the card)
                  trains the same way, with exact RMSNorm, SSD, flash
                  forward and head_dim-224 flash backward launches a step.
+   serve_llama4 — (after train_hybrid) llama4-scout-17b-a16e at full width
+                 and 8 of its 48 layers (two groups of 3 local layers at
+                 window 8192 and a global one; 16 experts, top-1, the
+                 shared expert; 19.69 B parameters, 39.37 GB in bf16)
+                 serves as serve_gpt3 (exact launches: 17 RMSNorms a
+                 forward, 8 flash prefills a call, 2 paged decodes a paged
+                 step; the rings stay dense); the plain ring decode's share
+                 of the profiled decode step (its 6 layers' calls replayed
+                 from a graph, computed), the MoE layers' share of a
+                 prefill bucket and a decode step, the weight-read floor of
+                 a decode step.
+   serve_llama4_long — 4 slots of 16384 positions, prompts of 8160, 9000,
+                 10500 and 12000 tokens in the buckets 8192 and 16384 (two
+                 prefill calls; rings of 8192 that wrap in prefill and, for
+                 the first row, in decode), 64 new
+                 each, bf16 pages, graphs on and off: equal tokens, exact
+                 launches.
+   consistency_llama4 — ``consistency`` on bf16 and int8 pages held layer
+                 by layer (``HeldPath``), and on bf16 pages at max_seq
+                 16384 with a row whose decode crosses position 8192; then
+                 (the bf16 model freed) in float32 on the plain path at one
+                 group of 4 layers, its experts held.
+   train_llama4_smoke — the card smoke config (window 32, a global layer
+                 every 2nd) trained as the train phase (the backward with
+                 its window, exact launches), then ``launch.train --arch
+                 llama4-scout-17b-a16e --smoke`` and ``launch.serve ...
+                 --smoke``.
+   serve_nemotron — nemotron-4-340b at full width and 4 of its 96 layers
+                 (23.25 B parameters, 46.51 GB in bf16; wte and head drawn
+                 in row blocks) serves as serve_gpt3 (no RMSNorm, 4
+                 prefills a call, 4 paged decodes a paged step), its decode
+                 step against its weight-read floor; consistency_nemotron
+                 on bf16 and int8 pages; train_nemotron_smoke its card
+                 smoke config and both launchers with ``--smoke``.
 10. dvfs       — (run right after consistency, while the serve phase's
                  llama3.2-1b is loaded) the DVFS stack on the card, with NVML
                  read by ``ctypes`` (``libnvidia-ml.so.1``; a missing library,
@@ -366,6 +423,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
+from torch.nn.attention import SDPBackend, sdpa_kernel  # noqa: E402
 
 # peak rates of one H100 SXM (data sheet, dense): memory bytes/s and ops/s
 HBM_BYTES_PER_S = 3.35e12
@@ -420,14 +478,17 @@ VLM_ARCH, VLM_PREFIX = "internvl2-1b", 256
 VLM_ATTN = dict(H=14, KV=2, D=64)
 # yi-34b: its attention's heads, KV heads and head_dim (7 query heads per
 # KV head).  It serves YI_REQUESTS seeded prompts of 65-128 tokens, one
-# prompt bucket (128), YI_NEW_TOKENS new each: beside its 68.8 GB of bf16
-# weights (64.1 GiB, computed) the card keeps ~15 GiB, and a prefill
-# bucket's CUDA graph holds its 2.0 GB sub-cache (60 layers x 8 rows x 1024
-# positions x 240 KiB of K/V a token, computed) as a static output, so the
-# workload captures one prefill graph and the decode chunks' graphs
+# prompt bucket (128), YI_NEW_TOKENS new each, at full width and
+# YI_SERVE_LAYERS of its 60 layers: at full depth the phase took 73-86 s
+# on an H100, and with llama4-scout's and nemotron-4-340b's phases the
+# script came within ~190 s of its 1200 s limit; half the depth halves
+# the phase (34.4 GB of bf16 weights, computed).  A prefill bucket's CUDA graph holds its
+# sub-cache (a layer's 8 rows x 1024 positions x 240 KiB of K/V a token,
+# computed) as a static output, so the workload captures one prefill
+# graph and the decode chunks' graphs
 YI_ARCH = "yi-34b"
 YI_ATTN = dict(H=56, KV=8, D=128)
-YI_REQUESTS, YI_NEW_TOKENS = 8, 32
+YI_REQUESTS, YI_NEW_TOKENS, YI_SERVE_LAYERS = 8, 32, 30
 # seamless-m4t-medium, the encoder-decoder: its attention's heads, KV heads
 # and head_dim (one query head per KV head, in the encoder, the decoder and
 # the cross-attention alike), the frames each request or training row
@@ -436,6 +497,29 @@ YI_REQUESTS, YI_NEW_TOKENS = 8, 32
 ENCDEC_ARCH = "seamless-m4t-medium"
 ENCDEC_ATTN = dict(H=16, KV=16, D=64)
 ENCDEC_FRAMES, ENCDEC_TEXT = 1024, 512
+# llama4-scout-17b-a16e at full width: 40 query heads over 8 at head_dim
+# 128 (5 per KV head); 3 local layers (window 8192) and a global one a
+# group of 4.  Served at 8 of its 48 layers (two groups: 19.69 B
+# parameters, 39.37 GB in bf16, computed; 48 layers would be 215.5 GB); its
+# float32 end-to-end gate at one group (4 layers, 43.5 GB in float32).  The
+# long traffic: 4 slots of 16384 positions, 4 seeded prompts of these
+# lengths (the engine's buckets 8192 and 16384; rows past the window of
+# 8192, three wrap their rings in prefill), 64 new tokens each.  The card
+# smoke config's local attention (trained by its --smoke launcher): 4
+# query heads over 2 at head_dim 64, window 32
+LLAMA4_ARCH = "llama4-scout-17b-a16e"
+LLAMA4_ATTN = dict(H=40, KV=8, D=128)
+LLAMA4_SERVE_LAYERS, LLAMA4_F32_LAYERS = 8, 4
+LONG_SLOTS, LONG_MAX_SEQ, LONG_NEW = 4, 16384, 64
+LONG_PROMPTS = (8160, 9000, 10500, 12000)
+SMOKE_LOCAL = dict(H=4, KV=2, D=64, window=32)
+# nemotron-4-340b at full width: 96 query heads over 8 at head_dim 192 (12
+# per KV head), LayerNorm, squared-ReLU MLP; served at 4 of its 96 layers
+# (23.25 B parameters, 46.51 GB in bf16, computed; its wte and head are
+# each 4.7e9 values, drawn in row blocks)
+NEMO_ARCH = "nemotron-4-340b"
+NEMO_ATTN = dict(H=96, KV=8, D=192)
+NEMO_SERVE_LAYERS = 4
 LSE_TOL = 1e-3         # forward log-sum-exp, absolute
 BWD_TOL = 2e-2         # dq, dk, dv, relative to each one's largest |value|
 ATTN_TOL = 2e-2        # bf16 attention, as tests/test_kernels.py uses
@@ -701,6 +785,24 @@ ENCDEC_INSTANTIATIONS = (
     ("_Z20flash_prefill_kernelILi64E", True),
     ("_Z19flash_bwd_dq_kernelILi64E", True),
     ("_Z20flash_bwd_dkv_kernelILi64E", True))
+# llama4-scout's: RMSNorm at d 5120, paged decode at (128, 5) (its global
+# layers; the flash forward at 128 is gpt3-xl's instantiation), and the
+# head_dim-64 backward its card smoke config trains with a window
+LLAMA4_INSTANTIATIONS = (
+    ("_Z14rmsnorm_kernelILi20E", False),
+    ("_Z19paged_decode_kernelI13__nv_bfloat16Li128ELi5E", False),
+    ("_Z19paged_decode_kernelIaLi128ELi5E", False),
+    ("_Z27paged_decode_combine_kernelI13__nv_bfloat16Li128ELi5E", False),
+    ("_Z19flash_bwd_dq_kernelILi64E", True),
+    ("_Z20flash_bwd_dkv_kernelILi64E", True))
+# nemotron-4-340b's: the wide prefill at head_dim 192, and paged decode at
+# (192, 12) as 3 blocks of 4 query rows a KV head (the kernel's template
+# arguments: 4 rows a block, 3 blocks); a spill is logged, not refused
+NEMO_INSTANTIATIONS = (
+    ("_Z25flash_prefill_wide_kernelILi192E", True),
+    ("_Z19paged_decode_kernelI13__nv_bfloat16Li192ELi4ELi3E", False),
+    ("_Z19paged_decode_kernelIaLi192ELi4ELi3E", False),
+    ("_Z27paged_decode_combine_kernelI13__nv_bfloat16Li192ELi4E", False))
 # paged decode at head_dim 64 with 2 query heads per KV head (the card
 # smoke config's and granite-moe's attention): the instantiations of the
 # serving pools (bf16, int8) and the combine pass may not spill; the f32
@@ -777,7 +879,9 @@ def phase_build() -> None:
                          ("llama3.2-3b", LLAMA3B_INSTANTIATIONS),
                          (VLM_ARCH, VLM_INSTANTIATIONS),
                          (YI_ARCH, YI_INSTANTIATIONS),
-                         (ENCDEC_ARCH, ENCDEC_INSTANTIATIONS)):
+                         (ENCDEC_ARCH, ENCDEC_INSTANTIATIONS),
+                         (LLAMA4_ARCH, LLAMA4_INSTANTIATIONS),
+                         (NEMO_ARCH, NEMO_INSTANTIATIONS)):
         for prefix, products in table:
             fns = [fn for fn in res if fn.startswith(prefix)]
             if not fns:
@@ -947,43 +1051,73 @@ def check_rmsnorm(gen):
 
 
 def _prefill_row(gen, B, S, H, KV, D, name="flash_prefill", graph=False,
-                 backend=False):
+                 backend=False, window=0, valid_len=None, plain_block=1024):
     """The prefill kernel at one serving bucket (B rows of S with ragged
-    valid lengths, row B // 2 at S // 3) against its plain version, timed
-    beside SDPA over the same causal and valid-length mask (``graph``:
-    graph_ms too) and its bound; with ``graph`` also twice (bitwise
-    equal), and with ``backend`` the kernels SDPA launched are logged.
+    valid lengths, row B // 2 at S // 3, or ``valid_len``; a local
+    ``window`` or none) against its plain version (key blocks of
+    ``plain_block``), timed beside SDPA over the same causal, window and
+    valid-length mask (``graph``: graph_ms too) and its bound; with
+    ``graph`` also twice (bitwise equal), and with ``backend`` the kernels
+    SDPA launched are logged.  With a window SDPA takes K and V repeated to
+    the H query heads (outside the timed call) and its memory-efficient
+    backend, which reads the mask without an (S, S) score matrix a head.
     Raises on a disagreement; returns the bucket's JSON row."""
     from repro_torch.kernels.flash_attention import (flash_prefill,
                                                      flash_prefill_ref)
-    vl = torch.tensor(np.linspace(1, S, B).astype(np.int32), device="cuda")
-    vl[B // 2] = S // 3
+    if valid_len is None:
+        vl = torch.tensor(np.linspace(1, S, B).astype(np.int32),
+                          device="cuda")
+        vl[B // 2] = S // 3
+    else:
+        vl = torch.tensor(valid_len, dtype=torch.int32, device="cuda")
     n = n_copies(2 * B * S * (H + 2 * KV) * D)
     cases = [tuple(torch.randn(B, S, heads, D, generator=gen,
                                device="cuda").bfloat16()
                    for heads in (H, KV, KV)) for _ in range(n)]
     q, k, v = cases[0]
-    got = flash_prefill(q, k, v, vl)
-    ref = flash_prefill_ref(q, k, v, vl)
-    same = torch.equal(got, flash_prefill(q, k, v, vl))
+    got = flash_prefill(q, k, v, vl, window=window)
+    ref = flash_prefill_ref(q, k, v, vl, window=window,
+                            block_k=plain_block)
+    same = torch.equal(got, flash_prefill(q, k, v, vl, window=window))
     err = (got.float() - ref.float()).abs()
     ok = bool((err <= ATTN_TOL + ATTN_TOL * ref.float().abs()).all()) \
         and same
-    log(f"[kernels] {name} B={B} S={S} H={H} KV={KV} D={D} "
-        f"valid_len={vl.tolist()}: max_abs_err {float(err.max()):.3e} "
-        f"(tol {ATTN_TOL}); two calls bitwise equal {same}; ok={ok}")
+    log(f"[kernels] {name} B={B} S={S} H={H} KV={KV} D={D} window "
+        f"{window} valid_len={vl.tolist()}: max_abs_err "
+        f"{float(err.max()):.3e} (tol {ATTN_TOL}); two calls bitwise equal "
+        f"{same}; ok={ok}")
     if not ok:
         raise AssertionError(f"{name} kernel disagrees with its plain "
                              f"version")
+    max_err = float(err.max())
+    del got, ref, err
     kpos = torch.arange(S, device="cuda")
-    mask = (kpos[None, :] <= kpos[:, None])[None] \
-        & (kpos[None, None, :] < vl[:, None, None])      # (B, S, S)
+    causal = kpos[None, :] <= kpos[:, None]
+    if window:
+        causal &= kpos[:, None] - kpos[None, :] < window
+    mask = causal[None] & (kpos[None, None, :] < vl[:, None, None])
 
-    def sdpa(q, k, v):
-        return _library_sdpa(q.transpose(1, 2), k.transpose(1, 2),
-                             v.transpose(1, 2), mask[:, None])
-    t = both_times(cycled(lambda q, k, v: flash_prefill(q, k, v, vl), cases),
-                   cycled(sdpa, cases), max(20, n), graph=graph)
+    if window:
+        lib_cases = [(q, k.repeat_interleave(H // KV, 2),
+                      v.repeat_interleave(H // KV, 2)) for q, k, v in cases]
+
+        def sdpa(q, k, v):
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                return F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    attn_mask=mask[:, None])
+    else:
+        lib_cases = cases
+
+        def sdpa(q, k, v):
+            return _library_sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), mask[:, None])
+    # past 4096 positions a call takes tens of ms: 5 timed calls a loop
+    t = both_times(cycled(lambda q, k, v: flash_prefill(q, k, v, vl,
+                                                        window=window),
+                          cases),
+                   cycled(sdpa, lib_cases), max(20, n) if S <= 4096 else 5,
+                   graph=graph)
     if backend:
         names = sorted({key.split("(")[0][:60] for _, _, key in
                         profiled_kernels(lambda: sdpa(q, k, v))})
@@ -995,11 +1129,13 @@ def _prefill_row(gen, B, S, H, KV, D, name="flash_prefill", graph=False,
            "shape": f"q ({B}, {S}, {H}, {D}) kv {KV} heads bf16",
            "timing": f"cold L2: cycles over {n} input copies; {TIMING}"
                      + (f"; {GRAPH_TIMING}" if graph else ""),
-           "max_abs_err": float(err.max()), "tol": ATTN_TOL,
+           "max_abs_err": max_err, "tol": ATTN_TOL,
            "ms": t["ms"], "device_ms": t["device_ms"],
            "plain_ms": time_ms(cycled(
-               lambda q, k, v: flash_prefill_ref(q, k, v, vl), cases),
-               iters=5),
+               lambda q, k, v: flash_prefill_ref(q, k, v, vl, window=window,
+                                                 block_k=plain_block),
+               cases), iters=5 if S <= 4096 else 1,
+               warmup=3 if S <= 4096 else 0),
            "library_ms": t["library_ms"],
            "library_device_ms": t["library_device_ms"]}
     if graph:
@@ -1007,10 +1143,12 @@ def _prefill_row(gen, B, S, H, KV, D, name="flash_prefill", graph=False,
                    library_graph_ms=t["library_graph_ms"])
     # bytes: q read and out written whole; row b reads K and V only at
     # its min(S, valid_len) valid keys.  Operations: 4 D per (query,
-    # key) pair left by the causal and valid-length masks.
+    # key) pair left by the causal, window and valid-length masks.
     keys = int(torch.clamp(vl, max=S).sum())
     i = torch.arange(S, device="cuda")
-    pairs = int(torch.minimum(i[None, :] + 1, vl[:, None]).sum()) * H
+    upper = torch.minimum(i[None, :] + 1, vl[:, None])
+    lower = torch.clamp(i - window + 1, min=0)[None, :] if window else 0
+    pairs = int(torch.clamp(upper - lower, min=0).sum()) * H
     row["bound_ms"], row["bound_by"] = bound(
         2 * (2 * B * S * H * D + 2 * keys * KV * D) + B * 4,
         4 * D * pairs, "bf16")
@@ -1096,32 +1234,37 @@ def _attn_shape(B, Sq, Sk, H, KV, D, causal) -> str:
             f"{'causal' if causal else 'non-causal'} bf16")
 
 
-def _check_bwd_edge(gen, B, S, H, KV, D=TRAIN_D, causal=True, Sk=None):
+def _check_bwd_edge(gen, B, S, H, KV, D=TRAIN_D, causal=True, Sk=None,
+                    window=0):
     """The forward with its log-sum-exp and the backward at one more shape
-    (S queries over ``Sk`` keys, by default S; causal or not), each against
-    its plain version (logged, not in the JSON)."""
+    (S queries over ``Sk`` keys, by default S; causal or not; a local
+    ``window`` or none), each against its plain version (logged, not in
+    the JSON)."""
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_bwd_ref,
                                                      flash_prefill,
                                                      flash_prefill_ref)
     Sk = Sk or S
-    shape = _attn_shape(B, S, Sk, H, KV, D, causal)
+    shape = _attn_shape(B, S, Sk, H, KV, D, causal) \
+        + (f" window {window}" if window else "")
     q = torch.randn(B, S, H, D, generator=gen, device="cuda").bfloat16()
     k, v = (torch.randn(B, Sk, KV, D, generator=gen,
                         device="cuda").bfloat16() for _ in range(2))
     do = torch.randn(B, S, H, D, generator=gen, device="cuda").bfloat16()
-    o, lse = flash_prefill(q, k, v, causal=causal, return_lse=True)
+    o, lse = flash_prefill(q, k, v, causal=causal, window=window,
+                           return_lse=True)
     _check_fwd_lse(f"with lse, {shape}", o, lse,
-                   *flash_prefill_ref(q, k, v, causal=causal,
+                   *flash_prefill_ref(q, k, v, causal=causal, window=window,
                                       return_lse=True))
-    _check_bwd(shape, flash_attention_bwd(q, k, v, o, do, lse, causal),
-               flash_attention_bwd_ref(q, k, v, o, do, lse, causal))
+    _check_bwd(shape,
+               flash_attention_bwd(q, k, v, o, do, lse, causal, window),
+               flash_attention_bwd_ref(q, k, v, o, do, lse, causal, window))
 
 
 def check_flash_bwd(gen, H=TRAIN_H, KV=TRAIN_KV, D=TRAIN_D,
                     edges=((2, 200, 32, 8), (2, 256, 8, 8)), tag="",
                     B=TRAIN_BATCH // TRAIN_ACCUM, Sq=TRAIN_SEQ, Sk=None,
-                    causal=True):
+                    causal=True, window=0):
     """The training path's attention kernels at its shape (a micro-batch of
     ``B`` rows, ``Sq`` queries over ``Sk`` keys, by default ``TRAIN_SEQ``
     both, causal or not; llama3.2-1b's heads by default, zamba2-7b's
@@ -1132,14 +1275,18 @@ def check_flash_bwd(gen, H=TRAIN_H, KV=TRAIN_KV, D=TRAIN_D,
     (cold L2) beside SDPA's forward and its backward through
     ``torch.autograd.grad`` on a saved forward; then both again at the
     ``edges`` shapes (B, S, H, KV), or (B, S, H, KV, Sk) for S queries
-    over Sk keys.  Returns the forward's and the backward's JSON rows,
-    named with ``tag``."""
+    over Sk keys, or (B, S, H, KV, Sk, window).  With a local ``window``
+    (causal; llama4-scout's local layers) every call takes it, and SDPA's
+    yardsticks take the causal and window mask as an explicit boolean
+    mask.  Returns the forward's and the backward's JSON rows, named with
+    ``tag``."""
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_bwd_ref,
                                                      flash_prefill,
                                                      flash_prefill_ref)
     Sk = Sk or Sq
-    shape = _attn_shape(B, Sq, Sk, H, KV, D, causal)
+    shape = _attn_shape(B, Sq, Sk, H, KV, D, causal) \
+        + (f" window {window}" if window else "")
     io_bytes = 2 * B * (Sq * H + 2 * Sk * KV) * D    # q, k, v
     n = n_copies(io_bytes * 2 + 2 * 2 * B * Sq * H * D)
 
@@ -1148,21 +1295,23 @@ def check_flash_bwd(gen, H=TRAIN_H, KV=TRAIN_KV, D=TRAIN_D,
         k, v = (torch.randn(B, Sk, KV, D, generator=gen,
                             device="cuda").bfloat16() for _ in range(2))
         do = torch.randn(B, Sq, H, D, generator=gen, device="cuda").bfloat16()
-        o, lse = flash_prefill(q, k, v, causal=causal, return_lse=True)
+        o, lse = flash_prefill(q, k, v, causal=causal, window=window,
+                               return_lse=True)
         return q, k, v, o, do, lse
     cases = [case() for _ in range(n)]
     q, k, v, o, do, lse = cases[0]
 
     err, lse_err = _check_fwd_lse(
         f"with lse, {shape}", o, lse,
-        *flash_prefill_ref(q, k, v, causal=causal, return_lse=True))
+        *flash_prefill_ref(q, k, v, causal=causal, window=window,
+                           return_lse=True))
 
-    got = flash_attention_bwd(q, k, v, o, do, lse, causal)
-    errs = _check_bwd(shape, got, flash_attention_bwd_ref(q, k, v, o, do,
-                                                          lse, causal))
+    got = flash_attention_bwd(q, k, v, o, do, lse, causal, window)
+    errs = _check_bwd(shape, got, flash_attention_bwd_ref(
+        q, k, v, o, do, lse, causal, window))
     # no atomics and sums in a fixed order: a second call on the same
     # inputs gives bitwise-equal gradients
-    again = flash_attention_bwd(q, k, v, o, do, lse, causal)
+    again = flash_attention_bwd(q, k, v, o, do, lse, causal, window)
     same = all(torch.equal(a, b) for a, b in zip(got, again))
     log(f"[kernels] flash_bwd {shape}: two calls bitwise equal (dq, dk, dv): "
         f"{same}")
@@ -1174,24 +1323,36 @@ def check_flash_bwd(gen, H=TRAIN_H, KV=TRAIN_KV, D=TRAIN_D,
     for edge in edges:
         _check_bwd_edge(gen, *edge[:4], D, causal, *edge[4:])
 
+    # SDPA's yardstick: is_causal, or the causal and window mask
+    i = torch.arange(Sq, device="cuda")
+    lib_mask = None if not window else \
+        (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q, k, v, attn_mask=lib_mask,
+            is_causal=causal and lib_mask is None, enable_gqa=True)
+
     def sdpa_saved(q, k, v, o, do, lse):
         qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
                       for t in (q, k, v))
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                             enable_gqa=True)
-        return out, (qt, kt, vt), do.transpose(1, 2)
+        return sdpa(qt, kt, vt), (qt, kt, vt), do.transpose(1, 2)
     saved = [sdpa_saved(*c) for c in cases]
     timing = f"cold L2: cycles over {n} input copies; {TIMING}"
     pairs = _attention_pairs(B, H, Sq) if causal else B * H * Sq * Sk
+    if window:
+        pairs = B * H * int(torch.clamp(i + 1, max=window).sum())
     mode = "causal" if causal else "non-causal"
+    if window:
+        mode += f", window {window}"
     t_fwd = both_times(
         cycled(lambda q, k, v, *_: flash_prefill(q, k, v, causal=causal,
+                                                 window=window,
                                                  return_lse=True), cases),
-        cycled(lambda q, k, v, *_: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=causal, enable_gqa=True), cases), 4 * n)
+        cycled(lambda q, k, v, *_: sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                                        v.transpose(1, 2)), cases), 4 * n)
     t_bwd = both_times(
-        cycled(lambda *c: flash_attention_bwd(*c, causal), cases),
+        cycled(lambda *c: flash_attention_bwd(*c, causal, window), cases),
         cycled(lambda out, inputs, g: torch.autograd.grad(
             out, inputs, g, retain_graph=True), saved), 2 * n)
     kv_shape = f"kv {KV} heads" if Sq == Sk else f"kv ({B}, {Sk}, {KV})"
@@ -1203,8 +1364,8 @@ def check_flash_bwd(gen, H=TRAIN_H, KV=TRAIN_KV, D=TRAIN_D,
            "max_abs_err": max(err, lse_err), "tol": ATTN_TOL,
            "ms": t_fwd["ms"], "device_ms": t_fwd["device_ms"],
            "plain_ms": time_ms(cycled(lambda q, k, v, *_: flash_prefill_ref(
-               q, k, v, causal=causal, return_lse=True), cases), iters=3,
-               warmup=1),
+               q, k, v, causal=causal, window=window, return_lse=True),
+               cases), iters=3, warmup=1),
            "library_ms": t_fwd["library_ms"],
            "library_device_ms": t_fwd["library_device_ms"]}
     # bytes: q, k, v read, o written, lse written (f32); 2 products of 2 D
@@ -1223,7 +1384,7 @@ def check_flash_bwd(gen, H=TRAIN_H, KV=TRAIN_KV, D=TRAIN_D,
            "tol": f"{BWD_TOL} of each output's largest |value|",
            "ms": t_bwd["ms"], "device_ms": t_bwd["device_ms"],
            "plain_ms": time_ms(cycled(lambda *c: flash_attention_bwd_ref(
-               *c, causal), cases), iters=3, warmup=1),
+               *c, causal, window), cases), iters=3, warmup=1),
            "library_ms": t_bwd["library_ms"],
            "library_device_ms": t_bwd["library_device_ms"]}
     # bytes: q, k, v, o, dO read, lse read (f32), dq, dk, dv written;
@@ -1880,20 +2041,22 @@ def check_hybrid_kernels(gen):
     return rows
 
 
-def _prefill_compare(gen, B, S, H, KV, D, valid_len):
+def _prefill_compare(gen, B, S, H, KV, D, valid_len, window=0):
     """The prefill kernel with its log-sum-exp against its plain version at
-    one more serving shape (rows of ``valid_len`` valid keys), at
-    ``ATTN_TOL`` and ``LSE_TOL``; logged."""
+    one more serving shape (rows of ``valid_len`` valid keys; a local
+    ``window`` or none), at ``ATTN_TOL`` and ``LSE_TOL``; logged."""
     from repro_torch.kernels.flash_attention import (flash_prefill,
                                                      flash_prefill_ref)
     q, k, v = (torch.randn(B, S, heads, D, generator=gen,
                            device="cuda").bfloat16()
                for heads in (H, KV, KV))
     vl = torch.tensor(valid_len, dtype=torch.int32, device="cuda")
-    _check_fwd_lse(f"B {B} S {S} H {H} KV {KV} D {D}, valid_len "
-                   f"{valid_len}",
-                   *flash_prefill(q, k, v, vl, return_lse=True),
-                   *flash_prefill_ref(q, k, v, vl, return_lse=True))
+    _check_fwd_lse(f"B {B} S {S} H {H} KV {KV} D {D}, window {window}, "
+                   f"valid_len {valid_len}",
+                   *flash_prefill(q, k, v, vl, window=window,
+                                  return_lse=True),
+                   *flash_prefill_ref(q, k, v, vl, window=window,
+                                      return_lse=True))
 
 
 def _paged_graph_and_rows(gen, attn, tag, L):
@@ -2244,6 +2407,97 @@ def check_encdec_kernels(gen):
     return rows
 
 
+#: the kernel rows of llama4-scout's instantiations: the run whose launches
+#: each reports (``phase_serve_llama4``'s runs by page type, its long
+#: traffic's run, or the card smoke config's training run)
+LLAMA4_ROW_RUNS = {"flash_prefill[D128G5 w8192]": "long",
+                   "paged_decode[D128G5 bf16]": "bf16",
+                   "paged_decode[D128G5 int8]": "int8",
+                   "rmsnorm[5120]": "bf16",
+                   "flash_bwd[D64G2 w32]": "train"}
+
+
+def check_llama4_kernels(gen):
+    """llama4-scout's instantiations (head_dim 128 with 5 query heads per
+    KV head: 40 heads over 8; RMSNorm at d 5120; the windowed backward of
+    its card smoke config), each against its plain version and twice
+    (bitwise equal), timed beside its bound and library yardstick: the
+    prefill with the local window of 8192 at the short traffic's bucket
+    (B 8, S 512: the window past every key), over ragged rows whose valid
+    lengths straddle a window of 100 (B 3, S 300: partial tiles, padded
+    rows whose window holds no valid key) and at the long traffic's bucket
+    (B 4, S 16384, the four prompts' lengths: its JSON row, SDPA with the
+    window as an explicit mask); paged decode at (128, 5) on bf16 and
+    int8 pools with ``check_paged``'s edges, replayed from a CUDA graph
+    bitwise equal to eager; RMSNorm at (4096, 5120); the forward with its
+    log-sum-exp and the backward with window 32 at B 2, S 1024 (4 heads
+    over 2 at head_dim 64), and at window 256, at S 77 and 200 (partial
+    tiles), a window of 40 that begins mid-tile, and the launcher's S 64.
+    The backward is not built at (128, 5): no path trains llama4-scout at
+    full width.  Returns the JSON rows named in ``LLAMA4_ROW_RUNS``, each
+    marked with the model."""
+    H, KV, D = LLAMA4_ATTN["H"], LLAMA4_ATTN["KV"], LLAMA4_ATTN["D"]
+    window = 8192
+    _prefill_compare(gen, SERVE_SLOTS, 512, H, KV, D,
+                     [int(x) for x in np.linspace(24, 512, SERVE_SLOTS)],
+                     window)
+    _prefill_compare(gen, 3, 300, H, KV, D, [300, 150, 40], 100)
+    check_prefill_padded_window(gen, H, KV, D)
+    rows = [_prefill_row(gen, LONG_SLOTS, LONG_MAX_SEQ, H, KV, D,
+                         "flash_prefill[D128G5 w8192]", window=window,
+                         valid_len=LONG_PROMPTS, plain_block=512)]
+    release()
+    rows += _paged_graph_and_rows(gen, LLAMA4_ATTN, "D128G5", L=2)
+    rows.append(_rmsnorm_width(gen, 5120))
+    sw = SMOKE_LOCAL["window"]
+    fwd, bwd = check_flash_bwd(
+        gen, H=SMOKE_LOCAL["H"], KV=SMOKE_LOCAL["KV"], D=SMOKE_LOCAL["D"],
+        B=2, Sq=1024, window=sw, tag=f"[D64G2 w{sw}]",
+        edges=((2, 1024, 4, 2, None, 256), (2, 77, 4, 2, None, sw),
+               (2, 200, 4, 2, None, sw), (1, 200, 4, 2, None, 40),
+               (2, 64, 4, 2, None, sw)))
+    log(f"[kernels] {fwd['name']} (logged): kernel {fwd['ms']:.4f} ms, "
+        f"plain {fwd['plain_ms']:.4f} ms, library {fwd['library_ms']:.4f} "
+        f"ms, bound {fwd['bound_ms']:.4f} ms")
+    rows.append(bwd)
+    for r in rows:
+        r["model"] = LLAMA4_ARCH
+    return rows
+
+
+#: the kernel rows of nemotron-4-340b's instantiations: the run whose
+#: launches each reports (``phase_serve_nemotron``'s runs by page type)
+NEMO_ROW_RUNS = {"flash_prefill[D192G12]": "bf16",
+                 "paged_decode[D192G12 bf16]": "bf16",
+                 "paged_decode[D192G12 int8]": "int8"}
+
+
+def check_nemotron_kernels(gen):
+    """nemotron-4-340b's instantiations (head_dim 192 with 12 query heads
+    per KV head: 96 heads over 8), each against its plain version and
+    twice (bitwise equal), timed beside its bound and library yardstick:
+    the prefill over the buckets 32, 128 and 512 with ragged rows (its row
+    at B 8, S 512), B 1 at S 77, B 2 at S 200 with ragged rows and a
+    window over rows with no valid key, each with its log-sum-exp; paged
+    decode on bf16 and int8 pools (its 12 rows a KV head in 3 blocks of 4)
+    with ``check_paged``'s edges, replayed from a CUDA graph bitwise equal
+    to eager.  Returns the JSON rows named in ``NEMO_ROW_RUNS``, each
+    marked with the model."""
+    H, KV, D = NEMO_ATTN["H"], NEMO_ATTN["KV"], NEMO_ATTN["D"]
+    for S in (32, 128, 512):
+        row = _prefill_row(gen, SERVE_SLOTS, S, H, KV, D,
+                           "flash_prefill[D192G12]", graph=True,
+                           backend=S == 512)
+    rows = [row]                       # the longest bucket
+    _prefill_compare(gen, 1, 77, H, KV, D, [45])
+    _prefill_compare(gen, 2, 200, H, KV, D, [200, 131])
+    check_prefill_padded_window(gen, H, KV, D)
+    rows += _paged_graph_and_rows(gen, NEMO_ATTN, "D192G12", L=4)
+    for r in rows:
+        r["model"] = NEMO_ARCH
+    return rows
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
@@ -2264,6 +2518,8 @@ def phase_kernels():
     rows += check_vlm_kernels(gen)
     rows += check_yi_kernels(gen)
     rows += check_encdec_kernels(gen)
+    rows += check_llama4_kernels(gen)
+    rows += check_nemotron_kernels(gen)
     # pools the serving path does not use: checked, logged, not in the JSON
     for dtype, label in ((torch.float8_e4m3fn, "fp8"), (torch.float32, "f32")):
         r = check_paged(gen, dtype, label)
@@ -2314,13 +2570,15 @@ class NanWatch:
         return logits, cache
 
 
-def build_full_model(arch: str = "llama3.2-1b"):
+def build_full_model(arch: str = "llama3.2-1b", layers=None):
     """A dense, MoE, VLM or encoder-decoder arch at full width and depth
-    with random weights from a seeded generator, in the compute dtype
-    (serving)."""
+    (``layers`` of its layers when given) with random weights from a
+    seeded generator, in the compute dtype (serving)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     model = build_model(cfg, device="cuda")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -2348,25 +2606,33 @@ def _leaves(tree):
             yield v
 
 
-def _n_buckets(prompts) -> int:
+def _n_buckets(prompts, max_seq: int = SERVE_MAX_SEQ) -> int:
     """Prompt buckets a workload admits (the engine's own rule)."""
     from repro_torch.serve.engine import _bucket
-    return len({min(_bucket(len(p)), SERVE_MAX_SEQ) for p in prompts})
+    return len({min(_bucket(len(p)), max_seq) for p in prompts})
 
 
 def llama_launches(steps: int, calls: int, paged: bool = True,
-                   layers: int = 16) -> dict:
+                   layers: int = 16, every: int = 1,
+                   norms: bool = True) -> dict:
     """llama3.2-1b's exact launch counts: 33 RMSNorms a forward (two a
     layer and the final one), 16 prefill attentions a prefill call, 16
     paged decodes a decode step with paged KV; ``layers`` for a config
-    cut in depth (2 in ``card_smoke_config``)."""
-    return {"rmsnorm": (2 * layers + 1) * (steps + calls),
+    cut in depth (2 in ``card_smoke_config``).  A decoder whose last layer
+    of each group of ``every`` is global and the others local
+    (llama4-scout) launches a paged decode for each global layer only (the
+    local layers' ring decode is plain PyTorch, as in the reference), the
+    prefill attention for every layer; ``norms`` off: LayerNorm, which
+    launches no kernel."""
+    return {"rmsnorm": (2 * layers + 1) * (steps + calls) if norms else 0,
             "flash_prefill": layers * calls, "flash_bwd": 0,
-            "paged_decode": layers * steps if paged else 0, "ssd_scan": 0}
+            "paged_decode": layers // every * steps if paged else 0,
+            "ssd_scan": 0}
 
 
 def serve_run(tag, model, params, prompts, new_tokens, graphs, want,
-              inspect=None, extras=None, **kw):
+              inspect=None, extras=None, slots=SERVE_SLOTS,
+              max_seq=SERVE_MAX_SEQ, **kw):
     """One ``ServeEngine`` (``cuda_graphs=graphs``, ``kw`` on top of the
     serving geometry) over ``prompts`` with ``new_tokens`` each (and
     ``extras[i]``, a dict of prefill inputs, on prompt i when given), timed
@@ -2379,16 +2645,16 @@ def serve_run(tag, model, params, prompts, new_tokens, graphs, want,
     capturing run), every request finished, no NaN logit, and
     ``compile_stats`` within the reference's bound (at most log2(max_chunk)
     + 1 decode chunk variants, at most one prefill variant a bucket the
-    engine served, warm-up included).
+    engine served, warm-up included).  ``slots`` and ``max_seq`` set the
+    engine's geometry (the serve phases': 8 and 1024).
     Returns the runs' tokens, times, counts and graph statistics."""
     from repro_torch import kernels
     from repro_torch.serve import Request, ServeEngine
     mode = "graphs on" if graphs else "graphs off"
     torch.cuda.reset_peak_memory_stats()
     watch = NanWatch(model)
-    eng = ServeEngine(watch, params, batch_slots=SERVE_SLOTS,
-                      max_seq=SERVE_MAX_SEQ, page_size=SERVE_PAGE,
-                      cuda_graphs=graphs, **kw)
+    eng = ServeEngine(watch, params, batch_slots=slots, max_seq=max_seq,
+                      page_size=SERVE_PAGE, cuda_graphs=graphs, **kw)
 
     def requests():
         return [Request(uid=i, prompt=p, max_new_tokens=new_tokens,
@@ -2426,10 +2692,11 @@ def serve_run(tag, model, params, prompts, new_tokens, graphs, want,
     stats = eng.compile_stats
     limit = int(math.log2(eng.max_chunk)) + 1
     if stats["decode_chunk_variants"] > limit or \
-            stats["prefill_bucket_variants"] > _n_buckets(served):
+            stats["prefill_bucket_variants"] > _n_buckets(served, max_seq):
         raise AssertionError(f"{tag} ({mode}): compile_stats {stats} over "
                              f"the bound ({limit} decode chunk variants, "
-                             f"{_n_buckets(served)} buckets served)")
+                             f"{_n_buckets(served, max_seq)} buckets "
+                             f"served)")
     if inspect is not None:
         out.update(inspect(eng))
     n_tok = sum(len(t) for t in out["tokens"])
@@ -2654,9 +2921,12 @@ def phase_profile(cfg, model, params, top: int = 10, tag: str = "profile",
 
 def phase_consistency(model, params, steps: int = 4, kv_dtype=None,
                       tag: str = "consistency", hold: str = "hold",
-                      prefix: int = 0, frames: int = 0):
-    """Prefill P, then ``steps`` paged decode steps fed the greedy tokens,
-    against the last-position logits of one prefill of P + those tokens;
+                      prefix: int = 0, frames: int = 0, plens=(100, 37),
+                      bucket: int = 128, max_seq: int = SERVE_MAX_SEQ):
+    """Prefill P (rows of ``plens`` tokens right-padded to ``bucket``, a
+    cache of ``max_seq`` positions), then ``steps`` paged decode steps fed
+    the greedy tokens, against the last-position logits of one prefill of
+    P + those tokens;
     pages of the compute dtype, or ``kv_dtype`` ("int8") pages installed as
     the engine installs them (a fresh scale a page): within
     ``CONSISTENCY_TOL`` of the largest |logit|.  With ``prefix`` (a VLM)
@@ -2677,8 +2947,8 @@ def phase_consistency(model, params, steps: int = 4, kv_dtype=None,
     from repro_torch.models.common import kv_qmax
     from repro_torch.serve.kv_pages import PagedBatchState, write_prefill_pages
     rng = np.random.default_rng(5)
-    plens = np.array([100, 37], np.int32)
-    B, bucket = len(plens), 128
+    plens = np.array(plens, np.int32)
+    B = len(plens)
     dev = model.device
     V = model.cfg.vocab_size
     prompts = np.zeros((B, bucket + steps), np.int32)
@@ -2693,7 +2963,7 @@ def phase_consistency(model, params, steps: int = 4, kv_dtype=None,
         patch["frames"] = torch.tensor(
             rng.normal(size=(B, frames, model.cfg.d_model)),
             dtype=torch.float32, device=dev)
-    st = PagedBatchState(model, B, SERVE_MAX_SEQ, page_size=SERVE_PAGE,
+    st = PagedBatchState(model, B, max_seq, page_size=SERVE_PAGE,
                          kv_dtype=kv_dtype)
     for b, n in enumerate(plens):
         st.pool.allocate(b, prefix + int(n) + steps)
@@ -2706,11 +2976,11 @@ def phase_consistency(model, params, steps: int = 4, kv_dtype=None,
         logits, sub = model.prefill(params, torch.tensor(
             prompts[:, :bucket], device=dev),
             prompt_lens=torch.tensor(plens, device=dev),
-            max_seq=SERVE_MAX_SEQ, **patch)
+            max_seq=max_seq, **patch)
         tables_sub = st.pool.tables.copy()
         for b in range(B):
             tables_sub[b, st.pool.n_blocks[b]:] = st.pool.n_pages
-        for key in ("k", "v"):
+        for key in model.paged_cache_keys():
             scales = st.cache.get(f"{key}_scale")
             if scales is None:
                 write_prefill_pages(st.cache[key], sub[key], tables_sub)
@@ -2736,7 +3006,7 @@ def phase_consistency(model, params, steps: int = 4, kv_dtype=None,
             ref = model.prefill(params, torch.tensor(prompts, device=dev),
                                 prompt_lens=torch.tensor(plens + i + 1,
                                                          device=dev),
-                                max_seq=SERVE_MAX_SEQ, **patch)[0]
+                                max_seq=max_seq, **patch)[0]
             gap = float((logits[:, :V].float()
                          - ref[:, :V].float()).abs().max())
             scale = float(ref[:, :V].float().abs().max())
@@ -3009,11 +3279,8 @@ def gpt3_launches(layers: int, paged: bool = True):
     """gpt3-xl's exact launch counts: no RMSNorm (LayerNorm has no kernel),
     ``layers`` prefill attentions a prefill call, ``layers`` paged decodes a
     decode step on pages, none on a dense cache."""
-    def want(steps, calls):
-        return {"rmsnorm": 0, "flash_prefill": layers * calls,
-                "flash_bwd": 0, "paged_decode": layers * steps if paged else 0,
-                "ssd_scan": 0}
-    return want
+    return lambda steps, calls: llama_launches(steps, calls, paged, layers,
+                                               norms=False)
 
 
 def phase_serve_gpt3(cfg, model, params):
@@ -3288,7 +3555,7 @@ def plain_path():
          torch._grouped_mm) = saved
 
 
-def moe_share(cfg, model, params):
+def moe_share(cfg, model, params, tag: str = "serve_moe"):
     """The MoE layer's share of the device time of a prefill bucket (8 rows
     of 512 tokens) and of a decode step (8 slots on a dense cache): the
     call, and its 24 ``apply_moe`` calls alone on the inputs they got in
@@ -3321,7 +3588,7 @@ def moe_share(cfg, model, params):
         step = time_graph_ms(fn, 1, replays=3)
         moe = time_graph_ms(lambda: [orig(p, x, **kw)
                                      for p, x, kw in layers], 1, replays=3)
-        log(f"[serve_moe] MoE share of a {what}: its {len(layers)} MoE "
+        log(f"[{tag}] MoE share of a {what}: its {len(layers)} MoE "
             f"layers {moe:.3f} of {step:.3f} ms of device time "
             f"({moe / step:.3f}), both replayed from a CUDA graph")
     del cache, calls, layers
@@ -3448,12 +3715,14 @@ def yi_prompts(vocab: int):
 
 
 def phase_serve_yi(cfg, model, params):
-    """yi-34b at full width and depth (60 layers, 56 heads over 8 at
-    head_dim 128, 68.8 GB of bf16 weights): ``serve_full_model`` over
-    ``yi_prompts`` (one prompt bucket; each engine captures that bucket's
-    prefill graph and its decode chunks' graphs, no other), exact launches
-    (121 RMSNorms a forward, 60 flash prefills at head_dim 128 with 7
-    query heads per KV head a prefill call, 60 paged decodes a paged step),
+    """yi-34b at full width and ``YI_SERVE_LAYERS`` of its 60 layers (56
+    heads over 8 at head_dim 128; 34.4 GB of bf16 weights at 30 layers):
+    ``serve_full_model`` over ``yi_prompts`` (one prompt bucket; each
+    engine captures that bucket's prefill graph and its decode chunks'
+    graphs, no other), exact launches (2 RMSNorms a layer and the final
+    one a forward, a flash prefill at head_dim 128 with 7 query heads per
+    KV head a layer and prefill call, a paged decode a layer and paged
+    step),
     peak memory; then the profiled decode step's wall and device ms
     against the floor of reading the weights once (``bytes / 3.35
     TB/s``).  An out-of-memory error fails the phase.  Returns the
@@ -3618,6 +3887,250 @@ def phase_train_encdec():
                 f"{c.activation}")
     return train_model("train_encdec", cfg, describe, per_step, ours,
                        accum=A, frames=ENCDEC_FRAMES, seq=ENCDEC_TEXT)
+
+
+# ---------------------------------------------------------------------------
+# 5a*. serve llama4-scout-17b-a16e (local/global attention) and
+# nemotron-4-340b at full width and reduced depth, their prefill / decode
+# consistency, and train their card smoke configs
+# ---------------------------------------------------------------------------
+
+def llama4_launches(cfg):
+    """``launches(paged)`` of llama4-scout at ``cfg``'s depth
+    (``llama_launches`` with its global layer every ``global_attn_every``)."""
+    return lambda paged: (lambda s, c: llama_launches(
+        s, c, paged, cfg.n_layers, cfg.global_attn_every))
+
+
+def decode_floor(cfg, params, slots: int = SERVE_SLOTS):
+    """(bytes, ms) a decode step of ``slots`` slots must read at least: every
+    weight once (computed) but the token table, of which it reads a row a
+    slot, and the routed experts, of which it reads at most
+    min(slots x top_k, E) a layer; at 3.35 TB/s."""
+    total = sum(t.numel() * t.element_size() for t in _leaves(params))
+    wte = params["embed"]["wte"]
+    nbytes = total - wte.numel() * wte.element_size() \
+        + slots * wte.shape[1] * wte.element_size()
+    if cfg.is_moe:
+        E = cfg.moe.n_experts
+        experts = sum(t.numel() * t.element_size() for name, t in
+                      params["layers"]["moe"].items()
+                      if name not in ("router", "shared"))
+        nbytes -= experts * (1 - min(slots * cfg.moe.top_k, E) / E)
+    return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def log_decode_floor(tag, cfg, params, step):
+    """The profiled decode step (``step``: ``phase_profile``'s summary, or
+    None) against ``decode_floor``; logged."""
+    nbytes, floor = decode_floor(cfg, params)
+    log(f"[{tag}] a decode step of {SERVE_SLOTS} slots reads at least "
+        f"{nbytes / 1e9:.2f} GB of weights (computed): {floor:.2f} ms at "
+        f"3.35 TB/s; the decode step alone (graphs on) " + (
+            "not measured" if step is None else
+            f"{step['wall_ms']:.2f} ms of wall ({step['wall_ms'] / floor:.2f}"
+            f"x), {step['device_ms']:.2f} ms of device "
+            f"({step['device_ms'] / floor:.2f}x)"))
+    return floor
+
+
+def ring_decode_share(tag, cfg, model, step, slots, W):
+    """The plain ring-attention decode's device time a decode step: the
+    model's local layers' ``_ring_attention`` calls over bf16 rings of
+    ``slots`` x ``W`` positions, every slot valid (pos W - 1), replayed
+    from one CUDA graph, against the profiled decode step's device ms
+    ``step`` (computed share; logged; None: not measured).  Returns the
+    ms."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(26)
+    n_local = cfg.n_layers - cfg.n_layers // cfg.global_attn_every
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    kc, vc = (torch.randn(n_local, slots, W, KV, D, generator=gen,
+                          device="cuda").bfloat16() for _ in range(2))
+    q = torch.randn(slots, 1, H, D, generator=gen, device="cuda").bfloat16()
+    pos = torch.full((slots,), W - 1, dtype=torch.int32, device="cuda")
+    s = torch.arange(W, device="cuda")[None, :]
+    abs_pos = pos[:, None] - torch.remainder(pos[:, None] - s, W)
+
+    def layers():
+        for i in range(n_local):
+            model._ring_attention(q, kc[i], vc[i], abs_pos, pos)
+    ms = time_graph_ms(layers, calls=1, replays=10)
+    nbytes = 2 * kc.numel() * kc.element_size()
+    log(f"[{tag}] ring-attention decode (the reference's plain "
+        f"_ring_attention, {n_local} local layers x {slots} slots x {W} "
+        f"positions, bf16 rings {nbytes / 1e6:.0f} MB read and upcast to f32 "
+        f"each step): {ms:.4f} ms a step replayed from a graph (reading the "
+        f"bf16 rings once: {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms); "
+        + ("the decode step's device time: not measured" if step is None
+           else f"{ms / step['device_ms']:.3f} of the profiled decode step's "
+                f"{step['device_ms']:.2f} ms of device (computed)"))
+    del kc, vc
+    release()
+    return ms
+
+
+def phase_serve_llama4(cfg, model, params):
+    """llama4-scout at full width and 8 of its 48 layers (two groups of 3
+    local layers at window 8192 and a global one; 16 experts, top-1, the
+    shared expert): ``serve_full_model`` over the serve phase's 16
+    requests (max_seq 1024, so the rings hold 1024 positions and none
+    wraps), bf16 and int8 pages (the global layers' K/V; the rings stay
+    dense bf16) and a dense cache, graphs on and off, exact launches
+    (``llama4_launches``: 17 RMSNorms a forward, 8 flash prefills a call,
+    2 paged decodes a paged step); then the plain ring decode's share of
+    the profiled decode step (``ring_decode_share``), the MoE layers'
+    share of a prefill bucket and a decode step (``moe_share``), and the
+    weight-read floor of a decode step (``decode_floor``).  Returns the
+    graphs-on runs' launches by page type."""
+    out = serve_full_model("serve_llama4", cfg, model, params,
+                           llama4_launches(cfg))
+    step = out["profile"][True]
+    out["ring_ms"] = ring_decode_share(
+        "serve_llama4", cfg, model, step, SERVE_SLOTS,
+        min(cfg.attn_window, SERVE_MAX_SEQ))
+    moe_share(cfg, model, params, tag="serve_llama4")
+    log_decode_floor("serve_llama4", cfg, params, step)
+    return out
+
+
+def long_prompts(vocab: int):
+    """The long traffic's ``LONG_PROMPTS`` seeded prompts."""
+    rng = np.random.default_rng(16384)
+    return [rng.integers(0, vocab, n).astype(np.int32) for n in LONG_PROMPTS]
+
+
+def phase_serve_llama4_long(cfg, model, params):
+    """llama4-scout's long traffic: ``LONG_SLOTS`` slots of
+    ``LONG_MAX_SEQ`` positions (rings of 8192: 6 local layers x 4 slots x
+    8192 x 8 KV heads x 128 x 2 bytes x 2 = 0.81 GB), the 4 prompts of
+    8160-12000 tokens in the engine's buckets 8192 and 16384 (two prefill
+    calls, the second of 3 rows: the local layers' window masks; the rows
+    of 9000, 10500 and 12000 tokens wrap their rings in prefill, the one
+    of 8160 at its 33rd new token),
+    ``LONG_NEW`` new tokens each, on bf16 pages, graphs on and off: equal
+    tokens, exact launches; then the ring decode at this geometry replayed
+    alone (logged).  Returns the graphs-on run's launches."""
+    prompts = long_prompts(cfg.vocab_size)
+    log(f"[serve_llama4_long] {LONG_SLOTS} slots of {LONG_MAX_SEQ} "
+        f"positions, prompts of {list(LONG_PROMPTS)} tokens, {LONG_NEW} new "
+        f"tokens each, bf16 pages (rings of "
+        f"{min(cfg.attn_window, LONG_MAX_SEQ)})")
+    want = llama4_launches(cfg)(True)
+    runs = [serve_run(f"serve_llama4_long bf16", model, params, prompts,
+                      LONG_NEW, graphs, want, slots=LONG_SLOTS,
+                      max_seq=LONG_MAX_SEQ, paged=True)
+            for graphs in (True, False)]
+    _same_tokens("serve_llama4_long", "bf16 pages", runs)
+    ring_decode_share("serve_llama4_long", cfg, model, None, LONG_SLOTS,
+                      min(cfg.attn_window, LONG_MAX_SEQ))
+    return runs[0]["launches"]
+
+
+def phase_consistency_llama4(model, params):
+    """``phase_consistency`` on llama4-scout (8 layers, bf16) on bf16 and
+    int8 pages at the serve geometry, the longer prefill held layer by
+    layer to the decode path (``HeldPath`` "hold": top-1 routing flips at
+    near-ties in bf16, as granite's do); then on bf16 pages at the long
+    geometry (max_seq 16384, rings of 8192) with a row of 8190 tokens
+    whose decode crosses position 8192 (its rings wrap) beside one of 37,
+    on the kernel path."""
+    out = [phase_consistency(model, params, kv_dtype=kv,
+                             tag=f"consistency_llama4, {kv or 'bf16'} pages")
+           for kv in (None, "int8")]
+    out.append(phase_consistency(
+        model, params, plens=(8190, 37), bucket=8192, max_seq=LONG_MAX_SEQ,
+        tag="consistency_llama4, bf16 pages, a decode across 8192"))
+    return out
+
+
+def phase_consistency_llama4_f32():
+    """llama4-scout's end-to-end gate in float32 on the port's plain path
+    (``plain_path()``, f32 pages): one group of 4 layers (3 local, 1
+    global; 43.5 GB in float32, computed: 8 layers would not fit) with
+    fresh seeded weights, the longer prefill held to the decode path's
+    experts (``HeldPath`` "experts"), as granite's gate.  Run with no
+    other model on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config(LLAMA4_ARCH),
+                              n_layers=LLAMA4_F32_LAYERS,
+                              compute_dtype="float32")
+    fmodel = build_model(cfg, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    fparams = fmodel.init(gen)
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(fparams))
+    log(f"[consistency_llama4] float32 plain path: {cfg.n_layers} layers, "
+        f"{nbytes / 1e9:.2f} GB of float32 weights")
+    with plain_path():
+        worst = phase_consistency(
+            fmodel, fparams, hold="experts",
+            tag="consistency_llama4, float32 plain path, f32 pages")
+    del fmodel, fparams
+    release()
+    return worst
+
+
+def phase_serve_nemotron(cfg, model, params):
+    """nemotron-4-340b at full width and 4 of its 96 layers (LayerNorm and
+    the squared-ReLU MLP in PyTorch; 96 heads over 8 at head_dim 192):
+    ``serve_full_model`` over the serve phase's 16 requests, bf16 and int8
+    pages and a dense cache, graphs on and off, exact launches (no
+    RMSNorm, 4 flash prefills a call, 4 paged decodes a paged step); then
+    the weight-read floor of a decode step.  Returns the graphs-on runs'
+    launches by page type."""
+    out = serve_full_model("serve_nemotron", cfg, model, params,
+                           lambda paged: gpt3_launches(cfg.n_layers, paged))
+    log_decode_floor("serve_nemotron", cfg, params, out["profile"][True])
+    return out
+
+
+def phase_consistency_nemotron(model, params):
+    """``phase_consistency`` on nemotron-4-340b, bf16 and int8 pages."""
+    return [phase_consistency(model, params, kv_dtype=kv,
+                              tag=f"consistency_nemotron, {kv or 'bf16'} "
+                                  f"pages")
+            for kv in (None, "int8")]
+
+
+def phase_train_smoke(arch: str):
+    """``arch``'s card smoke config (``card_smoke_config``: 2 layers,
+    d_model 256, 4 query heads over 2 at head_dim 64) trained as the train
+    phase trains llama3.2-1b (8 x 1024 tokens a step as 2 micro-batches,
+    ``train_model``'s gates: a finite non-zero gradient on every leaf,
+    finite losses, exact launches a step; llama4-scout's local layer with
+    its window of 32 in the forward and the backward), then
+    ``launch.train.main --arch <arch> --smoke`` for 2 steps and
+    ``launch.serve.main --arch <arch> --smoke`` (``dvfs_serve_launcher``,
+    exact launches: ``llama_launches``).  Returns ``train_model``'s
+    summary, with the serve launcher's launches under "serve_launches".
+    """
+    from repro_torch.configs import card_smoke_config, get_config
+    cfg = card_smoke_config(get_config(arch))
+    L, A = cfg.n_layers, TRAIN_ACCUM
+    norms = A * (2 * L + 1 + 2 * L) if cfg.norm == "rms" else 0
+    per_step = {"rmsnorm": norms, "flash_prefill": A * 2 * L,
+                "flash_bwd": A * L, "paged_decode": 0, "ssd_scan": 0}
+    ours = {"flash_bwd dK/dV": "flash_bwd_dkv_kernel",
+            "flash_bwd dQ": "flash_bwd_dq_kernel",
+            "flash_prefill (lse)": "flash_prefill_kernel"}
+
+    def describe(m):
+        c = m.cfg
+        return (f"{c.n_layers} layers (window {c.attn_window}, global every "
+                f"{c.global_attn_every}), d={c.d_model} H={c.n_heads}/"
+                f"{c.n_kv_heads} D={c.resolved_head_dim} ff={c.d_ff} "
+                f"{c.norm} norm, {c.activation}")
+    out = train_model(f"train_smoke {arch}", cfg, describe, per_step, ours)
+    dvfs_train_launcher(arch)
+    every = cfg.global_attn_every if cfg.attn_window else 1
+    out["serve_launches"] = dvfs_serve_launcher(
+        smoke=True, arch=arch,
+        launches=lambda s, c, layers: llama_launches(
+            s, c, layers=layers, every=every, norms=cfg.norm == "rms"))
+    release()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4494,7 +5007,7 @@ def _check_hooks(tag, ex, requests, decode_steps):
 
 
 def dvfs_serve_launcher(smoke: bool = False, arch: str = "llama3.2-1b",
-                        requests: int = 16):
+                        requests: int = 16, launches=None):
     """``launch.serve.main`` on the card (``arch``, by default llama3.2-1b,
     the h100 chip model, 8 slots, ``requests`` requests) at full width, or
     with ``--smoke`` (``card_smoke_config``: 2 layers, 4 query heads and 2
@@ -4502,7 +5015,8 @@ def dvfs_serve_launcher(smoke: bool = False, arch: str = "llama3.2-1b",
     arch keeps 4 experts, top-2): finite plan rows and executed totals, the
     executor's hooks against the engine's calls, and the exact launches of
     the three serving kernels (counted through graph replays; the MoE
-    layer launches none of them).  Returns the launch counts."""
+    layer launches none of them; ``launches(steps, calls, layers)``, by
+    default ``llama_launches``, gives them).  Returns the launch counts."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
@@ -4514,8 +5028,9 @@ def dvfs_serve_launcher(smoke: bool = False, arch: str = "llama3.2-1b",
                      + (["--smoke"] if smoke else []))
     torch.cuda.synchronize()
     got = kernels.launch_counts()
-    want = llama_launches(out["n_decode_steps"], out["n_prefill_calls"],
-                          layers=2 if smoke else get_config(arch).n_layers)
+    want = (launches or llama_launches)(
+        out["n_decode_steps"], out["n_prefill_calls"],
+        layers=2 if smoke else get_config(arch).n_layers)
     rows = [v for r in out["plan"].values() for v in r.values()
             if isinstance(v, float)]
     what = f"serve launcher --arch {arch}{' --smoke' * smoke}"
@@ -4852,7 +5367,8 @@ def main() -> int:
     del model, params
     release()
     train_vlm = timed("train_vlm", phase_train_vlm)["counts"]
-    cfg, model, params = timed("build_yi", build_full_model, YI_ARCH)
+    cfg, model, params = timed("build_yi", build_full_model, YI_ARCH,
+                               YI_SERVE_LAYERS)
     serve_yi = timed("serve_yi", phase_serve_yi, cfg, model, params)
     timed("consistency_yi", phase_consistency_yi, model, params)
     del model, params
@@ -4881,6 +5397,26 @@ def main() -> int:
     timed("train_ssm", phase_train_ssm, ssd_bwd["mamba2-370m"])
     train_hybrid = timed("train_hybrid", phase_train_hybrid,
                          ssd_bwd["zamba2-7b"])["counts"]
+    cfg, model, params = timed("build_llama4", build_full_model, LLAMA4_ARCH,
+                               LLAMA4_SERVE_LAYERS)
+    serve_llama4 = timed("serve_llama4", phase_serve_llama4, cfg, model,
+                         params)
+    long_llama4 = timed("serve_llama4_long", phase_serve_llama4_long, cfg,
+                        model, params)
+    timed("consistency_llama4", phase_consistency_llama4, model, params)
+    del model, params
+    release()
+    timed("consistency_llama4_f32", phase_consistency_llama4_f32)
+    train_llama4 = timed("train_llama4_smoke", phase_train_smoke,
+                         LLAMA4_ARCH)["counts"]
+    cfg, model, params = timed("build_nemotron", build_full_model, NEMO_ARCH,
+                               NEMO_SERVE_LAYERS)
+    serve_nemo = timed("serve_nemotron", phase_serve_nemotron, cfg, model,
+                       params)
+    timed("consistency_nemotron", phase_consistency_nemotron, model, params)
+    del model, params
+    release()
+    timed("train_nemotron_smoke", phase_train_smoke, NEMO_ARCH)
     # each kernel's launches on the path it serves: paged decode's in one
     # serve run of its page type, the serving prefill's in a bf16-page run,
     # the others' in the training run (the forward with its log-sum-exp
@@ -4944,6 +5480,34 @@ def main() -> int:
                 row["launches_of"] = (f"one {ENCDEC_ARCH} serve run, {run} "
                                       f"pages, CUDA graphs, each request "
                                       f"with {ENCDEC_FRAMES} frames")
+        elif row.get("model") == LLAMA4_ARCH:
+            run = LLAMA4_ROW_RUNS[row["name"]]
+            if run == "train":
+                row["launches"] = train_llama4[name]
+                row["launches_of"] = (f"one training run of {LLAMA4_ARCH}'s "
+                                      f"card smoke config (its local layer "
+                                      f"at window 32), {TRAIN_STEPS} steps "
+                                      f"of {TRAIN_BATCH} x {TRAIN_SEQ} "
+                                      f"tokens")
+            elif run == "long":
+                row["launches"] = long_llama4[name]
+                row["launches_of"] = (f"one {LLAMA4_ARCH} long-traffic serve "
+                                      f"run at {LLAMA4_SERVE_LAYERS} layers "
+                                      f"(prompts of {list(LONG_PROMPTS)} "
+                                      f"tokens, buckets 8192 and "
+                                      f"{LONG_MAX_SEQ}), bf16 pages, CUDA "
+                                      f"graphs")
+            else:
+                row["launches"] = serve_llama4[run][name]
+                row["launches_of"] = (f"one {LLAMA4_ARCH} serve run at "
+                                      f"{LLAMA4_SERVE_LAYERS} layers, {run} "
+                                      f"pages, CUDA graphs")
+        elif row.get("model") == NEMO_ARCH:
+            run = NEMO_ROW_RUNS[row["name"]]
+            row["launches"] = serve_nemo[run][name]
+            row["launches_of"] = (f"one {NEMO_ARCH} serve run at "
+                                  f"{NEMO_SERVE_LAYERS} layers, {run} pages, "
+                                  f"CUDA graphs")
         elif row.get("model") == YI_ARCH:
             run = YI_ROW_RUNS[row["name"]]
             row["launches"] = serve_yi[run][name]

@@ -18,16 +18,16 @@ from dataclasses import replace
 from typing import Dict
 
 from . import (gpt3_xl, granite_moe_1b_a400m, internvl2_1b, llama3_2_1b,
-               llama3_2_3b, mamba2_370m, seamless_m4t_medium, yi_34b,
-               zamba2_7b)
+               llama3_2_3b, llama4_scout_17b_a16e, mamba2_370m,
+               nemotron_4_340b, seamless_m4t_medium, yi_34b, zamba2_7b)
 from .base import ModelConfig, MoEConfig, SSMConfig, ShapeConfig, smoke_config
 from .shapes import SHAPES, get_shape, smoke_shape
 
 REGISTRY: Dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
-    for m in (llama3_2_1b, llama3_2_3b, yi_34b, gpt3_xl, internvl2_1b,
-              granite_moe_1b_a400m, seamless_m4t_medium, mamba2_370m,
-              zamba2_7b)}
+    for m in (llama3_2_1b, llama3_2_3b, yi_34b, gpt3_xl, nemotron_4_340b,
+              internvl2_1b, granite_moe_1b_a400m, llama4_scout_17b_a16e,
+              seamless_m4t_medium, mamba2_370m, zamba2_7b)}
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -27,9 +27,12 @@
 // gradient needs 5 products of 2 * D flops (QK^T, dO V^T, dS K, P^T dO,
 // dS^T Q) against 2 * D bytes per row read once; these kernels do 7, since
 // the dK/dV kernel recomputes QK^T and dO V^T.  The wrapper launches them
-// with no window for what the training paths give them: causal attention
-// at Sq == Sk (a decoder's self-attention), and non-causal attention at any
-// Sq and Sk (an encoder's self-attention at Sq == Sk; a decoder's
+// for what the training paths give them: causal attention at Sq == Sk (a
+// decoder's self-attention), with a local window (llama4-scout's local
+// layers: dQ's key loop starts at the tile of its first query's window,
+// dK/dV's query loop ends at the last query whose window reaches the
+// tile's last key) or not, and non-causal attention without one at any Sq
+// and Sk (an encoder's self-attention at Sq == Sk; a decoder's
 // cross-attention, Sq text positions over Sk encoder frames).  Query rows
 // and keys are counted separately everywhere: the dQ grid runs over Sq and
 // its key loop to Sk, the dK/dV grid over Sk and its query loop to Sq; a

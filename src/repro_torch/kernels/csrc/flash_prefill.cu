@@ -275,26 +275,37 @@ static int launch_prefill(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// Wide rows: head_dim 128 (gpt3-xl) and 224 (zamba2-7b's shared attention
-// block), one query head per KV head.  The design above, reshaped for rows
-// longer than the 64-element tiles of mma.cuh:
+// Wide rows: head_dim 128 (gpt3-xl, llama3.2-3b, yi-34b,
+// llama4-scout-17b-a16e), 192 (nemotron-4-340b) and 224 (zamba2-7b's
+// shared attention block).  The design above, reshaped for rows longer
+// than the 64-element tiles of mma.cuh:
 // - A 224-element row is 28 16-byte chunks, which the 8-chunk XOR swizzle
 //   of those tiles does not tile.  These tiles keep each row at a pitch of
 //   D + 8 elements instead: at 224, 29 chunks (116 words, 20 banks on from
 //   the row before), so the 8 rows one ldmatrix phase reads at one column
-//   start at banks 0, 20, 8, 28, 16, 4, 24, 12; at 128, 17 chunks (68
-//   words, 4 banks on), so they start at banks 0, 4, .., 28.  Either way
-//   they cover the 32 banks once (the epilogue's 4-byte stores likewise).
+//   start at banks 0, 20, 8, 28, 16, 4, 24, 12; at 192, 25 chunks (100
+//   words, 4 banks on) and at 128, 17 chunks (68 words, 4 banks on), so
+//   they start at banks 0, 4, .., 28.  Either way they cover the 32 banks
+//   once (the epilogue's 4-byte stores likewise).  (192 is 24 chunks, a
+//   whole number of the swizzle's 8, but one pitch for every wide row
+//   keeps one kernel.)
 // - Registers: a warp's 16 x D f32 accumulator is D / 2 a lane (112 at
-//   224, 64 at 128), and Q's fragments would be D / 4 more (56, 32).  At
-//   224 they do not fit beside it, so Q is scaled in shared memory once and
-//   its fragments are re-read by ldmatrix at every k-step; 128 runs the
-//   same code (the re-read costs shared-memory bandwidth, not registers).
-//   The key tiles hold 32 keys (16 score registers, not 32).
+//   224, 96 at 192, 64 at 128), and Q's fragments would be D / 4 more (56,
+//   48, 32).  At 224 they do not fit beside it, so Q is scaled in shared
+//   memory once and its fragments are re-read by ldmatrix at every k-step;
+//   128 and 192 run the same code (the re-read costs shared-memory
+//   bandwidth, not registers).  The key tiles hold 32 keys (16 score
+//   registers, not 32).
 // - Shared memory: Q (64 rows) and a 2-stage K/V ring of 32-key tiles,
-//   87 KB at 224 and 52 KB at 128; __launch_bounds__(.., 2) lets ptxas use
-//   up to 255 registers a thread (chip_smoke.py's build phase logs what it
+//   87 KB at 224, 75 KB at 192 and 52 KB at 128; two blocks an SM fit in
+//   its 227 KB at each, and __launch_bounds__(.., 2) lets ptxas use up to
+//   255 registers a thread (chip_smoke.py's build phase logs what it
 //   took).
+// - A local window (llama4-scout's local layers: 8192) starts the key
+//   loop at the tile of the block's first query's window_lower and masks
+//   the tiles that cut the window pair by pair, as the 64-wide kernel
+//   does; a padded query row whose window lies wholly past its row's
+//   valid length takes the no-valid-key branch after the loop.
 // ---------------------------------------------------------------------------
 
 constexpr int kWideBK = 32;          // keys per tile at head_dim 128 and 224
@@ -575,9 +586,10 @@ static int launch_prefill_wide(const void* q, const void* k, const void* v,
 // granite-moe-1b-a400m's and seamless-m4t-medium's serving and training
 // paths, the last causal and not), at head_dim 128 and
 // 224 with one query head per KV head (gpt3-xl; zamba2-7b's shared
-// attention block) and at head_dim 128 with 3 and 7 (llama3.2-3b, yi-34b:
-// the wide kernel reads KV head h / G, so only the grid changes); other
-// cases are refused
+// attention block), at head_dim 128 with 3, 5 and 7 (llama3.2-3b,
+// llama4-scout-17b-a16e with its local window, yi-34b: the wide kernel
+// reads KV head h / G, so only the grid changes) and at head_dim 192 with
+// 12 (nemotron-4-340b); other cases are refused
 // until a configuration needs them and chip_smoke.py checks them.
 // lse may be null.
 // Strides are in elements; the wrapper makes each a multiple of 8 (16-byte
@@ -598,8 +610,12 @@ extern "C" int flash_prefill_launch(
   if (D == 64)
     return launch_prefill<64>(q, k, v, vl, out, l, B, Sq, Sk, H, KV, st,
                               causal, window, softcap, s);
-  if (D == 128 && (H == KV || H == 3 * KV || H == 7 * KV))
+  if (D == 128 &&
+      (H == KV || H == 3 * KV || H == 5 * KV || H == 7 * KV))
     return launch_prefill_wide<128>(q, k, v, vl, out, l, B, Sq, Sk, H, KV,
+                                    st, causal, window, softcap, s);
+  if (D == 192 && H == 12 * KV)
+    return launch_prefill_wide<192>(q, k, v, vl, out, l, B, Sq, Sk, H, KV,
                                     st, causal, window, softcap, s);
   if (D == 224 && H == KV)
     return launch_prefill_wide<224>(q, k, v, vl, out, l, B, Sq, Sk, H, KV,

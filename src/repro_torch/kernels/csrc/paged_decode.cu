@@ -33,10 +33,21 @@
 //   The split's table entries and scales are read once.
 // - Each warp takes 16 keys of a tile, D / 8 lanes to a key (8 values
 //   each): at head_dim 64, 4 keys a step on 8 lanes each; at head_dim 128,
-//   2 keys a step on 16 lanes each; at head_dim 224, one key a step on 28
-//   lanes, the other 4 holding zeros.  The dot products with the G query
-//   rows (in registers, pre-scaled by D^-0.5) reduce over a key's lanes by
-//   shuffles (over the whole warp at 224).
+//   2 keys a step on 16 lanes each; at head_dim 192 and 224, one key a
+//   step on 24 or 28 lanes, the other 8 or 4 holding zeros.  The dot
+//   products with the G query rows (in registers, pre-scaled by D^-0.5)
+//   reduce over a key's lanes by shuffles (over the whole warp at 192 and
+//   224).
+// - A lane holds G query rows, a (G, 8) accumulator and G scores for each
+//   of its tile's steps: 7 x (8 + 8 + 8) at (128, 7) took 255 registers.
+//   At nemotron-4-340b's (192, 12) a key is one step of 16 a tile, so the
+//   scores alone would be 12 x 16.  There the G rows are split over NR
+//   blocks (3 of 4 rows each, the grid's x axis KV * NR): a block runs the
+//   kernel of a group of G / NR on KV head x / NR, its partials and its
+//   output rows are those of "virtual KV head" x, and the combine pass
+//   runs as for KV * NR heads of G / NR.  Each KV row is then read by NR
+//   blocks of the same (slot, split), which run side by side, so the
+//   repeats come from L2.
 //   A quantized pool's scales multiply once per key: s = (q . k_q) * k_scale
 //   and p * v_scale before P.V.  The (G, 8) accumulator of a lane stays in
 //   registers with its warp's running max and sum; the warps merge through
@@ -87,7 +98,7 @@ __device__ __forceinline__ void load8(const KT* src, float* dst) {
   }
 }
 
-template <typename KT, int D, int G>
+template <typename KT, int D, int G, int NR>
 __global__ void __launch_bounds__(kDecThreads)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const KT* __restrict__ kp, const KT* __restrict__ vp,
@@ -102,7 +113,8 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int VEC = 16 / sizeof(KT);        // values a 16-byte copy moves
   constexpr int CH = D / VEC;                 // 16-byte copies a key row
   static_assert(TK * CH % kDecThreads == 0, "whole copies per thread");
-  const int h = blockIdx.x, b = blockIdx.y, s = blockIdx.z;
+  // h: the block's group of G query rows (of KV * NR); hk: their KV head
+  const int h = blockIdx.x, hk = h / NR, b = blockIdx.y, s = blockIdx.z;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   // an idle lane (past L::ACTIVE) shadows the step's first key with zero
   // queries: its loads stay in the tile, its products are zero
@@ -110,8 +122,8 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   const int kk = active ? lane / L::KEY_LANES : 0, c = lane % L::KEY_LANES;
 
   // partial of (b, h, s): max[G], sum[G], acc[G][D]
-  float* pm = part + ((static_cast<size_t>(b) * KV + h) * gridDim.z + s) *
-                         (G * (D + 2));
+  float* pm = part + ((static_cast<size_t>(b) * gridDim.x + h) *
+                             gridDim.z + s) * (G * (D + 2));
   float* pl = pm + G;
   float* pacc = pl + G;
 
@@ -169,8 +181,8 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
       size_t off = 0;
       if (in) {
         const int pid = tbl_sh[key / page - s * pps];
-        off = ((static_cast<size_t>(pid) * page + key % page) * KV + h) * D +
-              ch * VEC;
+        off = ((static_cast<size_t>(pid) * page + key % page) * KV + hk) *
+                  D + ch * VEC;
       }
       cp_async16(kd + t * D + ch * VEC, kp + off, in);
       cp_async16(vd + t * D + ch * VEC, vp + off, in);
@@ -190,7 +202,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   for (int i = 0; i < kDecMaxSplitPages / kDecThreads; ++i) {
     const int j = s * pps + i * kDecThreads + tid;
     if (j >= ja && j < jb) {
-      const size_t at = static_cast<size_t>(pid_pre[i]) * KV + h;
+      const size_t at = static_cast<size_t>(pid_pre[i]) * KV + hk;
       ks_sh[j - s * pps] = quantized ? k_scales[at] : 1.f;
       vs_sh[j - s * pps] = quantized ? v_scales[at] : 1.f;
     }
@@ -367,13 +379,16 @@ paged_decode_combine_kernel(const float* __restrict__ part,
   }
 }
 
-template <typename KT, int D, int G>
+// G query rows a KV head, run as NR blocks of G / NR rows
+template <typename KT, int D, int G, int NR = 1>
 static int launch_paged(const void* q, const void* kp, const void* vp,
                         const int* tables, const int* pos, const float* ks,
                         const float* vs, float* part, void* out, int B, int H,
                         int KV, int page, int nb, int kps, int window,
                         float softcap, cudaStream_t stream) {
   using QT = __nv_bfloat16;
+  static_assert(G % NR == 0, "whole rows a block");
+  constexpr int GB = G / NR;
   if (KV <= 0 || H != G * KV || page <= 0 || kps <= 0 || kps % page ||
       kps / page > kDecMaxSplitPages)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -381,7 +396,7 @@ static int launch_paged(const void* q, const void* kp, const void* vp,
   // workspace
   const int n_split = (nb * page + kps - 1) / kps;
   const size_t smem = 2 * 2 * sizeof(KT) * kDecTileKeys * D;
-  auto kernel = paged_decode_kernel<KT, D, G>;
+  auto kernel = paged_decode_kernel<KT, D, GB, NR>;
   // the ring is dynamic shared memory; beside the static merge buffer
   // (4 x G x D floats: 14 KB at (128, 7)) it can pass the 48 KB a launch
   // gets without opting in even when the ring alone does not (an int8
@@ -395,7 +410,7 @@ static int launch_paged(const void* q, const void* kp, const void* vp,
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in = true;
   }
-  kernel<<<dim3(KV, B, n_split), kDecThreads, smem, stream>>>(
+  kernel<<<dim3(KV * NR, B, n_split), kDecThreads, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const KT*>(kp),
       static_cast<const KT*>(vp), tables, pos, ks, vs, part, H, KV, page, nb,
       kps, window, softcap);
@@ -405,20 +420,22 @@ static int launch_paged(const void* q, const void* kp, const void* vp,
   attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr.val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(KV, B);
+  cfg.gridDim = dim3(KV * NR, B);
   cfg.blockDim = dim3(kDecThreads);
   cfg.stream = stream;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   const float* cpart = part;
-  err = cudaLaunchKernelEx(&cfg, paged_decode_combine_kernel<QT, D, G>,
-                           cpart, static_cast<QT*>(out), H, KV, n_split);
+  err = cudaLaunchKernelEx(&cfg, paged_decode_combine_kernel<QT, D, GB>,
+                           cpart, static_cast<QT*>(out), H, KV * NR,
+                           n_split);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The pool types of each (head_dim, query group) instantiation.
-template <int D, int G>
+// The pool types of each (head_dim, query group) instantiation, its G
+// rows in NR blocks.
+template <int D, int G, int NR = 1>
 static int launch_pool(int kv_dtype, const void* q, const void* kp,
                        const void* vp, const int* t, const int* p,
                        const float* ks, const float* vs, float* w, void* out,
@@ -426,13 +443,14 @@ static int launch_pool(int kv_dtype, const void* q, const void* kp,
                        int window, float softcap, cudaStream_t s) {
   switch (kv_dtype) {
     case kBF16:
-      return launch_paged<__nv_bfloat16, D, G>(q, kp, vp, t, p, ks, vs, w,
-                                               out, B, H, KV, page, nb, kps,
-                                               window, softcap, s);
+      return launch_paged<__nv_bfloat16, D, G, NR>(q, kp, vp, t, p, ks, vs,
+                                                   w, out, B, H, KV, page,
+                                                   nb, kps, window, softcap,
+                                                   s);
     case kI8:
-      return launch_paged<int8_t, D, G>(q, kp, vp, t, p, ks, vs, w, out, B,
-                                        H, KV, page, nb, kps, window,
-                                        softcap, s);
+      return launch_paged<int8_t, D, G, NR>(q, kp, vp, t, p, ks, vs, w, out,
+                                            B, H, KV, page, nb, kps, window,
+                                            softcap, s);
   }
   if constexpr (D == 64 && (G == 2 || G == 4)) {  // every pool
     switch (kv_dtype) {
@@ -458,9 +476,11 @@ static int launch_pool(int kv_dtype, const void* q, const void* kp,
 // (3, 8) accumulator) and with 7 (yi-34b), and at head_dim 64 with 7
 // (internvl2-1b) and with 1 (seamless-m4t-medium's decoder, 16 heads over
 // 16: a lane holds one query row and a (1, 8) accumulator, as at (128, 1))
-// over bf16 and int8 pools.  At G 7 a lane holds 7 query
-// rows, a (7, 8) accumulator and 7 scores a step of its tile, and the
-// warps' merge buffer is 4 x 7 x D floats (14 KB at D 128);
+// over bf16 and int8 pools, and at head_dim 128 with 5 (llama4-scout's
+// global layers) and at head_dim 192 with 12 (nemotron-4-340b, its rows
+// in 3 blocks of 4) over bf16 and int8 pools.  At G 7 a lane holds 7
+// query rows, a (7, 8) accumulator and 7 scores a step of its tile, and
+// the warps' merge buffer is 4 x 7 x D floats (14 KB at D 128);
 // chip_smoke.py's build phase logs their registers and spills;
 // kernels/flash_attention/paged.py:KERNEL_CASES lists the same, and
 // chip_smoke.py checks every one of them.  `workspace` holds
@@ -509,6 +529,14 @@ extern "C" int paged_decode_launch(const void* q, const void* k_pages,
     return launch_pool<128, 7>(kv_dtype, q, k_pages, v_pages, t, p, ks, vs,
                                w, out, B, H, KV, page, nb, keys_per_split,
                                window, softcap, s);
+  if (D == 128 && H == 5 * KV)
+    return launch_pool<128, 5>(kv_dtype, q, k_pages, v_pages, t, p, ks, vs,
+                               w, out, B, H, KV, page, nb, keys_per_split,
+                               window, softcap, s);
+  if (D == 192 && H == 12 * KV)
+    return launch_pool<192, 12, 3>(kv_dtype, q, k_pages, v_pages, t, p, ks,
+                                   vs, w, out, B, H, KV, page, nb,
+                                   keys_per_split, window, softcap, s);
   if (D == 224 && H == KV)
     return launch_pool<224, 1>(kv_dtype, q, k_pages, v_pages, t, p, ks, vs,
                                w, out, B, H, KV, page, nb, keys_per_split,

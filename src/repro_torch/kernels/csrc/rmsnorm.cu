@@ -19,7 +19,7 @@
 //   and granite-moe-1b-a400m; d 256, the small Trainer run of chip_smoke.py;
 //   d 3072, llama3.2-3b; d 3584 and 7168, zamba2-7b's d_model and its
 //   d_inner and shared block's 2 d_model, and yi-34b's d_model 7168; d
-//   896, internvl2-1b, below).
+//   5120, llama4-scout-17b-a16e; d 896, internvl2-1b, below).
 //   Up to d 2048 each warp reads the f32 weight once, as 16-byte vectors,
 //   into registers; then it strides over rows in a grid of as many blocks
 //   as the SMs hold at once (2-4 an SM, by its register count), loading
@@ -37,7 +37,10 @@
 //   d 3072 (CPL 12, 96 values a lane) takes d 3584's scheme by the same
 //   count: the weight in registers would need ~16 CPL = 192 on top of the
 //   loop's own, so it is read through L1 (12 KB); the row and the
-//   prefetched next row are 48 registers each.
+//   prefetched next row are 48 registers each.  d 5120 (CPL 20, 160
+//   values a lane) takes d 7168's: the weight through L1 (20 KB), the
+//   row alone in registers (80 a lane), the next row loaded after this
+//   one is stored.
 // - A row that is not a whole number of 512-byte warp loads (d 896,
 //   internvl2-1b: 112 chunks, 3.5 a lane) gives its last chunk to the
 //   first LAST lanes only (16 at d 896): the other lanes neither load nor
@@ -179,10 +182,10 @@ static int launch_rms(const void* x, const void* w, void* out, int rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Built for bf16 at d 256, 896, 1024, 2048, 3072, 3584 and 7168, what the
-// serving and training paths launch; other types and widths are refused until a configuration
-// needs them and chip_smoke.py checks them (kernels/rmsnorm.py names the
-// widths).
+// Built for bf16 at d 256, 896, 1024, 2048, 3072, 3584, 5120 and 7168,
+// what the serving and training paths launch; other types and widths are
+// refused until a configuration needs them and chip_smoke.py checks them
+// (kernels/rmsnorm.py names the widths).
 extern "C" int rmsnorm_launch(const void* x, const void* w, void* out,
                               int rows, int d, float eps, int dtype,
                               void* stream) {
@@ -201,6 +204,8 @@ extern "C" int rmsnorm_launch(const void* x, const void* w, void* out,
       return launch_rms<12>(x, w, out, rows, eps, s);
     case 3584:
       return launch_rms<14>(x, w, out, rows, eps, s);
+    case 5120:
+      return launch_rms<20>(x, w, out, rows, eps, s);
     case 7168:
       return launch_rms<28>(x, w, out, rows, eps, s);
     default:

@@ -69,9 +69,10 @@ def flash_attention_bwd(q, k, v, o, do, lse, causal: bool = True,
     dK/dV), built for bf16 at head_dim 64 (any group), at head_dim 128
     and 224 with one query head per KV head and at head_dim 128 with 3
     (``KERNEL_CASES``), and launched only
-    for what the training paths give it and the card's check covers, with
-    no window: causal at Sq == Sk (a decoder's self-attention), or
-    non-causal at any Sq and Sk (an encoder's self-attention; a decoder's
+    for what the training paths give it and the card's check covers:
+    causal at Sq == Sk (a decoder's self-attention), with a local window
+    or not (llama4-scout-17b-a16e's local layers), or non-causal without
+    one at any Sq and Sk (an encoder's self-attention; a decoder's
     cross-attention, Sq text positions over Sk encoder frames).  At
     head_dim 128 and 224 the pre-pass also writes the scaled q to a scratch
     that the wrapper allocates."""
@@ -100,11 +101,11 @@ def flash_attention_bwd(q, k, v, o, do, lse, causal: bool = True,
                          f"64 and for head_dim 128 and 224 with one query "
                          f"head per KV head, and head_dim 128 with 3, got "
                          f"D={D}, H={H}, KV={KV}")
-    if window or (causal and Sq != Sk):
+    if (causal and Sq != Sk) or (window and not causal):
         raise NotImplementedError(
             f"flash_attention_bwd kernel: causal={causal} window={window} "
-            f"Sq={Sq} Sk={Sk} is not on the training path (window 0; "
-            f"causal at Sq == Sk, or non-causal)")
+            f"Sq={Sq} Sk={Sk} is not on the training path (causal at "
+            f"Sq == Sk, with a window or not; or non-causal, no window)")
     q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)

@@ -27,14 +27,17 @@ _POOL_DTYPES = (torch.float32, torch.bfloat16, torch.int8,
 #: pool dtypes): llama3.2-1b's attention; the reduced config of a smoke run
 #: on the card (``configs.card_smoke_config``), which granite-moe-1b-a400m's
 #: attention shares; internvl2-1b's; seamless-m4t-medium's decoder (one
-#: query head per KV head); gpt3-xl's; llama3.2-3b's; yi-34b's; zamba2-7b's
-#: shared attention block
+#: query head per KV head); gpt3-xl's; llama3.2-3b's; yi-34b's;
+#: llama4-scout-17b-a16e's global layers; nemotron-4-340b's (its 12 query
+#: rows a KV head in 3 blocks of 4); zamba2-7b's shared attention block
 KERNEL_CASES = ((64, 4, _POOL_DTYPES), (64, 2, _POOL_DTYPES),
                 (64, 7, (torch.bfloat16, torch.int8)),
                 (64, 1, (torch.bfloat16, torch.int8)),
                 (128, 1, (torch.bfloat16, torch.int8)),
                 (128, 3, (torch.bfloat16, torch.int8)),
                 (128, 7, (torch.bfloat16, torch.int8)),
+                (128, 5, (torch.bfloat16, torch.int8)),
+                (192, 12, (torch.bfloat16, torch.int8)),
                 (224, 1, (torch.bfloat16, torch.int8)))
 
 _POOL_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16",

@@ -27,9 +27,11 @@ NEG_INF = -1e30
 #: encoder and cross-attention non-causal, the latter with Sq != Sk),
 #: gpt3-xl's head_dim 128 and zamba2-7b's
 #: shared attention block's head_dim 224, each with one query head per KV
-#: head, llama3.2-3b's head_dim 128 with 3 and yi-34b's with 7 (group 0:
-#: any)
-KERNEL_CASES = ((64, 0), (128, 1), (224, 1), (128, 3), (128, 7))
+#: head, llama3.2-3b's head_dim 128 with 3, llama4-scout-17b-a16e's with 5
+#: (its local layers with their window), yi-34b's with 7, and
+#: nemotron-4-340b's head_dim 192 with 12 (group 0: any)
+KERNEL_CASES = ((64, 0), (128, 1), (224, 1), (128, 3), (128, 5), (128, 7),
+                (192, 12))
 
 
 def query_scale(D: int, dtype: torch.dtype) -> float:
@@ -110,8 +112,9 @@ def flash_prefill(q, k, v, kv_valid_len: Optional[torch.Tensor] = None, *,
     key j at j: a decoder's cross-attention is Sq text positions over Sk
     encoder frames), and supports bf16 and ``q_offset == 0`` only, at
     head_dim 64, at head_dim 128 or 224 with one query head per KV head,
-    or at head_dim 128 with 3 or 7 (``KERNEL_CASES``).  When grad mode is on and an
-    input requires grad, the call goes through
+    at head_dim 128 with 3, 5 or 7, or at head_dim 192 with 12
+    (``KERNEL_CASES``), causal with a local window or not.  When grad
+    mode is on and an input requires grad, the call goes through
     ``ops.flash_attention_train`` (the forward with its log-sum-exp, then
     the flash backward), which covers what the reference's training
     kernels cover: no softcap, no ``q_offset``, no ``kv_valid_len``; any
@@ -152,8 +155,8 @@ def _forward(q, k, v, kv_valid_len, *, causal, window, softcap=0.0,
     if not any(D == d and (g == 0 or H == g * KV) for d, g in KERNEL_CASES):
         raise ValueError(f"flash_prefill kernel is built for head_dim 64 "
                          f"and for head_dim 128 and 224 with one query head "
-                         f"per KV head, and head_dim 128 with 3 or 7, got "
-                         f"D={D}, H={H}, KV={KV}")
+                         f"per KV head, head_dim 128 with 3, 5 or 7 and "
+                         f"head_dim 192 with 12, got D={D}, H={H}, KV={KV}")
     vec = 16 // q.element_size()
     tensors = []
     for t in (q, k, v):

@@ -17,10 +17,10 @@ from . import _build
 #: row widths the kernel is instantiated for: llama3.2-1b's d_model 2048,
 #: mamba2-370m's and granite-moe-1b-a400m's 1024, 256 (the small
 #: ``Trainer`` run of chip_smoke.py and the card smoke config),
-#: llama3.2-3b's 3072, internvl2-1b's 896, and zamba2-7b's d_model 3584
-#: and 7168 (its d_inner, and the shared block's concat(h, emb); yi-34b's
-#: d_model)
-KERNEL_WIDTHS = (256, 896, 1024, 2048, 3072, 3584, 7168)
+#: llama3.2-3b's 3072, internvl2-1b's 896, llama4-scout-17b-a16e's 5120,
+#: and zamba2-7b's d_model 3584 and 7168 (its d_inner, and the shared
+#: block's concat(h, emb); yi-34b's d_model)
+KERNEL_WIDTHS = (256, 896, 1024, 2048, 3072, 3584, 5120, 7168)
 
 
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor,

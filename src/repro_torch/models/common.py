@@ -487,6 +487,25 @@ def gather_tail_window(x: torch.Tensor, lens: torch.Tensor,
                                                    device=x.device))
 
 
+def gather_ring_window(k: torch.Tensor, lens: torch.Tensor,
+                       W: int) -> torch.Tensor:
+    """Ring-arranged last ``W`` window: slot ``p % W`` holds position p.
+
+    k: (B, S, ...); lens: (B,) per-row valid lengths.  Ring slot r gets the
+    largest valid position congruent to r mod W, zeros where that position
+    is negative: a local-attention layer's ring cache after a right-padded
+    batched prefill (the reference's ``common.gather_ring_window``)."""
+    r = torch.arange(W, device=k.device)[None, :]
+    last = lens.long()[:, None] - 1
+    pos = last - torch.remainder(last - r, W)                 # (B, W)
+    idx = torch.clamp(pos, 0, k.shape[1] - 1)
+    rows = torch.arange(k.shape[0], device=k.device)[:, None]
+    gathered = k[rows, idx]                                   # (B, W, ...)
+    keep = (pos >= 0).reshape(pos.shape + (1,) * (k.dim() - 2))
+    return torch.where(keep, gathered, torch.zeros((), dtype=k.dtype,
+                                                   device=k.device))
+
+
 # ---------------------------------------------------------------------------
 # Embedding / unembedding
 # ---------------------------------------------------------------------------

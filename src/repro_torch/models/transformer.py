@@ -20,9 +20,15 @@ the layers as the reference's scan averages them.  A VLM config
 (``family="vlm"``) takes precomputed patch embeddings (``patch_embeds``,
 (B, P, d)) in ``prefill`` and ``loss``: cast to the compute dtype and
 placed before the token embeddings, so text position t sits at P + t;
-the loss is taken over the text positions only.  Local/global ring caches
-raise ``NotImplementedError`` until their slice lands (ROADMAP.md, queue
-1).
+the loss is taken over the text positions only.  A config with a local
+attention window and a global layer every ``global_attn_every`` layers
+(llama4-scout-17b-a16e) groups its layers as the reference does (the flat
+stack read in groups of ``global_attn_every``; the last layer of a group
+is global): a local layer attends over its window and keeps a ring cache
+of ``W = min(attn_window, max_seq)`` positions, dense beside the page
+pool (slot ``p % W`` holds position p; decode is the reference's plain
+ring attention), a global layer keeps the full "k_global"/"v_global"
+cache, paged when the engine pages.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..kernels.flash_attention.prefill import query_scale
 from . import common as cm
 from .common import Params
 
@@ -53,11 +60,12 @@ def init_scale(name: str, per_layer_shape) -> float:
         else per_layer_shape[0] ** -0.5
 
 
-#: a stacked leaf of more values than this is drawn a layer at a time, so
-#: that its float32 draw never sits whole beside the model's weights
-#: (yi-34b's w_gate: 8.8e9 values, 35 GB in float32, computed); the largest
-#: leaf of every smaller registered config (zamba2-7b's w_z, 2.1e9) is one
-#: draw
+#: a leaf of more values than this is drawn in parts, so that its float32
+#: draw never sits whole beside the model's weights: a stacked leaf a layer
+#: at a time (yi-34b's w_gate: 8.8e9 values, 35 GB in float32, computed),
+#: an unstacked one in blocks of whole rows of at most this many values
+#: (nemotron-4-340b's wte and head: 4.7e9 values each); the largest leaf of
+#: every smaller registered config (zamba2-7b's w_z, 2.1e9) is one draw
 DRAW_WHOLE_MAX = 1 << 32
 
 
@@ -68,8 +76,10 @@ def init_params(shapes, leaf_dtype, device, generator=None, *,
     order from ``generator`` (seed 0 when None): leaves named in ``zeros``
     or ``ones`` are filled; every other leaf is a normal scaled by
     ``scale(name, per_layer_shape)``, drawn in float32 and stored in
-    ``leaf_dtype(name)``, in one draw, or one a layer past
-    ``DRAW_WHOLE_MAX`` values.  Leaves under a subtree named in
+    ``leaf_dtype(name)``, in one draw; past ``DRAW_WHOLE_MAX`` values a
+    stacked leaf takes one draw a layer and an unstacked one a draw per
+    block of ``DRAW_WHOLE_MAX // row`` whole rows (the last block the
+    rest), in order from the first row.  Leaves under a subtree named in
     ``stacked_keys`` (``layers``; an encoder-decoder's ``enc_layers`` and
     ``dec_layers``) carry a leading layer dim, which the fan-in skips."""
     if generator is None:
@@ -88,11 +98,13 @@ def init_params(shapes, leaf_dtype, device, generator=None, *,
                 out[name] = fill(shape, dtype=dt, device=device)
                 continue
             std = scale(name, shape[1:] if stacked else shape)
-            if stacked and math.prod(shape) > DRAW_WHOLE_MAX:
+            if math.prod(shape) > DRAW_WHOLE_MAX:
                 out[name] = torch.empty(shape, dtype=dt, device=device)
-                for layer in out[name]:
-                    layer.copy_(torch.randn(
-                        shape[1:], generator=generator, device=device,
+                parts = out[name] if stacked else out[name].split(
+                    max(1, DRAW_WHOLE_MAX // math.prod(shape[1:])))
+                for part in parts:
+                    part.copy_(torch.randn(
+                        part.shape, generator=generator, device=device,
                         dtype=torch.float32).mul_(std))
                 continue
             w = torch.randn(shape, generator=generator, device=device,
@@ -137,18 +149,29 @@ class DecoderLM:
         if cfg.family not in ("dense", "moe", "vlm"):
             raise ValueError(f"{cfg.name}: DecoderLM runs the dense, MoE and "
                              f"VLM families, not {cfg.family!r}")
-        if cfg.attn_window:
-            raise NotImplementedError(
-                f"{cfg.name}: local/global ring caches are not ported yet "
-                f"(ROADMAP.md queue 1, the rest of the decoder family)")
         self.cfg = cfg
         self.block_k = block_k
         self.device = resolve_device(device)
         self.head_dim = cfg.resolved_head_dim
-        self.group = 1
-        self.n_groups = cfg.n_layers
+        if cfg.attn_window and cfg.global_attn_every:
+            self.group = cfg.global_attn_every
+            if cfg.n_layers % self.group:
+                raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not "
+                                 f"whole groups of {self.group}")
+        else:
+            self.group = 1
+        self.n_groups = cfg.n_layers // self.group
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
         self.param_dtype = getattr(torch, cfg.param_dtype)
+
+    # -- layer flags -----------------------------------------------------
+    def _layer_window(self, idx_in_group: int) -> int:
+        """Attention window of a layer (0 = full/global): the last layer of
+        each group is global."""
+        cfg = self.cfg
+        if not cfg.attn_window:
+            return 0
+        return 0 if idx_in_group == self.group - 1 else cfg.attn_window
 
     # -- params ----------------------------------------------------------
     def param_shapes(self) -> Params:
@@ -237,12 +260,13 @@ class DecoderLM:
             drop=drop)
         return x + h, aux
 
-    def _layer_fwd(self, lp: Params, x: torch.Tensor, q_offset: int):
+    def _layer_fwd(self, lp: Params, x: torch.Tensor, q_offset: int,
+                   window: int = 0):
         cfg = self.cfg
         h = cm.apply_norm(lp["norm_attn"], x, cfg.norm)
         h = cm.attention_block(
             lp["attn"], h, cfg_theta=cfg.rope_theta,
-            positional=cfg.positional, causal=True,
+            positional=cfg.positional, causal=True, window=window,
             softcap=cfg.attn_logit_softcap, q_offset=q_offset,
             block_k=self.block_k)
         return self._mlp_block(lp, x + h)
@@ -259,12 +283,13 @@ class DecoderLM:
         by ``n_layers``, as the reference's scan reduces them."""
         L = self.cfg.n_layers
         total: Dict[str, torch.Tensor] = {}
-        for lp in unstack_layers(params["layers"], L):
+        for layer, lp in enumerate(unstack_layers(params["layers"], L)):
+            window = self._layer_window(layer % self.group)
             if remat:
-                x, aux = checkpoint(self._layer_fwd, lp, x, q_offset,
+                x, aux = checkpoint(self._layer_fwd, lp, x, q_offset, window,
                                     use_reentrant=False)
             else:
-                x, aux = self._layer_fwd(lp, x, q_offset)
+                x, aux = self._layer_fwd(lp, x, q_offset, window)
             for k, v in aux.items():
                 total[k] = total[k] + v if k in total else v
         # divided as XLA divides by a constant: times its f32 reciprocal
@@ -284,12 +309,21 @@ class DecoderLM:
 
     # -- serving ---------------------------------------------------------
     def _cache_struct(self, B: int, max_seq: int) -> Dict[str, LeafSpec]:
+        """The cache leaves: "k"/"v" (L, B, max_seq, KV, D); with local
+        layers, their rings "k_local"/"v_local" (n_groups, group - 1, B, W,
+        KV, D), W = min(attn_window, max_seq), and the global layers'
+        "k_global"/"v_global" (n_groups, B, max_seq, KV, D)."""
         cfg = self.cfg
         if cfg.positional == "learned":
             cm.check_positions(max_seq, cfg.max_train_seq)
-        shape = (self.n_groups, B, max_seq, cfg.n_kv_heads, self.head_dim)
-        return {"k": LeafSpec(shape, self.compute_dtype),
-                "v": LeafSpec(shape, self.compute_dtype)}
+        KV, D, dt = cfg.n_kv_heads, self.head_dim, self.compute_dtype
+        full = LeafSpec((self.n_groups, B, max_seq, KV, D), dt)
+        if self.group == 1:
+            return {"k": full, "v": full}
+        W = min(cfg.attn_window, max_seq)
+        ring = LeafSpec((self.n_groups, self.group - 1, B, W, KV, D), dt)
+        return {"k_local": ring, "v_local": ring, "k_global": full,
+                "v_global": full}
 
     def init_cache(self, B: int, max_seq: int) -> Dict[str, torch.Tensor]:
         return {k: torch.zeros(s.shape, dtype=s.dtype, device=self.device)
@@ -301,13 +335,16 @@ class DecoderLM:
                 prompt_lens: Optional[torch.Tensor] = None):
         """Process prompts (B, S) behind ``patch_embeds`` (B, P, d) when
         given; return (last-position logits (B, Vp), cache {"k", "v"} of
-        (L, B, max_seq, KV, D) holding positions 0 .. P + S - 1).
+        (L, B, max_seq, KV, D) holding positions 0 .. P + S - 1; with
+        local layers, the global layers' "k_global"/"v_global" so and the
+        local layers' rings, see :meth:`_cache_struct`).
 
         ``prompt_lens`` (B,) enables batched bucketed prefill: rows are
         right-padded to S, attention masks keys past ``P + prompt_lens``,
-        and the logits are taken at each row's last valid position,
-        ``P + prompt_len - 1``.  ``remat`` is accepted for the reference's
-        signature; inference keeps no activations.
+        the logits are taken at each row's last valid position,
+        ``P + prompt_len - 1``, and a ring takes each row's last W valid
+        positions (``common.gather_ring_window``).  ``remat`` is accepted
+        for the reference's signature; inference keeps no activations.
         """
         cfg = self.cfg
         tokens = torch.as_tensor(tokens, device=self.device)
@@ -320,42 +357,61 @@ class DecoderLM:
         if prompt_lens is not None:
             valid_len = torch.as_tensor(prompt_lens, device=self.device
                                         ).to(torch.int32) + P
+        # a ring takes each row's valid tail
+        lens = valid_len if valid_len is not None else torch.full(
+            (B,), S, dtype=torch.int32, device=self.device)
         layers = unstack_layers(params["layers"], cfg.n_layers)
         for layer, lp in enumerate(layers):
+            g, i = divmod(layer, self.group)
+            window = self._layer_window(i)
             h = cm.apply_norm(lp["norm_attn"], x, cfg.norm)
             h, (k, v) = cm.attention_block(
                 lp["attn"], h, cfg_theta=cfg.rope_theta,
-                positional=cfg.positional, causal=True,
+                positional=cfg.positional, causal=True, window=window,
                 softcap=cfg.attn_logit_softcap, block_k=self.block_k,
                 return_kv=True, kv_valid_len=valid_len)
             x, _ = self._mlp_block(lp, x + h, drop=False)
-            cache["k"][layer, :, :S] = k
-            cache["v"][layer, :, :S] = v
+            if self.group == 1:
+                cache["k"][layer, :, :S] = k
+                cache["v"][layer, :, :S] = v
+            elif window:
+                W = cache["k_local"].shape[3]
+                cache["k_local"][g, i] = cm.gather_ring_window(k, lens, W)
+                cache["v_local"][g, i] = cm.gather_ring_window(v, lens, W)
+            else:
+                cache["k_global"][g, :, :S] = k
+                cache["v_global"][g, :, :S] = v
         last = x[:, -1:] if valid_len is None \
             else cm.gather_last_positions(x, valid_len)
         return self.logits(params, last)[:, 0], cache
 
     def cache_slot_axes(self):
         """Batch-axis index per cache leaf (for slot-wise admission)."""
-        return {"k": 1, "v": 1}
+        if self.group == 1:
+            return {"k": 1, "v": 1}
+        return {"k_local": 2, "v_local": 2, "k_global": 1, "v_global": 1}
 
     def cache_max_seq(self, cache) -> int:
-        return cache["k"].shape[2]
+        return cache["k" if self.group == 1 else "k_global"].shape[2]
 
     def paged_cache_keys(self):
         """Cache leaves holding unbounded (max_seq) KV, eligible for the
-        block-table page pool."""
-        return ["k", "v"]
+        block-table page pool; the local layers' rings stay dense
+        (bounded W)."""
+        return ["k", "v"] if self.group == 1 else ["k_global", "v_global"]
 
     def decode_step(self, params: Params, cache, tokens: torch.Tensor,
                     pos: torch.Tensor, block_tables=None):
         """One decode step; tokens, pos: (B,) int32.  Returns (logits
         (B, Vp), cache) with the cache written in place.
 
-        With ``block_tables`` (B, nb) the "k"/"v" leaves are page pools
-        (L, P, page, KV, D) shared by all slots, with "k_scale"/"v_scale"
-        (L, P, KV) siblings when quantized; reads go through the paged
-        decode kernel and writes scatter one token into each slot's page.
+        With ``block_tables`` (B, nb) the leaves of
+        :meth:`paged_cache_keys` are page pools (L, P, page, KV, D) shared
+        by all slots (n_groups for "k_global"/"v_global"), with
+        "<leaf>_scale" (L, P, KV) siblings when quantized; reads go
+        through the paged decode kernel and writes scatter one token into
+        each slot's page.  A local layer writes its ring at ``pos % W``
+        and attends over it (:meth:`_ring_attention`) on either cache.
         """
         cfg = self.cfg
         B = tokens.shape[0]
@@ -373,10 +429,19 @@ class DecoderLM:
         paged = block_tables is not None
         arange = torch.arange(B, device=tokens.device)
         layers = unstack_layers(params["layers"], cfg.n_layers)
+        kkey, vkey = self.paged_cache_keys()
         for layer, lp in enumerate(layers):
-            kc, vc = cache["k"][layer], cache["v"][layer]
-            ks = cache["k_scale"][layer] if "k_scale" in cache else None
-            vs = cache["v_scale"][layer] if "v_scale" in cache else None
+            g, i = divmod(layer, self.group)
+            ring = self._layer_window(i) > 0
+            if ring:
+                kc, vc = cache["k_local"][g, i], cache["v_local"][g, i]
+                ks = vs = None
+            else:
+                kc, vc = cache[kkey][g], cache[vkey][g]
+                ks = cache[f"{kkey}_scale"][g] \
+                    if f"{kkey}_scale" in cache else None
+                vs = cache[f"{vkey}_scale"][g] \
+                    if f"{vkey}_scale" in cache else None
             h = cm.apply_norm(lp["norm_attn"], x, cfg.norm)
             q = cm.project_heads(h, lp["attn"]["wq"])
             k = cm.project_heads(h, lp["attn"]["wk"])
@@ -384,7 +449,14 @@ class DecoderLM:
             if cfg.positional == "rope":
                 q = cm.apply_rope(q, pos[:, None], cfg.rope_theta)
                 k = cm.apply_rope(k, pos[:, None], cfg.rope_theta)
-            if paged:
+            if ring:
+                W = kc.shape[1]
+                kc[arange, pos % W] = k[:, 0]
+                vc[arange, pos % W] = v[:, 0]
+                s = torch.arange(W, device=pos.device)[None, :]
+                abs_pos = pos[:, None] - torch.remainder(pos[:, None] - s, W)
+                o = self._ring_attention(q, kc, vc, abs_pos, pos)
+            elif paged:
                 if ks is not None:
                     cm.paged_cache_write_quant(kc, ks, k[:, 0],
                                                block_tables, pos)
@@ -405,3 +477,18 @@ class DecoderLM:
                 @ cm.cast(lp["attn"]["wo"], x.dtype).reshape(H * D, d)
             x, _ = self._mlp_block(lp, x, drop=False)
         return self.logits(params, x)[:, 0], cache
+
+    def _ring_attention(self, q, kc, vc, abs_pos, pos):
+        """Attention over a ring cache (B, W, KV, D) whose slot s holds
+        absolute position ``abs_pos[b, s]``: the reference's plain jnp
+        attention (q scaled in its own dtype, f32 scores and softmax over
+        the slots at positions 0 .. pos; no kernel computes it there)."""
+        B, _, H, D = q.shape
+        KV = kc.shape[2]
+        qr = q.reshape(B, KV, H // KV, D) * query_scale(D, q.dtype)
+        s = torch.einsum("bkgd,bskd->bkgs", qr.float(), kc.float())
+        valid = (abs_pos >= 0) & (abs_pos <= pos[:, None])
+        s = torch.where(valid[:, None, None, :], s, cm.NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgs,bskd->bkgd", p, vc.float())
+        return o.reshape(B, 1, H, D).to(q.dtype)

@@ -52,7 +52,8 @@ from repro_torch.serve.kv_pages import write_prefill_pages as torch_write_pages
 from repro_torch.train import OptimizerConfig, loss_and_grads, make_train_step
 from repro_torch.train.loop import Trainer, TrainerConfig
 from repro_torch.tree import flatten
-from torch_parity import LOGITS_TOL, QUANT_TOL, RecordingExecutor, np32, twin
+from torch_parity import (LOGITS_TOL, QUANT_TOL, RecordingExecutor, jref, np32,
+                          twin)
 
 ARCH = "gpt3-xl"
 MAX_SEQ = 32
@@ -164,8 +165,8 @@ def test_prefill_logits_and_cache_match(lens):
     toks = _prompts()
     kw_j = {} if lens is None else {"prompt_lens": jnp.asarray(lens)}
     kw_t = {} if lens is None else {"prompt_lens": torch.tensor(lens)}
-    jl, jc = model.prefill(params, jnp.asarray(toks), max_seq=MAX_SEQ,
-                           remat=False, **kw_j)
+    jl, jc = jref(model).prefill(params, jnp.asarray(toks), max_seq=MAX_SEQ,
+                                 remat=False, **kw_j)
     tl, tc = tmodel.prefill(tparams, torch.tensor(toks), max_seq=MAX_SEQ,
                             **kw_t)
     assert tl.shape == jl.shape
@@ -181,13 +182,14 @@ def test_decode_dense_cache_matches():
     own position; logits each step and the cache written in place."""
     model, params, _, tmodel, tparams = twin(ARCH)
     lens = np.array([12, 7], np.int32)
-    jl, jc = model.prefill(params, jnp.asarray(_prompts(1)), max_seq=MAX_SEQ,
-                           remat=False, prompt_lens=jnp.asarray(lens))
+    jl, jc = jref(model).prefill(
+        params, jnp.asarray(_prompts(1)), max_seq=MAX_SEQ, remat=False,
+        prompt_lens=jnp.asarray(lens))
     tc = {k: torch.tensor(np.asarray(v)) for k, v in jc.items()}
     tok, pos = np.asarray(jnp.argmax(jl, -1)).astype(np.int32), lens.copy()
     for _ in range(3):
-        jl, jc = model.decode_step(params, jc, jnp.asarray(tok),
-                                   jnp.asarray(pos))
+        jl, jc = jref(model).decode_step(params, jc, jnp.asarray(tok),
+                                         jnp.asarray(pos))
         tl, tc2 = tmodel.decode_step(tparams, tc, torch.tensor(tok),
                                      torch.tensor(pos))
         assert tc2 is tc
@@ -214,8 +216,8 @@ def _paged_pair(kv_dtype, lens=(12, 7), steps=3):
     tables_sub = js.pool.tables.copy()
     for b in range(B):
         tables_sub[b, js.pool.n_blocks[b]:] = js.pool.n_pages
-    jl, jsub = model.prefill(params, jnp.asarray(toks), max_seq=MAX_SEQ,
-                             remat=False, prompt_lens=jnp.asarray(lens))
+    jl, jsub = jref(model).prefill(params, jnp.asarray(toks), max_seq=MAX_SEQ,
+                                   remat=False, prompt_lens=jnp.asarray(lens))
     _, tsub = tmodel.prefill(tparams, torch.tensor(toks), max_seq=MAX_SEQ,
                              prompt_lens=torch.tensor(lens))
     for key in ("k", "v"):
@@ -234,9 +236,9 @@ def _paged_pair(kv_dtype, lens=(12, 7), steps=3):
     pos = np.asarray(lens, np.int32)
     out = []
     for _ in range(steps):
-        jl, js.cache = model.decode_step(params, js.cache, jnp.asarray(tok),
-                                         jnp.asarray(pos),
-                                         block_tables=js.tables_dev)
+        jl, js.cache = jref(model).decode_step(
+            params, js.cache, jnp.asarray(tok), jnp.asarray(pos),
+            block_tables=js.tables_dev)
         tl, ts.cache = tmodel.decode_step(tparams, ts.cache,
                                           torch.tensor(tok), torch.tensor(pos),
                                           block_tables=ts.tables_dev)
@@ -314,8 +316,8 @@ def test_the_reference_reads_nan_past_the_table():
     assert np.isfinite(x[0, :2]).all() and np.isnan(x[0, 2:]).all()
     tok = np.array([5], np.int32)
     pos = np.array([rows], np.int32)
-    jl, _ = model.decode_step(params, model.init_cache(1, rows),
-                              jnp.asarray(tok), jnp.asarray(pos))
+    jl, _ = jref(model).decode_step(params, model.init_cache(1, rows),
+                                    jnp.asarray(tok), jnp.asarray(pos))
     tl, _ = tmodel.decode_step(tparams, tmodel.init_cache(1, rows),
                                torch.tensor(tok), torch.tensor(pos))
     assert np.isnan(np32(jl)[:, :cfg.vocab_size]).all()
@@ -471,10 +473,9 @@ def test_model_loss_and_grads_match_reference(remat):
     masters = params_from_jax(tmodel, jax.tree.map(np.asarray, params),
                               dtype=torch.float32)
     batch = _batch(cfg)
-    (loss, metrics), grads = jax.value_and_grad(
-        lambda p: model.loss(p, {k: jnp.asarray(v) for k, v in
-                                 batch.items()}, remat=remat),
-        has_aux=True)(params)
+    (loss, metrics), grads = jref(model).loss_grad(
+        params, {k: jnp.asarray(v) for k, v in batch.items()},
+        remat=remat)
     tloss, tmetrics, tgrads = loss_and_grads(
         tmodel, masters, {k: torch.tensor(v) for k, v in batch.items()},
         remat=remat)

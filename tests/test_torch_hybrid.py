@@ -37,7 +37,7 @@ from repro_torch.serve import ServeEngine as TorchEngine
 from repro_torch.serve.kv_pages import PagedBatchState as TorchPagedState
 from repro_torch.serve.kv_pages import write_prefill_pages as torch_write_pages
 from torch_parity import (BF16_TOL, LOGITS_TOL, QUANT_TOL, RecordingExecutor,
-                          np32, twin)
+                          jref, np32, twin)
 
 ARCH = "zamba2-7b"
 MAX_SEQ = 32
@@ -157,8 +157,8 @@ def test_prefill_logits_and_cache_match(lens, tail):
     toks = _prompts()
     kw_j = {} if lens is None else {"prompt_lens": jnp.asarray(lens)}
     kw_t = {} if lens is None else {"prompt_lens": torch.tensor(lens)}
-    jl, jc = model.prefill(params, jnp.asarray(toks), max_seq=MAX_SEQ,
-                           remat=False, **kw_j)
+    jl, jc = jref(model).prefill(params, jnp.asarray(toks), max_seq=MAX_SEQ,
+                                 remat=False, **kw_j)
     tl, tc = tmodel.prefill(tparams, torch.tensor(toks), max_seq=MAX_SEQ,
                             **kw_t)
     assert tl.shape == jl.shape
@@ -173,14 +173,15 @@ def test_prefill_logits_and_cache_match(lens, tail):
 def _dense_decode(tail, steps=3):
     model, params, _, tmodel, tparams = _models(tail)
     lens = np.array([12, 7], np.int32)
-    jl, jc = model.prefill(params, jnp.asarray(_prompts(1)), max_seq=MAX_SEQ,
-                           remat=False, prompt_lens=jnp.asarray(lens))
+    jl, jc = jref(model).prefill(
+        params, jnp.asarray(_prompts(1)), max_seq=MAX_SEQ, remat=False,
+        prompt_lens=jnp.asarray(lens))
     tc = {k: torch.tensor(np.asarray(v)) for k, v in jc.items()}
     tok, pos = np.asarray(jnp.argmax(jl, -1)).astype(np.int32), lens.copy()
     out = []
     for _ in range(steps):
-        jl, jc = model.decode_step(params, jc, jnp.asarray(tok),
-                                   jnp.asarray(pos))
+        jl, jc = jref(model).decode_step(params, jc, jnp.asarray(tok),
+                                         jnp.asarray(pos))
         tl, tc2 = tmodel.decode_step(tparams, tc, torch.tensor(tok),
                                      torch.tensor(pos))
         assert tc2 is tc
@@ -232,8 +233,8 @@ def _paged_pair(kv_dtype, tail=False, lens=(12, 7), steps=3):
     tables_sub = js.pool.tables.copy()
     for b in range(B):
         tables_sub[b, js.pool.n_blocks[b]:] = js.pool.n_pages
-    jl, jsub = model.prefill(params, jnp.asarray(toks), max_seq=MAX_SEQ,
-                             remat=False, prompt_lens=jnp.asarray(lens))
+    jl, jsub = jref(model).prefill(params, jnp.asarray(toks), max_seq=MAX_SEQ,
+                                   remat=False, prompt_lens=jnp.asarray(lens))
     tl, tsub = tmodel.prefill(tparams, torch.tensor(toks), max_seq=MAX_SEQ,
                               prompt_lens=torch.tensor(lens))
     for key in ("k", "v"):
@@ -255,9 +256,9 @@ def _paged_pair(kv_dtype, tail=False, lens=(12, 7), steps=3):
     pos = np.asarray(lens, np.int32)
     out = []
     for _ in range(steps):
-        jl, js.cache = model.decode_step(params, js.cache, jnp.asarray(tok),
-                                         jnp.asarray(pos),
-                                         block_tables=js.tables_dev)
+        jl, js.cache = jref(model).decode_step(
+            params, js.cache, jnp.asarray(tok), jnp.asarray(pos),
+            block_tables=js.tables_dev)
         tl, ts.cache = tmodel.decode_step(tparams, ts.cache,
                                           torch.tensor(tok), torch.tensor(pos),
                                           block_tables=ts.tables_dev)

@@ -89,6 +89,19 @@ def test_rmsnorm_matches_reference_at_llama3b_width(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_rmsnorm_matches_reference_at_llama4_width(dtype):
+    """llama4-scout-17b-a16e's d_model 5120, at a few rows."""
+    rng = np.random.default_rng(5120)
+    x = rng.normal(size=(3, 5120)).astype(np.float32) * 3.0
+    w = (1.0 + 0.1 * rng.normal(size=5120)).astype(np.float32)
+    jx, tx = _pair(x, dtype)
+    got = rmsnorm(tx, torch.tensor(w))
+    np.testing.assert_allclose(np32(got),
+                               np32(jax_rmsnorm(jx, jnp.asarray(w))),
+                               **DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_rmsnorm_matches_reference_at_vlm_width(dtype):
     """internvl2-1b's d_model 896, at a few rows, against the JAX package's
     ``rmsnorm_ref`` and its model-level ``apply_norm``."""
@@ -142,20 +155,20 @@ def test_prefill_attention_matches_chunked_attention(G, D, dtype):
     np.testing.assert_allclose(np32(got), np32(ref), **DTYPES[dtype][2])
 
 
-def _one_group_prefill_matches(D, dtype, G=1):
+def _one_group_prefill_matches(D, dtype, G=1, window=0):
     """The prefill at head_dim ``D`` with ``G`` query heads per KV head (2
-    KV heads) over ragged rows against the reference's
-    ``chunked_attention``."""
+    KV heads) over ragged rows, with a local ``window`` or none, against
+    the reference's ``chunked_attention``."""
     rng = np.random.default_rng(D)
     B, S, KV = 2, 40, 2
     q, k, v = (rng.normal(size=(B, S, heads, D)).astype(np.float32)
                for heads in (G * KV, KV, KV))
     vl = np.array([S, 17], np.int32)
     (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in (q, k, v))
-    ref = jcm.chunked_attention(jq, jk, jv, causal=True, block_k=16,
-                                kv_valid_len=jnp.asarray(vl))
+    ref = jcm.chunked_attention(jq, jk, jv, causal=True, window=window,
+                                block_k=16, kv_valid_len=jnp.asarray(vl))
     got = flash_prefill(tq, tk, tv, torch.tensor(vl), causal=True,
-                        block_k=16)
+                        window=window, block_k=16)
     assert got.dtype == tq.dtype and got.shape == tq.shape
     np.testing.assert_allclose(np32(got), np32(ref), **DTYPES[dtype][2])
 
@@ -188,6 +201,19 @@ def test_prefill_attention_matches_chunked_attention_at_group_7(D, dtype):
     """7 query heads per KV head (14 over 2 here): internvl2-1b's attention
     at head_dim 64 and yi-34b's at 128, ragged rows."""
     _one_group_prefill_matches(D, dtype, G=7)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("D,G,window", [(128, 5, 0), (128, 5, 9),
+                                        (192, 12, 0)])
+def test_prefill_attention_matches_chunked_attention_at_groups_5_and_12(
+        D, G, window, dtype):
+    """llama4-scout's attention, head_dim 128 with 5 query heads per KV
+    head (10 over 2 here), global and local (a window of 9 over ragged
+    rows of 40 and 17: the short row's padded queries see no valid key in
+    their window), and nemotron-4-340b's, head_dim 192 with 12 (24 over
+    2)."""
+    _one_group_prefill_matches(D, dtype, G=G, window=window)
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
@@ -420,6 +446,37 @@ def test_paged_decode_matches_reference_at_group_7(D, pool, window, softcap,
     np.testing.assert_allclose(np32(got), np32(ref), **F32_TOL)
 
 
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("window,softcap,positions", _COMBOS)
+@pytest.mark.parametrize("D,G", [(128, 5), (192, 12)])
+def test_paged_decode_matches_reference_at_groups_5_and_12(D, G, pool,
+                                                           window, softcap,
+                                                           positions):
+    """llama4-scout's instantiation (its global layers: head_dim 128, 5
+    query heads per KV head) and nemotron-4-340b's (head_dim 192, 12), 2
+    KV heads here, on the pools they are built for."""
+    q, kq, vq, tables, ks, vs = _paged_operands(pool, seed=D + G, H=2 * G,
+                                                D=D)
+    pos = np.asarray(positions, np.int32)
+    for b, p in enumerate(pos):                  # park the unused tail
+        tables[b, p // kq.shape[1] + 1:] = 0
+    jd, td = _POOL[pool]
+    jk, jv = jnp.asarray(kq).astype(jd), jnp.asarray(vq).astype(jd)
+    tk, tv = torch.tensor(kq).to(td), torch.tensor(vq).to(td)
+    assert np.array_equal(np32(jk), np32(tk))    # same stored values
+    jsc = {} if ks is None else {"k_scales": jnp.asarray(ks),
+                                 "v_scales": jnp.asarray(vs)}
+    tsc = {} if ks is None else {"k_scales": torch.tensor(ks),
+                                 "v_scales": torch.tensor(vs)}
+    ref = jax_paged(jnp.asarray(q), jk, jv, jnp.asarray(tables),
+                    jnp.asarray(pos), window=window, softcap=softcap, **jsc)
+    got = paged_flash_decode(torch.tensor(q), tk, tv, torch.tensor(tables),
+                             torch.tensor(pos), window=window,
+                             softcap=softcap, **tsc)
+    assert got.shape == (3, 1, 2 * G, D) and got.dtype == torch.float32
+    np.testing.assert_allclose(np32(got), np32(ref), **F32_TOL)
+
+
 # ---------------------------------------------------------------------------
 # routing by device
 # ---------------------------------------------------------------------------
@@ -476,8 +533,8 @@ def test_kernels_refuse_what_they_are_not_built_for(case):
                     _meta(64, dtype=torch.float32))
     elif case == "rmsnorm_uninstantiated_d":
         with pytest.raises(ValueError, match=r"d in \(256, 896, 1024, "
-                                             r"2048, 3072, 3584, 7168\), "
-                                             r"got d=512"):
+                                             r"2048, 3072, 3584, 5120, "
+                                             r"7168\), got d=512"):
             rmsnorm(_meta(4, 512), _meta(512, dtype=torch.float32))
     elif case == "paged_group_2":
         pages = _meta(3, 4, 2, 64)
@@ -489,6 +546,7 @@ def test_kernels_refuse_what_they_are_not_built_for(case):
                                              r"\(64, 7\), \(64, 1\), "
                                              r"\(128, 1\), "
                                              r"\(128, 3\), \(128, 7\), "
+                                             r"\(128, 5\), \(192, 12\), "
                                              r"\(224, 1\)\], got D=64, "
                                              r"H=6"):
             paged_flash_decode(_meta(1, 1, 6, 64), pages, pages,
@@ -708,6 +766,48 @@ def test_kernels_take_the_llama3b_instantiations(case):
     else:
         with pytest.raises(ValueError, match="expected a CUDA device"):
             rmsnorm(_meta(4, 3072), _meta(3072, dtype=torch.float32))
+    assert kernels.launch_counts() == {"rmsnorm": 0, "flash_prefill": 0,
+                                       "flash_bwd": 0, "paged_decode": 0,
+                                       "ssd_scan": 0}
+
+
+@pytest.mark.parametrize("case", ["prefill_128_group_5", "prefill_192_group_12",
+                                  "prefill_192_group_4", "paged_128_group_5",
+                                  "paged_192_group_12_int8",
+                                  "paged_192_group_12_fp8", "rmsnorm_d5120"])
+def test_kernels_take_the_llama4_and_nemotron_instantiations(case):
+    """llama4-scout's instantiations (head_dim 128 with 5 query heads per
+    KV head, a window on the prefill; RMSNorm at d 5120) and
+    nemotron-4-340b's (head_dim 192 with 12) pass the case checks and stop
+    only at the device check; 4 query heads per KV head at 192 and an fp8
+    pool there are refused; nothing launches."""
+    kernels.reset_launch_counts()
+    tables, pos = _meta(1, 2, dtype=torch.int32), _meta(1, dtype=torch.int32)
+    D, G = (192, 12) if "192" in case else (128, 5)
+    if case == "prefill_192_group_4":
+        q, kv = _meta(1, 8, 8, 192), _meta(1, 8, 2, 192)
+        with pytest.raises(ValueError, match="got D=192, H=8, KV=2"):
+            flash_prefill(q, kv, kv)
+    elif case.startswith("prefill"):
+        q, kv = _meta(1, 8, 2 * G, D), _meta(1, 8, 2, D)
+        with pytest.raises(ValueError, match="expected a CUDA device"):
+            flash_prefill(q, kv, kv, window=4 if G == 5 else 0)
+    elif case.startswith("paged"):
+        dt = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}.get(
+            case.rsplit("_", 1)[-1], torch.bfloat16)
+        pages = _meta(3, 4, 2, D, dtype=dt)
+        scales = {} if dt == torch.bfloat16 else dict(
+            k_scales=_meta(3, 2, dtype=torch.float32),
+            v_scales=_meta(3, 2, dtype=torch.float32))
+        error, match = (TypeError, "built for bf16 and int8 pools") \
+            if dt == torch.float8_e4m3fn else (ValueError,
+                                               "expected a CUDA device")
+        with pytest.raises(error, match=match):
+            paged_flash_decode(_meta(1, 1, 2 * G, D), pages, pages, tables,
+                               pos, **scales)
+    else:
+        with pytest.raises(ValueError, match="expected a CUDA device"):
+            rmsnorm(_meta(4, 5120), _meta(5120, dtype=torch.float32))
     assert kernels.launch_counts() == {"rmsnorm": 0, "flash_prefill": 0,
                                        "flash_bwd": 0, "paged_decode": 0,
                                        "ssd_scan": 0}

@@ -101,7 +101,8 @@ def test_card_smoke_configs_are_built_kernel_cases():
     case of the paged decode kernel (with bf16 pools, which the serve
     launcher serves from) and of the flash prefill kernel, and its d_model
     a width of the RMSNorm kernel; the MoE family keeps the smoke config's
-    4 experts, top-2."""
+    4 experts and its top-k (2, or the full config's top-1 for
+    llama4-scout-17b-a16e, whose local window stays 32)."""
     from repro_torch.configs import REGISTRY, card_smoke_config
     from repro_torch.kernels.flash_attention import paged, prefill
     from repro_torch.kernels.rmsnorm import KERNEL_WIDTHS
@@ -117,4 +118,5 @@ def test_card_smoke_configs_are_built_kernel_cases():
                    for d, g in prefill.KERNEL_CASES), (full.name, D, G)
         assert cfg.d_model in KERNEL_WIDTHS, full.name
         if full.is_moe:
-            assert (cfg.moe.n_experts, cfg.moe.top_k) == (4, 2), full.name
+            assert (cfg.moe.n_experts, cfg.moe.top_k) \
+                == (4, min(full.moe.top_k, 2)), full.name

@@ -33,12 +33,17 @@ from torch_parity import F32_TOL, np32
 
 # the kernel's instantiations: llama3.2-1b's group at head_dim 64, the
 # card smoke config's, internvl2-1b's, seamless-m4t-medium's decoder's,
-# gpt3-xl's, llama3.2-3b's and yi-34b's at head_dim 128 and zamba2-7b's
-# shared block at head_dim 224
+# gpt3-xl's, llama3.2-3b's, yi-34b's and llama4-scout's at head_dim 128,
+# nemotron-4-340b's at head_dim 192 and zamba2-7b's shared block at
+# head_dim 224
 ((_, KERNEL_GROUP, _), (_, SMOKE_GROUP, _), (VLM_HEAD_DIM, VLM_GROUP, _),
  (ENC_HEAD_DIM, ENC_GROUP, _), (GPT3_HEAD_DIM, GPT3_GROUP, _),
  (LLAMA3B_HEAD_DIM, LLAMA3B_GROUP, _), (YI_HEAD_DIM, YI_GROUP, _),
+ (SCOUT_HEAD_DIM, SCOUT_GROUP, _), (NEMO_HEAD_DIM, NEMO_GROUP, _),
  (WIDE_HEAD_DIM, WIDE_GROUP, _)) = KERNEL_CASES
+#: blocks over which the kernel splits a KV head's query rows at
+#: nemotron-4-340b's (192, 12): 3 of 4 rows (``csrc/paged_decode.cu``)
+NEMO_ROW_BLOCKS = 3
 
 TILE, WARPS = 64, 4          # keys per ring stage; warps per block
 WARP_KEYS = TILE // WARPS    # keys of a tile each warp takes
@@ -94,10 +99,12 @@ def _block(qg, kp, vp, row, h, ja, jb, pos, window, softcap, ks, vs):
 
 def recipe_decode(q, kp, vp, tables, pos, *, window=0, softcap=0.0,
                   k_scales=None, v_scales=None,
-                  keys_per_split=KEYS_PER_SPLIT):
+                  keys_per_split=KEYS_PER_SPLIT, row_blocks=1):
     """The kernel's algorithm.  Returns the output (B, 1, H, Dh) in q's
     dtype and, per (slot, KV head), which splits were empty (KV heads and
-    head_dim Dh from the pools)."""
+    head_dim Dh from the pools).  With ``row_blocks`` the G query rows of
+    a KV head run as that many blocks of G / row_blocks rows, each with
+    its own partials and combine, as the kernel runs them at (192, 12)."""
     B, _, H, _ = q.shape
     KV, Dh = kp.shape[2], kp.shape[3]
     G = H // KV
@@ -105,23 +112,27 @@ def recipe_decode(q, kp, vp, tables, pos, *, window=0, softcap=0.0,
     qr = q.float().reshape(B, KV, G, Dh) * Dh ** -0.5
     out = torch.empty(B, KV, G, Dh)
     empty = torch.zeros(B, KV, n_split, dtype=torch.bool)
+    GB = G // row_blocks
     for b in range(B):
         p_b = int(pos[b])
         for h in range(KV):
-            parts = []
-            for s in range(n_split):
-                ja, jb = _split_pages(s, kps, p_b, window)
-                if ja >= jb:
-                    empty[b, h, s] = True
-                    continue
-                parts.append(_block(qr[b, h], kp, vp, tables[b].long(), h,
-                                    ja, jb, p_b, window, softcap, k_scales,
-                                    v_scales))
-            # the combine pass: empty partials skipped
-            M = torch.stack([m for m, _, _ in parts]).max(dim=0).values
-            L = sum(l * torch.exp(m - M) for m, l, _ in parts)
-            acc = sum(a * torch.exp(m - M)[:, None] for m, _, a in parts)
-            out[b, h] = acc / torch.clamp(L, min=1e-20)[:, None]
+            for r in range(row_blocks):
+                rows = slice(r * GB, (r + 1) * GB)
+                parts = []
+                for s in range(n_split):
+                    ja, jb = _split_pages(s, kps, p_b, window)
+                    if ja >= jb:
+                        empty[b, h, s] = True
+                        continue
+                    parts.append(_block(qr[b, h, rows], kp, vp,
+                                        tables[b].long(), h, ja, jb, p_b,
+                                        window, softcap, k_scales, v_scales))
+                # the combine pass: empty partials skipped
+                M = torch.stack([m for m, _, _ in parts]).max(dim=0).values
+                L = sum(l * torch.exp(m - M) for m, l, _ in parts)
+                acc = sum(a * torch.exp(m - M)[:, None]
+                          for m, _, a in parts)
+                out[b, h, rows] = acc / torch.clamp(L, min=1e-20)[:, None]
     return out.reshape(B, 1, H, Dh).to(q.dtype), empty
 
 
@@ -200,9 +211,11 @@ def test_split_recipe_matches_reference(pool, kps, window, softcap):
     assert bool(empty[0, :, 1:].all()) and not bool(empty[0, :, 0].any())
 
 
-def _one_group_recipe_matches(pool, kps, window, softcap, d, group):
-    """The recipe at head_dim ``d`` with ``group`` (1, 3 or 7) query heads
-    per KV head against the reference, on the split and page edges."""
+def _one_group_recipe_matches(pool, kps, window, softcap, d, group,
+                              row_blocks=1):
+    """The recipe at head_dim ``d`` with ``group`` (1, 3, 5, 7 or 12)
+    query heads per KV head, in ``row_blocks`` blocks of rows, against the
+    reference, on the split and page edges."""
     pos = _positions(kps)
     q, (jk, jv, tk, tv), tables, ks, vs = _operands(
         pool, pos, seed=kps + d, d=d, group=group)
@@ -214,7 +227,8 @@ def _one_group_recipe_matches(pool, kps, window, softcap, d, group):
                     jnp.asarray(pos), window=window, softcap=softcap, **jsc)
     got, empty = recipe_decode(torch.tensor(q), tk, tv, torch.tensor(tables),
                                torch.tensor(pos), window=window,
-                               softcap=softcap, keys_per_split=kps, **tsc)
+                               softcap=softcap, keys_per_split=kps,
+                               row_blocks=row_blocks, **tsc)
     assert got.shape == q.shape == (len(pos), 1, group * KV, d)
     np.testing.assert_allclose(np32(got), np32(ref), **F32_TOL)
     assert bool(empty[0, :, 1:].all()) and not bool(empty[0, :, 0].any())
@@ -273,6 +287,27 @@ def test_split_recipe_matches_reference_at_group_7(which, pool, kps, window,
         else (YI_HEAD_DIM, YI_GROUP)
     assert (d, g) == ((64, 7) if which == "internvl2" else (128, 7))
     _one_group_recipe_matches(pool, kps, window, softcap, d, g)
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("kps", [16, 128])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (100, 50.0)])
+@pytest.mark.parametrize("which", ["llama4-scout", "nemotron"])
+def test_split_recipe_matches_reference_at_groups_5_and_12(which, pool, kps,
+                                                           window, softcap):
+    """llama4-scout's instantiation (its global layers), head_dim 128 with
+    5 query heads per KV head (16 lanes a key, 2 keys a step, 5 query rows
+    of partials), and nemotron-4-340b's, head_dim 192 with 12 (a key on 24
+    lanes, one key a step), its 12 rows run as 3 blocks of 4, each with
+    its own partials and combine, on the pools they are built for."""
+    if which == "nemotron":
+        assert (NEMO_HEAD_DIM, NEMO_GROUP) == (192, 12)
+        _one_group_recipe_matches(pool, kps, window, softcap, NEMO_HEAD_DIM,
+                                  NEMO_GROUP, row_blocks=NEMO_ROW_BLOCKS)
+    else:
+        assert (SCOUT_HEAD_DIM, SCOUT_GROUP) == (128, 5)
+        _one_group_recipe_matches(pool, kps, window, softcap, SCOUT_HEAD_DIM,
+                                  SCOUT_GROUP)
 
 
 @pytest.mark.parametrize("pool", ["bf16", "int8"])

@@ -42,7 +42,7 @@ from repro_torch.runtime import FailureInjector
 from repro_torch.train import OptimizerConfig, loss_and_grads, make_train_step
 from repro_torch.train.loop import Trainer, TrainerConfig
 from repro_torch.tree import flatten
-from torch_parity import np32, twin
+from torch_parity import jref, np32, twin
 
 GRAD_RTOL = 1e-4     # of each leaf's largest |value| (test_torch_train.py)
 CURVE_TOL = 1e-4     # Trainer losses, absolute (test_torch_train.py)
@@ -157,10 +157,9 @@ def test_model_loss_and_grads_match_reference(name, remat):
     ragged second chunk of the smoke config's 16."""
     model, params, cfg, tmodel, tparams = _models(name)
     batch = _batch(cfg)
-    (loss, metrics), grads = jax.value_and_grad(
-        lambda p: model.loss(p, {k: jnp.asarray(v) for k, v in
-                                 batch.items()}, remat=remat),
-        has_aux=True)(params)
+    (loss, metrics), grads = jref(model).loss_grad(
+        params, {k: jnp.asarray(v) for k, v in batch.items()},
+        remat=remat)
     tloss, tmetrics, tgrads = loss_and_grads(
         tmodel, tparams, {k: torch.tensor(v) for k, v in batch.items()},
         remat=remat)

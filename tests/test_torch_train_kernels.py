@@ -34,7 +34,14 @@ FLASH_BWD_TOL = dict(rtol=2e-4, atol=2e-4)   # tests/test_flash_backward.py
 _CASES = [(1, 32, 32, 2, 2, 16, True, 0),
           (2, 48, 48, 4, 2, 16, True, 0),     # GQA: dk/dv summed over groups
           (1, 40, 56, 2, 1, 16, False, 0),    # padding both sides
-          (1, 64, 64, 2, 2, 16, True, 24)]    # local window
+          (1, 64, 64, 2, 2, 16, True, 24),    # local window
+          # llama4-scout's card smoke config trains its local layers at
+          # head_dim 64, 4 query heads over 2, window 32: a partial last
+          # 64-row tile (S 72), and a window of 40 that begins mid-tile
+          # (multiples of 8, so test_torch_flash_tc.py's Pallas forward
+          # runs them unpadded too)
+          (2, 72, 72, 4, 2, 64, True, 32),
+          (1, 104, 104, 4, 2, 64, True, 40)]
 
 
 def _operands(B, Sq, Sk, H, KV, D, seed=7):
@@ -361,7 +368,8 @@ def _meta(*shape, dtype=torch.bfloat16):
     ("d128_g2", ValueError, "128 and 224 with one query head"),
     ("bf16_d128", ValueError, "CUDA device"),
     ("bf16_d128_g3", ValueError, "CUDA device"),
-    ("window", NotImplementedError, "training path"),
+    ("window", ValueError, "CUDA device"),
+    ("window_non_causal", NotImplementedError, "training path"),
     ("non_causal", ValueError, "CUDA device"),
     ("non_causal_sq_ne_sk", ValueError, "CUDA device"),
     ("sq_ne_sk", NotImplementedError, "training path")])
@@ -370,9 +378,11 @@ def test_flash_bwd_refuses_what_it_is_not_built_for(case, error, match):
     launch; with no card here every case raises.  Beside dtype and
     head_dim (64 at any group, 128 and 224 with one query head per KV
     head, 128 with 3) it refuses what the training paths do not give it:
-    a window, and a causal mask at Sq != Sk.  Non-causal attention, at
-    Sq == Sk (an encoder) or not (cross-attention), passes those gates and
-    is refused only for want of a card."""
+    a causal mask at Sq != Sk, and a window without the causal mask.
+    Causal attention with a window (llama4-scout's local layers) and
+    non-causal attention, at Sq == Sk (an encoder) or not
+    (cross-attention), pass those gates and are refused only for want of
+    a card."""
     kernels.reset_launch_counts()
     D = {"d16": 16, "d224_g2": 224, "bf16_d224": 224, "d128_g2": 128,
          "bf16_d128": 128, "bf16_d128_g3": 128}.get(case, 64)
@@ -385,6 +395,6 @@ def test_flash_bwd_refuses_what_it_is_not_built_for(case, error, match):
                 else torch.float32)
     with pytest.raises(error, match=match):
         flash_attention_bwd(q, kv, kv, q, q, lse,
-                            causal=not case.startswith("non_causal"),
-                            window=8 if case == "window" else 0)
+                            causal="non_causal" not in case,
+                            window=8 if case.startswith("window") else 0)
     assert kernels.launch_counts()["flash_bwd"] == 0

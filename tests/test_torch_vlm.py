@@ -62,7 +62,7 @@ from repro_torch.serve.kv_pages import write_prefill_pages as torch_write_pages
 from repro_torch.train import OptimizerConfig, loss_and_grads, make_train_step
 from repro_torch.train.loop import Trainer, TrainerConfig
 from repro_torch.tree import flatten
-from torch_parity import LOGITS_TOL, QUANT_TOL, RecordingExecutor, np32
+from torch_parity import LOGITS_TOL, QUANT_TOL, RecordingExecutor, jref, np32
 
 ARCH = "internvl2-1b"
 MAX_SEQ = 48
@@ -175,8 +175,8 @@ def test_prefill_logits_and_cache_match(which, lens):
     toks, pe = _prompts(), _patches(cfg)
     kw_j = {} if lens is None else {"prompt_lens": jnp.asarray(lens)}
     kw_t = {} if lens is None else {"prompt_lens": torch.tensor(lens)}
-    jl, jc = model.prefill(params, jnp.asarray(toks), jnp.asarray(pe),
-                           max_seq=MAX_SEQ, remat=False, **kw_j)
+    jl, jc = jref(model).prefill(params, jnp.asarray(toks), jnp.asarray(pe),
+                                 max_seq=MAX_SEQ, remat=False, **kw_j)
     tl, tc = tmodel.prefill(tparams, torch.tensor(toks), torch.tensor(pe),
                             max_seq=MAX_SEQ, **kw_t)
     np.testing.assert_allclose(np32(tl), np32(jl), **LOGITS_TOL)
@@ -194,14 +194,14 @@ def test_decode_dense_cache_matches(which):
     model, params, cfg, tmodel, tparams = twin(which)
     lens = np.array([12, 7], np.int32)
     P = cfg.vision_prefix_len
-    jl, jc = model.prefill(params, jnp.asarray(_prompts(1)),
-                           jnp.asarray(_patches(cfg, 1)), max_seq=MAX_SEQ,
-                           remat=False, prompt_lens=jnp.asarray(lens))
+    jl, jc = jref(model).prefill(
+        params, jnp.asarray(_prompts(1)), jnp.asarray(_patches(cfg, 1)),
+        max_seq=MAX_SEQ, remat=False, prompt_lens=jnp.asarray(lens))
     tc = {k: torch.tensor(np.asarray(v)) for k, v in jc.items()}
     tok, pos = np.asarray(jnp.argmax(jl, -1)).astype(np.int32), lens + P
     for _ in range(3):
-        jl, jc = model.decode_step(params, jc, jnp.asarray(tok),
-                                   jnp.asarray(pos))
+        jl, jc = jref(model).decode_step(params, jc, jnp.asarray(tok),
+                                         jnp.asarray(pos))
         tl, _ = tmodel.decode_step(tparams, tc, torch.tensor(tok),
                                    torch.tensor(pos))
         np.testing.assert_allclose(np32(tl), np32(jl), **LOGITS_TOL)
@@ -228,9 +228,9 @@ def _paged_pair(which, kv_dtype, lens=(12, 7), steps=3):
     tables_sub = js.pool.tables.copy()
     for b in range(B):
         tables_sub[b, js.pool.n_blocks[b]:] = js.pool.n_pages
-    jl, jsub = model.prefill(params, jnp.asarray(toks), jnp.asarray(pe),
-                             max_seq=MAX_SEQ, remat=False,
-                             prompt_lens=jnp.asarray(lens))
+    jl, jsub = jref(model).prefill(params, jnp.asarray(toks), jnp.asarray(pe),
+                                   max_seq=MAX_SEQ, remat=False,
+                                   prompt_lens=jnp.asarray(lens))
     _, tsub = tmodel.prefill(tparams, torch.tensor(toks), torch.tensor(pe),
                              max_seq=MAX_SEQ, prompt_lens=torch.tensor(lens))
     for key in ("k", "v"):
@@ -249,9 +249,9 @@ def _paged_pair(which, kv_dtype, lens=(12, 7), steps=3):
     pos = np.asarray(lens, np.int32) + P
     out = []
     for _ in range(steps):
-        jl, js.cache = model.decode_step(params, js.cache, jnp.asarray(tok),
-                                         jnp.asarray(pos),
-                                         block_tables=js.tables_dev)
+        jl, js.cache = jref(model).decode_step(
+            params, js.cache, jnp.asarray(tok), jnp.asarray(pos),
+            block_tables=js.tables_dev)
         tl, ts.cache = tmodel.decode_step(tparams, ts.cache,
                                           torch.tensor(tok), torch.tensor(pos),
                                           block_tables=ts.tables_dev)
@@ -419,10 +419,9 @@ def test_model_loss_and_grads_match_reference(which, remat):
     masters = params_from_jax(tmodel, jax.tree.map(np.asarray, params),
                               dtype=torch.float32)
     batch = _batch(cfg)
-    (loss, _), grads = jax.value_and_grad(
-        lambda p: model.loss(p, {k: jnp.asarray(v) for k, v in
-                                 batch.items()}, remat=remat),
-        has_aux=True)(params)
+    (loss, _), grads = jref(model).loss_grad(
+        params, {k: jnp.asarray(v) for k, v in batch.items()},
+        remat=remat)
     tloss, _, tgrads = loss_and_grads(
         tmodel, masters, {k: torch.tensor(v) for k, v in batch.items()},
         remat=remat)

@@ -35,7 +35,7 @@ from repro_torch.models import transformer as ttr
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serve.kv_pages import PagedBatchState as TorchPagedState
 from repro_torch.serve.kv_pages import write_prefill_pages as torch_write_pages
-from torch_parity import LOGITS_TOL, QUANT_TOL, np32
+from torch_parity import LOGITS_TOL, QUANT_TOL, jref, np32
 
 ARCH = "yi-34b"
 MAX_SEQ = 32
@@ -184,8 +184,8 @@ def test_prefill_logits_and_cache_match(which, lens):
     toks = _prompts()
     kw_j = {} if lens is None else {"prompt_lens": jnp.asarray(lens)}
     kw_t = {} if lens is None else {"prompt_lens": torch.tensor(lens)}
-    jl, jc = model.prefill(params, jnp.asarray(toks), max_seq=MAX_SEQ,
-                           remat=False, **kw_j)
+    jl, jc = jref(model).prefill(params, jnp.asarray(toks), max_seq=MAX_SEQ,
+                                 remat=False, **kw_j)
     tl, tc = tmodel.prefill(tparams, torch.tensor(toks), max_seq=MAX_SEQ,
                             **kw_t)
     np.testing.assert_allclose(np32(tl), np32(jl), **LOGITS_TOL)
@@ -210,8 +210,8 @@ def _paged_pair(which, kv_dtype, lens=(12, 7), steps=3):
     tables_sub = js.pool.tables.copy()
     for b in range(B):
         tables_sub[b, js.pool.n_blocks[b]:] = js.pool.n_pages
-    jl, jsub = model.prefill(params, jnp.asarray(toks), max_seq=MAX_SEQ,
-                             remat=False, prompt_lens=jnp.asarray(lens))
+    jl, jsub = jref(model).prefill(params, jnp.asarray(toks), max_seq=MAX_SEQ,
+                                   remat=False, prompt_lens=jnp.asarray(lens))
     _, tsub = tmodel.prefill(tparams, torch.tensor(toks), max_seq=MAX_SEQ,
                              prompt_lens=torch.tensor(lens))
     for key in ("k", "v"):
@@ -230,9 +230,9 @@ def _paged_pair(which, kv_dtype, lens=(12, 7), steps=3):
     pos = np.asarray(lens, np.int32)
     out = []
     for _ in range(steps):
-        jl, js.cache = model.decode_step(params, js.cache, jnp.asarray(tok),
-                                         jnp.asarray(pos),
-                                         block_tables=js.tables_dev)
+        jl, js.cache = jref(model).decode_step(
+            params, js.cache, jnp.asarray(tok), jnp.asarray(pos),
+            block_tables=js.tables_dev)
         tl, ts.cache = tmodel.decode_step(tparams, ts.cache,
                                           torch.tensor(tok), torch.tensor(pos),
                                           block_tables=ts.tables_dev)
