@@ -92,7 +92,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                  over rows with no valid key; the training forward with its
                  log-sum-exp and the backward at gpt3-xl's micro-batch (B 8,
                  S 1024; rows ``flash_prefill_lse[D128]``,
-                 ``flash_bwd[D128]``), and at S 200 and B 1 S 77; paged
+                 ``flash_bwd[D128]``), and at S 200 and B 1 S 77, and at
+                 the data-parallel rank's micro-batch B 4, S 1024 (rows
+                 ``flash_prefill_lse[D128 B4]``, ``flash_bwd[D128 B4]``,
+                 their launches from transfer_gpt3); paged
                  decode on bf16 and int8 pools with the paged edges, replayed
                  from a graph bitwise equal to eager (rows
                  ``paged_decode[D128G1 bf16]`` and ``[D128G1 int8]``).
@@ -210,8 +213,31 @@ Phases, in order; any failure raises and the script exits non-zero:
                  backwards a step, no RMSNorm).
    dvfs_gpt3   — ``Trainer`` on gpt3-xl at ``paper_gpt3xl`` behind the
                  train executor planned for that shape, over an NVML energy
-                 window of at least 5 s; then ``launch.train.main --arch
-                 gpt3-xl --smoke``.
+                 window of at least 5 s, exact launches; then
+                 ``launch.train.main --arch gpt3-xl --smoke``.  The model
+                 is built once for this phase and the next; each
+                 ``Trainer`` draws its own weights from its seed.
+   transfer_gpt3 — the accounting and plan-transfer tier on gpt3-xl at
+                 ``paper_gpt3xl``: its training step counted at full width
+                 and depth on fake tensors (``hw.step_count``:
+                 matrix FLOPs, the eager path's HBM bytes, top ops), the
+                 analytic workload against the count, the counted FLOPs
+                 (the plain eager path's: masked attention scores and
+                 remat's recompute included) and the analytic ones over
+                 dvfs_gpt3's measured step as TFLOP/s and a share of the
+                 bf16 peak; the dp-1 plan on ``h100_like`` with its
+                 ``count_calibration`` (gate: recorded) and
+                 ``compare_transfer`` to dp 2, dp 4 and tp 2 (tp 2 modeled
+                 only; gate: finite rows); then one dp-2 rank trained on
+                 the card, 20 x 1024 tokens a step as 5 micro-batches of 4,
+                 11 steps behind the transferred dp-2 bundle adopted by a
+                 ``DvfsSession`` train executor, with the NVML step meter
+                 (``repro_torch.runtime.nvml``) over a window of at least 5
+                 s.  Gates: finite losses, the three phases booked, the
+                 books' JSON round trip, exact launches (5 x 48 flash
+                 forwards and 5 x 24 backwards a step).  Logs joules and
+                 seconds a step and a token against the transferred
+                 plan's modeled ones and against dvfs_gpt3's window.
    serve_llama3b — llama3.2-3b (28 layers, d_model 3072, 24 heads over 8
                  at head_dim 128, d_ff 8192, vocab 128256, tied; 3.213 B
                  parameters) at full width and depth serves as serve_gpt3
@@ -368,7 +394,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                  smoke config and both launchers with ``--smoke``.
 10. dvfs       — (run right after consistency, while the serve phase's
                  llama3.2-1b is loaded) the DVFS stack on the card, with NVML
-                 read by ``ctypes`` (``libnvidia-ml.so.1``; a missing library,
+                 read by ``ctypes`` (``repro_torch.runtime.nvml``,
+                 ``libnvidia-ml.so.1``; a missing library,
                  function or energy counter fails the phase, a counter that
                  decreases too): the card's supported memory and graphics
                  clocks, every ``h100_grid()`` pair among them, idle watts over
@@ -425,9 +452,13 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 from torch.nn.attention import SDPBackend, sdpa_kernel  # noqa: E402
 
-# peak rates of one H100 SXM (data sheet, dense): memory bytes/s and ops/s
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
+from repro_torch.hw import h100  # noqa: E402
+from repro_torch.runtime.nvml import Nvml, NvmlStepMeter  # noqa: E402
+
+# peak rates of one H100 SXM (data sheet, dense; ``repro_torch.hw.h100``):
+# memory bytes/s and ops/s
+HBM_BYTES_PER_S = h100.HBM_BW
+PEAK_OPS = {"bf16": h100.PEAK_FLOPS_BF16, "f32": h100.PEAK_FLOPS_F32}
 SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_PAGE = 8, 1024, 16
 SERVE_REQUESTS, SERVE_NEW_TOKENS = 16, 64
 # zamba2-7b, the hybrid: 8 seeded requests of 24-498 prompt tokens, 32 new
@@ -454,6 +485,13 @@ HYBRID_TRAIN_LAYERS = 15
 # longer than DVFS_WINDOW_S)
 GPT3_ATTN = dict(H=16, KV=16, D=128)
 GPT3_BATCH, GPT3_ACCUM, GPT3_DVFS_STEPS = 40, 5, 6
+# the transfer phase: gpt3-xl's plan at paper_gpt3xl moved to these meshes
+# (at the paper's 0.6% time budget); one data-parallel rank of the dp-2 mesh
+# trains GPT3_BATCH // 2 rows a step as GPT3_ACCUM micro-batches of 4, for
+# GPT3_RANK_STEPS Trainer steps (step 0 outside the window; at ~0.6 s a step
+# the rest last longer than DVFS_WINDOW_S)
+TRANSFER_TAU, TRANSFER_MESHES = 0.006, ("dp2", "dp4", "tp2")
+GPT3_RANK_DP, GPT3_RANK_STEPS = 2, 11
 # llama3.2-3b: its attention's heads, KV heads and head_dim (3 query heads
 # per KV head); it trains 8 x 1024 tokens a step as LLAMA3B_ACCUM
 # micro-batches of 2 at full width with its depth cut to
@@ -2105,7 +2143,9 @@ GPT3_ROW_RUNS = {"flash_prefill[D128]": "bf16",
                  "paged_decode[D128G1 bf16]": "bf16",
                  "paged_decode[D128G1 int8]": "int8",
                  "flash_prefill_lse[D128]": "train",
-                 "flash_bwd[D128]": "train"}
+                 "flash_bwd[D128]": "train",
+                 "flash_prefill_lse[D128 B4]": "rank",
+                 "flash_bwd[D128 B4]": "rank"}
 
 
 def check_gpt3_kernels(gen):
@@ -2117,7 +2157,9 @@ def check_gpt3_kernels(gen):
     rows, one slot of an odd length (B 1, S 77, 45 valid keys) and a window
     over rows with no valid key; the training forward with its
     log-sum-exp and the flash backward at gpt3-xl's micro-batch (B 8,
-    S 1024), and both at S 200 and at B 1, S 77; paged decode on bf16 and
+    S 1024), and both at S 200 and at B 1, S 77, and at the data-parallel
+    rank's micro-batch (B 4, S 1024; rows ``[D128 B4]``, launched by
+    ``phase_transfer_gpt3``); paged decode on bf16 and
     int8 pools with ``check_paged``'s edges (split and page edges, a parked
     slot, a window, softcap, B 1), replayed from a CUDA graph bitwise equal
     to eager.  Returns the JSON rows named in ``GPT3_ROW_RUNS``, each marked
@@ -2133,6 +2175,8 @@ def check_gpt3_kernels(gen):
     rows += check_flash_bwd(gen, **GPT3_ATTN,
                             edges=((2, 200, H, KV), (1, 77, H, KV)),
                             tag="[D128]", B=GPT3_BATCH // GPT3_ACCUM)
+    rows += check_flash_bwd(gen, **GPT3_ATTN, edges=(), tag="[D128 B4]",
+                            B=GPT3_BATCH // GPT3_RANK_DP // GPT3_ACCUM)
     rows += _paged_graph_and_rows(gen, GPT3_ATTN, "D128G1", L=4)
     for r in rows:
         r["model"] = "gpt3-xl"
@@ -4847,115 +4891,6 @@ def phase_trainer():
 # 10. dvfs: the planning layer around serving and training, and NVML reads
 # ---------------------------------------------------------------------------
 
-class Nvml:
-    """The card's counters through NVML by ``ctypes`` (``libnvidia-ml.so.1``,
-    installed with the card's NVIDIA software): name, power limit, supported
-    and current clocks, power draw and the energy counter (a running total
-    in mJ).  The device is the one CUDA calls 0, found by its UUID.  A
-    missing library, function or device raises; an energy read below the
-    last one raises."""
-
-    CLOCK_SM, CLOCK_MEM = 1, 2
-
-    def __init__(self):
-        import ctypes as c
-        self.c = c
-        lib = c.CDLL("libnvidia-ml.so.1")
-        u, p = c.c_uint, c.POINTER
-        dev = c.c_void_p
-        for name, args in (
-                ("nvmlInit_v2", []), ("nvmlShutdown", []),
-                ("nvmlDeviceGetCount_v2", [p(u)]),
-                ("nvmlDeviceGetHandleByIndex_v2", [u, p(dev)]),
-                ("nvmlDeviceGetName", [dev, c.c_char_p, u]),
-                ("nvmlDeviceGetUUID", [dev, c.c_char_p, u]),
-                ("nvmlDeviceGetPowerManagementLimit", [dev, p(u)]),
-                ("nvmlDeviceGetPowerUsage", [dev, p(u)]),
-                ("nvmlDeviceGetClockInfo", [dev, c.c_int, p(u)]),
-                ("nvmlDeviceGetSupportedMemoryClocks", [dev, p(u), p(u)]),
-                ("nvmlDeviceGetSupportedGraphicsClocks", [dev, u, p(u), p(u)]),
-                ("nvmlDeviceGetTotalEnergyConsumption",
-                 [dev, p(c.c_ulonglong)])):
-            fn = getattr(lib, name)
-            fn.argtypes, fn.restype = args, c.c_int
-        lib.nvmlErrorString.argtypes = [c.c_int]
-        lib.nvmlErrorString.restype = c.c_char_p
-        self.lib = lib
-        self._call("nvmlInit_v2")
-        want = str(torch.cuda.get_device_properties(0).uuid).lower()
-        count = u()
-        self._call("nvmlDeviceGetCount_v2", c.byref(count))
-        self.handle = None
-        for i in range(count.value):
-            h = dev()
-            self._call("nvmlDeviceGetHandleByIndex_v2", u(i), c.byref(h))
-            if self._text("nvmlDeviceGetUUID", h).lower() \
-                    .removeprefix("gpu-") == want.removeprefix("gpu-"):
-                self.handle = h
-        if self.handle is None:
-            raise RuntimeError(f"NVML lists no device with CUDA device 0's "
-                               f"UUID {want} ({count.value} devices)")
-        self.last_mj = 0
-
-    def _call(self, name, *args):
-        ret = getattr(self.lib, name)(*args)
-        if ret != 0:
-            raise RuntimeError(f"{name}: NVML error {ret} "
-                               f"({self.lib.nvmlErrorString(ret).decode()})")
-
-    def _text(self, name, handle):
-        buf = self.c.create_string_buffer(96)
-        self._call(name, handle, buf, self.c.c_uint(96))
-        return buf.value.decode()
-
-    def _uint(self, name, *args):
-        out = self.c.c_uint()
-        self._call(name, self.handle, *args, self.c.byref(out))
-        return out.value
-
-    def name(self) -> str:
-        return self._text("nvmlDeviceGetName", self.handle)
-
-    def power_limit_w(self) -> float:
-        return self._uint("nvmlDeviceGetPowerManagementLimit") / 1e3
-
-    def power_w(self) -> float:
-        return self._uint("nvmlDeviceGetPowerUsage") / 1e3
-
-    def clocks_mhz(self):
-        """(SM clock, memory clock) now, in MHz."""
-        return (self._uint("nvmlDeviceGetClockInfo", self.CLOCK_SM),
-                self._uint("nvmlDeviceGetClockInfo", self.CLOCK_MEM))
-
-    def _list(self, name, *args):
-        n = self.c.c_uint(512)
-        buf = (self.c.c_uint * 512)()
-        self._call(name, self.handle, *args, self.c.byref(n), buf)
-        return sorted(buf[i] for i in range(n.value))
-
-    def supported_clocks(self) -> dict:
-        """{memory clock: [graphics clocks supported at it]}, ascending."""
-        return {m: self._list("nvmlDeviceGetSupportedGraphicsClocks",
-                              self.c.c_uint(m))
-                for m in self._list("nvmlDeviceGetSupportedMemoryClocks")}
-
-    def energy_j(self) -> float:
-        """The energy counter in joules, read after the device's queued
-        work is done; raises if it went backwards."""
-        torch.cuda.synchronize()
-        out = self.c.c_ulonglong()
-        self._call("nvmlDeviceGetTotalEnergyConsumption", self.handle,
-                   self.c.byref(out))
-        if out.value < self.last_mj:
-            raise AssertionError(f"NVML energy counter decreased: "
-                                 f"{out.value} mJ after {self.last_mj} mJ")
-        self.last_mj = out.value
-        return out.value / 1e3
-
-    def close(self) -> None:
-        self._call("nvmlShutdown")
-
-
 def dvfs_grid_check(nvml) -> float:
     """Logs the card's supported clocks and holds ``h100_grid()`` to them
     (every grid clock supported at every grid memory clock: raises
@@ -5121,39 +5056,6 @@ def dvfs_serve_window(nvml, cfg, model, params, idle_w):
             "repeats": repeats, "modeled": modeled, "clocks": clocks}
 
 
-@dataclasses.dataclass
-class StepReading:
-    step: int
-    time_s: float
-    energy_j: float
-    clocks: tuple                 # (SM, memory) MHz at the read
-
-
-class NvmlStepMeter:
-    """The ``Trainer``'s ``energy_meter``: at each ``on_step`` (after the
-    trainer has waited for the step's loss) the stream is synchronised and
-    the energy counter read; a step's reading is the joules and wall
-    seconds since the previous one (step 0's since construction)."""
-
-    def __init__(self, nvml):
-        self.nvml = nvml
-        self.records = []
-        self.last = (nvml.energy_j(), time.perf_counter())
-
-    def on_step(self, step):
-        now = (self.nvml.energy_j(), time.perf_counter())
-        rec = StepReading(step, now[1] - self.last[1], now[0] - self.last[0],
-                          self.nvml.clocks_mhz())
-        self.last = now
-        self.records.append(rec)
-        return rec
-
-    def totals(self):
-        return {"steps": len(self.records),
-                "time_s": sum(r.time_s for r in self.records),
-                "energy_j": sum(r.energy_j for r in self.records)}
-
-
 class BooksOnlyCheckpoints:
     """The checkpoint manager of the full-width training window: each save
     keeps only ``extra`` (the data cursor and the executor's books), round
@@ -5172,30 +5074,38 @@ class BooksOnlyCheckpoints:
         self.extra[step] = json.loads(json.dumps(extra or {}))
 
 
-def dvfs_train_window(nvml, idle_w, arch="llama3.2-1b", shape=None,
-                      accum=TRAIN_ACCUM, steps=DVFS_TRAIN_STEPS):
-    """``Trainer`` on ``arch`` at full width (AdamW, remat) for ``steps``
-    steps of ``shape`` (the train phase's: seq 1024, batch 8) as ``accum``
-    micro-batches, behind ``DvfsSession(chip="h100", tau=0.0)``'s train
-    executor planned for that shape, with ``NvmlStepMeter`` as its energy
-    meter.  The window is steps 1..N-1 (step 0 holds the state's init); it
-    must last at least ``DVFS_WINDOW_S``.  Gates: finite losses, every
-    phase in the executor's summary, its books through the saved JSON into
-    a fresh executor give the same summary.  Logs measured joules and seconds a
-    step against the executor's modeled ones."""
-    from repro_torch.configs import ShapeConfig, get_config
+def dvfs_train_window(nvml, idle_w, model, shape=None, accum=TRAIN_ACCUM,
+                      steps=DVFS_TRAIN_STEPS, bundle=None,
+                      per_step=None, tag=None):
+    """``Trainer`` on ``model`` (built on the card at full width; AdamW,
+    remat) for ``steps`` steps of ``shape`` (the train phase's: seq 1024,
+    batch 8) as ``accum`` micro-batches, behind a train executor of
+    ``DvfsSession(chip="h100")``: planned for that shape (tau 0) or, given
+    a ``bundle``, its plan adopted (``DvfsPlan.from_train_bundle``), with
+    ``NvmlStepMeter`` as its energy meter.  The window is steps 1..N-1
+    (step 0 holds the first step's set-up); it must last at least
+    ``DVFS_WINDOW_S``.  Gates: finite losses, every phase in the
+    executor's summary, its books through the saved JSON into a fresh
+    executor give the same summary, and with ``per_step`` (kernel ->
+    launches a step) exact launches over the run.  Logs measured joules
+    and seconds a step against the executor's modeled ones.  Returns the
+    window's totals, the modeled step, the tokens a step and the
+    launches."""
+    from repro_torch import kernels
+    from repro_torch.configs import ShapeConfig
     from repro_torch.data import DataPipeline
-    from repro_torch.dvfs import DvfsSession
-    from repro_torch.models import build_model
+    from repro_torch.dvfs import DvfsPlan, DvfsSession
     from repro_torch.train import OptimizerConfig, make_train_step
     from repro_torch.train.loop import Trainer, TrainerConfig
-    cfg = get_config(arch)
+    cfg = model.cfg
     shape = shape or ShapeConfig(name="chip_smoke_train", seq_len=TRAIN_SEQ,
                                  global_batch=TRAIN_BATCH, kind="train")
-    model = build_model(cfg, device="cuda")
     ckpt = BooksOnlyCheckpoints()
     with DvfsSession(chip="h100", tau=0.0) as sess:
-        sess.plan_train(cfg, shape=shape)
+        if bundle is None:
+            sess.plan_train(cfg, shape=shape)
+        else:
+            sess.adopt(DvfsPlan.from_train_bundle(bundle))
         meter = NvmlStepMeter(nvml)
         trainer = Trainer(
             model, make_train_step(model, OptimizerConfig(lr=3e-4,
@@ -5205,16 +5115,24 @@ def dvfs_train_window(nvml, idle_w, arch="llama3.2-1b", shape=None,
                          seed=0),
             ckpt, TrainerConfig(total_steps=steps, ckpt_every=steps),
             energy_meter=meter, executor=sess.train_executor())
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
         out = trainer.run()
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
         fresh = sess.train_executor()
         fresh.load_state_dict(ckpt.extra[steps]["dvfs_exec"])
     hist = trainer.history
     summary = out["dvfs"]
+    want = None if per_step is None else \
+        {k: v * steps for k, v in per_step.items()}
     if not all(math.isfinite(h["loss"]) for h in hist) \
             or set(summary["phases"]) != {"fwd", "bwd", "opt"} \
-            or fresh.summary() != summary:
+            or fresh.summary() != summary \
+            or (want is not None and launches != want):
         raise AssertionError(f"dvfs train: losses {[h['loss'] for h in hist]}"
-                             f", phases {sorted(summary['phases'])}, or the "
+                             f", phases {sorted(summary['phases'])}, "
+                             f"launches {launches} (want {want}), or the "
                              f"books did not survive their JSON round trip")
     window = meter.records[1:]
     joules = sum(r.energy_j for r in window)
@@ -5229,11 +5147,12 @@ def dvfs_train_window(nvml, idle_w, arch="llama3.2-1b", shape=None,
     # out the phase-boundary switches, which the summary books)
     base_t = summary["totals"]["base_time_s"] / steps
     base_e = summary["totals"]["base_energy_j"] / steps
-    tag = f"dvfs train {cfg.name}"
+    tag = tag or f"dvfs train {cfg.name}"
     log(f"[{tag}] full width, {steps} steps of {shape.global_batch} x "
         f"{shape.seq_len} tokens ({shape.name}, {accum} micro-batches); "
         f"losses {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}; window "
-        f"steps 1..{steps - 1}")
+        f"steps 1..{steps - 1}"
+        + ("" if want is None else f"; launches {launches} (exact)"))
     _window_line(tag, joules, wall, idle_w, [r.clocks for r in window])
     per = [round(r.energy_j, 1) for r in window]
     log(f"[{tag}] measured a step: {joules / n:.2f} J "
@@ -5244,10 +5163,12 @@ def dvfs_train_window(nvml, idle_w, arch="llama3.2-1b", shape=None,
         f"modeled: energy {joules / n / plan_e:.3f} (plan), "
         f"{joules / n / base_e:.3f} (auto); time {wall / n / plan_t:.3f} "
         f"(plan), {wall / n / base_t:.3f} (auto)")
-    del trainer, model
+    del trainer
     release()
     return {"joules": joules, "wall_s": wall, "steps": n,
-            "plan": (plan_t, plan_e), "auto": (base_t, base_e)}
+            "tokens_per_step": shape.global_batch * shape.seq_len,
+            "plan": (plan_t, plan_e), "auto": (base_t, base_e),
+            "launches": launches}
 
 
 def dvfs_train_launcher(arch: str = "llama3.2-1b"):
@@ -5275,6 +5196,8 @@ def phase_dvfs(cfg, model, params):
     granite-moe-1b-a400m with ``--smoke`` and at full width with 2
     requests), the serve and training windows, the train launcher.
     ``model`` is the serve phase's llama3.2-1b."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
     nvml = Nvml()
     try:
         idle_w = dvfs_grid_check(nvml)
@@ -5289,7 +5212,8 @@ def phase_dvfs(cfg, model, params):
         dvfs_serve_launcher(smoke=True, arch=VLM_ARCH)
         release()
         serve = dvfs_serve_window(nvml, cfg, model, params, idle_w)
-        train = dvfs_train_window(nvml, idle_w)
+        train = dvfs_train_window(nvml, idle_w, build_model(
+            get_config("llama3.2-1b"), device="cuda"))
         dvfs_train_launcher()
     finally:
         nvml.close()
@@ -5297,24 +5221,171 @@ def phase_dvfs(cfg, model, params):
             "smoke_launches": smoke_launches}
 
 
-def phase_dvfs_gpt3(idle_w):
+def _gpt3_per_step(L: int):
+    """gpt3-xl's kernel launches a training step of ``GPT3_ACCUM``
+    micro-batches, counted from the code: a micro-batch of its ``L``
+    layers runs L flash forwards with their log-sum-exp, L more in the
+    backward's recompute under remat, and L flash backwards."""
+    return {"rmsnorm": 0, "flash_prefill": GPT3_ACCUM * (L + L),
+            "flash_bwd": GPT3_ACCUM * L, "paged_decode": 0, "ssd_scan": 0}
+
+
+def phase_dvfs_gpt3(idle_w, gpt3):
     """gpt3-xl behind the DVFS stack on the card, reading NVML: the
     ``Trainer`` at the paper's shape (``paper_gpt3xl``: 40 x 1024 tokens a
     step as ``GPT3_ACCUM`` micro-batches) for ``GPT3_DVFS_STEPS`` steps
-    behind the train executor planned for that shape, over an energy
-    window of at least ``DVFS_WINDOW_S`` (``idle_w``: the dvfs phase's idle
-    watts); then ``launch.train.main --arch gpt3-xl --smoke`` (learned
-    positions and LayerNorm at the kernels' widths)."""
+    behind the train executor planned for that shape, on ``gpt3`` (the
+    model built on the card), over an energy window of at least
+    ``DVFS_WINDOW_S`` (``idle_w``: the dvfs phase's idle watts), exact
+    launches; then ``launch.train.main --arch gpt3-xl --smoke`` (learned
+    positions and LayerNorm at the kernels' widths).  Returns the
+    window's totals."""
     from repro_torch.configs import get_shape
     nvml = Nvml()
     try:
-        train = dvfs_train_window(nvml, idle_w, "gpt3-xl",
-                                  get_shape("paper_gpt3xl"), GPT3_ACCUM,
-                                  GPT3_DVFS_STEPS)
+        train = dvfs_train_window(
+            nvml, idle_w, gpt3, get_shape("paper_gpt3xl"), GPT3_ACCUM,
+            GPT3_DVFS_STEPS, per_step=_gpt3_per_step(gpt3.cfg.n_layers))
         dvfs_train_launcher("gpt3-xl")
     finally:
         nvml.close()
     return train
+
+
+def phase_transfer_gpt3(idle_w, gpt3, dp1):
+    """The accounting and plan-transfer tier on gpt3-xl at ``paper_gpt3xl``
+    (40 x 1024 tokens a step as ``GPT3_ACCUM`` micro-batches of 8, remat):
+
+    1. its training step counted at full width and depth on fake tensors
+       (``hw.step_count.count_train_step``; nothing runs on the card):
+       matrix FLOPs, the eager path's HBM bytes, the top ops; the analytic
+       workload against it (``calibrate_workload_against_count``); over
+       the dvfs_gpt3 window's measured seconds a step (``dp1``), as
+       TFLOP/s and as a share of ``PEAK_FLOPS_BF16``, the counted FLOPs
+       (the plain eager path's: every attention score, the masked half
+       too, and remat's recompute) and the analytic ones (the planner's
+       model of the step: causal attention, no recompute);
+    2. the plan at dp 1 on ``h100_like`` (``plan_train_bundle`` with the
+       count, tau ``TRANSFER_TAU``), and ``compare_transfer`` to dp 2, dp 4
+       and tp 2: each mesh's energy against replanning, remapped and
+       repaired kernels (tp 2 modeled only: the sharded model is ROADMAP
+       item 11's);
+    3. one rank of the dp-2 mesh on the card: the ``Trainer`` on ``gpt3``
+       (the model dvfs_gpt3 trained; the ``Trainer`` draws its weights
+       anew from its seed) at the rank's 20 x 1024 tokens a step as micro-batches of 4, behind the
+       dp-2 bundle's plan adopted by a ``DvfsSession`` train executor,
+       over an NVML window of at least ``DVFS_WINDOW_S``: finite losses,
+       the three phases booked, the books' JSON round trip, exact launches
+       (5 x 48 flash forwards and 5 x 24 backwards a step); its joules and
+       seconds a step and a token against the transferred plan's modeled
+       ones and against the dp-1 window.
+
+    Returns the rank's window with its launches."""
+    from repro_torch.configs import ShapeConfig, get_config, get_shape
+    from repro_torch.core import (WastePolicy, WorkloadBuilder,
+                                  calibrate_workload_against_count, get_chip,
+                                  plan_train_bundle)
+    from repro_torch.hw.step_count import count_train_step
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.parallel import compare_transfer, transfer_train_bundle
+    tag = "transfer_gpt3"
+    cfg, shape = get_config("gpt3-xl"), get_shape("paper_gpt3xl")
+    t0 = time.perf_counter()
+    count = count_train_step(cfg, global_batch=shape.global_batch,
+                             seq_len=shape.seq_len, accum_steps=GPT3_ACCUM)
+    log(f"[{tag}] counted a step of {shape.global_batch} x {shape.seq_len} "
+        f"tokens ({GPT3_ACCUM} micro-batches, remat, AdamW) on fake "
+        f"tensors in {time.perf_counter() - t0:.1f} s: {count.flops:.6e} "
+        f"matrix FLOPs, {count.hbm_bytes:.6e} HBM bytes of the eager path")
+    for key in ("flops", "hbm_bytes"):
+        top = [(op, v) for op, v in count.top(5, key) if v[key]]
+        log(f"[{tag}] top ops by {key}: " + "; ".join(
+            f"{op} {v[key]:.4e} ({v[key] / getattr(count, key):.3f}, "
+            f"{int(v['calls'])} calls)" for op, v in top))
+    cal = calibrate_workload_against_count(
+        WorkloadBuilder(cfg, shape).build(), count)
+    log(f"[{tag}] analytic workload (WorkloadBuilder, no optimizer) against "
+        f"the count: FLOPs {cal['analytic_flops']:.6e} / "
+        f"{cal['counted_flops']:.6e} = {cal['flops_ratio']:.4f}, HBM bytes "
+        f"{cal['analytic_hbm_bytes']:.6e} / {cal['counted_hbm_bytes']:.6e} "
+        f"= {cal['hbm_ratio']:.4f}")
+    step_s = dp1["wall_s"] / dp1["steps"]
+    for what, flops in (("counted FLOPs (the plain eager path's, masked "
+                         "attention scores and remat's recompute included)",
+                         count.flops),
+                        ("analytic FLOPs (WorkloadBuilder: causal "
+                         "attention, no recompute)", cal["analytic_flops"])):
+        rate = flops / step_s
+        log(f"[{tag}] {what} over dvfs_gpt3's measured {step_s:.4f} s a "
+            f"step: {rate / 1e12:.2f} TFLOP/s, "
+            f"{rate / h100.PEAK_FLOPS_BF16:.4f} of the bf16 peak "
+            f"({h100.PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s)")
+    log(f"[{tag}] roofline terms of the count (s): "
+        f"{h100.roofline_terms(count.flops, count.hbm_bytes, 0.0, 1)}")
+    chip = get_chip("h100")
+    policy = WastePolicy(TRANSFER_TAU)
+    src = plan_train_bundle(cfg, chip, shape=shape, policy=policy,
+                            step_count=count)
+    if src.meta["count_calibration"]["counted_flops"] != count.flops:
+        raise AssertionError(f"{tag}: the bundle's calibration "
+                             f"{src.meta['count_calibration']}")
+    log(f"[{tag}] plan at dp 1 on h100_like (tau {TRANSFER_TAU}): "
+        f"{src.step_energy_j:.3f} J in {src.step_time_s:.4f} s a step "
+        f"(modeled); its count_calibration (with the optimizer) FLOPs "
+        f"{src.meta['count_calibration']['flops_ratio']:.4f}, HBM bytes "
+        f"{src.meta['count_calibration']['hbm_ratio']:.4f}")
+    meshes = {"dp2": MeshSpec(dp=2), "dp4": MeshSpec(dp=4),
+              "tp2": MeshSpec(tp=2)}
+    rows = compare_transfer(src, cfg, chip, shape,
+                            [meshes[m] for m in TRANSFER_MESHES], policy)
+    for row in rows:
+        if not all(math.isfinite(v) for v in row.to_dict().values()
+                   if isinstance(v, float)):
+            raise AssertionError(f"{tag}: {row.to_dict()}")
+        log(f"[{tag}] {row.mesh}"
+            + (" (modeled only: no sharded model on one card)"
+               if "tp1" not in row.mesh else "")
+            + f": transferred {row.transfer_energy_pct:+.3f}% energy, "
+            f"{row.transfer_time_pct:+.3f}% time against the shard's auto; "
+            f"replanned {row.replan_energy_pct:+.3f}% / "
+            f"{row.replan_time_pct:+.3f}%; energy_vs_replan_pct "
+            f"{row.energy_vs_replan_pct:+.4f}; remapped {row.n_remapped}, "
+            f"repaired {row.n_repaired}")
+    bundle = transfer_train_bundle(src, cfg, chip, shape,
+                                   MeshSpec(dp=GPT3_RANK_DP))
+    unmatched = sum(bundle.phases[p].schedule.meta["n_unmatched"]
+                    for p in bundle.phase_names())
+    log(f"[{tag}] the dp-{GPT3_RANK_DP} bundle: {bundle.step_energy_j:.3f} J "
+        f"in {bundle.step_time_s:.4f} s a rank's step (modeled), "
+        f"{unmatched} unmatched kernels")
+    rank_shape = ShapeConfig(name=f"paper_gpt3xl_dp{GPT3_RANK_DP}_rank",
+                             seq_len=shape.seq_len,
+                             global_batch=shape.global_batch // GPT3_RANK_DP,
+                             kind="train")
+    nvml = Nvml()
+    try:
+        rank = dvfs_train_window(nvml, idle_w, gpt3, rank_shape,
+                                 GPT3_ACCUM, GPT3_RANK_STEPS, bundle=bundle,
+                                 per_step=_gpt3_per_step(cfg.n_layers),
+                                 tag=tag)
+    finally:
+        nvml.close()
+    for name, w in (("dp-1 window (dvfs_gpt3)", dp1),
+                    (f"dp-{GPT3_RANK_DP} rank", rank)):
+        j, t = w["joules"] / w["steps"], w["wall_s"] / w["steps"]
+        log(f"[{tag}] measured, {name}: {j:.2f} J and {t:.4f} s a step of "
+            f"{w['tokens_per_step']} tokens = {j / w['tokens_per_step']:.6f}"
+            f" J and {t / w['tokens_per_step'] * 1e6:.3f} us a token; "
+            f"modeled (its plan) {w['plan'][1]:.3f} J in {w['plan'][0]:.4f} "
+            f"s a step")
+    per_token = [w["joules"] / w["steps"] / w["tokens_per_step"]
+                 for w in (rank, dp1)]
+    log(f"[{tag}] the rank's J a token over the dp-1 window's: "
+        f"{per_token[0] / per_token[1]:.4f}; its measured step over the "
+        f"transferred plan's modeled step: energy "
+        f"{rank['joules'] / rank['steps'] / rank['plan'][1]:.3f}, time "
+        f"{rank['wall_s'] / rank['steps'] / rank['plan'][0]:.3f}")
+    return rank
 
 
 def main() -> int:
@@ -5346,7 +5417,14 @@ def main() -> int:
     del model, params
     release()
     train_gpt3 = timed("train_gpt3", phase_train_gpt3)["counts"]
-    timed("dvfs_gpt3", phase_dvfs_gpt3, dvfs["idle_w"])
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    gpt3 = build_model(get_config("gpt3-xl"), device="cuda")
+    dvfs_gpt3 = timed("dvfs_gpt3", phase_dvfs_gpt3, dvfs["idle_w"], gpt3)
+    rank_gpt3 = timed("transfer_gpt3", phase_transfer_gpt3, dvfs["idle_w"],
+                      gpt3, dvfs_gpt3)["launches"]
+    del gpt3
+    release()
     cfg, model, params = timed("build_llama3b", build_full_model,
                                "llama3.2-3b")
     serve_llama3b = timed("serve_llama3b", phase_serve_llama3b, cfg, model,
@@ -5434,6 +5512,13 @@ def main() -> int:
                 row["launches_of"] = (f"one gpt3-xl training run, "
                                       f"{TRAIN_STEPS} steps of {GPT3_BATCH} "
                                       f"x {TRAIN_SEQ} tokens")
+            elif run == "rank":
+                row["launches"] = rank_gpt3[name]
+                row["launches_of"] = (f"one gpt3-xl dp-{GPT3_RANK_DP} rank's "
+                                      f"Trainer run behind the transferred "
+                                      f"plan, {GPT3_RANK_STEPS} steps of "
+                                      f"{GPT3_BATCH // GPT3_RANK_DP} x "
+                                      f"{TRAIN_SEQ} tokens")
             else:
                 row["launches"] = serve_gpt3[run][name]
                 row["launches_of"] = (f"one gpt3-xl serve run, {run} pages, "

@@ -2,7 +2,8 @@
 waste reduction (strict/relaxed), vs pass-level and vs EDP.
 
 The port's copy of the JAX package's ``core/__init__.py``, with the H100
-chip model and without the HLO calibration (the port compiles no HLO)."""
+chip model, and the calibration against a count of the port's step in
+place of the HLO calibration (the port compiles no HLO)."""
 from .freq import AUTO, ClockPair, FrequencyGrid, h100_grid, \
     paper_grid_3080ti, tpu_v5e_grid
 from .power_model import Chip, KernelSpec, get_chip, rtx3080ti_like, \
@@ -20,7 +21,8 @@ from .schedule import DVFSSchedule, ScheduleEntry, schedule_from_plan, \
     schedule_from_coalesced
 from .phase_plan import (PhasePlan, PhasePlanBundle, plan_phase_bundle,
                          TrainPlanBundle, plan_train_bundle, compile_phase,
-                         train_phase_of, TRAIN_PHASES)
+                         train_phase_of, TRAIN_PHASES,
+                         calibrate_workload_against_count)
 
 __all__ = [
     "AUTO", "ClockPair", "FrequencyGrid", "paper_grid_3080ti",
@@ -38,4 +40,5 @@ __all__ = [
     "decode_bucket_workloads", "PhasePlan", "PhasePlanBundle",
     "plan_phase_bundle", "TrainPlanBundle", "plan_train_bundle",
     "compile_phase", "train_phase_of", "TRAIN_PHASES",
+    "calibrate_workload_against_count",
 ]

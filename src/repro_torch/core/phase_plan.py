@@ -37,8 +37,9 @@ round-trip like :class:`~repro.core.schedule.DVFSSchedule`; each phase
 also carries its kernel list so replay accounting needs nothing but the
 bundle + a chip.
 
-The port's copy of the JAX package's ``core/phase_plan.py``; its HLO
-calibration raises (the port compiles no HLO).
+The port's copy of the JAX package's ``core/phase_plan.py``; the port
+compiles no HLO, so its calibration holds the workload against a count of
+the port's own step (``calibrate_workload_against_count``).
 """
 from __future__ import annotations
 
@@ -346,17 +347,27 @@ class TrainPlanBundle(_IRBundleIO):
                    meta=d.get("meta", {}))
 
 
-def calibrate_workload_against_hlo(kernels: List[KernelSpec],
-                                   hlo_text: str) -> Dict:
-    """The reference cross-checks the analytic workload against the
-    compiled step's HLO here; the port compiles no HLO, so this raises.
-    Its counterpart, a count of the port's step with
-    ``torch.utils.flop_counter``, is queued in ROADMAP.md (queue 1, the
-    follow-ups of item 4c)."""
-    raise NotImplementedError(
-        "hlo_text: the port has no HLO to calibrate against; the "
-        "FLOP-counter calibration is queued in ROADMAP.md (queue 1, the "
-        "follow-ups of item 4c)")
+def calibrate_workload_against_count(kernels: List[KernelSpec],
+                                     count) -> Dict:
+    """Cross-check the analytic workload against a count of the port's step.
+
+    The port's counterpart of the reference's
+    ``calibrate_workload_against_hlo``: ``count`` is a
+    :class:`~repro_torch.hw.step_count.StepCount` of the step (matrix-product
+    FLOPs and the eager path's HBM bytes, every layer, micro-batch and
+    remat recompute as it runs; ``hw.step_count.count_train_step``), and
+    the analytic/counted ratio is reported for FLOPs and HBM bytes.  Stored
+    in the bundle's meta so a shipped plan records how faithful its
+    workload decomposition was to the program the port runs.
+    """
+    from .workload import workload_totals
+    flops, hbm, _ = workload_totals(kernels)
+    return {
+        "analytic_flops": flops, "counted_flops": count.flops,
+        "flops_ratio": flops / count.flops if count.flops else None,
+        "analytic_hbm_bytes": hbm, "counted_hbm_bytes": count.hbm_bytes,
+        "hbm_ratio": hbm / count.hbm_bytes if count.hbm_bytes else None,
+    }
 
 
 def plan_train_bundle(cfg: ModelConfig, chip: Chip, *,
@@ -366,7 +377,7 @@ def plan_train_bundle(cfg: ModelConfig, chip: Chip, *,
                       seed: int = 0, n_reps: int = 5,
                       tp: int = 1, dp: int = 1,
                       include_optimizer: bool = True,
-                      hlo_text: Optional[str] = None,
+                      step_count=None,
                       table: Optional[MeasurementTable] = None,
                       meta: Optional[Dict] = None) -> TrainPlanBundle:
     """Measure + plan the fwd/bwd/opt phases of one train step on ``chip``.
@@ -377,9 +388,10 @@ def plan_train_bundle(cfg: ModelConfig, chip: Chip, *,
     the per-device shard: the per-device batch is
     ``shape.global_batch // dp`` and tensor-parallel kernels are sharded
     ``tp`` ways, exactly as
-    :class:`~repro.core.workload.WorkloadBuilder` does.  Pass the jitted
-    step's optimized HLO as ``hlo_text`` to record an analytic-vs-compiled
-    calibration in the bundle meta.  Pass a precomputed ``table`` (whose
+    :class:`~repro.core.workload.WorkloadBuilder` does.  Pass a count of
+    the step (``hw.step_count.count_train_step``) as ``step_count`` to
+    record an analytic-vs-counted calibration in the bundle meta
+    (``count_calibration``).  Pass a precomputed ``table`` (whose
     kernels must be this same workload) to plan several bundles — e.g.
     kernel- vs pass-level, or transferred vs replanned — against one
     measurement campaign instead of re-measuring.
@@ -406,7 +418,7 @@ def plan_train_bundle(cfg: ModelConfig, chip: Chip, *,
                "seq_len": shape.seq_len, "global_batch": shape.global_batch,
                "tp": tp, "dp": dp,
                "include_optimizer": include_optimizer})
-    if hlo_text is not None:
-        md["hlo_calibration"] = calibrate_workload_against_hlo(
-            kernels, hlo_text)
+    if step_count is not None:
+        md["count_calibration"] = calibrate_workload_against_count(
+            kernels, step_count)
     return TrainPlanBundle(chip_name=chip.name, phases=phases, meta=md)

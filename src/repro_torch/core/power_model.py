@@ -28,6 +28,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from ..hw import h100
 from .freq import AUTO, ClockPair, FrequencyGrid, h100_grid, \
     paper_grid_3080ti, tpu_v5e_grid
 
@@ -258,9 +259,10 @@ def h100_like() -> Chip:
     :func:`rtx3080ti_like`.  Each constant and its source:
 
     * ``peak_flops`` 989e12 (bf16 dense) and ``hbm_bw`` 3.35e12 B/s:
-      NVIDIA's data sheet, the peaks ``chip_smoke.py``'s kernel bounds use;
+      NVIDIA's data sheet (:mod:`repro_torch.hw.h100`), the peaks
+      ``chip_smoke.py``'s kernel bounds use;
     * ``ici_bw`` 450e9 B/s: NVLink 4, 900 GB/s both directions (data
-      sheet); no one-card path uses it;
+      sheet, ``hw.h100.NVLINK_BW``); no one-card path uses it;
     * ``p_cap`` 700 W: the card's ``power.limit`` as ``nvidia-smi`` reads it;
     * ``launch_overhead_s`` 3e-6: the ~2.6-3.0 us a kernel of a decode step
       measured on the card (``PERF.md`` section 5);
@@ -274,9 +276,9 @@ def h100_like() -> Chip:
     """
     return Chip(
         name="h100-like",
-        peak_flops=989e12,
-        hbm_bw=3.35e12,
-        ici_bw=450e9,
+        peak_flops=h100.PEAK_FLOPS_BF16,
+        hbm_bw=h100.HBM_BW,
+        ici_bw=h100.NVLINK_BW,
         grid=h100_grid(),
         p_static=95.0,
         p_core_max=510.0,

@@ -172,7 +172,7 @@ class DvfsSession:
     def plan_train(self, cfg: ModelConfig, *, shape: ShapeConfig,
                    tp: int = 1, dp: int = 1,
                    include_optimizer: bool = True,
-                   hlo_text: Optional[str] = None,
+                   step_count=None,
                    table: Optional[MeasurementTable] = None,
                    meta: Optional[Dict] = None) -> DvfsPlan:
         """Campaign + plan the fwd/bwd/opt phases of one train step with
@@ -182,7 +182,7 @@ class DvfsSession:
             cfg, self.chip, shape=shape, policy=self.policy,
             planner=self.governor.phase_planner, seed=self.seed,
             n_reps=self.n_reps, tp=tp, dp=dp,
-            include_optimizer=include_optimizer, hlo_text=hlo_text,
+            include_optimizer=include_optimizer, step_count=step_count,
             table=table, meta=meta)
         self.planner_wall_s += time.perf_counter() - t0
         plan = DvfsPlan.from_train_bundle(bundle)

@@ -33,8 +33,8 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from . import common as cm
 from .common import Params
-from .transformer import (LeafSpec, init_params, init_scale, resolve_device,
-                          unstack_layers)
+from .transformer import (AbstractParams, LeafSpec, init_params,
+                          init_scale, resolve_device, unstack_layers)
 
 
 def _init_scale(name: str, per_layer_shape) -> float:
@@ -43,7 +43,7 @@ def _init_scale(name: str, per_layer_shape) -> float:
     return 0.02 if name == "enc_pos" else init_scale(name, per_layer_shape)
 
 
-class EncDecLM:
+class EncDecLM(AbstractParams):
     """Encoder-decoder LM over stacked (n_layers, ...) parameters."""
 
     #: the prefill inputs beside the tokens that a request may carry

@@ -37,10 +37,11 @@ from . import common as cm
 from .common import Params
 from .ssm import (init_mamba_params, mamba_block, mamba_decode_step,
                   mamba_layer, mamba_leaf_dtype, mamba_param_shapes)
-from .transformer import LeafSpec, resolve_device, unstack_layers
+from .transformer import AbstractParams, LeafSpec, resolve_device, \
+    unstack_layers
 
 
-class HybridLM:
+class HybridLM(AbstractParams):
     """Mamba2 blocks and one shared attention block over stacked params."""
 
     def __init__(self, cfg: ModelConfig, block_k: int = 1024,

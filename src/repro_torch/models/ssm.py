@@ -26,8 +26,8 @@ from ..configs.base import ModelConfig
 from ..kernels.ssd_scan import ssd_scan
 from . import common as cm
 from .common import Params
-from .transformer import (LeafSpec, init_params, init_scale, resolve_device,
-                          unstack_layers)
+from .transformer import (AbstractParams, LeafSpec, init_params,
+                          init_scale, resolve_device, unstack_layers)
 
 _DT_BIAS = -4.6  # softplus^-1(0.01): default timestep at init
 #: leaves held in float32 whatever the compute dtype: the reference reads
@@ -247,7 +247,7 @@ def mamba_decode_step(p: Params, x: torch.Tensor, cache, cfg: ModelConfig):
 # Mamba2 LM (mamba2-370m)
 # ---------------------------------------------------------------------------
 
-class MambaLM:
+class MambaLM(AbstractParams):
     """Attention-free Mamba2 LM over stacked (n_layers, ...) parameters."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):

@@ -115,6 +115,25 @@ def init_params(shapes, leaf_dtype, device, generator=None, *,
     return build(shapes, False)
 
 
+def meta_params(shapes, leaf_dtype) -> Params:
+    """The tree of leaf ``shapes`` as ``device="meta"`` tensors in
+    ``leaf_dtype(name)``: shapes and dtypes only, nothing allocated or
+    drawn (the reference's ``ParamBuilder.ABSTRACT``)."""
+    return {name: meta_params(val, leaf_dtype) if isinstance(val, dict)
+            else torch.empty(val, dtype=leaf_dtype(name), device="meta")
+            for name, val in shapes.items()}
+
+
+class AbstractParams:
+    """``abstract_params(dtype=None)``, the reference's name, for the model
+    classes: the tree of ``param_shapes()`` as meta tensors in the dtypes
+    ``init(dtype=)`` gives (``leaf_dtype``)."""
+
+    def abstract_params(self, dtype=None) -> Params:
+        return meta_params(self.param_shapes(),
+                           lambda name: self.leaf_dtype(name, dtype))
+
+
 def resolve_device(device) -> torch.device:
     """The entry points' device; a CUDA device must exist (no silent
     fallback to the CPU)."""
@@ -137,7 +156,7 @@ def unstack_layers(tree, n: int):
     return list(torch.unbind(tree, 0))
 
 
-class DecoderLM:
+class DecoderLM(AbstractParams):
     """Dense or MoE decoder LM over stacked (n_layers, ...) parameters."""
 
     #: the prefill inputs beside the tokens that a request may carry

@@ -166,12 +166,39 @@ def test_plans_are_equal_and_load_across_packages(governor, kind, tmp_path):
 
 
 def test_hlo_calibration_raises_in_the_port():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The port compiles no HLO: ``plan_train`` takes no ``hlo_text`` and
+    ``core`` has no HLO calibration; a count of the step takes its place
+    (``test_count_calibration_lands_in_a_planned_bundle``)."""
+    with pytest.raises(TypeError, match="hlo_text"):
         with tdvfs.DvfsSession(chip=CHIP, n_reps=1) as sess:
             sess.plan_train(tcfgs.get_config(ARCH), shape=tcfgs.ShapeConfig(
                 name="t", seq_len=64, global_batch=2, kind="train"),
                 hlo_text="HloModule m")
     assert not hasattr(tcore, "calibrate_workload_against_hlo")
+
+
+def test_count_calibration_lands_in_a_planned_bundle():
+    """``DvfsSession.plan_train(..., step_count=)`` records the analytic
+    workload against a count of the port's step (llama3.2-1b at full width
+    on fake tensors, ``hw.step_count.count_train_step``) in the adopted
+    plan's meta, as the reference records its HLO calibration; a plan
+    without a count stays the reference's (``test_plans_are_equal_...``)."""
+    from repro_torch.hw.step_count import count_train_step
+    cfg = tcfgs.get_config(ARCH)
+    shape = tcfgs.ShapeConfig(name="t", seq_len=64, global_batch=2,
+                              kind="train")
+    count = count_train_step(cfg, global_batch=2, seq_len=64)
+    with tdvfs.DvfsSession(chip="h100", n_reps=1) as sess:
+        plan = sess.plan_train(cfg, shape=shape, step_count=count)
+    cal = plan.meta["count_calibration"]
+    kernels = tcore.WorkloadBuilder(cfg, shape,
+                                    include_optimizer=True).build()
+    assert cal == tcore.calibrate_workload_against_count(kernels, count)
+    assert cal["counted_flops"] == count.flops
+    assert cal["counted_hbm_bytes"] == count.hbm_bytes
+    assert np.isfinite(cal["flops_ratio"]) and np.isfinite(cal["hbm_ratio"])
+    assert tdvfs.DvfsPlan.from_json(plan.to_json()) \
+        .meta["count_calibration"] == cal
 
 
 def test_session_default_chip_is_the_references():
