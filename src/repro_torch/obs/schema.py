@@ -1,9 +1,11 @@
-""""Versioned wire schema of the trace events (a copy of the JAX package's
-``obs/schema.py`` without its legacy-stream converters, so traces from
-either package validate and load alike).
+"""Versioned wire schema of the trace events (a copy of the JAX package's
+``obs/schema.py``, so traces from either package validate and load alike).
 
 The document carries an explicit ``obs_schema_version`` and ships with a
-hand-rolled validator (:func:`validate_trace_dict`).
+hand-rolled validator (:func:`validate_trace_dict`).  The converters at the
+end fold the legacy event streams (governor re-plans, controller records,
+replica lifecycle instants, the fleet's fault/recovery books) into schema
+events.
 
 Canonical event record (plain dicts, JSON-stable)::
 
@@ -28,7 +30,7 @@ bit-identical trace.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, Iterable, List, Optional, Sequence
 
 OBS_SCHEMA_VERSION = 1
 
@@ -49,6 +51,11 @@ CATEGORIES = (
     "lifecycle",   # drain / park / unpark / evict replica transitions
     "power",       # cluster power-window samples
 )
+#: replica lifecycle event names that are really fault-side records
+_FAULT_EVENTS = frozenset({
+    "crash", "evicted", "driver-fail", "driver-fail-skipped",
+    "thermal-cap", "thermal-lift"})
+
 
 def make_event(kind: str, cat: str, name: str, track: str, ts: float,
                dur: Optional[float] = None, id: Optional[object] = None,
@@ -149,3 +156,84 @@ def validate_trace_dict(d: Dict) -> List[str]:
                 errs.append("traceEvents timestamps must be "
                             "non-decreasing")
     return errs
+
+
+# ---------------------------------------------------------------------------
+# converters: the three legacy event streams -> schema events
+# ---------------------------------------------------------------------------
+
+def from_governor_events(events: Sequence[Dict], track: str = "governor",
+                         ts: float = 0.0) -> List[Dict]:
+    """``BaseGovernor.events`` / ``OnlineGovernor.events`` records
+    (``{"revision", "reason", ...}``; no timestamps of their own — the
+    caller supplies the modeled time they are folded in at)."""
+    out = []
+    for ev in events:
+        name = "replan" if ev.get("revision", 1) > 1 else "adopt"
+        args = {k: v for k, v in ev.items()}
+        out.append(make_event("instant", "replan", name, track, ts,
+                              args=args))
+    return out
+
+
+def from_controller_events(events: Sequence[Dict],
+                           track: str = "controller") -> List[Dict]:
+    """``RateLimitedController.controller_events`` records (each carries
+    ``t`` in the controller's modeled busy time).  ``driver-fault``
+    windows are fault events; ``set-freq-*`` outcomes are frequency
+    actuation events."""
+    out = []
+    for ev in events:
+        name = str(ev.get("event", "controller"))
+        cat = "fault" if name.startswith("driver") else "freq"
+        args = {k: v for k, v in ev.items() if k not in ("t", "event")}
+        out.append(make_event("instant", cat, name, track,
+                              float(ev.get("t", 0.0)), args=args or None))
+    return out
+
+
+def from_replica_events(events: Sequence[Dict],
+                        track: str) -> List[Dict]:
+    """``Replica.events`` lifecycle records (``{"t", "event", ...}``);
+    crash/evict/driver records classify as faults."""
+    out = []
+    for ev in events:
+        name = str(ev.get("event", "event"))
+        cat = "fault" if name in _FAULT_EVENTS else "lifecycle"
+        args = {k: v for k, v in ev.items() if k not in ("t", "event")}
+        out.append(make_event("instant", cat, name, track,
+                              float(ev.get("t", 0.0)), args=args or None))
+    return out
+
+
+def from_recovery_books(recovery: Dict, track: str = "fleet",
+                        ts: float = 0.0) -> List[Dict]:
+    """The fleet's fault/recovery books -> one counter sample carrying
+    the scalar tallies (nested crash books ride as an instant each)."""
+    scalars = {k: v for k, v in recovery.items()
+               if isinstance(v, (int, float))}
+    out = [make_event("counter", "recovery", "recovery_books", track, ts,
+                      args=scalars)]
+    for name, books in (recovery.get("crash_books") or {}).items():
+        out.append(make_event("instant", "fault", "crash_books", track,
+                              ts, args={"replica": name, **books}))
+    return out
+
+
+def ingest_legacy_streams(tracer, *, governor_events: Iterable = (),
+                          controller_events: Iterable = (),
+                          replica_events: Iterable = (),
+                          recovery: Optional[Dict] = None,
+                          track: str = "legacy",
+                          ts: float = 0.0) -> int:
+    """Fold any of the legacy streams into a tracer; returns the number
+    of events added (0 on a :class:`~repro.obs.tracer.NullTracer`)."""
+    if not getattr(tracer, "enabled", False):
+        return 0
+    evs = from_governor_events(list(governor_events), track, ts)
+    evs += from_controller_events(list(controller_events), track)
+    evs += from_replica_events(list(replica_events), track)
+    if recovery is not None:
+        evs += from_recovery_books(recovery, track, ts)
+    tracer.extend(evs)
+    return len(evs)

@@ -18,6 +18,10 @@ fixed-size pages plus a per-slot *block table* replaces the dense per-slot
   the pages of each admitted slot's table row, in place.
 * :func:`cow_copy_block` — resolve a copy-on-write of a slot's block (a
   radix-cache tail hit) on the device, in place.
+* :class:`PageBlockTransfer`, :func:`extract_page_block`,
+  :func:`splice_page_block` — migrate a prefilled slot between two pools
+  (disaggregated prefill/decode): its pages, scale rows and dense rows
+  copied out by value, and landed in another pool's tensors in place.
 
 Page 0 is the reserved **parking page**: it is never allocated, and every
 unallocated or freed block-table entry points at it.  The decode kernel
@@ -34,6 +38,7 @@ so device memory moves one byte per value.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -422,5 +427,181 @@ def cow_copy_block(state: PagedBatchState, slot: int, block: int) -> bool:
         for key in keys:
             leaf = state.cache[key]
             leaf[:, new].copy_(leaf[:, old])
+    state.sync_tables()
+    return True
+
+
+# ---------------------------------------------------------------------------
+# KV-page migration (disaggregated prefill/decode)
+# ---------------------------------------------------------------------------
+
+# dtypes numpy cannot hold, carried through the host dict (and copied by
+# ``index_copy_``, which takes no float8) as an integer view of their width
+_HOST_VIEWS = {torch.bfloat16: torch.int16, torch.float8_e4m3fn: torch.int8}
+
+
+def _to_host(t: torch.Tensor) -> Tuple[np.ndarray, str]:
+    """``t`` as a numpy array (an integer view where numpy has no such
+    dtype) and its dtype's name, bit for bit."""
+    view = _HOST_VIEWS.get(t.dtype)
+    arr = t.detach().cpu()
+    return ((arr.view(view) if view is not None else arr).numpy(),
+            str(t.dtype).removeprefix("torch."))
+
+
+def _from_host(a, name: Optional[str]) -> torch.Tensor:
+    """Inverse of :func:`_to_host` (a CPU tensor); without a name, ``a``
+    is taken at its numpy dtype (a JAX package dict)."""
+    t = torch.from_numpy(np.array(a, copy=True))
+    dtype = getattr(torch, name) if name is not None else None
+    return t.view(dtype) if dtype in _HOST_VIEWS else t
+
+
+@dataclasses.dataclass
+class PageBlockTransfer:
+    """A finished prefill's cache state, serialized for migration.
+
+    Carries everything a *different* :class:`PagedBatchState` needs to
+    continue decoding the request: the slot's allocated pages for every
+    paged leaf (quantized storage plus per-(page, KV-head) scale rows when
+    the pool is quantized), the slot's rows of every dense leaf (SSM /
+    conv state, ring buffers, cross-attention K/V — a transfer is only
+    complete for families whose recurrent state rides along), and the
+    block-table splice metadata (page size, valid token count, total
+    token reservation).  Pages are copied by value — the source pool may
+    free and re-allocate them immediately after extraction.  The tensors
+    stay on the source's device until :meth:`to_dict` takes them to the
+    host.
+    """
+    kv_dtype: str                       # pool storage name ("none", "int8", ...)
+    page_size: int
+    n_tokens: int                       # valid cached positions (pos after prefill)
+    n_tokens_total: int                 # reservation at the target (prompt+max_new-1)
+    leaves: Dict[str, torch.Tensor]     # paged: (L, nb, page, KV, D)
+    scales: Dict[str, torch.Tensor]     # per paged leaf: (L, nb, KV) float32
+    dense: Dict[str, torch.Tensor]      # per dense leaf: the slot's row (no batch axis)
+
+    @property
+    def n_blocks(self) -> int:
+        return next(iter(self.leaves.values())).shape[1] if self.leaves else 0
+
+    def nbytes(self) -> int:
+        """Payload bytes on the wire (pages + scales + dense rows) — the
+        quantity the fleet's transfer cost model charges."""
+        arrs = list(self.leaves.values()) + list(self.scales.values()) \
+            + list(self.dense.values())
+        return int(sum(a.numel() * a.element_size() for a in arrs))
+
+    def to_dict(self) -> Dict:
+        """Host-side (numpy) dict form; round-trips via :meth:`from_dict`
+        to the same bytes.  bf16 and fp8 tensors travel as integer views
+        of their width, and ``dtypes`` names every tensor's dtype."""
+        out = {"kv_dtype": self.kv_dtype, "page_size": self.page_size,
+               "n_tokens": self.n_tokens,
+               "n_tokens_total": self.n_tokens_total, "dtypes": {}}
+        for part in ("leaves", "scales", "dense"):
+            host = {k: _to_host(v) for k, v in getattr(self, part).items()}
+            out[part] = {k: a for k, (a, _) in host.items()}
+            out["dtypes"][part] = {k: n for k, (_, n) in host.items()}
+        return out
+
+    @classmethod
+    def from_dict(cls, d: Dict) -> "PageBlockTransfer":
+        """The transfer of a :meth:`to_dict` dict, on the CPU (a splice
+        moves it to its pool's device)."""
+        names = d.get("dtypes", {})
+        parts = {part: {k: _from_host(a, names.get(part, {}).get(k))
+                        for k, a in d[part].items()}
+                 for part in ("leaves", "scales", "dense")}
+        return cls(kv_dtype=d["kv_dtype"], page_size=int(d["page_size"]),
+                   n_tokens=int(d["n_tokens"]),
+                   n_tokens_total=int(d["n_tokens_total"]), **parts)
+
+
+def _dense_keys(state: PagedBatchState) -> List[str]:
+    paged = set(state.paged_keys) | {scale_key(k) for k in state.paged_keys}
+    return [k for k in state.cache if k not in paged]
+
+
+def extract_page_block(state: PagedBatchState, slot: int, model,
+                       n_tokens: Optional[int] = None) -> PageBlockTransfer:
+    """Serialize ``slot``'s cache state out of ``state`` for migration.
+
+    Gathers the slot's *allocated* pages only (never the parking tail —
+    unallocated table entries point at page 0 and are not part of the
+    request), the matching scale rows when the pool is quantized, and the
+    slot's row of every dense leaf via ``model.cache_slot_axes()``, each
+    as a copy on the pool's device.  ``n_tokens`` defaults to the slot's
+    current ``pos`` (valid positions written so far; reading it waits for
+    the device); the reservation size is read off the pool.
+    """
+    pool = state.pool
+    nb = int(pool.n_blocks[slot])
+    if nb == 0:
+        raise ValueError(f"slot {slot} holds no pages to extract")
+    ids = to_device(pool.tables[slot, :nb].astype(np.int64), state.device)
+    leaves = {k: state.cache[k].index_select(1, ids)
+              for k in state.paged_keys}
+    scales = ({k: state.cache[scale_key(k)].index_select(1, ids)
+               for k in state.paged_keys}
+              if state.quant is not None else {})
+    axes = model.cache_slot_axes()
+    dense = {k: state.cache[k].select(axes[k], slot).clone()
+             for k in _dense_keys(state)}
+    if n_tokens is None:
+        n_tokens = int(state.pos[slot])
+    return PageBlockTransfer(
+        kv_dtype=state.kv_dtype, page_size=pool.page_size,
+        n_tokens=int(n_tokens),
+        n_tokens_total=int(pool.used_tokens[slot]),
+        leaves=leaves, scales=scales, dense=dense)
+
+
+def _index_copy(leaf: torch.Tensor, ids: torch.Tensor,
+                src: torch.Tensor) -> None:
+    """``leaf[:, ids] = src`` in place, cast to the leaf's dtype, through
+    the integer view of ``_HOST_VIEWS`` where it has one."""
+    src = src.to(leaf.device, leaf.dtype)
+    view = _HOST_VIEWS.get(leaf.dtype)
+    if view is not None:
+        leaf, src = leaf.view(view), src.view(view)
+    leaf.index_copy_(1, ids, src)
+
+
+def splice_page_block(state: PagedBatchState, slot: int,
+                      transfer: PageBlockTransfer, model) -> bool:
+    """Land a migrated transfer in ``slot`` of a destination pool.
+
+    Allocates the full reservation (``n_tokens_total``) in the target's
+    :class:`PagePool` — returning False without touching device state
+    when the pool cannot cover it (backpressure; the caller re-queues the
+    migration) — then copies the transferred pages into the freshly
+    allocated ids, writes the scale rows, copies the dense rows into the
+    slot, and refreshes the block-table mirror.  Every write lands in the
+    existing tensors (``index_copy_`` / ``copy_``): the engine's captured
+    graphs replay against their addresses.  Page 0 stays parking: the
+    allocator never hands it out, so a transfer can never overwrite it.
+    The caller still owns ``tokens`` / ``pos`` / ``remaining``, and hands
+    them over by copy into the destination's ``slot_vectors``.
+    """
+    pool = state.pool
+    if transfer.kv_dtype != state.kv_dtype:
+        raise ValueError(f"kv_dtype mismatch: transfer {transfer.kv_dtype!r}"
+                         f" vs pool {state.kv_dtype!r}")
+    if transfer.page_size != pool.page_size:
+        raise ValueError(f"page_size mismatch: transfer {transfer.page_size}"
+                         f" vs pool {pool.page_size}")
+    if not pool.allocate(slot, transfer.n_tokens_total):
+        return False
+    nb = transfer.n_blocks
+    ids = to_device(pool.tables[slot, :nb].astype(np.int64), state.device)
+    for k in state.paged_keys:
+        _index_copy(state.cache[k], ids, transfer.leaves[k])
+        if state.quant is not None:
+            _index_copy(state.cache[scale_key(k)], ids, transfer.scales[k])
+    axes = model.cache_slot_axes()
+    for k in _dense_keys(state):
+        row = state.cache[k].select(axes[k], slot)
+        row.copy_(transfer.dense[k].to(row.device, row.dtype))
     state.sync_tables()
     return True
