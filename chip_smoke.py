@@ -95,7 +95,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                  ``flash_bwd[D128]``), and at S 200 and B 1 S 77, and at
                  the data-parallel rank's micro-batch B 4, S 1024 (rows
                  ``flash_prefill_lse[D128 B4]``, ``flash_bwd[D128 B4]``,
-                 their launches from transfer_gpt3); paged
+                 their launches from transfer_gpt3), and at a (2, 2)
+                 rank's B 4, S 1024, 8 heads (rows ``[D128 H8 tp2]``,
+                 their launches from multidevice); paged
                  decode on bf16 and int8 pools with the paged edges, replayed
                  from a graph bitwise equal to eager (rows
                  ``paged_decode[D128G1 bf16]`` and ``[D128G1 int8]``).
@@ -256,8 +258,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                  dvfs_gpt3's measured step as TFLOP/s and a share of the
                  bf16 peak; the dp-1 plan on ``h100_like`` with its
                  ``count_calibration`` (gate: recorded) and
-                 ``compare_transfer`` to dp 2, dp 4 and tp 2 (tp 2 modeled
-                 only; gate: finite rows); then one dp-2 rank trained on
+                 ``compare_transfer`` to dp 2, dp 4 and tp 2 (modeled;
+                 gate: finite rows); then one dp-2 rank trained on
                  the card, 20 x 1024 tokens a step as 5 micro-batches of 4,
                  11 steps behind the transferred dp-2 bundle adopted by a
                  ``DvfsSession`` train executor, with the NVML step meter
@@ -267,6 +269,23 @@ Phases, in order; any failure raises and the script exits non-zero:
                  forwards and 5 x 24 backwards a step).  Logs joules and
                  seconds a step and a token against the transferred
                  plan's modeled ones and against dvfs_gpt3's window.
+   multidevice — gpt3-xl at full width and ``MD_LAYERS`` layers trained as
+                 four gloo ranks sharing the card on a (data 2, model 2)
+                 mesh (``make_train_step(..., mesh=)``: FSDP over data, 8
+                 heads and half of d_ff a rank over model, 4 of 8 rows a
+                 rank), spawned with a ``FileStore``: the sharded loss and
+                 every gradient block against the unsharded step on the
+                 same weights and batch (``MD_LOSS_RTOL``,
+                 ``MD_GRAD_TOL``), 2 steps with exact launches a rank (2 L
+                 flash forwards with their log-sum-exp, L backwards),
+                 step seconds and collective bytes by kind; the MoE
+                 all-to-all across the four ranks on CUDA tensors at
+                 granite's layer width against the dense combine, and with
+                 drops at capacity 2.0; before them one ``nccl`` rank in
+                 the script's process on a (1, 1) mesh, its sharded step
+                 against the unsharded one (on a world of one the
+                 collectives return early: their nccl branches over
+                 several ranks do not run on one card).
    serve_llama3b — llama3.2-3b (28 layers, d_model 3072, 24 heads over 8
                  at head_dim 128, d_ff 8192, vocab 128256, tied; 3.213 B
                  parameters) at full width and depth serves as serve_gpt3
@@ -343,7 +362,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                  the bucket-512 prefill of 8 rows timed as one
                  ``model.prefill`` call and through the engine's memoized
                  prefill entry (graphs on and off: equal first tokens), and
-                 a short profiled run in both modes.
+                 a short profiled run with graphs on.
    consistency_ssm — prefill of 300 positions (two chunks, the last ragged)
                  + decode steps against one longer prefill.
 6. train       — llama3.2-1b at full width and depth trains 4 steps through
@@ -366,7 +385,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                  a prefill call, 14 paged decodes a paged step), no NaN
                  logit; tokens/s, peak memory, the graph pool; the dense
                  and int8 runs' agreement with bf16 pages is logged; a
-                 short profiled run in both modes, the decode steps alone.
+                 short profiled run with graphs on, the decode steps alone.
    consistency_hybrid — the prefill of 300 positions and decode steps on a
                  dense cache and on bf16 pages, each against one longer
                  prefill.
@@ -463,6 +482,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import gc
 import itertools
 import json
@@ -2174,7 +2194,9 @@ GPT3_ROW_RUNS = {"flash_prefill[D128]": "bf16",
                  "flash_prefill_lse[D128]": "train",
                  "flash_bwd[D128]": "train",
                  "flash_prefill_lse[D128 B4]": "rank",
-                 "flash_bwd[D128 B4]": "rank"}
+                 "flash_bwd[D128 B4]": "rank",
+                 "flash_prefill_lse[D128 H8 tp2]": "tp",
+                 "flash_bwd[D128 H8 tp2]": "tp"}
 
 
 def check_gpt3_kernels(gen):
@@ -2188,7 +2210,9 @@ def check_gpt3_kernels(gen):
     log-sum-exp and the flash backward at gpt3-xl's micro-batch (B 8,
     S 1024), and both at S 200 and at B 1, S 77, and at the data-parallel
     rank's micro-batch (B 4, S 1024; rows ``[D128 B4]``, launched by
-    ``phase_transfer_gpt3``); paged decode on bf16 and
+    ``phase_transfer_gpt3``), and at a (2, 2) rank's shape, B 4, S 1024 and
+    8 heads (rows ``[D128 H8 tp2]``, launched by ``phase_multidevice``);
+    paged decode on bf16 and
     int8 pools with ``check_paged``'s edges (split and page edges, a parked
     slot, a window, softcap, B 1), replayed from a CUDA graph bitwise equal
     to eager.  Returns the JSON rows named in ``GPT3_ROW_RUNS``, each marked
@@ -2206,6 +2230,10 @@ def check_gpt3_kernels(gen):
                             tag="[D128]", B=GPT3_BATCH // GPT3_ACCUM)
     rows += check_flash_bwd(gen, **GPT3_ATTN, edges=(), tag="[D128 B4]",
                             B=GPT3_BATCH // GPT3_RANK_DP // GPT3_ACCUM)
+    tp = GPT3_ATTN["H"] // MD_MESH[1]
+    rows += check_flash_bwd(gen, H=tp, KV=tp, D=D, edges=(),
+                            tag=f"[D128 H{tp} tp{MD_MESH[1]}]",
+                            B=MD_BATCH // MD_MESH[0])
     rows += _paged_graph_and_rows(gen, GPT3_ATTN, "D128G1", L=4)
     for r in rows:
         r["model"] = "gpt3-xl"
@@ -4569,7 +4597,7 @@ def phase_serve_ssm(cfg, model, params):
     the same greedy tokens from all four, exact launch counts, no NaN
     logit.  Then the bucket-512 prefill of 8 rows timed as a direct
     ``model.prefill`` call and through the engine's memoized prefill entry
-    (graphs on and off), and a short profiled run in both modes.  Returns
+    (graphs on and off), and a short profiled run with graphs on.  Returns
     the dense graphs-on run's launches."""
     rng = np.random.default_rng(0)
     plens = rng.integers(16, 513, SERVE_REQUESTS)
@@ -4596,9 +4624,10 @@ def phase_serve_ssm(cfg, model, params):
     if firsts[0] != firsts[1]:
         raise AssertionError("mamba prefill entry: graphs on and off gave "
                              "different first tokens")
-    for graphs in (True, False):
-        phase_profile(cfg, model, params, tag="profile_ssm", paged=False,
-                      graphs=graphs)
+    # graphs on only: the eager profile measured the same kernels again,
+    # and the eager wall a step is the graphs-off runs' above
+    phase_profile(cfg, model, params, tag="profile_ssm", paged=False,
+                  graphs=True)
     return runs["dense", True]["launches"]
 
 
@@ -4816,7 +4845,7 @@ def phase_serve_hybrid(cfg, model, params):
     (graphs on) and a dense cache (graphs on and off): the same greedy
     tokens with graphs on and off and from the dense cache and bf16 pages,
     exact launch counts, no NaN logit; logs tokens/s, peak memory and the
-    graph pool.  Then a short profiled run with bf16 pages in both modes.
+    graph pool.  Then a short profiled run with bf16 pages, graphs on.
     Returns the graphs-on runs' launches by page type."""
     rng = np.random.default_rng(0)
     plens = rng.integers(24, 499, HYBRID_REQUESTS)
@@ -4860,10 +4889,12 @@ def phase_serve_hybrid(cfg, model, params):
             f"tokens/s against off {off['tokens_per_s']:.1f} "
             f"({on['tokens_per_s'] / off['tokens_per_s']:.2f}x)")
     # 8 new tokens (7 decode steps): the profiler's cost grows with the
-    # ~5000 kernels of each step
-    for graphs in (True, False):
-        phase_profile(cfg, model, params, tag="profile_hybrid", paged=True,
-                      graphs=graphs, detail=True, new_tokens=8)
+    # ~5000 kernels of each step.  Graphs on only: the eager profile
+    # (~36 s) measured the same kernels and launches again (37.86 against
+    # 37.71 device ms a step), and the eager wall a step is the bf16
+    # graphs-off run's above
+    phase_profile(cfg, model, params, tag="profile_hybrid", paged=True,
+                  graphs=True, detail=True, new_tokens=8)
     return {label: runs[label, True]["launches"] for label in ("bf16", "int8")}
 
 
@@ -5619,8 +5650,8 @@ def phase_transfer_gpt3(idle_w, gpt3, dp1):
     2. the plan at dp 1 on ``h100_like`` (``plan_train_bundle`` with the
        count, tau ``TRANSFER_TAU``), and ``compare_transfer`` to dp 2, dp 4
        and tp 2: each mesh's energy against replanning, remapped and
-       repaired kernels (tp 2 modeled only: the sharded model is ROADMAP
-       item 11's);
+       repaired kernels (modeled: the multidevice phase runs the sharded
+       step itself, on gloo ranks sharing the card);
     3. one rank of the dp-2 mesh on the card: the ``Trainer`` on ``gpt3``
        (the model dvfs_gpt3 trained; the ``Trainer`` draws its weights
        anew from its seed) at the rank's 20 x 1024 tokens a step as micro-batches of 4, behind the
@@ -5694,7 +5725,7 @@ def phase_transfer_gpt3(idle_w, gpt3, dp1):
                    if isinstance(v, float)):
             raise AssertionError(f"{tag}: {row.to_dict()}")
         log(f"[{tag}] {row.mesh}"
-            + (" (modeled only: no sharded model on one card)"
+            + (" (modeled; the multidevice phase trains a tp-2 mesh)"
                if "tp1" not in row.mesh else "")
             + f": transferred {row.transfer_energy_pct:+.3f}% energy, "
             f"{row.transfer_time_pct:+.3f}% time against the shard's auto; "
@@ -5739,7 +5770,386 @@ def phase_transfer_gpt3(idle_w, gpt3, dp1):
     return rank
 
 
+# ---------------------------------------------------------------------------
+# 12. multi-device: gpt3-xl trained as four gloo ranks on the one card, the
+#     MoE all-to-all across them, one nccl rank
+# ---------------------------------------------------------------------------
+
+# the (data, model) mesh of the four gloo ranks that share the card (NCCL
+# takes one rank a device, and the host has one); gpt3-xl at full width
+# and MD_LAYERS of its 24 layers, the paper's micro-batch of 8 x 1024 as
+# the global batch (4 rows a data rank), MD_STEPS sharded steps after the
+# gradient check.  At 24 layers a rank's step took 28.7 s (8.5e9 bytes of
+# collectives through the host under gloo) and the phase 144 s, past the
+# script's room under its limit; at 8 the phase took 44.8-76.5 s as the
+# host's load varied, so the depth is cut to 4 (``--cards 4`` trains all
+# 24 under nccl)
+MD_MESH, MD_LAYERS, MD_BATCH, MD_STEPS = (2, 2), 4, 8, 2
+# sharded against unsharded in bf16 compute: the partial sums of the
+# row-parallel products are rounded to bf16 before g adds them, and the
+# FSDP gradients are summed across ranks in another order; the loss
+# relative (sound runs read 1.6e-6 at 4 layers and 2.6e-6 at 24; the
+# control the phase logs, the loss had a data rank taken the other's
+# rows, 3.1e-5 at 4 and 1.4e-3 at 24), each gradient leaf's largest
+# |difference| relative to its largest |value|
+MD_LOSS_RTOL, MD_GRAD_TOL = 1e-5, 5e-2
+# the MoE exchange at granite-moe-1b-a400m's layer width (d 1024, d_ff 512,
+# 32 experts, top 8, SwiGLU experts) over MD_MOE_TOKENS tokens in float32;
+# the router favours rank 0's experts by MD_MOE_SKEW so that its buckets
+# overflow at capacity 2.0
+MD_MOE_TOKENS, MD_MOE_SKEW, MD_MOE_TOL = 1024, 2.0, 1e-4
+# ``--cards 4``: the same phase over four nccl ranks, one a card, at all
+# of gpt3-xl's layers
+MD_CARDS_LAYERS = 24
+
+
+def _md_model(layers: int, device: str = "cuda"):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    return build_model(dataclasses.replace(get_config("gpt3-xl"),
+                                           n_layers=layers), device=device)
+
+
+def _md_batches(cfg, rows: int, steps: int):
+    from repro_torch.data import DataPipeline
+    pipeline = DataPipeline(cfg.vocab_size, rows, TRAIN_SEQ, seed=0)
+    return [pipeline.next_batch() for _ in range(steps)]
+
+
+def md_moe_inputs(gen):
+    """Global MoE inputs at granite's layer width on the card: tokens,
+    skewed top-8 routing of 32 experts, SwiGLU expert weights (f32)."""
+    E, K, d, ff, T = 32, 8, 1024, 512, MD_MOE_TOKENS
+    xt = torch.randn(T, d, generator=gen, device="cuda")
+    logits = torch.randn(T, E, generator=gen, device="cuda")
+    logits[:, :E // 4] += MD_MOE_SKEW
+    top_w, top_e = torch.softmax(logits, -1).topk(K, dim=-1)
+    top_w = top_w / top_w.sum(-1, keepdim=True)
+    ws = tuple(torch.randn(shape, generator=gen, device="cuda") * s
+               for shape, s in (((E, d, ff), d ** -0.5),
+                                ((E, d, ff), d ** -0.5),
+                                ((E, ff, d), ff ** -0.5)))
+    return xt, top_e, top_w, ws
+
+
+def _md_swiglu(local_eid, x, weights):
+    """The rank's SwiGLU experts on the rows routed to each."""
+    wg, wu, wd = weights
+    y = torch.zeros_like(x)
+    for e in range(wg.shape[0]):
+        rows = (local_eid == e).nonzero()[:, 0]
+        h = x[rows]
+        y[rows] = (F.silu(h @ wg[e]) * (h @ wu[e])) @ wd[e]
+    return y
+
+
+def md_moe_dense(xt, top_e, top_w, ws):
+    """Every expert on every token, combined by the gates."""
+    wg, wu, wd = ws
+    h = F.silu(torch.einsum("td,edf->etf", xt, wg)) \
+        * torch.einsum("td,edf->etf", xt, wu)
+    y_all = torch.einsum("etf,efd->etd", h, wd)
+    gates = torch.zeros(xt.shape[0], wg.shape[0], device=xt.device) \
+        .scatter(1, top_e, top_w)
+    return torch.einsum("te,etd->td", gates, y_all)
+
+
+def md_rank(rank, world, job):
+    """One of the four ranks (``job["backend"]``: gloo ranks share card 0,
+    nccl ranks take a card each): gpt3-xl's sharded gradient of batch 0
+    (each block against the same block of the unsharded gradient the
+    parent saved), ``MD_STEPS`` sharded steps (seconds, launches and
+    collective bytes a step), then the MoE exchange over the four ranks on
+    CUDA tensors.  Returns a summary."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import kernels
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.sharding import local_slices, param_specs
+    from repro_torch.parallel.train_step import (ShardedStep,
+                                                 init_sharded_state)
+    from repro_torch.train import OptimizerConfig, make_train_step
+    from repro_torch.tree import flatten
+    nccl = job["backend"] == "nccl"
+    torch.cuda.set_device(rank if nccl else 0)
+    groups_on = "cuda" if nccl else "cpu"
+    model = _md_model(job["layers"])
+    mesh = make_host_mesh(*MD_MESH, device_type=groups_on)
+    state = init_sharded_state(model, mesh, seed=0)
+    torch.cuda.empty_cache()
+    plan = ShardedStep(model, mesh)
+    specs = param_specs(model, mesh)
+    batches = _md_batches(model.cfg, MD_BATCH, MD_STEPS)
+    out = {"rank": rank, "data_index": plan.data_index}
+    loss, _, grads = plan.loss_and_grads(state.params,
+                                         plan.local_batch(batches[0]))
+    out["loss"] = float(loss)
+    ref = torch.load(job["grads"], mmap=True)
+    flat_specs = dict(flatten(specs))
+    coords = {"data": plan.data_index,
+              "model": coll.group_rank(plan.model_group)}
+    errs = {}
+    for path, g in flatten(grads):
+        block = ref[path][local_slices(ref[path].shape, flat_specs[path],
+                                       plan.sizes, coords)]
+        diff = (g.float() - block.to("cuda")).abs().max()
+        errs[path] = float(diff) / job["max_abs"][path]
+    del grads, ref
+    out["grad_errs"] = errs
+    step = make_train_step(model, OptimizerConfig(lr=3e-4, warmup_steps=2),
+                           remat=True, mesh=mesh)
+    out["steps"] = []
+    for data in batches:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        coll.COUNTER.reset()
+        t0 = time.perf_counter()
+        state, metrics = step(state, data)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        out["steps"].append(dict(
+            s=time.perf_counter() - t0, loss=loss,
+            grad_norm=float(metrics["grad_norm"]),
+            launches=kernels.launch_counts(), wire=dict(coll.COUNTER.bytes),
+            calls=dict(coll.COUNTER.calls),
+            wire_s=dict(coll.COUNTER.seconds)))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del state, step
+    torch.cuda.empty_cache()
+    # the MoE exchange across the same four ranks, on the card
+    ep_mesh = init_device_mesh(groups_on, (world,),
+                               mesh_dim_names=("model",))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    xt, top_e, top_w, ws = md_moe_inputs(gen)
+    dense = md_moe_dense(xt, top_e, top_w, ws)
+    tl = xt.shape[0] // world
+    for cf in (float(world), 2.0):      # capacity T_l * K, then 2.0
+        coll.COUNTER.reset()
+        y = coll.moe_all_to_all_sharded(ep_mesh, xt, top_e, top_w, ws,
+                                        _md_swiglu, n_experts=32,
+                                        capacity_factor=cf)
+        out[f"moe_{cf:g}"] = dict(
+            err=float((y - dense).abs().max() / dense.abs().max()),
+            dropped=coll.dropped_assignments(
+                top_e[rank * tl:(rank + 1) * tl], n_experts=32, ep=world,
+                capacity_factor=cf),
+            assignments=tl * top_e.shape[1],
+            wire=dict(coll.COUNTER.bytes), finite=bool(y.isfinite().all()))
+    return out
+
+
+def md_nccl(model, params, batch, loss0, grads0, tmp):
+    """The one nccl rank, in this process (a world of one, before the gloo
+    world starts): the sharded step on a (1, 1) mesh against the unsharded
+    loss ``loss0`` and gradients ``grads0`` taken on the same weights
+    ``params`` and ``batch``; each collective once on CUDA bf16 tensors
+    through the nccl group."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.sharding import param_specs, shard_state
+    from repro_torch.parallel.train_step import ShardedStep
+    from repro_torch.tree import flatten
+    t0 = time.perf_counter()
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp, "nccl"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_host_mesh(1, 1, device_type="cuda")
+        plan = ShardedStep(model, mesh)
+        local = shard_state(params, mesh, param_specs(model, mesh))
+        loss1, _, g1 = plan.loss_and_grads(local, plan.local_batch(batch))
+        worst = max(float((a.float() - b.float()).abs().max()
+                          / a.float().abs().max())
+                    for (_, a), (_, b) in zip(flatten(grads0), flatten(g1)))
+        del local, g1
+        t = torch.arange(8, dtype=torch.bfloat16, device="cuda")
+        out = torch.empty_like(t)
+        dist.all_reduce(t)
+        dist.all_gather_into_tensor(out, t)
+        dist.reduce_scatter_tensor(out, t)
+        dist.all_to_all_single(out, t)
+        torch.cuda.synchronize()
+        return {"backend": dist.get_backend(), "loss": float(loss0),
+                "sharded_loss": float(loss1), "grad_max_diff": worst,
+                "collectives_ok": bool(torch.equal(out, t)),
+                "s": time.perf_counter() - t0}
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_multidevice(layers: int = MD_LAYERS, cards: int = 1):
+    """gpt3-xl at full width and ``layers`` layers trained as four ranks on
+    a (data 2, model 2) mesh, gloo ranks sharing the card (``cards`` 1) or
+    nccl ranks a card each (``cards`` 4, ``--cards 4``): each rank holds its
+    blocks (``param_specs``), takes 4 of the 8 rows, runs 8 of the 16
+    heads and half of d_ff with the kernels (Megatron's f and g between),
+    gathers every embed dim on use (FSDP), and clips by the norm over the
+    mesh.  The parent first takes the unsharded gradient of batch 0 on the
+    same weights (``init_train_state``'s) and saves it; each rank holds
+    its sharded loss (against the unsharded, ``MD_LOSS_RTOL``) and every
+    gradient block (``MD_GRAD_TOL``) to it, then takes ``MD_STEPS`` steps:
+    finite losses equal on every rank, exact launches a step (2 L flash
+    forwards with their log-sum-exp, L backwards), step seconds and
+    collective bytes by kind (not gated).  Then ``moe_all_to_all_sharded``
+    over the four ranks on CUDA tensors at granite's layer width against
+    the dense combine at a capacity that keeps every assignment (float32,
+    ``MD_MOE_TOL`` of the largest |value|), and at capacity 2.0, where
+    assignments drop.  On one card, before the gloo world starts, one rank
+    under ``nccl`` in this process, a world of one on a (1, 1) mesh
+    (:func:`md_nccl`): the sharded step's loss equals the unsharded one
+    and its gradients are within ``MD_GRAD_TOL`` (the sharded embedding
+    gathers its bf16 cast, so repeated tokens' rows add in bf16, the
+    unsharded in f32); its collectives return early on a world of one, so
+    their nccl branches over several ranks run on no card here.  Beside
+    the loss bound it logs a control (not gated): the unsharded loss of
+    the first data rank's rows alone, what the global loss would read had
+    the other data rank taken them.  Returns rank 0's launches over the
+    steps and the seconds."""
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.train import init_train_state, loss_and_grads
+    from repro_torch.tree import flatten
+    tag = "multidevice"
+    L = layers
+    backend = "gloo" if cards == 1 else "nccl"
+    t0 = time.perf_counter()
+    model = _md_model(L)
+    cfg = model.cfg
+    state = init_train_state(model, seed=0)
+    batch = _md_batches(cfg, MD_BATCH, 1)[0]
+    loss, _, grads = loss_and_grads(model, state.params, batch)
+    ref_loss = float(loss)
+    rows = MD_BATCH // MD_MESH[0]
+    with torch.no_grad():
+        control = float(model.loss(state.params, {k: v[:rows] for k, v in
+                                                  batch.items()})[0])
+    control_rel = abs(control - ref_loss) / abs(ref_loss)
+    with tempfile.TemporaryDirectory(prefix="md_") as tmp:
+        path = os.path.join(tmp, "grads.pt")
+        flat = {p: g.float().cpu() for p, g in flatten(grads)}
+        max_abs = {p: float(g.abs().max()) for p, g in flat.items()}
+        torch.save(flat, path)
+        del flat
+        log(f"[{tag}] gpt3-xl at {L} of 24 layers (d {cfg.d_model}, "
+            f"{cfg.n_heads} heads of {cfg.resolved_head_dim}, d_ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab_size}): the unsharded loss of "
+            f"{MD_BATCH} x {TRAIN_SEQ} tokens {ref_loss:.6f} and its "
+            f"gradient saved in {time.perf_counter() - t0:.1f} s; control "
+            f"(a data rank on the other's rows): the first {rows} rows' "
+            f"loss {control:.6f}, {control_rel:.3e} of it (the bound "
+            f"{MD_LOSS_RTOL})")
+        if cards == 1:
+            nccl = md_nccl(model, state.params, batch, loss, grads, tmp)
+            log(f"[{tag}] one {nccl['backend']} rank in this process, "
+                f"(1, 1) mesh, the same {L} layers and {MD_BATCH} x "
+                f"{TRAIN_SEQ} tokens: loss {nccl['loss']:.6f} unsharded, "
+                f"{nccl['sharded_loss']:.6f} sharded, gradients within "
+                f"{nccl['grad_max_diff']:.3e} of each leaf's largest "
+                f"|value| (the embedding's rows accumulate in bf16 behind "
+                f"the gather's cast); collectives on CUDA tensors "
+                f"{'ok' if nccl['collectives_ok'] else 'WRONG'} "
+                f"({nccl['s']:.1f} s)")
+            if nccl["backend"] != "nccl" or not nccl["collectives_ok"] or \
+                    nccl["loss"] != nccl["sharded_loss"] or \
+                    not nccl["grad_max_diff"] <= MD_GRAD_TOL:
+                raise AssertionError(f"{tag}: the nccl rank's sharded step "
+                                     f"parts from the unsharded one: {nccl}")
+        del model, state, grads
+        release()
+        t1 = time.perf_counter()
+        ranks = spawn_ranks(md_rank, MD_MESH[0] * MD_MESH[1],
+                            {"layers": L, "grads": path, "max_abs": max_abs,
+                             "backend": backend}, backend=backend,
+                            timeout_s=900)
+        where = "sharing one card" if cards == 1 else "a card each"
+        log(f"[{tag}] {len(ranks)} {backend} ranks on a (data, model) = "
+            f"{MD_MESH} mesh, {where}, finished in "
+            f"{time.perf_counter() - t1:.1f} s")
+    per_step = {"rmsnorm": 0, "flash_prefill": 2 * L, "flash_bwd": L,
+                "paged_decode": 0, "ssd_scan": 0}
+    what = "host copies and gloo" if cards == 1 else "their enqueue"
+    for r in ranks:
+        worst = max(r["grad_errs"], key=r["grad_errs"].get)
+        rel = abs(r["loss"] - ref_loss) / abs(ref_loss)
+        log(f"[{tag}] rank {r['rank']} (data {r['data_index']}): loss "
+            f"{r['loss']:.6f} ({rel:.2e} of the unsharded, bound "
+            f"{MD_LOSS_RTOL}); gradient blocks within "
+            f"{r['grad_errs'][worst]:.3e} of each leaf's largest |value| "
+            f"(worst {worst}; bound {MD_GRAD_TOL}); peak "
+            f"{r['peak_gib']:.2f} GiB")
+        if not rel <= MD_LOSS_RTOL or \
+                not r["grad_errs"][worst] <= MD_GRAD_TOL:
+            raise AssertionError(f"{tag}: rank {r['rank']} parts from the "
+                                 f"unsharded step")
+        for i, s in enumerate(r["steps"]):
+            launches = {k: v for k, v in s["launches"].items()}
+            log(f"[{tag}] rank {r['rank']} step {i}: loss {s['loss']:.6f}, "
+                f"grad_norm {s['grad_norm']:.4f}, {s['s']:.3f} s, "
+                f"{sum(s['wire_s'].values()):.3f} s of it in the "
+                f"collectives' calls ({what}); launches "
+                f"{launches}; collective bytes " + ", ".join(
+                    f"{k} {v:.4e} ({s['calls'][k]} calls, "
+                    f"{s['wire_s'][k]:.3f} s)"
+                    for k, v in s["wire"].items() if v))
+            if not math.isfinite(s["loss"]) or launches != per_step:
+                raise AssertionError(f"{tag}: rank {r['rank']} step {i}: "
+                                     f"loss {s['loss']}, launches {launches}"
+                                     f" != {per_step}")
+    for i in range(MD_STEPS):
+        if len({r["steps"][i]["loss"] for r in ranks}) != 1:
+            raise AssertionError(f"{tag}: step {i}'s loss differs by rank")
+    world = MD_MESH[0] * MD_MESH[1]
+    for r in ranks:
+        for cf in (f"{world}", "2"):
+            m = r[f"moe_{cf}"]
+            log(f"[{tag}] rank {r['rank']} MoE all-to-all (T "
+                f"{MD_MOE_TOKENS}, d 1024, d_ff 512, 32 experts, top 8, "
+                f"f32) at capacity factor {cf}: {m['dropped']} of "
+                f"{m['assignments']} assignments dropped, |y - dense| "
+                f"{m['err']:.3e} of its largest; all-to-all "
+                f"{m['wire']['all-to-all']:.4e} bytes")
+            if not m["finite"]:
+                raise AssertionError(f"{tag}: MoE output not finite")
+        if r[f"moe_{world}"]["dropped"] or \
+                not r[f"moe_{world}"]["err"] <= MD_MOE_TOL:
+            raise AssertionError(f"{tag}: the MoE exchange parts from the "
+                                 f"dense combine")
+    if not sum(r["moe_2"]["dropped"] for r in ranks):
+        raise AssertionError(f"{tag}: no assignment dropped at capacity 2.0")
+    r0 = ranks[0]
+    counts = {k: sum(s["launches"][k] for s in r0["steps"])
+              for k in r0["steps"][0]["launches"]}
+    return {"launches": counts,
+            "step_s": [s["s"] for s in r0["steps"]]}
+
+
+def main_cards(cards: int) -> int:
+    """``--cards 4``: the multidevice phase alone, gpt3-xl at its 24
+    layers trained as four nccl ranks, one a card, after the build; ends
+    with the same last line as a run on one card."""
+    if cards != MD_MESH[0] * MD_MESH[1]:
+        raise SystemExit(f"chip_smoke: --cards takes {MD_MESH[0] * MD_MESH[1]}"
+                         f" (the (data, model) = {MD_MESH} mesh)")
+    smi = phase_device()
+    if torch.cuda.device_count() < cards:
+        raise SystemExit(f"chip_smoke: --cards {cards} needs {cards} cards, "
+                         f"not {torch.cuda.device_count()}")
+    for name, fn, args in (("build", phase_build, ()),
+                           ("multidevice", phase_multidevice,
+                            (MD_CARDS_LAYERS, cards))):
+        t = time.perf_counter()
+        fn(*args)
+        log(f"[time] {name}: {time.perf_counter() - t:.1f} s")
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--cards"]:
+        return main_cards(int(sys.argv[2]))
     smi = phase_device()
     t0 = time.perf_counter()
     seconds = {}
@@ -5779,6 +6189,7 @@ def main() -> int:
                       gpt3, dvfs_gpt3)["launches"]
     del gpt3
     release()
+    md = timed("multidevice", phase_multidevice)
     cfg, model, params = timed("build_llama3b", build_full_model,
                                "llama3.2-3b")
     serve_llama3b = timed("serve_llama3b", phase_serve_llama3b, cfg, model,
@@ -5867,6 +6278,13 @@ def main() -> int:
                 row["launches_of"] = (f"one gpt3-xl training run, "
                                       f"{TRAIN_STEPS} steps of {GPT3_BATCH} "
                                       f"x {TRAIN_SEQ} tokens")
+            elif run == "tp":
+                row["launches"] = md["launches"][name]
+                row["launches_of"] = (
+                    f"rank 0 of the (data, model) = {MD_MESH} gloo ranks' "
+                    f"gpt3-xl run at {MD_LAYERS} layers, {MD_STEPS} sharded "
+                    f"steps of {MD_BATCH // MD_MESH[0]} x {TRAIN_SEQ} tokens "
+                    f"and {GPT3_ATTN['H'] // MD_MESH[1]} heads a rank")
             elif run == "rank":
                 row["launches"] = rank_gpt3[name]
                 row["launches_of"] = (f"one gpt3-xl dp-{GPT3_RANK_DP} rank's "

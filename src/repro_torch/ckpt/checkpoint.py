@@ -11,8 +11,11 @@ State is a tree of nested dicts and dataclasses (``TrainState``) whose
 leaves are tensors, numbers or ``torch.Generator``s (saved as their state
 bytes).  ``restore`` fills the structure of a template and puts every
 tensor on the template leaf's device with its dtype, so a state restores
-onto the model's device.  One process; the multi-device slice brings
-resharding (the reference's ``elastic.py``).
+onto the model's device.  A sharded state (one rank's blocks) is saved by
+``save_sharded``, which gathers the logical global tensors and writes them
+from rank 0, so a checkpoint holds the same global arrays whatever mesh
+wrote it, as the reference's does; ``elastic.reshard_restore`` places them
+on another mesh.
 """
 from __future__ import annotations
 
@@ -75,20 +78,23 @@ def _restore_leaf(template, arr: np.ndarray, path: str):
     return type(template)(arr.item())
 
 
-def _unflatten_like(template, flat: Dict[str, np.ndarray], prefix: str = ""):
-    if dataclasses.is_dataclass(template):
-        return dataclasses.replace(template, **{
-            f.name: _unflatten_like(getattr(template, f.name), flat,
-                                    f"{prefix}/{f.name}" if prefix
-                                    else f.name)
-            for f in dataclasses.fields(template)})
-    if isinstance(template, dict):
-        return {key: _unflatten_like(val, flat, f"{prefix}/{key}" if prefix
-                                     else str(key))
-                for key, val in template.items()}
-    if prefix not in flat:
-        raise KeyError(f"checkpoint missing leaf {prefix!r}")
-    return _restore_leaf(template, flat[prefix], prefix)
+def _unflatten_like(template, flat: Dict[str, np.ndarray], prefix: str = "",
+                    restore_leaf=_restore_leaf):
+    """``template``'s structure with each leaf ``restore_leaf(template
+    leaf, its array, its path)``."""
+    def walk(node, path):
+        if dataclasses.is_dataclass(node):
+            return dataclasses.replace(node, **{
+                f.name: walk(getattr(node, f.name),
+                             f"{path}/{f.name}" if path else f.name)
+                for f in dataclasses.fields(node)})
+        if isinstance(node, dict):
+            return {key: walk(val, f"{path}/{key}" if path else str(key))
+                    for key, val in node.items()}
+        if path not in flat:
+            raise KeyError(f"checkpoint missing leaf {path!r}")
+        return restore_leaf(node, flat[path], path)
+    return walk(template, prefix)
 
 
 class CheckpointManager:
@@ -149,10 +155,23 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, template, step: Optional[int] = None):
-        """(state in the structure of ``template``, index dict) of
-        ``step`` (the latest when None); tensors go to the template leaves'
-        devices and dtypes."""
+    def save_sharded(self, step: int, state, mesh, specs,
+                     extra: Optional[Dict] = None) -> Optional[str]:
+        """Persist a sharded ``state`` (this rank's blocks under the spec
+        tree ``specs``, e.g. ``parallel.sharding.state_shardings``) as its
+        logical global tensors: every rank of ``mesh`` calls it (the blocks
+        are gathered), rank 0 writes, and every rank returns after the
+        write (a barrier).  Returns the path on rank 0, else None."""
+        import torch.distributed as dist
+        from ..parallel.sharding import gather_state
+        full = gather_state(state, mesh, specs)
+        path = self.save(step, full, extra) if dist.get_rank() == 0 else None
+        dist.barrier()
+        return path
+
+    def load(self, step: Optional[int] = None):
+        """(flat "/"-path -> numpy array, index dict) of ``step`` (the
+        latest when None)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -165,6 +184,13 @@ class CheckpointManager:
                 with np.load(os.path.join(d, name)) as z:
                     for k in z.files:
                         data[k] = z[k]
+        return data, index
+
+    def restore(self, template, step: Optional[int] = None):
+        """(state in the structure of ``template``, index dict) of
+        ``step`` (the latest when None); tensors go to the template leaves'
+        devices and dtypes."""
+        data, index = self.load(step)
         return _unflatten_like(template, data), index
 
     def restore_extra(self, step: Optional[int] = None) -> Dict:

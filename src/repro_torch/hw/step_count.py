@@ -23,10 +23,18 @@ versions, so no launch is counted.
 * PyTorch runs every layer and every micro-batch, so each is counted as
   it runs; remat's recompute is counted, as the reference's HLO holds it.
   No trip-count correction is needed.
-* **Collective bytes** are ``{}``: one device runs no collective.
+* **Collective bytes** are the wire bytes of the collectives the step
+  called, per device, by kind (``parallel.collectives.COUNTER``, with
+  ``analyze_hlo``'s multipliers): ``{}`` on one device.
+  ``count_train_step(..., mesh=)`` counts one rank's step of the data- and
+  tensor-parallel step (rank 0's, whose blocks are every rank's shapes)
+  under the ``fake`` process group, whose collectives move nothing: its
+  FLOPs, HBM bytes, collective bytes and its state's bytes are one
+  device's.
 """
 from __future__ import annotations
 
+import contextlib
 from collections import defaultdict
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Tuple
@@ -46,13 +54,16 @@ _NO_TRAFFIC = {_aten.empty, _aten.empty_like, _aten.empty_strided,
 @dataclass
 class StepCount:
     """What one run of a step dispatched: the fields of the reference's
-    ``HloAnalysis`` (matrix-product FLOPs, HBM bytes, collective bytes)
-    and ``by_op``: aten op name -> ``{"calls", "flops", "hbm_bytes"}``."""
+    ``HloAnalysis`` (matrix-product FLOPs, HBM bytes, collective bytes by
+    kind), ``by_op``: aten op name -> ``{"calls", "flops", "hbm_bytes"}``,
+    and (from ``count_train_step``) ``state_bytes``, the bytes of the
+    device's training state (parameters, AdamW moments, step)."""
 
     flops: float = 0.0
     hbm_bytes: float = 0.0
     collective_bytes: Dict[str, float] = field(default_factory=dict)
     by_op: Dict[str, Dict[str, float]] = field(default_factory=dict)
+    state_bytes: float = 0.0
 
     def top(self, n: int = 5, key: str = "flops"
             ) -> List[Tuple[str, Dict[str, float]]]:
@@ -123,10 +134,14 @@ def count_step(fn: Callable, *args, **kwargs) -> StepCount:
     it dispatched.  Give it fake tensors (made inside a ``FakeTensorMode``,
     and call it there) to count a step at any size without running it; on
     real tensors it runs and counts the same."""
+    from ..parallel.collectives import COUNTER
     flops = FlopCounterMode(display=False, custom_mapping=FLOP_FORMULAS)
     traffic = _Traffic()
+    before = dict(COUNTER.bytes)
     with flops, traffic:
         fn(*args, **kwargs)
+    wire = {k: v - before[k] for k, v in COUNTER.bytes.items()
+            if v != before[k]}
     by_flops = {str(op): n for op, n in
                 flops.get_flop_counts().get("Global", {}).items()}
     by_op = {name: {"calls": float(traffic.calls[name]),
@@ -135,7 +150,7 @@ def count_step(fn: Callable, *args, **kwargs) -> StepCount:
              for name in traffic.calls}
     return StepCount(flops=float(sum(by_flops.values())),
                      hbm_bytes=float(sum(traffic.bytes.values())),
-                     collective_bytes={}, by_op=by_op)
+                     collective_bytes=wire, by_op=by_op)
 
 
 def fake_like(tree):
@@ -146,29 +161,79 @@ def fake_like(tree):
                                           device="cpu"), tree)
 
 
+@contextlib.contextmanager
+def fake_world(mesh):
+    """A ``DeviceMesh`` of ``mesh``'s axes over a ``fake`` process group
+    of its size, this process rank 0, destroyed on exit: collectives
+    complete at once and move nothing (``mesh``: a ``MeshSpec`` or an axis
+    name -> extent mapping; no other process group may be initialized)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from ..parallel.sharding import mesh_axes
+    axes = mesh_axes(mesh)
+    n = 1
+    for size in axes.values():
+        n *= size
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a process group is already "
+                           "initialized")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        yield init_device_mesh("cpu", tuple(axes.values()),
+                               mesh_dim_names=tuple(axes))
+    finally:
+        dist.destroy_process_group()
+
+
+def _state_bytes(state) -> float:
+    return float(sum(t.numel() * t.element_size() for t in
+                     tree_leaves((state.params, state.opt))
+                     if isinstance(t, torch.Tensor)))
+
+
 def count_train_step(cfg, *, global_batch: int, seq_len: int,
-                     accum_steps: int = 1) -> StepCount:
+                     accum_steps: int = 1, mesh=None) -> StepCount:
     """One ``make_train_step`` step of ``cfg`` at full size, as the
     ``Trainer`` runs it (AdamW at ``OptimizerConfig()``'s settings, remat),
     on fake CPU tensors: f32 masters (``abstract_params(param_dtype)``),
     AdamW state, a batch of ``global_batch`` rows of ``seq_len`` tokens and
     targets (what ``DataPipeline`` gives; a model whose loss takes more,
     frames or patch rows, is not counted here), ``accum_steps``
-    micro-batches."""
+    micro-batches.  With ``mesh`` (a ``MeshSpec`` or an axis name ->
+    extent mapping) it counts one rank's step of the sharded step on that
+    mesh under :func:`fake_world`: the rank's blocks of the state by
+    ``param_specs``, its rows of the batch, its collectives' bytes."""
     from ..models import build_model
     from ..train import OptimizerConfig, make_train_step
     from ..train.optimizer import init_opt_state
     from ..train.step import TrainState
-    with FakeTensorMode():
+    with contextlib.ExitStack() as stack:
         model = build_model(cfg, device="cpu")
+        dmesh = None if mesh is None else stack.enter_context(
+            fake_world(mesh))
+        # the plan reads the mesh's tensors, which must stay real
+        step = make_train_step(model, OptimizerConfig(),
+                               accum_steps=accum_steps, remat=True,
+                               mesh=dmesh)
+        if dmesh is not None:
+            from ..parallel.sharding import (mesh_axes, mesh_coords,
+                                             param_specs, shard_state)
+            cut = (mesh_axes(dmesh), param_specs(model, dmesh),
+                   mesh_coords(dmesh))
+        stack.enter_context(FakeTensorMode())
         params = fake_like(model.abstract_params(model.param_dtype))
+        if dmesh is not None:
+            params = shard_state(params, cut[0], cut[1], coords=cut[2])
         state = TrainState(params=params, opt=init_opt_state(params),
                            rng=None)
         tokens = torch.zeros((global_batch, seq_len), dtype=torch.int32)
-        step = make_train_step(model, OptimizerConfig(),
-                               accum_steps=accum_steps, remat=True)
-        return count_step(step, state, {"tokens": tokens, "targets": tokens})
+        count = count_step(step, state, {"tokens": tokens,
+                                         "targets": tokens})
+        count.state_bytes = _state_bytes(state)
+        return count
 
 
 __all__ = ["StepCount", "count_step", "count_train_step", "fake_like",
+           "fake_world",
            "grouped_mm_flop", "FLOP_FORMULAS"]

@@ -19,7 +19,7 @@ is a device-side assert.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +38,82 @@ def cast(x: torch.Tensor, dtype) -> torch.Tensor:
     """``x`` in ``dtype``; the same tensor when it already is (eager
     serving is host-bound, and a no-op ``Tensor.to`` still costs a call)."""
     return x if x.dtype == dtype else x.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Parameter leaves: shape and logical axes declared once
+# ---------------------------------------------------------------------------
+
+
+class Leaf(NamedTuple):
+    """One parameter leaf as a model declares it: its shape and, for each
+    dim, the reference's logical axis name (``"embed"``, ``"heads"``,
+    ``"mlp"``, ...; ``None`` for a dim never sharded).  A model's
+    ``param_shapes()`` and ``param_axes()`` both read its one tree of
+    leaves, as the reference's ``ParamBuilder`` gives its abstract tree and
+    its axes from one declaration, so the two cannot drift apart."""
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+
+
+def leaf(shape, axes) -> Leaf:
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"leaf of shape {shape} names {len(axes)} axes "
+                         f"{axes}")
+    return Leaf(shape, axes)
+
+
+def stack_leaves(tree, n: int):
+    """Every leaf of ``tree`` with a leading layer dim of ``n``, named
+    ``"layers"`` (the reference's ``_stack_tree``; no rule shards it)."""
+    if isinstance(tree, Leaf):
+        return Leaf((n,) + tree.shape, ("layers",) + tree.axes)
+    return {k: stack_leaves(v, n) for k, v in tree.items()}
+
+
+def leaf_shapes(tree):
+    """The tree of ``tree``'s leaf shapes."""
+    if isinstance(tree, Leaf):
+        return tree.shape
+    return {k: leaf_shapes(v) for k, v in tree.items()}
+
+
+def leaf_axes(tree):
+    """The tree of ``tree``'s leaf axis names."""
+    if isinstance(tree, Leaf):
+        return tree.axes
+    return {k: leaf_axes(v) for k, v in tree.items()}
+
+
+def norm_leaves(d: int, kind: str) -> Params:
+    """A norm's scale, and its bias for LayerNorm (``init_norm``)."""
+    p = {"scale": leaf((d,), ("embed",))}
+    if kind == "layer":
+        p["bias"] = leaf((d,), ("embed",))
+    return p
+
+
+def attention_leaves(d_in: int, n_heads: int, n_kv: int, head_dim: int,
+                     d_out: Optional[int] = None) -> Params:
+    """The four projections of an attention block (``init_attention``)."""
+    d_out = d_out or d_in
+    return {"wq": leaf((d_in, n_heads, head_dim), ("embed", "heads", None)),
+            "wk": leaf((d_in, n_kv, head_dim), ("embed", "kv", None)),
+            "wv": leaf((d_in, n_kv, head_dim), ("embed", "kv", None)),
+            "wo": leaf((n_heads, head_dim, d_out), ("heads", None, "embed"))}
+
+
+def embedding_leaves(vocab: int, d: int, tie: bool, max_seq: int = 0,
+                     learned_pos: bool = False) -> Params:
+    """Token embeddings, a learned position table, and the head when the
+    embeddings are not tied (``init_embedding``)."""
+    p = {"wte": leaf((vocab, d), ("vocab", "embed"))}
+    if learned_pos:
+        p["wpe"] = leaf((max_seq, d), (None, "embed"))
+    if not tie:
+        p["head"] = leaf((d, vocab), ("embed", "vocab"))
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -199,11 +275,12 @@ def apply_mlp(p: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
     return h @ w("w_down")
 
 
-def mlp_shapes(d: int, d_ff: int, activation: str) -> Dict[str, tuple]:
-    """Leaf shapes of one dense MLP (the reference's ``init_mlp``)."""
-    p = {"w_up": (d, d_ff), "w_down": (d_ff, d)}
+def mlp_leaves(d: int, d_ff: int, activation: str) -> Params:
+    """Leaves of one dense MLP (the reference's ``init_mlp``)."""
+    p = {"w_up": leaf((d, d_ff), ("embed", "mlp")),
+         "w_down": leaf((d_ff, d), ("mlp", "embed"))}
     if activation == "swiglu":
-        p["w_gate"] = (d, d_ff)
+        p["w_gate"] = leaf((d, d_ff), ("embed", "mlp"))
     return p
 
 
@@ -211,16 +288,16 @@ def mlp_shapes(d: int, d_ff: int, activation: str) -> Dict[str, tuple]:
 # Mixture of Experts (token-choice top-k, capacity-bounded in training)
 # ---------------------------------------------------------------------------
 
-def moe_shapes(d: int, d_ff: int, n_experts: int, activation: str,
+def moe_leaves(d: int, d_ff: int, n_experts: int, activation: str,
                shared_expert: bool) -> Params:
-    """Leaf shapes of one MoE layer (the reference's ``init_moe``): the
-    router (d, E), each expert's MLP stacked on a leading E dim, and the
-    optional shared expert's dense MLP."""
-    p: Params = {"router": (d, n_experts)}
-    for name, shape in mlp_shapes(d, d_ff, activation).items():
-        p[name] = (n_experts,) + shape
+    """Leaves of one MoE layer (the reference's ``init_moe``): the router
+    (d, E), each expert's MLP stacked on a leading E dim, and the optional
+    shared expert's dense MLP."""
+    p: Params = {"router": leaf((d, n_experts), ("embed", "experts"))}
+    for name, w in mlp_leaves(d, d_ff, activation).items():
+        p[name] = leaf((n_experts,) + w.shape, ("experts",) + w.axes)
     if shared_expert:
-        p["shared"] = mlp_shapes(d, d_ff, activation)
+        p["shared"] = mlp_leaves(d, d_ff, activation)
     return p
 
 

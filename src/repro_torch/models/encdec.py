@@ -63,36 +63,35 @@ class EncDecLM(AbstractParams):
         self.param_dtype = getattr(torch, cfg.param_dtype)
 
     # -- params ----------------------------------------------------------
-    def param_shapes(self) -> Params:
-        """Shape of every parameter leaf, in the reference's tree layout."""
+    def param_leaves(self) -> Params:
+        """Every parameter leaf (shape and logical axes), in the
+        reference's tree layout."""
         cfg = self.cfg
-        d, H, KV, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, self.head_dim
-        embed = {"wte": (cfg.vocab_size, d), "wpe": (cfg.max_train_seq, d)}
-        if not cfg.tie_embeddings:
-            embed["head"] = (d, cfg.vocab_size)
+        d = cfg.d_model
 
-        def norm(lead=()):
-            p = {"scale": lead + (d,)}
-            if cfg.norm == "layer":
-                p["bias"] = lead + (d,)
-            return p
-
-        def layer(L: int, cross: bool):
-            attn = {"wq": (L, d, H, D), "wk": (L, d, KV, D),
-                    "wv": (L, d, KV, D), "wo": (L, H, D, d)}
-            p = {"norm_attn": norm((L,)), "attn": attn,
-                 "norm_mlp": norm((L,)),
-                 "mlp": {k: (L,) + v for k, v in
-                         cm.mlp_shapes(d, cfg.d_ff, cfg.activation).items()}}
+        def layer(cross: bool):
+            p = {"norm_attn": cm.norm_leaves(d, cfg.norm),
+                 "attn": cm.attention_leaves(d, cfg.n_heads, cfg.n_kv_heads,
+                                             self.head_dim),
+                 "norm_mlp": cm.norm_leaves(d, cfg.norm),
+                 "mlp": cm.mlp_leaves(d, cfg.d_ff, cfg.activation)}
             if cross:
-                p["norm_cross"] = norm((L,))
-                p["cross"] = dict(attn)
+                p["norm_cross"] = cm.norm_leaves(d, cfg.norm)
+                p["cross"] = cm.attention_leaves(d, cfg.n_heads,
+                                                 cfg.n_kv_heads,
+                                                 self.head_dim)
             return p
-        return {"embed": embed,
-                "enc_pos": (cfg.encoder_frontend_len, d),
-                "enc_final_norm": norm(), "final_norm": norm(),
-                "enc_layers": layer(cfg.n_encoder_layers, False),
-                "dec_layers": layer(cfg.n_layers, True)}
+        return {"embed": cm.embedding_leaves(cfg.vocab_size, d,
+                                             cfg.tie_embeddings,
+                                             max_seq=cfg.max_train_seq,
+                                             learned_pos=True),
+                "enc_pos": cm.leaf((cfg.encoder_frontend_len, d),
+                                   (None, "embed")),
+                "enc_final_norm": cm.norm_leaves(d, cfg.norm),
+                "final_norm": cm.norm_leaves(d, cfg.norm),
+                "enc_layers": cm.stack_leaves(layer(False),
+                                              cfg.n_encoder_layers),
+                "dec_layers": cm.stack_leaves(layer(True), cfg.n_layers)}
 
     def leaf_dtype(self, name: str, dtype=None) -> torch.dtype:
         """Norm scales and biases stay float32; every other matrix and

@@ -36,7 +36,7 @@ from ..configs.base import ModelConfig
 from . import common as cm
 from .common import Params
 from .ssm import (init_mamba_params, mamba_block, mamba_decode_step,
-                  mamba_layer, mamba_leaf_dtype, mamba_param_shapes)
+                  mamba_layer, mamba_leaf_dtype, mamba_param_leaves)
 from .transformer import AbstractParams, LeafSpec, resolve_device, \
     unstack_layers
 
@@ -77,23 +77,25 @@ class HybridLM(AbstractParams):
                 for a in range(self.n_attn)]
 
     # -- params ----------------------------------------------------------
-    def param_shapes(self) -> Params:
-        """Shape of every parameter leaf, in the reference's tree layout."""
+    def param_leaves(self) -> Params:
+        """Every parameter leaf (shape and logical axes), in the
+        reference's tree layout."""
         cfg = self.cfg
-        L, d, A = cfg.n_layers, cfg.d_model, self.attn_d
-        H, KV, D = cfg.n_heads, cfg.n_kv_heads, self.attn_head_dim
-        embed = {"wte": (cfg.vocab_size, d)}
-        if not cfg.tie_embeddings:
-            embed["head"] = (d, cfg.vocab_size)
-        shared = {"norm_attn": {"scale": (A,)},
-                  "attn": {"wq": (A, H, D), "wk": (A, KV, D),
-                           "wv": (A, KV, D), "wo": (H, D, d)},
-                  "norm_mlp": {"scale": (A,)},
-                  "mlp": {"w_up": (A, cfg.d_ff), "w_down": (cfg.d_ff, d)}}
-        return {"embed": embed, "shared": shared,
-                "final_norm": {"scale": (d,)},
-                "layers": {"norm": {"scale": (L, d)},
-                           "mamba": mamba_param_shapes(cfg, L)}}
+        d, A = cfg.d_model, self.attn_d
+        shared = {"norm_attn": cm.norm_leaves(A, "rms"),
+                  "attn": cm.attention_leaves(A, cfg.n_heads, cfg.n_kv_heads,
+                                              self.attn_head_dim, d_out=d),
+                  "norm_mlp": cm.norm_leaves(A, "rms"),
+                  "mlp": {"w_up": cm.leaf((A, cfg.d_ff), ("embed", "mlp")),
+                          "w_down": cm.leaf((cfg.d_ff, d),
+                                            ("mlp", "embed"))}}
+        layer = {"norm": cm.norm_leaves(d, cfg.norm),
+                 "mamba": mamba_param_leaves(cfg)}
+        return {"embed": cm.embedding_leaves(cfg.vocab_size, d,
+                                             cfg.tie_embeddings),
+                "shared": shared,
+                "final_norm": cm.norm_leaves(d, cfg.norm),
+                "layers": cm.stack_leaves(layer, cfg.n_layers)}
 
     def leaf_dtype(self, name: str, dtype=None) -> torch.dtype:
         """The Mamba2 family's leaf dtypes (``ssm.mamba_leaf_dtype``): norm

@@ -172,17 +172,24 @@ def mamba_layer(lp: Params, x: torch.Tensor, cfg: ModelConfig
     return x + mamba_block(lp["mamba"], h, cfg)
 
 
-def mamba_param_shapes(cfg: ModelConfig, L: int) -> Params:
-    """Shapes of the Mamba2 block leaves stacked over ``L`` layers, in the
-    reference's ``init_mamba_block`` layout."""
+def mamba_param_leaves(cfg: ModelConfig) -> Params:
+    """Leaves of one Mamba2 block, in the reference's ``init_mamba_block``
+    layout."""
     s, d_in, nh, gn = _dims(cfg)
     d, bc = cfg.d_model, 2 * gn
-    return {"w_z": (L, d, d_in), "w_x": (L, d, d_in), "w_bc": (L, d, bc),
-            "w_dt": (L, d, nh), "conv_x_w": (L, s.conv_width, d_in),
-            "conv_x_b": (L, d_in), "conv_bc_w": (L, s.conv_width, bc),
-            "conv_bc_b": (L, bc), "dt_bias": (L, nh), "A_log": (L, nh),
-            "D": (L, nh), "gate_norm": {"scale": (L, d_in)},
-            "out_proj": (L, d_in, d)}
+    leaf = cm.leaf
+    return {"w_z": leaf((d, d_in), ("embed", "inner")),
+            "w_x": leaf((d, d_in), ("embed", "inner")),
+            "w_bc": leaf((d, bc), ("embed", "inner")),
+            "w_dt": leaf((d, nh), ("embed", None)),
+            "conv_x_w": leaf((s.conv_width, d_in), (None, "inner")),
+            "conv_x_b": leaf((d_in,), ("inner",)),
+            "conv_bc_w": leaf((s.conv_width, bc), (None, "inner")),
+            "conv_bc_b": leaf((bc,), ("inner",)),
+            "dt_bias": leaf((nh,), (None,)), "A_log": leaf((nh,), (None,)),
+            "D": leaf((nh,), (None,)),
+            "gate_norm": {"scale": leaf((d_in,), ("inner",))},
+            "out_proj": leaf((d_in, d), ("inner", "embed"))}
 
 
 def mamba_leaf_dtype(name: str, dtype: torch.dtype) -> torch.dtype:
@@ -264,16 +271,16 @@ class MambaLM(AbstractParams):
         self.conv_ch = self.d_inner + 2 * s.n_groups * s.state_dim
 
     # -- params ----------------------------------------------------------
-    def param_shapes(self) -> Params:
-        """Shape of every parameter leaf, in the reference's tree layout."""
+    def param_leaves(self) -> Params:
+        """Every parameter leaf (shape and logical axes), in the
+        reference's tree layout."""
         cfg = self.cfg
-        L, d = cfg.n_layers, cfg.d_model
-        embed = {"wte": (cfg.vocab_size, d)}
-        if not cfg.tie_embeddings:
-            embed["head"] = (d, cfg.vocab_size)
-        return {"embed": embed, "final_norm": {"scale": (d,)},
-                "layers": {"norm": {"scale": (L, d)},
-                           "mamba": mamba_param_shapes(cfg, L)}}
+        layer = {"norm": cm.norm_leaves(cfg.d_model, cfg.norm),
+                 "mamba": mamba_param_leaves(cfg)}
+        return {"embed": cm.embedding_leaves(cfg.vocab_size, cfg.d_model,
+                                             cfg.tie_embeddings),
+                "final_norm": cm.norm_leaves(cfg.d_model, cfg.norm),
+                "layers": cm.stack_leaves(layer, cfg.n_layers)}
 
     def leaf_dtype(self, name: str, dtype=None) -> torch.dtype:
         """See :func:`mamba_leaf_dtype`; ``dtype`` defaults to the compute

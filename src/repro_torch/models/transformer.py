@@ -33,7 +33,7 @@ cache, paged when the engine pages.
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -125,9 +125,20 @@ def meta_params(shapes, leaf_dtype) -> Params:
 
 
 class AbstractParams:
-    """``abstract_params(dtype=None)``, the reference's name, for the model
-    classes: the tree of ``param_shapes()`` as meta tensors in the dtypes
-    ``init(dtype=)`` gives (``leaf_dtype``)."""
+    """What the model classes derive from their ``param_leaves()``:
+    ``param_shapes()``, ``param_axes()`` (the reference's logical axis
+    names, which ``parallel.sharding`` maps onto a mesh) and
+    ``abstract_params(dtype=None)``, the tree of shapes as meta tensors in
+    the dtypes ``init(dtype=)`` gives (``leaf_dtype``)."""
+
+    def param_shapes(self) -> Params:
+        """Shape of every parameter leaf, in the reference's tree layout."""
+        return cm.leaf_shapes(self.param_leaves())
+
+    def param_axes(self) -> Params:
+        """Logical axis names of every parameter leaf's dims, in the
+        reference's tree layout (its ``param_axes()``)."""
+        return cm.leaf_axes(self.param_leaves())
 
     def abstract_params(self, dtype=None) -> Params:
         return meta_params(self.param_shapes(),
@@ -143,6 +154,15 @@ def resolve_device(device) -> torch.device:
                            f"is available; pass device='cpu' to run the "
                            f"plain PyTorch path")
     return dev
+
+
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def _tp_hooks(tp: Optional[Dict], block: str) -> Tuple[Callable, Callable]:
+    """The (f, g) hooks of ``block`` in ``tp``, identity where none."""
+    return (tp or {}).get(block, (_same, _same))
 
 
 def unstack_layers(tree, n: int):
@@ -193,41 +213,27 @@ class DecoderLM(AbstractParams):
         return 0 if idx_in_group == self.group - 1 else cfg.attn_window
 
     # -- params ----------------------------------------------------------
-    def param_shapes(self) -> Params:
-        """Shape of every parameter leaf, in the reference's tree layout."""
+    def param_leaves(self) -> Params:
+        """Every parameter leaf (shape and logical axes), in the
+        reference's tree layout."""
         cfg = self.cfg
-        L, d, H, KV, D = (cfg.n_layers, cfg.d_model, cfg.n_heads,
-                          cfg.n_kv_heads, self.head_dim)
-        embed = {"wte": (cfg.vocab_size, d)}
-        if cfg.positional == "learned":
-            embed["wpe"] = (cfg.max_train_seq, d)
-        if not cfg.tie_embeddings:
-            embed["head"] = (d, cfg.vocab_size)
-
-        def norm():
-            p = {"scale": (L, d)}
-            if cfg.norm == "layer":
-                p["bias"] = (L, d)
-            return p
-
-        def stacked(tree):
-            return {k: stacked(v) if isinstance(v, dict) else (L,) + v
-                    for k, v in tree.items()}
+        d = cfg.d_model
+        layer = {"norm_attn": cm.norm_leaves(d, cfg.norm),
+                 "attn": cm.attention_leaves(d, cfg.n_heads, cfg.n_kv_heads,
+                                             self.head_dim),
+                 "norm_mlp": cm.norm_leaves(d, cfg.norm)}
         if cfg.is_moe:
-            ffn = {"moe": stacked(cm.moe_shapes(
-                d, cfg.d_ff, cfg.moe.n_experts, cfg.activation,
-                cfg.moe.shared_expert))}
+            layer["moe"] = cm.moe_leaves(d, cfg.d_ff, cfg.moe.n_experts,
+                                         cfg.activation,
+                                         cfg.moe.shared_expert)
         else:
-            ffn = {"mlp": stacked(cm.mlp_shapes(d, cfg.d_ff,
-                                                cfg.activation))}
-        final = {"scale": (d,)}
-        if cfg.norm == "layer":
-            final["bias"] = (d,)
-        return {"embed": embed, "final_norm": final,
-                "layers": {"norm_attn": norm(),
-                           "attn": {"wq": (L, d, H, D), "wk": (L, d, KV, D),
-                                    "wv": (L, d, KV, D), "wo": (L, H, D, d)},
-                           "norm_mlp": norm(), **ffn}}
+            layer["mlp"] = cm.mlp_leaves(d, cfg.d_ff, cfg.activation)
+        return {"embed": cm.embedding_leaves(
+                    cfg.vocab_size, d, cfg.tie_embeddings,
+                    max_seq=cfg.max_train_seq,
+                    learned_pos=cfg.positional == "learned"),
+                "final_norm": cm.norm_leaves(d, cfg.norm),
+                "layers": cm.stack_leaves(layer, cfg.n_layers)}
 
     def leaf_dtype(self, name: str, dtype=None) -> torch.dtype:
         """Norm scales and biases and the MoE router stay float32 (read in
@@ -264,51 +270,66 @@ class DecoderLM(AbstractParams):
         x = cm.apply_norm(params["final_norm"], x, self.cfg.norm)
         return cm.unembed(params["embed"], x)
 
-    def _mlp_block(self, lp: Params, x: torch.Tensor, drop: bool = True):
+    def _mlp_block(self, lp: Params, x: torch.Tensor, drop: bool = True,
+                   tp: Optional[Dict] = None):
         """x plus the layer's MLP, or its MoE layer (capacity-bounded with
         ``drop``, as in training; prefill and decode keep every pair);
-        returns (x, the MoE aux dict, empty for a dense layer)."""
+        returns (x, the MoE aux dict, empty for a dense layer).  ``tp``'s
+        ``"mlp"`` hooks, when given, wrap the block (see
+        :meth:`_layer_fwd`)."""
         cfg = self.cfg
-        h = cm.apply_norm(lp["norm_mlp"], x, cfg.norm)
+        f, g = _tp_hooks(tp, "mlp")
+        h = f(cm.apply_norm(lp["norm_mlp"], x, cfg.norm))
         if not cfg.is_moe:
-            return x + cm.apply_mlp(lp["mlp"], h, cfg.activation), {}
+            return x + g(cm.apply_mlp(lp["mlp"], h, cfg.activation)), {}
         h, aux = cm.apply_moe(
             lp["moe"], h, n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
             capacity_factor=cfg.moe.capacity_factor,
             activation=cfg.activation, shared_expert=cfg.moe.shared_expert,
             drop=drop)
-        return x + h, aux
+        return x + g(h), aux
 
     def _layer_fwd(self, lp: Params, x: torch.Tensor, q_offset: int,
-                   window: int = 0):
+                   window: int = 0, tp: Optional[Dict] = None):
+        """One layer.  ``tp`` holds tensor-parallel hooks by block
+        (``"attn"``, ``"mlp"``): a pair (f, g), f applied to the block's
+        normed input and g to its output (Megatron's pair, where a rank
+        computes its heads or columns of ``d_ff`` from ``lp``); a block
+        without hooks runs as it is."""
         cfg = self.cfg
-        h = cm.apply_norm(lp["norm_attn"], x, cfg.norm)
+        f, g = _tp_hooks(tp, "attn")
+        h = f(cm.apply_norm(lp["norm_attn"], x, cfg.norm))
         h = cm.attention_block(
             lp["attn"], h, cfg_theta=cfg.rope_theta,
             positional=cfg.positional, causal=True, window=window,
             softcap=cfg.attn_logit_softcap, q_offset=q_offset,
             block_k=self.block_k)
-        return self._mlp_block(lp, x + h)
+        return self._mlp_block(lp, x + g(h), tp=tp)
 
     def forward_hidden(self, params: Params, x: torch.Tensor,
-                       q_offset: int = 0, remat: bool = True
+                       q_offset: int = 0, remat: bool = True,
+                       layer_fwd: Optional[Callable] = None
                        ) -> Tuple[torch.Tensor, Dict]:
         """Run the layer stack on embedded input x (B, S, d).  With
         ``remat`` each layer runs under ``torch.utils.checkpoint``: only
         its input is kept, and the backward recomputes the rest (the MoE
-        layer's routing included).  Returns (x, aux): aux is empty for a
-        dense model; for an MoE model each of ``load_balance``,
-        ``router_z`` and ``dropped_frac`` summed over the layers and divided
-        by ``n_layers``, as the reference's scan reduces them."""
+        layer's routing included).  ``layer_fwd`` takes the place of
+        :meth:`_layer_fwd` (its arguments and result; a sharded step's,
+        which makes the layer's weights whole inside the checkpoint).
+        Returns (x, aux): aux is empty for a dense model; for an MoE model
+        each of ``load_balance``, ``router_z`` and ``dropped_frac`` summed
+        over the layers and divided by ``n_layers``, as the reference's
+        scan reduces them."""
         L = self.cfg.n_layers
+        layer_fwd = layer_fwd or self._layer_fwd
         total: Dict[str, torch.Tensor] = {}
         for layer, lp in enumerate(unstack_layers(params["layers"], L)):
             window = self._layer_window(layer % self.group)
             if remat:
-                x, aux = checkpoint(self._layer_fwd, lp, x, q_offset, window,
+                x, aux = checkpoint(layer_fwd, lp, x, q_offset, window,
                                     use_reentrant=False)
             else:
-                x, aux = self._layer_fwd(lp, x, q_offset, window)
+                x, aux = layer_fwd(lp, x, q_offset, window)
             for k, v in aux.items():
                 total[k] = total[k] + v if k in total else v
         # divided as XLA divides by a constant: times its f32 reciprocal

@@ -68,9 +68,12 @@ def init_opt_state(params) -> Dict:
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: OptimizerConfig):
-    """One AdamW step, in place.  Returns (params, state, metrics)."""
-    norm = global_norm(grads)
+def adamw_update(params, grads, state, cfg: OptimizerConfig, norm=None):
+    """One AdamW step, in place.  ``norm`` is the gradients' global norm
+    for the clip, by default :func:`global_norm` of ``grads`` (a sharded
+    step passes the norm over the whole mesh, since its ``grads`` are one
+    rank's blocks).  Returns (params, state, metrics)."""
+    norm = global_norm(grads) if norm is None else norm
     scale = _clip_scale(norm, cfg.grad_clip_norm)
     step = state["step"] + 1
     lr = lr_at(cfg, step)

@@ -61,15 +61,33 @@ def loss_and_grads(model, params, batch, remat: bool = True):
 
 
 def make_train_step(model, opt_cfg: OptimizerConfig, accum_steps: int = 1,
-                    remat: bool = True, compress: bool = False) -> Callable:
+                    remat: bool = True, compress: bool = False,
+                    mesh=None) -> Callable:
     """Build ``train_step(state, batch) -> (state, metrics)``; ``batch``
-    leaves have leading dim ``global_batch`` (numpy or torch)."""
+    leaves have leading dim ``global_batch`` (numpy or torch).  With a
+    ``DeviceMesh`` ``mesh`` the step is one rank's of the data- and
+    tensor-parallel step (``parallel.train_step.ShardedStep``, built here,
+    so every rank calls this together): ``state`` holds the rank's blocks
+    (``parallel.train_step.init_sharded_state`` or
+    ``parallel.sharding.shard_state``), every rank is given the same global
+    batch and takes its rows, and the clip reads the norm over the whole
+    mesh."""
+    if mesh is None:
+        local = lambda b: _on_device(b, model.device)  # noqa: E731
+        grads_of = lambda p, b: loss_and_grads(model, p, b,  # noqa: E731
+                                               remat)
+        norm_of = None
+    else:
+        from ..parallel.train_step import ShardedStep
+        plan = ShardedStep(model, mesh)
+        local, norm_of = plan.local_batch, plan.global_norm
+        grads_of = lambda p, b: plan.loss_and_grads(p, b,  # noqa: E731
+                                                    remat)
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
-        batch = _on_device(batch, model.device)
+        batch = local(batch)
         if accum_steps == 1:
-            loss, metrics, grads = loss_and_grads(model, state.params, batch,
-                                                  remat)
+            loss, metrics, grads = grads_of(state.params, batch)
             grads = decompress_grads(grads)
         else:
             micro = {k: v.reshape((accum_steps, v.shape[0] // accum_steps)
@@ -78,9 +96,8 @@ def make_train_step(model, opt_cfg: OptimizerConfig, accum_steps: int = 1,
             grads = zeros_like_f32(state.params)
             losses, metricses = [], []
             for i in range(accum_steps):
-                loss, met, g = loss_and_grads(
-                    model, state.params, {k: v[i] for k, v in micro.items()},
-                    remat)
+                loss, met, g = grads_of(state.params,
+                                        {k: v[i] for k, v in micro.items()})
                 accumulate(grads, g, 1.0 / accum_steps)
                 del g
                 losses.append(loss)
@@ -91,8 +108,9 @@ def make_train_step(model, opt_cfg: OptimizerConfig, accum_steps: int = 1,
         if compress:
             grads, _ = compress_grads(grads, state.rng)
             grads = decompress_grads(grads)
-        params, opt, opt_metrics = adamw_update(state.params, grads,
-                                                state.opt, opt_cfg)
+        params, opt, opt_metrics = adamw_update(
+            state.params, grads, state.opt, opt_cfg,
+            norm=None if norm_of is None else norm_of(grads))
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         metrics["loss"] = loss

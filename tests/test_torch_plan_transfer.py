@@ -78,7 +78,17 @@ def test_mesh_spec():
         assert dataclasses.asdict(got) == dataclasses.asdict(ref)
         assert (got.n_devices, got.data_extent, got.describe()) \
             == (ref.n_devices, ref.data_extent, ref.describe())
-    assert not hasattr(MeshSpec, "from_mesh")    # a jax mesh's (item 11)
+    # from_mesh reads a DeviceMesh as the reference's reads a jax mesh
+    import jax
+    from repro_torch.hw.step_count import fake_world
+    for kw in (dict(dp=2, tp=4), dict(dp=4, tp=2, pod=2)):
+        with fake_world(MeshSpec(**kw)) as mesh:
+            got = MeshSpec.from_mesh(mesh)
+        axes = MeshSpec(**kw).axes()
+        ref = JaxMeshSpec.from_mesh(jax.sharding.AbstractMesh(
+            tuple(axes.values()), tuple(axes)))
+        assert dataclasses.asdict(got) == dataclasses.asdict(ref) == kw \
+            | {k: 1 for k in ("dp", "tp", "pod") if k not in kw}
 
 
 @pytest.mark.parametrize("mesh", sorted(MESHES))
