@@ -233,8 +233,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                  pages and a dense cache (graphs on), exact launches
                  (24 flash prefills a bucket call, 24 paged decodes a paged
                  step, no RMSNorm), no NaN logit; tokens/s, peak memory,
-                 each capture's host ms; a profiled bf16-page run in both
-                 modes, its decode steps alone.
+                 each capture's host ms; a profiled bf16-page run with
+                 graphs on, its decode steps alone (the eager profiled
+                 run's kernels are the graphs-on run's: cut).
    consistency_gpt3 — ``consistency`` on gpt3-xl with bf16 and int8 pages
                  (each decode step adds ``wpe[pos]``).
    train_gpt3  — gpt3-xl at full width and depth trains 4 steps at the
@@ -276,14 +277,33 @@ Phases, in order; any failure raises and the script exits non-zero:
                  rank), spawned with a ``FileStore``: the sharded loss and
                  every gradient block against the unsharded step on the
                  same weights and batch (``MD_LOSS_RTOL``,
-                 ``MD_GRAD_TOL``), 2 steps with exact launches a rank (2 L
+                 ``MD_GRAD_TOL``), a step with exact launches a rank (2 L
                  flash forwards with their log-sum-exp, L backwards),
                  step seconds and collective bytes by kind; the MoE
                  all-to-all across the four ranks on CUDA tensors at
                  granite's layer width against the dense combine, and with
-                 drops at capacity 2.0; before them one ``nccl`` rank in
-                 the script's process on a (1, 1) mesh, its sharded step
-                 against the unsharded one (on a world of one the
+                 drops at capacity 2.0; granite-moe-1b-a400m at full width
+                 and ``MD_MOE_LAYERS`` layers, one sharded step (16
+                 experts a rank) held to the unsharded step with its
+                 routing held (``RouteHold``): the loss and the three aux
+                 terms (``MD_LOSS_RTOL``), every gradient block
+                 (``MD_GRAD_TOL``), pairs dropped, exact launches, the
+                 layers' own top-8 choices off the held ones at near ties
+                 only (``MD_MOE_TIE``);
+                 llama3.2-1b at full width and ``MD_SERVE_LAYERS`` layers
+                 served sharded (``ShardedServe``): 8 prompts of 1016
+                 prefilled into max_seq 2048 (the cache's sequence over
+                 model) and 16 context-parallel decode steps across
+                 position 1024, held to the unsharded prefill and decode
+                 (logits within ``MD_SERVE_TOL``, argmax equal but at a
+                 near tie, exact launches), each call's seconds and
+                 collective bytes, then in float32 on the plain path at
+                 ``MD_SERVE_F32_LAYERS`` layers across position 1024
+                 (``MD_SERVE_F32_TOL``) with a control that leaves a
+                 sequence block's partial out of the combine and must
+                 fail that bound; before them one ``nccl`` rank in the
+                 script's process on a (1, 1) mesh runs the bf16 passes
+                 against the unsharded runs (on a world of one the
                  collectives return early: their nccl branches over
                  several ranks do not run on one card).
    serve_llama3b — llama3.2-3b (28 layers, d_model 3072, 24 heads over 8
@@ -2599,6 +2619,27 @@ def check_nemotron_kernels(gen):
     return rows
 
 
+def check_md_kernels(gen):
+    """The attention kernels at the (2, 2) ranks' shapes of the
+    multidevice phase, each against its plain version and timed beside its
+    bound and library yardstick: granite-moe-1b-a400m's training forward
+    with its log-sum-exp and the flash backward at a rank's 8 query heads
+    over 4 KV heads and 4 rows of 1024 (rows ``[D64 H8 tp2]``), and
+    llama3.2-1b's prefill at a rank's 16 heads over 4 and 4 prompts of
+    ``MD_SERVE_PROMPT`` (row ``[D64 H16 tp2]``).  Returns the rows named
+    in ``MD_ROW_RUNS``, marked with the phase."""
+    rows = list(check_flash_bwd(gen, H=8, KV=4, D=64, edges=(),
+                                tag="[D64 H8 tp2]",
+                                B=MD_BATCH // MD_MESH[0]))
+    rows.append(_prefill_row(
+        gen, MD_SERVE_SLOTS // MD_MESH[0], MD_SERVE_PROMPT, 32 // MD_MESH[1],
+        8 // MD_MESH[1], 64, "flash_prefill[D64 H16 tp2]",
+        valid_len=[MD_SERVE_PROMPT] * (MD_SERVE_SLOTS // MD_MESH[0])))
+    for r in rows:
+        r["model"] = "multidevice"
+    return rows
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
@@ -2621,6 +2662,7 @@ def phase_kernels():
     rows += check_encdec_kernels(gen)
     rows += check_llama4_kernels(gen)
     rows += check_nemotron_kernels(gen)
+    rows += check_md_kernels(gen)
     # pools the serving path does not use: checked, logged, not in the JSON
     for dtype, label in ((torch.float8_e4m3fn, "fp8"), (torch.float32, "f32")):
         r = check_paged(gen, dtype, label)
@@ -3711,23 +3753,25 @@ def phase_serve_gpt3(cfg, model, params):
     type."""
     return serve_full_model("serve_gpt3", cfg, model, params,
                             lambda paged: gpt3_launches(cfg.n_layers, paged),
-                            profile_modes=(True, False))
+                            graphs_off=True)
 
 
 def serve_full_model(tag, cfg, model, params, launches,
                      profile_modes=(True,), prompts=None,
                      new_tokens=SERVE_NEW_TOKENS, extras=None,
-                     profile_extras=None):
+                     profile_extras=None, graphs_off=False):
     """A model at full width serves ``prompts`` (by default the serve
     phase's 16 requests; ``extras``, per prompt, as ``serve_run`` takes
-    them), ``new_tokens`` new tokens each, with bf16 pages with CUDA
-    graphs on and off (equal tokens), then int8 pages and a dense cache
-    with graphs on: exact launches (``launches(paged)``, a ``want(steps,
-    calls)``), no NaN logit; logs tokens/s, peak memory and each capture's
-    host ms, and the int8 and dense runs' agreement with bf16 pages.  (The
-    int8-page and dense-cache runs with graphs off launch the instantiations
-    of their graphs-on runs; their on/off equality is gated on llama3.2-1b,
-    ``phase_serve``, and zamba2-7b's dense cache, ``phase_serve_hybrid``.)
+    them), ``new_tokens`` new tokens each, with bf16 pages, int8 pages and
+    a dense cache, CUDA graphs on, and with ``graphs_off`` bf16 pages with
+    graphs off too (equal tokens: the graphs' replay against eager
+    decode): exact launches (``launches(paged)``, a ``want(steps,
+    calls)``), no NaN logit; logs tokens/s, peak memory and each
+    capture's host ms, and the int8 and dense runs' agreement with bf16
+    pages.  (The models served without ``graphs_off`` have their on/off
+    equality gated elsewhere: llama3.2-3b and yi-34b run llama3.2-1b's
+    decode step, gated in ``phase_serve``, at other kernel
+    instantiations; llama4-scout in ``phase_serve_llama4_long``.)
     Then a short profiled
     bf16-page run with graphs on (and off where ``profile_modes`` holds
     False; each request with ``profile_extras``), with its decode steps
@@ -3742,14 +3786,16 @@ def serve_full_model(tag, cfg, model, params, launches,
             ("bf16", False, dict(paged=True)),
             ("int8", True, dict(paged=True, kv_dtype="int8")),
             ("dense", True, dict(paged=False))):
-        runs[label, graphs] = serve_run(
-            f"{tag} {label}", model, params, prompts, new_tokens,
-            graphs, launches(kw["paged"]), extras=extras, **kw)
-    on, off = runs["bf16", True], runs["bf16", False]
-    _same_tokens(tag, "bf16", (on, off))
-    log(f"[{tag}] bf16: graphs on {on['tokens_per_s']:.1f} "
-        f"tokens/s against off {off['tokens_per_s']:.1f} "
-        f"({on['tokens_per_s'] / off['tokens_per_s']:.2f}x)")
+        if graphs or graphs_off:
+            runs[label, graphs] = serve_run(
+                f"{tag} {label}", model, params, prompts, new_tokens,
+                graphs, launches(kw["paged"]), extras=extras, **kw)
+    if graphs_off:
+        on, off = runs["bf16", True], runs["bf16", False]
+        _same_tokens(tag, "bf16", (on, off))
+        log(f"[{tag}] bf16: graphs on {on['tokens_per_s']:.1f} "
+            f"tokens/s against off {off['tokens_per_s']:.1f} "
+            f"({on['tokens_per_s'] / off['tokens_per_s']:.2f}x)")
     # the dense path scales q in bf16 by a factor rounded to bf16, the
     # paged kernel in f32 (as the reference's two paths do), and int8 pages
     # quantize: logged against bf16 pages, not gated
@@ -3893,8 +3939,8 @@ class HeldPath:
         return logits, probs, w / torch.clamp(w.sum(-1, keepdim=True),
                                               min=1e-9), chosen
 
-    def _block(self, lp, x, drop=True):
-        out, aux = self.orig_block(lp, x, drop)
+    def _block(self, lp, x, drop=True, tp=None):
+        out, aux = self.orig_block(lp, x, drop, tp)
         if self.hold != "hold":
             return out, aux
         layer = self.block_layer
@@ -4025,7 +4071,8 @@ def phase_serve_moe(cfg, model, params):
     a decode step's device time (``moe_share``).  Returns the graphs-on
     runs' launches by page type."""
     out = serve_full_model("serve_moe", cfg, model, params,
-                           _llama_style(cfg.n_layers))
+                           _llama_style(cfg.n_layers),
+                           graphs_off=True)
     moe_share(cfg, model, params)
     return out
 
@@ -4091,7 +4138,8 @@ def phase_serve_vlm(cfg, model, params):
         f"are text-only")
     return serve_full_model("serve_vlm", cfg, model, params,
                             _llama_style(cfg.n_layers), prompts=prompts,
-                            extras=extras)
+                            extras=extras,
+                            graphs_off=True)
 
 
 def phase_consistency_vlm(model, params):
@@ -4250,7 +4298,8 @@ def phase_serve_encdec(cfg, model, params):
     phase's 16 prompts, each request with its own 1024 seeded frames
     (``encdec_extras``): bf16 and int8 pages (the self-attention K/V; the
     cross K/V stay dense bf16 rows) and a dense cache (bf16 pages with
-    graphs on and off, the others on), exact launches (``encdec_launches``); then the profiled decode step
+    graphs on and off, the others on), exact launches
+    (``encdec_launches``); then the profiled decode step
     (its head GEMM's share logged: ``align2`` kernels) and the cross-attention
     decode's share of it (``cross_decode_share``).  Returns the graphs-on
     runs' launches by page type."""
@@ -4260,7 +4309,8 @@ def phase_serve_encdec(cfg, model, params):
         f"width {cfg.d_model} for the encoder (no cache position)")
     out = serve_full_model("serve_encdec", cfg, model, params,
                            encdec_launches(cfg), prompts=prompts,
-                           extras=extras, profile_extras=extras[0])
+                           extras=extras, profile_extras=extras[0],
+                           graphs_off=True)
     out["cross_ms"] = cross_decode_share(cfg, out["profile"][True])
     return out
 
@@ -4397,8 +4447,7 @@ def phase_serve_llama4(cfg, model, params):
     shared expert): ``serve_full_model`` over the serve phase's 16
     requests (max_seq 1024, so the rings hold 1024 positions and none
     wraps), bf16 and int8 pages (the global layers' K/V; the rings stay
-    dense bf16) and a dense cache (bf16 pages with graphs on and off, the
-    others on), exact launches
+    dense bf16) and a dense cache (graphs on), exact launches
     (``llama4_launches``: 17 RMSNorms a forward, 8 flash prefills a call,
     2 paged decodes a paged step); then the plain ring decode's share of
     the profiled decode step (``ring_decode_share``), the MoE layers'
@@ -4499,12 +4548,12 @@ def phase_serve_nemotron(cfg, model, params):
     the squared-ReLU MLP in PyTorch; 96 heads over 8 at head_dim 192):
     ``serve_full_model`` over the serve phase's 16 requests, bf16 and int8
     pages and a dense cache (bf16 pages with graphs on and off, the others
-    on), exact launches (no
-    RMSNorm, 4 flash prefills a call, 4 paged decodes a paged step); then
+    on), exact launches (no RMSNorm, 4 flash prefills a call, 4 paged decodes a paged step); then
     the weight-read floor of a decode step.  Returns the graphs-on runs'
     launches by page type."""
     out = serve_full_model("serve_nemotron", cfg, model, params,
-                           lambda paged: gpt3_launches(cfg.n_layers, paged))
+                           lambda paged: gpt3_launches(cfg.n_layers, paged),
+                           graphs_off=True)
     log_decode_floor("serve_nemotron", cfg, params, out["profile"][True])
     return out
 
@@ -5784,7 +5833,7 @@ def phase_transfer_gpt3(idle_w, gpt3, dp1):
 # script's room under its limit; at 8 the phase took 44.8-76.5 s as the
 # host's load varied, so the depth is cut to 4 (``--cards 4`` trains all
 # 24 under nccl)
-MD_MESH, MD_LAYERS, MD_BATCH, MD_STEPS = (2, 2), 4, 8, 2
+MD_MESH, MD_LAYERS, MD_BATCH, MD_STEPS = (2, 2), 4, 8, 1
 # sharded against unsharded in bf16 compute: the partial sums of the
 # row-parallel products are rounded to bf16 before g adds them, and the
 # FSDP gradients are summed across ranks in another order; the loss
@@ -5801,13 +5850,365 @@ MD_MOE_TOKENS, MD_MOE_SKEW, MD_MOE_TOL = 1024, 2.0, 1e-4
 # ``--cards 4``: the same phase over four nccl ranks, one a card, at all
 # of gpt3-xl's layers
 MD_CARDS_LAYERS = 24
+# granite-moe-1b-a400m at full width (32 experts, top 8, capacity 1.25)
+# and MD_MOE_LAYERS of its 24 layers: one sharded step over the global
+# batch of MD_BATCH x TRAIN_SEQ tokens (the experts over model, 16 a rank;
+# the capacity and a pair's rank over the global batch), bf16 on the
+# kernels, held to the unsharded step on the same weights and batch with
+# its routing held to the unsharded step's (``RouteHold``): with the
+# routing free the row-parallel sums' rounding flips top-8 choices at
+# near ties, which moves a token's path and its embedding row's gradient
+# (in float32 on the plain path 2 of a rank's 16384 token-layer routings
+# flipped and embed/wte's gradient read 0.104 of its largest |value|
+# apart, on an H100 80GB HBM3 at 700 W; in bf16 1337-1523 flipped and it
+# read 0.34-0.41).  The layers' own choices are still compared with the
+# held ones: at most MD_MOE_FLIPS of a rank's tokens may have a top-8 set
+# that differs, each a near tie of the unsharded routing, its gap between
+# the 8th and 9th router logits within MD_MOE_TIE (the bf16 pass read
+# 776-795 of 16384 tokens at gaps up to 3.2e-2; the median gap is 4.4e-2).
+# ``--cards`` adds the two passes with the routing free, float32 on the
+# plain path and bf16 on the kernels, logged with their flips, not gated
+MD_MOE_LAYERS, MD_MOE_TIE, MD_MOE_FLIPS = 4, 5e-2, 0.1
+# llama3.2-1b served sharded at full width and MD_SERVE_LAYERS of its 16
+# layers: MD_SERVE_SLOTS prompts of MD_SERVE_PROMPT tokens into a cache of
+# MD_SERVE_MAX_SEQ positions (``cache_specs`` shards its sequence over
+# model: positions 0-1023 on model rank 0, 1024-2047 on rank 1), then
+# MD_SERVE_STEPS context-parallel decode steps across position 1024 (the
+# rank that writes the new token's K/V changes), fed the unsharded
+# model's greedy tokens; held to the unsharded prefill and dense-cache
+# decode on the same weights: logits within MD_SERVE_TOL of the largest
+# |logit|, every argmax equal but at a near tie (a top-2 margin within
+# twice the row's max |dlogit|, where bf16 rounding may flip it; counted).
+# The bf16 reading (~7e-3) is the two decode paths' rounding, a world of
+# one reads it too, so the combine is gated in float32 on the plain path
+# at MD_SERVE_F32_LAYERS layers: prompts of MD_SERVE_F32_PROMPT tokens and
+# MD_SERVE_F32_STEPS decode step (it writes position 1024 on model rank
+# 1), logits within MD_SERVE_F32_TOL (sound calls read 1.95e-6-2.84e-6 on
+# an H100 80GB HBM3 at 700 W); a control, the step again with model rank
+# 1's (max, sum, out) partial left out of the combine (the one key it
+# holds of 1025), must read past that bound (it read 8.12e-2)
+MD_SERVE_LAYERS, MD_SERVE_SLOTS, MD_SERVE_MAX_SEQ = 4, 8, 2048
+MD_SERVE_PROMPT, MD_SERVE_STEPS, MD_SERVE_TOL = 1016, 16, 2e-2
+MD_SERVE_F32_LAYERS, MD_SERVE_F32_PROMPT, MD_SERVE_F32_STEPS = 1, 1024, 1
+MD_SERVE_F32_TOL = 1e-4
+#: the kernel rows of the (2, 2) ranks' shapes and the run whose launches
+#: each reports (rank 0's: granite's bf16 step, llama3.2-1b's serving)
+MD_ROW_RUNS = {"flash_prefill_lse[D64 H8 tp2]": "moe",
+               "flash_bwd[D64 H8 tp2]": "moe",
+               "flash_prefill[D64 H16 tp2]": "serve"}
 
 
-def _md_model(layers: int, device: str = "cuda"):
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+class RouteHold:
+    """The MoE layers' routing of one run against another's, for the
+    multidevice phase.  While :meth:`record` is active it wraps
+    ``common.route_top_k`` and keeps each layer's experts chosen and the
+    gap between its k-th and (k+1)-th router logits a token (keyed by the
+    layer's router, whose float32 values the sharded step gathers bit for
+    bit).  While :meth:`run` is active each layer's own top-k set is
+    compared with the recorded one at its rows (a data rank's tokens
+    start at ``offset`` of the global batch's): ``flips`` counts the
+    tokens whose set differs (over ``rows`` routed) and ``gap`` is the
+    largest recorded gap among them (a layer recomputed under remat
+    counts once); with ``hold`` the layer then takes the recorded experts,
+    its top-k weights from its own probabilities renormalised as the layer
+    does, so that the drop rule, the combine and every continuous term
+    stay the layer's own and only the near-tie flips are taken out."""
+
+    def __init__(self, routes=None):
+        self.routes = {} if routes is None else routes
+        self.counted = {}
+
+    def _sum(self, i):
+        return sum(c[i] for c in self.counted.values())
+
+    @property
+    def flips(self) -> int:
+        return self._sum(0)
+
+    @property
+    def rows(self) -> int:
+        return self._sum(1)
+
+    @property
+    def gap(self) -> float:
+        return max((c[2] for c in self.counted.values()), default=0.0)
+
+    @staticmethod
+    def _key(router) -> float:
+        return float(router.detach().double().sum())
+
+    @contextlib.contextmanager
+    def _wrap(self, fn):
+        from repro_torch.models import common as cm
+        orig = cm.route_top_k
+        cm.route_top_k = lambda xt, router, k: fn(orig, xt, router, k)
+        try:
+            yield self
+        finally:
+            cm.route_top_k = orig
+
+    def record(self):
+        def fn(orig, xt, router, k):
+            out = orig(xt, router, k)
+            top = out[0].topk(k + 1, dim=-1).values
+            self.routes.setdefault(self._key(router), (
+                out[3].cpu(), (top[:, k - 1] - top[:, k]).cpu()))
+            return out
+        return self._wrap(fn)
+
+    def run(self, offset: int, hold: bool):
+        def fn(orig, xt, router, k):
+            logits, probs, top_w, top_e = orig(xt, router, k)
+            key = self._key(router)
+            want, gap = (t[offset:offset + xt.shape[0]].to(xt.device)
+                         for t in self.routes[key])
+            differ = (top_e.sort(-1).values != want.sort(-1).values).any(-1)
+            self.counted[key] = (int(differ.sum()), xt.shape[0], float(
+                torch.where(differ, gap, 0).max()))
+            if hold:
+                top_e = want
+                top_w = probs.gather(-1, top_e)
+                top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True),
+                                            min=1e-9)
+            return logits, probs, top_w, top_e
+        return self._wrap(fn)
+
+
+#: granite's passes: (name, compute dtype, the routing held)
+MD_MOE_PASSES = {"bf16": ("bfloat16", True),
+                 "f32 free": ("float32", False),
+                 "bf16 free": ("bfloat16", False)}
+
+
+def _on_path(dtype: str):
+    """The plain path for a float32 run (the kernels are bf16), else the
+    kernels."""
+    return plain_path() if dtype == "float32" else contextlib.nullcontext()
+
+
+def md_moe_reference(tmp, passes):
+    """granite's unsharded step on the card at ``MD_MOE_LAYERS``, on
+    ``init_train_state``'s weights and the global batch, in the dtypes of
+    ``passes`` (bf16 on the kernels, float32 on the plain path): the loss,
+    aux terms and gradients, and each layer's routing (``RouteHold``),
+    saved under ``tmp`` for the ranks."""
+    from repro_torch.train import init_train_state, loss_and_grads
+    from repro_torch.tree import flatten
+    out = {}
+    for dtype in dict.fromkeys(MD_MOE_PASSES[p][0] for p in passes):
+        model = _md_model(MD_MOE_LAYERS, MOE_ARCH, dtype)
+        state = init_train_state(model, seed=0)
+        batch = _md_batches(model.cfg, MD_BATCH, 1)[0]
+        hold = RouteHold()
+        with hold.record(), _on_path(dtype):
+            _, metrics, grads = loss_and_grads(model, state.params, batch)
+        flat = {p: g.float().cpu() for p, g in flatten(grads)}
+        out[dtype] = {
+            "grads": os.path.join(tmp, f"moe_{dtype}.pt"),
+            "routes": os.path.join(tmp, f"moe_routes_{dtype}.pt"),
+            "max_abs": {p: float(g.abs().max()) for p, g in flat.items()},
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "gap_median": float(torch.cat([g for _, g in
+                                           hold.routes.values()]).median())}
+        torch.save(flat, out[dtype]["grads"])
+        torch.save(hold.routes, out[dtype]["routes"])
+        del model, state, grads, flat
+        release()
+    return out
+
+
+def md_moe_rank(mesh, job, passes):
+    """granite's sharded step on this rank in each of ``passes`` (names
+    of ``MD_MOE_PASSES``), against the unsharded step of its dtype: its
+    seconds, launches, collective bytes, the loss and aux terms, the
+    tokens whose top-8 set differs from the unsharded step's (free
+    routing), and each gradient block's largest difference from the
+    unsharded step's block relative to that leaf's largest |value|."""
+    from repro_torch import kernels
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.sharding import local_slices
+    from repro_torch.parallel.train_step import (ShardedStep,
+                                                 init_sharded_state)
+    from repro_torch.tree import flatten
+    out = {}
+    for name in passes:
+        dtype, held = MD_MOE_PASSES[name]
+        ref = job["moe"][dtype]
+        model = _md_model(MD_MOE_LAYERS, MOE_ARCH, dtype)
+        state = init_sharded_state(model, mesh, seed=0)
+        batch = _md_batches(model.cfg, MD_BATCH, 1)[0]
+        plan = ShardedStep(model, mesh)
+        local = plan.local_batch(batch)
+        hold = RouteHold(torch.load(ref["routes"]))
+        offset = plan.data_index * local["tokens"].numel()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        coll.COUNTER.reset()
+        t0 = time.perf_counter()
+        with hold.run(offset, held), _on_path(dtype):
+            _, metrics, grads = plan.loss_and_grads(state.params, local)
+        torch.cuda.synchronize()
+        res = {"s": time.perf_counter() - t0,
+               "launches": kernels.launch_counts(),
+               "wire": dict(coll.COUNTER.bytes),
+               "wire_s": dict(coll.COUNTER.seconds),
+               "metrics": {k: float(v) for k, v in metrics.items()},
+               "flips": hold.flips, "rows": hold.rows, "gap": hold.gap}
+        want = torch.load(ref["grads"], mmap=True)
+        specs = dict(flatten(plan.specs))
+        coords = {"data": plan.data_index, "model": plan.model_rank}
+        errs = {}
+        for path, g in flatten(grads):
+            block = want[path][local_slices(want[path].shape, specs[path],
+                                            plan.sizes, coords)]
+            errs[path] = float((g.float() - block.to(g.device)).abs().max()
+                               ) / max(ref["max_abs"][path], 1e-30)
+        res["grad_errs"] = errs
+        out[name] = res
+        del grads, want, state, model
+        torch.cuda.empty_cache()
+    return out
+
+
+def _md_serve_inputs(vocab: int, n: int):
+    rng = np.random.default_rng(11)
+    return rng.integers(0, vocab, (MD_SERVE_SLOTS, n)).astype(np.int32)
+
+
+def _md_serve_params(model):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    return model.init(gen)
+
+
+#: llama3.2-1b's two served runs: (layers, compute dtype, prompt, steps)
+MD_SERVE_RUNS = {
+    "bf16": (MD_SERVE_LAYERS, "bfloat16", MD_SERVE_PROMPT, MD_SERVE_STEPS),
+    "f32": (MD_SERVE_F32_LAYERS, "float32", MD_SERVE_F32_PROMPT,
+            MD_SERVE_F32_STEPS)}
+
+
+def md_serve_reference(tmp):
+    """llama3.2-1b's unsharded prefill and greedy dense-cache decode steps
+    of each of ``MD_SERVE_RUNS`` (bf16 on the kernels, float32 on the
+    plain path): every call's logits (saved under ``tmp``) and the greedy
+    tokens, which the ranks are fed."""
+    out = {}
+    for key, (layers, dtype, n, steps) in MD_SERVE_RUNS.items():
+        model = _md_model(layers, "llama3.2-1b", dtype)
+        params = _md_serve_params(model)
+        V = model.cfg.vocab_size
+        tokens = torch.from_numpy(_md_serve_inputs(V, n)).cuda()
+        with torch.no_grad(), _on_path(dtype):
+            logits, cache = model.prefill(params, tokens,
+                                          max_seq=MD_SERVE_MAX_SEQ)
+            calls, feed = [logits[:, :V].float().cpu()], []
+            pos = torch.full((MD_SERVE_SLOTS,), n, dtype=torch.int32,
+                             device="cuda")
+            for _ in range(steps):
+                tok = logits[:, :V].argmax(-1).to(torch.int32)
+                feed.append(tok.cpu())
+                logits, cache = model.decode_step(params, cache, tok, pos)
+                calls.append(logits[:, :V].float().cpu())
+                pos = pos + 1
+        path = os.path.join(tmp, f"serve_{key}.pt")
+        torch.save(torch.stack(calls), path)
+        out[key] = {"logits": path, "feed": torch.stack(feed).numpy()}
+        del model, params, cache, logits
+        release()
+    return out
+
+
+def _md_serve_err(got, want, s, wire):
+    """One call's gathered logits against the unsharded ones."""
+    diff = (got - want).abs()
+    top2 = want.topk(2, dim=-1).values
+    differ = got.argmax(-1) != want.argmax(-1)
+    near = top2[:, 0] - top2[:, 1] <= 2 * diff.amax(-1)
+    return {"s": s, "wire": wire, "err": float(diff.max() / want.abs().max()),
+            "differ": int(differ.sum()), "far": int((differ & ~near).sum()),
+            "finite": bool(got.isfinite().all())}
+
+
+def md_serve_rank(mesh, job, runs):
+    """llama3.2-1b served on this rank (``ShardedServe``) in each of
+    ``runs`` (keys of ``MD_SERVE_RUNS``): the sharded prefill of its rows,
+    then the decode steps fed the unsharded greedy tokens; each call's
+    seconds and collective bytes and its logits against the unsharded
+    ones (the gathered rows), the bf16 run's launches and cache blocks;
+    after the float32 run, its control (the last step again with every
+    sequence block's partial but the first left out of the combine)."""
+    from repro_torch import kernels
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.serve_step import ShardedServe, gather_rows
+    from repro_torch.parallel.sharding import param_specs, shard_state
+    out = {}
+    for key in runs:
+        layers, dtype, n, steps = MD_SERVE_RUNS[key]
+        ref = job["serve"][key]
+        model = _md_model(layers, "llama3.2-1b", dtype)
+        params = _md_serve_params(model)
+        local = shard_state(params, mesh, param_specs(model, mesh))
+        del params
+        torch.cuda.empty_cache()
+        serve = ShardedServe(model, mesh, MD_SERVE_SLOTS, MD_SERVE_MAX_SEQ)
+        want = torch.load(ref["logits"])
+        V = model.cfg.vocab_size
+        tokens = serve.local_rows(_md_serve_inputs(V, n))
+        pos = serve.local_rows(torch.full((MD_SERVE_SLOTS,), n,
+                                          dtype=torch.int32))
+        kernels.reset_launch_counts()
+
+        def call(fn, i):
+            coll.COUNTER.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, kv = fn()
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+            got = gather_rows(logits, serve)[:, :V].float().cpu()
+            return kv, _md_serve_err(got, want[i], s,
+                                     dict(coll.COUNTER.bytes))
+        with _on_path(dtype):
+            cache, err = call(lambda: serve.prefill(local, tokens), 0)
+            calls = [err]
+            for i in range(1, steps + 1):
+                feed = serve.local_rows(torch.from_numpy(ref["feed"][i - 1]))
+                _, err = call(lambda: serve.decode_step(local, cache, feed,
+                                                        pos), i)
+                calls.append(err)
+                pos = pos + 1
+            res = {"calls": calls, "launches": kernels.launch_counts(),
+                   "shapes": {k: tuple(v.shape) for k, v in cache.items()}}
+            if dtype == "float32":
+                # the last step again (its K/V rewritten as they were), the
+                # partials of every sequence block but the first left out
+                part, pos = serve._partial, pos - 1
+                serve._partial = lambda q, kc, vc, valid, blk: part(
+                    q, kc, vc, valid if blk.start == 0
+                    else torch.zeros_like(valid), blk)
+                _, res["control"] = call(lambda: serve.decode_step(
+                    local, cache, feed, pos), steps)
+                del serve._partial
+        out[key] = res
+        del local, cache, model
+        torch.cuda.empty_cache()
+    return out
+
+
+def _md_model(layers: int, arch: str = "gpt3-xl",
+              dtype: str = "bfloat16"):
+    """``arch`` at full width, ``layers`` layers and compute ``dtype`` on
+    the card."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
-    return build_model(dataclasses.replace(get_config("gpt3-xl"),
-                                           n_layers=layers), device=device)
+    return build_model(dataclasses.replace(
+        get_config(arch), n_layers=layers, compute_dtype=dtype),
+        device="cuda")
 
 
 def _md_batches(cfg, rows: int, steps: int):
@@ -5860,7 +6261,9 @@ def md_rank(rank, world, job):
     (each block against the same block of the unsharded gradient the
     parent saved), ``MD_STEPS`` sharded steps (seconds, launches and
     collective bytes a step), then the MoE exchange over the four ranks on
-    CUDA tensors.  Returns a summary."""
+    CUDA tensors; then granite-moe-1b-a400m's sharded step
+    (:func:`md_moe_rank`) and llama3.2-1b's sharded serving
+    (:func:`md_serve_rank`).  Returns a summary."""
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch import kernels
     from repro_torch.launch.mesh import make_host_mesh
@@ -5870,6 +6273,7 @@ def md_rank(rank, world, job):
                                                  init_sharded_state)
     from repro_torch.train import OptimizerConfig, make_train_step
     from repro_torch.tree import flatten
+    t_start = time.perf_counter()
     nccl = job["backend"] == "nccl"
     torch.cuda.set_device(rank if nccl else 0)
     groups_on = "cuda" if nccl else "cpu"
@@ -5936,15 +6340,26 @@ def md_rank(rank, world, job):
                 capacity_factor=cf),
             assignments=tl * top_e.shape[1],
             wire=dict(coll.COUNTER.bytes), finite=bool(y.isfinite().all()))
+    del xt, ws, dense, y
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    out["moe_step"] = md_moe_rank(mesh, job, job["moe_passes"])
+    t2 = time.perf_counter()
+    out["serve"] = md_serve_rank(mesh, job, tuple(MD_SERVE_RUNS))
+    out["section_s"] = {"gpt3-xl and the exchange": t1 - t_start,
+                        MOE_ARCH: t2 - t1,
+                        "llama3.2-1b serving": time.perf_counter() - t2}
+    out["peak_all_gib"] = torch.cuda.max_memory_allocated() / 2**30
     return out
 
 
-def md_nccl(model, params, batch, loss0, grads0, tmp):
+def md_nccl(model, params, batch, loss0, grads0, tmp, job):
     """The one nccl rank, in this process (a world of one, before the gloo
     world starts): the sharded step on a (1, 1) mesh against the unsharded
     loss ``loss0`` and gradients ``grads0`` taken on the same weights
-    ``params`` and ``batch``; each collective once on CUDA bf16 tensors
-    through the nccl group."""
+    ``params`` and ``batch``; granite's sharded step and llama3.2-1b's
+    sharded serving against their unsharded runs (``job``); each
+    collective once on CUDA bf16 tensors through the nccl group."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.parallel.sharding import param_specs, shard_state
@@ -5970,15 +6385,19 @@ def md_nccl(model, params, batch, loss0, grads0, tmp):
         dist.reduce_scatter_tensor(out, t)
         dist.all_to_all_single(out, t)
         torch.cuda.synchronize()
-        return {"backend": dist.get_backend(), "loss": float(loss0),
-                "sharded_loss": float(loss1), "grad_max_diff": worst,
-                "collectives_ok": bool(torch.equal(out, t)),
-                "s": time.perf_counter() - t0}
+        res = {"backend": dist.get_backend(), "loss": float(loss0),
+               "sharded_loss": float(loss1), "grad_max_diff": worst,
+               "collectives_ok": bool(torch.equal(out, t)),
+               "s": time.perf_counter() - t0}
+        res["moe_step"] = md_moe_rank(mesh, job, ("bf16",))
+        res["serve"] = md_serve_rank(mesh, job, ("bf16",))
+        return res
     finally:
         dist.destroy_process_group()
 
 
-def phase_multidevice(layers: int = MD_LAYERS, cards: int = 1):
+def phase_multidevice(layers: int = MD_LAYERS, cards: int = 1,
+                      free_routing: bool = False):
     """gpt3-xl at full width and ``layers`` layers trained as four ranks on
     a (data 2, model 2) mesh, gloo ranks sharing the card (``cards`` 1) or
     nccl ranks a card each (``cards`` 4, ``--cards 4``): each rank holds its
@@ -6004,13 +6423,22 @@ def phase_multidevice(layers: int = MD_LAYERS, cards: int = 1):
     their nccl branches over several ranks run on no card here.  Beside
     the loss bound it logs a control (not gated): the unsharded loss of
     the first data rank's rows alone, what the global loss would read had
-    the other data rank taken them.  Returns rank 0's launches over the
+    the other data rank taken them.  Then on every rank granite's sharded
+    step (:func:`md_moe_rank`; bf16 with its routing held, and with
+    ``free_routing`` float32 and bf16 with it free, logged) and
+    llama3.2-1b's sharded serving (:func:`md_serve_rank`; bf16, and
+    float32 with its control), each held to the unsharded runs the parent
+    takes first (:func:`md_check_moe`, :func:`md_check_serve`: every rank
+    logged before a failure raises); the nccl rank runs their bf16
+    passes.  Returns rank 0's launches over the
     steps and the seconds."""
     from repro_torch.launch.mesh import spawn_ranks
     from repro_torch.train import init_train_state, loss_and_grads
     from repro_torch.tree import flatten
     tag = "multidevice"
     L = layers
+    moe_passes = ("bf16",) + (("f32 free", "bf16 free") if free_routing
+                              else ())
     backend = "gloo" if cards == 1 else "nccl"
     t0 = time.perf_counter()
     model = _md_model(L)
@@ -6038,8 +6466,23 @@ def phase_multidevice(layers: int = MD_LAYERS, cards: int = 1):
             f"(a data rank on the other's rows): the first {rows} rows' "
             f"loss {control:.6f}, {control_rel:.3e} of it (the bound "
             f"{MD_LOSS_RTOL})")
+        t1 = time.perf_counter()
+        refs = {"moe": md_moe_reference(tmp, moe_passes),
+                "serve": md_serve_reference(tmp)}
+        moe = refs["moe"]
+        log(f"[{tag}] {MOE_ARCH} at {MD_MOE_LAYERS} of 24 layers, the "
+            f"unsharded step of {MD_BATCH} x {TRAIN_SEQ} tokens: " + "; ".join(
+                f"{dtype} {_md_metrics(m['metrics'])}, the median gap "
+                f"between the 8th and 9th router logits {m['gap_median']:.3e}"
+                for dtype, m in moe.items()) + "; llama3.2-1b "
+            f"served unsharded ({MD_SERVE_SLOTS} prompts, max_seq "
+            f"{MD_SERVE_MAX_SEQ}): " + "; ".join(
+                f"{k} at {r[0]} of 16 layers, prompts of {r[2]} tokens, "
+                f"{r[3]} greedy steps" for k, r in MD_SERVE_RUNS.items())
+            + f"; {time.perf_counter() - t1:.1f} s")
         if cards == 1:
-            nccl = md_nccl(model, state.params, batch, loss, grads, tmp)
+            nccl = md_nccl(model, state.params, batch, loss, grads, tmp,
+                           refs)
             log(f"[{tag}] one {nccl['backend']} rank in this process, "
                 f"(1, 1) mesh, the same {L} layers and {MD_BATCH} x "
                 f"{TRAIN_SEQ} tokens: loss {nccl['loss']:.6f} unsharded, "
@@ -6054,12 +6497,18 @@ def phase_multidevice(layers: int = MD_LAYERS, cards: int = 1):
                     not nccl["grad_max_diff"] <= MD_GRAD_TOL:
                 raise AssertionError(f"{tag}: the nccl rank's sharded step "
                                      f"parts from the unsharded one: {nccl}")
+            problems = md_check_moe(tag, "the nccl rank", nccl["moe_step"],
+                                    moe) + md_check_serve(
+                tag, "the nccl rank", nccl["serve"], (1, 1))
+            if problems:
+                raise AssertionError(f"{tag}: {problems}")
         del model, state, grads
         release()
         t1 = time.perf_counter()
         ranks = spawn_ranks(md_rank, MD_MESH[0] * MD_MESH[1],
-                            {"layers": L, "grads": path, "max_abs": max_abs,
-                             "backend": backend}, backend=backend,
+                            dict(refs, layers=L, grads=path, max_abs=max_abs,
+                                 backend=backend, moe_passes=moe_passes),
+                            backend=backend,
                             timeout_s=900)
         where = "sharing one card" if cards == 1 else "a card each"
         log(f"[{tag}] {len(ranks)} {backend} ranks on a (data, model) = "
@@ -6116,27 +6565,153 @@ def phase_multidevice(layers: int = MD_LAYERS, cards: int = 1):
                                  f"dense combine")
     if not sum(r["moe_2"]["dropped"] for r in ranks):
         raise AssertionError(f"{tag}: no assignment dropped at capacity 2.0")
+    problems = []
+    for r in ranks:
+        who = f"rank {r['rank']}"
+        problems += md_check_moe(tag, who, r["moe_step"], moe)
+        problems += md_check_serve(tag, who, r["serve"], MD_MESH)
+    if problems:
+        raise AssertionError(f"{tag}: {problems}")
+    for key in ("moe_step", "serve"):
+        got = [{k: res.get("metrics") or [c["err"] for c in res["calls"]]
+                for k, res in r[key].items()} for r in ranks]
+        if any(g != got[0] for g in got):
+            raise AssertionError(f"{tag}: {key} differs by rank")
     r0 = ranks[0]
     counts = {k: sum(s["launches"][k] for s in r0["steps"])
               for k in r0["steps"][0]["launches"]}
-    return {"launches": counts,
-            "step_s": [s["s"] for s in r0["steps"]]}
+    log(f"[{tag}] peak a rank over the phase (gpt3-xl, the MoE exchange, "
+        f"granite, llama serving): "
+        + ", ".join(f"{r['peak_all_gib']:.2f}" for r in ranks) + " GiB; "
+        f"seconds a rank by section: " + "; ".join(
+            f"rank {r['rank']} " + ", ".join(
+                f"{k} {v:.1f}" for k, v in r["section_s"].items())
+            for r in ranks))
+    return {"launches": counts, "step_s": [s["s"] for s in r0["steps"]],
+            "moe_launches": r0["moe_step"]["bf16"]["launches"],
+            "serve_launches": r0["serve"]["bf16"]["launches"]}
+
+
+def _md_metrics(m) -> str:
+    return ", ".join(f"{k} {m[k]:.6f}" for k in
+                     ("loss", "ce_loss", "load_balance", "router_z",
+                      "dropped_frac"))
+
+
+def md_check_moe(tag, who, res, ref):
+    """Log one rank's granite passes (:func:`md_moe_rank`), each against
+    the unsharded step of its dtype, and return what the bf16 pass
+    fails of its gates: the loss and the three aux terms within
+    ``MD_LOSS_RTOL``, every gradient block within ``MD_GRAD_TOL``, pairs
+    dropped, exact launches, and at most ``MD_MOE_FLIPS`` of the tokens
+    with an own top-8 that differs from the held one, each a near tie
+    (``MD_MOE_TIE``).  The passes with the
+    routing free are logged, not gated."""
+    L = MD_MOE_LAYERS
+    per_step = {"rmsnorm": 4 * L + 1, "flash_prefill": 2 * L,
+                "flash_bwd": L, "paged_decode": 0, "ssd_scan": 0}
+    keys = ("loss", "ce_loss", "load_balance", "router_z", "dropped_frac")
+    problems = []
+    for name, r in res.items():
+        dtype, held = MD_MOE_PASSES[name]
+        want = ref[dtype]["metrics"]
+        rel = {k: _rel(r["metrics"][k], want[k]) for k in keys}
+        worst = max(r["grad_errs"], key=r["grad_errs"].get)
+        log(f"[{tag}] {who} {MOE_ARCH} sharded step, {name} "
+            f"({'the kernels' if dtype == 'bfloat16' else 'the plain path'}"
+            f", its routing {'held to the unsharded step' if held else 'free'}"
+            f"; {r['flips']} of {r['rows']} tokens' own top-8 differ from the "
+            f"unsharded step's, at gaps between the 8th and 9th router "
+            f"logits up to {r['gap']:.3e}, bounds {MD_MOE_FLIPS} of the "
+            f"tokens and {MD_MOE_TIE}): "
+            f"{_md_metrics(r['metrics'])}; against the unsharded step "
+            + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+            + f" (bound {MD_LOSS_RTOL}); gradient blocks within "
+            f"{r['grad_errs'][worst]:.3e} of each leaf's largest |value| "
+            f"(worst {worst}; bound {MD_GRAD_TOL}); {r['s']:.3f} s, "
+            f"launches {r['launches']}; collective bytes " + ", ".join(
+                f"{k} {v:.4e} ({r['wire_s'][k]:.3f} s)"
+                for k, v in r["wire"].items() if v))
+        if not held:
+            continue
+        if max(rel.values()) > MD_LOSS_RTOL or \
+                r["grad_errs"][worst] > MD_GRAD_TOL or \
+                not r["metrics"]["dropped_frac"] > 0 or \
+                r["launches"] != per_step or not r["gap"] <= MD_MOE_TIE or \
+                not r["flips"] <= MD_MOE_FLIPS * r["rows"]:
+            problems.append(f"{who}'s sharded granite step ({name}) parts "
+                            f"from the unsharded one, drops nothing, flips "
+                            f"past a near tie, or launches {r['launches']} "
+                            f"!= {per_step}")
+    return problems
+
+
+def md_check_serve(tag, who, res, mesh):
+    """Log one rank's sharded serving (:func:`md_serve_rank`) and return
+    what it fails of its gates: the bf16 run's finite logits within ``MD_SERVE_TOL`` of the unsharded
+    ones at every call, every argmax equal but at a near tie, its exact
+    launches (L flash prefills, 2 L + 1 RMSNorms a call) and each cache
+    block a slice of the sequence; the float32 run's logits within
+    ``MD_SERVE_F32_TOL`` at every call, its control past that bound."""
+    seq = MD_SERVE_MAX_SEQ // mesh[1]
+    problems = []
+    for key, r in res.items():
+        layers, _, _, steps = MD_SERVE_RUNS[key]
+        tol = MD_SERVE_TOL if key == "bf16" else MD_SERVE_F32_TOL
+        calls = list(enumerate(r["calls"]))
+        if "control" in r:
+            calls.append(("control", r["control"]))
+        for i, c in calls:
+            name = "prefill" if i == 0 else f"decode {i}" \
+                if i != "control" else (f"control (decode {steps} again, "
+                                        f"the partials past the first "
+                                        f"sequence block left out)")
+            log(f"[{tag}] {who} llama3.2-1b {key} {name}: {c['s']:.3f} s; "
+                f"logits within {c['err']:.3e} of the largest |logit| "
+                f"(bound {tol}); argmax differs at {c['differ']} of "
+                f"{MD_SERVE_SLOTS} rows ({c['far']} past a near tie); "
+                f"collective bytes " + ", ".join(
+                    f"{k} {v:.4e}" for k, v in c["wire"].items() if v))
+        bad = [i for i, c in enumerate(r["calls"]) if not c["finite"]
+               or not c["err"] <= tol or (key == "bf16" and c["far"])]
+        log(f"[{tag}] {who} llama3.2-1b {key} served: launches "
+            f"{r['launches']}; cache blocks {r['shapes']}")
+        if bad or any(shape[2] != seq for shape in r["shapes"].values()):
+            problems.append(f"{who}'s sharded serving ({key}) parts from "
+                            f"the unsharded run at calls {bad}, or its "
+                            f"cache is not a slice of {seq} positions")
+        per_run = {"rmsnorm": (2 * layers + 1) * (steps + 1),
+                   "flash_prefill": layers, "flash_bwd": 0,
+                   "paged_decode": 0, "ssd_scan": 0}
+        if key == "bf16" and r["launches"] != per_run:
+            problems.append(f"{who}'s sharded serving launches "
+                            f"{r['launches']} != {per_run}")
+        if "control" in r and not r["control"]["err"] > tol:
+            problems.append(f"{who}'s float32 serving gate does not see a "
+                            f"partial left out of the combine "
+                            f"({r['control']['err']:.3e})")
+    return problems
 
 
 def main_cards(cards: int) -> int:
-    """``--cards 4``: the multidevice phase alone, gpt3-xl at its 24
-    layers trained as four nccl ranks, one a card, after the build; ends
-    with the same last line as a run on one card."""
-    if cards != MD_MESH[0] * MD_MESH[1]:
-        raise SystemExit(f"chip_smoke: --cards takes {MD_MESH[0] * MD_MESH[1]}"
-                         f" (the (data, model) = {MD_MESH} mesh)")
+    """``--cards 1`` or ``--cards 4``: the multidevice phase alone after
+    the build, with granite's passes with the routing free logged (float32
+    on the plain path, bf16 on the kernels): on one card as
+    in the whole script, or gpt3-xl at its 24 layers trained as four nccl
+    ranks, one a card; ends with the same last line as the whole
+    script."""
+    if cards not in (1, MD_MESH[0] * MD_MESH[1]):
+        raise SystemExit(f"chip_smoke: --cards takes 1 or "
+                         f"{MD_MESH[0] * MD_MESH[1]} (the (data, model) = "
+                         f"{MD_MESH} mesh)")
     smi = phase_device()
     if torch.cuda.device_count() < cards:
         raise SystemExit(f"chip_smoke: --cards {cards} needs {cards} cards, "
                          f"not {torch.cuda.device_count()}")
+    layers = MD_LAYERS if cards == 1 else MD_CARDS_LAYERS
     for name, fn, args in (("build", phase_build, ()),
                            ("multidevice", phase_multidevice,
-                            (MD_CARDS_LAYERS, cards))):
+                            (layers, cards, True))):
         t = time.perf_counter()
         fn(*args)
         log(f"[time] {name}: {time.perf_counter() - t:.1f} s")
@@ -6296,6 +6871,24 @@ def main() -> int:
                 row["launches"] = serve_gpt3[run][name]
                 row["launches_of"] = (f"one gpt3-xl serve run, {run} pages, "
                                       f"CUDA graphs")
+        elif row.get("model") == "multidevice":
+            run = MD_ROW_RUNS[row["name"]]
+            name = name.removesuffix("_lse")
+            if run == "moe":
+                row["launches"] = md["moe_launches"][name]
+                row["launches_of"] = (
+                    f"rank 0 of the (data, model) = {MD_MESH} gloo ranks' "
+                    f"{MOE_ARCH} sharded step at {MD_MOE_LAYERS} layers, "
+                    f"{MD_BATCH // MD_MESH[0]} x {TRAIN_SEQ} tokens and 16 "
+                    f"of 32 experts a rank (bf16, the kernels)")
+            else:
+                row["launches"] = md["serve_launches"][name]
+                row["launches_of"] = (
+                    f"rank 0 of the (data, model) = {MD_MESH} gloo ranks' "
+                    f"llama3.2-1b sharded serving at {MD_SERVE_LAYERS} "
+                    f"layers: the prefill of {MD_SERVE_SLOTS // MD_MESH[0]}"
+                    f" prompts of {MD_SERVE_PROMPT} tokens and "
+                    f"{MD_SERVE_STEPS} context-parallel decode steps")
         elif row.get("model") == "llama3.2-3b":
             run = LLAMA3B_ROW_RUNS[row["name"]]
             name = name.removesuffix("_lse")

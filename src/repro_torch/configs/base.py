@@ -256,3 +256,13 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
         kw["attn_window"] = 32
         kw["global_attn_every"] = cfg.global_attn_every and 2
     return replace(cfg, **kw)
+
+
+def config_summary(cfg: ModelConfig) -> str:
+    """One line naming a config's family, depth, widths and its total and
+    active parameters (the reference's ``config_summary``)."""
+    total, active = cfg.param_count()
+    return (f"{cfg.name}: family={cfg.family} L={cfg.n_layers} "
+            f"d={cfg.d_model} H={cfg.n_heads}/{cfg.n_kv_heads} ff={cfg.d_ff} "
+            f"V={cfg.vocab_size} params={total/1e9:.2f}B "
+            f"active={active/1e9:.2f}B")

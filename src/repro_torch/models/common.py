@@ -19,7 +19,7 @@ is a device-side assert.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -223,14 +223,18 @@ def attention_block(p: Params, x: torch.Tensor, *, cfg_theta: float,
                     softcap: float = 0.0, q_offset: int = 0,
                     block_k: int = 1024, kv_x: Optional[torch.Tensor] = None,
                     return_kv: bool = False,
-                    kv_valid_len: Optional[torch.Tensor] = None):
+                    kv_valid_len: Optional[torch.Tensor] = None,
+                    kv_heads: Optional[Tuple[int, int]] = None):
     """Attention block over x (B, S, d), and over a cross input ``kv_x``
     (B, Sk, d) when given: projections (k and v from ``kv_x``), RoPE (on k
     only for self-attention), attention, output projection.  A cross
     input drops the causal mask (``causal and kv_x is None``), as the
     reference does; with ``return_kv`` the (k, v) returned are then the
     cross input's.  ``kv_valid_len`` (B,) masks key positions >= the
-    per-row valid length (batched bucketed prefill).  Attention is
+    per-row valid length (batched bucketed prefill).  ``kv_heads``
+    (first, count): the KV heads that ``wq``'s heads read, where ``wk``
+    and ``wv`` hold more (a tensor-parallel rank's query heads over KV
+    heads it does not split; the (k, v) returned keep them all).  Attention is
     differentiable under the JAX package's own condition for its Pallas
     training kernels (no softcap, no ``q_offset``, no ``kv_valid_len``;
     see ``flash_prefill``); a cross input takes that path too (the
@@ -244,7 +248,11 @@ def attention_block(p: Params, x: torch.Tensor, *, cfg_theta: float,
         q = apply_rope(q, positions, cfg_theta)
         if kv_x is None:
             k = apply_rope(k, positions, cfg_theta)
-    o = chunked_attention(q, k, v, causal=causal and kv_x is None,
+    ka, va = k, v
+    if kv_heads is not None:
+        k0, n = kv_heads
+        ka, va = k[:, :, k0:k0 + n], v[:, :, k0:k0 + n]
+    o = chunked_attention(q, ka, va, causal=causal and kv_x is None,
                           window=window, q_offset=q_offset, softcap=softcap,
                           block_k=block_k, kv_valid_len=kv_valid_len)
     H, D, d = p["wo"].shape
@@ -332,9 +340,35 @@ def expert_ranks(flat_e: torch.Tensor, n_experts: int):
     return order, row, rank, counts
 
 
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+class MoeShard(NamedTuple):
+    """One rank's part of :func:`apply_moe` on a mesh; the default is the
+    whole layer on one device.  ``e0``: the rank's first expert (its
+    experts are the leading dim of the layer's expert leaves, all E where
+    their ``d_ff`` is split instead).  ``f`` / ``g``: Megatron's pair
+    around the rank-local expert compute (f on the experts' input and the
+    routing weights, g summing the float32 combine over the experts'
+    ranks); ``shared``: the pair around the shared expert.
+    ``data_ranks``: the copies of the rank's T tokens in the global batch,
+    over which the capacity, a pair's rank and the aux means run;
+    ``data_sum``: a sum over those ranks (its gradient summed too);
+    ``before``: (E,) pair counts -> the counts of the data ranks before
+    this one, in the global batch's token-major order."""
+    e0: int = 0
+    f: Callable = _same
+    g: Callable = _same
+    shared: Tuple[Callable, Callable] = (_same, _same)
+    data_ranks: int = 1
+    data_sum: Callable = _same
+    before: Optional[Callable] = None
+
+
 def apply_moe(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
               capacity_factor: float, activation: str, shared_expert: bool,
-              drop: bool = True):
+              drop: bool = True, shard: MoeShard = MoeShard()):
     """The reference's ``apply_moe``: x (B, S, d) -> (y, aux).
 
     Routing by :func:`route_top_k` (f32 logits).  A routed pair (token t,
@@ -355,19 +389,37 @@ def apply_moe(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
     the per-expert counts; a dropped pair is
     computed and masked out of the combine.  Every shape is fixed by
     (B, S): no host sync, so a decode step or prefill bucket stays
-    capturable in a CUDA graph."""
+    capturable in a CUDA graph.
+
+    ``shard`` runs one rank's part on a mesh (:class:`MoeShard`): T, the
+    capacity and the aux means are the global batch's, a pair's rank is
+    offset by the data ranks before it, and the rank's experts are sorted
+    first (the pairs' experts rotated by ``e0``), one group each, the
+    other experts' rows masked; its combine is summed over the experts'
+    ranks by ``g``."""
     B, S, d = x.shape
     T, K, E = B * S, top_k, n_experts
+    El, e0 = p["w_up"].shape[0], shard.e0
     xt = x.reshape(T, d)
     logits, probs, top_w, top_e = route_top_k(xt, p["router"], K)
     flat_e = top_e.reshape(T * K)
-    order, row, rank, counts = expert_ranks(flat_e, E)
-    offs = torch.cumsum(counts, 0).to(torch.int32)
+    part = El < E                  # this rank computes some experts only
+    key = torch.remainder(flat_e - e0, E) if part else flat_e
+    order, row, rank, counts = expert_ranks(key, E)
+    offs = torch.cumsum(counts[:El], 0).to(torch.int32)
+    if part:
+        counts = torch.roll(counts, e0)                      # by expert
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    mine = (torch.arange(T * K, device=x.device) < offs[-1])[:, None] \
+        if part else None
+
+    def masked(t):
+        return t if mine is None else torch.where(mine, t, zero)
 
     def grouped(a, w):
-        return torch._grouped_mm(a, cast(w, a.dtype), offs=offs)
+        return masked(torch._grouped_mm(a, cast(w, a.dtype), offs=offs))
 
-    xs = xt[order // K]                                       # (T*K, d)
+    xs = masked(shard.f(xt)[order // K])                      # (T*K, d)
     if activation == "swiglu":
         h = F.silu(grouped(xs, p["w_gate"])) * grouped(xs, p["w_up"])
     else:
@@ -379,26 +431,34 @@ def apply_moe(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
         else:
             raise ValueError(activation)
     yp = grouped(h, p["w_down"])[row]                         # flat order
+    use = key < El if part else None
+    Tg = T * shard.data_ranks
     if drop:
-        C = max(int(capacity_factor * T * K / E), 1)
-        keep = rank < C
-        yp = torch.where(keep[:, None], yp, torch.zeros((), dtype=yp.dtype,
-                                                        device=yp.device))
+        if shard.before is not None:
+            rank = rank + shard.before(counts)[flat_e]
+        keep = rank < max(int(capacity_factor * Tg * K / E), 1)
+        use = keep if use is None else use & keep
         # the mean as XLA computes the reference's (a division by a
         # constant becomes a product with its f32 reciprocal), so that the
         # dropped fraction is the reference's bit for bit
-        dropped = 1.0 - keep.float().sum() * (1.0 / (T * K))
+        dropped = 1.0 - shard.data_sum(keep.float().sum()) * (1.0 / (Tg * K))
     else:
         dropped = torch.zeros((), device=x.device)
-    y = (yp.reshape(T, K, d).float() * top_w[..., None]).sum(1)
-    y = y.reshape(B, S, d).to(x.dtype)
-    if shared_expert:
-        y = y + apply_mlp(p["shared"], x, activation)
-
-    aux = {"load_balance": E * (probs.mean(0)
-                                * (counts.float() / max(T * K, 1))).sum(),
-           "router_z": torch.logsumexp(logits, dim=-1).square().mean(),
+    # the aux terms before the combine: remat's recompute stops at the
+    # last tensor the backward needs, so it then ends before g's collective
+    total = shard.data_sum(counts.float())
+    aux = {"load_balance": E * (shard.data_sum(probs.sum(0)) * (1.0 / Tg)
+                                * (total / max(Tg * K, 1))).sum(),
+           "router_z": shard.data_sum(torch.logsumexp(
+               logits, dim=-1).square().sum()) * (1.0 / Tg),
            "dropped_frac": dropped}
+    if use is not None:
+        yp = torch.where(use[:, None], yp, zero)
+    y = (yp.reshape(T, K, d).float() * shard.f(top_w)[..., None]).sum(1)
+    y = shard.g(y).reshape(B, S, d).to(x.dtype)
+    if shared_expert:
+        f, g = shard.shared
+        y = y + g(apply_mlp(p["shared"], f(x), activation))
     return y, aux
 
 

@@ -33,7 +33,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from . import common as cm
 from .common import Params
-from .transformer import (AbstractParams, LeafSpec, init_params,
+from .transformer import (AbstractParams, LeafSpec, _meta, init_params,
                           init_scale, resolve_device, unstack_layers)
 
 
@@ -185,9 +185,14 @@ class EncDecLM(AbstractParams):
         return loss, {"loss": loss, "ce_loss": loss}
 
     # -- serving ---------------------------------------------------------
-    def _cache_struct(self, B: int, max_seq: int) -> Dict[str, LeafSpec]:
+    def _cache_struct(self, B: int, max_seq: int,
+                      check: bool = True) -> Dict[str, LeafSpec]:
+        """The cache leaves; ``check`` raises for positions past the
+        learned table (``input_specs`` describes any shape, as the
+        reference's does)."""
         cfg = self.cfg
-        cm.check_positions(max_seq, cfg.max_train_seq)
+        if check:
+            cm.check_positions(max_seq, cfg.max_train_seq)
         L, KV, D = cfg.n_layers, cfg.n_kv_heads, self.head_dim
         dt = self.compute_dtype
         return {"k": LeafSpec((L, B, max_seq, KV, D), dt),
@@ -196,6 +201,11 @@ class EncDecLM(AbstractParams):
                                     dt),
                 "cross_v": LeafSpec((L, B, cfg.encoder_frontend_len, KV, D),
                                     dt)}
+
+    def _extra_inputs(self, B: int):
+        cfg = self.cfg
+        return {"frames": _meta((B, cfg.encoder_frontend_len, cfg.d_model),
+                                self.compute_dtype)}, 0
 
     def init_cache(self, B: int, max_seq: int) -> Dict[str, torch.Tensor]:
         return {k: torch.zeros(s.shape, dtype=s.dtype, device=self.device)

@@ -204,7 +204,8 @@ class HybridLM(AbstractParams):
         return cm.lm_loss(self, params, batch, remat)
 
     # -- serving ---------------------------------------------------------
-    def _cache_struct(self, B: int, max_seq: int) -> Dict[str, LeafSpec]:
+    def _cache_struct(self, B: int, max_seq: int,
+                      check: bool = True) -> Dict[str, LeafSpec]:
         cfg = self.cfg
         s = cfg.ssm
         kv = (self.n_attn, B, max_seq, cfg.n_kv_heads, self.attn_head_dim)

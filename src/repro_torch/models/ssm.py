@@ -324,7 +324,8 @@ class MambaLM(AbstractParams):
         return cm.lm_loss(self, params, batch, remat)
 
     # -- serving ---------------------------------------------------------
-    def _cache_struct(self, B: int, max_seq: int = 0) -> Dict[str, LeafSpec]:
+    def _cache_struct(self, B: int, max_seq: int = 0,
+                      check: bool = True) -> Dict[str, LeafSpec]:
         cfg = self.cfg
         s = cfg.ssm
         return {"ssm": LeafSpec((cfg.n_layers, B, self.nh, s.state_dim,

@@ -124,12 +124,44 @@ def meta_params(shapes, leaf_dtype) -> Params:
             for name, val in shapes.items()}
 
 
+def _meta(shape, dtype=torch.int32) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
 class AbstractParams:
     """What the model classes derive from their ``param_leaves()``:
     ``param_shapes()``, ``param_axes()`` (the reference's logical axis
     names, which ``parallel.sharding`` maps onto a mesh) and
     ``abstract_params(dtype=None)``, the tree of shapes as meta tensors in
-    the dtypes ``init(dtype=)`` gives (``leaf_dtype``)."""
+    the dtypes ``init(dtype=)`` gives (``leaf_dtype``); from their
+    ``_cache_struct`` and ``_extra_inputs``, ``input_specs(shape)``."""
+
+    def _extra_inputs(self, B: int) -> Tuple[Dict[str, torch.Tensor], int]:
+        """A family's inputs beside the tokens in training and prefill, as
+        meta tensors, and how many of the shape's positions they take."""
+        return {}, 0
+
+    def input_specs(self, shape) -> Dict[str, object]:
+        """Meta-tensor stand-ins (shapes and dtypes only) for every input
+        of the entry point a ``ShapeConfig`` names, the reference's
+        ``input_specs``: for ``kind`` "train" int32 ``tokens`` and
+        ``targets`` (B, S), for "prefill" the ``tokens``, each beside the
+        family's extra inputs (a VLM's patch rows, which take P of the S
+        positions; an encoder-decoder's frames); for "decode" int32
+        ``tokens`` and ``pos`` (B,) and the ``cache`` of
+        ``_cache_struct(B, S)``."""
+        B, S = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":
+            return {"tokens": _meta((B,)), "pos": _meta((B,)),
+                    "cache": {k: _meta(s.shape, s.dtype) for k, s in
+                              self._cache_struct(B, S,
+                                                 check=False).items()}}
+        extra, taken = self._extra_inputs(B)
+        specs = {"tokens": _meta((B, S - taken))}
+        if shape.kind == "train":
+            specs["targets"] = _meta((B, S - taken))
+        specs.update(extra)
+        return specs
 
     def param_shapes(self) -> Params:
         """Shape of every parameter leaf, in the reference's tree layout."""
@@ -163,6 +195,12 @@ def _same(t: torch.Tensor) -> torch.Tensor:
 def _tp_hooks(tp: Optional[Dict], block: str) -> Tuple[Callable, Callable]:
     """The (f, g) hooks of ``block`` in ``tp``, identity where none."""
     return (tp or {}).get(block, (_same, _same))
+
+
+def _write_leading(dst: torch.Tensor, t: torch.Tensor, name: str) -> None:
+    """A layer's keys or values ``t`` (B, S, KV, D) into the leading S
+    positions of its cache block ``dst`` (B, max_seq, KV, D)."""
+    dst[:, :t.shape[1]] = t
 
 
 def unstack_layers(tree, n: int):
@@ -255,6 +293,14 @@ class DecoderLM(AbstractParams):
                            self.device, generator,
                            zeros=("bias",), ones=("scale",))
 
+    def _extra_inputs(self, B: int):
+        cfg = self.cfg
+        if cfg.family != "vlm":
+            return {}, 0
+        P = cfg.vision_prefix_len
+        return {"patch_embeds": _meta((B, P, cfg.d_model),
+                                      self.compute_dtype)}, P
+
     # -- forward ---------------------------------------------------------
     def _embed_input(self, params: Params, tokens: torch.Tensor,
                      patch_embeds=None) -> torch.Tensor:
@@ -275,27 +321,30 @@ class DecoderLM(AbstractParams):
         """x plus the layer's MLP, or its MoE layer (capacity-bounded with
         ``drop``, as in training; prefill and decode keep every pair);
         returns (x, the MoE aux dict, empty for a dense layer).  ``tp``'s
-        ``"mlp"`` hooks, when given, wrap the block (see
-        :meth:`_layer_fwd`)."""
+        ``"mlp"`` hooks, when given, wrap a dense block (see
+        :meth:`_layer_fwd`); its ``"moe"`` entry, when given, is the rank's
+        part of the MoE layer (a ``common.MoeShard``: a sharded step's
+        expert-parallel layer)."""
         cfg = self.cfg
-        f, g = _tp_hooks(tp, "mlp")
-        h = f(cm.apply_norm(lp["norm_mlp"], x, cfg.norm))
+        h = cm.apply_norm(lp["norm_mlp"], x, cfg.norm)
         if not cfg.is_moe:
-            return x + g(cm.apply_mlp(lp["mlp"], h, cfg.activation)), {}
+            f, g = _tp_hooks(tp, "mlp")
+            return x + g(cm.apply_mlp(lp["mlp"], f(h), cfg.activation)), {}
         h, aux = cm.apply_moe(
             lp["moe"], h, n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
             capacity_factor=cfg.moe.capacity_factor,
             activation=cfg.activation, shared_expert=cfg.moe.shared_expert,
-            drop=drop)
-        return x + g(h), aux
+            drop=drop, shard=(tp or {}).get("moe", cm.MoeShard()))
+        return x + h, aux
 
     def _layer_fwd(self, lp: Params, x: torch.Tensor, q_offset: int,
                    window: int = 0, tp: Optional[Dict] = None):
         """One layer.  ``tp`` holds tensor-parallel hooks by block
         (``"attn"``, ``"mlp"``): a pair (f, g), f applied to the block's
         normed input and g to its output (Megatron's pair, where a rank
-        computes its heads or columns of ``d_ff`` from ``lp``); a block
-        without hooks runs as it is."""
+        computes its heads or columns of ``d_ff`` from ``lp``), and
+        ``"moe"``, the rank's part of the MoE layer (see
+        :meth:`_mlp_block`); a block without hooks runs as it is."""
         cfg = self.cfg
         f, g = _tp_hooks(tp, "attn")
         h = f(cm.apply_norm(lp["norm_attn"], x, cfg.norm))
@@ -348,13 +397,16 @@ class DecoderLM(AbstractParams):
         return cm.lm_loss(self, params, batch, remat)
 
     # -- serving ---------------------------------------------------------
-    def _cache_struct(self, B: int, max_seq: int) -> Dict[str, LeafSpec]:
+    def _cache_struct(self, B: int, max_seq: int,
+                      check: bool = True) -> Dict[str, LeafSpec]:
         """The cache leaves: "k"/"v" (L, B, max_seq, KV, D); with local
         layers, their rings "k_local"/"v_local" (n_groups, group - 1, B, W,
         KV, D), W = min(attn_window, max_seq), and the global layers'
-        "k_global"/"v_global" (n_groups, B, max_seq, KV, D)."""
+        "k_global"/"v_global" (n_groups, B, max_seq, KV, D).  ``check``
+        raises for positions past a learned table (``input_specs``
+        describes any shape, as the reference's does)."""
         cfg = self.cfg
-        if cfg.positional == "learned":
+        if check and cfg.positional == "learned":
             cm.check_positions(max_seq, cfg.max_train_seq)
         KV, D, dt = cfg.n_kv_heads, self.head_dim, self.compute_dtype
         full = LeafSpec((self.n_groups, B, max_seq, KV, D), dt)
@@ -372,7 +424,12 @@ class DecoderLM(AbstractParams):
     def prefill(self, params: Params, tokens: torch.Tensor,
                 patch_embeds=None, max_seq: Optional[int] = None,
                 remat: bool = True,
-                prompt_lens: Optional[torch.Tensor] = None):
+                prompt_lens: Optional[torch.Tensor] = None, *,
+                tp: Optional[Dict] = None,
+                layer_use: Optional[Callable] = None,
+                kv_heads: Optional[Tuple[int, int]] = None,
+                cache: Optional[Dict[str, torch.Tensor]] = None,
+                cache_write: Optional[Callable] = None):
         """Process prompts (B, S) behind ``patch_embeds`` (B, P, d) when
         given; return (last-position logits (B, Vp), cache {"k", "v"} of
         (L, B, max_seq, KV, D) holding positions 0 .. P + S - 1; with
@@ -385,6 +442,16 @@ class DecoderLM(AbstractParams):
         ``P + prompt_len - 1``, and a ring takes each row's last W valid
         positions (``common.gather_ring_window``).  ``remat`` is accepted
         for the reference's signature; inference keeps no activations.
+
+        The keywords run one rank's part of a sharded prefill
+        (``parallel.serve_step``): ``tp`` the tensor-parallel hooks, as
+        :meth:`_layer_fwd` takes them; ``layer_use`` makes a layer's blocks
+        whole for use; ``kv_heads`` the KV heads the rank's query heads
+        read (``common.attention_block``); ``cache`` the cache blocks to
+        fill (by default a new cache of ``max_seq``); ``cache_write(dst,
+        t, name)`` writes a layer's keys or values t (B, S or W, KV, D)
+        into ``dst``, the layer's block of cache leaf ``name`` (by default
+        into its leading positions).
         """
         cfg = self.cfg
         tokens = torch.as_tensor(tokens, device=self.device)
@@ -392,7 +459,11 @@ class DecoderLM(AbstractParams):
         B, S = x.shape[0], x.shape[1]
         P = S - tokens.shape[1]                      # patch positions
         max_seq = max_seq or S
-        cache = self.init_cache(B, max_seq)
+        if cache is None:
+            cache = self.init_cache(B, max_seq)
+        write = cache_write or _write_leading
+        use = layer_use or _same
+        f, g = _tp_hooks(tp, "attn")
         valid_len = None
         if prompt_lens is not None:
             valid_len = torch.as_tensor(prompt_lens, device=self.device
@@ -402,25 +473,28 @@ class DecoderLM(AbstractParams):
             (B,), S, dtype=torch.int32, device=self.device)
         layers = unstack_layers(params["layers"], cfg.n_layers)
         for layer, lp in enumerate(layers):
-            g, i = divmod(layer, self.group)
+            grp, i = divmod(layer, self.group)
             window = self._layer_window(i)
-            h = cm.apply_norm(lp["norm_attn"], x, cfg.norm)
+            lp = use(lp)
+            h = f(cm.apply_norm(lp["norm_attn"], x, cfg.norm))
             h, (k, v) = cm.attention_block(
                 lp["attn"], h, cfg_theta=cfg.rope_theta,
                 positional=cfg.positional, causal=True, window=window,
                 softcap=cfg.attn_logit_softcap, block_k=self.block_k,
-                return_kv=True, kv_valid_len=valid_len)
-            x, _ = self._mlp_block(lp, x + h, drop=False)
+                return_kv=True, kv_valid_len=valid_len, kv_heads=kv_heads)
+            x, _ = self._mlp_block(lp, x + g(h), drop=False, tp=tp)
             if self.group == 1:
-                cache["k"][layer, :, :S] = k
-                cache["v"][layer, :, :S] = v
+                keys = (("k", k), ("v", v))
             elif window:
-                W = cache["k_local"].shape[3]
-                cache["k_local"][g, i] = cm.gather_ring_window(k, lens, W)
-                cache["v_local"][g, i] = cm.gather_ring_window(v, lens, W)
+                W = min(cfg.attn_window, max_seq)
+                keys = (("k_local", cm.gather_ring_window(k, lens, W)),
+                        ("v_local", cm.gather_ring_window(v, lens, W)))
             else:
-                cache["k_global"][g, :, :S] = k
-                cache["v_global"][g, :, :S] = v
+                keys = (("k_global", k), ("v_global", v))
+            for name, t in keys:
+                ring = name.endswith("_local")
+                write(cache[name][grp, i] if ring else cache[name][grp], t,
+                      name)
         last = x[:, -1:] if valid_len is None \
             else cm.gather_last_positions(x, valid_len)
         return self.logits(params, last)[:, 0], cache

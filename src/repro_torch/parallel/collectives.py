@@ -23,7 +23,7 @@ The port of the JAX package's ``parallel/collectives.py`` over
 * **Autograd functions.**  Megatron's pair :func:`copy_to_parallel`
   (``f``: identity forward, all-reduce backward) and
   :func:`reduce_from_parallel` (``g``: all-reduce forward, identity
-  backward); :func:`gather_data` (FSDP's gather-on-use over the data
+  backward), and both in one, :func:`all_reduce_grad`; :func:`gather_data` (FSDP's gather-on-use over the data
   axes: all-gather forward, reduce-scatter backward);
   :func:`gather_replicated` (a gather-on-use over the model axis where the
   compute that follows is replicated: all-gather forward, the local slice
@@ -257,6 +257,14 @@ def reduce_from_parallel(x: torch.Tensor, group) -> torch.Tensor:
         else _ReduceFromParallel.apply(x, group)
 
 
+def all_reduce_grad(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of the group's ``x``, its gradient summed over the group
+    too (``g`` after ``f``): for a global quantity (an MoE layer's load
+    balance over the data ranks' rows) that every rank's part of the loss
+    takes a share of."""
+    return reduce_from_parallel(copy_to_parallel(x, group), group)
+
+
 def gather_data(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """FSDP's gather-on-use: the blocks along ``dim`` all-gathered; the
     gradient reduce-scattered back (each rank computed a part of it)."""
@@ -433,6 +441,7 @@ def moe_all_to_all_sharded(mesh, xt, top_e, top_w, expert_weights,
 __all__ = ["KINDS", "CollectiveCounter", "COUNTER", "group_size",
            "group_rank", "all_gather", "reduce_scatter", "all_reduce",
            "all_to_all", "copy_to_parallel", "reduce_from_parallel",
-           "gather_data", "gather_replicated", "all_to_all_grad",
+           "all_reduce_grad", "gather_data", "gather_replicated",
+           "all_to_all_grad",
            "mesh_group", "a2a_capacity", "dropped_assignments",
            "moe_all_to_all", "moe_all_to_all_sharded"]

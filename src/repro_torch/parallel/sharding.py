@@ -198,6 +198,17 @@ def cache_specs(cache_tree, mesh):
     return walk(cache_tree)
 
 
+def input_shardings(model, shape, mesh) -> Dict[str, Any]:
+    """The specs of ``model.input_specs(shape)`` on ``mesh``, in its
+    order: each input by :func:`batch_specs`, the decode cache's leaves by
+    :func:`cache_specs` (the reference's ``input_shardings``, which
+    attaches them to ``ShapeDtypeStruct``s for lowering)."""
+    specs = model.input_specs(shape)
+    batch = batch_specs(specs, mesh)
+    return {k: cache_specs(v, mesh) if k == "cache" else batch[k]
+            for k, v in specs.items()}
+
+
 def state_shardings(model, mesh):
     """Specs of a ``TrainState``: params and the AdamW moments by the
     parameter specs, the step and the generator replicated."""
@@ -321,5 +332,6 @@ def gather_state(state, mesh, specs):
 
 __all__ = ["LOGICAL_RULES", "mesh_axes", "data_axes", "entry_names",
            "spec_for_axes", "param_specs", "batch_specs", "cache_specs",
+           "input_shardings",
            "state_shardings", "placements", "mesh_coords", "rank_coords",
            "local_slices", "local_shape", "shard_state", "gather_state"]

@@ -33,10 +33,21 @@ outputs are computed here, once.
   ``jax.make_mesh``'s default Explicit axes, which ``shard_map`` refuses
   without ``jax.set_mesh``).  The exchange's gradient against the dense
   combine's.
+* The MoE and VLM families' sharded loss (granite-moe-1b-a400m's smoke
+  twin at capacity factor ``MOE_CAPACITY`` 1.0, where pairs drop;
+  internvl2-1b's with 8 patch rows a row; granite again on 3 rows, which
+  do not split over the (2, 2) mesh's data axis and stay whole on each
+  data rank, as the rules leave them), in the llama3.2-1b worlds:
+  the loss, the cross entropy and the three aux terms (load balance,
+  router z-loss, dropped fraction: global means over the data ranks)
+  within ``LOSS_RTOL`` of the reference's ``jax.value_and_grad``, every
+  gathered gradient within ``GRAD_RTOL``, the dropped fraction above 0
+  and equal on every rank.
 * A state saved by ``save_sharded`` at (2, 2) restores through
   ``reshard_restore`` at (2, 1) and (1, 2), equal bit for bit after
   gathering (copies: an exact comparison).
 """
+import dataclasses
 import math
 import os
 import subprocess
@@ -49,6 +60,7 @@ import pytest
 
 import jax
 import jax.numpy as jnp
+from repro.models import build_model as jax_build_model
 from repro.parallel import sharding as jsh
 from repro.train import OptimizerConfig as JaxOptConfig
 from repro.train import make_train_step as jax_make_train_step
@@ -75,6 +87,13 @@ PARAM_ATOL = 0.01 * OPT["lr"] * STEPS
 # |difference| relative to its largest |value| (the card's MD_GRAD_TOL)
 BF16_LOSS_RTOL, BF16_GRAD_TOL = 1e-4, 5e-2
 MOE = dict(E=8, K=2, T=64, d=16, ff=32)
+# the MoE and VLM families' sharded loss: granite at a capacity where
+# pairs drop
+FAMILIES = {"granite-moe-1b-a400m": ("granite-moe-1b-a400m", 8),
+            "internvl2-1b": ("internvl2-1b", 8),
+            "granite 3 rows": ("granite-moe-1b-a400m", 3)}
+MOE_CAPACITY = 1.0
+AUX = ("load_balance", "router_z", "dropped_frac")
 MOE_FACTORS = (8.0, 2.0)
 
 
@@ -122,6 +141,38 @@ def reference(arch):
                           params=_flat(state.params), batches=batches,
                           weights=_flat(params), model=model)
     return _REF[arch]
+
+
+_FAMILY = {}
+
+
+def family_reference(name):
+    """A MoE or VLM twin's reference loss, metrics and gradients on a
+    seeded batch (granite at ``MOE_CAPACITY``), and the case the ranks
+    get."""
+    if name not in _FAMILY:
+        arch, rows = FAMILIES[name]
+        model, params, cfg, _, _ = twin(arch)
+        changes = {}
+        if cfg.is_moe:
+            changes = {"moe": {"capacity_factor": MOE_CAPACITY}}
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=MOE_CAPACITY))
+            model = jax_build_model(cfg, block_k=16)
+        batch = _batches(cfg, n=1, B=rows)[0]
+        if cfg.family == "vlm":
+            rng = np.random.default_rng(5)
+            batch["patch_embeds"] = rng.normal(size=(
+                rows, cfg.vision_prefix_len, cfg.d_model)).astype(np.float32)
+        (loss, metrics), grads = jref(model).loss_grad(
+            params, {k: jnp.asarray(v) for k, v in batch.items()},
+            remat=True)
+        _FAMILY[name] = dict(
+            loss=float(loss), grads=_flat(grads),
+            metrics={k: float(v) for k, v in metrics.items()},
+            case=dict(name=name, arch=arch, changes=changes,
+                      params=_flat(params), batch=batch))
+    return _FAMILY[name]
 
 
 def unsharded_bf16(arch):
@@ -226,6 +277,9 @@ def worlds():
                                       factors=MOE_FACTORS)
                 if arch == "llama3.2-1b" and mesh == (2, 2):
                     job["save"] = ckpt
+                if arch == "llama3.2-1b":
+                    job["loss_cases"] = [family_reference(n)["case"]
+                                         for n in FAMILIES]
                 jobs[arch, mesh] = (spawn_ranks, torch_ranks.train_world,
                                     math.prod(mesh), job)
         jobs["a2a"] = (_reference_a2a, _moe_inputs(skew=True), 2.0)
@@ -320,6 +374,30 @@ def test_each_rank_holds_the_blocks_its_specs_say(worlds, arch, mesh):
         == (mesh[0] > 1)
     assert wire["all-reduce"] > 0           # g, f, the loss and the norm
     assert wire["all-to-all"] == 0
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=lambda m: "x".join(map(str, m)))
+@pytest.mark.parametrize("name", FAMILIES)
+def test_moe_and_vlm_sharded_loss_and_grads_match_reference(worlds, name,
+                                                            mesh):
+    ref = family_reference(name)
+    arch = FAMILIES[name][0]
+    ranks = worlds["llama3.2-1b", mesh]
+    r0 = ranks[0]["loss_cases"][name]
+    np.testing.assert_allclose(r0["loss"], ref["loss"], rtol=LOSS_RTOL)
+    keys = ("ce_loss", "loss") + (AUX if arch.startswith("granite") else ())
+    assert set(r0["metrics"]) == set(ref["metrics"]) == set(keys)
+    for k in keys:
+        np.testing.assert_allclose(r0["metrics"][k], ref["metrics"][k],
+                                   rtol=LOSS_RTOL, err_msg=k)
+        assert len({r["loss_cases"][name]["metrics"][k]
+                    for r in ranks}) == 1, k
+    if "dropped_frac" in keys:
+        assert r0["metrics"]["dropped_frac"] > 0      # pairs drop
+    assert set(r0["grads"]) == set(ref["grads"])
+    for path, g in r0["grads"].items():
+        err = _leaf_err(g, ref["grads"][path])
+        assert err <= GRAD_RTOL, f"{path}: {err:.3e} > {GRAD_RTOL}"
 
 
 def test_moe_all_to_all_matches_dense_combine(worlds):

@@ -277,8 +277,8 @@ def test_sharded_count_state_bytes(arch, mesh):
 
 
 def test_sharded_step_refuses_other_families():
-    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m"), n_layers=1)
-    with pytest.raises(NotImplementedError, match="item 11's next slice"):
+    cfg = dataclasses.replace(get_config("mamba2-370m"), n_layers=1)
+    with pytest.raises(NotImplementedError, match="queue 1's next item"):
         count_train_step(cfg, global_batch=4, seq_len=16,
                          mesh=MeshSpec(dp=2, tp=2))
     with fake_world(MeshSpec(dp=2, tp=2)) as mesh:

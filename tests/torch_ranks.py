@@ -17,18 +17,22 @@ from repro_torch.parallel import collectives as coll
 from repro_torch.parallel.sharding import (gather_state, mesh_axes,
                                            param_specs, shard_state,
                                            state_shardings)
+from repro_torch.parallel.serve_step import ShardedServe, gather_rows
 from repro_torch.parallel.train_step import ShardedStep
 from repro_torch.train import OptimizerConfig, TrainState, make_train_step
 from repro_torch.train.optimizer import init_opt_state
 from repro_torch.tree import flatten, unflatten_like
 
 
-def smoke_twin_model(arch: str, compute_dtype: str = "float32"):
+def smoke_twin_model(arch: str, compute_dtype: str = "float32", **changes):
     """The port's smoke model of ``arch`` as ``conftest.smoke_model``
     builds the reference's (float32 compute unless ``compute_dtype`` says
-    otherwise, ``block_k=16``), on the CPU."""
-    cfg = dataclasses.replace(smoke_config(get_config(arch)),
-                              compute_dtype=compute_dtype)
+    otherwise, ``block_k=16``), on the CPU; ``changes`` replace config
+    fields (``attn_window``; ``moe`` as a dict of MoE fields)."""
+    cfg = smoke_config(get_config(arch))
+    if "moe" in changes:
+        changes["moe"] = dataclasses.replace(cfg.moe, **changes["moe"])
+    cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype, **changes)
     return build_model(cfg, block_k=16, device="cpu")
 
 
@@ -79,6 +83,8 @@ def train_world(rank, world, job):
            "data_index": plan.data_index, "wire": wire}
     if job.get("moe"):
         out["moe"] = moe_exchange(mesh, job["moe"])
+    if job.get("loss_cases"):
+        out["loss_cases"] = loss_cases(mesh, job["loss_cases"], rank)
     if job.get("bf16"):
         bf16 = bf16_loss_and_grads(mesh, job)
         if rank == 0:
@@ -103,6 +109,65 @@ def bf16_loss_and_grads(mesh, job):
         shard_state(_tensors(model, job["params"]), mesh, specs),
         plan.local_batch(job["batches"][0]), remat=True)
     return float(loss), _np(gather_state(grads, mesh, specs))
+
+
+def loss_cases(mesh, cases, rank):
+    """The sharded loss, metrics and gathered gradients of each case
+    (``name``, ``arch``, config ``changes``, flat ``params``, global
+    ``batch``) on the mesh; the full results on rank 0, the metrics on
+    every rank."""
+    out = {}
+    for case in cases:
+        model = smoke_twin_model(case["arch"], **case.get("changes", {}))
+        specs = param_specs(model, mesh)
+        plan = ShardedStep(model, mesh)
+        loss, metrics, grads = plan.loss_and_grads(
+            shard_state(_tensors(model, case["params"]), mesh, specs),
+            plan.local_batch(case["batch"]), remat=True)
+        full = gather_state(grads, mesh, specs)
+        res = {"metrics": {k: float(v) for k, v in metrics.items()}}
+        if rank == 0:
+            res.update(loss=float(loss), grads=_np(full))
+        out[case.get("name", case["arch"])] = res
+    return out
+
+
+def serve_world(rank, world, job):
+    """One rank of a (data, model) world serving each case of
+    ``job["cases"]`` (``name``, ``arch``, config ``changes``, flat
+    ``params``, global ``tokens`` and ``patch_embeds``, ``max_seq``,
+    decode ``feed`` tokens (steps, B)) through ``ShardedServe``: the
+    sharded prefill, then a decode step per row of ``feed``.  Returns per
+    case the global logits of the prefill and of each decode step, the
+    rank's cache block shapes and (rank 0) the prefill's cache gathered."""
+    mesh = make_host_mesh(*job["mesh"], device_type="cpu")
+    out = {}
+    for case in job["cases"]:
+        model = smoke_twin_model(case["arch"], **case.get("changes", {}))
+        params = shard_state(_tensors(model, case["params"]), mesh,
+                             param_specs(model, mesh))
+        tokens = torch.from_numpy(case["tokens"])
+        serve = ShardedServe(model, mesh, tokens.shape[0], case["max_seq"])
+        patch = case.get("patch_embeds")
+        patch = None if patch is None else serve.local_rows(
+            torch.from_numpy(patch))
+        logits, cache = serve.prefill(params, serve.local_rows(tokens),
+                                      patch)
+        full = gather_state(cache, mesh, serve.cache_specs)
+        steps = [gather_rows(logits, serve).numpy()]
+        pos = serve.local_rows(torch.full((tokens.shape[0],), case["pos"],
+                                          dtype=torch.int32))
+        for feed in case["feed"]:
+            logits, cache = serve.decode_step(
+                params, cache, serve.local_rows(torch.from_numpy(feed)), pos)
+            steps.append(gather_rows(logits, serve).numpy())
+            pos = pos + 1
+        res = {"logits": steps,
+               "shapes": {k: tuple(v.shape) for k, v in cache.items()}}
+        if rank == 0:
+            res["cache"] = {k: v.numpy() for k, v in full.items()}
+        out[case["name"]] = res
+    return out
 
 
 def restore_world(rank, world, job):
