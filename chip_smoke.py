@@ -291,9 +291,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                  layers' own top-8 choices off the held ones at near ties
                  only (``MD_MOE_TIE``);
                  llama3.2-1b at full width and ``MD_SERVE_LAYERS`` layers
-                 served sharded (``ShardedServe``): 8 prompts of 1016
+                 served sharded (``ShardedServe``): 8 prompts of 1023
                  prefilled into max_seq 2048 (the cache's sequence over
-                 model) and 16 context-parallel decode steps across
+                 model) and 2 context-parallel decode steps across
                  position 1024, held to the unsharded prefill and decode
                  (logits within ``MD_SERVE_TOL``, argmax equal but at a
                  near tie, exact launches), each call's seconds and
@@ -301,7 +301,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                  ``MD_SERVE_F32_LAYERS`` layers across position 1024
                  (``MD_SERVE_F32_TOL``) with a control that leaves a
                  sequence block's partial out of the combine and must
-                 fail that bound; before them one ``nccl`` rank in the
+                 fail that bound; then the SSM, hybrid and encoder-decoder
+                 families (``MD_FAMILIES``: mamba2-370m at 4 layers,
+                 zamba2-7b at 2, seamless-m4t-medium at 2 + 2 with 1024
+                 frames) at full width: one sharded bf16 train step each
+                 (loss and gradient blocks against the unsharded step,
+                 exact launches), a sharded prefill and decode steps in
+                 bf16 on the kernels, and in float32 on the plain path at
+                 one layer with a control that breaks the ranks' combine;
+                 before them one ``nccl`` rank in the
                  script's process on a (1, 1) mesh runs the bf16 passes
                  against the unsharded runs (on a world of one the
                  collectives return early: their nccl branches over
@@ -2626,8 +2634,9 @@ def check_md_kernels(gen):
     with its log-sum-exp and the flash backward at a rank's 8 query heads
     over 4 KV heads and 4 rows of 1024 (rows ``[D64 H8 tp2]``), and
     llama3.2-1b's prefill at a rank's 16 heads over 4 and 4 prompts of
-    ``MD_SERVE_PROMPT`` (row ``[D64 H16 tp2]``).  Returns the rows named
-    in ``MD_ROW_RUNS``, marked with the phase."""
+    ``MD_SERVE_PROMPT`` (row ``[D64 H16 tp2]``); then the shapes of
+    ``MD_FAMILIES``' ranks, their train steps' and their prefills'.
+    Returns the rows named in ``MD_ROW_RUNS``, marked with the phase."""
     rows = list(check_flash_bwd(gen, H=8, KV=4, D=64, edges=(),
                                 tag="[D64 H8 tp2]",
                                 B=MD_BATCH // MD_MESH[0]))
@@ -2635,9 +2644,80 @@ def check_md_kernels(gen):
         gen, MD_SERVE_SLOTS // MD_MESH[0], MD_SERVE_PROMPT, 32 // MD_MESH[1],
         8 // MD_MESH[1], 64, "flash_prefill[D64 H16 tp2]",
         valid_len=[MD_SERVE_PROMPT] * (MD_SERVE_SLOTS // MD_MESH[0])))
+    # the SSM, hybrid and encoder-decoder families' rank shapes
+    # (``MD_FAMILIES``' train steps): mamba2-370m's 16 of 32 heads (N 128),
+    # zamba2-7b's 56 of 112 heads, which read one of its 2 B/C groups (G
+    # 1, N 64), and its shared block's 16 of 32 heads at head_dim 224;
+    # seamless-m4t-medium's 8 of 16 heads, its encoder over the frames and
+    # its cross-attention from the text over them, without the causal mask
+    dp, tp = MD_MESH
+    mamba, zamba, seamless = (MD_FAMILIES[a] for a in (
+        "mamba2-370m", "zamba2-7b", "seamless-m4t-medium"))
+    rows.append(_ssd_row(gen, "ssd_scan[H16 N128 tp2]", dict(
+        B=mamba["train"][0] // dp, S=mamba["train"][1], H=32 // tp, G=1)))
+    rows.append(_ssd_row(gen, "ssd_scan[H56 N64 G1 tp2]", dict(
+        B=zamba["train"][0] // dp, S=zamba["train"][1],
+        H=HYBRID_SSD["H"] // tp, G=1, N=HYBRID_SSD["N"])))
+    H = HYBRID_ATTN["H"] // tp
+    rows += check_flash_bwd(gen, H=H, KV=H, D=HYBRID_ATTN["D"], edges=(),
+                            tag="[D224 H16 tp2]", B=zamba["train"][0] // dp,
+                            Sq=zamba["train"][1])
+    H = ENCDEC_ATTN["H"] // tp
+    B, text = seamless["train"][0] // dp, seamless["train"][1]
+    rows += check_flash_bwd(gen, H=H, KV=H, D=64, causal=False, edges=(),
+                            tag="[enc D64 H8 tp2]", B=B, Sq=MD_FAM_FRAMES)
+    rows += check_flash_bwd(gen, H=H, KV=H, D=64, causal=False, edges=(),
+                            tag="[cross D64 H8 tp2]", B=B, Sq=text,
+                            Sk=MD_FAM_FRAMES)
+    # seamless's causal decoder self-attention in its train step, and the
+    # sharded prefills' calls without the log-sum-exp: zamba2-7b's shared
+    # block over its prompts of 1023 (a partial tile), seamless's encoder
+    # over the frames, its decoder self-attention and its cross-attention
+    # from prompts of 511 over the frames
+    rows += check_flash_bwd(gen, H=H, KV=H, D=64, edges=(),
+                            tag="[dec D64 H8 tp2]", B=B, Sq=text)
+    Hz, Bz, n = HYBRID_ATTN["H"] // tp, zamba["slots"] // dp, zamba["prompt"]
+    rows.append(_prefill_row(gen, Bz, n, Hz, Hz, HYBRID_ATTN["D"],
+                             "flash_prefill[D224 H16 tp2]",
+                             valid_len=[n] * Bz))
+    B, n = seamless["slots"] // dp, seamless["prompt"]
+    rows.append(_nc_prefill_row(gen, B, MD_FAM_FRAMES, MD_FAM_FRAMES, H, H,
+                                64, "flash_prefill[enc D64 H8 tp2]"))
+    rows.append(_prefill_row(gen, B, n, H, H, 64,
+                             "flash_prefill[dec D64 H8 tp2]",
+                             valid_len=[n] * B))
+    rows.append(_nc_prefill_row(gen, B, n, MD_FAM_FRAMES, H, H, 64,
+                                "flash_prefill[cross D64 H8 tp2]"))
     for r in rows:
         r["model"] = "multidevice"
     return rows
+
+
+def _ssd_row(gen, name, shape):
+    """The SSD scan at one shape against its plain version (twice, bitwise
+    equal) and timed (cold L2) beside its bound; its JSON row."""
+    err = _ssd_compare(gen, name, shape, SSD_CHUNK)
+    t = ssd_timings(gen, shape, SSD_CHUNK, plain=True)
+    row = {"name": name, "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+           "replaces": "src/repro/kernels/ssd_scan/kernel.py:82",
+           "shape": f"x ({shape['B']}, {shape['S']}, {shape['H']}, 64) "
+                    f"bf16, B/C G {shape['G']} N {shape.get('N', 128)}, "
+                    f"chunk {SSD_CHUNK}",
+           "timing": f"cold L2: cycles over {t['copies']} input copies; "
+                     f"{TIMING}",
+           "max_abs_err": err,
+           "tol": f"y {SSD_Y_TOL} of max |y|, state {SSD_H_TOL} of "
+                  f"max |h|",
+           "ms": t["ms"], "device_ms": t["device_ms"],
+           "passes_ms": t["passes"], "plain_ms": t["plain_ms"],
+           "library_ms": None, "library_device_ms": None,
+           "library_note": "no single PyTorch call computes the SSD scan"}
+    row["bound_ms"], row["bound_by"] = bound(t["bytes"], t["ops"], "bf16")
+    log(f"[kernels] {name}: kernel {row['ms']:.4f} ms (device time "
+        f"{row['device_ms']:.4f} ms), plain {row['plain_ms']:.4f} ms, "
+        f"library none, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return row
 
 
 def phase_kernels():
@@ -2928,11 +3008,14 @@ def phase_serve(cfg, model, params):
 def profiled_kernels(fn):
     """Run ``fn`` under ``torch.profiler``; (device us, count, name) of
     every device kernel it launched (kernel rows only: an operator's row
-    would count its kernels twice)."""
+    would count its kernels twice).  Only the device is recorded: the
+    host's operators are not read, and recording them cost mamba2-370m's
+    profiled training step 36.8 s against 10.7 s for the same device time
+    (722.7 and 721.2 ms, 32043 and 32017 launches in two consecutive
+    steps), on an H100 80GB HBM3 at 700 W."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
     return [(e.self_device_time_total, e.count, e.key)
             for e in prof.key_averages()
@@ -3996,13 +4079,15 @@ class HeldPath:
 @contextlib.contextmanager
 def plain_path():
     """The port's plain path on the card: the model's kernel wrappers
-    (prefill attention, paged decode, RMSNorm) replaced by their plain
-    versions, and the expert products by one ``torch.mm`` an expert, so
-    that a float32 model runs end to end."""
+    (prefill attention, paged decode, RMSNorm, the SSD scan) replaced by
+    their plain versions, and the expert products by one ``torch.mm`` an
+    expert, so that a float32 model runs end to end."""
     from repro_torch.kernels.flash_attention.paged import paged_attention_ref
     from repro_torch.kernels.flash_attention.prefill import flash_prefill_ref
     from repro_torch.kernels.rmsnorm import rmsnorm_ref
+    from repro_torch.kernels.ssd_scan import ssd_ref
     from repro_torch.models import common as cm
+    from repro_torch.models import ssm
 
     def grouped_mm(a, w, offs):
         out, start = a.new_empty(a.shape[0], w.shape[-1]), 0
@@ -4011,15 +4096,16 @@ def plain_path():
             start = end
         return out
     saved = (cm.flash_prefill, cm.paged_flash_decode, cm.rmsnorm,
-             torch._grouped_mm)
+             torch._grouped_mm, ssm.ssd_scan)
     cm.flash_prefill, cm.paged_flash_decode, cm.rmsnorm = (
         flash_prefill_ref, paged_attention_ref, rmsnorm_ref)
     torch._grouped_mm = grouped_mm
+    ssm.ssd_scan = ssd_ref
     try:
         yield
     finally:
         (cm.flash_prefill, cm.paged_flash_decode, cm.rmsnorm,
-         torch._grouped_mm) = saved
+         torch._grouped_mm, ssm.ssd_scan) = saved
 
 
 def moe_share(cfg, model, params, tag: str = "serve_moe"):
@@ -5874,7 +5960,9 @@ MD_MOE_LAYERS, MD_MOE_TIE, MD_MOE_FLIPS = 4, 5e-2, 0.1
 # MD_SERVE_MAX_SEQ positions (``cache_specs`` shards its sequence over
 # model: positions 0-1023 on model rank 0, 1024-2047 on rank 1), then
 # MD_SERVE_STEPS context-parallel decode steps across position 1024 (the
-# rank that writes the new token's K/V changes), fed the unsharded
+# rank that writes the new token's K/V changes: one step on model rank
+# 0's block, one on rank 1's; more steps within a block repeat its
+# first), fed the unsharded
 # model's greedy tokens; held to the unsharded prefill and dense-cache
 # decode on the same weights: logits within MD_SERVE_TOL of the largest
 # |logit|, every argmax equal but at a near tie (a top-2 margin within
@@ -5888,14 +5976,28 @@ MD_MOE_LAYERS, MD_MOE_TIE, MD_MOE_FLIPS = 4, 5e-2, 0.1
 # 1's (max, sum, out) partial left out of the combine (the one key it
 # holds of 1025), must read past that bound (it read 8.12e-2)
 MD_SERVE_LAYERS, MD_SERVE_SLOTS, MD_SERVE_MAX_SEQ = 4, 8, 2048
-MD_SERVE_PROMPT, MD_SERVE_STEPS, MD_SERVE_TOL = 1016, 16, 2e-2
+MD_SERVE_PROMPT, MD_SERVE_STEPS, MD_SERVE_TOL = 1023, 2, 2e-2
 MD_SERVE_F32_LAYERS, MD_SERVE_F32_PROMPT, MD_SERVE_F32_STEPS = 1, 1024, 1
 MD_SERVE_F32_TOL = 1e-4
 #: the kernel rows of the (2, 2) ranks' shapes and the run whose launches
 #: each reports (rank 0's: granite's bf16 step, llama3.2-1b's serving)
 MD_ROW_RUNS = {"flash_prefill_lse[D64 H8 tp2]": "moe",
                "flash_bwd[D64 H8 tp2]": "moe",
-               "flash_prefill[D64 H16 tp2]": "serve"}
+               "flash_prefill[D64 H16 tp2]": "serve",
+               "ssd_scan[H16 N128 tp2]": "mamba2-370m",
+               "ssd_scan[H56 N64 G1 tp2]": "zamba2-7b",
+               "flash_prefill_lse[D224 H16 tp2]": "zamba2-7b",
+               "flash_bwd[D224 H16 tp2]": "zamba2-7b",
+               "flash_prefill_lse[enc D64 H8 tp2]": "seamless-m4t-medium",
+               "flash_bwd[enc D64 H8 tp2]": "seamless-m4t-medium",
+               "flash_prefill_lse[cross D64 H8 tp2]": "seamless-m4t-medium",
+               "flash_bwd[cross D64 H8 tp2]": "seamless-m4t-medium",
+               "flash_prefill_lse[dec D64 H8 tp2]": "seamless-m4t-medium",
+               "flash_bwd[dec D64 H8 tp2]": "seamless-m4t-medium",
+               "flash_prefill[D224 H16 tp2]": "zamba2-7b",
+               "flash_prefill[enc D64 H8 tp2]": "seamless-m4t-medium",
+               "flash_prefill[dec D64 H8 tp2]": "seamless-m4t-medium",
+               "flash_prefill[cross D64 H8 tp2]": "seamless-m4t-medium"}
 
 
 def _rel(a: float, b: float) -> float:
@@ -6200,6 +6302,458 @@ def md_serve_rank(mesh, job, runs):
     return out
 
 
+# the SSM, hybrid and encoder-decoder families sharded on the same (2, 2)
+# ranks (the attention caches' sequence split in two blocks over model:
+# zamba2-7b's and seamless's two bf16 decode steps write one position on
+# each side of the boundary, their float32 step the first past it)
+# ranks, at full width and reduced depth: mamba2-370m at 4 of its 48
+# layers, zamba2-7b at 2 of 81 (its shared block applied once, before the
+# two Mamba2 blocks of the tail), seamless-m4t-medium at 2 encoder and 2
+# decoder layers of 12 with 1024 frames a row.  Each: one sharded train
+# step in bf16 on the kernels from init_train_state's weights, held to the
+# unsharded step on the same weights and batch (the loss at MD_LOSS_RTOL,
+# every gradient block at MD_GRAD_TOL), then, from _md_serve_params'
+# weights, a sharded prefill and decode steps fed the unsharded model's
+# greedy tokens (logits at MD_SERVE_TOL, every argmax equal but at a near
+# tie); then in float32 on the plain path at one layer (one encoder and
+# one decoder layer for seamless) a prefill and one decode step, logits
+# at MD_SERVE_F32_TOL, and a control that breaks the ranks' combine from
+# the cache as it stood before that step (an attention partial past the
+# first sequence block left out; mamba2's gate norm without its sum over
+# model), which must read past that bound.  The rows stay few: zamba2-7b
+# at full width is ~0.55e9 parameters, which gloo moves through the host.
+# (layers, train rows and tokens, served prompts and their length, the
+# cache's max_seq, decode steps; the float32 pass's prompt length)
+MD_FAMILIES = {
+    "mamba2-370m": dict(layers=4, train=(8, 1024), slots=8, prompt=512,
+                        max_seq=1024, steps=4, f32_prompt=512),
+    "zamba2-7b": dict(layers=2, train=(4, 512), slots=4, prompt=1023,
+                      max_seq=2048, steps=2, f32_prompt=1024),
+    "seamless-m4t-medium": dict(layers=2, train=(4, 256), slots=4,
+                                prompt=511, max_seq=1024, steps=2,
+                                f32_prompt=512)}
+MD_FAM_FRAMES = 1024
+#: a family's train passes and their compute dtype: float32 on the plain
+#: path, held to the unsharded float32 step within MD_LOSS_RTOL and
+#: MD_FAM_F32_GRAD_TOL (the gate that sees a broken combine); bf16 on the
+#: kernels, held to the unsharded bf16 step: the loss within
+#: MD_FAM_BF16_LOSS_RTOL and every gradient block within MD_GRAD_TOL, but
+#: for the leaves where bf16 rounding alone is past that bound: those whose
+#: unsharded bf16 gradient is more than MD_GRAD_TOL of its largest |value|
+#: from the unsharded float32 gradient (a rule on the unsharded runs only,
+#: which the sharded code cannot move).  They are logged with their
+#: readings and left to the float32 pass.  On an H100 80GB HBM3 at 700 W
+#: that is seamless-m4t-medium's cross-attention wq and wk and its
+#: norm_cross scale and bias (0.120-0.199 of their largest |value|; its
+#: cross-attention queries over 1024 near-uniformly weighted frames take a
+#: gradient that is mostly rounding); every other leaf read at most 0.036.
+MD_FAM_TRAIN = {"train": "bfloat16", "train_f32": "float32"}
+MD_FAM_F32_GRAD_TOL = 1e-4
+# the bf16 step's loss against the unsharded bf16 step's: the row-parallel
+# partial sums are rounded to bf16 before g adds them, which moves a
+# zamba2-7b step's loss by 1.931e-5 (its float32 step reads 0 off); the
+# float32 pass holds the loss at MD_LOSS_RTOL
+MD_FAM_BF16_LOSS_RTOL = 1e-4
+# the bf16 gate's control: MD_FAM_CONTROL's bf16 step again with each
+# rank's out_proj partial sums left out of g's combine, through the same
+# check; its loss must read past MD_FAM_BF16_LOSS_RTOL and a gated
+# gradient block past MD_GRAD_TOL
+MD_FAM_CONTROL = "mamba2-370m"
+
+
+def _md_fam_model(arch: str, layers: int, dtype: str):
+    """``arch`` at full width, ``layers`` layers (and encoder layers) and
+    compute ``dtype`` on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(arch)
+    extra = {"n_encoder_layers": layers} if cfg.family == "encdec" else {}
+    return build_model(dataclasses.replace(
+        cfg, n_layers=layers, compute_dtype=dtype, **extra), device="cuda")
+
+
+def _md_fam_inputs(cfg, rows: int, n: int, seed: int):
+    """Seeded tokens (rows, n + 1) and, for an encoder-decoder, frames
+    (rows, MD_FAM_FRAMES, d), on the host."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (rows, n + 1)).astype(np.int32)
+    frames = rng.standard_normal((rows, MD_FAM_FRAMES, cfg.d_model),
+                                 dtype=np.float32) \
+        if cfg.family == "encdec" else None
+    return tokens, frames
+
+
+def _md_fam_batch(cfg, spec):
+    rows, n = spec["train"]
+    tokens, frames = _md_fam_inputs(cfg, rows, n, seed=21)
+    batch = {"tokens": torch.from_numpy(tokens[:, :-1]),
+             "targets": torch.from_numpy(tokens[:, 1:])}
+    if frames is not None:
+        batch["frames"] = torch.from_numpy(frames)
+    return batch
+
+
+#: a family's served passes: (layers, compute dtype, prompt, steps)
+def _md_fam_passes(spec):
+    return {"bf16": (spec["layers"], "bfloat16", spec["prompt"],
+                     spec["steps"]),
+            "f32": (1, "float32", spec["f32_prompt"], 1)}
+
+
+def md_family_reference(tmp):
+    """Each of ``MD_FAMILIES`` unsharded on the card: its bf16 train step
+    (loss, gradients saved under ``tmp``, each leaf's largest |value|) on
+    the kernels, and its served passes (bf16 on the kernels, float32 on
+    the plain path): every call's logits (saved) and the greedy tokens the
+    ranks are fed."""
+    from repro_torch.train import init_train_state, loss_and_grads
+    from repro_torch.tree import flatten
+    out = {}
+    for arch, spec in MD_FAMILIES.items():
+        safe = arch.replace(".", "_")
+        ref, flats = {}, {}
+        for key, dtype in MD_FAM_TRAIN.items():
+            model = _md_fam_model(arch, spec["layers"], dtype)
+            state = init_train_state(model, seed=0)
+            with _on_path(dtype):
+                loss, _, grads = loss_and_grads(
+                    model, state.params, _md_fam_batch(model.cfg, spec))
+            flat = flats[key] = {p: g.float().cpu()
+                                 for p, g in flatten(grads)}
+            ref[key] = {"loss": float(loss),
+                        "max_abs": {p: float(g.abs().max())
+                                    for p, g in flat.items()},
+                        "grads": os.path.join(tmp, f"fam_{safe}_{key}.pt")}
+            torch.save(flat, ref[key]["grads"])
+            del model, state, grads
+            release()
+        # bf16 rounding's own share: the unsharded bf16 step against the
+        # unsharded float32 step, each leaf relative to its bf16 largest
+        bf = ref["train"]
+        bf["loss_noise"] = _rel(bf["loss"], ref["train_f32"]["loss"])
+        bf["noise"] = {p: float((g - flats["train_f32"][p]).abs().max())
+                       / max(bf["max_abs"][p], 1e-30)
+                       for p, g in flats["train"].items()}
+        del flats
+        for key, (layers, dtype, n, steps) in _md_fam_passes(spec).items():
+            model = _md_fam_model(arch, layers, dtype)
+            params = _md_serve_params(model)
+            V, B = model.cfg.vocab_size, spec["slots"]
+            tokens, frames = _md_fam_inputs(model.cfg, B, n - 1, seed=11)
+            tokens = torch.from_numpy(tokens).to(model.device)
+            extra = {} if frames is None else {
+                "frames": torch.from_numpy(frames).to(model.device)}
+            with torch.no_grad(), _on_path(dtype):
+                logits, cache = model.prefill(params, tokens,
+                                              max_seq=spec["max_seq"],
+                                              **extra)
+                calls, feed = [logits[:, :V].float().cpu()], []
+                pos = torch.full((B,), n, dtype=torch.int32,
+                                 device=model.device)
+                for _ in range(steps):
+                    tok = logits[:, :V].argmax(-1).to(torch.int32)
+                    feed.append(tok.cpu())
+                    logits, cache = model.decode_step(params, cache, tok,
+                                                      pos)
+                    calls.append(logits[:, :V].float().cpu())
+                    pos = pos + 1
+            path = os.path.join(tmp, f"fam_{safe}_{key}.pt")
+            torch.save(torch.stack(calls), path)
+            ref[key] = {"logits": path, "feed": torch.stack(feed).numpy()}
+            del model, params, cache, logits
+            release()
+        out[arch] = ref
+    return out
+
+
+def _md_fam_control(serve):
+    """A broken combine for the control: every attention partial past the
+    first sequence block left out, or (attention-free) the gate norm's
+    sum over ``model`` left out."""
+    if serve.mamba is not None and serve.cfg.family == "ssm":
+        serve.mamba = serve.mamba._replace(norm_sum=lambda t: t)
+        return
+    part = serve._partial
+    serve._partial = lambda q, kc, vc, valid, blk: part(
+        q, kc, vc, valid if blk.start == 0 else torch.zeros_like(valid),
+        blk)
+
+
+def md_family_rank(mesh, job, passes=("train", "train_control", "train_f32",
+                                     "bf16", "f32")):
+    """Each of ``MD_FAMILIES`` on this rank: the sharded train steps of
+    ``MD_FAM_TRAIN`` in ``passes`` (seconds, launches, collective bytes,
+    the loss and each gradient block against the unsharded step's of its
+    dtype; with ``"train_control"``, ``MD_FAM_CONTROL``'s bf16 step again
+    with its combine broken), and the served passes
+    of ``passes`` (``ShardedServe``: the prefill, then decode steps fed
+    the unsharded greedy tokens; each call's seconds, collective bytes
+    and gathered logits against the unsharded ones; the bf16 pass's
+    launches and cache blocks; after the float32 pass, its control from
+    the cache as it stood before its step)."""
+    from repro_torch import kernels
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.serve_step import ShardedServe, gather_rows
+    from repro_torch.parallel.sharding import (local_shape, local_slices,
+                                               param_specs, shard_state)
+    from repro_torch.parallel.train_step import (ShardedStep,
+                                                 init_sharded_state)
+    from repro_torch.tree import flatten
+    out = {}
+    for arch, spec in MD_FAMILIES.items():
+        fam, res = job["families"][arch], {"cache_shapes": {}}
+        t_fam = time.perf_counter()
+        for key, dtype in MD_FAM_TRAIN.items():
+            if key not in passes:
+                continue
+            ref = fam[key]
+            model = _md_fam_model(arch, spec["layers"], dtype)
+            state = init_sharded_state(model, mesh, seed=0)
+            plan = ShardedStep(model, mesh)
+            local = plan.local_batch(_md_fam_batch(model.cfg, spec))
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            coll.COUNTER.reset()
+            t0 = time.perf_counter()
+            with _on_path(dtype):
+                loss, _, grads = plan.loss_and_grads(state.params, local)
+            torch.cuda.synchronize()
+            train = {"s": time.perf_counter() - t0, "loss": float(loss),
+                     "ref_loss": ref["loss"],
+                     "noise": ref.get("noise"),
+                     "loss_noise": ref.get("loss_noise"),
+                     "launches": kernels.launch_counts(),
+                     "wire": dict(coll.COUNTER.bytes),
+                     "wire_s": dict(coll.COUNTER.seconds)}
+            want = torch.load(ref["grads"], mmap=True)
+            specs = dict(flatten(plan.specs))
+            coords = {"data": plan.data_index, "model": plan.model_rank}
+
+            def block_errs(grads):
+                errs = {}
+                for path, g in flatten(grads):
+                    block = want[path][local_slices(
+                        want[path].shape, specs[path], plan.sizes, coords)]
+                    errs[path] = float((g.float() - block.to(g.device))
+                                       .abs().max()) \
+                        / max(ref["max_abs"][path], 1e-30)
+                return errs
+            train["grad_errs"] = block_errs(grads)
+            res[key] = train
+            if key == "train" and arch == MD_FAM_CONTROL and \
+                    "train_control" in passes:
+                shard = plan.hooks["mamba"]
+                plan.hooks["mamba"] = shard._replace(g=lambda t: t)
+                with _on_path(dtype):
+                    loss, _, grads = plan.loss_and_grads(state.params, local)
+                plan.hooks["mamba"] = shard
+                res["train_control"] = {"loss": float(loss),
+                                        "grad_errs": block_errs(grads)}
+            del state, grads, want, model, plan
+            torch.cuda.empty_cache()
+        ref = fam
+        for key, (layers, dtype, n, steps) in _md_fam_passes(spec).items():
+            if key not in passes:
+                continue
+            model = _md_fam_model(arch, layers, dtype)
+            params = _md_serve_params(model)
+            local = shard_state(params, mesh, param_specs(model, mesh))
+            del params
+            torch.cuda.empty_cache()
+            B, V = spec["slots"], model.cfg.vocab_size
+            serve = ShardedServe(model, mesh, B, spec["max_seq"])
+            res["cache_shapes"][key] = {
+                k: local_shape(leaf.shape, serve.cache_specs[k],
+                               serve.plan.sizes)
+                for k, leaf in model._cache_struct(
+                    B, spec["max_seq"]).items()}
+            want = torch.load(ref[key]["logits"])
+            tokens, frames = _md_fam_inputs(model.cfg, B, n - 1, seed=11)
+            tokens = serve.local_rows(tokens)
+            extra = None if frames is None else serve.local_rows(frames)
+            pos = serve.local_rows(torch.full((B,), n, dtype=torch.int32))
+            kernels.reset_launch_counts()
+
+            def call(fn, i):
+                coll.COUNTER.reset()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, kv = fn()
+                torch.cuda.synchronize()
+                s = time.perf_counter() - t0
+                got = gather_rows(logits, serve)[:, :V].float().cpu()
+                return kv, _md_serve_err(got, want[i], s,
+                                         dict(coll.COUNTER.bytes))
+            with _on_path(dtype):
+                cache, err = call(lambda: serve.prefill(local, tokens, extra),
+                                  0)
+                calls, before = [err], None
+                for i in range(1, steps + 1):
+                    feed = serve.local_rows(torch.from_numpy(
+                        ref[key]["feed"][i - 1]))
+                    if i == steps and dtype == "float32":
+                        before = {k: v.clone() for k, v in cache.items()}
+                    _, err = call(lambda: serve.decode_step(
+                        local, cache, feed, pos), i)
+                    calls.append(err)
+                    pos = pos + 1
+                served = {"calls": calls,
+                          "launches": kernels.launch_counts(),
+                          "shapes": {k: tuple(v.shape)
+                                     for k, v in cache.items()}}
+                if before is not None:
+                    _md_fam_control(serve)
+                    _, served["control"] = call(lambda: serve.decode_step(
+                        local, before, feed, pos - 1), steps)
+            res[key] = served
+            del local, cache, model, serve, before
+            torch.cuda.empty_cache()
+        res["total_s"] = time.perf_counter() - t_fam
+        out[arch] = res
+    return out
+
+
+def md_family_launches(arch: str, key: str):
+    """The exact launches of a family's sharded run on a rank: ``"train"``
+    the bf16 step (remat recomputes each checkpointed layer's forward:
+    mamba2-370m's layers, seamless's encoder and decoder layers; zamba2-7b
+    at 2 layers runs the shared block and its tail outside any
+    checkpoint), ``"bf16"`` its prefill and decode steps.  The gate norm
+    over a split ``d_inner`` is plain f32, not the RMSNorm kernel, and the
+    decode steps' attention and SSD updates are plain."""
+    spec = MD_FAMILIES[arch]
+    L, calls = spec["layers"], spec["steps"] + 1
+    zero = {"rmsnorm": 0, "flash_prefill": 0, "flash_bwd": 0,
+            "paged_decode": 0, "ssd_scan": 0}
+    if arch == "mamba2-370m":
+        per = {"train": {"rmsnorm": 2 * L + 1, "ssd_scan": 2 * L},
+               "bf16": {"rmsnorm": (L + 1) * calls, "ssd_scan": L}}
+    elif arch == "zamba2-7b":
+        per = {"train": {"rmsnorm": 2 + L + 1, "ssd_scan": L,
+                         "flash_prefill": 1, "flash_bwd": 1},
+               "bf16": {"rmsnorm": (2 + L + 1) * calls, "ssd_scan": L,
+                        "flash_prefill": 1}}
+    else:
+        per = {"train": {"flash_prefill": 2 * 3 * L, "flash_bwd": 3 * L},
+               "bf16": {"flash_prefill": 3 * L}}
+    return dict(zero, **per[key])
+
+
+def md_check_families(tag, who, res, mesh):
+    """Log one rank's family runs (:func:`md_family_rank`) and return what
+    they fail of their gates: the float32 train step's loss within
+    ``MD_LOSS_RTOL`` and every gradient block within
+    ``MD_FAM_F32_GRAD_TOL`` of the unsharded float32 step's; the bf16 train
+    step's loss within ``MD_FAM_BF16_LOSS_RTOL`` and every gradient block
+    within ``MD_GRAD_TOL`` of the unsharded bf16 step's (the leaves where
+    the unsharded bf16 step is itself past ``MD_GRAD_TOL`` from float32
+    logged and left to the float32 pass), exact launches, and its control
+    (``MD_FAM_CONTROL``) past both bounds; the bf16
+    serving's finite logits within ``MD_SERVE_TOL`` at
+    every call, every argmax equal but at a near tie, exact launches; the
+    float32 serving within ``MD_SERVE_F32_TOL`` at every call, its control
+    past that bound; every cache block of the shape ``cache_specs``
+    gives."""
+    problems = []
+    for arch, r in res.items():
+        spec = MD_FAMILIES[arch]
+        for key, dtype in MD_FAM_TRAIN.items():
+            if key not in r:
+                continue
+            t = r[key]
+            rel = _rel(t["loss"], t["ref_loss"])
+            if dtype == "bfloat16":
+                loss_tol, tol = MD_FAM_BF16_LOSS_RTOL, MD_GRAD_TOL
+                out = {p: n for p, n in t["noise"].items() if n > tol}
+                want = md_family_launches(arch, "train")
+                how = (f"bf16, the kernels; the unsharded bf16 loss reads "
+                       f"{t['loss_noise']:.3e} of the float32 one")
+            else:
+                loss_tol, tol, out = MD_LOSS_RTOL, MD_FAM_F32_GRAD_TOL, {}
+                want = None
+                how = "float32, the plain path"
+            gated = {p: e for p, e in t["grad_errs"].items() if p not in out}
+            worst = max(gated, key=gated.get)
+            log(f"[{tag}] {who} {arch} sharded train step at "
+                f"{spec['layers']} layers, {spec['train'][0] // mesh[0]} x "
+                f"{spec['train'][1]} tokens a data rank ({how}): loss "
+                f"{t['loss']:.6f}, {rel:.3e} of the unsharded (bound "
+                f"{loss_tol:.3e}); gradient blocks within "
+                f"{gated[worst]:.3e} of each leaf's largest |value| (worst "
+                f"{worst}, bound {tol:.3e}"
+                + (f"; left to the float32 pass, bf16 rounding alone past "
+                   f"the bound (the unsharded bf16 step's distance from "
+                   f"float32, then this step's reading): " + ", ".join(
+                       f"{p} {n:.3e} {t['grad_errs'][p]:.3e}"
+                       for p, n in out.items()) if out else "")
+                + f"); {t['s']:.3f} s, "
+                f"launches {t['launches']}; collective bytes " + ", ".join(
+                    f"{k} {v:.4e} ({t['wire_s'][k]:.3f} s)"
+                    for k, v in t["wire"].items() if v))
+            if not rel <= loss_tol or not gated[worst] <= tol \
+                    or (want is not None and t["launches"] != want):
+                problems.append(f"{who}'s sharded {arch} step ({dtype}) "
+                                f"parts from the unsharded one or launches "
+                                f"{t['launches']} != {want}")
+            if "train_control" in r and dtype == "bfloat16":
+                c = r["train_control"]
+                c_rel = _rel(c["loss"], t["ref_loss"])
+                c_gated = {p: e for p, e in c["grad_errs"].items()
+                           if p not in out}
+                c_worst = max(c_gated, key=c_gated.get)
+                log(f"[{tag}] {who} {arch} bf16 control (the step again, "
+                    f"out_proj's partial sums left out of g's combine): "
+                    f"loss {c['loss']:.6f}, {c_rel:.3e} of the unsharded "
+                    f"(bound {loss_tol:.3e}); gradient blocks within "
+                    f"{c_gated[c_worst]:.3e} (worst {c_worst}, bound "
+                    f"{tol:.3e}); "
+                    f"{sum(e > tol for e in c_gated.values())} of "
+                    f"{len(c_gated)} gated blocks past the bound")
+                if not (c_rel > loss_tol and c_gated[c_worst] > tol):
+                    problems.append(f"{who}'s bf16 {arch} gate does not "
+                                    f"see its combine broken (loss "
+                                    f"{c_rel:.3e}, gradient "
+                                    f"{c_gated[c_worst]:.3e})")
+        for key, (layers, dtype, n, steps) in _md_fam_passes(spec).items():
+            if key not in r:
+                continue
+            s = r[key]
+            tol = MD_SERVE_TOL if key == "bf16" else MD_SERVE_F32_TOL
+            calls = list(enumerate(s["calls"]))
+            if "control" in s:
+                calls.append(("control", s["control"]))
+            for i, c in calls:
+                name = "prefill" if i == 0 else f"decode {i}" \
+                    if i != "control" else f"control (decode {steps} " \
+                    f"again, its combine broken)"
+                log(f"[{tag}] {who} {arch} {key} at {layers} layers, "
+                    f"{spec['slots']} prompts of {n}: {name}: {c['s']:.3f} "
+                    f"s; logits within {c['err']:.3e} of the largest "
+                    f"|logit| (bound {tol}); argmax differs at "
+                    f"{c['differ']} rows ({c['far']} past a near tie); "
+                    f"collective bytes " + ", ".join(
+                        f"{k} {v:.4e}" for k, v in c["wire"].items() if v))
+            log(f"[{tag}] {who} {arch} {key} served: launches "
+                f"{s['launches']}; cache blocks {s['shapes']}")
+            bad = [i for i, c in enumerate(s["calls"]) if not c["finite"]
+                   or not c["err"] <= tol or (key == "bf16" and c["far"])]
+            if bad or s["shapes"] != r["cache_shapes"][key]:
+                problems.append(f"{who}'s sharded {arch} serving ({key}) "
+                                f"parts from the unsharded run at calls "
+                                f"{bad}, or its cache blocks "
+                                f"{s['shapes']} are not cache_specs' "
+                                f"{r['cache_shapes'][key]}")
+            want = md_family_launches(arch, "bf16")
+            if key == "bf16" and s["launches"] != want:
+                problems.append(f"{who}'s sharded {arch} serving launches "
+                                f"{s['launches']} != {want}")
+            if "control" in s and not s["control"]["err"] > tol:
+                problems.append(f"{who}'s float32 {arch} gate does not see "
+                                f"its combine broken "
+                                f"({s['control']['err']:.3e})")
+    return problems
+
+
 def _md_model(layers: int, arch: str = "gpt3-xl",
               dtype: str = "bfloat16"):
     """``arch`` at full width, ``layers`` layers and compute ``dtype`` on
@@ -6262,8 +6816,10 @@ def md_rank(rank, world, job):
     parent saved), ``MD_STEPS`` sharded steps (seconds, launches and
     collective bytes a step), then the MoE exchange over the four ranks on
     CUDA tensors; then granite-moe-1b-a400m's sharded step
-    (:func:`md_moe_rank`) and llama3.2-1b's sharded serving
-    (:func:`md_serve_rank`).  Returns a summary."""
+    (:func:`md_moe_rank`), llama3.2-1b's sharded serving
+    (:func:`md_serve_rank`) and the SSM, hybrid and encoder-decoder
+    families' sharded step and serving (:func:`md_family_rank`).  Returns
+    a summary."""
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch import kernels
     from repro_torch.launch.mesh import make_host_mesh
@@ -6346,9 +6902,12 @@ def md_rank(rank, world, job):
     out["moe_step"] = md_moe_rank(mesh, job, job["moe_passes"])
     t2 = time.perf_counter()
     out["serve"] = md_serve_rank(mesh, job, tuple(MD_SERVE_RUNS))
+    t3 = time.perf_counter()
+    out["families"] = md_family_rank(mesh, job)
     out["section_s"] = {"gpt3-xl and the exchange": t1 - t_start,
-                        MOE_ARCH: t2 - t1,
-                        "llama3.2-1b serving": time.perf_counter() - t2}
+                        MOE_ARCH: t2 - t1, "llama3.2-1b serving": t3 - t2,
+                        **{arch: f["total_s"]
+                           for arch, f in out["families"].items()}}
     out["peak_all_gib"] = torch.cuda.max_memory_allocated() / 2**30
     return out
 
@@ -6358,8 +6917,9 @@ def md_nccl(model, params, batch, loss0, grads0, tmp, job):
     world starts): the sharded step on a (1, 1) mesh against the unsharded
     loss ``loss0`` and gradients ``grads0`` taken on the same weights
     ``params`` and ``batch``; granite's sharded step and llama3.2-1b's
-    sharded serving against their unsharded runs (``job``); each
-    collective once on CUDA bf16 tensors through the nccl group."""
+    sharded serving, and the SSM, hybrid and encoder-decoder families'
+    sharded step and bf16 serving, against their unsharded runs (``job``);
+    each collective once on CUDA bf16 tensors through the nccl group."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.parallel.sharding import param_specs, shard_state
@@ -6391,6 +6951,7 @@ def md_nccl(model, params, batch, loss0, grads0, tmp, job):
                "s": time.perf_counter() - t0}
         res["moe_step"] = md_moe_rank(mesh, job, ("bf16",))
         res["serve"] = md_serve_rank(mesh, job, ("bf16",))
+        res["families"] = md_family_rank(mesh, job, ("train", "bf16"))
         return res
     finally:
         dist.destroy_process_group()
@@ -6469,6 +7030,20 @@ def phase_multidevice(layers: int = MD_LAYERS, cards: int = 1,
         t1 = time.perf_counter()
         refs = {"moe": md_moe_reference(tmp, moe_passes),
                 "serve": md_serve_reference(tmp)}
+        t2 = time.perf_counter()
+        refs["families"] = md_family_reference(tmp)
+        log(f"[{tag}] the SSM, hybrid and encoder-decoder families "
+            f"unsharded: " + "; ".join(
+                f"{arch} at {sp['layers']} layers, the bf16 step's loss "
+                f"{refs['families'][arch]['train']['loss']:.6f} ("
+                f"{refs['families'][arch]['train']['loss_noise']:.3e} of "
+                f"the float32 step's) over "
+                f"{sp['train'][0]} x {sp['train'][1]} tokens, "
+                f"{sp['slots']} prompts of {sp['prompt']} into max_seq "
+                f"{sp['max_seq']} and {sp['steps']} greedy steps (float32 "
+                f"at 1 layer: prompts of {sp['f32_prompt']}, 1 step)"
+                for arch, sp in MD_FAMILIES.items())
+            + f"; {time.perf_counter() - t2:.1f} s")
         moe = refs["moe"]
         log(f"[{tag}] {MOE_ARCH} at {MD_MOE_LAYERS} of 24 layers, the "
             f"unsharded step of {MD_BATCH} x {TRAIN_SEQ} tokens: " + "; ".join(
@@ -6499,7 +7074,9 @@ def phase_multidevice(layers: int = MD_LAYERS, cards: int = 1,
                                      f"parts from the unsharded one: {nccl}")
             problems = md_check_moe(tag, "the nccl rank", nccl["moe_step"],
                                     moe) + md_check_serve(
-                tag, "the nccl rank", nccl["serve"], (1, 1))
+                tag, "the nccl rank", nccl["serve"], (1, 1)) \
+                + md_check_families(tag, "the nccl rank",
+                                    nccl["families"], (1, 1))
             if problems:
                 raise AssertionError(f"{tag}: {problems}")
         del model, state, grads
@@ -6565,11 +7142,16 @@ def phase_multidevice(layers: int = MD_LAYERS, cards: int = 1,
                                  f"dense combine")
     if not sum(r["moe_2"]["dropped"] for r in ranks):
         raise AssertionError(f"{tag}: no assignment dropped at capacity 2.0")
+    log(f"[{tag}] seconds a rank by section: " + "; ".join(
+        f"rank {r['rank']} " + ", ".join(
+            f"{k} {v:.1f}" for k, v in r["section_s"].items())
+        for r in ranks))
     problems = []
     for r in ranks:
         who = f"rank {r['rank']}"
         problems += md_check_moe(tag, who, r["moe_step"], moe)
         problems += md_check_serve(tag, who, r["serve"], MD_MESH)
+        problems += md_check_families(tag, who, r["families"], MD_MESH)
     if problems:
         raise AssertionError(f"{tag}: {problems}")
     for key in ("moe_step", "serve"):
@@ -6577,19 +7159,25 @@ def phase_multidevice(layers: int = MD_LAYERS, cards: int = 1,
                 for k, res in r[key].items()} for r in ranks]
         if any(g != got[0] for g in got):
             raise AssertionError(f"{tag}: {key} differs by rank")
+    got = [{arch: (f["train"]["loss"], [c["err"] for c in f["bf16"]["calls"]])
+            for arch, f in r["families"].items()} for r in ranks]
+    if any(g != got[0] for g in got):
+        raise AssertionError(f"{tag}: a family's loss or logits differ by "
+                             f"rank")
     r0 = ranks[0]
     counts = {k: sum(s["launches"][k] for s in r0["steps"])
               for k in r0["steps"][0]["launches"]}
     log(f"[{tag}] peak a rank over the phase (gpt3-xl, the MoE exchange, "
-        f"granite, llama serving): "
-        + ", ".join(f"{r['peak_all_gib']:.2f}" for r in ranks) + " GiB; "
-        f"seconds a rank by section: " + "; ".join(
-            f"rank {r['rank']} " + ", ".join(
-                f"{k} {v:.1f}" for k, v in r["section_s"].items())
-            for r in ranks))
+        f"granite, llama serving, the families): "
+        + ", ".join(f"{r['peak_all_gib']:.2f}" for r in ranks) + " GiB")
     return {"launches": counts, "step_s": [s["s"] for s in r0["steps"]],
             "moe_launches": r0["moe_step"]["bf16"]["launches"],
-            "serve_launches": r0["serve"]["bf16"]["launches"]}
+            "serve_launches": r0["serve"]["bf16"]["launches"],
+            "family_launches": {
+                arch: {k: f["train"]["launches"][k]
+                       + f["bf16"]["launches"][k]
+                       for k in f["train"]["launches"]}
+                for arch, f in r0["families"].items()}}
 
 
 def _md_metrics(m) -> str:
@@ -6881,7 +7469,7 @@ def main() -> int:
                     f"{MOE_ARCH} sharded step at {MD_MOE_LAYERS} layers, "
                     f"{MD_BATCH // MD_MESH[0]} x {TRAIN_SEQ} tokens and 16 "
                     f"of 32 experts a rank (bf16, the kernels)")
-            else:
+            elif run == "serve":
                 row["launches"] = md["serve_launches"][name]
                 row["launches_of"] = (
                     f"rank 0 of the (data, model) = {MD_MESH} gloo ranks' "
@@ -6889,6 +7477,16 @@ def main() -> int:
                     f"layers: the prefill of {MD_SERVE_SLOTS // MD_MESH[0]}"
                     f" prompts of {MD_SERVE_PROMPT} tokens and "
                     f"{MD_SERVE_STEPS} context-parallel decode steps")
+            else:
+                sp = MD_FAMILIES[run]
+                row["launches"] = md["family_launches"][run][name]
+                row["launches_of"] = (
+                    f"rank 0 of the (data, model) = {MD_MESH} gloo ranks' "
+                    f"{run} at {sp['layers']} layers: one sharded train "
+                    f"step of {sp['train'][0] // MD_MESH[0]} x "
+                    f"{sp['train'][1]} tokens, then the bf16 prefill of "
+                    f"{sp['slots'] // MD_MESH[0]} prompts of {sp['prompt']}"
+                    f" tokens and {sp['steps']} decode steps")
         elif row.get("model") == "llama3.2-3b":
             run = LLAMA3B_ROW_RUNS[row["name"]]
             name = name.removesuffix("_lse")

@@ -385,8 +385,10 @@ def _count_serve(cfg, inputs, mesh, decode: bool) -> StepCount:
             count = count_step(serve.decode_step, params, local["cache"],
                                local["tokens"], local["pos"])
         else:
+            extra = [local[k] for k in getattr(model, "prefill_extras", ())
+                     if k in local]
             count = count_step(serve.prefill, params, local["tokens"],
-                               local.get("patch_embeds"))
+                               *extra)
         count.resident_bytes = resident_bytes(model, inputs, sizes)
         return count
 
@@ -397,7 +399,8 @@ def count_prefill(cfg, inputs, mesh) -> StepCount:
     :func:`fake_world`, on fake CPU tensors: the parameters in
     ``param_dtype`` (the reference's dry run lowers its prefill on
     ``abstract_params()``), the rank's rows of ``inputs`` (a model's
-    ``input_specs`` of a prefill shape), a cache of the prompt's length."""
+    ``input_specs`` of a prefill shape: the tokens and a VLM's patch rows
+    or an encoder-decoder's frames), a cache of the prompt's length."""
     return _count_serve(cfg, inputs, mesh, decode=False)
 
 

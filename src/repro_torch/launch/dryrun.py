@@ -25,10 +25,8 @@ H100's 80 GB (``hw.h100.HBM_BYTES``).  Every figure is counted on the
 host's CPU, none measured on a card.
 
 Statuses: ``ok``; ``skipped`` with ``cell_is_runnable``'s reason;
-``not_ported`` for the SSM, hybrid and encoder-decoder cells, whose
-sharded step, prefill and decode are ROADMAP queue 1's next item;
 ``error`` with the exception.  ``--all`` exits non-zero while any cell is
-``error`` or ``not_ported``, so nothing is hidden.
+``error``, so nothing is hidden.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape train_4k
@@ -51,12 +49,7 @@ from ..hw.step_count import (count_decode, count_prefill, count_train_step,
 from ..models import build_model
 from ..parallel.collectives import KINDS
 from ..parallel.sharding import data_axes, mesh_axes
-from ..parallel.train_step import FAMILIES
 from .mesh import MeshSpec, make_production_mesh
-
-#: where a family not in ``FAMILIES`` stands
-NOT_PORTED = ("the {family} family's sharded step, prefill and decode are "
-              "ROADMAP queue 1's next item")
 
 
 def production_spec(multi_pod: bool) -> MeshSpec:
@@ -107,10 +100,6 @@ def count_cell(arch: str, shape_name: str, multi_pod: bool = False,
         "mesh": "2x16x16" if multi_pod else "16x16",
         "n_devices": spec.n_devices, "kind": shape.kind,
     }
-    if cfg.family not in FAMILIES:
-        rec.update(status="not_ported",
-                   reason=NOT_PORTED.format(family=cfg.family))
-        return rec
     t0 = time.time()
     inputs = build_model(cfg, device="cpu").input_specs(shape)
     world = production_world(multi_pod) if mesh is None else None
@@ -218,7 +207,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.multi_pod and not args.all:
         meshes = [True]
 
-    counts = {"ok": 0, "skipped": 0, "not_ported": 0, "error": 0}
+    counts = {"ok": 0, "skipped": 0, "error": 0}
     for mp in meshes:
         todo = [(a, s) for a, s in cells if not (
             args.skip_existing and os.path.exists(
@@ -236,9 +225,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                 counts[rec["status"]] += 1
                 print(_line(rec), flush=True)
     print(f"[dryrun] done: {counts['ok']} ok, {counts['skipped']} skipped, "
-          f"{counts['not_ported']} not ported, {counts['error']} errors",
-          flush=True)
-    return 1 if counts["error"] or counts["not_ported"] else 0
+          f"{counts['error']} errors", flush=True)
+    return 1 if counts["error"] else 0
 
 
 if __name__ == "__main__":

@@ -22,10 +22,16 @@ through the paged decode kernel (pages) or the plain dense attention, and
 over the dense cross K/V through the plain ``common.decode_attention`` at
 ``pos = F - 1`` (the reference has no Pallas kernel there).  Frames take no
 cache position: text position t sits at t.
+
+A sharded step or prefill (``parallel.train_step`` / ``serve_step``)
+passes its tensor-parallel hooks (``tp``: f and g around the attention
+blocks, the cross-attention's memory entering through f, and the MLP)
+and takes the place of the encoder's and decoder's layers
+(``enc_fwd`` / ``dec_fwd``).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -33,8 +39,9 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from . import common as cm
 from .common import Params
-from .transformer import (AbstractParams, LeafSpec, _meta, init_params,
-                          init_scale, resolve_device, unstack_layers)
+from .transformer import (AbstractParams, LeafSpec, _meta, _same,
+                          _tp_hooks, _write_leading, init_params, init_scale,
+                          resolve_device, unstack_layers)
 
 
 def _init_scale(name: str, per_layer_shape) -> float:
@@ -114,46 +121,61 @@ class EncDecLM(AbstractParams):
                            stacked_keys=("enc_layers", "dec_layers"))
 
     # -- encoder ---------------------------------------------------------
-    def _enc_body(self, lp: Params, x: torch.Tensor) -> torch.Tensor:
+    def _enc_body(self, lp: Params, x: torch.Tensor,
+                  tp: Optional[Dict] = None) -> torch.Tensor:
+        """One encoder layer; ``tp``'s ``"attn"`` and ``"mlp"`` hooks (f,
+        g) wrap the blocks a rank computes its heads or ``d_ff`` columns
+        of."""
         cfg = self.cfg
-        h = cm.apply_norm(lp["norm_attn"], x, cfg.norm)
-        x = x + cm.attention_block(lp["attn"], h, cfg_theta=0.0,
-                                   positional="learned", causal=False,
-                                   block_k=self.block_k)
-        h = cm.apply_norm(lp["norm_mlp"], x, cfg.norm)
-        return x + cm.apply_mlp(lp["mlp"], h, cfg.activation)
+        f, g = _tp_hooks(tp, "attn")
+        h = f(cm.apply_norm(lp["norm_attn"], x, cfg.norm))
+        x = x + g(cm.attention_block(lp["attn"], h, cfg_theta=0.0,
+                                     positional="learned", causal=False,
+                                     block_k=self.block_k))
+        f, g = _tp_hooks(tp, "mlp")
+        h = f(cm.apply_norm(lp["norm_mlp"], x, cfg.norm))
+        return x + g(cm.apply_mlp(lp["mlp"], h, cfg.activation))
 
-    def encode(self, params: Params, frames,
-               remat: bool = True) -> torch.Tensor:
+    def encode(self, params: Params, frames, remat: bool = True,
+               layer_fwd: Optional[Callable] = None) -> torch.Tensor:
         """frames: (B, F, d) stubbed frontend embeddings -> the memory
         (B, F, d) in the compute dtype.  The frames and ``enc_pos[:F]``
         are each cast to the compute dtype, then summed, as the reference
-        sums them."""
+        sums them.  ``layer_fwd(lp, x)`` takes the place of an encoder
+        layer (a sharded step's)."""
         cfg = self.cfg
+        layer_fwd = layer_fwd or self._enc_body
         frames = torch.as_tensor(frames, device=self.device)
         dt = self.compute_dtype
         x = cm.cast(frames, dt) \
             + cm.cast(params["enc_pos"][:frames.shape[1]], dt)
         for lp in unstack_layers(params["enc_layers"],
                                  cfg.n_encoder_layers):
-            x = checkpoint(self._enc_body, lp, x, use_reentrant=False) \
-                if remat else self._enc_body(lp, x)
+            x = checkpoint(layer_fwd, lp, x, use_reentrant=False) \
+                if remat else layer_fwd(lp, x)
         return cm.apply_norm(params["enc_final_norm"], x, cfg.norm)
 
     # -- decoder ---------------------------------------------------------
     def _dec_body(self, lp: Params, x: torch.Tensor, memory: torch.Tensor,
-                  q_offset: int = 0) -> torch.Tensor:
+                  q_offset: int = 0, tp: Optional[Dict] = None
+                  ) -> torch.Tensor:
+        """One decoder layer; ``tp`` as :meth:`_enc_body` takes it, the
+        memory entering the cross-attention's K/V projections through
+        f."""
         cfg = self.cfg
-        h = cm.apply_norm(lp["norm_attn"], x, cfg.norm)
-        x = x + cm.attention_block(lp["attn"], h, cfg_theta=0.0,
-                                   positional="learned", causal=True,
-                                   q_offset=q_offset, block_k=self.block_k)
-        h = cm.apply_norm(lp["norm_cross"], x, cfg.norm)
-        x = x + cm.attention_block(lp["cross"], h, cfg_theta=0.0,
-                                   positional="learned", causal=False,
-                                   kv_x=memory, block_k=self.block_k)
-        h = cm.apply_norm(lp["norm_mlp"], x, cfg.norm)
-        return x + cm.apply_mlp(lp["mlp"], h, cfg.activation)
+        f, g = _tp_hooks(tp, "attn")
+        h = f(cm.apply_norm(lp["norm_attn"], x, cfg.norm))
+        x = x + g(cm.attention_block(lp["attn"], h, cfg_theta=0.0,
+                                     positional="learned", causal=True,
+                                     q_offset=q_offset,
+                                     block_k=self.block_k))
+        h = f(cm.apply_norm(lp["norm_cross"], x, cfg.norm))
+        x = x + g(cm.attention_block(lp["cross"], h, cfg_theta=0.0,
+                                     positional="learned", causal=False,
+                                     kv_x=f(memory), block_k=self.block_k))
+        f, g = _tp_hooks(tp, "mlp")
+        h = f(cm.apply_norm(lp["norm_mlp"], x, cfg.norm))
+        return x + g(cm.apply_mlp(lp["mlp"], h, cfg.activation))
 
     def logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         x = cm.apply_norm(params["final_norm"], x, self.cfg.norm)
@@ -161,21 +183,26 @@ class EncDecLM(AbstractParams):
 
     # -- training --------------------------------------------------------
     def loss(self, params: Params, batch: Dict[str, torch.Tensor],
-             rng=None, remat: bool = True):
+             rng=None, remat: bool = True,
+             enc_fwd: Optional[Callable] = None,
+             dec_fwd: Optional[Callable] = None):
         """Mean next-token cross entropy with z-loss 1e-4 over the
         decoder's tokens (``batch``: "frames", "tokens", "targets",
         optional "mask"), as the reference's ``EncDecLM.loss``: the frames
         are encoded once, and every decoder layer attends to that memory.
         ``rng`` is accepted for its signature (the model draws nothing).
-        Returns (loss, {"loss", "ce_loss"})."""
+        ``enc_fwd(lp, x)`` and ``dec_fwd(lp, x, memory)`` take the place of
+        the layers (a sharded step's).  Returns (loss, {"loss",
+        "ce_loss"})."""
         cfg = self.cfg
-        memory = self.encode(params, batch["frames"], remat=remat)
+        dec_fwd = dec_fwd or self._dec_body
+        memory = self.encode(params, batch["frames"], remat=remat,
+                             layer_fwd=enc_fwd)
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         x = cm.embed_tokens(params["embed"], tokens, self.compute_dtype)
         for lp in unstack_layers(params["dec_layers"], cfg.n_layers):
-            x = checkpoint(self._dec_body, lp, x, memory,
-                           use_reentrant=False) \
-                if remat else self._dec_body(lp, x, memory)
+            x = checkpoint(dec_fwd, lp, x, memory, use_reentrant=False) \
+                if remat else dec_fwd(lp, x, memory)
         targets = torch.as_tensor(batch["targets"], device=self.device)
         mask = batch.get("mask")
         if mask is not None:
@@ -213,7 +240,13 @@ class EncDecLM(AbstractParams):
 
     def prefill(self, params: Params, tokens: torch.Tensor, frames=None,
                 max_seq: Optional[int] = None, remat: bool = True,
-                prompt_lens: Optional[torch.Tensor] = None):
+                prompt_lens: Optional[torch.Tensor] = None, *,
+                tp: Optional[Dict] = None,
+                layer_use: Optional[Callable] = None,
+                enc_fwd: Optional[Callable] = None,
+                kv_heads: Optional[Tuple[int, int]] = None,
+                cache: Optional[Dict[str, torch.Tensor]] = None,
+                cache_write: Optional[Callable] = None):
         """Encode ``frames`` (B, F, d), run the decoder over the prompts
         (B, S), build the caches: returns (last-position logits (B, Vp),
         cache {"k", "v": positions 0 .. S - 1 of max_seq; "cross_k",
@@ -224,38 +257,52 @@ class EncDecLM(AbstractParams):
         length and the logits are taken at its last valid position
         (cross-attention is per query, so a padded position only changes
         its own unused output).  ``remat`` is accepted for the reference's
-        signature; inference keeps no activations."""
+        signature; inference keeps no activations.
+
+        The keywords run one rank's part of a sharded prefill
+        (``parallel.serve_step``), as ``DecoderLM.prefill`` takes them:
+        ``tp`` the hooks (see :meth:`_dec_body`), ``layer_use`` makes a
+        decoder layer's blocks whole, ``enc_fwd`` an encoder layer (see
+        :meth:`encode`), ``kv_heads`` the KV heads the rank's query heads
+        read, ``cache`` the blocks to fill, ``cache_write(dst, t, name)``
+        a leaf's writer (the cross K/V's frames at their leading
+        positions)."""
         if frames is None:
             raise ValueError(f"{self.cfg.name}: prefill needs the encoder's "
                              f"frames (B, F, d_model)")
         cfg = self.cfg
-        memory = self.encode(params, frames, remat=False)
+        memory = self.encode(params, frames, remat=False, layer_fwd=enc_fwd)
         tokens = torch.as_tensor(tokens, device=self.device)
         x = cm.embed_tokens(params["embed"], tokens, self.compute_dtype)
         B, S = x.shape[0], x.shape[1]
-        cache = self.init_cache(B, max_seq or S)
+        if cache is None:
+            cache = self.init_cache(B, max_seq or S)
+        write = cache_write or _write_leading
+        use = layer_use or _same
+        f, g = _tp_hooks(tp, "attn")
         lens = None if prompt_lens is None else torch.as_tensor(
             prompt_lens, device=self.device).to(torch.int32)
         layers = unstack_layers(params["dec_layers"], cfg.n_layers)
         for layer, lp in enumerate(layers):
-            h = cm.apply_norm(lp["norm_attn"], x, cfg.norm)
+            lp = use(lp)
+            h = f(cm.apply_norm(lp["norm_attn"], x, cfg.norm))
             h, (k, v) = cm.attention_block(
                 lp["attn"], h, cfg_theta=0.0, positional="learned",
                 causal=True, block_k=self.block_k, return_kv=True,
-                kv_valid_len=lens)
-            x = x + h
-            h = cm.apply_norm(lp["norm_cross"], x, cfg.norm)
+                kv_valid_len=lens, kv_heads=kv_heads)
+            x = x + g(h)
+            h = f(cm.apply_norm(lp["norm_cross"], x, cfg.norm))
             h, (ck, cv) = cm.attention_block(
                 lp["cross"], h, cfg_theta=0.0, positional="learned",
                 causal=False, kv_x=memory, block_k=self.block_k,
-                return_kv=True)
-            x = x + h
-            h = cm.apply_norm(lp["norm_mlp"], x, cfg.norm)
-            x = x + cm.apply_mlp(lp["mlp"], h, cfg.activation)
-            cache["k"][layer, :, :S] = k
-            cache["v"][layer, :, :S] = v
-            cache["cross_k"][layer] = ck
-            cache["cross_v"][layer] = cv
+                return_kv=True, kv_heads=kv_heads)
+            x = x + g(h)
+            fm, gm = _tp_hooks(tp, "mlp")
+            h = fm(cm.apply_norm(lp["norm_mlp"], x, cfg.norm))
+            x = x + gm(cm.apply_mlp(lp["mlp"], h, cfg.activation))
+            for name, t in (("k", k), ("v", v), ("cross_k", ck),
+                            ("cross_v", cv)):
+                write(cache[name][layer], t, name)
         last = x[:, -1:] if lens is None \
             else cm.gather_last_positions(x, lens)
         return self.logits(params, last)[:, 0], cache

@@ -23,11 +23,15 @@ under ``torch.utils.checkpoint`` when ``remat`` is on, the tail outside
 it, on f32 masters (``init(dtype=)``); the shared block's attention goes
 through the differentiable flash attention (forward with its log-sum-exp,
 then the flash backward) and the Mamba2 blocks' scans through the SSD
-scan's autograd ``Function``.
+scan's autograd ``Function``.  A sharded step or prefill
+(``parallel.train_step`` / ``serve_step``) passes its tensor-parallel
+hooks (``tp``: f and g around the shared block's attention and MLP, the
+Mamba2 blocks' ``MambaShard``) and takes the place of a group
+(``layer_fwd``).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -37,8 +41,8 @@ from . import common as cm
 from .common import Params
 from .ssm import (init_mamba_params, mamba_block, mamba_decode_step,
                   mamba_layer, mamba_leaf_dtype, mamba_param_leaves)
-from .transformer import AbstractParams, LeafSpec, resolve_device, \
-    unstack_layers
+from .transformer import (AbstractParams, LeafSpec, _same, _tp_hooks,
+                          _write_leading, resolve_device, unstack_layers)
 
 
 class HybridLM(AbstractParams):
@@ -116,19 +120,26 @@ class HybridLM(AbstractParams):
 
     # -- the shared block ------------------------------------------------
     def _shared_fwd(self, sp: Params, h: torch.Tensor, emb: torch.Tensor,
-                    kv_valid_len: Optional[torch.Tensor] = None):
-        """The shared block over a whole sequence; returns (h, (k, v))."""
+                    kv_valid_len: Optional[torch.Tensor] = None,
+                    tp: Optional[Dict] = None,
+                    kv_heads: Optional[Tuple[int, int]] = None):
+        """The shared block over a whole sequence; returns (h, (k, v)).
+        ``tp``'s ``"attn"`` and ``"mlp"`` hooks (f, g) wrap the blocks a
+        rank computes its heads or ``d_ff`` columns of; ``kv_heads`` as
+        ``common.attention_block`` takes it."""
         cfg = self.cfg
-        un = cm.apply_norm(sp["norm_attn"], torch.cat([h, emb], dim=-1),
-                           "rms")
+        f, g = _tp_hooks(tp, "attn")
+        un = f(cm.apply_norm(sp["norm_attn"], torch.cat([h, emb], dim=-1),
+                             "rms"))
         attn_out, kv = cm.attention_block(
             sp["attn"], un, cfg_theta=cfg.rope_theta, positional="rope",
             causal=True, block_k=self.block_k, return_kv=True,
-            kv_valid_len=kv_valid_len)
-        h = h + attn_out
-        un = cm.apply_norm(sp["norm_mlp"], torch.cat([h, emb], dim=-1),
-                           "rms")
-        return h + cm.apply_mlp(sp["mlp"], un, "gelu"), kv
+            kv_valid_len=kv_valid_len, kv_heads=kv_heads)
+        h = h + g(attn_out)
+        f, g = _tp_hooks(tp, "mlp")
+        un = f(cm.apply_norm(sp["norm_mlp"], torch.cat([h, emb], dim=-1),
+                             "rms"))
+        return h + g(cm.apply_mlp(sp["mlp"], un, "gelu")), kv
 
     def _shared_decode(self, sp: Params, h: torch.Tensor, emb: torch.Tensor,
                        kc, vc, pos, rows, block_tables=None, ks=None,
@@ -170,30 +181,37 @@ class HybridLM(AbstractParams):
         return cm.unembed(params["embed"], x)
 
     def _group_fwd(self, shared: Params, layers, x: torch.Tensor,
-                   emb: torch.Tensor) -> torch.Tensor:
-        """One application of the shared block, then its Mamba2 layers."""
-        x = self._shared_fwd(shared, x, emb)[0]
+                   emb: torch.Tensor, tp: Optional[Dict] = None
+                   ) -> torch.Tensor:
+        """One application of the shared block, then its Mamba2 layers
+        (a rank's part with ``tp``)."""
+        x = self._shared_fwd(shared, x, emb, tp=tp)[0]
         for lp in layers:
-            x = mamba_layer(lp, x, self.cfg)
+            x = mamba_layer(lp, x, self.cfg, tp=(tp or {}).get("mamba"))
         return x
 
     def forward_hidden(self, params: Params, x: torch.Tensor,
-                       remat: bool = True):
+                       remat: bool = True,
+                       layer_fwd: Optional[Callable] = None):
         """Run the stack on embedded input x (B, S, d), which is also the
         ``emb`` every application of the shared block reads.  With
         ``remat`` each full group runs under ``torch.utils.checkpoint``
         (only its input is kept, the backward recomputes the rest), as the
         reference wraps its scanned group in ``jax.checkpoint``; the tail
-        runs outside it, as there.  Returns (x, {})."""
+        runs outside it, as there.  ``layer_fwd(shared, layers, x, emb)``
+        takes the place of :meth:`_group_fwd` (a sharded step's, which
+        makes the shared block and the layers whole inside the
+        checkpoint).  Returns (x, {})."""
+        layer_fwd = layer_fwd or self._group_fwd
         layers = unstack_layers(params["layers"], self.cfg.n_layers)
         emb, shared = x, params["shared"]
         for a, group in self._groups():
             lps = [layers[i] for i in group]
             if remat and a < self.n_groups:
-                x = checkpoint(self._group_fwd, shared, lps, x, emb,
+                x = checkpoint(layer_fwd, shared, lps, x, emb,
                                use_reentrant=False)
             else:
-                x = self._group_fwd(shared, lps, x, emb)
+                x = layer_fwd(shared, lps, x, emb)
         return x, {}
 
     def loss(self, params: Params, batch, rng=None, remat: bool = True):
@@ -222,7 +240,12 @@ class HybridLM(AbstractParams):
 
     def prefill(self, params: Params, tokens: torch.Tensor,
                 max_seq: Optional[int] = None, remat: bool = True,
-                prompt_lens: Optional[torch.Tensor] = None):
+                prompt_lens: Optional[torch.Tensor] = None, *,
+                tp: Optional[Dict] = None,
+                layer_use: Optional[Callable] = None,
+                kv_heads: Optional[Tuple[int, int]] = None,
+                cache: Optional[Dict[str, torch.Tensor]] = None,
+                cache_write: Optional[Callable] = None):
         """Process prompts (B, S); return (last-position logits (B, Vp),
         cache {"ssm" (L, B, nh, N, P) f32, "conv" (L, B, W-1, C), "k"/"v"
         (n_attn, B, max_seq, KV, D) zero past S}), as the reference pads
@@ -232,32 +255,45 @@ class HybridLM(AbstractParams):
         right-padded to S, attention masks padded keys, the Mamba2 blocks
         hold their state at each row's length, and the logits are taken at
         each row's last valid position.  ``remat`` is accepted for the
-        reference's signature; inference keeps no activations."""
+        reference's signature; inference keeps no activations.
+
+        The keywords run one rank's part of a sharded prefill
+        (``parallel.serve_step``), as ``DecoderLM.prefill`` takes them:
+        ``tp`` the hooks (see :meth:`_group_fwd`), ``layer_use`` makes a
+        Mamba2 layer's blocks whole (``params["shared"]`` comes whole),
+        ``kv_heads`` the KV heads the rank's query heads read, ``cache``
+        the blocks to fill, ``cache_write(dst, t, name)`` a leaf's
+        writer."""
         cfg = self.cfg
         tokens = torch.as_tensor(tokens, device=self.device)
         x = cm.embed_tokens(params["embed"], tokens, self.compute_dtype)
         B, S = tokens.shape
         lens = None if prompt_lens is None else \
             torch.as_tensor(prompt_lens, device=self.device).to(torch.int32)
-        struct = self._cache_struct(B, max_seq or S)
-        cache = {k: (torch.zeros if k in ("k", "v") else torch.empty)(
-            spec.shape, dtype=spec.dtype, device=self.device)
-            for k, spec in struct.items()}
+        if cache is None:
+            struct = self._cache_struct(B, max_seq or S)
+            cache = {k: (torch.zeros if k in ("k", "v") else torch.empty)(
+                spec.shape, dtype=spec.dtype, device=self.device)
+                for k, spec in struct.items()}
+        write = cache_write or _write_leading
+        use = layer_use or _same
+        shard = (tp or {}).get("mamba")
         layers = unstack_layers(params["layers"], cfg.n_layers)
         emb, shared = x, params["shared"]
         for a, group in self._groups():
-            x, (k, v) = self._shared_fwd(shared, x, emb, kv_valid_len=lens)
-            cache["k"][a, :, :S] = k
-            cache["v"][a, :, :S] = v
+            x, (k, v) = self._shared_fwd(shared, x, emb, kv_valid_len=lens,
+                                         tp=tp, kv_heads=kv_heads)
+            write(cache["k"][a], k, "k")
+            write(cache["v"][a], v, "v")
             for layer in group:
-                lp = layers[layer]
+                lp = use(layers[layer])
                 h = cm.apply_norm(lp["norm"], x, cfg.norm)
                 out, (hf, tail) = mamba_block(lp["mamba"], h, cfg,
                                               return_state=True,
-                                              seq_lens=lens)
+                                              seq_lens=lens, tp=shard)
                 x = x + out
-                cache["ssm"][layer] = hf
-                cache["conv"][layer] = tail
+                write(cache["ssm"][layer], hf, "ssm")
+                write(cache["conv"][layer], tail, "conv")
         last = x[:, -1:] if lens is None \
             else cm.gather_last_positions(x, lens)
         return self.logits(params, last)[:, 0], cache

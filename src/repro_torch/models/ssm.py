@@ -13,10 +13,17 @@ state, conv window) are written in place.  Training (``forward_hidden``,
 ``loss``) runs each layer under ``torch.utils.checkpoint`` when ``remat``
 is on, as the reference wraps its scanned layer in ``jax.checkpoint``, on
 f32 masters (``init(dtype=)``).
+
+A tensor-parallel rank runs its part of each block (``MambaShard``: the
+sharded step, prefill and decode of ``parallel.train_step`` /
+``serve_step``):
+its heads of ``inner``, the B/C columns gathered after the conv, the gate
+norm over the whole ``d_inner`` from a summed sum of squares, and
+``out_proj`` row-parallel.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,8 +33,9 @@ from ..configs.base import ModelConfig
 from ..kernels.ssd_scan import ssd_scan
 from . import common as cm
 from .common import Params
-from .transformer import (AbstractParams, LeafSpec, init_params,
-                          init_scale, resolve_device, unstack_layers)
+from .transformer import (AbstractParams, LeafSpec, _same, _write_leading,
+                          init_params, init_scale, resolve_device,
+                          unstack_layers)
 
 _DT_BIAS = -4.6  # softplus^-1(0.01): default timestep at init
 #: leaves held in float32 whatever the compute dtype: the reference reads
@@ -109,15 +117,81 @@ def _dims(cfg: ModelConfig):
     return s, d_in, d_in // s.head_dim, s.n_groups * s.state_dim
 
 
-def _gated_out(p: Params, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    y = cm.apply_norm(p["gate_norm"], y * F.silu(z), "rms")
-    return y @ cm.cast(p["out_proj"], y.dtype)
+class MambaShard(NamedTuple):
+    """One tensor-parallel rank's part of a Mamba2 block (its heads of
+    ``inner`` over ``model``); no shard is the whole block.  ``h0``,
+    ``nh``: the rank's first head and its heads (``w_z``, ``w_x``, the x
+    conv, ``gate_norm`` and ``out_proj`` hold their columns or rows; the
+    per-head leaves ``w_dt``, ``dt_bias``, ``A_log`` and ``D`` are whole
+    and sliced here); ``g0``, ``ng``: the B/C groups those heads read.
+    ``f`` / ``g``: Megatron's pair, f on the block's input, g on
+    ``out_proj``'s partial sums.  ``gather``: the model ranks' B/C columns
+    after the conv, concatenated on the last dim (identity where
+    ``w_bc`` is whole).  ``norm_sum``: the sum over the model ranks of the
+    gate norm's sums of squares, its gradient summed too; ``width`` the
+    whole ``d_inner`` it is taken over.
+
+    A sharded decode (:func:`mamba_decode_step`) keeps the caches in their
+    own layout and sets three more: ``window(conv, xs, bc)`` gives, from
+    the rank's block of the conv window and the token's x and B/C columns,
+    the past window's x and B/C columns of the rank and its new block;
+    ``to_state`` moves the token's dt-scaled x of the rank's heads into the
+    SSM state's layout and ``from_state`` moves y back."""
+    h0: int
+    nh: int
+    g0: int
+    ng: int
+    width: int
+    f: Callable
+    g: Callable
+    gather: Callable
+    norm_sum: Callable
+    window: Optional[Callable] = None
+    to_state: Optional[Callable] = None
+    from_state: Optional[Callable] = None
+
+
+def split_rmsnorm(x: torch.Tensor, scale: torch.Tensor, total: Callable,
+                  width: int, eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm of rows whose ``width`` columns are split over ranks, x the
+    rank's columns: the ``rmsnorm`` kernel's recipe in plain f32 (the mean
+    of squares, rsqrt, times the f32 scale, cast back), the sum of squares
+    summed over the ranks by ``total``."""
+    x32 = x.float()
+    var = total(x32.square().sum(-1, keepdim=True)) / width
+    return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def _own(t: torch.Tensor, tp: Optional[MambaShard]) -> torch.Tensor:
+    """The rank's heads (last dim) of a whole per-head leaf."""
+    return t if tp is None else t.narrow(-1, tp.h0, tp.nh)
+
+
+def _gated_out(p: Params, y: torch.Tensor, z: torch.Tensor,
+               tp: Optional[MambaShard] = None) -> torch.Tensor:
+    y = y * F.silu(z)
+    if tp is None:
+        y = cm.apply_norm(p["gate_norm"], y, "rms")
+    else:
+        y = split_rmsnorm(y, p["gate_norm"]["scale"], tp.norm_sum, tp.width)
+    out = y @ cm.cast(p["out_proj"], y.dtype)
+    return out if tp is None else tp.g(out)
+
+
+def _groups(t: torch.Tensor, cfg: ModelConfig,
+            tp: Optional[MambaShard]) -> torch.Tensor:
+    """(..., G N) B or C columns as (..., G, N), the rank's groups."""
+    s = cfg.ssm
+    t = t.reshape(t.shape[:-1] + (s.n_groups, s.state_dim))
+    return t if tp is None else t.narrow(-2, tp.g0, tp.ng)
 
 
 def mamba_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 h0: Optional[torch.Tensor] = None, return_state: bool = False,
-                seq_lens: Optional[torch.Tensor] = None):
-    """Full-sequence Mamba2 block.  x: (B, S, d).
+                seq_lens: Optional[torch.Tensor] = None,
+                tp: Optional[MambaShard] = None):
+    """Full-sequence Mamba2 block.  x: (B, S, d).  ``tp``: a rank's part
+    (:class:`MambaShard`; its heads, states and conv columns).
 
     ``seq_lens`` (B,) marks per-row valid lengths for right-padded batched
     prefill: padded positions get ``dt = 0``, which makes the SSD
@@ -128,29 +202,33 @@ def mamba_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
     """
     s, d_in, nh, gn = _dims(cfg)
     B_, S, _ = x.shape
+    if tp is not None:
+        x = tp.f(x)
+        nh, d_in = tp.nh, tp.nh * s.head_dim
     z = x @ cm.cast(p["w_z"], x.dtype)
     xs = x @ cm.cast(p["w_x"], x.dtype)
     bc = x @ cm.cast(p["w_bc"], x.dtype)
-    dt = x @ cm.cast(p["w_dt"], x.dtype)
+    dt = x @ cm.cast(_own(p["w_dt"], tp), x.dtype)
     conv_in = torch.cat([xs, bc], dim=-1)
     xs = F.silu(causal_conv(xs, p["conv_x_w"], p["conv_x_b"]))
     bc_c = F.silu(causal_conv(bc, p["conv_bc_w"], p["conv_bc_b"]))
+    if tp is not None:
+        bc_c = tp.gather(bc_c)
     Bm, Cm = bc_c[..., :gn], bc_c[..., gn:]
-    dt = F.softplus(dt.float() + p["dt_bias"].float() + _DT_BIAS)
+    dt = F.softplus(dt.float() + _own(p["dt_bias"], tp).float() + _DT_BIAS)
     if seq_lens is not None:
         # padded positions: dt = 0 -> log-decay 0 and no input update
         valid = torch.arange(S, device=x.device)[None, :] \
             < seq_lens.to(x.device)[:, None]
         dt = dt * valid[..., None]
-    A = -torch.exp(p["A_log"].float())                        # (nh,)
+    A = -torch.exp(_own(p["A_log"], tp).float())              # (nh,)
     a = dt * A                                                # (B, S, nh)
     xh = xs.reshape(B_, S, nh, s.head_dim)
     xb = xh * dt[..., None].to(xh.dtype)
-    y, h_final = ssd_chunked(xb, a, Bm.reshape(B_, S, s.n_groups, s.state_dim),
-                             Cm.reshape(B_, S, s.n_groups, s.state_dim),
-                             s.chunk_size, h0=h0)
-    y = y + cm.cast(p["D"], y.dtype)[None, None, :, None] * xh
-    out = _gated_out(p, y.reshape(B_, S, d_in), z)
+    y, h_final = ssd_chunked(xb, a, _groups(Bm, cfg, tp),
+                             _groups(Cm, cfg, tp), s.chunk_size, h0=h0)
+    y = y + cm.cast(_own(p["D"], tp), y.dtype)[None, None, :, None] * xh
+    out = _gated_out(p, y.reshape(B_, S, d_in), z, tp)
     if not return_state:
         return out
     # conv tail: the last W-1 raw conv inputs, at each row's true end
@@ -164,12 +242,13 @@ def mamba_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
     return out, (h_final, tail)
 
 
-def mamba_layer(lp: Params, x: torch.Tensor, cfg: ModelConfig
-                ) -> torch.Tensor:
+def mamba_layer(lp: Params, x: torch.Tensor, cfg: ModelConfig,
+                tp: Optional[MambaShard] = None) -> torch.Tensor:
     """A residual layer of the training forward: x + mamba_block(norm(x)),
-    ``lp`` holding the layer's ``norm`` and ``mamba`` leaves."""
+    ``lp`` holding the layer's ``norm`` and ``mamba`` leaves (a rank's
+    part with ``tp``)."""
     h = cm.apply_norm(lp["norm"], x, cfg.norm)
-    return x + mamba_block(lp["mamba"], h, cfg)
+    return x + mamba_block(lp["mamba"], h, cfg, tp=tp)
 
 
 def mamba_param_leaves(cfg: ModelConfig) -> Params:
@@ -215,38 +294,50 @@ def init_mamba_params(shapes: Params, dtype: torch.dtype, device,
         else init_scale(name, per))
 
 
-def mamba_decode_step(p: Params, x: torch.Tensor, cache, cfg: ModelConfig):
+def mamba_decode_step(p: Params, x: torch.Tensor, cache, cfg: ModelConfig,
+                      tp: Optional[MambaShard] = None):
     """One-token Mamba2 step.  x: (B, 1, d); cache = (ssm_state, conv_window).
 
     The conv window stores concat(x_seg, bc_seg) raw conv inputs; the two
     depthwise convs run on their own segments (identical to the fused
-    form).  Returns (out (B, 1, d), (ssm_state, conv_window)), both new."""
+    form).  ``tp``: a rank's part (:class:`MambaShard` with its decode
+    hooks): its heads of x, z and y, the B/C columns gathered after the
+    conv, the state and conv window as the rank's blocks of the cache.
+    Returns (out (B, 1, d), (ssm_state, conv_window)), both new."""
     s, d_in, nh, gn = _dims(cfg)
     h, conv_win = cache
     B_ = x.shape[0]
-    x1 = x[:, 0]
+    x1 = x[:, 0] if tp is None else tp.f(x[:, 0])
     z = x1 @ cm.cast(p["w_z"], x.dtype)
     xs = x1 @ cm.cast(p["w_x"], x.dtype)
     bc = x1 @ cm.cast(p["w_bc"], x.dtype)
-    dt = x1 @ cm.cast(p["w_dt"], x.dtype)
-    xs_out, win_x = conv_decode_step(conv_win[..., :d_in], xs,
-                                     p["conv_x_w"], p["conv_x_b"])
-    bc_out, win_bc = conv_decode_step(conv_win[..., d_in:], bc,
+    dt = x1 @ cm.cast(p["w_dt"], x.dtype)                    # every head
+    if tp is None:
+        win_x, win_bc = conv_win[..., :d_in], conv_win[..., d_in:]
+    else:
+        win_x, win_bc, conv_win = tp.window(conv_win, xs, bc)
+    xs_out, win_x = conv_decode_step(win_x, xs, p["conv_x_w"], p["conv_x_b"])
+    bc_out, win_bc = conv_decode_step(win_bc, bc,
                                       p["conv_bc_w"], p["conv_bc_b"])
-    conv_win = torch.cat([win_x, win_bc], dim=-1)
+    if tp is None:
+        conv_win = torch.cat([win_x, win_bc], dim=-1)
     xs = F.silu(xs_out)
     bc_out = F.silu(bc_out)
+    if tp is not None:
+        bc_out = tp.gather(bc_out)
     Bm, Cm = bc_out[..., :gn], bc_out[..., gn:]
     dt = F.softplus(dt.float() + p["dt_bias"].float() + _DT_BIAS)
     A = -torch.exp(p["A_log"].float())
     a = dt * A                                                # (B, nh)
-    xh = xs.reshape(B_, nh, s.head_dim)
-    xb = xh * dt[..., None].to(xh.dtype)
-    y, h = ssd_decode_step(h, xb, a,
+    xh = xs.reshape(B_, -1, s.head_dim)
+    xb = xh * _own(dt, tp)[..., None].to(xh.dtype)
+    y, h = ssd_decode_step(h, xb if tp is None else tp.to_state(xb), a,
                            Bm.reshape(B_, s.n_groups, s.state_dim),
                            Cm.reshape(B_, s.n_groups, s.state_dim))
-    y = y + cm.cast(p["D"], y.dtype)[None, :, None] * xh
-    out = _gated_out(p, y.reshape(B_, d_in), z)
+    if tp is not None:
+        y = tp.from_state(y)
+    y = y + cm.cast(_own(p["D"], tp), y.dtype)[None, :, None] * xh
+    out = _gated_out(p, y.reshape(B_, -1), z, tp)
     return out[:, None], (h, conv_win)
 
 
@@ -302,18 +393,24 @@ class MambaLM(AbstractParams):
         x = cm.apply_norm(params["final_norm"], x, self.cfg.norm)
         return cm.unembed(params["embed"], x)
 
+    def _layer_fwd(self, lp: Params, x: torch.Tensor) -> torch.Tensor:
+        return mamba_layer(lp, x, self.cfg)
+
     def forward_hidden(self, params: Params, x: torch.Tensor,
-                       remat: bool = True):
+                       remat: bool = True,
+                       layer_fwd: Optional[Callable] = None):
         """Run the layer stack on embedded input x (B, S, d).  With
         ``remat`` each layer (its norm and block) runs under
         ``torch.utils.checkpoint``: only its input is kept, and the
-        backward recomputes the rest.  Returns (x, {})."""
+        backward recomputes the rest.  ``layer_fwd(lp, x)`` takes the place
+        of a layer (a sharded step's, which makes the layer's weights
+        whole inside the checkpoint).  Returns (x, {})."""
+        layer_fwd = layer_fwd or self._layer_fwd
         for lp in unstack_layers(params["layers"], self.cfg.n_layers):
             if remat:
-                x = checkpoint(mamba_layer, lp, x, self.cfg,
-                               use_reentrant=False)
+                x = checkpoint(layer_fwd, lp, x, use_reentrant=False)
             else:
-                x = mamba_layer(lp, x, self.cfg)
+                x = layer_fwd(lp, x)
         return x, {}
 
     def loss(self, params: Params, batch, rng=None, remat: bool = True):
@@ -339,7 +436,11 @@ class MambaLM(AbstractParams):
 
     def prefill(self, params: Params, tokens: torch.Tensor,
                 max_seq: Optional[int] = None, remat: bool = True,
-                prompt_lens: Optional[torch.Tensor] = None):
+                prompt_lens: Optional[torch.Tensor] = None, *,
+                tp: Optional[Dict] = None,
+                layer_use: Optional[Callable] = None,
+                cache: Optional[Dict[str, torch.Tensor]] = None,
+                cache_write: Optional[Callable] = None):
         """Process prompts (B, S); return (last-position logits (B, Vp),
         cache {"ssm" (L, B, nh, N, P) f32, "conv" (L, B, W-1, C)}).
 
@@ -348,22 +449,36 @@ class MambaLM(AbstractParams):
         taken at its last valid position.  ``max_seq`` and ``remat`` are
         accepted for the reference's signature: the state has no sequence
         capacity, and inference keeps no activations.
+
+        The keywords run one rank's part of a sharded prefill
+        (``parallel.serve_step``): ``tp["mamba"]`` the rank's
+        :class:`MambaShard`; ``layer_use`` makes a layer's blocks whole for
+        use; ``cache`` the cache blocks to fill; ``cache_write(dst, t,
+        name)`` writes a layer's final state or conv tail ``t`` (the
+        rank's heads or columns) into ``dst``, its block of leaf ``name``.
         """
         cfg = self.cfg
         tokens = torch.as_tensor(tokens, device=self.device)
         x = cm.embed_tokens(params["embed"], tokens, self.compute_dtype)
         lens = None if prompt_lens is None else \
             torch.as_tensor(prompt_lens, device=self.device).to(torch.int32)
-        cache = {k: torch.empty(s.shape, dtype=s.dtype, device=self.device)
-                 for k, s in self._cache_struct(tokens.shape[0]).items()}
+        if cache is None:
+            cache = {k: torch.empty(s.shape, dtype=s.dtype,
+                                    device=self.device)
+                     for k, s in self._cache_struct(tokens.shape[0]).items()}
+        write = cache_write or _write_leading
+        use = layer_use or _same
+        shard = (tp or {}).get("mamba")
         layers = unstack_layers(params["layers"], cfg.n_layers)
         for layer, lp in enumerate(layers):
+            lp = use(lp)
             h = cm.apply_norm(lp["norm"], x, cfg.norm)
             out, (hf, tail) = mamba_block(lp["mamba"], h, cfg,
-                                          return_state=True, seq_lens=lens)
+                                          return_state=True, seq_lens=lens,
+                                          tp=shard)
             x = x + out
-            cache["ssm"][layer] = hf
-            cache["conv"][layer] = tail
+            write(cache["ssm"][layer], hf, "ssm")
+            write(cache["conv"][layer], tail, "conv")
         last = x[:, -1:] if lens is None \
             else cm.gather_last_positions(x, lens)
         return self.logits(params, last)[:, 0], cache

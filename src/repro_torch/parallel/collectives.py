@@ -149,15 +149,17 @@ def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
 
 
 def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
-    """The sum of the group's ``x`` (a new tensor)."""
+    """The sum of the group's ``x`` (a new contiguous tensor: nccl takes
+    no other, and a gradient may come strided)."""
     if group_size(group) == 1:
         return x
     with COUNTER.count("all-reduce", _nbytes(x)):
         if _on_host(group):
-            out = x.detach().to("cpu", copy=True)
+            out = x.detach().to("cpu", copy=True,
+                                memory_format=torch.contiguous_format)
             dist.all_reduce(out, group=group)
             return out.to(x.device)
-        out = x.detach().clone()
+        out = x.detach().clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, group=group)
     return out
 

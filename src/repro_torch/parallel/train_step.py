@@ -1,5 +1,5 @@
-"""The data-, tensor- and expert-parallel train step of the decoder
-families: dense, VLM and MoE.
+"""The data-, tensor- and expert-parallel train step of every family:
+dense, VLM, MoE, SSM, hybrid and encoder-decoder.
 
 What the reference gets from GSPMD on a (data, model) mesh under its
 sharding rules, written out over ``torch.distributed``: every rank holds
@@ -52,6 +52,25 @@ layer's weights made whole on use:
   token groups are not the unsharded step's micro-batches.
 * **VLM.**  ``patch_embeds`` takes the batch's data split, and the model's
   ``_embed_input`` places the rank's patch rows before its tokens.
+* **Mamba2 blocks (SSM, hybrid).**  ``inner`` goes over ``model`` in whole
+  heads (:meth:`ShardedStep.mamba_shard`): z, x and their conv are
+  computed locally, ``out_proj`` is row parallel behind g, and the
+  per-head leaves the rules replicate (``w_dt``, ``dt_bias``, ``A_log``,
+  ``D``) enter through f and are sliced to the rank's heads.  ``w_bc``'s
+  columns split over ``model`` too: each rank convolves its columns and
+  the conv's output is gathered over ``model`` (its gradient
+  reduce-scattered back), so every rank reads the B/C groups its heads
+  read, which the SSD scan then takes as its groups (a split that
+  straddles a group is refused).  The gate norm's RMS runs over the whole
+  ``d_inner``: the rank's sum of squares summed over ``model`` (its
+  gradient summed too), in plain f32 by the ``rmsnorm`` kernel's recipe.
+* **Hybrid.**  The shared block is a Megatron block on concat(h, emb),
+  made whole on use at each application inside the group's checkpoint;
+  its gradient adds up over the applications.
+* **Encoder-decoder.**  Each encoder and decoder layer is made whole on
+  use inside its checkpoint; the cross-attention's memory enters its K/V
+  projections through f; ``frames`` takes the batch's data split, and
+  ``enc_pos`` is gathered over the data axes like any ``embed`` dim.
 
 The layer and the loss are the model's own: ``DecoderLM._layer_fwd`` on
 the weights made whole, with f and g as its tensor-parallel hooks (and
@@ -61,10 +80,11 @@ by the rank's token count over the global batch's, so that the gradients
 summed over the data axes are the global mean's (not a mean of the ranks'
 means).  The global-norm clip sums the ranks' squared norms
 over the whole mesh, a leaf replicated over an axis counted once, and
-AdamW runs on the local blocks.  The SSM, hybrid and encoder-decoder
-families are refused (ROADMAP queue 1's next item).  The MoE and VLM
-families run through the same code as the dense one; llama4-scout's
-local layers take their window in the flash forward and backward.
+AdamW runs on the local blocks.  Every family runs the model's own layer
+code (``_layer_fwd``, ``mamba_layer``, ``HybridLM._group_fwd``,
+``EncDecLM._enc_body`` / ``_dec_body``) through its ``layer_fwd`` hooks;
+llama4-scout's local layers take their window in the flash forward and
+backward.
 
 The same plan runs one rank's sharded prefill and decode
 (:mod:`repro_torch.parallel.serve_step`), with no autograd.
@@ -78,6 +98,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..models import common as cm
+from ..models.ssm import MambaShard, mamba_layer
+from ..models.transformer import _same
 from ..tree import flatten, leaves, unflatten_like
 from ..train.optimizer import init_opt_state
 from ..train.step import TrainState
@@ -87,13 +109,17 @@ from .sharding import (batch_specs, data_axes, entry_names, mesh_axes,
 
 #: logical axes whose ``model`` split is computed locally (Megatron; the
 #: experts too, but for the router's, which routes replicated)
-TP_AXES = ("heads", "kv", "mlp", "experts")
-#: the families this step runs
-FAMILIES = ("dense", "vlm", "moe")
+TP_AXES = ("heads", "kv", "mlp", "experts", "inner")
 #: leaves read in float32 by their users (never cast): the norms' scales
 #: and biases, the MoE router (the model keeps it float32 and routes in
-#: float32)
-_F32_LEAVES = ("scale", "bias", "router")
+#: float32), a Mamba2 block's ``dt_bias``, ``A_log`` and ``D``
+_F32_LEAVES = ("scale", "bias", "router", "dt_bias", "A_log", "D")
+#: a Mamba2 block's leaves that feed its rank-local heads when the rules
+#: leave them replicated over ``model``: they enter through f
+_MAMBA_IN_TP = ("w_dt", "dt_bias", "A_log", "D", "w_bc", "conv_bc_w",
+                "conv_bc_b")
+#: the stacked layer trees of the families
+_STACKS = ("layers", "enc_layers", "dec_layers")
 
 
 @dataclass(frozen=True)
@@ -110,23 +136,14 @@ class LeafUse:
     model_local: bool
 
 
-def _refuse(cfg) -> None:
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the sharded step runs the dense, VLM and MoE "
-            f"decoder families; the sharded step, prefill and decode of the "
-            f"{cfg.family} family are ROADMAP queue 1's next item")
-
-
 class ShardedStep:
-    """One rank's sharded loss, gradients and clip norm for a dense, VLM or
-    MoE ``DecoderLM`` on a (data, model) ``DeviceMesh`` (``"pod"`` may
-    lead).
+    """One rank's sharded loss, gradients and clip norm for a model of any
+    family (``DecoderLM``, ``MambaLM``, ``HybridLM``, ``EncDecLM``) on a
+    (data, model) ``DeviceMesh`` (``"pod"`` may lead).
     Every rank of the mesh builds it, in the same order (it makes the
     process groups it needs)."""
 
     def __init__(self, model, mesh):
-        _refuse(model.cfg)
         self.model, self.mesh = model, mesh
         self.sizes = mesh_axes(mesh)
         if "model" not in self.sizes:
@@ -151,21 +168,29 @@ class ShardedStep:
                                  if a not in {n for e in spec
                                               for n in entry_names(e)})
                        for _, spec in flatten(self.specs)]
-        layer = self.uses["layers"]
-        self.attn_tp = layer["attn"]["wq"].model_local
-        self.kv_tp = layer["attn"]["wk"].model_local
+        family = model.cfg.family
+        # the tree holding the attention and MLP blocks, if any
+        layer = self.uses["shared" if family == "hybrid" else
+                          "dec_layers" if family == "encdec" else "layers"]
+        self.attn_tp = "attn" in layer and layer["attn"]["wq"].model_local
+        self.kv_tp = "attn" in layer and layer["attn"]["wk"].model_local
+        self.mlp_tp = "mlp" in layer and \
+            next(iter(layer["mlp"].values())).model_local
         if "moe" in layer:
-            self.mlp_tp = False
             self.expert_tp = layer["moe"]["w_up"].model_local
             self.expert_split = layer["moe"]["w_up"].model_dim == 0
-        else:
-            self.mlp_tp = next(iter(layer["mlp"].values())).model_local
         self.kv_heads = self._kv_heads() if self.attn_tp and not self.kv_tp \
             else None
         self.hooks = {block: (self.f, self.g) for block, on in
                       (("attn", self.attn_tp), ("mlp", self.mlp_tp)) if on}
         if "moe" in layer:
             self.hooks["moe"] = self.moe_shard()
+        if "mamba" in self.uses.get("layers", {}):
+            shard = self.mamba_shard()
+            if shard is not None:
+                self.hooks["mamba"] = shard
+        self._layer_fwd = {"ssm": self._mamba_layer,
+                           "hybrid": self._group}.get(family, self._layer)
         # what ``cm.lm_loss`` reads of a model
         self.cfg, self.device = model.cfg, model.device
         self.compute_dtype = model.compute_dtype
@@ -180,7 +205,7 @@ class ShardedStep:
     def _map(self, fn, specs, axes, stacked: bool = False, name: str = ""):
         if isinstance(specs, dict):
             return {k: self._map(fn, specs[k], axes[k],
-                                 stacked or k == "layers", k) for k in specs}
+                                 stacked or k in _STACKS, k) for k in specs}
         if stacked:        # one layer's block: the layer dim is dropped
             specs, axes = specs[1:], axes[1:]
         return fn(specs, axes, name)
@@ -211,6 +236,35 @@ class ShardedStep:
             raise NotImplementedError(
                 f"{cfg.name}: {hl} query heads a rank over KV groups of {G}")
         return h0 // G, max(hl // G, 1)
+
+    def mamba_shard(self) -> Optional[MambaShard]:
+        """This rank's part of each Mamba2 block where ``inner`` splits
+        over ``model`` (None where the rules leave it whole and every rank
+        computes the whole block): its heads, the B/C groups they read,
+        f and g, the gather of the conv'ed B/C columns and the gate norm's
+        sum over ``model``."""
+        use = self.uses["layers"]["mamba"]
+        if not use["w_x"].model_local:
+            return None
+        cfg, tp = self.model.cfg, self.sizes["model"]
+        s = cfg.ssm
+        nh = s.expand * cfg.d_model // s.head_dim
+        hpg = nh // s.n_groups
+        hl = nh // tp
+        h0 = self.model_rank * hl
+        if nh % tp or (hl % hpg and hpg % hl):
+            raise NotImplementedError(
+                f"{cfg.name}: {nh} Mamba2 heads over {tp} model ranks in "
+                f"groups of {hpg}: a rank's heads must be whole and not "
+                f"straddle a B/C group")
+        gather = _same
+        if use["w_bc"].model_local:
+            def gather(t):
+                return coll.gather_data(t, self.model_group, t.dim() - 1)
+        return MambaShard(
+            h0=h0, nh=hl, g0=h0 // hpg, ng=max(hl // hpg, 1),
+            width=nh * s.head_dim, f=self.f, g=self.g, gather=gather,
+            norm_sum=lambda t: coll.all_reduce_grad(t, self.model_group))
 
     def f(self, t: torch.Tensor) -> torch.Tensor:
         """Megatron's f over ``model``."""
@@ -243,28 +297,75 @@ class ShardedStep:
                 else self.use(v, uses[k], k, k in in_tp)
                 for k, v in tree.items()}
 
-    def layer_weights(self, lp, in_tp=()):
-        """One layer's blocks ``lp`` made whole for use (:meth:`use`)."""
-        return self._use_tree(lp, self.uses["layers"], in_tp)
+    def layer_weights(self, lp, in_tp=(), key: str = "layers"):
+        """One layer's blocks ``lp`` of the stacked tree ``key`` made whole
+        for use (:meth:`use`)."""
+        return self._use_tree(lp, self.uses[key], in_tp)
 
-    def whole(self, params):
-        """``params`` with the embedding and the final norm made whole for
-        use (once a step), the layers still the rank's blocks."""
-        return dict({k: self._use_tree(params[k], self.uses[k])
-                     for k in ("embed", "final_norm")},
-                    layers=params["layers"])
+    def whole(self, params, shared: bool = False):
+        """``params`` with every unstacked leaf made whole for use (once a
+        step: the embedding, the norms, ``enc_pos``), the stacked layers
+        still the rank's blocks; a hybrid's shared block too with
+        ``shared`` (serving: once a call), else left for each application
+        to make whole (:meth:`_group`)."""
+        keep = _STACKS if shared else _STACKS + ("shared",)
+        return self._use_tree({k: v for k, v in params.items()
+                               if k not in keep}, self.uses) \
+            | {k: params[k] for k in keep if k in params}
+
+    def _attn_in_tp(self):
+        return ("wk", "wv") if self.attn_tp else ()
+
+    def _own_kv(self, w):
+        """Attention blocks of ``w`` with ``wk`` / ``wv`` cut to the KV
+        heads the rank's query heads read, where the KV heads are not
+        split over ``model``."""
+        if self.kv_heads is None:
+            return w
+        k0, n = self.kv_heads
+        return {name: dict(b, wk=b["wk"][:, k0:k0 + n],
+                           wv=b["wv"][:, k0:k0 + n])
+                if name in ("attn", "cross") else b
+                for name, b in w.items()}
 
     # -- forward: the model's own layer and loss ---------------------------
     def _layer(self, lp, x: torch.Tensor, q_offset: int, window: int):
         """``DecoderLM._layer_fwd`` on the rank's blocks ``lp``, made whole
         for use here (inside the layer's checkpoint, so remat gathers
         again), with f and g around the blocks computed locally."""
-        w = self.layer_weights(lp, ("wk", "wv") if self.attn_tp else ())
-        if self.kv_heads is not None:
-            k0, n = self.kv_heads
-            w["attn"] = dict(w["attn"], wk=w["attn"]["wk"][:, k0:k0 + n],
-                             wv=w["attn"]["wv"][:, k0:k0 + n])
+        w = self._own_kv(self.layer_weights(lp, self._attn_in_tp()))
         return self.model._layer_fwd(w, x, q_offset, window, tp=self.hooks)
+
+    def _mamba_layer(self, lp, x: torch.Tensor) -> torch.Tensor:
+        """``ssm.mamba_layer`` on the rank's blocks ``lp``, made whole for
+        use inside the layer's checkpoint, with the rank's
+        ``MambaShard``."""
+        return mamba_layer(self.layer_weights(lp, _MAMBA_IN_TP), x,
+                           self.model.cfg, tp=self.hooks.get("mamba"))
+
+    def _group(self, shared, lps, x: torch.Tensor,
+               emb: torch.Tensor) -> torch.Tensor:
+        """``HybridLM._group_fwd`` with the shared block and the group's
+        layers made whole for use inside the group's checkpoint (so remat
+        gathers the shared block again at each application, as the
+        reference's scan body does)."""
+        sp = self._own_kv(self._use_tree(shared, self.uses["shared"],
+                                         self._attn_in_tp()))
+        lws = [self.layer_weights(lp, _MAMBA_IN_TP) for lp in lps]
+        return self.model._group_fwd(sp, lws, x, emb, tp=self.hooks)
+
+    def enc_layer(self, lp, x: torch.Tensor) -> torch.Tensor:
+        """``EncDecLM._enc_body`` on the rank's encoder blocks ``lp``, made
+        whole for use (the sharded step's and prefill's encoder layer)."""
+        w = self._own_kv(self.layer_weights(lp, self._attn_in_tp(),
+                                            "enc_layers"))
+        return self.model._enc_body(w, x, tp=self.hooks)
+
+    def _dec_layer(self, lp, x: torch.Tensor,
+                   memory: torch.Tensor) -> torch.Tensor:
+        w = self._own_kv(self.layer_weights(lp, self._attn_in_tp(),
+                                            "dec_layers"))
+        return self.model._dec_body(w, x, memory, tp=self.hooks)
 
     def moe_shard(self, over_data: bool = True) -> cm.MoeShard:
         """This rank's part of ``common.apply_moe`` (see the module
@@ -303,10 +404,11 @@ class ShardedStep:
         return self.model._embed_input(params, tokens, patch_embeds)
 
     def forward_hidden(self, params, x: torch.Tensor, remat: bool = True):
-        """The model's layer stack over :meth:`_layer` (what
+        """The model's layer stack over the family's sharded layer
+        (:meth:`_layer`, :meth:`_mamba_layer`, :meth:`_group`; what
         ``cm.lm_loss`` calls)."""
         return self.model.forward_hidden(params, x, remat=remat,
-                                         layer_fwd=self._layer)
+                                         layer_fwd=self._layer_fwd)
 
     def logits(self, params, x: torch.Tensor) -> torch.Tensor:
         return self.model.logits(params, x)
@@ -321,8 +423,15 @@ class ShardedStep:
         ``batch["mask"]`` when given), so that the data ranks' parts add
         up to the global mean, not to a mean of their means.  The metrics'
         ``ce_loss`` is this rank's part too; an MoE model's aux terms are
-        global means already."""
-        loss, metrics = cm.lm_loss(self, self.whole(params), batch, remat)
+        global means already.  An encoder-decoder runs its own loss
+        (``EncDecLM.loss``) over the sharded layers."""
+        if self.model.cfg.family == "encdec":
+            loss, metrics = self.model.loss(
+                self.whole(params), batch, remat=remat,
+                enc_fwd=self.enc_layer, dec_fwd=self._dec_layer)
+        else:
+            loss, metrics = cm.lm_loss(self, self.whole(params), batch,
+                                       remat)
         mask = batch.get("mask")
         if mask is None:
             share = 1.0 / self.dp
@@ -392,5 +501,4 @@ def init_sharded_state(model, mesh, seed: int = 0) -> TrainState:
     return TrainState(params=local, opt=init_opt_state(local), rng=gen)
 
 
-__all__ = ["ShardedStep", "LeafUse", "TP_AXES", "FAMILIES",
-           "init_sharded_state"]
+__all__ = ["ShardedStep", "LeafUse", "TP_AXES", "init_sharded_state"]

@@ -12,14 +12,15 @@ of ``hw.step_count``, against the JAX package's.
   to the sum of ``NamedSharding.shard_shape`` over the reference's
   ``state_shardings`` (less its 8-byte PRNG key: the port's generator
   lives on the host) or ``param_specs``, and ``input_shardings``, on the
-  16x16 and 2x16x16 ``AbstractMesh``es, for every runnable decoder cell
-  and gpt3-xl's paper cell (no compile).
+  16x16 and 2x16x16 ``AbstractMesh``es, for every runnable cell of every
+  family and gpt3-xl's paper cell (no compile).
 * Two rank coordinates give the same count at smoke size (the MoE twin's
-  train step, the dense twin's prefill and decode): rank 0 stands for
-  every rank.
+  and the SSM twin's train step, the dense twin's prefill and decode, the
+  hybrid twin's decode): rank 0 stands for every rank.
 * One full-size cell through the CLI (``llama3.2-1b decode_32k``): its
   record ``ok``, its resident bytes the reference's, ``fits``; the
-  ``skipped`` and ``not_ported`` statuses and the exit codes.
+  ``skipped`` status, an SSM cell (``mamba2-370m decode_32k``) ``ok``,
+  and the exit codes.
 """
 import json
 import math
@@ -44,7 +45,7 @@ from repro_torch.models import build_model
 from repro_torch.parallel.sharding import input_shardings
 import torch_parity  # noqa: F401  (one intra-op thread)
 
-DECODER = ("dense", "vlm", "moe")
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 MESHES = {False: ((16, 16), ("data", "model")),
           True: ((2, 16, 16), ("pod", "data", "model"))}
 
@@ -124,14 +125,14 @@ def _reference_resident(arch, shape_name, multi):
     return total
 
 
-DECODER_CELLS = [(a, s) for a, s, ok, _ in tcfg.all_cells()
-                 if tcfg.get_config(a).family in DECODER] \
+CELLS = [(a, s) for a, s, ok, _ in tcfg.all_cells()
+         if tcfg.get_config(a).family in FAMILIES] \
     + [("gpt3-xl", "paper_gpt3xl")]
 
 
 @pytest.mark.parametrize("multi", [False, True], ids=["16x16", "2x16x16"])
-@pytest.mark.parametrize("arch,shape", DECODER_CELLS,
-                         ids=[f"{a}-{s}" for a, s in DECODER_CELLS])
+@pytest.mark.parametrize("arch,shape", CELLS,
+                         ids=[f"{a}-{s}" for a, s in CELLS])
 def test_resident_bytes_equal_reference_shards(arch, shape, multi):
     model = build_model(tcfg.get_config(arch), device="cpu")
     sh = tcfg.get_shape(shape)
@@ -156,7 +157,9 @@ def _fields(c):
 @pytest.mark.parametrize("arch,kind,S", [
     ("granite-moe-1b-a400m", "train", 64),
     ("llama3.2-1b", "prefill", 1024),
-    ("llama3.2-1b", "decode", 2048)])
+    ("llama3.2-1b", "decode", 2048),
+    ("mamba2-370m", "train", 64),
+    ("zamba2-7b", "decode", 2048)])
 def test_two_rank_coordinates_count_the_same(arch, kind, S):
     cfg, inputs = _smoke(arch, kind, S)
     spec = MeshSpec(dp=2, tp=2)
@@ -197,7 +200,7 @@ def test_cli_statuses_and_exit_codes(tmp_path):
     assert dryrun.main(["--arch", "llama3.2-1b", "--shape", "long_500k",
                         "--out", out]) == 0
     assert dryrun.main(["--arch", "mamba2-370m", "--shape", "decode_32k",
-                        "--out", out, "--multi-pod"]) == 1
+                        "--out", out, "--multi-pod"]) == 0
     recs = {}
     for name in os.listdir(out):
         with open(os.path.join(out, name)) as f:
@@ -206,9 +209,12 @@ def test_cli_statuses_and_exit_codes(tmp_path):
     assert skip["status"] == "skipped"
     assert skip["reason"] == tcfg.cell_is_runnable(
         tcfg.get_config("llama3.2-1b"), tcfg.get_shape("long_500k"))[1]
-    port = recs["mamba2-370m__decode_32k__multi.json"]
-    assert port["status"] == "not_ported" and port["mesh"] == "2x16x16"
-    assert "ROADMAP" in port["reason"] and "ssm" in port["reason"]
+    ssm = recs["mamba2-370m__decode_32k__multi.json"]
+    assert ssm["status"] == "ok" and ssm["mesh"] == "2x16x16"
+    assert ssm["resident_bytes"] == _reference_resident(
+        "mamba2-370m", "decode_32k", True)
+    assert ssm["fits"] and ssm["count"]["flops_per_device"] > 0
+    assert {r["status"] for r in recs.values()} == {"ok", "skipped"}
     # an existing record is kept with --skip-existing
     assert dryrun.main(["--arch", "llama3.2-1b", "--shape", "long_500k",
                         "--out", out, "--skip-existing"]) == 0

@@ -43,6 +43,17 @@ outputs are computed here, once.
   within ``LOSS_RTOL`` of the reference's ``jax.value_and_grad``, every
   gathered gradient within ``GRAD_RTOL``, the dropped fraction above 0
   and equal on every rank.
+* The SSM, hybrid and encoder-decoder families' sharded loss
+  (mamba2-370m's, zamba2-7b's and seamless-m4t-medium's smoke twins, the
+  last with 12 frames a row), in the same worlds: ``inner`` over
+  ``model`` in whole heads (at (1, 4) mamba2's 8 heads 2 a rank, zamba2's
+  B/C columns of one group a rank), the gate norm's sum of squares
+  summed over ``model``, the hybrid's shared block made whole at each
+  application, the encoder's and decoder's layers (cross-attention's
+  memory entering through f); the loss and cross entropy within
+  ``LOSS_RTOL`` of the reference's ``jax.value_and_grad`` and every
+  gathered gradient within ``GRAD_RTOL``.  The smoke twins' SSD decays
+  (A = -1, dt near 0.01) keep the reference's gradient finite.
 * A state saved by ``save_sharded`` at (2, 2) restores through
   ``reshard_restore`` at (2, 1) and (1, 2), equal bit for bit after
   gathering (copies: an exact comparison).
@@ -92,6 +103,10 @@ MOE = dict(E=8, K=2, T=64, d=16, ff=32)
 FAMILIES = {"granite-moe-1b-a400m": ("granite-moe-1b-a400m", 8),
             "internvl2-1b": ("internvl2-1b", 8),
             "granite 3 rows": ("granite-moe-1b-a400m", 3)}
+# the SSM, hybrid and encoder-decoder families' sharded loss
+SEQ_FAMILIES = {"mamba2-370m": ("mamba2-370m", 8),
+                "zamba2-7b": ("zamba2-7b", 8),
+                "seamless-m4t-medium": ("seamless-m4t-medium", 8)}
 MOE_CAPACITY = 1.0
 AUX = ("load_balance", "router_z", "dropped_frac")
 MOE_FACTORS = (8.0, 2.0)
@@ -151,7 +166,7 @@ def family_reference(name):
     seeded batch (granite at ``MOE_CAPACITY``), and the case the ranks
     get."""
     if name not in _FAMILY:
-        arch, rows = FAMILIES[name]
+        arch, rows = {**FAMILIES, **SEQ_FAMILIES}[name]
         model, params, cfg, _, _ = twin(arch)
         changes = {}
         if cfg.is_moe:
@@ -164,6 +179,11 @@ def family_reference(name):
             rng = np.random.default_rng(5)
             batch["patch_embeds"] = rng.normal(size=(
                 rows, cfg.vision_prefix_len, cfg.d_model)).astype(np.float32)
+        if cfg.family == "encdec":
+            rng = np.random.default_rng(6)
+            batch["frames"] = rng.normal(size=(
+                rows, cfg.encoder_frontend_len, cfg.d_model)
+            ).astype(np.float32)
         (loss, metrics), grads = jref(model).loss_grad(
             params, {k: jnp.asarray(v) for k, v in batch.items()},
             remat=True)
@@ -279,7 +299,8 @@ def worlds():
                     job["save"] = ckpt
                 if arch == "llama3.2-1b":
                     job["loss_cases"] = [family_reference(n)["case"]
-                                         for n in FAMILIES]
+                                         for n in (*FAMILIES,
+                                                   *SEQ_FAMILIES)]
                 jobs[arch, mesh] = (spawn_ranks, torch_ranks.train_world,
                                     math.prod(mesh), job)
         jobs["a2a"] = (_reference_a2a, _moe_inputs(skew=True), 2.0)
@@ -400,6 +421,28 @@ def test_moe_and_vlm_sharded_loss_and_grads_match_reference(worlds, name,
         assert err <= GRAD_RTOL, f"{path}: {err:.3e} > {GRAD_RTOL}"
 
 
+@pytest.mark.parametrize("mesh", MESHES, ids=lambda m: "x".join(map(str, m)))
+@pytest.mark.parametrize("name", SEQ_FAMILIES)
+def test_ssm_hybrid_encdec_sharded_loss_and_grads_match_reference(
+        worlds, name, mesh):
+    ref = family_reference(name)
+    assert all(np.isfinite(g).all() for g in ref["grads"].values())
+    ranks = worlds["llama3.2-1b", mesh]
+    r0 = ranks[0]["loss_cases"][name]
+    np.testing.assert_allclose(r0["loss"], ref["loss"], rtol=LOSS_RTOL)
+    assert set(r0["metrics"]) == set(ref["metrics"]) == {"ce_loss", "loss"}
+    for k in ("ce_loss", "loss"):
+        np.testing.assert_allclose(r0["metrics"][k], ref["metrics"][k],
+                                   rtol=LOSS_RTOL, err_msg=k)
+        assert len({r["loss_cases"][name]["metrics"][k]
+                    for r in ranks}) == 1, k
+    assert set(r0["grads"]) == set(ref["grads"])
+    for path, g in r0["grads"].items():
+        assert g.shape == ref["grads"][path].shape, path
+        err = _leaf_err(g, ref["grads"][path])
+        assert err <= GRAD_RTOL, f"{path}: {err:.3e} > {GRAD_RTOL}"
+
+
 def test_moe_all_to_all_matches_dense_combine(worlds):
     ranks = worlds["llama3.2-1b", (1, 4)]
     inp = _moe_inputs(skew=True)
@@ -424,6 +467,15 @@ def test_moe_all_to_all_drops_as_the_reference(worlds):
         y = r["moe"][2.0][0]
         assert float(np.abs(y - ref).max()) < 1e-4
     assert float(np.abs(ref - dense).max()) > 1e-2     # and change y
+
+
+def test_all_reduce_of_a_strided_tensor_is_contiguous(worlds):
+    ranks = worlds["llama3.2-1b", (1, 4)]
+    want = np.arange(12.0).reshape(3, 4).T * sum(range(1, len(ranks) + 1))
+    for r in ranks:
+        got, contiguous = r["moe"]["all_reduce"]
+        assert contiguous
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("mesh", [(2, 1), (1, 2)],

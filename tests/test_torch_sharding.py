@@ -277,9 +277,17 @@ def test_sharded_count_state_bytes(arch, mesh):
 
 
 def test_sharded_step_refuses_other_families():
+    """Every family's sharded step runs (mamba2-370m's is counted here on
+    fake ranks); what it refuses is a Mamba2 head split whose rank heads
+    straddle a B/C group (24 heads in 3 groups of 8, 12 a rank)."""
     cfg = dataclasses.replace(get_config("mamba2-370m"), n_layers=1)
-    with pytest.raises(NotImplementedError, match="queue 1's next item"):
-        count_train_step(cfg, global_batch=4, seq_len=16,
+    count = count_train_step(cfg, global_batch=4, seq_len=16,
+                             mesh=MeshSpec(dp=2, tp=2))
+    assert count.flops > 0 and count.collective_bytes["all-reduce"] > 0
+    odd = dataclasses.replace(cfg, d_model=768, ssm=dataclasses.replace(
+        cfg.ssm, n_groups=3))
+    with pytest.raises(NotImplementedError, match="straddle a B/C group"):
+        count_train_step(odd, global_batch=4, seq_len=16,
                          mesh=MeshSpec(dp=2, tp=2))
     with fake_world(MeshSpec(dp=2, tp=2)) as mesh:
         assert MeshSpec.from_mesh(mesh) == MeshSpec(dp=2, tp=2)

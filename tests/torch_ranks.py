@@ -135,7 +135,8 @@ def loss_cases(mesh, cases, rank):
 def serve_world(rank, world, job):
     """One rank of a (data, model) world serving each case of
     ``job["cases"]`` (``name``, ``arch``, config ``changes``, flat
-    ``params``, global ``tokens`` and ``patch_embeds``, ``max_seq``,
+    ``params``, global ``tokens`` and ``extra`` (a VLM's patch rows, an
+    encoder-decoder's frames), ``max_seq``,
     decode ``feed`` tokens (steps, B)) through ``ShardedServe``: the
     sharded prefill, then a decode step per row of ``feed``.  Returns per
     case the global logits of the prefill and of each decode step, the
@@ -148,11 +149,11 @@ def serve_world(rank, world, job):
                              param_specs(model, mesh))
         tokens = torch.from_numpy(case["tokens"])
         serve = ShardedServe(model, mesh, tokens.shape[0], case["max_seq"])
-        patch = case.get("patch_embeds")
-        patch = None if patch is None else serve.local_rows(
-            torch.from_numpy(patch))
+        extra = case.get("extra")
+        extra = None if extra is None else serve.local_rows(
+            torch.from_numpy(extra))
         logits, cache = serve.prefill(params, serve.local_rows(tokens),
-                                      patch)
+                                      extra)
         full = gather_state(cache, mesh, serve.cache_specs)
         steps = [gather_rows(logits, serve).numpy()]
         pos = serve.local_rows(torch.full((tokens.shape[0],), case["pos"],
@@ -222,4 +223,8 @@ def moe_exchange(mesh, job):
                                     n_experts=E, capacity_factor=8.0)
     (y * y).sum().backward()
     out["grads"] = (xg.grad.numpy(), w1g.grad.numpy())
+    # a strided tensor's sum comes back contiguous (nccl takes no other)
+    s = coll.all_reduce(torch.arange(12.0).reshape(3, 4).t() * (r + 1),
+                        group)
+    out["all_reduce"] = (s.numpy(), s.is_contiguous())
     return out
