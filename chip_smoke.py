@@ -168,24 +168,26 @@ Phases, in order; any failure raises and the script exits non-zero:
                  ``[D192G12 int8]``).
 4. serve       — llama3.2-1b at full width (random weights from a seeded
                  generator) serves 16 requests through ``ServeEngine.generate``
-                 with bf16 pages and with int8 pages, each with CUDA graphs
-                 on and off in turns (``cuda_graphs``); then a dense cache
-                 and a sampled run (temperature 0.8, seed 7), 8 requests,
-                 graphs on and off.  Asserts equal tokens on and off, every
+                 with bf16 pages, CUDA graphs on (``cuda_graphs``), then the
+                 first 8 with 32 new tokens each with graphs on (the same
+                 engine) and off (``ONOFF``); int8 pages with graphs on (the
+                 capturing run alone); then a dense cache and a sampled run
+                 (temperature 0.8, seed 7), 8 requests, graphs on and off.
+                 Asserts equal tokens on and off, every
                  kernel's launch count (counted through graph replays), that
                  no logit is NaN and ``compile_stats`` within the
                  reference's bound; logs tokens/s, each capture's host ms
                  and the graphs' pool.
-   profile     — a short bf16-page run under torch.profiler, graphs on and
-                 off: wall and device ms a decode step, launches a step,
+   profile     — a short bf16-page run under torch.profiler, graphs on:
+                 wall and device ms a decode step, launches a step,
                  the device's idle share, the port's kernels' share.
 5. consistency — prefill + paged decode steps against a longer prefill.
    serve_prefix — (after dvfs) llama3.2-1b with the radix prefix cache: 24
                  requests on 4 shared templates of 128, 200, 256 and 333
                  tokens (two end mid-page: copy-on-write tails) plus 16-128
-                 unique tokens, 32 new each; bf16 and int8 pages, the cache
-                 off and on, graphs on and off, and a small pool whose
-                 admissions evict.  Greedy tokens on equal off (a request
+                 unique tokens, 32 new each; graphs on: on bf16 pages the
+                 cache off and on, and a small pool whose admissions
+                 evict; on int8 pages the cache off and on.  Greedy tokens on equal off (a request
                  that parts is held spliced against cold within 2e-2 of
                  max |logit|, argmax equal before it, and logged), hits,
                  copy-on-write copies, evictions, exact launches, a drained
@@ -221,6 +223,21 @@ Phases, in order; any failure raises and the script exits non-zero:
                  storm faults (migrations charged).  ``check_fleet``
                  clean, every request completed or counted stranded;
                  J/token, TTFT and TPOT p50/p99 logged as modeled.
+   examples    — (after fleet_launcher) the README's five examples through
+                 their ``main(argv)`` (``repro_torch.examples``, chip model
+                 h100): quickstart, plan_transfer and fleet_serve on chip
+                 models alone (no kernel launched); serve_dvfs on the full
+                 llama3.2-1b in bf16 with bf16 pages behind its session's
+                 executor (hooks against the engine's calls, exact
+                 launches); train_gpt3xl_dvfs ``--full`` (1,418,207,232
+                 parameters, 13 steps of 16 x 1024 tokens as 2
+                 micro-batches, a failure at step 11 and a restart from the
+                 real step-10 checkpoint in a temporary directory: 48 flash
+                 forwards and 48 backwards a step, exact), with each
+                 checkpoint's bytes and seconds and NVML joules a step read
+                 around the steps beside the modeled ones.  Every saved
+                 plan round-trips; quickstart's kernel-static plan spends
+                 no more energy than its pass-level one at no more time.
    fleet_ssm   — (after consistency_ssm) mamba2-370m, 4 slots,
                  ``paged=True``: the SSM and conv state migrate in the
                  transfers' dense rows; 8 greedy steps give the unmigrated
@@ -229,8 +246,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                  16 heads of 128, learned positions, LayerNorm, tanh GELU,
                  vocab 50257) at full width and depth, random weights from
                  a seeded generator, serves the serve phase's 16 requests
-                 with bf16 pages (graphs on and off: equal tokens), int8
-                 pages and a dense cache (graphs on), exact launches
+                 with bf16 pages (graphs on; the on/off gate's 8 requests
+                 graphs on and off: equal tokens), and those 8 prompts
+                 with 16 new tokens on int8 pages and on a dense cache
+                 (graphs on, each the capturing run), exact launches
                  (24 flash prefills a bucket call, 24 paged decodes a paged
                  step, no RMSNorm), no NaN logit; tokens/s, peak memory,
                  each capture's host ms; a profiled bf16-page run with
@@ -297,18 +316,16 @@ Phases, in order; any failure raises and the script exits non-zero:
                  position 1024, held to the unsharded prefill and decode
                  (logits within ``MD_SERVE_TOL``, argmax equal but at a
                  near tie, exact launches), each call's seconds and
-                 collective bytes, then in float32 on the plain path at
-                 ``MD_SERVE_F32_LAYERS`` layers across position 1024
-                 (``MD_SERVE_F32_TOL``) with a control that leaves a
-                 sequence block's partial out of the combine and must
-                 fail that bound; then the SSM, hybrid and encoder-decoder
+                 collective bytes; then the SSM, hybrid and encoder-decoder
                  families (``MD_FAMILIES``: mamba2-370m at 4 layers,
                  zamba2-7b at 2, seamless-m4t-medium at 2 + 2 with 1024
                  frames) at full width: one sharded bf16 train step each
                  (loss and gradient blocks against the unsharded step,
                  exact launches), a sharded prefill and decode steps in
-                 bf16 on the kernels, and in float32 on the plain path at
-                 one layer with a control that breaks the ranks' combine;
+                 bf16 on the kernels, and (mamba2-370m and seamless) in
+                 float32 on the plain path at one layer with a control
+                 that breaks the ranks' combine (seamless's: a sequence
+                 block's attention partial left out);
                  before them one ``nccl`` rank in the
                  script's process on a (1, 1) mesh runs the bf16 passes
                  against the unsharded runs (on a world of one the
@@ -383,7 +400,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                  Sq != Sk in the encoder and the cross-attention).
    serve_ssm   — mamba2-370m at full width and depth (random weights from a
                  seeded generator) serves the same 16 requests with a dense
-                 and with a paged ``BatchState``, graphs on and off:
+                 and with a paged ``BatchState``, graphs on (the dense
+                 state's on/off gate's 8 requests graphs off too):
                  identical greedy tokens, exact launch counts (SSD scan per
                  layer and prefill call, RMSNorm twice per layer and once
                  more per forward, no attention kernel), no NaN logit; then
@@ -406,13 +424,16 @@ Phases, in order; any failure raises and the script exits non-zero:
                  shared attention block 14 times; random weights from a
                  seeded generator, built after the other models are freed)
                  serves 8 requests of 24-498 prompt tokens, 32 new tokens
-                 each, with bf16 pages (graphs on and off), int8 pages
-                 (graphs on) and a dense cache (graphs on and off): equal
-                 tokens with graphs on and off, exact launch counts (191
+                 each, with bf16 pages (graphs on; the on/off gate's
+                 requests graphs on and off), and those prompts with 16
+                 new tokens on int8 pages (graphs on) and on a dense cache
+                 (graphs on and off): equal tokens with graphs on and off on bf16 pages
+                 and on the dense cache, exact launch counts
+                 (191
                  RMSNorms a forward, 81 SSD scans and 14 prefill attentions
                  a prefill call, 14 paged decodes a paged step), no NaN
-                 logit; tokens/s, peak memory, the graph pool; the dense
-                 and int8 runs' agreement with bf16 pages is logged; a
+                 logit; tokens/s, peak memory, the graph pool; the int8
+                 and dense runs' agreement with bf16 pages is logged; a
                  short profiled run with graphs on, the decode steps alone.
    consistency_hybrid — the prefill of 300 positions and decode steps on a
                  dense cache and on bf16 pages, each against one longer
@@ -475,11 +496,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                  function or energy counter fails the phase, a counter that
                  decreases too): the card's supported memory and graphics
                  clocks, every ``h100_grid()`` pair among them, idle watts over
-                 2 s; ``launch.serve.main`` at full width (h100 chip model, 8
-                 slots, 16 requests): finite plan rows and executed totals, one
-                 prefill hook a request and one decode hook a step,
-                 ``check_executor`` clean, exact launches of paged decode, the
-                 prefill and RMSNorm; the same with ``--smoke`` (the reduced
+                 2 s; ``launch.serve.main`` with ``--smoke`` (h100 chip
+                 model, 8 slots, 16 requests): finite plan rows and executed
+                 totals, one prefill hook a request and one decode hook a
+                 step, ``check_executor`` clean, exact launches of paged
+                 decode, the prefill and RMSNorm (the reduced
                  config at the kernels' widths, paged decode at a query
                  group of 2); ``launch.serve.main --arch
                  granite-moe-1b-a400m`` with ``--smoke`` and at full width
@@ -516,6 +537,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2855,7 +2877,7 @@ def llama_launches(steps: int, calls: int, paged: bool = True,
 
 def serve_run(tag, model, params, prompts, new_tokens, graphs, want,
               inspect=None, extras=None, slots=SERVE_SLOTS,
-              max_seq=SERVE_MAX_SEQ, **kw):
+              max_seq=SERVE_MAX_SEQ, timed=True, also=None, **kw):
     """One ``ServeEngine`` (``cuda_graphs=graphs``, ``kw`` on top of the
     serving geometry) over ``prompts`` with ``new_tokens`` each (and
     ``extras[i]``, a dict of prefill inputs, on prompt i when given), timed
@@ -2865,11 +2887,19 @@ def serve_run(tag, model, params, prompts, new_tokens, graphs, want,
     without, one short request (with the first prompt's extras).  Gates,
     each raising: the exact launch counts ``want(steps, prefill calls)``
     of the timed run (and of the
-    capturing run), every request finished, no NaN logit, and
+    capturing run), every request finished, the capturing run's tokens
+    equal the timed run's, no NaN logit, and
     ``compile_stats`` within the reference's bound (at most log2(max_chunk)
     + 1 decode chunk variants, at most one prefill variant a bucket the
     engine served, warm-up included).  ``slots`` and ``max_seq`` set the
-    engine's geometry (the serve phases': 8 and 1024).
+    engine's geometry (the serve phases': 8 and 1024).  With graphs and
+    ``timed`` off the capturing run is the only run (its tokens, launches
+    and wall stand for the run's): for a cache type whose replay after
+    ``reset()`` another run of the same model times.  ``also`` (n, new),
+    with graphs: after the timed run the same engine serves the first n
+    prompts again with ``new`` tokens each (``also_tokens``,
+    ``also_wall_s``; exact launches), the requests ``onoff_run`` serves
+    with graphs off for the on/off gate (``same_onoff``).
     Returns the runs' tokens, times, counts and graph statistics."""
     from repro_torch import kernels
     from repro_torch.serve import Request, ServeEngine
@@ -2879,10 +2909,10 @@ def serve_run(tag, model, params, prompts, new_tokens, graphs, want,
     eng = ServeEngine(watch, params, batch_slots=slots, max_seq=max_seq,
                       page_size=SERVE_PAGE, cuda_graphs=graphs, **kw)
 
-    def requests():
-        return [Request(uid=i, prompt=p, max_new_tokens=new_tokens,
+    def requests(n=len(prompts), new=new_tokens):
+        return [Request(uid=i, prompt=p, max_new_tokens=new,
                         extras=dict(extras[i]) if extras else {})
-                for i, p in enumerate(prompts)]
+                for i, p in enumerate(prompts[:n])]
 
     def run(reqs):
         torch.cuda.synchronize()
@@ -2896,20 +2926,33 @@ def serve_run(tag, model, params, prompts, new_tokens, graphs, want,
         if got != expect:
             raise AssertionError(f"{tag} ({mode}): launch counts {got} != "
                                  f"{expect}")
-        if not all(r.done and len(r.generated) == new_tokens for r in reqs):
+        if not all(r.done and len(r.generated) == r.max_new_tokens
+                   for r in reqs):
             raise AssertionError(f"{tag} ({mode}): not every request "
                                  f"finished")
         return wall, got, [r.generated for r in reqs]
 
     out, served = {}, list(prompts)
-    if graphs:
-        out["first_wall_s"], _, out["first_tokens"] = run(requests())
+    if graphs and not timed:
+        out["wall_s"], out["launches"], out["tokens"] = run(requests())
     else:
-        served.append(prompts[0][:16])
-        eng.generate([Request(uid=-1, prompt=served[-1], max_new_tokens=4,
-                              extras=dict(extras[0]) if extras else {})])
-    eng.reset()
-    out["wall_s"], out["launches"], out["tokens"] = run(requests())
+        if graphs:
+            out["first_wall_s"], _, out["first_tokens"] = run(requests())
+        else:
+            served.append(prompts[0][:16])
+            eng.generate([Request(uid=-1, prompt=served[-1],
+                                  max_new_tokens=4,
+                                  extras=dict(extras[0]) if extras else {})])
+        eng.reset()
+        out["wall_s"], out["launches"], out["tokens"] = run(requests())
+        if graphs and out["first_tokens"] != out["tokens"]:
+            raise AssertionError(f"{tag} ({mode}): the capturing run and "
+                                 f"the replay after reset() gave different "
+                                 f"tokens")
+    steps, calls = eng.n_decode_steps, eng.n_prefill_calls
+    if also is not None:
+        eng.reset()
+        out["also_wall_s"], _, out["also_tokens"] = run(requests(*also))
     if bool(watch.nan):
         raise AssertionError(f"{tag} ({mode}): NaN in the logits")
     stats = eng.compile_stats
@@ -2923,12 +2966,13 @@ def serve_run(tag, model, params, prompts, new_tokens, graphs, want,
     if inspect is not None:
         out.update(inspect(eng))
     n_tok = sum(len(t) for t in out["tokens"])
-    out.update(steps=eng.n_decode_steps, calls=eng.n_prefill_calls,
-               tokens_per_s=n_tok / out["wall_s"], compile_stats=stats,
-               graphs=eng.graph_stats(),
+    out.update(steps=steps, calls=calls, tokens_per_s=n_tok / out["wall_s"],
+               compile_stats=stats, graphs=eng.graph_stats(),
                peak_bytes=torch.cuda.max_memory_allocated())
     first = "" if not graphs else (
-        f" (the capturing run before it: {out['first_wall_s']:.3f} s)")
+        f" (the capturing run before it: {out['first_wall_s']:.3f} s)"
+        if timed else " (the capturing run, captures included: not "
+        "repeated)")
     log(f"[{tag}] {mode}: {n_tok} tokens in {out['wall_s']:.3f} s = "
         f"{out['tokens_per_s']:.1f} tokens/s{first}; {out['calls']} prefill "
         f"calls, {out['steps']} decode steps "
@@ -2936,6 +2980,10 @@ def serve_run(tag, model, params, prompts, new_tokens, graphs, want,
         f"prefill included); launches {out['launches']} (exact); "
         f"compile_stats {stats}; peak memory "
         f"{out['peak_bytes'] / 2**30:.2f} GiB")
+    if also is not None:
+        log(f"[{tag}] {mode}: then the first {also[0]} requests with "
+            f"{also[1]} new tokens each on the same engine (for the on/off "
+            f"gate): {out['also_wall_s']:.3f} s, launches exact")
     if out["graphs"]:
         g = out["graphs"]
         log(f"[{tag}] {mode}: {len(g)} graphs, pool "
@@ -2956,10 +3004,59 @@ def _same_tokens(tag, what, runs):
         streams += [r["tokens"]] + ([r["first_tokens"]]
                                     if "first_tokens" in r else [])
     if any(s != streams[0] for s in streams):
+        raise AssertionError(f"{tag} {what}: different tokens")
+    log(f"[{tag}] {what}: identical tokens ({len(streams)} runs)")
+
+
+#: the graphs-on/off token gate's requests: the first ``SERVE_SLOTS``
+#: prompts of a workload (one admission wave) with ``ONOFF_NEW_TOKENS`` new
+#: tokens each, 31 decode steps through the chunks 16, 8, 4, 2 and 1, so
+#: every decode graph a timed run replays is held against eager decode.
+#: The graphs-on engine serves them after its timed run (``serve_run``'s
+#: ``also``), a graphs-off engine serves them alone: whole token streams of
+#: the same requests, at a fraction of an eager run over the workload.
+ONOFF_NEW_TOKENS = 32
+ONOFF = (SERVE_SLOTS, ONOFF_NEW_TOKENS)
+#: the new tokens of a capturing run that stands alone on the on/off
+#: gate's prompts (int8 pages, a dense cache): 15 decode steps through the
+#: chunks 8, 4, 2 and 1.  No timed run replays such a run's 16-step chunk,
+#: the dearest to capture (zamba2-7b's int8 run: 17.2 s at 32 tokens, 7.5
+#: s at 16).
+CAPTURE_NEW_TOKENS = 16
+
+
+def onoff_run(tag, model, params, prompts, want, extras=None, **kw):
+    """The graphs-off half of the on/off gate: ``serve_run`` over the
+    first ``SERVE_SLOTS`` of ``prompts`` (and ``extras``) with
+    ``ONOFF_NEW_TOKENS`` new tokens each."""
+    n = SERVE_SLOTS
+    return serve_run(tag, model, params, prompts[:n], ONOFF_NEW_TOKENS,
+                     False, want, extras=None if extras is None
+                     else extras[:n], **kw)
+
+
+def same_onoff(tag, what, on, off):
+    """Raise unless the graphs-on engine's ``also`` requests and the
+    graphs-off run of the same requests gave the same tokens; log their
+    tokens/s."""
+    if on["also_tokens"] != off["tokens"]:
         raise AssertionError(f"{tag} {what}: graphs on and off gave "
                              f"different tokens")
+    n_tok = sum(len(t) for t in off["tokens"])
     log(f"[{tag}] {what}: graphs on and off gave identical tokens "
-        f"({len(streams)} runs)")
+        f"({len(off['tokens'])} requests, {ONOFF_NEW_TOKENS} new tokens "
+        f"each); graphs on {n_tok / on['also_wall_s']:.1f} tokens/s against "
+        f"off {off['tokens_per_s']:.1f} "
+        f"({off['wall_s'] / on['also_wall_s']:.2f}x)")
+
+
+def pages_of(run: str) -> str:
+    """A serve run's page type as the kernel rows' ``launches_of`` name it:
+    the int8 runs of the full-width models serve the on/off gate's
+    requests (``ONOFF``)."""
+    return f"{run} pages" + (
+        f" ({SERVE_SLOTS} requests of {CAPTURE_NEW_TOKENS} new tokens)"
+        if run == "int8" else "")
 
 
 def serve_prompts(vocab: int, tag: str = "serve"):
@@ -2973,26 +3070,23 @@ def serve_prompts(vocab: int, tag: str = "serve"):
 
 
 def phase_serve(cfg, model, params):
-    """llama3.2-1b with bf16 and int8 pages, each with CUDA graphs on and
-    off in turns (on, off, off, on), the full workload; then a dense cache
-    and a sampled run (temperature 0.8, seed 7), 8 requests of 16 new
-    tokens, graphs on and off.  Every run's exact launch gates; equal
-    tokens on and off.  Returns the graphs-on runs' launches by page
+    """llama3.2-1b with bf16 pages, CUDA graphs on, the full workload, then
+    the on/off gate's requests graphs off (``ONOFF``); int8 pages with
+    graphs on (the capturing run: bf16's timed run times the replay); then
+    a dense cache and a sampled run (temperature 0.8, seed 7), 8 requests
+    of 16 new tokens, graphs on and off.  Every run's exact launch gates;
+    equal tokens on and off.  Returns the graphs-on runs' launches by page
     type."""
     prompts = serve_prompts(cfg.vocab_size)
-    runs = {}
-    for kv, graphs in ((None, True), (None, False), ("int8", False),
-                       ("int8", True)):
-        label = kv or "bf16"
-        runs[label, graphs] = serve_run(
-            f"serve {label} pages", model, params, prompts, SERVE_NEW_TOKENS,
-            graphs, llama_launches, paged=True, kv_dtype=kv)
-    for label in ("bf16", "int8"):
-        on, off = runs[label, True], runs[label, False]
-        _same_tokens("serve", f"{label} pages", (on, off))
-        log(f"[serve] {label} pages: graphs on {on['tokens_per_s']:.1f} "
-            f"tokens/s against off {off['tokens_per_s']:.1f} "
-            f"({on['tokens_per_s'] / off['tokens_per_s']:.2f}x)")
+    runs = {"bf16": serve_run("serve bf16 pages", model, params, prompts,
+                              SERVE_NEW_TOKENS, True, llama_launches,
+                              also=ONOFF, paged=True)}
+    off = onoff_run("serve bf16 pages", model, params, prompts,
+                    llama_launches, paged=True)
+    same_onoff("serve", "bf16 pages", runs["bf16"], off)
+    runs["int8"] = serve_run("serve int8 pages", model, params, prompts,
+                             SERVE_NEW_TOKENS, True, llama_launches,
+                             timed=False, paged=True, kv_dtype="int8")
     short = prompts[:SERVE_SLOTS]
     for what, kw in (("dense cache", dict(paged=False)),
                      ("sampled, bf16 pages", dict(paged=True,
@@ -3002,7 +3096,7 @@ def phase_serve(cfg, model, params):
         pair = [serve_run(f"serve {what}", model, params, short, 16, g, want,
                           **kw) for g in (True, False)]
         _same_tokens("serve", what, pair)
-    return {label: runs[label, True]["launches"] for label in ("bf16", "int8")}
+    return {label: runs[label]["launches"] for label in ("bf16", "int8")}
 
 
 def profiled_kernels(fn):
@@ -3029,10 +3123,13 @@ def log_top(tag, rows, busy_ms, top=10):
             f"  x{count:<6d} {key[:90]}")
 
 
-# an eager profiled serve run takes this many new tokens (7 decode steps):
-# the profiler records every operator the host issues, and at 32 tokens
-# its own cost made mamba2-370m's eager run 58 s of the script
-PROFILE_EAGER_TOKENS = 8
+# a profiled run takes this many new tokens (15 decode steps, CUDA graphs
+# of 8, 4, 2 and 1 steps): each step repeats the one before it, and at 32
+# tokens the profiler's cost over ~1000-5000 kernels a step and the
+# 16-step chunk's capture made each model's profile 10-25 s of the
+# script.  No profiled run is eager: an eager one measured the graphs'
+# kernels again, and the eager wall a step is each graphs-off run's
+PROFILE_TOKENS = 16
 # the port's serving kernels as the profiler names them; paged decode is
 # its split kernel and the combine pass after it, the SSD scan its three
 # passes
@@ -3047,13 +3144,11 @@ UNALIGNED_KERNELS = ("align1", "align2", "gemmSN")
 
 
 def phase_profile(cfg, model, params, top: int = 10, tag: str = "profile",
-                  paged: bool = True, graphs: bool = True,
-                  detail: bool = False, new_tokens: int | None = None,
-                  extras=None):
+                  paged: bool = True, detail: bool = False,
+                  new_tokens: int = PROFILE_TOKENS, extras=None):
     """Where the time goes in a short serve run (8 prompts of 128 tokens,
-    ``new_tokens`` each: by default 32 with graphs, ``PROFILE_EAGER_TOKENS``
-    without; bf16 pages, or the dense cache with
-    ``paged=False``; CUDA graphs on or off): its wall time unprofiled, then
+    ``new_tokens`` each; bf16 pages, or the dense cache with
+    ``paged=False``; CUDA graphs on): its wall time unprofiled, then
     its device kernels under ``torch.profiler`` (kernels replayed from a
     graph included).  With ``detail`` each instantiation of the port's
     kernels on its own line, and the decode steps alone: the same run's
@@ -3066,13 +3161,11 @@ def phase_profile(cfg, model, params, top: int = 10, tag: str = "profile",
     "device_ms"} of a decode step alone (None where the profiler recorded
     nothing)."""
     from repro_torch.serve import Request, ServeEngine
-    if new_tokens is None:
-        new_tokens = 32 if graphs else PROFILE_EAGER_TOKENS
     rng = np.random.default_rng(1)
-    tag = f"{tag}, graphs {'on' if graphs else 'off'}"
+    tag = f"{tag}, graphs on"
     eng = ServeEngine(model, params, batch_slots=SERVE_SLOTS,
                       max_seq=SERVE_MAX_SEQ, paged=paged, page_size=SERVE_PAGE,
-                      cuda_graphs=graphs)
+                      cuda_graphs=True)
     prompts = [rng.integers(0, cfg.vocab_size, 128).astype(np.int32)
                for _ in range(SERVE_SLOTS)]
 
@@ -3355,10 +3448,13 @@ def prefix_near_tie(tag, model, params, prompts, off, r, j, kv_dtype):
 
 def phase_serve_prefix(cfg, model, params):
     """llama3.2-1b with the radix prefix cache over ``prefix_workload``,
-    bf16 and int8 pages: per page type the cache off (graphs on) and on
-    (graphs on and off), then bf16 with the cache on in a pool of
-    ``PREFIX_SMALL_POOL`` pages.  Gates: every run's exact launches (the
-    prompt is re-run whole, so the counts of the cache off), the greedy
+    CUDA graphs on: on bf16 pages the cache off and on, then the cache on
+    in a pool of ``PREFIX_SMALL_POOL`` pages; on int8 pages the cache off
+    and on, each the capturing run alone.  (The cache on with graphs off
+    repeated these gates with only the graph mode changed: graphs on and
+    off are gated in ``phase_serve``.)  Gates: every
+    run's exact launches (the prompt is re-run whole, so the counts of the
+    cache off), the greedy
     tokens of every cache-on run equal the cache-off ones of its page
     type (where a request parts, ``prefix_near_tie`` instead), hits and
     hit tokens, at least one copy-on-write copy, at least one eviction in
@@ -3371,15 +3467,16 @@ def phase_serve_prefix(cfg, model, params):
     runs, near = {}, []
     for kv in (None, "int8"):
         label = kv or "bf16"
-        for cache, graphs, n_pages in ((False, True, None), (True, True, None),
-                                       (True, False, None)) + \
-                (((True, True, PREFIX_SMALL_POOL),) if kv is None else ()):
+        for cache, graphs, n_pages in ((False, True, None), (True, True, None)
+                                       ) + (((True, True, PREFIX_SMALL_POOL),)
+                                            if kv is None else ()):
             what = f"{label} pages, cache {'on' if cache else 'off'}" + (
                 f", {n_pages} pages" if n_pages else "")
             out = serve_run(f"serve_prefix {what}", model, params, prompts,
                             PREFIX_NEW_TOKENS, graphs, llama_launches,
-                            inspect=prefix_stats, paged=True, kv_dtype=kv,
-                            prefix_cache=cache, n_pages=n_pages)
+                            inspect=prefix_stats, timed=kv is None,
+                            paged=True, kv_dtype=kv, prefix_cache=cache,
+                            n_pages=n_pages)
             runs[label, cache, graphs, n_pages] = out
             st = out["cache"]
             if cache:
@@ -3406,10 +3503,10 @@ def phase_serve_prefix(cfg, model, params):
                     prefix_near_tie("serve_prefix", model, params, prompts,
                                     a, r, j, kv)
         off = runs[label, False, True, None]
-        for graphs in (True, False):
-            on = runs[label, True, graphs, None]
-            log(f"[serve_prefix] {label} pages, graphs "
-                f"{'on' if graphs else 'off'}: cache on "
+        for n_pages in (None, PREFIX_SMALL_POOL) if kv is None else ():
+            on = runs[label, True, True, n_pages]
+            log(f"[serve_prefix] {label} pages, graphs on: cache on"
+                + (f" in {n_pages} pages" if n_pages else "") + f" "
                 f"{on['tokens_per_s']:.1f} tokens/s against off (graphs on) "
                 f"{off['tokens_per_s']:.1f} "
                 f"({on['tokens_per_s'] / off['tokens_per_s']:.2f}x); peak "
@@ -3817,6 +3914,279 @@ def phase_fleet_launcher():
 
 
 # ---------------------------------------------------------------------------
+# 5b''. the README's five examples (repro_torch.examples) on the card
+# ---------------------------------------------------------------------------
+
+#: train_gpt3xl_dvfs on the card: the true gpt3-xl, two micro-batches of
+#: 8 x 1024 a step (the training shape whose flash forward with its
+#: log-sum-exp and backward the kernels phase checks, rows
+#: flash_prefill_lse[D128] and flash_bwd[D128]), checkpoints every 10
+#: steps and at the last, a failure injected at step 11: steps 0-10, the
+#: failure, a restore from the step-10 checkpoint, steps 10-11 again
+EXAMPLE_TRAIN_FLAGS = ["--full", "--seq", "1024", "--batch", "16",
+                       "--steps", "12", "--fail-at", "11"]
+EXAMPLE_TRAIN_STEPS_RUN = 13
+#: the kernel rows whose instantiation the device examples launch, and
+#: which example's count of which kernel joins the row
+EXAMPLE_ROWS = {"flash_prefill_lse[D128]": ("train_gpt3xl_dvfs",
+                                            "flash_prefill"),
+                "flash_bwd[D128]": ("train_gpt3xl_dvfs", "flash_bwd"),
+                "rmsnorm": ("serve_dvfs", "rmsnorm"),
+                "flash_prefill": ("serve_dvfs", "flash_prefill"),
+                "paged_decode[bf16]": ("serve_dvfs", "paged_decode")}
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def _run_example(name, module, argv):
+    """``module.main(argv)`` with the launch counts set to 0 just before
+    it; (its result, its launches, its seconds)."""
+    from repro_torch import kernels
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = module.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = kernels.launch_counts()
+    log(f"[examples] {name} {' '.join(argv)}: exit normal in {seconds:.1f} "
+        f"s, launches {got}")
+    return out, got, seconds
+
+
+def _same_plan(name, path, phases):
+    """Raise unless the plan saved at ``path`` loads with the per-phase
+    rows (``summary()["phases"]``) the example printed."""
+    from repro_torch.dvfs import DvfsPlan
+    if DvfsPlan.load(path).summary()["phases"] != phases:
+        raise AssertionError(f"examples {name}: {path} does not round-trip "
+                             f"through DvfsPlan.load")
+
+
+def example_train(tmp, nvml, idle_w):
+    """``train_gpt3xl_dvfs`` with ``EXAMPLE_TRAIN_FLAGS`` on the card, its
+    checkpoints (the real ``CheckpointManager``) under ``tmp``, each save's
+    and restore's bytes and seconds taken around the manager's calls, and
+    the NVML energy counter read around every step (the stream
+    synchronised at both ends), outside the example.  Gates: finite
+    losses, one restart, the executor's books (``check_executor``; fwd,
+    bwd and opt once a step of the 12), the saved plan round-trips, the
+    exact launches (2 micro-batches x 24 layers: 48 flash forwards with
+    their log-sum-exp and 48 flash backwards a step, no remat, over the
+    13 steps run).  Logs step seconds, tokens/s, peak memory, the
+    checkpoints' bytes and seconds, and, over a window of at least
+    ``DVFS_WINDOW_S``, measured joules a step beside the executor's
+    modeled ones."""
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.examples import train_gpt3xl_dvfs as ex
+    from repro_torch.models import build_model
+    from repro_torch.obs import check_executor
+    events, readings = [], []
+    cfg = get_config("gpt3-xl")
+    leaves = sum(math.prod(s) for s in _leaves(
+        build_model(cfg, device="cpu").param_shapes()))
+
+    class TimedCheckpoints(CheckpointManager):
+        def save(self, step, state, extra=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = super().save(step, state, extra)
+            events.append(("save", step, _dir_bytes(path),
+                           time.perf_counter() - t0))
+            return path
+
+        def restore(self, template, step=None):
+            step = self.latest_step() if step is None else step
+            t0 = time.perf_counter()
+            out = super().restore(template, step)
+            torch.cuda.synchronize()
+            events.append(("restore", step,
+                           _dir_bytes(self._step_dir(step)),
+                           time.perf_counter() - t0))
+            return out
+
+    make = ex.make_train_step
+
+    def metered(*a, **kw):
+        step = make(*a, **kw)
+
+        def run(state, batch):
+            torch.cuda.synchronize()
+            e0, t0 = nvml.energy_j(), time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            readings.append((nvml.energy_j() - e0,
+                             time.perf_counter() - t0))
+            return state, metrics
+        return run
+
+    ckpt_dir = os.path.join(tmp, "ckpt")
+    free = shutil.disk_usage(tmp).free
+    log(f"[examples] train_gpt3xl_dvfs: checkpoints under a temporary "
+        f"directory with {free / 1e9:.1f} GB free")
+    torch.cuda.reset_peak_memory_stats()
+    ex.CheckpointManager, ex.make_train_step = TimedCheckpoints, metered
+    try:
+        out, got, seconds = _run_example(
+            "train_gpt3xl_dvfs", ex, EXAMPLE_TRAIN_FLAGS + [
+                "--ckpt-dir", ckpt_dir, "--plan-out",
+                os.path.join(tmp, "train_plan.json")])
+    finally:
+        ex.CheckpointManager, ex.make_train_step = CheckpointManager, make
+    peak = torch.cuda.max_memory_allocated()
+    hist, done, L = out["history"], out["done"], 24
+    steps = int(EXAMPLE_TRAIN_FLAGS[EXAMPLE_TRAIN_FLAGS.index("--steps")
+                                    + 1])
+    per_step = {"rmsnorm": 0, "flash_prefill": 2 * L, "flash_bwd": 2 * L,
+                "paged_decode": 0, "ssd_scan": 0}
+    want = {k: v * EXAMPLE_TRAIN_STEPS_RUN for k, v in per_step.items()}
+    phases = out["executor"].summary()["phases"]
+    problems = check_executor(out["executor"])
+    if (out["params"], leaves) != (cfg.param_count()[0], 1_418_207_232) \
+            or done["restarts"] != 1 \
+            or done["final_step"] != steps \
+            or len(hist) != EXAMPLE_TRAIN_STEPS_RUN \
+            or not all(math.isfinite(h["loss"]) for h in hist) \
+            or problems or {k: r["steps"] for k, r in phases.items()} != \
+            {"fwd": steps, "bwd": steps, "opt": steps} or got != want:
+        raise AssertionError(
+            f"examples train_gpt3xl_dvfs: params {out['params']} (leaves "
+            f"{leaves}), restarts "
+            f"{done['restarts']}, steps {[h['step'] for h in hist]}, losses "
+            f"{[h['loss'] for h in hist]}, executor {problems}, phases "
+            f"{phases}, launches {got} != {want}")
+    _same_plan("train_gpt3xl_dvfs", out["path"], out["plan"])
+    saves = [e for e in events if e[0] == "save"]
+    if [e[1] for e in saves] != [10, steps] or \
+            [e[:2] for e in events if e[0] == "restore"] != \
+            [("restore", 10)]:
+        raise AssertionError(f"examples train_gpt3xl_dvfs: checkpoint "
+                             f"events {events}")
+    # the steady steps: all but the first and the first after the restart
+    steady = [r for i, r in enumerate(readings) if i not in (0, 11)]
+    wall = [h["wall_s"] for i, h in enumerate(hist) if i not in (0, 11)]
+    tokens = 16 * 1024
+    log(f"[examples] train_gpt3xl_dvfs: {leaves:,} parameters (the "
+        f"config's count, which the example prints: {out['params']:,}), "
+        f"{len(hist)} steps run of 16 x 1024 tokens (2 micro-batches of 8), "
+        f"losses {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}, "
+        f"{done['restarts']} restart; a steady step {np.mean(wall):.4f} s "
+        f"(median {np.median(wall):.4f}, steps 1-10 and the 12th) = "
+        f"{tokens / np.mean(wall):.1f} tokens/s; the first step "
+        f"{hist[0]['wall_s']:.3f} s, the first after the restore "
+        f"{hist[11]['wall_s']:.3f} s; peak memory {peak / 2**30:.2f} GiB; "
+        f"launches {got} (exact: {per_step} a step)")
+    for kind, step, nbytes, s in events:
+        log(f"[examples] train_gpt3xl_dvfs: checkpoint {kind} at step "
+            f"{step}: {nbytes:,} bytes in {s:.2f} s "
+            f"({nbytes / s / 1e9:.2f} GB/s, warm file cache)")
+    joules, secs = sum(r[0] for r in steady), sum(r[1] for r in steady)
+    tot = done["dvfs"]["totals"]
+    plan_e = np.mean([h["dvfs_energy_j"] for i, h in enumerate(hist)
+                      if i not in (0, 11)])
+    base_e = tot["base_energy_j"] / steps
+    if secs >= DVFS_WINDOW_S:
+        n = len(steady)
+        log(f"[examples] train_gpt3xl_dvfs: NVML over the {n} steady steps "
+            f"({secs:.3f} s): {joules / n:.2f} J a step "
+            f"({(joules - idle_w * secs) / n:.2f} net of {idle_w:.2f} W "
+            f"idle); modeled a step (h100_like): the plan {plan_e:.3f} J, "
+            f"auto {base_e:.3f} J; measured / modeled "
+            f"{joules / n / plan_e:.3f} (plan), {joules / n / base_e:.3f} "
+            f"(auto)")
+    else:
+        log(f"[examples] train_gpt3xl_dvfs: the steady steps last {secs:.3f}"
+            f" s, under the {DVFS_WINDOW_S} s energy window: NVML joules not "
+            f"reported")
+    return {"launches": got, "seconds": seconds, "step_s": float(
+        np.mean(wall)), "peak_bytes": peak, "checkpoints": events,
+        "joules_per_step": joules / len(steady) if secs >= DVFS_WINDOW_S
+        else None, "modeled_j": (plan_e, base_e)}
+
+
+def phase_examples(idle_w):
+    """The README's five examples, each through its ``main(argv)`` on the
+    card (``--chip`` h100, the default): quickstart and plan_transfer and
+    fleet_serve on chip models alone (host only), serve_dvfs on the full
+    llama3.2-1b in bf16 with bf16 pages behind its session's executor,
+    train_gpt3xl_dvfs on the full gpt3-xl (``example_train``).  Gates:
+    each returns; each saved plan round-trips through ``DvfsPlan.load``;
+    quickstart's kernel-static plan spends no more energy than its
+    pass-level one, at no more time than auto (tau 0); serve_dvfs's
+    executor hooks against the engine's requests and decode steps
+    (``_check_hooks``), every request served whole, its exact launches
+    (``llama_launches`` over the engine's calls, graph replays counted);
+    train_gpt3xl_dvfs's gates.  The host-only examples touch no kernel.
+    Artifacts and checkpoints go to a temporary directory the phase
+    removes.  Returns the device examples' launches by example."""
+    from repro_torch.examples import (fleet_serve, plan_transfer, quickstart,
+                                      serve_dvfs)
+    zero = {"rmsnorm": 0, "flash_prefill": 0, "flash_bwd": 0,
+            "paged_decode": 0, "ssd_scan": 0}
+    out = {}
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="examples_", dir=build) as tmp:
+        q, got, _ = _run_example("quickstart", quickstart, [
+            "--plan-out", os.path.join(tmp, "quickstart_plan.json")])
+        plans = q["plans"]
+        if got != zero or not q["round_trips"] or \
+                plans["kernel-static"]["energy_pct"] > \
+                plans["pass-level"]["energy_pct"] or \
+                plans["kernel-static"]["time_pct"] > 1e-6:
+            raise AssertionError(f"examples quickstart: launches {got}, "
+                                 f"round trip {q['round_trips']}, plans "
+                                 f"{plans}")
+        _same_plan("quickstart", q["path"], q["plan"].summary()["phases"])
+        log("[examples] quickstart (modeled, h100_like): " + "; ".join(
+            q["lines"][1:-1]))
+        p, got, _ = _run_example("plan_transfer", plan_transfer, [])
+        if got != zero:
+            raise AssertionError(f"examples plan_transfer: launches {got}")
+        log("[examples] plan_transfer (modeled, h100_like): " + "; ".join(
+            ln for ln in p["lines"][1:] if ln))
+        f, got, _ = _run_example("fleet_serve", fleet_serve, [])
+        if got != zero:
+            raise AssertionError(f"examples fleet_serve: launches {got}")
+        log("[examples] fleet_serve (modeled, h100_like): " + "; ".join(
+            f["lines"][1:5]))
+        s, got, _ = _run_example("serve_dvfs", serve_dvfs, [
+            "--plan-out", os.path.join(tmp, "serve_plan.json")])
+        want = llama_launches(s["n_decode_steps"], s["n_prefill_calls"])
+        reqs = s["requests"]
+        if got != want or not all(r.done and len(r.generated) ==
+                                  r.max_new_tokens for r in reqs):
+            raise AssertionError(f"examples serve_dvfs: launches {got} != "
+                                 f"{want}, or a request unfinished")
+        _check_hooks("examples serve_dvfs", s["executor"], len(reqs),
+                     s["n_decode_steps"])
+        _same_plan("serve_dvfs", s["path"], s["plan"])
+        log(f"[examples] serve_dvfs: llama3.2-1b at full width, bf16 pages, "
+            f"{len(reqs)} requests, {s['tokens']} tokens in "
+            f"{s['seconds']:.3f} s = {s['tokens'] / s['seconds']:.1f} "
+            f"tokens/s (the captures included); {s['n_prefill_calls']} "
+            f"prefill calls, {s['n_decode_steps']} decode steps = the "
+            f"executor's hooks; launches {got} (exact); executed (modeled, "
+            f"h100_like) {s['executed']}")
+        out["serve_dvfs"] = got
+        del s
+        release()
+        nvml = Nvml()
+        try:
+            t = example_train(tmp, nvml, idle_w)
+        finally:
+            nvml.close()
+        out["train_gpt3xl_dvfs"] = t["launches"]
+        out["train"] = t
+    release()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 5a'. serve gpt3-xl (the paper's GPT-3 1.3B) at full width, and its
 # prefill / decode consistency
 # ---------------------------------------------------------------------------
@@ -3839,62 +4209,62 @@ def phase_serve_gpt3(cfg, model, params):
                             graphs_off=True)
 
 
-def serve_full_model(tag, cfg, model, params, launches,
-                     profile_modes=(True,), prompts=None,
+def serve_full_model(tag, cfg, model, params, launches, prompts=None,
                      new_tokens=SERVE_NEW_TOKENS, extras=None,
                      profile_extras=None, graphs_off=False):
     """A model at full width serves ``prompts`` (by default the serve
     phase's 16 requests; ``extras``, per prompt, as ``serve_run`` takes
-    them), ``new_tokens`` new tokens each, with bf16 pages, int8 pages and
-    a dense cache, CUDA graphs on, and with ``graphs_off`` bf16 pages with
-    graphs off too (equal tokens: the graphs' replay against eager
-    decode): exact launches (``launches(paged)``, a ``want(steps,
-    calls)``), no NaN logit; logs tokens/s, peak memory and each
-    capture's host ms, and the int8 and dense runs' agreement with bf16
-    pages.  (The models served without ``graphs_off`` have their on/off
-    equality gated elsewhere: llama3.2-3b and yi-34b run llama3.2-1b's
-    decode step, gated in ``phase_serve``, at other kernel
-    instantiations; llama4-scout in ``phase_serve_llama4_long``.)
-    Then a short profiled
-    bf16-page run with graphs on (and off where ``profile_modes`` holds
-    False; each request with ``profile_extras``), with its decode steps
-    alone.  Returns the graphs-on runs'
-    launches by page type, and the profiled runs' decode steps under
-    "profile" (``phase_profile``'s summaries by graph mode)."""
+    them), ``new_tokens`` new tokens each, with bf16 pages, CUDA graphs
+    on, then the on/off gate's requests (``ONOFF``) on the same engine;
+    with ``graphs_off`` those requests on bf16 pages with graphs off too
+    (equal tokens: the graphs' replay against eager decode); then those
+    requests with ``CAPTURE_NEW_TOKENS`` each on int8 pages and on a
+    dense cache, graphs on (each the capturing run alone): exact launches (``launches(paged)``, a
+    ``want(steps, calls)``), no NaN logit; logs tokens/s, peak memory and
+    each capture's host ms, and the int8 and dense runs' agreement with
+    bf16 pages on the same requests.  (Over the whole workload these two
+    runs repeated the bf16 run's with only the cache type changed;
+    llama3.2-1b's int8 run in ``phase_serve`` keeps the whole workload,
+    and each model's int8 decode is held to a longer prefill in its
+    consistency phase.)  (The models served without ``graphs_off`` have
+    their on/off equality gated elsewhere: llama3.2-3b and yi-34b run
+    llama3.2-1b's decode step, gated in ``phase_serve``, at other kernel
+    instantiations; llama4-scout in ``phase_serve_llama4_long``.)  Then a
+    short profiled bf16-page run with graphs on (each request with
+    ``profile_extras``), with its decode steps alone.  Returns the
+    graphs-on runs' launches by page type, and the profiled run's decode
+    step under "profile" (``phase_profile``'s summary)."""
     if prompts is None:
         prompts = serve_prompts(cfg.vocab_size, tag)
-    runs = {}
-    for label, graphs, kw in (
-            ("bf16", True, dict(paged=True)),
-            ("bf16", False, dict(paged=True)),
-            ("int8", True, dict(paged=True, kv_dtype="int8")),
-            ("dense", True, dict(paged=False))):
-        if graphs or graphs_off:
-            runs[label, graphs] = serve_run(
-                f"{tag} {label}", model, params, prompts, new_tokens,
-                graphs, launches(kw["paged"]), extras=extras, **kw)
+    runs = {("bf16", True): serve_run(
+        f"{tag} bf16", model, params, prompts, new_tokens, True,
+        launches(True), extras=extras, also=ONOFF, paged=True)}
     if graphs_off:
-        on, off = runs["bf16", True], runs["bf16", False]
-        _same_tokens(tag, "bf16", (on, off))
-        log(f"[{tag}] bf16: graphs on {on['tokens_per_s']:.1f} "
-            f"tokens/s against off {off['tokens_per_s']:.1f} "
-            f"({on['tokens_per_s'] / off['tokens_per_s']:.2f}x)")
+        off = runs["bf16", False] = onoff_run(
+            f"{tag} bf16", model, params, prompts, launches(True),
+            extras=extras, paged=True)
+        same_onoff(tag, "bf16", runs["bf16", True], off)
+    n = SERVE_SLOTS
+    for label, kw in (("int8", dict(paged=True, kv_dtype="int8")),
+                      ("dense", dict(paged=False))):
+        runs[label, True] = serve_run(
+            f"{tag} {label}", model, params, prompts[:n],
+            CAPTURE_NEW_TOKENS, True, launches(kw["paged"]), extras=None if extras is None
+            else extras[:n], timed=False, **kw)
     # the dense path scales q in bf16 by a factor rounded to bf16, the
     # paged kernel in f32 (as the reference's two paths do), and int8 pages
     # quantize: logged against bf16 pages, not gated
-    for other in ("dense", "int8"):
-        a, b = runs[other, True]["tokens"], runs["bf16", True]["tokens"]
+    for other in ("int8", "dense"):
+        a, b = runs[other, True]["tokens"], runs["bf16", True]["also_tokens"]
         same = sum(x == y for ra, rb in zip(a, b) for x, y in zip(ra, rb))
         log(f"[{tag}] {other} against bf16 pages: {same} of "
-            f"{sum(len(r) for r in b)} greedy tokens equal")
-    profiles = {graphs: phase_profile(cfg, model, params,
-                                      tag=tag.replace("serve", "profile"),
-                                      paged=True, graphs=graphs, detail=True,
-                                      extras=profile_extras)
-                for graphs in profile_modes}
+            f"{sum(len(r) for r in a)} greedy tokens equal")
     out = {label: runs[label, True]["launches"]
            for label in ("bf16", "int8")}
-    out["profile"] = profiles
+    out["profile"] = phase_profile(cfg, model, params,
+                                   tag=tag.replace("serve", "profile"),
+                                   paged=True, detail=True,
+                                   extras=profile_extras)
     out["peak_bytes"] = max(r["peak_bytes"] for r in runs.values())
     return out
 
@@ -4288,7 +4658,7 @@ def phase_serve_yi(cfg, model, params):
                            new_tokens=YI_NEW_TOKENS)
     nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     floor = nbytes / HBM_BYTES_PER_S * 1e3
-    step = out["profile"][True]
+    step = out["profile"]
     log(f"[serve_yi] weights {nbytes / 1e9:.2f} GB: a decode step cannot "
         f"take less than {floor:.2f} ms (read once at 3.35 TB/s); the "
         f"decode step alone (graphs on) " + (
@@ -4397,7 +4767,7 @@ def phase_serve_encdec(cfg, model, params):
                            encdec_launches(cfg), prompts=prompts,
                            extras=extras, profile_extras=extras[0],
                            graphs_off=True)
-    out["cross_ms"] = cross_decode_share(cfg, out["profile"][True])
+    out["cross_ms"] = cross_decode_share(cfg, out["profile"])
     return out
 
 
@@ -4542,7 +4912,7 @@ def phase_serve_llama4(cfg, model, params):
     graphs-on runs' launches by page type."""
     out = serve_full_model("serve_llama4", cfg, model, params,
                            llama4_launches(cfg))
-    step = out["profile"][True]
+    step = out["profile"]
     out["ring_ms"] = ring_decode_share(
         "serve_llama4", cfg, model, step, SERVE_SLOTS,
         min(cfg.attn_window, SERVE_MAX_SEQ))
@@ -4640,7 +5010,7 @@ def phase_serve_nemotron(cfg, model, params):
     out = serve_full_model("serve_nemotron", cfg, model, params,
                            lambda paged: gpt3_launches(cfg.n_layers, paged),
                            graphs_off=True)
-    log_decode_floor("serve_nemotron", cfg, params, out["profile"][True])
+    log_decode_floor("serve_nemotron", cfg, params, out["profile"])
     return out
 
 
@@ -4728,12 +5098,16 @@ def mamba_launches(L: int):
 def phase_serve_ssm(cfg, model, params):
     """The llama serve phase's 16 requests through mamba2-370m, with the
     dense ``BatchState`` and with ``paged=True`` (an SSM pools nothing; the
-    block tables only account), each with CUDA graphs on and off in turns:
-    the same greedy tokens from all four, exact launch counts, no NaN
-    logit.  Then the bucket-512 prefill of 8 rows timed as a direct
-    ``model.prefill`` call and through the engine's memoized prefill entry
-    (graphs on and off), and a short profiled run with graphs on.  Returns
-    the dense graphs-on run's launches."""
+    block tables only account), CUDA graphs on (paged: the capturing run
+    alone, the dense run's timed run times the replay), then the on/off
+    gate's requests (``ONOFF``) on the dense state with graphs off: the same
+    greedy tokens from all, exact launch counts, no NaN logit.  (The paged
+    state with graphs off repeated the dense one's on/off gate; the paged
+    engine runs eagerly in ``phase_fleet_ssm``.)  Then the bucket-512
+    prefill of 8 rows timed as a direct ``model.prefill`` call and through
+    the engine's memoized prefill entry (graphs on and off), and a short
+    profiled run with graphs on.  Returns the dense graphs-on run's
+    launches."""
     rng = np.random.default_rng(0)
     plens = rng.integers(16, 513, SERVE_REQUESTS)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
@@ -4741,18 +5115,17 @@ def phase_serve_ssm(cfg, model, params):
     log(f"[serve_ssm] {SERVE_REQUESTS} requests, prompt lengths "
         f"{sorted(int(n) for n in plens)}, {SERVE_NEW_TOKENS} new tokens each")
     want = mamba_launches(cfg.n_layers)
-    runs = {}
-    for label, graphs in (("dense", True), ("dense", False), ("paged", False),
-                          ("paged", True)):
-        runs[label, graphs] = serve_run(
-            f"serve_ssm {label}", model, params, prompts, SERVE_NEW_TOKENS,
-            graphs, want, paged=label == "paged")
-    _same_tokens("serve_ssm", "dense and paged", list(runs.values()))
-    for label in ("dense", "paged"):
-        on, off = runs[label, True], runs[label, False]
-        log(f"[serve_ssm] {label}: graphs on {on['tokens_per_s']:.1f} "
-            f"tokens/s against off {off['tokens_per_s']:.1f} "
-            f"({on['tokens_per_s'] / off['tokens_per_s']:.2f}x)")
+    runs = {"dense": serve_run("serve_ssm dense", model, params, prompts,
+                               SERVE_NEW_TOKENS, True, want, also=ONOFF,
+                               paged=False)}
+    off = onoff_run("serve_ssm dense", model, params, prompts, want,
+                    paged=False)
+    same_onoff("serve_ssm", "dense", runs["dense"], off)
+    runs["paged"] = serve_run("serve_ssm paged", model, params, prompts,
+                              SERVE_NEW_TOKENS, True, want, timed=False,
+                              paged=True)
+    _same_tokens("serve_ssm", "dense and paged (graphs on)",
+                 list(runs.values()))
     mamba_prefill_ms(cfg, model, params, rng)
     firsts = [engine_prefill_ms(cfg, model, params, g)["first"]
               for g in (True, False)]
@@ -4761,9 +5134,8 @@ def phase_serve_ssm(cfg, model, params):
                              "different first tokens")
     # graphs on only: the eager profile measured the same kernels again,
     # and the eager wall a step is the graphs-off runs' above
-    phase_profile(cfg, model, params, tag="profile_ssm", paged=False,
-                  graphs=True)
-    return runs["dense", True]["launches"]
+    phase_profile(cfg, model, params, tag="profile_ssm", paged=False)
+    return runs["dense"]["launches"]
 
 
 def engine_prefill_ms(cfg, model, params, graphs: bool, repeats: int = 3):
@@ -4976,12 +5348,16 @@ def hybrid_launches(cfg, model, paged: bool):
 
 def phase_serve_hybrid(cfg, model, params):
     """zamba2-7b serves 8 seeded requests (24-498 prompt tokens, 32 new
-    tokens each) with bf16 pages (CUDA graphs on and off), int8 pages
-    (graphs on) and a dense cache (graphs on and off): the same greedy
-    tokens with graphs on and off and from the dense cache and bf16 pages,
-    exact launch counts, no NaN logit; logs tokens/s, peak memory and the
-    graph pool.  Then a short profiled run with bf16 pages, graphs on.
-    Returns the graphs-on runs' launches by page type."""
+    tokens each) with bf16 pages (CUDA graphs on, then the on/off gate's
+    requests, ``ONOFF``, with graphs off), and those prompts with
+    ``CAPTURE_NEW_TOKENS`` each on int8 pages (graphs on) and on a dense
+    cache (graphs on and off; each graphs-on run the capturing run alone):
+    the same greedy tokens with
+    graphs on and off on bf16 pages and on the dense cache, exact launch
+    counts, no NaN logit; logs tokens/s, peak memory and the graph pool,
+    and the int8 and dense runs' agreement with bf16 pages.  Then a short
+    profiled run with bf16 pages, graphs on.  Returns the graphs-on runs'
+    launches by page type."""
     rng = np.random.default_rng(0)
     plens = rng.integers(24, 499, HYBRID_REQUESTS)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
@@ -4989,47 +5365,46 @@ def phase_serve_hybrid(cfg, model, params):
     log(f"[serve_hybrid] {HYBRID_REQUESTS} requests, prompt lengths "
         f"{sorted(int(n) for n in plens)}, {HYBRID_NEW_TOKENS} new tokens "
         f"each")
-    runs = {}
-    for label, graphs, kw in (
-            ("bf16", True, dict(paged=True)),
-            ("bf16", False, dict(paged=True)),
-            ("int8", True, dict(paged=True, kv_dtype="int8")),
-            ("dense", True, dict(paged=False)),
-            ("dense", False, dict(paged=False))):
-        runs[label, graphs] = serve_run(
-            f"serve_hybrid {label}", model, params, prompts,
-            HYBRID_NEW_TOKENS, graphs,
-            hybrid_launches(cfg, model, kw["paged"]), **kw)
-    for label in ("bf16", "dense"):
-        _same_tokens("serve_hybrid", f"{label}",
-                     [runs[label, True], runs[label, False]])
-    _same_tokens("serve_hybrid", "int8 pages (its capturing and timed "
-                 "runs)", [runs["int8", True]])
+    want = hybrid_launches(cfg, model, True)
+    runs = {("bf16", True): serve_run(
+        "serve_hybrid bf16", model, params, prompts, HYBRID_NEW_TOKENS,
+        True, want, also=ONOFF, paged=True)}
+    runs["bf16", False] = onoff_run("serve_hybrid bf16", model, params,
+                                    prompts, want, paged=True)
+    same_onoff("serve_hybrid", "bf16", runs["bf16", True],
+               runs["bf16", False])
+    for label, kw in (("int8", dict(paged=True, kv_dtype="int8")),
+                      ("dense", dict(paged=False))):
+        runs[label, True] = serve_run(
+            f"serve_hybrid {label}", model, params, prompts[:SERVE_SLOTS],
+            CAPTURE_NEW_TOKENS, True,
+            hybrid_launches(cfg, model, kw["paged"]), timed=False, **kw)
+    runs["dense", False] = serve_run(
+        "serve_hybrid dense", model, params, prompts[:SERVE_SLOTS],
+        CAPTURE_NEW_TOKENS, False, hybrid_launches(cfg, model, False),
+        paged=False)
+    _same_tokens("serve_hybrid", "dense (graphs on and off)",
+                 [runs["dense", True], runs["dense", False]])
     # the dense and paged paths scale q as the reference's do, in bf16 by
     # a factor rounded to bf16 and in f32: at head_dim 224 they differ by
     # an ulp, so their greedy tokens may part (consistency_hybrid holds
     # both paths against one longer prefill); logged, as int8 is
     for other, why in (("dense", "q scaled in bf16 against f32 on pages"),
                        ("int8", "quantized KV")):
-        a, b = runs[other, True]["tokens"], runs["bf16", True]["tokens"]
+        a, b = runs[other, True]["tokens"], runs["bf16", True]["also_tokens"]
         same = [sum(x == y for x, y in zip(ra, rb)) for ra, rb in zip(a, b)]
         first = [next((i for i, (x, y) in enumerate(zip(ra, rb)) if x != y),
                       None) for ra, rb in zip(a, b)]
         log(f"[serve_hybrid] {other} against bf16 pages ({why}): "
-            f"{sum(same)} of {sum(len(r) for r in b)} greedy tokens equal; "
+            f"{sum(same)} of {sum(len(r) for r in a)} greedy tokens equal; "
             f"first difference by request {first}")
-    for label in ("bf16", "dense"):
-        on, off = runs[label, True], runs[label, False]
-        log(f"[serve_hybrid] {label}: graphs on {on['tokens_per_s']:.1f} "
-            f"tokens/s against off {off['tokens_per_s']:.1f} "
-            f"({on['tokens_per_s'] / off['tokens_per_s']:.2f}x)")
     # 8 new tokens (7 decode steps): the profiler's cost grows with the
     # ~5000 kernels of each step.  Graphs on only: the eager profile
     # (~36 s) measured the same kernels and launches again (37.86 against
     # 37.71 device ms a step), and the eager wall a step is the bf16
     # graphs-off run's above
     phase_profile(cfg, model, params, tag="profile_hybrid", paged=True,
-                  graphs=True, detail=True, new_tokens=8)
+                  detail=True, new_tokens=8)
     return {label: runs[label, True]["launches"] for label in ("bf16", "int8")}
 
 
@@ -5709,17 +6084,18 @@ def dvfs_train_launcher(arch: str = "llama3.2-1b"):
 
 def phase_dvfs(cfg, model, params):
     """The DVFS stack on the card, reading NVML: the grid and idle check,
-    the serve launcher at full width and with ``--smoke`` (llama3.2-1b;
-    granite-moe-1b-a400m with ``--smoke`` and at full width with 2
-    requests), the serve and training windows, the train launcher.
-    ``model`` is the serve phase's llama3.2-1b."""
+    the serve launcher with ``--smoke`` (llama3.2-1b; granite-moe-1b-a400m
+    with ``--smoke`` and at full width with 2 requests), the serve and
+    training windows, the train launcher.  (llama3.2-1b's serve launcher
+    at full width repeated the gates the examples phase's ``serve_dvfs``
+    keeps: the full model behind a ``DvfsSession(chip="h100")`` executor,
+    its hooks against the engine's calls, exact launches.)  ``model`` is
+    the serve phase's llama3.2-1b."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     nvml = Nvml()
     try:
         idle_w = dvfs_grid_check(nvml)
-        dvfs_serve_launcher()
-        release()
         smoke_launches = dvfs_serve_launcher(smoke=True)
         release()
         dvfs_serve_launcher(smoke=True, arch=MOE_ARCH)
@@ -5968,16 +6344,15 @@ MD_MOE_LAYERS, MD_MOE_TIE, MD_MOE_FLIPS = 4, 5e-2, 0.1
 # |logit|, every argmax equal but at a near tie (a top-2 margin within
 # twice the row's max |dlogit|, where bf16 rounding may flip it; counted).
 # The bf16 reading (~7e-3) is the two decode paths' rounding, a world of
-# one reads it too, so the combine is gated in float32 on the plain path
-# at MD_SERVE_F32_LAYERS layers: prompts of MD_SERVE_F32_PROMPT tokens and
-# MD_SERVE_F32_STEPS decode step (it writes position 1024 on model rank
-# 1), logits within MD_SERVE_F32_TOL (sound calls read 1.95e-6-2.84e-6 on
-# an H100 80GB HBM3 at 700 W); a control, the step again with model rank
-# 1's (max, sum, out) partial left out of the combine (the one key it
-# holds of 1025), must read past that bound (it read 8.12e-2)
+# one reads it too, so the context-parallel combine is gated in float32 on
+# the plain path, logits within MD_SERVE_F32_TOL, with a control that
+# leaves the partials past the first sequence block out and must read past
+# that bound: in seamless-m4t-medium's float32 pass (MD_FAMILIES), the same
+# ShardedServe combine over its decoder self- and cross-attention.  (A
+# llama3.2-1b float32 pass at one layer repeated it: sound calls
+# 1.785e-6-3.006e-6, its control 6.701e-2, on an H100 80GB HBM3 at 700 W.)
 MD_SERVE_LAYERS, MD_SERVE_SLOTS, MD_SERVE_MAX_SEQ = 4, 8, 2048
 MD_SERVE_PROMPT, MD_SERVE_STEPS, MD_SERVE_TOL = 1023, 2, 2e-2
-MD_SERVE_F32_LAYERS, MD_SERVE_F32_PROMPT, MD_SERVE_F32_STEPS = 1, 1024, 1
 MD_SERVE_F32_TOL = 1e-4
 #: the kernel rows of the (2, 2) ranks' shapes and the run whose launches
 #: each reports (rank 0's: granite's bf16 step, llama3.2-1b's serving)
@@ -6187,18 +6562,16 @@ def _md_serve_params(model):
     return model.init(gen)
 
 
-#: llama3.2-1b's two served runs: (layers, compute dtype, prompt, steps)
+#: llama3.2-1b's served run: (layers, compute dtype, prompt, steps)
 MD_SERVE_RUNS = {
-    "bf16": (MD_SERVE_LAYERS, "bfloat16", MD_SERVE_PROMPT, MD_SERVE_STEPS),
-    "f32": (MD_SERVE_F32_LAYERS, "float32", MD_SERVE_F32_PROMPT,
-            MD_SERVE_F32_STEPS)}
+    "bf16": (MD_SERVE_LAYERS, "bfloat16", MD_SERVE_PROMPT, MD_SERVE_STEPS)}
 
 
 def md_serve_reference(tmp):
     """llama3.2-1b's unsharded prefill and greedy dense-cache decode steps
-    of each of ``MD_SERVE_RUNS`` (bf16 on the kernels, float32 on the
-    plain path): every call's logits (saved under ``tmp``) and the greedy
-    tokens, which the ranks are fed."""
+    of each of ``MD_SERVE_RUNS`` (bf16 on the kernels): every call's
+    logits (saved under ``tmp``) and the greedy tokens, which the ranks are
+    fed."""
     out = {}
     for key, (layers, dtype, n, steps) in MD_SERVE_RUNS.items():
         model = _md_model(layers, "llama3.2-1b", dtype)
@@ -6241,9 +6614,7 @@ def md_serve_rank(mesh, job, runs):
     ``runs`` (keys of ``MD_SERVE_RUNS``): the sharded prefill of its rows,
     then the decode steps fed the unsharded greedy tokens; each call's
     seconds and collective bytes and its logits against the unsharded
-    ones (the gathered rows), the bf16 run's launches and cache blocks;
-    after the float32 run, its control (the last step again with every
-    sequence block's partial but the first left out of the combine)."""
+    ones (the gathered rows), the bf16 run's launches and cache blocks."""
     from repro_torch import kernels
     from repro_torch.parallel import collectives as coll
     from repro_torch.parallel.serve_step import ShardedServe, gather_rows
@@ -6286,16 +6657,6 @@ def md_serve_rank(mesh, job, runs):
                 pos = pos + 1
             res = {"calls": calls, "launches": kernels.launch_counts(),
                    "shapes": {k: tuple(v.shape) for k, v in cache.items()}}
-            if dtype == "float32":
-                # the last step again (its K/V rewritten as they were), the
-                # partials of every sequence block but the first left out
-                part, pos = serve._partial, pos - 1
-                serve._partial = lambda q, kc, vc, valid, blk: part(
-                    q, kc, vc, valid if blk.start == 0
-                    else torch.zeros_like(valid), blk)
-                _, res["control"] = call(lambda: serve.decode_step(
-                    local, cache, feed, pos), steps)
-                del serve._partial
         out[key] = res
         del local, cache, model
         torch.cuda.empty_cache()
@@ -6322,13 +6683,20 @@ def md_serve_rank(mesh, job, runs):
 # first sequence block left out; mamba2's gate norm without its sum over
 # model), which must read past that bound.  The rows stay few: zamba2-7b
 # at full width is ~0.55e9 parameters, which gloo moves through the host.
+# zamba2-7b (f32 False) runs no float32 pass on the ranks: its float32
+# step and serving repeated the gates that mamba2-370m's (the Mamba2
+# blocks' split, the gate norm's sum, g's combine) and seamless's (the
+# attention heads' split, g's combine, the context-parallel combine and
+# its control) keep; its bf16 step and serving stay gated, and its
+# unsharded float32 step still sorts which leaves bf16 rounding alone puts
+# past MD_GRAD_TOL (none may be, with no float32 pass to take them).
 # (layers, train rows and tokens, served prompts and their length, the
 # cache's max_seq, decode steps; the float32 pass's prompt length)
 MD_FAMILIES = {
     "mamba2-370m": dict(layers=4, train=(8, 1024), slots=8, prompt=512,
                         max_seq=1024, steps=4, f32_prompt=512),
     "zamba2-7b": dict(layers=2, train=(4, 512), slots=4, prompt=1023,
-                      max_seq=2048, steps=2, f32_prompt=1024),
+                      max_seq=2048, steps=2, f32=False),
     "seamless-m4t-medium": dict(layers=2, train=(4, 256), slots=4,
                                 prompt=511, max_seq=1024, steps=2,
                                 f32_prompt=512)}
@@ -6395,9 +6763,11 @@ def _md_fam_batch(cfg, spec):
 
 #: a family's served passes: (layers, compute dtype, prompt, steps)
 def _md_fam_passes(spec):
-    return {"bf16": (spec["layers"], "bfloat16", spec["prompt"],
-                     spec["steps"]),
-            "f32": (1, "float32", spec["f32_prompt"], 1)}
+    passes = {"bf16": (spec["layers"], "bfloat16", spec["prompt"],
+                       spec["steps"])}
+    if spec.get("f32", True):
+        passes["f32"] = (1, "float32", spec["f32_prompt"], 1)
+    return passes
 
 
 def md_family_reference(tmp):
@@ -6504,7 +6874,8 @@ def md_family_rank(mesh, job, passes=("train", "train_control", "train_f32",
         fam, res = job["families"][arch], {"cache_shapes": {}}
         t_fam = time.perf_counter()
         for key, dtype in MD_FAM_TRAIN.items():
-            if key not in passes:
+            if key not in passes or (dtype == "float32"
+                                     and not spec.get("f32", True)):
                 continue
             ref = fam[key]
             model = _md_fam_model(arch, spec["layers"], dtype)
@@ -6673,6 +7044,10 @@ def md_check_families(tag, who, res, mesh):
                 want = None
                 how = "float32, the plain path"
             gated = {p: e for p, e in t["grad_errs"].items() if p not in out}
+            if out and not spec.get("f32", True):
+                problems.append(f"{who}'s sharded {arch} step: leaves "
+                                f"{sorted(out)} left to a float32 pass that "
+                                f"does not run")
             worst = max(gated, key=gated.get)
             log(f"[{tag}] {who} {arch} sharded train step at "
                 f"{spec['layers']} layers, {spec['train'][0] // mesh[0]} x "
@@ -6987,8 +7362,9 @@ def phase_multidevice(layers: int = MD_LAYERS, cards: int = 1,
     the other data rank taken them.  Then on every rank granite's sharded
     step (:func:`md_moe_rank`; bf16 with its routing held, and with
     ``free_routing`` float32 and bf16 with it free, logged) and
-    llama3.2-1b's sharded serving (:func:`md_serve_rank`; bf16, and
-    float32 with its control), each held to the unsharded runs the parent
+    llama3.2-1b's sharded serving (:func:`md_serve_rank`; bf16; the
+    families' float32 passes gate its combine), each held to the unsharded
+    runs the parent
     takes first (:func:`md_check_moe`, :func:`md_check_serve`: every rank
     logged before a failure raises); the nccl rank runs their bf16
     passes.  Returns rank 0's launches over the
@@ -7040,8 +7416,10 @@ def phase_multidevice(layers: int = MD_LAYERS, cards: int = 1,
                 f"the float32 step's) over "
                 f"{sp['train'][0]} x {sp['train'][1]} tokens, "
                 f"{sp['slots']} prompts of {sp['prompt']} into max_seq "
-                f"{sp['max_seq']} and {sp['steps']} greedy steps (float32 "
-                f"at 1 layer: prompts of {sp['f32_prompt']}, 1 step)"
+                f"{sp['max_seq']} and {sp['steps']} greedy steps" + (
+                    f" (float32 at 1 layer: prompts of {sp['f32_prompt']}, "
+                    f"1 step)" if sp.get("f32", True) else
+                    " (no float32 pass on the ranks)")
                 for arch, sp in MD_FAMILIES.items())
             + f"; {time.perf_counter() - t2:.1f} s")
         moe = refs["moe"]
@@ -7239,21 +7617,14 @@ def md_check_serve(tag, who, res, mesh):
     what it fails of its gates: the bf16 run's finite logits within ``MD_SERVE_TOL`` of the unsharded
     ones at every call, every argmax equal but at a near tie, its exact
     launches (L flash prefills, 2 L + 1 RMSNorms a call) and each cache
-    block a slice of the sequence; the float32 run's logits within
-    ``MD_SERVE_F32_TOL`` at every call, its control past that bound."""
+    block a slice of the sequence."""
     seq = MD_SERVE_MAX_SEQ // mesh[1]
     problems = []
     for key, r in res.items():
         layers, _, _, steps = MD_SERVE_RUNS[key]
-        tol = MD_SERVE_TOL if key == "bf16" else MD_SERVE_F32_TOL
-        calls = list(enumerate(r["calls"]))
-        if "control" in r:
-            calls.append(("control", r["control"]))
-        for i, c in calls:
-            name = "prefill" if i == 0 else f"decode {i}" \
-                if i != "control" else (f"control (decode {steps} again, "
-                                        f"the partials past the first "
-                                        f"sequence block left out)")
+        tol = MD_SERVE_TOL
+        for i, c in enumerate(r["calls"]):
+            name = "prefill" if i == 0 else f"decode {i}"
             log(f"[{tag}] {who} llama3.2-1b {key} {name}: {c['s']:.3f} s; "
                 f"logits within {c['err']:.3e} of the largest |logit| "
                 f"(bound {tol}); argmax differs at {c['differ']} of "
@@ -7274,10 +7645,6 @@ def md_check_serve(tag, who, res, mesh):
         if key == "bf16" and r["launches"] != per_run:
             problems.append(f"{who}'s sharded serving launches "
                             f"{r['launches']} != {per_run}")
-        if "control" in r and not r["control"]["err"] > tol:
-            problems.append(f"{who}'s float32 serving gate does not see a "
-                            f"partial left out of the combine "
-                            f"({r['control']['err']:.3e})")
     return problems
 
 
@@ -7327,8 +7694,10 @@ def main() -> int:
     rows = timed("kernels", phase_kernels)
     cfg, model, params = build_full_model()
     serve = timed("serve", phase_serve, cfg, model, params)
-    timed("profile", lambda: [phase_profile(cfg, model, params, graphs=g)
-                              for g in (True, False)])
+    # graphs on only: the eager profile measured the graphs-on run's
+    # kernels again, and the eager wall a step is the serve phase's
+    # graphs-off run's
+    timed("profile", phase_profile, cfg, model, params)
     timed("consistency", phase_consistency, model, params)
     dvfs = timed("dvfs", phase_dvfs, cfg, model, params)
     timed("serve_prefix", phase_serve_prefix, cfg, model, params)
@@ -7338,6 +7707,7 @@ def main() -> int:
     del model, params
     release()
     timed("fleet_launcher", phase_fleet_launcher)
+    examples = timed("examples", phase_examples, dvfs["idle_w"])
     cfg, model, params = timed("build_gpt3", build_full_model, "gpt3-xl")
     serve_gpt3 = timed("serve_gpt3", phase_serve_gpt3, cfg, model, params)
     timed("consistency_gpt3", phase_consistency_gpt3, model, params)
@@ -7457,7 +7827,8 @@ def main() -> int:
                                       f"{TRAIN_SEQ} tokens")
             else:
                 row["launches"] = serve_gpt3[run][name]
-                row["launches_of"] = (f"one gpt3-xl serve run, {run} pages, "
+                row["launches_of"] = (f"one gpt3-xl serve run, "
+                                      f"{pages_of(run)}, "
                                       f"CUDA graphs")
         elif row.get("model") == "multidevice":
             run = MD_ROW_RUNS[row["name"]]
@@ -7498,8 +7869,9 @@ def main() -> int:
                                       f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens")
             else:
                 row["launches"] = serve_llama3b[run][name]
-                row["launches_of"] = (f"one llama3.2-3b serve run, {run} "
-                                      f"pages, CUDA graphs")
+                row["launches_of"] = (f"one llama3.2-3b serve run, "
+                                      f"{pages_of(run)}"
+                                      f", CUDA graphs")
         elif row.get("model") == VLM_ARCH:
             run = VLM_ROW_RUNS[row["name"]]
             name = name.removesuffix("_lse")
@@ -7511,8 +7883,9 @@ def main() -> int:
                                       f"{TRAIN_SEQ - VLM_PREFIX} tokens)")
             else:
                 row["launches"] = serve_vlm[run][name]
-                row["launches_of"] = (f"one {VLM_ARCH} serve run, {run} "
-                                      f"pages, CUDA graphs, half the "
+                row["launches_of"] = (f"one {VLM_ARCH} serve run, "
+                                      f"{pages_of(run)}"
+                                      f", CUDA graphs, half the "
                                       f"requests behind {VLM_PREFIX} patch "
                                       f"rows")
         elif row.get("model") == ENCDEC_ARCH:
@@ -7526,8 +7899,9 @@ def main() -> int:
                                       f"{ENCDEC_TEXT} tokens)")
             else:
                 row["launches"] = serve_encdec[run][name]
-                row["launches_of"] = (f"one {ENCDEC_ARCH} serve run, {run} "
-                                      f"pages, CUDA graphs, each request "
+                row["launches_of"] = (f"one {ENCDEC_ARCH} serve run, "
+                                      f"{pages_of(run)}"
+                                      f", CUDA graphs, each request "
                                       f"with {ENCDEC_FRAMES} frames")
         elif row.get("model") == LLAMA4_ARCH:
             run = LLAMA4_ROW_RUNS[row["name"]]
@@ -7549,18 +7923,20 @@ def main() -> int:
             else:
                 row["launches"] = serve_llama4[run][name]
                 row["launches_of"] = (f"one {LLAMA4_ARCH} serve run at "
-                                      f"{LLAMA4_SERVE_LAYERS} layers, {run} "
-                                      f"pages, CUDA graphs")
+                                      f"{LLAMA4_SERVE_LAYERS} layers, "
+                                      f"{pages_of(run)}"
+                                      f", CUDA graphs")
         elif row.get("model") == NEMO_ARCH:
             run = NEMO_ROW_RUNS[row["name"]]
             row["launches"] = serve_nemo[run][name]
             row["launches_of"] = (f"one {NEMO_ARCH} serve run at "
-                                  f"{NEMO_SERVE_LAYERS} layers, {run} pages, "
+                                  f"{NEMO_SERVE_LAYERS} layers, "
+                                  f"{pages_of(run)}, "
                                   f"CUDA graphs")
         elif row.get("model") == YI_ARCH:
             run = YI_ROW_RUNS[row["name"]]
             row["launches"] = serve_yi[run][name]
-            row["launches_of"] = (f"one {YI_ARCH} serve run, {run} pages, "
+            row["launches_of"] = (f"one {YI_ARCH} serve run, {pages_of(run)}, "
                                   f"CUDA graphs")
         elif row["name"] == "paged_decode[D64G2 bf16]":
             row["launches"] = serve_moe["bf16"][name]
@@ -7576,7 +7952,7 @@ def main() -> int:
         elif row.get("model") == "zamba2-7b":
             run = HYBRID_ROW_RUNS[row["name"]]
             row["launches"] = hybrid[run][name]
-            row["launches_of"] = (f"one zamba2-7b serve run, {run} pages, "
+            row["launches_of"] = (f"one zamba2-7b serve run, {pages_of(run)}, "
                                   f"CUDA graphs"
                                   + (" (both widths)" if name == "rmsnorm"
                                      else ""))
@@ -7608,6 +7984,11 @@ def main() -> int:
                                   f"{fleet['bf16']['decode'][name]})"
                                   if name == "rmsnorm" else
                                   f"one training run, {TRAIN_STEPS} steps")
+        if row["name"] in EXAMPLE_ROWS:
+            ex, name = EXAMPLE_ROWS[row["name"]]
+            row["example_launches"] = {ex: examples[ex][name]}
+            row["launches_of"] += (f"; the examples phase's {ex}: "
+                                   f"{examples[ex][name]}")
         row["kernel_ms"] = row["ms"]
         if row["launches"] < 1:
             raise AssertionError(f"{row['name']} never ran on the main path")
