@@ -126,9 +126,12 @@ Phases, in order; any failure raises and the script exits non-zero:
                  over 8): the prefill over the buckets 32, 512 and 128 (row
                  ``flash_prefill[D128G7]`` at yi's bucket, S 128), B 1 at
                  S 77, B 2 at S 200 and a window, with the log-sum-exp;
-                 paged decode on bf16 and int8 pools with the edges and
-                 graph replays (rows ``paged_decode[D128G7 bf16]``,
-                 ``[D128G7 int8]``); the backward refuses (128, 7).
+                 the training forward and backward at the micro-batch B 4,
+                 S 1024 (rows ``flash_prefill_lse[D128G7]``,
+                 ``flash_bwd[D128G7]``) and their edges, S 200 and B 1 at
+                 S 77; paged decode on bf16 and int8 pools with the edges
+                 and graph replays (rows ``paged_decode[D128G7 bf16]``,
+                 ``[D128G7 int8]``).
    encdec      — seamless-m4t-medium's (head_dim 64, one query head per KV
                  head, 16 over 16): the prefill without the causal mask at
                  the encoder's serving shape (B 8, S 1024; row
@@ -382,6 +385,17 @@ Phases, in order; any failure raises and the script exits non-zero:
                  step); peak memory; the profiled decode step's wall and
                  device ms against the time of reading the weights once.
    consistency_yi — ``consistency`` on it, bf16 and int8 pages.
+   train_yi    — yi-34b at full width and ``YI_TRAIN_LAYERS`` (3) of its
+                 60 layers trains 4 steps of 8 x 1024 tokens as 2
+                 micro-batches of 4 (the train phase's gates: a non-zero
+                 gradient on every leaf, finite losses, exact launches, 2 x
+                 (7 + 6) RMSNorms, 2 x 6 flash forwards and 2 x 3 backwards
+                 at (128, 7) a step); the profiled step's dK/dV against dQ
+                 time.
+   dvfs_yi     — ``Trainer`` on yi-34b at those 3 layers, 8 x 1024 tokens
+                 a step, behind the train executor planned for that step,
+                 over an NVML energy window of at least 5 s, exact
+                 launches (dvfs_gpt3's gates).
    serve_encdec — seamless-m4t-medium (12 encoder and 12 decoder layers,
                  d_model 1024, 16 heads over 16 at head_dim 64, d_ff 4096,
                  vocab 256206 untied; 0.920 B parameters) at full width and
@@ -626,6 +640,18 @@ VLM_ATTN = dict(H=14, KV=2, D=64)
 YI_ARCH = "yi-34b"
 YI_ATTN = dict(H=56, KV=8, D=128)
 YI_REQUESTS, YI_NEW_TOKENS, YI_SERVE_LAYERS = 8, 32, 30
+# yi-34b trains at full width with its depth cut to YI_TRAIN_LAYERS of 60,
+# 8 x 1024 tokens a step as YI_ACCUM micro-batches of 4.  Its f32 masters,
+# gradients and two AdamW moments are 16 bytes a parameter and a
+# micro-batch's f32 gradients beside the accumulated ones 4 more: 51.8 GB
+# at 3 layers (2.591 B parameters), 63.0 GB at 4 (3.149 B), computed with
+# ModelConfig.param_count; llama3.2-3b's 3.213 B (64.3 GB) ran out of the
+# card's 79.2 GiB (LLAMA3B_TRAIN_LAYERS), and at 4 layers yi-34b's
+# micro-batch of 4 x 1024 rows of width 7168 would come on top of 63.0 GB.
+# Its DVFS window runs YI_DVFS_STEPS Trainer steps (step 0 outside the
+# window; at the 0.476 s a step measured on an H100 80GB HBM3 at 700 W the
+# other 13 last 6.2 s, longer than DVFS_WINDOW_S)
+YI_TRAIN_LAYERS, YI_ACCUM, YI_DVFS_STEPS = 3, 2, 14
 # seamless-m4t-medium, the encoder-decoder: its attention's heads, KV heads
 # and head_dim (one query head per KV head, in the encoder, the decoder and
 # the cross-attention alike), the frames each request or training row
@@ -901,8 +927,9 @@ LLAMA3B_INSTANTIATIONS = (
 # internvl2-1b's own instantiations (RMSNorm at d 896, its last chunk on
 # 16 lanes; paged decode at head_dim 64 with 7 query heads per KV head);
 # its prefill and backward are the head_dim-64 kernels.  yi-34b's: paged
-# decode at head_dim 128 with 7 (its prefill is the wide kernel at 128, its
-# RMSNorm d 7168's).  A spill is logged, not refused
+# decode at head_dim 128 with 7 (its prefill and backward are the wide
+# kernels at 128, gpt3-xl's instantiations, its RMSNorm d 7168's).  A spill
+# is logged, not refused
 VLM_INSTANTIATIONS = (
     ("_Z14rmsnorm_kernelILi4ELi16E", False),
     ("_Z19paged_decode_kernelI13__nv_bfloat16Li64ELi7E", False),
@@ -2378,10 +2405,12 @@ def check_vlm_kernels(gen):
 
 
 #: the kernel rows of yi-34b's instantiations: the run whose launches each
-#: reports (``phase_serve_yi``'s runs by page type)
+#: reports (``phase_serve_yi``'s runs by page type, or its training run)
 YI_ROW_RUNS = {"flash_prefill[D128G7]": "bf16",
                "paged_decode[D128G7 bf16]": "bf16",
-               "paged_decode[D128G7 int8]": "int8"}
+               "paged_decode[D128G7 int8]": "int8",
+               "flash_prefill_lse[D128G7]": "train",
+               "flash_bwd[D128G7]": "train"}
 
 
 def check_yi_kernels(gen):
@@ -2391,12 +2420,12 @@ def check_yi_kernels(gen):
     prefill over the buckets 32, 512 and 128 with ragged rows (its row at
     yi's serving bucket, B 8, S 128), B 1 at S 77, B 2 at S 200 with ragged
     rows and a window over rows with no valid key, each with its
-    log-sum-exp checked; paged decode on bf16 and int8 pools with
+    log-sum-exp checked; the training forward with its log-sum-exp and the
+    backward at the micro-batch (B 4, S 1024), and both at S 200 and B 1,
+    S 77 (a partial last tile); paged decode on bf16 and int8 pools with
     ``check_paged``'s edges, replayed from a CUDA graph bitwise equal to
-    eager.  The backward is not built at (128, 7) (no path trains yi-34b):
-    a call on the card raises.  Returns the JSON rows named in
-    ``YI_ROW_RUNS``, each marked with the model."""
-    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    eager.  Returns the JSON rows named in ``YI_ROW_RUNS``, each marked
+    with the model."""
     H, KV, D = YI_ATTN["H"], YI_ATTN["KV"], YI_ATTN["D"]
     for S in (32, 512, 128):
         row = _prefill_row(gen, SERVE_SLOTS, S, H, KV, D,
@@ -2406,16 +2435,9 @@ def check_yi_kernels(gen):
     _prefill_compare(gen, 1, 77, H, KV, D, [45])
     _prefill_compare(gen, 2, 200, H, KV, D, [200, 131])
     check_prefill_padded_window(gen, H, KV, D)
-    q = torch.zeros(1, 64, H, D, dtype=torch.bfloat16, device="cuda")
-    kv = torch.zeros(1, 64, KV, D, dtype=torch.bfloat16, device="cuda")
-    lse = torch.zeros(1, H, 64, device="cuda")
-    try:
-        flash_attention_bwd(q, kv, kv, q, q, lse)
-    except ValueError as e:
-        log(f"[kernels] flash_bwd at (128, 7) refused on the card: {e}")
-    else:
-        raise AssertionError("flash_bwd ran at head_dim 128 with 7 query "
-                             "heads per KV head, which it is not built for")
+    rows += check_flash_bwd(gen, **YI_ATTN,
+                            edges=((2, 200, H, KV), (1, 77, H, KV)),
+                            tag="[D128G7]", B=TRAIN_BATCH // YI_ACCUM)
     rows += _paged_graph_and_rows(gen, YI_ATTN, "D128G7", L=4)
     for r in rows:
         r["model"] = YI_ARCH
@@ -4676,6 +4698,73 @@ def phase_consistency_yi(model, params):
     return [phase_consistency(model, params, kv_dtype=kv,
                               tag=f"consistency_yi, {kv or 'bf16'} pages")
             for kv in (None, "int8")]
+
+
+def _yi_train_config():
+    """yi-34b at full width and ``YI_TRAIN_LAYERS`` of its 60 layers."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(YI_ARCH), n_layers=YI_TRAIN_LAYERS)
+
+
+def _yi_per_step(L: int):
+    """yi-34b's kernel launches a training step of ``YI_ACCUM``
+    micro-batches, counted from the code (``tests/test_torch_yi.py``
+    counts the same calls on the CPU): a micro-batch of its ``L`` layers
+    runs 2 L + 1 RMSNorms forward and 2 L more in the recompute under
+    remat (the final norm sits outside the checkpoint), L flash forwards
+    with their log-sum-exp and L more in the recompute, and L flash
+    backwards at head_dim 128 with 7 query heads per KV head."""
+    return {"rmsnorm": YI_ACCUM * (2 * L + 1 + 2 * L),
+            "flash_prefill": YI_ACCUM * 2 * L, "flash_bwd": YI_ACCUM * L,
+            "paged_decode": 0, "ssd_scan": 0}
+
+
+def phase_train_yi():
+    """Train yi-34b at full width (d_model 7168, 56 heads over 8 at
+    head_dim 128, d_ff 20480) and ``YI_TRAIN_LAYERS`` layers (the reckoning
+    beside the constant), 8 x 1024 tokens a step as ``YI_ACCUM``
+    micro-batches of 4, as ``phase_train_llama3b`` trains llama3.2-3b:
+    the train phase's gates with ``_yi_per_step``'s launches.  The
+    profiled step's dK/dV against dQ time shows the dK/dV pass's balance
+    (a block walks 7 query heads x its query tiles).  Returns
+    ``train_model``'s summary."""
+    cfg = _yi_train_config()
+    ours = {"flash_bwd (D128G7)": "flash_bwd_",
+            "flash_bwd dK/dV": "flash_bwd_dkv_wide_kernel",
+            "flash_bwd dQ": "flash_bwd_dq_wide_kernel",
+            "flash_bwd pre-pass": "flash_bwd_prep_kernel",
+            "flash_prefill (D128G7, lse)": "flash_prefill_wide_kernel",
+            "rmsnorm": "rmsnorm_kernel"}
+    log(f"[train_yi] {cfg.name} at {cfg.n_layers} of 60 layers: "
+        f"{cfg.param_count()[0] / 1e9:.3f} B parameters, "
+        f"{cfg.param_count()[0] * 20 / 1e9:.1f} GB of f32 masters, "
+        f"gradients, a micro-batch's gradients and AdamW moments "
+        f"(computed)")
+    out = train_model("train_yi", cfg, _describe,
+                      _yi_per_step(cfg.n_layers), ours, accum=YI_ACCUM)
+    log(f"[train_yi] peak {out['peak_gib']:.2f} GiB of the card's "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}")
+    return out
+
+
+def phase_dvfs_yi(idle_w):
+    """yi-34b behind the DVFS stack on the card, reading NVML, as
+    ``phase_dvfs_gpt3`` reads gpt3-xl: the ``Trainer`` at
+    ``YI_TRAIN_LAYERS`` layers and full width, 8 x 1024 tokens a step as
+    ``YI_ACCUM`` micro-batches, for ``YI_DVFS_STEPS`` steps behind the
+    train executor planned for that step (``DvfsSession(chip="h100")``),
+    over an energy window of at least ``DVFS_WINDOW_S`` (``idle_w``: the
+    dvfs phase's idle watts), exact launches.  The model is freed before
+    it returns.  Returns the window's totals."""
+    from repro_torch.models import build_model
+    cfg = _yi_train_config()
+    nvml = Nvml()
+    try:
+        return dvfs_train_window(nvml, idle_w, build_model(cfg, device="cuda"),
+                                 accum=YI_ACCUM, steps=YI_DVFS_STEPS,
+                                 per_step=_yi_per_step(cfg.n_layers))
+    finally:
+        nvml.close()
 
 
 # ---------------------------------------------------------------------------
@@ -7749,6 +7838,8 @@ def main() -> int:
     timed("consistency_yi", phase_consistency_yi, model, params)
     del model, params
     release()
+    train_yi = timed("train_yi", phase_train_yi)["counts"]
+    timed("dvfs_yi", phase_dvfs_yi, dvfs["idle_w"])
     cfg, model, params = timed("build_encdec", build_full_model, ENCDEC_ARCH)
     serve_encdec = timed("serve_encdec", phase_serve_encdec, cfg, model,
                          params)
@@ -7935,9 +8026,17 @@ def main() -> int:
                                   f"CUDA graphs")
         elif row.get("model") == YI_ARCH:
             run = YI_ROW_RUNS[row["name"]]
-            row["launches"] = serve_yi[run][name]
-            row["launches_of"] = (f"one {YI_ARCH} serve run, {pages_of(run)}, "
-                                  f"CUDA graphs")
+            name = name.removesuffix("_lse")
+            if run == "train":
+                row["launches"] = train_yi[name]
+                row["launches_of"] = (f"one {YI_ARCH} training run at "
+                                      f"{YI_TRAIN_LAYERS} layers, "
+                                      f"{TRAIN_STEPS} steps of "
+                                      f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens")
+            else:
+                row["launches"] = serve_yi[run][name]
+                row["launches_of"] = (f"one {YI_ARCH} serve run, "
+                                      f"{pages_of(run)}, CUDA graphs")
         elif row["name"] == "paged_decode[D64G2 bf16]":
             row["launches"] = serve_moe["bf16"][name]
             row["launches_of"] = ("one granite-moe-1b-a400m serve run at "

@@ -241,22 +241,52 @@ def test_flash_attention_train_matches_reference_at_group_7():
                                    **FLASH_BWD_TOL, err_msg=name)
 
 
-@pytest.mark.parametrize("D,fwd,bwd", [(64, "CUDA device", "CUDA device"),
-                                       (128, "CUDA device",
-                                        "got D=128, H=14, KV=2")])
-def test_group_7_instantiations_forward_and_backward(D, fwd, bwd):
-    """At 7 query heads per KV head the forward is built at head_dim 64
-    (internvl2-1b) and 128 (yi-34b), the backward at 64 only: no path
-    trains yi-34b, so the backward keeps refusing (128, 7).  Off the CPU
-    each call launches its kernel or raises before any launch; with no
-    card here every case raises."""
+def test_flash_attention_train_matches_reference_at_head_dim_128_group_7():
+    """yi-34b's differentiable attention, head_dim 128 with 7 query heads
+    per KV head (14 over 2 here): the output and dq, dk, dv (dk and dv
+    summed over each KV head's 7 query heads by the flash backward's plain
+    version, which the kernel is held to on the card) against the JAX
+    package's ``flash_attention_train`` in interpret mode, in f32."""
+    B, S, H, KV, D = 1, 48, 14, 2, 128
+    q, k, v, w = _operands(B, S, S, H, KV, D, seed=135)
+
+    def loss_ref(q, k, v):
+        o = jax_flash_train(q, k, v, True, 0, 16, 16, True)
+        return jnp.sum(o * w), o
+
+    (_, o_ref), g_ref = jax.value_and_grad(loss_ref, argnums=(0, 1, 2),
+                                           has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    o = flash_attention_train(tq, tk, tv, True, 0)
+    (o * torch.tensor(w)).sum().backward()
+    np.testing.assert_allclose(np32(o), np32(o_ref), **F32_TOL)
+    for name, got, ref in zip(("dq", "dk", "dv"), (tq, tk, tv), g_ref):
+        assert got.grad.shape == got.shape
+        np.testing.assert_allclose(np32(got.grad), np32(ref),
+                                   **FLASH_BWD_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("D,G,fwd,bwd", [
+    (64, 7, "CUDA device", "CUDA device"),
+    (128, 7, "CUDA device", "CUDA device"),
+    (128, 5, "CUDA device", "got D=128, H=10, KV=2"),
+    (192, 12, "CUDA device", "got D=192, H=24, KV=2")])
+def test_group_7_instantiations_forward_and_backward(D, G, fwd, bwd):
+    """At 7 query heads per KV head the forward and the backward are built
+    at head_dim 64 (internvl2-1b) and 128 (yi-34b, trained at full width
+    and 3 layers).  The forward is also built at (128, 5) and (192, 12)
+    (llama4-scout-17b-a16e's and nemotron-4-340b's serving), the backward
+    not: no path trains them at full width, so it keeps refusing them.
+    Off the CPU each call launches its kernel or raises before any launch;
+    with no card here every case raises."""
     kernels.reset_launch_counts()
-    q, kv = _meta(1, 8, 14, D), _meta(1, 8, 2, D)
+    q, kv = _meta(1, 8, 2 * G, D), _meta(1, 8, 2, D)
     with pytest.raises(ValueError, match=fwd):
         flash_prefill(q, kv, kv, return_lse=True)
     with pytest.raises(ValueError, match=bwd):
         flash_attention_bwd(q, kv, kv, q, q,
-                            _meta(1, 14, 8, dtype=torch.float32))
+                            _meta(1, 2 * G, 8, dtype=torch.float32))
     assert kernels.launch_counts()["flash_prefill"] == 0
     assert kernels.launch_counts()["flash_bwd"] == 0
 
@@ -368,6 +398,7 @@ def _meta(*shape, dtype=torch.bfloat16):
     ("d128_g2", ValueError, "128 and 224 with one query head"),
     ("bf16_d128", ValueError, "CUDA device"),
     ("bf16_d128_g3", ValueError, "CUDA device"),
+    ("bf16_d128_g7", ValueError, "CUDA device"),
     ("window", ValueError, "CUDA device"),
     ("window_non_causal", NotImplementedError, "training path"),
     ("non_causal", ValueError, "CUDA device"),
@@ -377,7 +408,7 @@ def test_flash_bwd_refuses_what_it_is_not_built_for(case, error, match):
     """Off the CPU the backward launches its kernel or raises before any
     launch; with no card here every case raises.  Beside dtype and
     head_dim (64 at any group, 128 and 224 with one query head per KV
-    head, 128 with 3) it refuses what the training paths do not give it:
+    head, 128 with 3 and 7) it refuses what the training paths do not give it:
     a causal mask at Sq != Sk, and a window without the causal mask.
     Causal attention with a window (llama4-scout's local layers) and
     non-causal attention, at Sq == Sk (an encoder) or not
@@ -385,11 +416,12 @@ def test_flash_bwd_refuses_what_it_is_not_built_for(case, error, match):
     a card."""
     kernels.reset_launch_counts()
     D = {"d16": 16, "d224_g2": 224, "bf16_d224": 224, "d128_g2": 128,
-         "bf16_d128": 128, "bf16_d128_g3": 128}.get(case, 64)
+         "bf16_d128": 128, "bf16_d128_g3": 128,
+         "bf16_d128_g7": 128}.get(case, 64)
     dt = torch.float32 if case == "f32" else torch.bfloat16
     Sk = 16 if case.endswith("sq_ne_sk") else 8
     KV = 4 if case in ("bf16_d224", "bf16_d128") else 2
-    H = 6 if case == "bf16_d128_g3" else 4
+    H = {"bf16_d128_g3": 6, "bf16_d128_g7": 14}.get(case, 4)
     q, kv = _meta(1, 8, H, D, dtype=dt), _meta(1, Sk, KV, D, dtype=dt)
     lse = _meta(1, H, 8, dtype=torch.bfloat16 if case == "lse_bf16"
                 else torch.float32)

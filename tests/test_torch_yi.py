@@ -2,19 +2,23 @@
 
 yi-34b is a llama-style dense decoder with 56 query heads over 8 KV heads
 at head_dim 128 (7 query heads per KV head), served on the card at full
-width (68.8 GB of bf16 weights) and trained by no path.  Two twins on the
-same weights in both packages (float32): the smoke config (2 layers,
-d_model 64, 4 query heads over 2 at head_dim 16) and a variant with the
-full model's head geometry, head_dim 128 with 7 query heads per KV head
-(14 over 2), built with ``dataclasses.replace`` on both packages' smoke
-configs: prefill logits and caches with and without ragged rows, and
-decode over f32 and int8 pages.  The full-width tree against the
-reference's ``abstract_params()``, and the layer-by-layer draw of its
-largest leaves (``models.transformer.DRAW_WHOLE_MAX``).  The CUDA kernels
-the model reaches (head_dim 128 at G 7; RMSNorm at d 7168) are held
-against the same plain versions on the card by ``chip_smoke.py``.
+width (68.8 GB of bf16 weights) and trained there at full width and 3 of
+its 60 layers.  Two twins on the same weights in both packages (float32):
+the smoke config (2 layers, d_model 64, 4 query heads over 2 at head_dim
+16) and a variant with the full model's head geometry, head_dim 128 with 7
+query heads per KV head (14 over 2), built with ``dataclasses.replace`` on
+both packages' smoke configs: prefill logits and caches with and without
+ragged rows, decode over f32 and int8 pages, the loss and every gradient
+with remat on and off, and the wrapper calls a forward and a training
+step make; a few ``Trainer`` steps on the variant.  The full-width tree
+against the reference's ``abstract_params()``, and the layer-by-layer
+draw of its largest leaves (``models.transformer.DRAW_WHOLE_MAX``).  The
+CUDA kernels the model reaches (head_dim 128 at G 7, forward and
+backward; RMSNorm at d 7168) are held against the same plain versions on
+the card by ``chip_smoke.py``.
 """
 import dataclasses
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -23,22 +27,38 @@ import pytest
 import torch
 
 from conftest import smoke_model
+from repro.ckpt import CheckpointManager as JaxCheckpoints
 from repro.configs import REGISTRY as JAX_REGISTRY
 from repro.configs import get_config as jax_get_config
 from repro.configs import smoke_config as jax_smoke_config
+from repro.data import DataPipeline as JaxPipeline
 from repro.models import build_model as jax_build_model
 from repro.serve.kv_pages import PagedBatchState as JaxPagedState
 from repro.serve.kv_pages import write_prefill_pages as jax_write_pages
+from repro.train import OptimizerConfig as JaxOptConfig
+from repro.train import make_train_step as jax_make_train_step
+from repro.train.loop import Trainer as JaxTrainer
+from repro.train.loop import TrainerConfig as JaxTrainerConfig
+from repro_torch.ckpt import CheckpointManager
 from repro_torch.configs import REGISTRY, get_config, smoke_config
+from repro_torch.data import DataPipeline
+from repro_torch.kernels.flash_attention import ops as tops
+from repro_torch.kernels.flash_attention import prefill as tprefill
 from repro_torch.models import build_model
+from repro_torch.models import common as tcm
 from repro_torch.models import transformer as ttr
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serve.kv_pages import PagedBatchState as TorchPagedState
 from repro_torch.serve.kv_pages import write_prefill_pages as torch_write_pages
+from repro_torch.train import OptimizerConfig, loss_and_grads, make_train_step
+from repro_torch.train.loop import Trainer, TrainerConfig
+from repro_torch.tree import flatten
 from torch_parity import LOGITS_TOL, QUANT_TOL, jref, np32
 
 ARCH = "yi-34b"
 MAX_SEQ = 32
+GRAD_RTOL = 1e-4     # of each leaf's largest |value| (test_torch_train.py)
+CURVE_TOL = 1e-4     # Trainer losses, absolute (test_torch_train.py)
 #: the full model's head geometry at smoke width: head_dim 128, 7 query
 #: heads per KV head
 G7 = dict(n_heads=14, n_kv_heads=2, head_dim=128)
@@ -265,3 +285,117 @@ def test_decode_int8_pages_match(which):
                                    np32(js.cache[f"{key}_scale"]),
                                    rtol=1e-4, atol=1e-7)
         assert np.abs(np32(ts.cache[key]) - np32(js.cache[key])).max() <= 1.0
+
+
+# ---------------------------------------------------------------------------
+# training: the loss and every gradient, the Trainer, the wrapper calls
+# ---------------------------------------------------------------------------
+
+def _batch(B=2, S=24, seed=0):
+    toks = np.random.default_rng(seed).integers(0, 257, (B, S + 1)).astype(
+        np.int32)
+    return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+
+def _rel_err(got, ref) -> float:
+    ref = np32(ref)
+    return float(np.abs(np32(got) - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+
+@pytest.mark.parametrize("which", TWINS)
+@pytest.mark.parametrize("remat", [True, False])
+def test_model_loss_and_grads_match_reference(which, remat):
+    """The loss and every gradient leaf from f32 masters against the
+    reference's ``jax.value_and_grad``: at ``g7`` the attention gradient
+    sums dK and dV over 7 query heads a KV head at head_dim 128, as
+    yi-34b's training does."""
+    model, params, _, tmodel, _ = twin(which)
+    masters = params_from_jax(tmodel, jax.tree.map(np.asarray, params),
+                              dtype=torch.float32)
+    batch = _batch()
+    (loss, _), grads = jref(model).loss_grad(
+        params, {k: jnp.asarray(v) for k, v in batch.items()},
+        remat=remat)
+    tloss, _, tgrads = loss_and_grads(
+        tmodel, masters, {k: torch.tensor(v) for k, v in batch.items()},
+        remat=remat)
+    np.testing.assert_allclose(float(tloss), float(loss), rtol=1e-6)
+    ref = dict(flatten(jax.tree.map(np.asarray, grads)))
+    got = flatten(tgrads)
+    assert sorted(p for p, _ in got) == sorted(ref)
+    for path, g in got:
+        assert g.shape == ref[path].shape, path
+        assert _rel_err(g, ref[path]) <= GRAD_RTOL, (path,
+                                                     _rel_err(g, ref[path]))
+
+
+STEPS, SEED = 3, 0
+OPT = dict(lr=1e-2, warmup_steps=2, decay_steps=100)
+
+
+def test_trainer_loss_curve_matches_reference():
+    """Both ``Trainer``s on the variant with 7 query heads per KV head at
+    head_dim 128, the same initial weights and data stream, 3 steps of 2
+    micro-batches with remat: the same losses."""
+    model, _, cfg, tmodel, _ = twin("g7")
+    jax_params = model.init(jax.random.split(jax.random.PRNGKey(SEED))[0])
+    tree = jax.tree.map(np.asarray, jax_params)
+    tcfg = dict(total_steps=STEPS, ckpt_every=STEPS)
+    with tempfile.TemporaryDirectory() as d:
+        jt = JaxTrainer(
+            model, jax_make_train_step(model, JaxOptConfig(**OPT),
+                                       accum_steps=2, remat=True),
+            JaxPipeline(cfg.vocab_size, 4, 16), JaxCheckpoints(d, keep=1),
+            JaxTrainerConfig(**tcfg), seed=SEED)
+        jt.run()
+
+    class Carried(type(tmodel)):
+        """The port's DecoderLM whose ``init`` returns the JAX trainer's
+        initial parameters (fresh copies: the port updates in place)."""
+
+        def init(self, generator=None, dtype=None):
+            return params_from_jax(self, tree, dtype)
+
+    carried = Carried(tmodel.cfg, block_k=16, device="cpu")
+    with tempfile.TemporaryDirectory() as d:
+        tt = Trainer(
+            carried, make_train_step(carried, OptimizerConfig(**OPT),
+                                     accum_steps=2, remat=True),
+            DataPipeline(cfg.vocab_size, 4, 16), CheckpointManager(d, keep=1),
+            TrainerConfig(**tcfg), seed=SEED)
+        tt.run()
+    np.testing.assert_allclose([h["loss"] for h in tt.history],
+                               [h["loss"] for h in jt.history], rtol=0,
+                               atol=CURVE_TOL)
+
+
+def test_kernel_calls_per_forward_and_step(monkeypatch):
+    """What ``chip_smoke.py``'s exact launch gates count for yi-34b
+    (``_yi_per_step``, as for llama3.2-3b): 2 RMSNorms a layer and the
+    final one a forward; n_layers prefill attentions a prefill, n_layers
+    paged decodes a paged step; a training micro-batch under remat
+    n_layers attention forwards, n_layers more and 2 n_layers norms more
+    in the recompute, n_layers backwards."""
+    _, params, cfg, tmodel, _ = twin("g7")
+    L = cfg.n_layers
+    calls = dict.fromkeys(("rmsnorm", "flash_prefill", "flash_bwd",
+                           "paged_decode"), 0)
+    for mod, attr, key in ((tcm, "rmsnorm", "rmsnorm"),
+                           (tprefill, "_forward", "flash_prefill"),
+                           (tops, "flash_attention_bwd", "flash_bwd"),
+                           (tcm, "paged_flash_decode", "paged_decode")):
+        def counted(*a, _fn=getattr(mod, attr), _key=key, **kw):
+            calls[_key] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(mod, attr, counted)
+    _paged_pair("g7", None, steps=1)            # one prefill, one step
+    assert calls == {"rmsnorm": 2 * (2 * L + 1), "flash_prefill": L,
+                     "flash_bwd": 0, "paged_decode": L}
+    calls.update(dict.fromkeys(calls, 0))
+    masters = params_from_jax(tmodel, jax.tree.map(np.asarray, params),
+                              dtype=torch.float32)
+    loss_and_grads(tmodel, masters,
+                   {k: torch.tensor(v) for k, v in _batch().items()},
+                   remat=True)
+    assert calls == {"rmsnorm": 2 * L + 1 + 2 * L, "flash_prefill": 2 * L,
+                     "flash_bwd": L, "paged_decode": 0}
