@@ -161,7 +161,14 @@ Phases, in order; any failure raises and the script exits non-zero:
                  the backward with window 32 at B 2, S 1024, 4 heads over 2
                  at head_dim 64 (row ``flash_bwd[D64G2 w32]``), and at
                  window 256, S 77 and 200, a window of 40 beginning
-                 mid-tile and S 64.
+                 mid-tile and S 64; the forward with its log-sum-exp and
+                 the backward at (128, 5) with the window of 8192 at a
+                 (2, 2) rank's 20 heads over 4 (logged) and at 40 over 8
+                 (rows ``flash_prefill_lse[D128G5]``,
+                 ``flash_bwd[D128G5]``), B 4, S 1024, each twice bitwise
+                 equal, and where the window bites: 256 at S 1024, 40
+                 beginning mid-tile at S 200, 32 at S 77, and S 77
+                 without one.
    nemotron    — nemotron-4-340b's (head_dim 192, 12 query heads per KV
                  head, 96 over 8): the prefill over the buckets 32, 128 and
                  512 (row ``flash_prefill[D192G12]``), B 1 at S 77, B 2 at
@@ -496,6 +503,13 @@ Phases, in order; any failure raises and the script exits non-zero:
                  its window, exact launches), then ``launch.train --arch
                  llama4-scout-17b-a16e --smoke`` and ``launch.serve ...
                  --smoke``.
+   grad_llama4 — llama4-scout-17b-a16e at full width and 4 layers (one
+                 group; 10.877 B parameters): the loss and every gradient
+                 of 4 x 1024 tokens with respect to the bf16 cast of the
+                 float32 masters, drawn leaf by leaf (the training state
+                 needs four cards: ``--cards 4``): finite, non-zero on
+                 every leaf, exact launches (the flash forward with its
+                 log-sum-exp and the backward at (128, 5)).
    serve_nemotron — nemotron-4-340b at full width and 4 of its 96 layers
                  (23.25 B parameters, 46.51 GB in bf16; wte and head drawn
                  in row blocks) serves as serve_gpt3 (no RMSNorm, 4
@@ -537,6 +551,17 @@ Phases, in order; any failure raises and the script exits non-zero:
                  Nothing sets a clock: the card runs at its own.
 
 Each phase's seconds are logged (``[time]``).
+
+    python3 chip_smoke.py --cards 4
+
+runs the build and the multidevice phase alone on four cards, one nccl
+rank a card (gpt3-xl at its 24 layers and the phase's other models),
+after ``md_full``: llama4-scout-17b-a16e at full width and 4 layers (the flash
+backward at (128, 5)), zamba2-7b at all 81 layers and llama3.2-3b at all
+28, each trained as four nccl ranks on the (data 2, model 2) mesh: the
+sharded gradient held to the unsharded one that card 0 takes first, then
+steps with exact launches, and the peak a card against the counted one.
+(``--cards 1``: the multidevice phase alone on one card.)
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -673,6 +698,14 @@ ENCDEC_FRAMES, ENCDEC_TEXT = 1024, 512
 LLAMA4_ARCH = "llama4-scout-17b-a16e"
 LLAMA4_ATTN = dict(H=40, KV=8, D=128)
 LLAMA4_SERVE_LAYERS, LLAMA4_F32_LAYERS = 8, 4
+# llama4-scout trained at full width and one group, 4 of its 48 layers
+# (10.877e9 parameters, computed): its training state (f32 masters, AdamW)
+# is 130.5 GB, so four nccl cards train it (``--cards 4``,
+# :func:`phase_md_full`); one card takes the unsharded loss and gradient
+# with respect to the bf16 cast of the masters (21.75 GB of weights and as
+# many of gradients) over LLAMA4_GRAD_ROWS rows of TRAIN_SEQ
+# (:func:`phase_grad_llama4`), the four cards' reference at a micro-batch
+LLAMA4_TRAIN_LAYERS, LLAMA4_GRAD_ROWS, LLAMA4_WINDOW = 4, 4, 8192
 LONG_SLOTS, LONG_MAX_SEQ, LONG_NEW = 4, 16384, 64
 LONG_PROMPTS = (8160, 9000, 10500, 12000)
 SMOKE_LOCAL = dict(H=4, KV=2, D=64, window=32)
@@ -950,15 +983,20 @@ ENCDEC_INSTANTIATIONS = (
     ("_Z19flash_bwd_dq_kernelILi64E", True),
     ("_Z20flash_bwd_dkv_kernelILi64E", True))
 # llama4-scout's: RMSNorm at d 5120, paged decode at (128, 5) (its global
-# layers; the flash forward at 128 is gpt3-xl's instantiation), and the
-# head_dim-64 backward its card smoke config trains with a window
+# layers; the flash forward at 128 is gpt3-xl's instantiation), the
+# head_dim-64 backward its card smoke config trains with a window, and the
+# wide backward at head_dim 128 (gpt3-xl's instantiation, which takes the
+# group of 5 at run time) its training at full width runs
 LLAMA4_INSTANTIATIONS = (
     ("_Z14rmsnorm_kernelILi20E", False),
     ("_Z19paged_decode_kernelI13__nv_bfloat16Li128ELi5E", False),
     ("_Z19paged_decode_kernelIaLi128ELi5E", False),
     ("_Z27paged_decode_combine_kernelI13__nv_bfloat16Li128ELi5E", False),
     ("_Z19flash_bwd_dq_kernelILi64E", True),
-    ("_Z20flash_bwd_dkv_kernelILi64E", True))
+    ("_Z20flash_bwd_dkv_kernelILi64E", True),
+    ("_Z21flash_bwd_prep_kernelILi128E", False),
+    ("_Z24flash_bwd_dq_wide_kernelILi128E", True),
+    ("_Z25flash_bwd_dkv_wide_kernelILi128E", True))
 # nemotron-4-340b's: the wide prefill at head_dim 192, and paged decode at
 # (192, 12) as 3 blocks of 4 query rows a KV head (the kernel's template
 # arguments: 4 rows a block, 3 blocks); a spill is logged, not refused
@@ -2587,7 +2625,9 @@ LLAMA4_ROW_RUNS = {"flash_prefill[D128G5 w8192]": "long",
                    "paged_decode[D128G5 bf16]": "bf16",
                    "paged_decode[D128G5 int8]": "int8",
                    "rmsnorm[5120]": "bf16",
-                   "flash_bwd[D64G2 w32]": "train"}
+                   "flash_bwd[D64G2 w32]": "train",
+                   "flash_prefill_lse[D128G5]": "grad",
+                   "flash_bwd[D128G5]": "grad"}
 
 
 def check_llama4_kernels(gen):
@@ -2605,12 +2645,18 @@ def check_llama4_kernels(gen):
     bitwise equal to eager; RMSNorm at (4096, 5120); the forward with its
     log-sum-exp and the backward with window 32 at B 2, S 1024 (4 heads
     over 2 at head_dim 64), and at window 256, at S 77 and 200 (partial
-    tiles), a window of 40 that begins mid-tile, and the launcher's S 64.
-    The backward is not built at (128, 5): no path trains llama4-scout at
-    full width.  Returns the JSON rows named in ``LLAMA4_ROW_RUNS``, each
-    marked with the model."""
+    tiles), a window of 40 that begins mid-tile, and the launcher's S 64;
+    the forward with its log-sum-exp and the backward at (128, 5), its
+    training at full width, with the local layers' window of 8192 at a
+    (2, 2) rank's heads (B 4, S 1024, 20 over 4, logged) and at the
+    unsharded micro-batch (B 4, S 1024, 40 over 8: rows
+    ``flash_prefill_lse[D128G5]``, ``flash_bwd[D128G5]``), where the window
+    admits every causal pair, and at edges where it bites: a window of 256
+    at S 1024, one of 40 beginning mid-tile at S 200, 32 at S 77 (a
+    partial tile), and S 77 causal without one.  Returns the JSON rows
+    named in ``LLAMA4_ROW_RUNS``, each marked with the model."""
     H, KV, D = LLAMA4_ATTN["H"], LLAMA4_ATTN["KV"], LLAMA4_ATTN["D"]
-    window = 8192
+    window = LLAMA4_WINDOW
     _prefill_compare(gen, SERVE_SLOTS, 512, H, KV, D,
                      [int(x) for x in np.linspace(24, 512, SERVE_SLOTS)],
                      window)
@@ -2633,6 +2679,15 @@ def check_llama4_kernels(gen):
         f"plain {fwd['plain_ms']:.4f} ms, library {fwd['library_ms']:.4f} "
         f"ms, bound {fwd['bound_ms']:.4f} ms")
     rows.append(bwd)
+    release()
+    tp = MD_MESH[1]
+    check_flash_bwd(gen, H=H // tp, KV=KV // tp, D=D, B=LLAMA4_GRAD_ROWS,
+                    window=LLAMA4_WINDOW, tag=f"[D128G5 tp{tp}]", edges=())
+    rows += check_flash_bwd(
+        gen, **LLAMA4_ATTN, B=LLAMA4_GRAD_ROWS, window=LLAMA4_WINDOW,
+        tag="[D128G5]", edges=((2, 1024, H, KV, None, 256),
+                               (1, 200, H, KV, None, 40),
+                               (2, 77, H, KV, None, 32), (1, 77, H, KV)))
     for r in rows:
         r["model"] = LLAMA4_ARCH
     return rows
@@ -4710,13 +4765,10 @@ def _yi_per_step(L: int):
     """yi-34b's kernel launches a training step of ``YI_ACCUM``
     micro-batches, counted from the code (``tests/test_torch_yi.py``
     counts the same calls on the CPU): a micro-batch of its ``L`` layers
-    runs 2 L + 1 RMSNorms forward and 2 L more in the recompute under
-    remat (the final norm sits outside the checkpoint), L flash forwards
-    with their log-sum-exp and L more in the recompute, and L flash
-    backwards at head_dim 128 with 7 query heads per KV head."""
-    return {"rmsnorm": YI_ACCUM * (2 * L + 1 + 2 * L),
-            "flash_prefill": YI_ACCUM * 2 * L, "flash_bwd": YI_ACCUM * L,
-            "paged_decode": 0, "ssd_scan": 0}
+    runs ``full_launches``' (the flash backward at head_dim 128 with 7
+    query heads per KV head)."""
+    return {k: YI_ACCUM * n
+            for k, n in full_launches(_yi_train_config(), L).items()}
 
 
 def phase_train_yi():
@@ -5148,6 +5200,144 @@ def phase_train_smoke(arch: str):
             s, c, layers=layers, every=every, norms=cfg.norm == "rms"))
     release()
     return out
+
+
+def full_launches(cfg, L: int):
+    """The exact launches of one training step (one micro-batch, remat) of
+    ``cfg`` at ``L`` layers, one device's or one rank's: a decoder's layer
+    runs under its checkpoint (2 RMSNorms and the flash forward with its
+    log-sum-exp, again in the recompute; the flash backward) and the final
+    norm outside; a hybrid's full groups of ``attn_every`` Mamba2 blocks
+    run under their checkpoint (the shared block's 2 RMSNorms and its
+    flash forward, a block's RMSNorm and SSD scan, each again in the
+    recompute), its tail outside, the flash backward once an application.
+    A Mamba2 block's gate norm over a ``d_inner`` split over ``model`` is
+    plain f32, not the RMSNorm kernel (every hybrid step here is a
+    rank's)."""
+    zero = {"rmsnorm": 0, "flash_prefill": 0, "flash_bwd": 0,
+            "paged_decode": 0, "ssd_scan": 0}
+    if cfg.family == "hybrid":
+        per = cfg.attn_every
+        groups, tail = L // per, L % per
+        apps = groups + (1 if tail else 0)
+        return dict(zero, rmsnorm=2 * apps + L + 1 + groups * (2 + per),
+                    flash_prefill=apps + groups, flash_bwd=apps,
+                    ssd_scan=L + groups * per)
+    return dict(zero, rmsnorm=4 * L + 1 if cfg.norm == "rms" else 0,
+                flash_prefill=2 * L, flash_bwd=L)
+
+
+def unsharded_grads(arch: str, layers: int, rows: int, seq: int,
+                    weights: str, hold=None) -> dict:
+    """``arch`` at full width and ``layers`` layers on the current card, bf16
+    compute: the loss, metrics and every gradient of the first batch of
+    ``rows`` x ``seq`` tokens ``DataPipeline`` gives (seed 0; remat) at
+    ``init_train_state``'s weights (seed 0) as float32 leaves (``weights``
+    "f32"), or as their bf16 cast (``"bf16"``: the norms and the router
+    float32, as the sharded step's cast leaves them), drawn leaf by leaf
+    (``init_params``: each drawn in float32 and cast, so the float32 tree
+    is never whole on the card); with ``hold`` (a ``RouteHold``) the MoE
+    layers' routing recorded.  Returns {"model", "params", "batch",
+    "loss", "metrics", "grads", "s": the call's seconds, "launches",
+    "bytes": the weights'}."""
+    from repro_torch import kernels
+    from repro_torch.train import loss_and_grads
+    from repro_torch.tree import flatten
+    model = _md_model(layers, arch)
+    batch = _md_batches(model.cfg, rows, 1, seq)[0]
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(0)
+    params = model.init(gen, dtype=torch.bfloat16 if weights == "bf16"
+                        else model.param_dtype)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with hold.record() if hold is not None else contextlib.nullcontext():
+        loss, metrics, grads = loss_and_grads(model, params, batch)
+    torch.cuda.synchronize()
+    return {"model": model, "params": params, "batch": batch,
+            "loss": float(loss),
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": grads, "s": time.perf_counter() - t0,
+            "launches": kernels.launch_counts(),
+            "bytes": sum(t.numel() * t.element_size()
+                         for _, t in flatten(params))}
+
+
+def phase_grad_llama4():
+    """llama4-scout-17b-a16e at full width and ``LLAMA4_TRAIN_LAYERS``
+    layers (3 local at window 8192, 1 global; 16 experts, top-1, the
+    shared expert) on the card: the loss and every gradient of
+    ``LLAMA4_GRAD_ROWS`` x ``TRAIN_SEQ`` tokens with respect to the bf16
+    cast of ``init_train_state``'s masters (:func:`unsharded_grads`), what
+    the four cards' gate takes over the global batch: a finite loss, a
+    finite non-zero gradient on every leaf, exact launches
+    (:func:`full_launches`: the flash forward with its log-sum-exp and the
+    backward at (128, 5)); the first call's and a warm call's seconds,
+    tokens/s, peak memory, and a third call under the profiler (the idle
+    share, the flash backward's dQ and dK/dV passes) logged.  Returns the
+    first call's launches."""
+    from repro_torch.train import loss_and_grads
+    from repro_torch.tree import flatten
+    tag = "grad_llama4"
+    torch.cuda.reset_peak_memory_stats()
+    r = unsharded_grads(LLAMA4_ARCH, LLAMA4_TRAIN_LAYERS, LLAMA4_GRAD_ROWS,
+                        TRAIN_SEQ, "bf16")
+    cfg, launches, loss = r["model"].cfg, r["launches"], r["loss"]
+    named = flatten(r.pop("grads"))
+    norms = torch.stack([g.float().norm() for _, g in named]).tolist()
+    bad = [p for (p, _), n in zip(named, norms)
+           if not (math.isfinite(n) and n > 0)]
+    n = sum(g.numel() for _, g in named)
+    del named
+    release()
+    want = full_launches(cfg, LLAMA4_TRAIN_LAYERS)
+    tokens = LLAMA4_GRAD_ROWS * TRAIN_SEQ
+
+    def grad():
+        loss_and_grads(r["model"], r["params"], r["batch"])
+    grad()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grad()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    log(f"[{tag}] {LLAMA4_ARCH} at {LLAMA4_TRAIN_LAYERS} of 48 layers (d "
+        f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} of "
+        f"{cfg.resolved_head_dim}, {cfg.moe.n_experts} experts top-"
+        f"{cfg.moe.top_k}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}): "
+        f"{n / 1e9:.3f}B parameters, {r['bytes'] / 1e9:.2f} GB as the bf16 "
+        f"cast (norms and router float32); the loss of {LLAMA4_GRAD_ROWS} x "
+        f"{TRAIN_SEQ} tokens {loss:.6f} (" + ", ".join(
+            f"{k} {v:.6f}" for k, v in r["metrics"].items() if k != "loss")
+        + f") and every gradient in {r['s']:.3f} s (the process's first "
+        f"call), {warm:.4f} s warm ({tokens / warm:.1f} tokens/s); gradient "
+        f"norms {min(norms):.3e}..{max(norms):.3e}, leaves without a finite "
+        f"non-zero gradient {bad}; launches {launches} (want {want}); peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    prof = profiled_kernels(grad)
+    del r
+    release()
+    if not prof:
+        log(f"[{tag}] device time: not measured (the profiler recorded no "
+            f"device kernels)")
+    else:
+        busy = sum(x[0] for x in prof) / 1e3
+        dq, dkv = (sum(x[0] for x in prof if name in x[2]) / 1e3
+                   for name in ("flash_bwd_dq_wide", "flash_bwd_dkv_wide"))
+        log(f"[{tag}] profiled gradient: device kernels {busy:.1f} ms "
+            f"({sum(x[1] for x in prof)} launches) against {warm * 1e3:.1f} "
+            f"ms of wall time unprofiled (the warm call): device idle share "
+            f"{1 - busy / (warm * 1e3):.3f}; the flash backward's dQ "
+            f"{dq:.3f} ms and dK/dV {dkv:.3f} ms over its "
+            f"{launches['flash_bwd']} calls (dK/dV over dQ "
+            f"{dkv / max(dq, 1e-9):.2f}: a key tile walks the "
+            f"{cfg.n_heads // cfg.n_kv_heads} query heads of its KV head)")
+        log_top(tag, prof, busy)
+    if bad or not math.isfinite(loss) or launches != want:
+        raise AssertionError(f"{tag}: loss {loss}, leaves {bad}, launches "
+                             f"{launches} != {want}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -6420,6 +6610,12 @@ MD_CARDS_LAYERS = 24
 # ``--cards`` adds the two passes with the routing free, float32 on the
 # plain path and bf16 on the kernels, logged with their flips, not gated
 MD_MOE_LAYERS, MD_MOE_TIE, MD_MOE_FLIPS = 4, 5e-2, 0.1
+# MD_MOE_TIE is in granite's router's scale: its median gap between the
+# 8th and 9th router logits, 4.399e-2-4.406e-2 on an H100 80GB HBM3 at
+# 700 W.  Another router's near tie is MD_MOE_TIE times its own median gap
+# over MD_MOE_GAP (llama4-scout's top-1 gap reads 0.523 there, 12x
+# granite's, and its bf16 step's flips 5.443e-2)
+MD_MOE_GAP = 4.4e-2
 # llama3.2-1b served sharded at full width and MD_SERVE_LAYERS of its 16
 # layers: MD_SERVE_SLOTS prompts of MD_SERVE_PROMPT tokens into a cache of
 # MD_SERVE_MAX_SEQ positions (``cache_specs`` shards its sequence over
@@ -6520,7 +6716,7 @@ class RouteHold:
     def record(self):
         def fn(orig, xt, router, k):
             out = orig(xt, router, k)
-            top = out[0].topk(k + 1, dim=-1).values
+            top = out[0].detach().topk(k + 1, dim=-1).values
             self.routes.setdefault(self._key(router), (
                 out[3].cpu(), (top[:, k - 1] - top[:, k]).cpu()))
             return out
@@ -7081,6 +7277,7 @@ def md_family_launches(arch: str, key: str):
     checkpoint), ``"bf16"`` its prefill and decode steps.  The gate norm
     over a split ``d_inner`` is plain f32, not the RMSNorm kernel, and the
     decode steps' attention and SSD updates are plain."""
+    from repro_torch.configs import get_config
     spec = MD_FAMILIES[arch]
     L, calls = spec["layers"], spec["steps"] + 1
     zero = {"rmsnorm": 0, "flash_prefill": 0, "flash_bwd": 0,
@@ -7089,8 +7286,7 @@ def md_family_launches(arch: str, key: str):
         per = {"train": {"rmsnorm": 2 * L + 1, "ssd_scan": 2 * L},
                "bf16": {"rmsnorm": (L + 1) * calls, "ssd_scan": L}}
     elif arch == "zamba2-7b":
-        per = {"train": {"rmsnorm": 2 + L + 1, "ssd_scan": L,
-                         "flash_prefill": 1, "flash_bwd": 1},
+        per = {"train": full_launches(get_config(arch), L),
                "bf16": {"rmsnorm": (2 + L + 1) * calls, "ssd_scan": L,
                         "flash_prefill": 1}}
     else:
@@ -7229,9 +7425,9 @@ def _md_model(layers: int, arch: str = "gpt3-xl",
         device="cuda")
 
 
-def _md_batches(cfg, rows: int, steps: int):
+def _md_batches(cfg, rows: int, steps: int, seq: int = TRAIN_SEQ):
     from repro_torch.data import DataPipeline
-    pipeline = DataPipeline(cfg.vocab_size, rows, TRAIN_SEQ, seed=0)
+    pipeline = DataPipeline(cfg.vocab_size, rows, seq, seed=0)
     return [pipeline.next_batch() for _ in range(steps)]
 
 
@@ -7737,13 +7933,519 @@ def md_check_serve(tag, who, res, mesh):
     return problems
 
 
+# ``--cards 4`` also trains, as four nccl ranks on the (data 2, model 2)
+# mesh, one a card, three configurations at full width and a depth whose
+# training state (f32 masters and two AdamW moments, 12 bytes a
+# parameter) one card does not hold: llama4-scout-17b-a16e at one group,
+# 4 of its 48 layers (10.877e9 parameters, 130.5 GB of state; 16 experts
+# over model, 8 a rank; 40 query heads over model, 20 over 4 KV heads a
+# rank, still 5 a KV head; the vocab over model), zamba2-7b at all 81
+# (6.737e9, 80.8 GB) and llama3.2-3b at all 28 (3.213e9, 38.6 GB); every
+# embed dim over data (FSDP).  A rank draws its blocks leaf by leaf
+# (``init_sharded_state``); its peak is logged beside the one
+# ``hw.step_count.count_train_step`` counts for its step on fake tensors
+# (``tools.count_rank_step``, run beside the phase on the host's CPU).  Each is
+# first held, as gpt3-xl's sharded step is, to the unsharded gradient
+# that a process of its own takes on card 0 on the same weights and global
+# batch: the loss and the cross entropy within MD_LOSS_RTOL, every
+# gradient block within MD_GRAD_TOL of its leaf's largest |value| (an MoE
+# model's aux terms logged), and (llama4-scout) with the routing held to
+# the unsharded step's, the layers' own top-1 choices off the held ones at
+# most MD_MOE_FLIPS of the tokens, each a near tie in its router's scale
+# (``moe_tie``); then MD_STEPS steps (finite losses equal on every rank,
+# exact launches a rank, ``full_launches``) and one profiled step.  The
+# unsharded step differentiates the float32 leaves where they fit card 0
+# beside their gradient (zamba2-7b 6.737e9 x (4 + 4) bytes = 53.9 GB,
+# llama3.2-3b 25.7 GB, and the activations of their batch), else their
+# bf16 cast, which is what the sharded step differentiates through its
+# cast (llama4-scout: 10.877e9 x (4 + 4) = 87.0 GB does not fit; its bf16
+# weights and gradients 43.5 GB, the f32 logits of 8 x 1024 x 202048 6.6
+# GB).  A bf16 reference's loss (and zamba2-7b's) is held within
+# MD_FAM_BF16_LOSS_RTOL, the families' bf16 bound: the partial sums of the
+# row-parallel products (llama4-scout's wo and shared expert) are rounded
+# to bf16 before g adds them, which moved llama4-scout's loss 1.206e-5 on
+# an H100 80GB HBM3 at 700 W.  What tells that rounding from a fault is
+# the float32 pass beside it: the unsharded loss of the float32 masters on
+# the plain path, forward only (43.5 GB of weights fit card 0, their
+# gradient beside them does not), and each rank's sharded forward of its
+# float32 blocks, the loss and the cross entropy within MD_LOSS_RTOL, its
+# routing held to the float32 routing at the same flip bounds.  Each of
+# the two has a control, its pass again with every partial sum over model
+# left out of g's combine (the attention's, the experts', the shared
+# expert's): its loss must read past the pass's bound, its flips past the
+# tie, and (bf16) a gradient block past MD_GRAD_TOL.  The gradient goes to
+# the ranks through a file under build/, in bf16 (its rounding, 2**-9 of
+# a value, is far inside MD_GRAD_TOL), one configuration at a time.
+#: arch -> (layers, global rows, sequence, the unsharded step's weights)
+MD_FULL = {LLAMA4_ARCH: (LLAMA4_TRAIN_LAYERS, MD_BATCH, TRAIN_SEQ, "bf16"),
+           "zamba2-7b": (81, *MD_FAMILIES["zamba2-7b"]["train"], "f32"),
+           "llama3.2-3b": (28, MD_BATCH, TRAIN_SEQ, "f32")}
+
+
+def moe_tie(gap_median: float) -> float:
+    """The near-tie bound of a router whose unsharded median gap is
+    ``gap_median``: ``MD_MOE_TIE`` in granite's scale (``MD_MOE_GAP``)."""
+    return MD_MOE_TIE * gap_median / MD_MOE_GAP
+
+
+def unsharded_loss(arch: str, layers: int, rows: int, seq: int,
+                   hold=None) -> dict:
+    """``arch`` at full width and ``layers`` layers on the current card in
+    float32 on the plain path, forward only: the loss and metrics of the
+    batch :func:`unsharded_grads` takes, at ``init_train_state``'s float32
+    masters (seed 0); with ``hold`` (a ``RouteHold``) the routing
+    recorded."""
+    model = _md_model(layers, arch, "float32")
+    batch = _md_batches(model.cfg, rows, 1, seq)[0]
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(0)
+    params = model.init(gen, dtype=model.param_dtype)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad(), plain_path(), hold.record() \
+            if hold is not None else contextlib.nullcontext():
+        _, metrics = model.loss(params, batch)
+    torch.cuda.synchronize()
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "s": time.perf_counter() - t0}
+
+
+def sharded_loss(plan, params, local) -> dict:
+    """The global loss and metrics of ``plan``'s forward on this rank's
+    blocks ``params`` and rows ``local``, as ``ShardedStep.loss_and_grads``
+    gives them, without the gradient."""
+    from repro_torch.parallel import collectives as coll
+    with torch.no_grad():
+        loss, metrics = plan.loss(params, local)
+        metrics = dict(metrics, loss=coll.all_reduce(loss, plan.data_group),
+                       ce_loss=coll.all_reduce(metrics["ce_loss"],
+                                               plan.data_group))
+    return {k: float(v) for k, v in metrics.items()}
+
+
+@contextlib.contextmanager
+def broken_combine(plan):
+    """The control's fault: ``plan``'s layers with every partial sum over
+    ``model`` left out of g's combine (the attention's, a dense MLP's, the
+    experts' and the shared expert's), each model rank keeping its own."""
+    saved = dict(plan.hooks)
+    for block in ("attn", "mlp"):
+        if block in saved:
+            plan.hooks[block] = (saved[block][0], _keep)
+    if "moe" in saved:
+        plan.hooks["moe"] = saved["moe"]._replace(
+            g=_keep, shared=(saved["moe"].shared[0], _keep))
+    try:
+        yield plan
+    finally:
+        plan.hooks.update(saved)
+
+
+def _keep(t):
+    return t
+
+
+def _route_run(routes, offset: int):
+    """A ``RouteHold`` over ``routes`` and its held run at ``offset``, or
+    (None, a null context) for a model that does not route."""
+    if routes is None:
+        return None, contextlib.nullcontext()
+    hold = RouteHold(routes)
+    return hold, hold.run(offset, True)
+
+
+def _routed(hold) -> dict:
+    return {} if hold is None else dict(flips=hold.flips, rows=hold.rows,
+                                        gap=hold.gap)
+
+
+def md_full_reference(_rank, _world, arch: str, tmp: str):
+    """``arch``'s unsharded loss and gradient of ``MD_FULL``'s global batch
+    on card 0 (:func:`unsharded_grads`; an MoE model's routing recorded),
+    the gradient saved under ``tmp`` in bf16 for the ranks; returns the
+    job the ranks take and what the parent logs.  It runs in a process of
+    its own (a world of one), which gives card 0 back whole when it exits:
+    run in the parent, its step left card 0 with 78.75 of 79.18 GiB in use
+    when rank 0, holding 54.45 GiB, ran out of memory in its optimizer
+    step (on an H100 80GB HBM3)."""
+    from repro_torch.configs import get_config
+    from repro_torch.tree import flatten
+    layers, rows, seq, weights = MD_FULL[arch]
+    hold = RouteHold() if get_config(arch).is_moe else None
+    torch.cuda.reset_peak_memory_stats()
+    r = unsharded_grads(arch, layers, rows, seq, weights, hold)
+    flat = flatten(r.pop("grads"))
+    job = {"arch": arch, "cfg": r["model"].cfg, "loss": r["loss"],
+           "metrics": r["metrics"], "s": r["s"], "launches": r["launches"],
+           "weights_gb": r["bytes"] / 1e9,
+           "params": sum(g.numel() for _, g in flat),
+           "max_abs": {p: float(g.abs().max()) for p, g in flat},
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "grads": os.path.join(tmp, "grads.pt")}
+    host = {p: g.to(torch.bfloat16).cpu() for p, g in flat}
+    del r, flat
+    release()
+    t0 = time.perf_counter()
+    torch.save(host, job["grads"])
+    if hold is not None:
+        job["routes"] = os.path.join(tmp, "routes.pt")
+        torch.save(hold.routes, job["routes"])
+        job["gap_median"] = _gap_median(hold)
+    job["save_s"] = time.perf_counter() - t0
+    if weights == "bf16":
+        # the float32 pass, forward only (see MD_FULL)
+        hold32 = RouteHold() if hold is not None else None
+        torch.cuda.reset_peak_memory_stats()
+        job["f32"] = unsharded_loss(arch, layers, rows, seq, hold32)
+        job["f32"]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        if hold32 is not None:
+            job["f32"]["routes"] = os.path.join(tmp, "routes_f32.pt")
+            torch.save(hold32.routes, job["f32"]["routes"])
+            job["f32"]["gap_median"] = _gap_median(hold32)
+        release()
+    return job
+
+
+def _gap_median(hold) -> float:
+    return float(torch.cat([g for _, g in hold.routes.values()]).median())
+
+
+def md_full_rank(rank, world, job):
+    """One nccl rank, a card, of ``job["arch"]``'s training at full width
+    (``MD_FULL``): its blocks drawn leaf by leaf, the sharded loss and
+    gradient of the global batch's first rows against the parent's
+    unsharded ones (an MoE model's routing held, ``RouteHold``); against
+    a bf16 reference, the step again with its combine broken
+    (``broken_combine``), and the float32 forward of the rank's blocks on
+    the plain path, sound and broken; then ``MD_STEPS`` steps of
+    ``make_train_step`` (seconds, loss, launches, collective bytes, calls
+    and seconds by kind) and one more under the profiler (the device's
+    busy time).  Returns a summary."""
+    from repro_torch import kernels
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.sharding import local_slices
+    from repro_torch.parallel.train_step import (ShardedStep,
+                                                 init_sharded_state)
+    from repro_torch.train import OptimizerConfig, make_train_step
+    from repro_torch.tree import flatten
+    torch.cuda.set_device(rank)
+    arch = job["arch"]
+    layers, rows, seq, _ = MD_FULL[arch]
+    model = _md_model(layers, arch)
+    mesh = make_host_mesh(*MD_MESH, device_type="cuda")
+    t0 = time.perf_counter()
+    state = init_sharded_state(model, mesh, seed=0)
+    torch.cuda.synchronize()
+    out = {"rank": rank, "init_s": time.perf_counter() - t0,
+           "init_gib": torch.cuda.max_memory_allocated() / 2**30}
+    plan = ShardedStep(model, mesh)
+    out["data_index"] = plan.data_index
+    batches = _md_batches(model.cfg, rows, MD_STEPS, seq)
+    local = plan.local_batch(batches[0])
+    routes = torch.load(job["routes"]) if "routes" in job else None
+    offset = plan.data_index * local["tokens"].numel()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    coll.COUNTER.reset()
+    t0 = time.perf_counter()
+    hold, held = _route_run(routes, offset)
+    with held:
+        _, metrics, grads = plan.loss_and_grads(state.params, local)
+    torch.cuda.synchronize()
+    out["gate"] = {"s": time.perf_counter() - t0,
+                   "launches": kernels.launch_counts(),
+                   "metrics": {k: float(v) for k, v in metrics.items()},
+                   **_routed(hold)}
+    want = torch.load(job["grads"], mmap=True)
+    specs = dict(flatten(plan.specs))
+    coords = {"data": plan.data_index, "model": plan.model_rank}
+
+    def block_errs(grads):
+        errs = {}
+        for path, g in flatten(grads):
+            block = want[path][local_slices(want[path].shape, specs[path],
+                                            plan.sizes, coords)]
+            errs[path] = float((g.float() - block.to(g.device).float())
+                               .abs().max()) / max(job["max_abs"][path],
+                                                   1e-30)
+        return errs
+    out["grad_errs"] = block_errs(grads)
+    del grads
+    if "f32" in job:
+        # the bf16 control, then the float32 pass and its control (MD_FULL)
+        hold, held = _route_run(routes, offset)
+        with broken_combine(plan), held:
+            _, metrics, grads = plan.loss_and_grads(state.params, local)
+        out["control"] = {"metrics": {k: float(v) for k, v in
+                                      metrics.items()},
+                          "grad_errs": block_errs(grads), **_routed(hold)}
+        del grads
+        plan32 = ShardedStep(_md_model(layers, arch, "float32"), mesh)
+        local32 = plan32.local_batch(batches[0])
+        routes32 = torch.load(job["f32"]["routes"]) \
+            if "routes" in job["f32"] else None
+        for key, fault in (("f32", contextlib.nullcontext),
+                           ("f32_control", broken_combine)):
+            hold, held = _route_run(routes32, offset)
+            with plain_path(), fault(plan32), held:
+                out[key] = {"metrics": sharded_loss(plan32, state.params,
+                                                    local32),
+                            **_routed(hold)}
+        del plan32, local32
+    del want
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()     # the steps' peak, below
+    step = make_train_step(model, OptimizerConfig(lr=3e-4, warmup_steps=2),
+                           remat=True, mesh=mesh)
+    out["steps"] = []
+    for data in batches:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        coll.COUNTER.reset()
+        t0 = time.perf_counter()
+        state, metrics = step(state, data)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        out["steps"].append(dict(
+            s=time.perf_counter() - t0, loss=loss,
+            grad_norm=float(metrics["grad_norm"]),
+            launches=kernels.launch_counts(), wire=dict(coll.COUNTER.bytes),
+            calls=dict(coll.COUNTER.calls),
+            wire_s=dict(coll.COUNTER.seconds)))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+
+    def one_step():
+        nonlocal state
+        state, metrics = step(state, batches[-1])
+        float(metrics["loss"])
+    t0 = time.perf_counter()
+    prof = profiled_kernels(one_step)
+    out["profiled_s"] = time.perf_counter() - t0
+    out["busy_ms"] = sum(r[0] for r in prof) / 1e3 if prof else None
+    out["top"] = [(us / 1e3, n, key[:60]) for us, n, key in
+                  sorted(prof, reverse=True)[:5]]
+    return out
+
+
+def md_check_full(tag, job, ranks, count):
+    """Log the ranks of one ``MD_FULL`` configuration against the
+    unsharded step (``job``) and its counted step, and return what they
+    fail of the gates (every rank logged first)."""
+    arch, cfg = job["arch"], job["cfg"]
+    layers, rows, seq, weights = MD_FULL[arch]
+    per_step = full_launches(cfg, layers)
+    tokens = rows * seq
+    counted = count["peak_gib"]
+    # the loss bound of the path each takes: the dense decoders' (gpt3-xl's
+    # gate) against a float32 reference, or the families' bf16 step's
+    # against a bf16 one, whose row-parallel partial sums round to bf16
+    # before g adds them (MD_FULL)
+    loss_tol = MD_FAM_BF16_LOSS_RTOL if cfg.family in ("ssm", "hybrid") \
+        or weights == "bf16" else MD_LOSS_RTOL
+    ties = {key: moe_tie(ref["gap_median"]) for key, ref in
+            (("bf16", job), ("f32", job.get("f32", {})))
+            if "gap_median" in ref}
+    problems = []
+    keys = [k for k in ("loss", "ce_loss", "load_balance", "router_z",
+                        "dropped_frac") if k in job["metrics"]]
+
+    def against(res, want, tie):
+        """The worst of res's loss and cross entropy relative to want's,
+        and its log line: every term, and its routing's flips."""
+        rel = {k: _rel(res["metrics"][k], want[k]) for k in keys}
+        line = ", ".join(f"{k} {res['metrics'][k]:.6f} ({rel[k]:.3e})"
+                         for k in keys)
+        if "flips" in res:
+            line += (f"; {res['flips']} of {res['rows']} tokens' own top-"
+                     f"{cfg.moe.top_k} differ from the held routing at gaps "
+                     f"up to {res['gap']:.3e} (bounds {MD_MOE_FLIPS} of "
+                     f"the tokens and {tie:.3e})")
+        return max(rel["loss"], rel["ce_loss"]), line
+
+    def near_ties(res, tie):
+        return "flips" not in res or (
+            res["gap"] <= tie and res["flips"] <= MD_MOE_FLIPS * res["rows"])
+
+    for r in ranks:
+        who = f"{arch} rank {r['rank']} (data {r['data_index']})"
+        g = r["gate"]
+        rel, line = against(g, job["metrics"], ties.get("bf16"))
+        worst = max(r["grad_errs"], key=r["grad_errs"].get)
+        log(f"[{tag}] {who}: blocks drawn in {r['init_s']:.1f} s (peak "
+            f"{r['init_gib']:.2f} GiB); the sharded gradient of {rows} x "
+            f"{seq} tokens in {g['s']:.3f} s" + (
+                ", its routing held to the unsharded step's" if "flips" in g
+                else "") + f": {line} against the unsharded (the loss's "
+            f"bound {loss_tol}; the aux terms logged); gradient blocks "
+            f"within {r['grad_errs'][worst]:.3e} of each leaf's largest "
+            f"|value| (worst {worst}; bound {MD_GRAD_TOL}); launches "
+            f"{g['launches']}")
+        if not rel <= loss_tol or not r["grad_errs"][worst] <= MD_GRAD_TOL \
+                or g["launches"] != per_step \
+                or not near_ties(g, ties.get("bf16")):
+            problems.append(f"{who}'s sharded gradient parts from the "
+                            f"unsharded one, flips past a near tie, or "
+                            f"launches {g['launches']} != {per_step}")
+        if "f32" in r:
+            f32 = job["f32"]["metrics"]
+            rel, line = against(r["f32"], f32, ties.get("f32"))
+            log(f"[{tag}] {who} float32 pass (the plain path, forward only"
+                f", its routing held to the unsharded float32 routing): "
+                f"{line} against the unsharded float32 forward (the loss's "
+                f"bound {MD_LOSS_RTOL})")
+            if not rel <= MD_LOSS_RTOL or not near_ties(r["f32"],
+                                                        ties.get("f32")):
+                problems.append(f"{who}'s sharded float32 forward parts "
+                                f"from the unsharded one ({rel:.3e}) or "
+                                f"flips past a near tie")
+            c = r["control"]
+            rel, line = against(c, job["metrics"], ties.get("bf16"))
+            c_worst = max(c["grad_errs"], key=c["grad_errs"].get)
+            past = sum(e > MD_GRAD_TOL for e in c["grad_errs"].values())
+            log(f"[{tag}] {who} bf16 control (the step again, every partial "
+                f"sum over model left out of g's combine): {line}; gradient "
+                f"blocks within {c['grad_errs'][c_worst]:.3e} (worst "
+                f"{c_worst}), {past} of {len(c['grad_errs'])} past "
+                f"{MD_GRAD_TOL}")
+            seen = rel > loss_tol and c["grad_errs"][c_worst] > MD_GRAD_TOL
+            c32 = r["f32_control"]
+            rel32, line = against(c32, f32, ties.get("f32"))
+            log(f"[{tag}] {who} float32 control (the float32 pass again, "
+                f"its combine broken as the bf16 control's): {line}")
+            seen &= rel32 > MD_LOSS_RTOL
+            for res, key in ((c, "bf16"), (c32, "f32")):
+                if "flips" in res:
+                    seen &= res["gap"] > ties[key]
+            if not seen:
+                problems.append(f"{who}: a control reads inside its bounds "
+                                f"(the gate cannot see a broken combine)")
+        for i, st in enumerate(r["steps"]):
+            log(f"[{tag}] {who} step {i}: loss {st['loss']:.6f}, grad_norm "
+                f"{st['grad_norm']:.4f}, {st['s']:.3f} s "
+                f"({tokens / st['s']:.1f} tokens/s of the global batch), "
+                f"{sum(st['wire_s'].values()):.3f} s of it in the "
+                f"collectives' calls (their enqueue); launches "
+                f"{st['launches']}; collective bytes " + ", ".join(
+                    f"{k} {v:.4e} ({st['calls'][k]} calls, "
+                    f"{st['wire_s'][k]:.3f} s)"
+                    for k, v in st["wire"].items() if v))
+            if not math.isfinite(st["loss"]) or st["launches"] != per_step:
+                problems.append(f"{who} step {i}: loss {st['loss']}, "
+                                f"launches {st['launches']} != {per_step}")
+        idle = None if r["busy_ms"] is None else \
+            1 - r["busy_ms"] / (r["steps"][-1]["s"] * 1e3)
+        log(f"[{tag}] {who}: peak {r['peak_gib']:.2f} GiB against the "
+            f"counted {counted:.2f} GiB (resident "
+            f"{count['resident_bytes'] / 2**30:.2f} + transient "
+            f"{count['transient_bytes'] / 2**30:.2f}, the plain path's); the "
+            f"profiled step ({r['profiled_s']:.3f} s): "
+            + ("no device kernels recorded (idle share not measured)"
+               if idle is None else
+               f"device kernels {r['busy_ms']:.1f} ms against the last "
+               f"timed step's {r['steps'][-1]['s'] * 1e3:.1f} ms: idle "
+               f"share {idle:.3f}; top " + "; ".join(
+                   f"{ms:.1f} ms x{n} {key}" for ms, n, key in r["top"])))
+    for i in range(MD_STEPS):
+        if len({r["steps"][i]["loss"] for r in ranks}) != 1:
+            problems.append(f"{arch} step {i}'s loss differs by rank")
+    return problems
+
+
+def phase_md_full():
+    """``MD_FULL``'s configurations trained at full width as four nccl
+    ranks, one a card, each after its unsharded reference on card 0
+    (:func:`md_full_reference`, :func:`md_full_rank`,
+    :func:`md_check_full`); a rank's step of each counted beside them on
+    the host's CPU (``python -m tools.count_rank_step``, one process a
+    configuration).  Every configuration runs and is logged before a
+    failed gate raises.  Returns each configuration's rank 0 launches over
+    its steps."""
+    from repro_torch.launch.mesh import spawn_ranks
+    tag = "md_full"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [
+        os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH")])))
+    counters = {arch: subprocess.Popen(
+        [sys.executable, "-m", "tools.count_rank_step", "--arch", arch,
+         "--layers", str(layers), "--rows", str(rows), "--seq", str(seq),
+         "--mesh", f"{MD_MESH[0]}x{MD_MESH[1]}"], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, text=True)
+        for arch, (layers, rows, seq, _) in MD_FULL.items()}
+    problems, launches = [], {}
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    try:
+        for arch, (layers, rows, seq, weights) in MD_FULL.items():
+            t0 = time.perf_counter()
+            with tempfile.TemporaryDirectory(prefix="md_full_",
+                                             dir=build) as tmp:
+                job = spawn_ranks(md_full_reference, 1, arch, tmp,
+                                  timeout_s=900)[0]
+                t1 = time.perf_counter()
+                log(f"[{tag}] {arch} at {layers} layers, full width: "
+                    f"{job['params'] / 1e9:.3f}B parameters; the unsharded "
+                    f"gradient of {rows} x {seq} tokens on card 0 with "
+                    f"respect to the "
+                    + ("bf16 cast of the masters" if weights == "bf16"
+                       else "float32 masters")
+                    + f" ({job['weights_gb']:.2f} GB): loss "
+                    f"{job['loss']:.6f} (" + ", ".join(
+                        f"{k} {v:.6f}" for k, v in job["metrics"].items()
+                        if k != "loss")
+                    + f"), {job['s']:.3f} s, peak {job['peak_gib']:.2f} GiB"
+                    f", launches {job['launches']}"
+                    + (f", the median gap between the top-1 and the next "
+                       f"router logit {job['gap_median']:.3e}"
+                       if "gap_median" in job else "")
+                    + f"; saved in bf16 in {job['save_s']:.1f} s; "
+                    f"{t1 - t0:.1f} s in all")
+                if "f32" in job:
+                    f32 = job["f32"]
+                    log(f"[{tag}] {arch}: the unsharded float32 forward of "
+                        f"the same batch on the plain path (the float32 "
+                        f"masters): " + ", ".join(
+                            f"{k} {v:.6f}" for k, v in f32["metrics"].items())
+                        + f"; {f32['s']:.3f} s, peak {f32['peak_gib']:.2f} "
+                        f"GiB" + (f", the median gap "
+                                  f"{f32['gap_median']:.3e}"
+                                  if "gap_median" in f32 else "")
+                        + f"; the bf16 cast's loss reads "
+                        f"{_rel(job['loss'], f32['metrics']['loss']):.3e} "
+                        f"from it")
+                ranks = spawn_ranks(md_full_rank, MD_MESH[0] * MD_MESH[1],
+                                    job, backend="nccl", timeout_s=900)
+            log(f"[{tag}] {arch}: 4 nccl ranks on a (data, model) = "
+                f"{MD_MESH} mesh, a card each, finished in "
+                f"{time.perf_counter() - t1:.1f} s")
+            out, _ = counters[arch].communicate(timeout=600)
+            if counters[arch].returncode:
+                raise RuntimeError(f"tools.count_rank_step exited "
+                                   f"{counters[arch].returncode} for {arch}")
+            problems += md_check_full(tag, job, ranks, json.loads(
+                out.strip().splitlines()[-1]))
+            r0 = ranks[0]
+            launches[arch] = {k: sum(s["launches"][k] for s in r0["steps"])
+                              for k in r0["steps"][0]["launches"]}
+    finally:
+        for counter in counters.values():
+            if counter.poll() is None:
+                counter.kill()
+                counter.wait()
+    if problems:
+        raise AssertionError(f"{tag}: {problems}")
+    return launches
+
+
 def main_cards(cards: int) -> int:
     """``--cards 1`` or ``--cards 4``: the multidevice phase alone after
     the build, with granite's passes with the routing free logged (float32
     on the plain path, bf16 on the kernels): on one card as
     in the whole script, or gpt3-xl at its 24 layers trained as four nccl
-    ranks, one a card; ends with the same last line as the whole
-    script."""
+    ranks, one a card, after ``phase_md_full`` (llama4-scout-17b-a16e at 4
+    layers, zamba2-7b at 81 and llama3.2-3b at 28, full width, as four
+    nccl ranks).  A phase whose gate fails does not stop the next one:
+    the run raises after the last, else ends with the same last line as
+    the whole script."""
     if cards not in (1, MD_MESH[0] * MD_MESH[1]):
         raise SystemExit(f"chip_smoke: --cards takes 1 or "
                          f"{MD_MESH[0] * MD_MESH[1]} (the (data, model) = "
@@ -7753,12 +8455,21 @@ def main_cards(cards: int) -> int:
         raise SystemExit(f"chip_smoke: --cards {cards} needs {cards} cards, "
                          f"not {torch.cuda.device_count()}")
     layers = MD_LAYERS if cards == 1 else MD_CARDS_LAYERS
-    for name, fn, args in (("build", phase_build, ()),
-                           ("multidevice", phase_multidevice,
-                            (layers, cards, True))):
+    # md_full first: the parent then holds nothing on card 0 but its
+    # context when the full-width ranks start
+    phases = [("build", phase_build, ())] \
+        + ([("md_full", phase_md_full, ())] if cards > 1 else []) \
+        + [("multidevice", phase_multidevice, (layers, cards, True))]
+    failed = []
+    for name, fn, args in phases:
         t = time.perf_counter()
-        fn(*args)
+        try:
+            fn(*args)
+        except AssertionError as e:     # a gate: the later phases still run
+            failed.append(f"{name}: {e}")
         log(f"[time] {name}: {time.perf_counter() - t:.1f} s")
+    if failed:
+        raise AssertionError(f"gates failed: {failed}")
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7877,6 +8588,7 @@ def main() -> int:
     timed("consistency_llama4_f32", phase_consistency_llama4_f32)
     train_llama4 = timed("train_llama4_smoke", phase_train_smoke,
                          LLAMA4_ARCH)["counts"]
+    grad_llama4 = timed("grad_llama4", phase_grad_llama4)
     cfg, model, params = timed("build_nemotron", build_full_model, NEMO_ARCH,
                                NEMO_SERVE_LAYERS)
     serve_nemo = timed("serve_nemotron", phase_serve_nemotron, cfg, model,
@@ -7996,7 +8708,16 @@ def main() -> int:
                                       f"with {ENCDEC_FRAMES} frames")
         elif row.get("model") == LLAMA4_ARCH:
             run = LLAMA4_ROW_RUNS[row["name"]]
-            if run == "train":
+            name = name.removesuffix("_lse")
+            if run == "grad":
+                row["launches"] = grad_llama4[name]
+                row["launches_of"] = (f"the unsharded gradient of "
+                                      f"{LLAMA4_ARCH} at full width and "
+                                      f"{LLAMA4_TRAIN_LAYERS} layers, "
+                                      f"{LLAMA4_GRAD_ROWS} x {TRAIN_SEQ} "
+                                      f"tokens (grad_llama4; --cards 4 "
+                                      f"trains it as four nccl ranks)")
+            elif run == "train":
                 row["launches"] = train_llama4[name]
                 row["launches_of"] = (f"one training run of {LLAMA4_ARCH}'s "
                                       f"card smoke config (its local layer "

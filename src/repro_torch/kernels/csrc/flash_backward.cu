@@ -417,12 +417,13 @@ static int launch_bwd(const void* q, const void* k, const void* v,
 // Built for bf16 at head_dim 64 (any query group: llama3.2-1b,
 // granite-moe-1b-a400m) and, in the second half of this file, at head_dim
 // 128 and 224 with one query head per KV head (gpt3-xl; zamba2-7b's shared
-// attention block) and at head_dim 128 with 3 (llama3.2-3b) and 7 (yi-34b:
-// dQ reads KV head h / G, and a dK/dV block walks the G query heads of its
-// KV head, so only the grids' work per block changes: at G 7, S 1024 the
-// causal key tile 0 runs 112 iterations and the last 7, against a mean of
-// 59.5); other cases are refused until a configuration needs them and
-// chip_smoke.py checks them.
+// attention block) and at head_dim 128 with 3 (llama3.2-3b), 5
+// (llama4-scout-17b-a16e, causal with or without its local window) and 7
+// (yi-34b: dQ reads KV head h / G, and a dK/dV block walks the G query
+// heads of its KV head, so only the grids' work per block changes: at G 7,
+// S 1024 the causal key tile 0 runs 112 iterations and the last 7, against
+// a mean of 59.5); other cases are refused until a configuration needs them
+// and chip_smoke.py checks them.
 
 // ---------------------------------------------------------------------------
 // Wide rows: head_dim 128 and 224.  The design above, reshaped for rows
@@ -908,7 +909,8 @@ extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v,
   if (D == 64)
     return launch_bwd<64>(q, k, v, o, dout, l, d, dq, dk, dv, B, Sq, Sk, H,
                           KV, causal, window, s);
-  if (D == 128 && (H == KV || H == 3 * KV || H == 7 * KV) && qs != nullptr)
+  if (D == 128 && (H == KV || H == 3 * KV || H == 5 * KV || H == 7 * KV) &&
+      qs != nullptr)
     return launch_bwd_wide<128>(q, k, v, o, dout, l, d, qs, dq, dk, dv, B,
                                 Sq, Sk, H, KV, causal, window, s);
   if (D == 224 && H == KV && qs != nullptr)

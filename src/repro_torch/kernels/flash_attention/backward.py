@@ -20,12 +20,11 @@ from .prefill import query_scale
 
 #: (head_dim, query heads per KV head) the backward is built for, the
 #: training paths': head_dim 64 at any group (llama3.2-1b, granite-moe,
-#: internvl2-1b), 128 with 1, 3 and 7 (gpt3-xl, llama3.2-3b, yi-34b) and
-#: 224 with 1 (zamba2-7b's shared block).  The forward's
-#: ``prefill.KERNEL_CASES`` also holds (128, 5) and (192, 12),
-#: llama4-scout-17b-a16e's and nemotron-4-340b's, which no path trains at
-#: full width.
-KERNEL_CASES = ((64, 0), (128, 1), (224, 1), (128, 3), (128, 7))
+#: internvl2-1b), 128 with 1, 3, 5 and 7 (gpt3-xl, llama3.2-3b,
+#: llama4-scout-17b-a16e, yi-34b) and 224 with 1 (zamba2-7b's shared
+#: block).  The forward's ``prefill.KERNEL_CASES`` also holds (192, 12),
+#: nemotron-4-340b's, which no path trains at full width.
+KERNEL_CASES = ((64, 0), (128, 1), (224, 1), (128, 3), (128, 5), (128, 7))
 
 
 def flash_attention_bwd_ref(q, k, v, o, do, lse, causal: bool = True,
@@ -69,8 +68,8 @@ def flash_attention_bwd(q, k, v, o, do, lse, causal: bool = True,
     the plain version; a CUDA tensor launches the kernels (one count in
     ``flash_attention_bwd.launches`` per call: the pre-pass, dQ and
     dK/dV), built for bf16 at head_dim 64 (any group), at head_dim 128
-    and 224 with one query head per KV head and at head_dim 128 with 3
-    and 7 (``KERNEL_CASES``), and launched only
+    and 224 with one query head per KV head and at head_dim 128 with 3,
+    5 and 7 (``KERNEL_CASES``), and launched only
     for what the training paths give it and the card's check covers:
     causal at Sq == Sk (a decoder's self-attention), with a local window
     or not (llama4-scout-17b-a16e's local layers), or non-causal without
@@ -101,8 +100,8 @@ def flash_attention_bwd(q, k, v, o, do, lse, causal: bool = True,
     if not any(D == d and (g == 0 or H == g * KV) for d, g in KERNEL_CASES):
         raise ValueError(f"flash_attention_bwd kernel is built for head_dim "
                          f"64 and for head_dim 128 and 224 with one query "
-                         f"head per KV head, and head_dim 128 with 3 and "
-                         f"7, got D={D}, H={H}, KV={KV}")
+                         f"head per KV head, and head_dim 128 with 3, 5 "
+                         f"and 7, got D={D}, H={H}, KV={KV}")
     if (causal and Sq != Sk) or (window and not causal):
         raise NotImplementedError(
             f"flash_attention_bwd kernel: causal={causal} window={window} "

@@ -108,17 +108,19 @@ class EncDecLM(AbstractParams):
             else (dtype or self.compute_dtype)
 
     def init(self, generator: Optional[torch.Generator] = None,
-             dtype=None) -> Params:
+             dtype=None, put=None) -> Params:
         """Random weights on the model's device, drawn from ``generator``
         (seed 0 when None): fan-in-scaled normals for the matrices, 0.02
         for the embeddings, the head and ``enc_pos``, ones / zeros for norm
         scales / biases.  Matrices hold ``dtype`` (see
-        :meth:`leaf_dtype`)."""
+        :meth:`leaf_dtype`); ``put`` takes each leaf as it is drawn
+        (``transformer.init_params``)."""
         return init_params(self.param_shapes(),
                            lambda name: self.leaf_dtype(name, dtype),
                            self.device, generator, zeros=("bias",),
                            ones=("scale",), scale=_init_scale,
-                           stacked_keys=("enc_layers", "dec_layers"))
+                           stacked_keys=("enc_layers", "dec_layers"),
+                           put=put)
 
     # -- encoder ---------------------------------------------------------
     def _enc_body(self, lp: Params, x: torch.Tensor,

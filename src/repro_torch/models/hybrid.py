@@ -108,15 +108,16 @@ class HybridLM(AbstractParams):
         return mamba_leaf_dtype(name, dtype or self.compute_dtype)
 
     def init(self, generator: Optional[torch.Generator] = None,
-             dtype=None) -> Params:
+             dtype=None, put=None) -> Params:
         """Random weights on the model's device, drawn from ``generator``
         (seed 0 when None) as ``ssm.init_mamba_params`` draws them (the
         shared block's matrices fan-in-scaled normals), in their leaf
         dtypes (:meth:`leaf_dtype`): ``dtype`` defaults to the compute
-        dtype (serving); training passes ``self.param_dtype``."""
+        dtype (serving); training passes ``self.param_dtype``; ``put``
+        takes each leaf as it is drawn."""
         return init_mamba_params(self.param_shapes(),
                                  dtype or self.compute_dtype, self.device,
-                                 generator)
+                                 generator, put=put)
 
     # -- the shared block ------------------------------------------------
     def _shared_fwd(self, sp: Params, h: torch.Tensor, emb: torch.Tensor,

@@ -280,18 +280,20 @@ def mamba_leaf_dtype(name: str, dtype: torch.dtype) -> torch.dtype:
 
 
 def init_mamba_params(shapes: Params, dtype: torch.dtype, device,
-                      generator: Optional[torch.Generator]) -> Params:
+                      generator: Optional[torch.Generator],
+                      put=None) -> Params:
     """Random weights for a tree holding Mamba2 blocks, as the reference's
     initializers draw them: fan-in-scaled normals for the projections, 0.5
     for the conv weights, 0.02 for the embedding; zeros for the conv
     biases, ``dt_bias`` and ``A_log`` (A = -1); ones for ``D`` and norm
-    scales."""
+    scales.  ``put`` takes each leaf as it is drawn
+    (``transformer.init_params``)."""
     return init_params(
         shapes, lambda name: mamba_leaf_dtype(name, dtype), device,
         generator, zeros=("conv_x_b", "conv_bc_b", "dt_bias", "A_log"),
         ones=("D", "scale"),
         scale=lambda name, per: 0.5 if name.startswith("conv_")
-        else init_scale(name, per))
+        else init_scale(name, per), put=put)
 
 
 def mamba_decode_step(p: Params, x: torch.Tensor, cache, cfg: ModelConfig,
@@ -379,14 +381,15 @@ class MambaLM(AbstractParams):
         return mamba_leaf_dtype(name, dtype or self.compute_dtype)
 
     def init(self, generator: Optional[torch.Generator] = None,
-             dtype=None) -> Params:
+             dtype=None, put=None) -> Params:
         """Random weights on the model's device, drawn from ``generator``
         (seed 0 when None) as :func:`init_mamba_params` draws them, in
         their leaf dtypes (:meth:`leaf_dtype`): ``dtype`` defaults to the
-        compute dtype (serving); training passes ``self.param_dtype``."""
+        compute dtype (serving); training passes ``self.param_dtype``;
+        ``put`` takes each leaf as it is drawn."""
         return init_mamba_params(self.param_shapes(),
                                  dtype or self.compute_dtype, self.device,
-                                 generator)
+                                 generator, put=put)
 
     # -- forward ---------------------------------------------------------
     def logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:

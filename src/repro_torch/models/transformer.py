@@ -71,7 +71,7 @@ DRAW_WHOLE_MAX = 1 << 32
 
 def init_params(shapes, leaf_dtype, device, generator=None, *,
                 zeros=(), ones=(), scale=init_scale,
-                stacked_keys=("layers",)) -> Params:
+                stacked_keys=("layers",), put=None) -> Params:
     """Random weights for a tree of (stacked) leaf shapes, drawn in tree
     order from ``generator`` (seed 0 when None): leaves named in ``zeros``
     or ``ones`` are filled; every other leaf is a normal scaled by
@@ -81,38 +81,46 @@ def init_params(shapes, leaf_dtype, device, generator=None, *,
     block of ``DRAW_WHOLE_MAX // row`` whole rows (the last block the
     rest), in order from the first row.  Leaves under a subtree named in
     ``stacked_keys`` (``layers``; an encoder-decoder's ``enc_layers`` and
-    ``dec_layers``) carry a leading layer dim, which the fan-in skips."""
+    ``dec_layers``) carry a leading layer dim, which the fan-in skips.
+    ``put(path, leaf)``, when given, takes each leaf as soon as it is made
+    (``path`` as ``tree.flatten`` names it) and the tree keeps what it
+    returns: a sharded state keeps a rank's block, so that no more than
+    one whole leaf is on the device at a time."""
     if generator is None:
         generator = torch.Generator(device=device)
         generator.manual_seed(0)
+    keep = put or (lambda path, leaf: leaf)
 
-    def build(tree, stacked: bool):
+    def make(name, shape, stacked: bool) -> torch.Tensor:
+        dt = leaf_dtype(name)
+        if name in zeros or name in ones:
+            fill = torch.zeros if name in zeros else torch.ones
+            return fill(shape, dtype=dt, device=device)
+        std = scale(name, shape[1:] if stacked else shape)
+        if math.prod(shape) > DRAW_WHOLE_MAX:
+            w = torch.empty(shape, dtype=dt, device=device)
+            parts = w if stacked else w.split(
+                max(1, DRAW_WHOLE_MAX // math.prod(shape[1:])))
+            for part in parts:
+                part.copy_(torch.randn(
+                    part.shape, generator=generator, device=device,
+                    dtype=torch.float32).mul_(std))
+            return w
+        w = torch.randn(shape, generator=generator, device=device,
+                        dtype=torch.float32)
+        return w.mul_(std).to(dt)
+
+    def build(tree, stacked: bool, prefix: str):
         out = {}
         for name, val in tree.items():
+            path = f"{prefix}/{name}" if prefix else name
             if isinstance(val, dict):
-                out[name] = build(val, stacked or name in stacked_keys)
-                continue
-            shape, dt = val, leaf_dtype(name)
-            if name in zeros or name in ones:
-                fill = torch.zeros if name in zeros else torch.ones
-                out[name] = fill(shape, dtype=dt, device=device)
-                continue
-            std = scale(name, shape[1:] if stacked else shape)
-            if math.prod(shape) > DRAW_WHOLE_MAX:
-                out[name] = torch.empty(shape, dtype=dt, device=device)
-                parts = out[name] if stacked else out[name].split(
-                    max(1, DRAW_WHOLE_MAX // math.prod(shape[1:])))
-                for part in parts:
-                    part.copy_(torch.randn(
-                        part.shape, generator=generator, device=device,
-                        dtype=torch.float32).mul_(std))
-                continue
-            w = torch.randn(shape, generator=generator, device=device,
-                            dtype=torch.float32)
-            out[name] = w.mul_(std).to(dt)
+                out[name] = build(val, stacked or name in stacked_keys, path)
+            else:
+                out[name] = keep(path, make(name, val, stacked))
         return out
 
-    return build(shapes, False)
+    return build(shapes, False, "")
 
 
 def meta_params(shapes, leaf_dtype) -> Params:
@@ -282,16 +290,17 @@ class DecoderLM(AbstractParams):
             else (dtype or self.compute_dtype)
 
     def init(self, generator: Optional[torch.Generator] = None,
-             dtype=None) -> Params:
+             dtype=None, put=None) -> Params:
         """Random weights on the model's device, drawn from ``generator``
         (seed 0 when None): fan-in-scaled normals for the matrices (fan-in
         = the per-layer leaf's first dim, as the reference draws them),
         0.02 for embeddings, ones / zeros for norm scales / biases.
-        Matrices hold ``dtype`` (see :meth:`leaf_dtype`)."""
+        Matrices hold ``dtype`` (see :meth:`leaf_dtype`); ``put`` takes
+        each leaf as it is drawn (:func:`init_params`)."""
         return init_params(self.param_shapes(),
                            lambda name: self.leaf_dtype(name, dtype),
                            self.device, generator,
-                           zeros=("bias",), ones=("scale",))
+                           zeros=("bias",), ones=("scale",), put=put)
 
     def _extra_inputs(self, B: int):
         cfg = self.cfg

@@ -292,6 +292,14 @@ def _walk_state(fn, state, specs):
     return state
 
 
+def cut_block(t: torch.Tensor, spec: Spec, sizes: Dict[str, int],
+              coords: Dict[str, int]) -> torch.Tensor:
+    """The block of the global tensor ``t`` that the rank at ``coords``
+    holds under ``spec`` (:func:`local_slices`), as a contiguous copy."""
+    return t[local_slices(t.shape, spec, sizes, coords)].clone(
+        memory_format=torch.contiguous_format)
+
+
 def shard_state(state, mesh, specs, coords: Optional[Dict[str, int]] = None):
     """This rank's local blocks of a global state (a parameter tree, or a
     ``TrainState`` with ``specs`` from :func:`state_shardings`), each a
@@ -300,9 +308,8 @@ def shard_state(state, mesh, specs, coords: Optional[Dict[str, int]] = None):
     group."""
     sizes = mesh_axes(mesh)
     coords = mesh_coords(mesh) if coords is None else coords
-    return _walk_state(
-        lambda t, spec: t[local_slices(t.shape, spec, sizes, coords)]
-        .clone(memory_format=torch.contiguous_format), state, specs)
+    return _walk_state(lambda t, spec: cut_block(t, spec, sizes, coords),
+                       state, specs)
 
 
 def gather_state(state, mesh, specs):
@@ -334,4 +341,5 @@ __all__ = ["LOGICAL_RULES", "mesh_axes", "data_axes", "entry_names",
            "spec_for_axes", "param_specs", "batch_specs", "cache_specs",
            "input_shardings",
            "state_shardings", "placements", "mesh_coords", "rank_coords",
-           "local_slices", "local_shape", "shard_state", "gather_state"]
+           "local_slices", "local_shape", "cut_block", "shard_state",
+           "gather_state"]

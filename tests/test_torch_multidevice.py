@@ -37,7 +37,11 @@ outputs are computed here, once.
   twin at capacity factor ``MOE_CAPACITY`` 1.0, where pairs drop;
   internvl2-1b's with 8 patch rows a row; granite again on 3 rows, which
   do not split over the (2, 2) mesh's data axis and stay whole on each
-  data rank, as the rules leave them), in the llama3.2-1b worlds:
+  data rank, as the rules leave them; llama4-scout-17b-a16e's, one local
+  layer at window 32 and one global layer, 4 experts top-1 with the
+  shared expert, at the same capacity on rows of 48, past the window, its
+  local layer's window in the flash forward and backward), in the
+  llama3.2-1b worlds:
   the loss, the cross entropy and the three aux terms (load balance,
   router z-loss, dropped fraction: global means over the data ranks)
   within ``LOSS_RTOL`` of the reference's ``jax.value_and_grad``, every
@@ -102,7 +106,11 @@ MOE = dict(E=8, K=2, T=64, d=16, ff=32)
 # pairs drop
 FAMILIES = {"granite-moe-1b-a400m": ("granite-moe-1b-a400m", 8),
             "internvl2-1b": ("internvl2-1b", 8),
-            "granite 3 rows": ("granite-moe-1b-a400m", 3)}
+            "granite 3 rows": ("granite-moe-1b-a400m", 3),
+            "llama4-scout-17b-a16e": ("llama4-scout-17b-a16e", 8)}
+# a case's sequence where the default of 32 will not do: llama4-scout's
+# rows run past its local layer's window of 32
+SEQ = {"llama4-scout-17b-a16e": 48}
 # the SSM, hybrid and encoder-decoder families' sharded loss
 SEQ_FAMILIES = {"mamba2-370m": ("mamba2-370m", 8),
                 "zamba2-7b": ("zamba2-7b", 8),
@@ -174,7 +182,7 @@ def family_reference(name):
             cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
                 cfg.moe, capacity_factor=MOE_CAPACITY))
             model = jax_build_model(cfg, block_k=16)
-        batch = _batches(cfg, n=1, B=rows)[0]
+        batch = _batches(cfg, n=1, B=rows, S=SEQ.get(name, 32))[0]
         if cfg.family == "vlm":
             rng = np.random.default_rng(5)
             batch["patch_embeds"] = rng.normal(size=(
@@ -406,7 +414,7 @@ def test_moe_and_vlm_sharded_loss_and_grads_match_reference(worlds, name,
     ranks = worlds["llama3.2-1b", mesh]
     r0 = ranks[0]["loss_cases"][name]
     np.testing.assert_allclose(r0["loss"], ref["loss"], rtol=LOSS_RTOL)
-    keys = ("ce_loss", "loss") + (AUX if arch.startswith("granite") else ())
+    keys = ("ce_loss", "loss") + (AUX if twin(arch)[2].is_moe else ())
     assert set(r0["metrics"]) == set(ref["metrics"]) == set(keys)
     for k in keys:
         np.testing.assert_allclose(r0["metrics"][k], ref["metrics"][k],

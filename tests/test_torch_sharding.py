@@ -292,3 +292,86 @@ def test_sharded_step_refuses_other_families():
     with fake_world(MeshSpec(dp=2, tp=2)) as mesh:
         assert MeshSpec.from_mesh(mesh) == MeshSpec(dp=2, tp=2)
     assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("mesh", [(2, 2), (1, 4)],
+                         ids=lambda m: "x".join(map(str, m)))
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "zamba2-7b",
+                                  "seamless-m4t-medium", "nemotron-4-340b"])
+def test_init_sharded_state_draws_init_train_states_blocks(arch, mesh,
+                                                           monkeypatch):
+    """``init_sharded_state`` draws one leaf at a time and keeps the rank's
+    block of it: every rank's blocks equal, bit for bit, the same blocks
+    of ``init_train_state``'s whole draw (a copy of the same draw: an
+    exact comparison), with ``DRAW_WHOLE_MAX`` small here so that the
+    larger leaves take the row-block draw (a stacked leaf a layer at a
+    time, an unstacked one in blocks of rows), as llama4-scout's and
+    nemotron-4-340b's do at full width; the AdamW moments are zeros at
+    the blocks' shapes."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import transformer
+    from repro_torch.parallel.train_step import init_sharded_state
+    from repro_torch.train import init_train_state
+    monkeypatch.setattr(transformer, "DRAW_WHOLE_MAX", 1 << 12)
+    model = build_model(smoke_config(get_config(arch)), device="cpu")
+    whole = init_train_state(model, seed=0).params
+    assert max(t.numel() for _, t in flatten(whole)) > 1 << 12
+    sizes = MeshSpec(dp=mesh[0], tp=mesh[1]).axes()
+    specs = tsh.param_specs(model, sizes)
+    split = 0
+    for data in range(mesh[0]):
+        for rank in range(mesh[1]):
+            coords = {"data": data, "model": rank}
+            got = init_sharded_state(model, sizes, seed=0, coords=coords)
+            want = flatten(tsh.shard_state(whole, sizes, specs,
+                                           coords=coords))
+            assert [p for p, _ in flatten(got.params)] == [p for p, _ in
+                                                           want]
+            for (path, a), (_, b) in zip(flatten(got.params), want):
+                assert a.dtype == b.dtype and torch.equal(a, b), path
+                assert a.is_contiguous(), path
+                split += a.shape != dict(flatten(whole))[path].shape
+            for key in ("m", "v"):
+                for (_, m), (_, b) in zip(flatten(got.opt[key]), want):
+                    assert m.shape == b.shape and not m.any()
+    assert split > 0
+
+
+def test_count_rank_step_tool_prints_the_sharded_count(monkeypatch, capsys):
+    """``python -m tools.count_rank_step`` (what ``chip_smoke.py --cards 4``
+    logs each rank's peak memory beside) parses its arguments into one
+    ``count_train_step(mesh=)`` call and prints the counted step as one
+    JSON line: the configuration cut to ``--layers``, the ``--mesh``'s
+    data and model sizes, and the peak as resident plus transient
+    bytes in GiB."""
+    import json
+    import os
+    import sys
+    from types import SimpleNamespace
+    from repro_torch.hw import step_count
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from tools import count_rank_step
+    calls = []
+
+    def fake(cfg, **kw):
+        calls.append((cfg, kw))
+        return SimpleNamespace(resident_bytes=3 * 2**30,
+                               peak_bytes=2**29, flops=7.0,
+                               collective_bytes={"all-gather": 5})
+    monkeypatch.setattr(step_count, "count_train_step", fake)
+    assert count_rank_step.main(["--arch", "llama3.2-1b", "--layers", "2",
+                                 "--rows", "4", "--seq", "64",
+                                 "--mesh", "2x1"]) == 0
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    (cfg, kw), = calls
+    assert cfg.n_layers == 2 and kw["global_batch"] == 4 \
+        and kw["seq_len"] == 64
+    assert (kw["mesh"].dp, kw["mesh"].tp) == (2, 1)
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), n_layers=2)
+    assert got == {"arch": "llama3.2-1b", "layers": 2, "rows": 4,
+                   "seq": 64, "mesh": [2, 1],
+                   "params": cfg.param_count()[0],
+                   "resident_bytes": 3 * 2**30,
+                   "transient_bytes": 2**29, "peak_gib": 3.5, "flops": 7.0,
+                   "wire": {"all-gather": 5}}
